@@ -1,0 +1,34 @@
+"""Core of the port: GraphIR, backend registry, pass pipeline and the
+compiled Program (counterpart of :mod:`repro.core`).
+
+Importing this package registers the port's standard ops
+(:mod:`repro_torch.core.nnops`) and passes (:mod:`repro_torch.core.passes`).
+
+    graph --PassManager--> simplified graph --BackendPolicy--> Program
+"""
+
+from repro_torch.core import nnops as _nnops  # noqa: F401  (registers standard ops)
+from repro_torch.core.device import resolve_device, to_tensor
+from repro_torch.core.ir import Graph, GraphError, Node, TensorSpec, topological_order
+from repro_torch.core.passes import (eliminate_common_subexpr, eliminate_dead,
+                                     fold_constants, fuse_elementwise, infer_shapes)
+from repro_torch.core.pipeline import (DEFAULT_PASSES, PassManager, PassStats,
+                                       PipelineError, default_pipeline, get_pass,
+                                       register_pass)
+from repro_torch.core.program import Program, compile
+from repro_torch.core.registry import (Cost, OpDef, OpImpl, backends_for, defop,
+                                       get_impl, get_op, impl)
+from repro_torch.core.selector import BackendPolicy, FixedPolicy
+
+__all__ = [
+    "compile", "Program",
+    "Graph", "GraphError", "Node", "TensorSpec", "topological_order",
+    "eliminate_common_subexpr", "eliminate_dead", "fold_constants",
+    "fuse_elementwise", "infer_shapes",
+    "DEFAULT_PASSES", "PassManager", "PassStats", "PipelineError",
+    "default_pipeline", "get_pass", "register_pass",
+    "Cost", "OpDef", "OpImpl", "backends_for", "defop", "get_impl", "get_op",
+    "impl",
+    "BackendPolicy", "FixedPolicy",
+    "resolve_device", "to_tensor",
+]

@@ -1,0 +1,155 @@
+"""Compiled Program artifact + the top-level ``compile`` entrypoint.
+
+Counterpart of :mod:`repro.core.program`:
+
+* :func:`compile` — run a pass pipeline, resolve a backend per node under
+  a :class:`~repro_torch.core.selector.BackendPolicy`, freeze the result.
+* :class:`Program` — the simplified graph, the frozen backend assignment
+  and the analytic cost table.  There is no ``jit``: a Program runs its
+  nodes in topological order, eagerly, on its ``device``.
+
+Weights are placed on the device once per Program, and a parameter that is
+already a tensor on that device is shared, never copied — the serving
+engine builds four Programs over one 15 GB weight set.
+
+``Program.save`` / ``Program.load`` (OXF bundles) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from types import MappingProxyType
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
+from repro_torch.core.ir import Graph, topological_order
+from repro_torch.core.pipeline import PassManager, PassStats, default_pipeline
+from repro_torch.core.registry import Cost, get_impl
+from repro_torch.core.selector import BackendPolicy, FixedPolicy
+
+__all__ = ["Program", "compile"]
+
+
+class Program:
+    """A compiled inference program: graph + frozen backend assignment,
+    run eagerly on ``device`` (``None`` means ``"cuda"``)."""
+
+    def __init__(self, graph: Graph, assignment: Mapping[str, str],
+                 pass_stats: Sequence[PassStats] = (), *,
+                 device: DeviceLike = None):
+        from repro_torch.core.passes import infer_shapes
+        self.device = resolve_device(device)
+        self._graph = graph if graph.value_info else infer_shapes(graph)
+        self._order = topological_order(self._graph)
+        missing = [n.name for n in self._order if n.name not in assignment]
+        if missing:
+            raise ValueError(f"assignment missing nodes: {missing[:5]}")
+        self._assignment: Mapping[str, str] = MappingProxyType(dict(assignment))
+        self._pass_stats: Tuple[PassStats, ...] = tuple(pass_stats)
+        table: Dict[str, Tuple[str, Cost]] = {}
+        for node in self._order:
+            b = self._assignment[node.name]
+            in_specs = [self._graph.spec_of(v) for v in node.inputs]
+            table[node.name] = (b, get_impl(node.op, b).cost(in_specs, node.attrs))
+        self._cost_table: Mapping[str, Tuple[str, Cost]] = MappingProxyType(table)
+        self._impls = [(node, get_impl(node.op, self._assignment[node.name]))
+                       for node in self._order]
+        self._stored: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def graph(self) -> Graph:
+        return self._graph
+
+    @property
+    def assignment(self) -> Dict[str, str]:
+        """node name -> chosen backend (copy; the Program's own is frozen)."""
+        return dict(self._assignment)
+
+    @property
+    def pass_stats(self) -> Tuple[PassStats, ...]:
+        return self._pass_stats
+
+    @property
+    def cost_table(self) -> Mapping[str, Tuple[str, Cost]]:
+        return self._cost_table
+
+    def _stored_params(self) -> Dict[str, torch.Tensor]:
+        """The graph params as tensors on ``device``, built once and shared
+        by ``__call__`` and every ``bind()``.  Params already on the device
+        are the same tensors (no copy)."""
+        if self._stored is None:
+            self._stored = {k: to_tensor(v, self.device)
+                            for k, v in self._graph.params.items()}
+        return self._stored
+
+    def _run(self, params: Mapping[str, Any], inputs: Mapping[str, Any]) -> Tuple[Any, ...]:
+        env: Dict[str, Any] = dict(params)
+        for k, v in inputs.items():
+            env[k] = to_tensor(v, self.device)
+        with torch.no_grad():
+            for node, fn in self._impls:
+                outs = fn([env[v] for v in node.inputs], node.attrs)
+                for v, val in zip(node.outputs, outs):
+                    env[v] = val
+        return tuple(env[v] for v in self._graph.outputs)
+
+    def __call__(self, **inputs: Any) -> Tuple[Any, ...]:
+        missing = set(self._graph.inputs) - set(inputs)
+        if missing:
+            raise ValueError(f"missing graph inputs: {sorted(missing)}")
+        return self._run(self._stored_params(), inputs)
+
+    def bind(self, *names: str,
+             donate: Sequence[str] = ()) -> Callable[..., Tuple[Any, ...]]:
+        """Positional fast-call path: ``bind("x", "y")`` returns
+        ``f(x, y) -> outputs`` with stored params closed over and input names
+        validated once, here.  With no names, inputs bind in the graph's
+        declared order.
+
+        ``donate`` names inputs the caller will not reuse.  In the port it
+        is a hint only: every op is functional (a cache update returns a new
+        tensor), so a donated input is never written in place."""
+        order: Tuple[str, ...] = names or tuple(self._graph.inputs)
+        unknown = set(order) - set(self._graph.inputs)
+        if unknown:
+            raise ValueError(f"not graph inputs: {sorted(unknown)}")
+        if set(order) != set(self._graph.inputs):
+            missing = set(self._graph.inputs) - set(order)
+            raise ValueError(f"bind() must cover every input; missing {sorted(missing)}")
+        bad_donate = set(donate) - set(order)
+        if bad_donate:
+            raise ValueError(f"donate names not inputs: {sorted(bad_donate)}")
+        stored = self._stored_params()
+
+        def fast(*args: Any) -> Tuple[Any, ...]:
+            return self._run(stored, dict(zip(order, args)))
+
+        return fast
+
+
+def compile(graph: Graph, policy: Optional[BackendPolicy] = None,
+            pipeline: Optional[Union[PassManager, Sequence]] = None,
+            *, validate: bool = False, device: DeviceLike = None) -> Program:
+    """Graph -> Program.
+
+    ``policy`` defaults to :class:`FixedPolicy` (cuda-then-ref); per-node
+    ``Node.backend`` pins always win.  ``pipeline`` is ``None`` for the
+    standard simplify pipeline, a :class:`PassManager`, or a sequence of
+    pass names/callables (empty: no rewriting, shape inference only).
+    ``device`` is where the Program runs; ``None`` means ``"cuda"``."""
+    from repro_torch.core.passes import infer_shapes
+    dev = resolve_device(device)
+    if pipeline is None:
+        pipeline = default_pipeline(validate=validate)
+    elif not isinstance(pipeline, PassManager):
+        pipeline = PassManager(list(pipeline), validate=validate, name="custom")
+    g = pipeline.run(graph)
+    if not g.value_info:
+        g = infer_shapes(g)
+    policy = policy or FixedPolicy()
+    assignment: Dict[str, str] = {}
+    for node in topological_order(g):
+        in_specs = [g.spec_of(v) for v in node.inputs]
+        assignment[node.name] = policy.resolve(node, in_specs)
+    return Program(g, assignment, pass_stats=tuple(pipeline.stats), device=dev)

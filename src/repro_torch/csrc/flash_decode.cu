@@ -1,0 +1,135 @@
+// flash_decode: one-token GQA attention over a dense KV cache, fp32.
+//   q (B, Hq, D), k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32
+//   -> o (B, Hq, Dv); cache positions >= lengths[b] are masked.
+//
+// Replaces: src/repro/kernels/flash_decode.py::flash_decode (_flash_decode,
+// body _decode_kernel with emit_stats=False), behind `decode_attention`
+// pallas (ops.py:147).
+//
+// What bounds it on the H100: bytes.  Each cache byte is read once per step
+// for O(1) flops (about 0.5 flop/byte at Hq = Hk), so its least time is the
+// live cache rows over 3.35 TB/s.
+//
+// Design: one 128-thread block per (b, kv head) holds that head's whole query
+// group, so K/V are read once per group, not once per query head.  K/V tiles
+// of 64 rows stream through dynamic shared memory (at D = Dv = 96 one K tile
+// plus one V tile is 48 KiB, the whole static limit, hence
+// cudaFuncSetAttribute); K rows are padded to D+1 floats so the score loop,
+// where each thread walks one row, is free of bank conflicts.  The online
+// softmax runs in fp32 with the Pallas kernel's finite -1e30 and its
+// acc / max(l, 1e-30) finish, so an empty cache (length 0: an idle slot)
+// gives 0.  Tiles start at row 0 and have a fixed size, and tiles past
+// lengths[b] are skipped: a sequence's result does not depend on the batch.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 128, NWARPS = THREADS / 32, BKV = 64;
+
+// floats of dynamic shared memory for a query group of G heads
+__host__ __device__ inline size_t decode_smem_floats(int G, int D, int Dv) {
+  return (size_t)G * D + (size_t)G * Dv + (size_t)G * BKV + 3 * (size_t)G +
+         (size_t)BKV * (D + 1) + (size_t)BKV * Dv;
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ lengths,
+                    float* __restrict__ o, int Hq, int Hk, int S, int D, int Dv,
+                    float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / Hk, h = blockIdx.x % Hk;
+  const int G = Hq / Hk;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float* qs = smem;                 // [G][D], pre-scaled
+  float* acc = qs + G * D;          // [G][Dv]
+  float* sc = acc + G * Dv;         // [G][BKV] scores, then probabilities
+  float* ms = sc + G * BKV;         // [G] running max
+  float* ls = ms + G;               // [G] running sum of exp
+  float* al = ls + G;               // [G] rescale factor of this tile
+  float* ks = al + G;               // [BKV][D+1]
+  float* vs = ks + BKV * (D + 1);   // [BKV][Dv]
+
+  const int len = min(max(lengths[b], 0), S);
+  const size_t q_base = ((size_t)b * Hq + (size_t)h * G) * D;
+  for (int i = tid; i < G * D; i += THREADS) qs[i] = q[q_base + i] * scale;
+  for (int i = tid; i < G * Dv; i += THREADS) acc[i] = 0.f;
+  for (int g = tid; g < G; g += THREADS) {
+    ms[g] = repro_torch::kNegInf;
+    ls[g] = 0.f;
+  }
+  __syncthreads();
+
+  for (int j0 = 0; j0 < len; j0 += BKV) {
+    const int n = min(BKV, len - j0);
+    for (int i = tid; i < BKV * D; i += THREADS) {
+      const int j = i / D, d = i % D;
+      ks[j * (D + 1) + d] =
+          j < n ? k[(((size_t)b * S + j0 + j) * Hk + h) * D + d] : 0.f;
+    }
+    for (int i = tid; i < BKV * Dv; i += THREADS) {
+      const int j = i / Dv, d = i % Dv;
+      vs[i] = j < n ? v[(((size_t)b * S + j0 + j) * Hk + h) * Dv + d] : 0.f;
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * BKV; i += THREADS) {
+      const int g = i / BKV, j = i % BKV;
+      const float* qr = qs + g * D;
+      const float* kr = ks + j * (D + 1);
+      float s = 0.f;
+      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+      sc[i] = j < n ? s : repro_torch::kNegInf;
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += NWARPS) {
+      float* row = sc + g * BKV;
+      const float s0 = row[lane], s1 = row[lane + 32];
+      const float m_prev = ms[g];
+      const float m_new = fmaxf(m_prev, repro_torch::warp_max(fmaxf(s0, s1)));
+      const float p0 = lane < n ? expf(s0 - m_new) : 0.f;
+      const float p1 = lane + 32 < n ? expf(s1 - m_new) : 0.f;
+      const float sum = repro_torch::warp_sum(p0 + p1);
+      row[lane] = p0;
+      row[lane + 32] = p1;
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        al[g] = alpha;
+        ls[g] = ls[g] * alpha + sum;
+        ms[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * Dv; i += THREADS) {
+      const int g = i / Dv, d = i % Dv;
+      const float* p = sc + g * BKV;
+      float pv = 0.f;
+      for (int j = 0; j < n; ++j) pv = fmaf(p[j], vs[j * Dv + d], pv);
+      acc[i] = acc[i] * al[g] + pv;
+    }
+    __syncthreads();
+  }
+
+  const size_t o_base = ((size_t)b * Hq + (size_t)h * G) * Dv;
+  for (int i = tid; i < G * Dv; i += THREADS) {
+    const int g = i / Dv;
+    o[o_base + i] = acc[i] / fmaxf(ls[g], 1e-30f);
+  }
+}
+
+}  // namespace
+
+extern "C" int flash_decode_f32(const float* q, const float* k, const float* v,
+                                const int* lengths, float* o, int B, int Hq, int Hk,
+                                int S, int D, int Dv, float scale, void* stream) {
+  const size_t smem = decode_smem_floats(Hq / Hk, D, Dv) * sizeof(float);
+  if (smem > (size_t)repro_torch::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_kernel<<<B * Hk, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, lengths, o, Hq, Hk, S, D, Dv, scale);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,142 @@
+"""Tests of the port that need the card (marked ``gpu``): the CUDA kernels
+against their plain versions, a small engine on the card against the same
+engine on the CPU, weight sharing across Programs, and the wrappers'
+refusals.  This file imports neither JAX nor the JAX package, so it runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
+
+Each test decides inside itself whether a card exists and skips without one.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+TOL = dict(rtol=2e-5, atol=2e-5)   # fp32 on both sides, another summation order
+GQA = [(1, 1), (2, 1), (4, 2), (4, 4)]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.core.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _rn(gen, dev):
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    return rn
+
+
+@pytest.mark.gpu
+def test_kernels_match_their_plain_versions_on_the_card():
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_chunk_attention,
+                                                     flash_chunk_attention_plain)
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.gemm import gemm, gemm_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rn = _rn(gen, dev)
+    before = (gemm.launches, rmsnorm.launches, flash_decode.launches,
+              flash_chunk_attention.launches)
+    for m, n, k in ((5, 37, 19), (64, 130, 33), (4, 3, 1)):
+        x, w = rn(m, k), rn(k, n)
+        torch.testing.assert_close(gemm(x, w), gemm_plain(x, w), **TOL)
+    x, w, r = rn(7, 96), rn(96), rn(7, 96)
+    torch.testing.assert_close(rmsnorm(x, w), rmsnorm_plain(x, w), **TOL)
+    torch.testing.assert_close(rmsnorm(x, w, residual=r),
+                               rmsnorm_plain(x, w, residual=r), **TOL)
+    for hq, hk in GQA:
+        for scale in (None, 0.0):
+            sc = 1 / math.sqrt(96) if scale is None else scale
+            q, k, v = rn(3, hq, 96), rn(3, 70, hk, 96), rn(3, 70, hk, 64)
+            lengths = torch.tensor([0, 70, 37], dtype=torch.int32, device=dev)
+            out = flash_decode(q, k, v, lengths, scale=scale)
+            torch.testing.assert_close(out, flash_decode_plain(q, k, v, lengths, sc), **TOL)
+            assert float(out[0].abs().max()) == 0.0      # length 0 gives 0
+            q, k, v = rn(3, 16, hq, 8), rn(3, 48, hk, 8), rn(3, 48, hk, 8)
+            start = torch.tensor([0, 32, 7], dtype=torch.int32, device=dev)  # 32+16 == cap
+            sc = 1 / math.sqrt(8) if scale is None else scale
+            torch.testing.assert_close(flash_chunk_attention(q, k, v, start, scale=scale),
+                                       flash_chunk_attention_plain(q, k, v, start, sc), **TOL)
+    after = (gemm.launches, rmsnorm.launches, flash_decode.launches,
+             flash_chunk_attention.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.gpu
+def test_gemm_rows_do_not_depend_on_the_batch():
+    dev = _card()
+    from repro_torch.kernels.gemm import gemm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rn = _rn(gen, dev)
+    x, w = rn(256, 300), rn(300, 70)
+    full = gemm(x, w)
+    for m in (1, 4, 64):
+        assert torch.equal(gemm(x[:m].contiguous(), w), full[:m])
+
+
+@pytest.mark.gpu
+def test_small_engine_on_the_card_matches_the_cpu():
+    dev = _card()
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.models.graph_lm import GraphLMConfig, init_lm_params
+    from repro_torch.runtime.engine import EngineRequest, build_lm_serving
+    cfg = GraphLMConfig(vocab=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=96)
+    params = init_lm_params(cfg, 0)
+    rng = np.random.default_rng(0)
+    prompts = [(rng.integers(0, cfg.vocab, int(rng.integers(1, 20))).astype(np.int32),
+                int(rng.integers(1, 8))) for _ in range(5)]
+    outs = {}
+    for device in (dev, "cpu"):
+        engine, reference = build_lm_serving(cfg, n_slots=3, chunk=8, cache_cap=32,
+                                             params=params, device=device)
+        reqs = [EngineRequest(uid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(prompts)]
+        for r in reqs:
+            assert engine.submit(r)
+        launches = gemm.launches
+        engine.run()
+        if device == dev:
+            assert gemm.launches > launches
+            for r in reqs:       # batch 3 on the card == batch 1 on the card
+                assert r.out_tokens == reference.generate(r.prompt, r.max_new_tokens, chunk=8)
+        outs[str(device)] = [r.out_tokens for r in reqs]
+    assert outs[str(dev)] == outs["cpu"]
+
+
+@pytest.mark.gpu
+def test_programs_share_weights_on_the_card():
+    dev = _card()
+    from repro_torch.models.graph_lm import GraphLMConfig, init_lm_params_torch
+    from repro_torch.runtime.engine import build_lm_serving
+    cfg = GraphLMConfig(vocab=61, d_model=32, n_layers=1, n_heads=4, n_kv_heads=4, d_ff=64)
+    params = init_lm_params_torch(cfg, 0, device=dev)
+    engine, reference = build_lm_serving(cfg, n_slots=2, chunk=4, cache_cap=16,
+                                         params=params, device=dev)
+    reference.generate(np.arange(5, dtype=np.int32), 2, chunk=4)
+    programs = [engine.stepper.decode_program, engine.stepper.prefill_program]
+    for prog in programs:
+        stored = prog._stored_params()
+        assert all(stored[k].data_ptr() == params[k].data_ptr() for k in stored)
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    x = torch.randn(8, 4, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm(x.t(), torch.randn(8, 3, device=dev))
+    with pytest.raises(ValueError, match="CUDA device"):
+        gemm(x, torch.randn(4, 3))
+    with pytest.raises(TypeError, match="float32"):
+        rmsnorm(x.double(), torch.ones(4, device=dev, dtype=torch.float64))
