@@ -1,11 +1,20 @@
-// flash_chunk_attention: chunked-prefill GQA attention over a dense KV cache,
-// fp32.
-//   q (B, T, Hq, D), k (B, S, Hk, D), v (B, S, Hk, Dv), start (B,) int32
-//   -> o (B, T, Hq, Dv); query row t sits at position start[b] + t and
-//   attends cache columns <= start[b] + t.
+// flash_chunk_attention: chunked-prefill GQA attention over a KV cache, fp32
+// arithmetic.
+//   q (B, T, Hq, D), start (B,) int32 -> o (B, T, Hq, Dv); query row t sits
+//   at position start[b] + t and attends cache columns <= start[b] + t.
+//   Three entry points share one kernel body, a template over the KV row
+//   source (common.cuh):
+//   flash_chunk_attention_f32        dense k (B, S, Hk, D), v (B, S, Hk, Dv);
+//   flash_paged_chunk_attention_f32  pages (N, P, Hk, D/Dv) fp32 through
+//                                    block tables (B, MP);
+//   flash_paged_chunk_attention_i8   int8 pages with (N, Hk) fp32 scales,
+//                                    dequantized while a tile is staged.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_chunk_attention (body
-// _chunk_flash_kernel), behind `chunk_attention` pallas (serving_ops.py:329).
+// _chunk_flash_kernel), behind `chunk_attention` pallas (serving_ops.py:329),
+// and flash_paged_chunk_attention (bodies _paged_chunk_kernel and
+// _paged_chunk_q_kernel), behind `paged_chunk_attention[_q]` pallas
+// (serving_ops.py:513, :849).
 //
 // What bounds it on the H100: at the serving shapes (T = 64 rows against up
 // to ~1k cache rows, D = 96) it does about 4*T*cols*D flops over
@@ -22,6 +31,15 @@
 // at column 0 and have a fixed size, and a column a row may not see adds an
 // exact zero (p = 0, rescale exp(0) = 1), so a row's result depends neither on
 // the chunk size T nor on the batch.
+//
+// Paged: the same fixed 64-row logical tiles from column 0, each filled row
+// by row through the block table, for any page size P; the score, softmax
+// and P.V loops are the dense ones, so an fp32 paged row is bitwise equal to
+// the dense kernel's row on the gathered cache.  Table entries past the
+// tile's last allowed column (junk) are never read; rows past it are
+// zero-filled in shared memory.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -34,11 +52,13 @@ __host__ __device__ inline size_t chunk_smem_floats(int D, int Dv) {
          (size_t)BKV * (D + 1) + (size_t)BKV * Dv;
 }
 
+template <class KV>
 __global__ void __launch_bounds__(THREADS)
-chunk_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const int* __restrict__ start,
-                       float* __restrict__ o, int T, int Hq, int Hk, int S, int D,
-                       int Dv, float scale) {
+chunk_attention_kernel(const float* __restrict__ q, const typename KV::Elem* __restrict__ k,
+                       const typename KV::Elem* __restrict__ v,
+                       const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                       const KV kv, const int* __restrict__ start, float* __restrict__ o,
+                       int T, int Hq, int Hk, int S, int D, int Dv, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / Hq, hq = blockIdx.x % Hq;
   const int h = hq / (Hq / Hk);
@@ -71,15 +91,7 @@ chunk_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int col = tid % BKV, row0 = tid / BKV;  // score rows row0 + 4*r
   for (int j0 = 0; j0 < kv_end; j0 += BKV) {
     const int n = min(BKV, kv_end - j0);
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      ks[j * (D + 1) + d] =
-          j < n ? k[(((size_t)b * S + j0 + j) * Hk + h) * D + d] : 0.f;
-    }
-    for (int i = tid; i < BKV * Dv; i += THREADS) {
-      const int j = i / Dv, d = i % Dv;
-      vs[i] = j < n ? v[(((size_t)b * S + j0 + j) * Hk + h) * Dv + d] : 0.f;
-    }
+    kv.template stage<THREADS, BKV>(k, v, k_scale, v_scale, ks, vs, b, h, j0, n, D, Dv);
     __syncthreads();
 
     float s[ROWS_PER_THREAD];
@@ -136,20 +148,50 @@ chunk_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <class KV>
+int launch(const float* q, const typename KV::Elem* k, const typename KV::Elem* v,
+           const float* k_scale, const float* v_scale, const KV& kv, const int* start,
+           float* o, int B, int T, int Hq, int Hk, int S, int D, int Dv, float scale,
+           void* stream) {
+  const size_t smem = chunk_smem_floats(D, Dv) * sizeof(float);
+  if (smem > (size_t)repro_torch::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_attention_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(B * Hq, (T + BQ - 1) / BQ);
+  chunk_attention_kernel<KV><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, k_scale, v_scale, kv, start, o, T, Hq, Hk, S, D, Dv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_chunk_attention_f32(const float* q, const float* k, const float* v,
                                          const int* start, float* o, int B, int T, int Hq,
                                          int Hk, int S, int D, int Dv, float scale,
                                          void* stream) {
-  const size_t smem = chunk_smem_floats(D, Dv) * sizeof(float);
-  if (smem > (size_t)repro_torch::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B * Hq, (T + BQ - 1) / BQ);
-  chunk_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, start, o, T, Hq, Hk, S, D, Dv, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch(q, k, v, nullptr, nullptr, repro_torch::DenseKV{S, Hk}, start, o, B, T, Hq,
+                Hk, S, D, Dv, scale, stream);
+}
+
+extern "C" int flash_paged_chunk_attention_f32(const float* q, const float* pages_k,
+                                               const float* pages_v, const int* tables,
+                                               const int* start, float* o, int B, int T,
+                                               int Hq, int Hk, int N, int P, int MP, int D,
+                                               int Dv, float scale, void* stream) {
+  return launch(q, pages_k, pages_v, nullptr, nullptr,
+                repro_torch::PagedKV<float>{tables, MP, P, N, Hk}, start, o, B, T, Hq, Hk,
+                MP * P, D, Dv, scale, stream);
+}
+
+extern "C" int flash_paged_chunk_attention_i8(const float* q, const int8_t* pages_k,
+                                              const float* k_scales, const int8_t* pages_v,
+                                              const float* v_scales, const int* tables,
+                                              const int* start, float* o, int B, int T,
+                                              int Hq, int Hk, int N, int P, int MP, int D,
+                                              int Dv, float scale, void* stream) {
+  return launch(q, pages_k, pages_v, k_scales, v_scales,
+                repro_torch::PagedKV<int8_t>{tables, MP, P, N, Hk}, start, o, B, T, Hq, Hk,
+                MP * P, D, Dv, scale, stream);
 }

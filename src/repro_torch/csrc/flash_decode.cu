@@ -1,10 +1,18 @@
-// flash_decode: one-token GQA attention over a dense KV cache, fp32.
-//   q (B, Hq, D), k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32
-//   -> o (B, Hq, Dv); cache positions >= lengths[b] are masked.
+// flash_decode: one-token GQA attention over a KV cache, fp32 arithmetic.
+//   q (B, Hq, D), lengths (B,) int32 -> o (B, Hq, Dv); cache positions
+//   >= lengths[b] are masked.  Three entry points share one kernel body,
+//   a template over the KV row source (common.cuh):
+//   flash_decode_f32        dense k (B, S, Hk, D), v (B, S, Hk, Dv);
+//   flash_paged_decode_f32  pages (N, P, Hk, D/Dv) fp32 through block
+//                           tables (B, MP);
+//   flash_paged_decode_i8   int8 pages with (N, Hk) fp32 scales, dequantized
+//                           as float(x) * scale while a tile is staged.
 //
 // Replaces: src/repro/kernels/flash_decode.py::flash_decode (_flash_decode,
 // body _decode_kernel with emit_stats=False), behind `decode_attention`
-// pallas (ops.py:147).
+// pallas (ops.py:147), and flash_paged_decode (bodies _paged_decode_kernel
+// and _paged_decode_q_kernel), behind `paged_decode_attention[_q]` pallas
+// (serving_ops.py:619, :941).
 //
 // What bounds it on the H100: bytes.  Each cache byte is read once per step
 // for O(1) flops (about 0.5 flop/byte at Hq = Hk), so its least time is the
@@ -20,6 +28,18 @@
 // acc / max(l, 1e-30) finish, so an empty cache (length 0: an idle slot)
 // gives 0.  Tiles start at row 0 and have a fixed size, and tiles past
 // lengths[b] are skipped: a sequence's result does not depend on the batch.
+//
+// Paged: the kernel walks the same fixed 64-row logical tiles from column 0
+// as the dense one and fills each tile row by row through the block table,
+// for any page size P (the Pallas kernel takes one page per grid step).  The
+// score and P.V loops are the dense ones, so an fp32 paged row is bitwise
+// equal to the dense kernel's row on the gathered cache, and shared memory
+// does not depend on P.  Rows past lengths[b] (junk table entries) are never
+// loaded: they are zero-filled in shared memory like the dense tail.  int8
+// pages read a quarter of the bytes; the bound is then the int8 rows plus
+// the scale sidecars.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -32,11 +52,13 @@ __host__ __device__ inline size_t decode_smem_floats(int G, int D, int Dv) {
          (size_t)BKV * (D + 1) + (size_t)BKV * Dv;
 }
 
+template <class KV>
 __global__ void __launch_bounds__(THREADS)
-flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ lengths,
-                    float* __restrict__ o, int Hq, int Hk, int S, int D, int Dv,
-                    float scale) {
+flash_decode_kernel(const float* __restrict__ q, const typename KV::Elem* __restrict__ k,
+                    const typename KV::Elem* __restrict__ v,
+                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                    const KV kv, const int* __restrict__ lengths, float* __restrict__ o,
+                    int Hq, int Hk, int S, int D, int Dv, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / Hk, h = blockIdx.x % Hk;
   const int G = Hq / Hk;
@@ -62,15 +84,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int j0 = 0; j0 < len; j0 += BKV) {
     const int n = min(BKV, len - j0);
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      ks[j * (D + 1) + d] =
-          j < n ? k[(((size_t)b * S + j0 + j) * Hk + h) * D + d] : 0.f;
-    }
-    for (int i = tid; i < BKV * Dv; i += THREADS) {
-      const int j = i / Dv, d = i % Dv;
-      vs[i] = j < n ? v[(((size_t)b * S + j0 + j) * Hk + h) * Dv + d] : 0.f;
-    }
+    kv.template stage<THREADS, BKV>(k, v, k_scale, v_scale, ks, vs, b, h, j0, n, D, Dv);
     __syncthreads();
 
     for (int i = tid; i < G * BKV; i += THREADS) {
@@ -119,17 +133,47 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <class KV>
+int launch(const float* q, const typename KV::Elem* k, const typename KV::Elem* v,
+           const float* k_scale, const float* v_scale, const KV& kv, const int* lengths,
+           float* o, int B, int Hq, int Hk, int S, int D, int Dv, float scale, void* stream) {
+  const size_t smem = decode_smem_floats(Hq / Hk, D, Dv) * sizeof(float);
+  if (smem > (size_t)repro_torch::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_kernel<KV><<<B * Hk, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, k_scale, v_scale, kv, lengths, o, Hq, Hk, S, D, Dv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_decode_f32(const float* q, const float* k, const float* v,
                                 const int* lengths, float* o, int B, int Hq, int Hk,
                                 int S, int D, int Dv, float scale, void* stream) {
-  const size_t smem = decode_smem_floats(Hq / Hk, D, Dv) * sizeof(float);
-  if (smem > (size_t)repro_torch::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_kernel<<<B * Hk, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, lengths, o, Hq, Hk, S, D, Dv, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch(q, k, v, nullptr, nullptr, repro_torch::DenseKV{S, Hk}, lengths, o, B, Hq,
+                Hk, S, D, Dv, scale, stream);
+}
+
+extern "C" int flash_paged_decode_f32(const float* q, const float* pages_k,
+                                      const float* pages_v, const int* tables,
+                                      const int* lengths, float* o, int B, int Hq, int Hk,
+                                      int N, int P, int MP, int D, int Dv, float scale,
+                                      void* stream) {
+  return launch(q, pages_k, pages_v, nullptr, nullptr,
+                repro_torch::PagedKV<float>{tables, MP, P, N, Hk}, lengths, o, B, Hq, Hk,
+                MP * P, D, Dv, scale, stream);
+}
+
+extern "C" int flash_paged_decode_i8(const float* q, const int8_t* pages_k,
+                                     const float* k_scales, const int8_t* pages_v,
+                                     const float* v_scales, const int* tables,
+                                     const int* lengths, float* o, int B, int Hq, int Hk,
+                                     int N, int P, int MP, int D, int Dv, float scale,
+                                     void* stream) {
+  return launch(q, pages_k, pages_v, k_scales, v_scales,
+                repro_torch::PagedKV<int8_t>{tables, MP, P, N, Hk}, lengths, o, B, Hq, Hk,
+                MP * P, D, Dv, scale, stream);
 }

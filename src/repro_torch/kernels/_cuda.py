@@ -45,6 +45,13 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_decode_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "flash_chunk_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _F, _P),
+    # q, pages_k, pages_v, tables, lengths, o; B, Hq, Hk, N, P, MP, D, Dv
+    "flash_paged_decode_f32": (*[_P] * 6, *[_I] * 8, _F, _P),
+    # q, pages_k, k_scales, pages_v, v_scales, tables, lengths, o; as above
+    "flash_paged_decode_i8": (*[_P] * 8, *[_I] * 8, _F, _P),
+    # q, pages_k, pages_v, tables, start, o; B, T, Hq, Hk, N, P, MP, D, Dv
+    "flash_paged_chunk_attention_f32": (*[_P] * 6, *[_I] * 9, _F, _P),
+    "flash_paged_chunk_attention_i8": (*[_P] * 8, *[_I] * 9, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,13 +1,15 @@
-"""Chunked-prefill flash attention over a dense KV cache — counterpart of
-:func:`repro.kernels.flash_attention.flash_chunk_attention`.
+"""Chunked-prefill flash attention over a KV cache — counterpart of
+:func:`repro.kernels.flash_attention.flash_chunk_attention` (dense cache)
+and :func:`repro.kernels.flash_attention.flash_paged_chunk_attention` (page
+pool reached through block tables, fp32 or int8 pages).
 
-:func:`flash_chunk_attention` launches the hand-written CUDA kernel
-``csrc/flash_attention.cu`` (one block per (sequence, query head, 32-row
-query tile); fixed 64-row K/V tiles from column 0) on CUDA tensors and runs
-:func:`flash_chunk_attention_plain` on CPU tensors.  Query row t of
-sequence b sits at ``start[b] + t`` and attends cache columns
-``<= start[b] + t``.  ``flash_chunk_attention.launches`` counts kernel
-launches.
+:func:`flash_chunk_attention` and :func:`flash_paged_chunk_attention`
+launch the hand-written CUDA kernel ``csrc/flash_attention.cu`` (one block
+per (sequence, query head, 32-row query tile); fixed 64-row logical K/V
+tiles from column 0) on CUDA tensors and run their plain versions on CPU
+tensors.  Query row t of sequence b sits at ``start[b] + t`` and attends
+cache columns ``<= start[b] + t``.  Each wrapper's ``launches`` attribute
+counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -18,8 +20,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.flash_decode import check_paged, gather_pages
 
-__all__ = ["flash_chunk_attention", "flash_chunk_attention_plain", "chunk_fits"]
+__all__ = ["flash_chunk_attention", "flash_chunk_attention_plain", "chunk_fits",
+           "flash_paged_chunk_attention", "flash_paged_chunk_attention_plain",
+           "paged_chunk_fits"]
 
 _NEG_INF = -1e30
 BLOCK_Q = 32           # query rows per block (csrc/flash_attention.cu BQ)
@@ -101,3 +106,78 @@ def flash_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_chunk_attention.launches = 0
+
+
+# The paged kernel stages the same tiles as the dense one: its shared memory
+# does not depend on the page size.
+paged_chunk_fits = chunk_fits
+
+
+def flash_paged_chunk_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
+                                      pages_v: torch.Tensor, block_tables: torch.Tensor,
+                                      start: torch.Tensor, scale: float,
+                                      k_scales: Optional[torch.Tensor] = None,
+                                      v_scales: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
+    """The paged kernel's function in plain PyTorch: gather (and dequantize)
+    the pages into a dense cache, then :func:`flash_chunk_attention_plain`."""
+    return flash_chunk_attention_plain(q, gather_pages(pages_k, block_tables, k_scales),
+                                       gather_pages(pages_v, block_tables, v_scales),
+                                       start, scale)
+
+
+def flash_paged_chunk_attention(q: torch.Tensor, pages_k: torch.Tensor,
+                                pages_v: torch.Tensor, block_tables: torch.Tensor,
+                                start: torch.Tensor, *,
+                                k_scales: Optional[torch.Tensor] = None,
+                                v_scales: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, T, Hq, D), pages_k (N, P, Hk, D), pages_v (N, P, Hk, Dv),
+    block_tables (B, MP) int32, start (B,) int32 -> (B, T, Hq, Dv).
+
+    Offset-causal over the logical cache ``block_tables`` describes (entries
+    clipped to [0, N-1]); table entries past the chunk's last allowed column
+    may hold any block id.  With ``k_scales``/``v_scales`` ((N, Hk) float32)
+    the pages are int8, dequantized per (page, kv head)."""
+    fn = "flash_paged_chunk_attention"
+    if q.dim() != 4:
+        raise ValueError(f"{fn}: q {tuple(q.shape)}")
+    quant = check_paged(fn, q, pages_k, pages_v, block_tables, k_scales, v_scales)
+    b, t, hq, d = q.shape
+    n, page, hk = pages_k.shape[0], pages_k.shape[1], pages_k.shape[2]
+    dv, mp = pages_v.shape[3], block_tables.shape[1]
+    if not paged_chunk_fits(hq, hk, d, dv):
+        raise ValueError(f"{fn}: unsupported heads/widths Hq={hq} Hk={hk} D={d} Dv={dv}")
+    if start.shape != (b,) or start.dtype != torch.int32:
+        raise ValueError(f"{fn}: start must be ({b},) int32, got "
+                         f"{tuple(start.shape)} {start.dtype}")
+    scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
+    tensors = (q, pages_k, pages_v, block_tables, start) + (
+        (k_scales, v_scales) if quant else ())
+    if all(x.device.type == "cpu" for x in tensors):
+        return flash_paged_chunk_attention_plain(q, pages_k, pages_v, block_tables, start,
+                                                 scale, k_scales, v_scales)
+    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
+        raise ValueError(f"{fn}: all inputs must be on one CUDA device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{fn}: inputs must be contiguous")
+    out = torch.empty((b, t, hq, dv), dtype=torch.float32, device=q.device)
+    if b == 0 or t == 0:
+        return out
+    lib = _cuda.library()
+    dims = (b, t, hq, hk, n, page, mp, d, dv, scale, _cuda.stream_of(q))
+    if quant:
+        err = lib.flash_paged_chunk_attention_i8(
+            q.data_ptr(), pages_k.data_ptr(), k_scales.data_ptr(), pages_v.data_ptr(),
+            v_scales.data_ptr(), block_tables.data_ptr(), start.data_ptr(),
+            out.data_ptr(), *dims)
+    else:
+        err = lib.flash_paged_chunk_attention_f32(
+            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), block_tables.data_ptr(),
+            start.data_ptr(), out.data_ptr(), *dims)
+    _cuda.check(err, fn)
+    flash_paged_chunk_attention.launches += 1
+    return out
+
+
+flash_paged_chunk_attention.launches = 0

@@ -1,5 +1,5 @@
 """Serving graph ops — counterpart of :mod:`repro.kernels.serving_ops`, for
-the dense-cache path.
+the dense-cache and paged-cache paths.
 
 * ``embedding``       — token id -> row lookup (``ref``).
 * ``cache_update``    — length-aware scatter of new K/V rows into a
@@ -8,9 +8,20 @@ the dense-cache path.
 * ``chunk_attention`` — chunked-prefill attention: query t at absolute
   position ``start + t`` attends cache keys at positions ``<= start + t``
   (``ref``, and ``cuda``: the hand-written flash kernel).
+* ``paged_cache_update`` / ``paged_cache_update_q`` — the same scatter into
+  a shared page pool through block tables, fp32 or int8 with running
+  per-(page, kv head) scales (``ref``; the JAX package has no kernel).
+* ``paged_chunk_attention[_q]`` / ``paged_decode_attention[_q]`` —
+  attention reading K/V through block tables (``ref``: gather, dequantize,
+  dense oracle; ``cuda``: the hand-written paged flash kernels).
 
 Op names, input order, attrs, shape and cost functions match ``repro``'s.
-The paged, int8, verify and tensor-parallel serving ops are not ported yet.
+The ``cuda`` guards are only what the kernels need (fp32 q, fp32 or int8
+pages as the op says, whole GQA groups, head widths <= 256, shared memory);
+the TPU's ``page_size % 8`` and ``T % block_q`` guards are not carried over,
+because the kernels walk fixed logical tiles for any page size and mask
+their own ragged edges.  The verify and tensor-parallel serving ops are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,12 +34,36 @@ import torch
 from repro_torch.core.ir import TensorSpec
 from repro_torch.core.registry import Cost, defop, impl
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.flash_attention import chunk_fits, flash_chunk_attention
-
+from repro_torch.kernels.flash_attention import (chunk_fits, flash_chunk_attention,
+                                                 flash_paged_chunk_attention,
+                                                 paged_chunk_fits)
+from repro_torch.kernels.flash_decode import (flash_paged_decode, gather_pages,
+                                              paged_decode_fits)
 
 
 def _bytes(specs: Sequence[TensorSpec]) -> float:
     return float(sum(s.nbytes for s in specs))
+
+
+def _scatter_rows(pages, rows, blk, row, valid):
+    """A copy of ``pages`` (N, P, ...) with ``rows`` (B, T, ...) written at
+    (blk, row) where ``valid``.  torch's index_copy_ has no drop mode: the
+    copy gets one spare row past the end, every masked row is sent there,
+    and the spare row is cut off, so masked rows never land on a real row.
+    Valid targets are unique (each writable page belongs to one sequence),
+    so the result does not depend on the write order."""
+    n, p = pages.shape[0], pages.shape[1]
+    rest = tuple(pages.shape[2:])
+    dest = torch.where(valid, blk * p + row, torch.full_like(blk, n * p))
+    out = pages.new_empty((n * p + 1,) + rest)
+    out[:-1].copy_(pages.reshape((n * p,) + rest))
+    out.index_copy_(0, dest.reshape(-1), rows.reshape((-1,) + rest))
+    return out[:-1].view(pages.shape)
+
+
+def _valid_rows(n_new, t, device):
+    """(B, T) mask of the rows each slot writes: those below ``n_new``."""
+    return torch.arange(t, device=device)[None, :] < n_new.long()[:, None]
 
 
 # --------------------------------------------------------------------------- #
@@ -87,18 +122,11 @@ def _cache_update_ref(inputs, attrs):
     cache, new, start, n_new = inputs
     b, cap = cache.shape[0], cache.shape[1]
     t = new.shape[1]
-    rest = tuple(cache.shape[2:])
-    rows = torch.arange(t, device=cache.device)
-    idx = (start.long()[:, None] + rows[None, :]).clamp(0, cap - 1)
-    valid = rows[None, :] < n_new.long()[:, None]
-    # torch's index_copy_ has no drop mode: the copy gets one spare row past
-    # the end, every masked row is sent there, and the spare row is cut off
-    flat = torch.arange(b, device=cache.device)[:, None] * cap + idx
-    dest = torch.where(valid, flat, torch.full_like(flat, b * cap))
-    out = cache.new_empty((b * cap + 1,) + rest)
-    out[:-1].copy_(cache.reshape((b * cap,) + rest))
-    out.index_copy_(0, dest.reshape(-1), new.reshape((b * t,) + rest))
-    return [out[:-1].view((b, cap) + rest)]
+    # sequence b's cache is "page" b of cap rows
+    idx = (start.long()[:, None] + torch.arange(t, device=cache.device)[None, :]
+           ).clamp(0, cap - 1)
+    seq = torch.arange(b, device=cache.device)[:, None].expand(b, t)
+    return [_scatter_rows(cache, new, seq, idx, _valid_rows(n_new, t, cache.device))]
 
 
 # --------------------------------------------------------------------------- #
@@ -173,3 +201,419 @@ def _chunk_attention_cuda(inputs, attrs):
     q, k, v, start = inputs
     return [flash_chunk_attention(q, k, v, start,
                                   scale=_chunk_attn_scale(attrs, q.shape[3]))]
+
+
+# --------------------------------------------------------------------------- #
+# Paged serving ops — K/V rows live in a shared page pool
+# (n_blocks, page_size, Hk, D) and each sequence reaches its rows through an
+# int32 block table (B, max_pages): logical page -> physical block.  The
+# engine side of the contract (allocation, refcounts, prefix reuse, CoW)
+# lives in repro_torch.runtime.kv_cache; these ops only move and read rows.
+# Garbage table entries (unallocated logical pages, filled with 0) are
+# harmless: reads of those positions are masked by start/lengths, writes
+# never target them (start .. start+n_new-1 always lies in allocated pages).
+# The dense view of a table is kernels.flash_decode.gather_pages (the JAX
+# package's _gather_pages and _gather_pages_q).
+# --------------------------------------------------------------------------- #
+
+def _gathered_bytes(pages_spec, tables_spec) -> float:
+    """HBM bytes of one gathered dense K or V view."""
+    n, p, h, d = pages_spec.shape
+    b, mp = tables_spec.shape
+    itemsize = pages_spec.nbytes / max(pages_spec.nelems, 1)
+    return float(b * mp * p * h * d) * itemsize
+
+
+def _paged_rows(tables, start, t, p, n_blocks):
+    """Physical (block, row) targets for T rows per slot from ``start``
+    (both (B, T) int64); the caller masks rows at or past ``n_new``."""
+    mp = tables.shape[1]
+    pos = start.long()[:, None] + torch.arange(t, device=tables.device)[None, :]
+    blk = torch.gather(tables.long(), 1, torch.clamp(pos // p, 0, mp - 1))
+    return torch.clamp(blk, 0, n_blocks - 1), pos % p
+
+
+# ---- paged_cache_update --------------------------------------------------- #
+# inputs (pages (N,P,H,D), new (B,T,H,D), tables (B,MP) i32, start, n_new)
+
+def _paged_update_shape(specs, attrs):
+    pages, new, tables = specs[0], specs[1], specs[2]
+    if pages.shape[2:] != new.shape[2:]:
+        raise ValueError(f"page/new head mismatch: {pages.shape} vs {new.shape}")
+    if new.shape[0] != tables.shape[0]:
+        raise ValueError(f"batch mismatch: {new.shape} vs {tables.shape}")
+    return [pages]
+
+
+def _paged_update_cost(specs, attrs):
+    new = specs[1]
+    # read-modify-write of T rows per sequence through the table
+    return Cost(flops=0.0, bytes=3.0 * new.nbytes + _bytes(specs[2:]))
+
+
+defop("paged_cache_update", _paged_update_shape, _paged_update_cost,
+      doc="scatter n_new K/V rows into a shared page pool through per-"
+          "sequence block tables; inputs (pages (N,P,H,D), new (B,T,H,D), "
+          "tables (B,MP) int32, start (B,), n_new (B,))")
+
+
+@impl("paged_cache_update", "ref",
+      note="masked row scatter into a copy of the pool; rows at or past "
+           "n_new are dropped, so n_new==0 slots are exact no-ops")
+def _paged_cache_update_ref(inputs, attrs):
+    pages, new, tables, start, n_new = inputs
+    n_blocks, p = pages.shape[0], pages.shape[1]
+    t = new.shape[1]
+    blk, row = _paged_rows(tables, start, t, p, n_blocks)
+    return [_scatter_rows(pages, new, blk, row, _valid_rows(n_new, t, pages.device))]
+
+
+# ---- paged_chunk_attention ------------------------------------------------ #
+# inputs (q (B,T,Hq,D), pages_k (N,P,Hk,D), pages_v, tables (B,MP), start)
+
+def _paged_chunk_shape(specs, attrs):
+    return [specs[0]]
+
+
+def _paged_chunk_cost(specs, attrs):
+    q, pk, tables = specs[0], specs[1], specs[3]
+    b, t, hq, d = q.shape
+    s = tables.shape[1] * pk.shape[1]
+    gathered = 2.0 * _gathered_bytes(pk, tables)      # stream K and V once
+    return Cost(flops=4.0 * b * hq * t * s * d,
+                bytes=2.0 * q.nbytes + tables.nbytes + gathered)
+
+
+defop("paged_chunk_attention", _paged_chunk_shape, _paged_chunk_cost,
+      doc="chunked-prefill attention reading K/V through block tables; "
+          "inputs (q (B,T,Hq,D), pages_k (N,P,Hk,D), pages_v, "
+          "tables (B,MP) int32, start (B,)); attrs: scale")
+
+
+def _paged_chunk_ref_cost(specs, attrs):
+    """Charges the materialised dense gather plus the ref oracle's
+    GQA-repeated K/V and dense logits/probability tensors."""
+    q, pk, tables = specs[0], specs[1], specs[3]
+    b, t, hq, d = q.shape
+    s = tables.shape[1] * pk.shape[1]
+    base = _paged_chunk_cost(specs, attrs)
+    extra = 2.0 * 2.0 * _gathered_bytes(pk, tables)   # written then re-read
+    extra += 4.0 * (2.0 * b * s * hq * d + 2.0 * b * hq * t * s)
+    return Cost(flops=base.flops, bytes=base.bytes + extra)
+
+
+@impl("paged_chunk_attention", "ref", cost_fn=_paged_chunk_ref_cost,
+      note="gather pages to a dense view, then the dense fp32 offset-"
+           "causal oracle")
+def _paged_chunk_attention_ref(inputs, attrs):
+    q, pk, pv, tables, start = inputs
+    return _chunk_attention_ref(
+        [q, gather_pages(pk, tables), gather_pages(pv, tables), start], attrs)
+
+
+def _paged_attn_cuda_supports(specs, pages_dtype, fits):
+    """fp32 q, pages of the op's dtype (fp32 scale sidecars for int8), and
+    the kernel's fits check (whole GQA groups, D and Dv <= 256, shared
+    memory); any page size and chunk length."""
+    q, pk = specs[0], specs[1]
+    quant = pages_dtype == "int8"
+    pv = specs[3] if quant else specs[2]
+    scales = (specs[2], specs[4]) if quant else ()
+    return (q.dtype == "float32" and pk.dtype == pages_dtype and pv.dtype == pages_dtype
+            and all(sc.dtype == "float32" for sc in scales)
+            and fits(q.shape[-2], pk.shape[2], q.shape[-1], pv.shape[3]))
+
+
+@impl("paged_chunk_attention", "cuda",
+      supports=lambda specs, attrs: _paged_attn_cuda_supports(
+          specs, "float32", paged_chunk_fits),
+      note="paged flash CUDA kernel: fixed 64-row logical KV tiles from "
+           "column 0, filled row by row through the block table")
+def _paged_chunk_attention_cuda(inputs, attrs):
+    q, pk, pv, tables, start = inputs
+    return [flash_paged_chunk_attention(q, pk, pv, tables, start,
+                                        scale=attrs.get("scale"))]
+
+
+# ---- paged_decode_attention ----------------------------------------------- #
+# inputs (q (B,Hq,D), pages_k (N,P,Hk,D), pages_v, tables (B,MP), lengths)
+
+def _paged_dec_shape(specs, attrs):
+    return [specs[0]]
+
+
+def _paged_dec_cost(specs, attrs):
+    q, pk, tables = specs[0], specs[1], specs[3]
+    b, hq, d = q.shape
+    s = tables.shape[1] * pk.shape[1]
+    gathered = 2.0 * _gathered_bytes(pk, tables)
+    return Cost(flops=4.0 * b * hq * s * d,
+                bytes=2.0 * q.nbytes + tables.nbytes + gathered)
+
+
+defop("paged_decode_attention", _paged_dec_shape, _paged_dec_cost,
+      doc="single-token attention reading the KV cache through block "
+          "tables; inputs (q (B,Hq,D), pages_k (N,P,Hk,D), pages_v, "
+          "tables (B,MP) int32, lengths (B,)); attrs: scale")
+
+
+def _paged_dec_ref_cost(specs, attrs):
+    """Adds the materialised dense gather and the oracle's GQA-repeated
+    K/V to the op's streaming cost."""
+    q, pk, tables = specs[0], specs[1], specs[3]
+    b, hq, d = q.shape
+    s = tables.shape[1] * pk.shape[1]
+    base = _paged_dec_cost(specs, attrs)
+    extra = 2.0 * 2.0 * _gathered_bytes(pk, tables)
+    extra += 4.0 * (2.0 * b * s * hq * d)
+    return Cost(flops=base.flops, bytes=base.bytes + extra)
+
+
+@impl("paged_decode_attention", "ref", cost_fn=_paged_dec_ref_cost,
+      note="gather pages to a dense view + the dense fp32 decode oracle")
+def _paged_decode_attention_ref(inputs, attrs):
+    q, pk, pv, tables, lengths = inputs
+    return [R.decode_attention_ref(q, gather_pages(pk, tables), gather_pages(pv, tables),
+                                   lengths, scale=attrs.get("scale"))]
+
+
+@impl("paged_decode_attention", "cuda",
+      supports=lambda specs, attrs: _paged_attn_cuda_supports(
+          specs, "float32", paged_decode_fits),
+      note="paged flash-decode CUDA kernel; one block per (b, kv head), "
+           "64-row logical tiles filled through the block table")
+def _paged_decode_attention_cuda(inputs, attrs):
+    q, pk, pv, tables, lengths = inputs
+    return [flash_paged_decode(q, pk, pv, tables, lengths, scale=attrs.get("scale"))]
+
+
+# --------------------------------------------------------------------------- #
+# Quantized paged ops — pages stored int8 with a per-(page, kv-head) float32
+# scale sidecar (N, Hk).  Symmetric scheme: scale = absmax / 127, row = q *
+# scale.  Scales only ever GROW (running per-page max): a write that raises a
+# page's absmax requantizes that page's existing rows by old/new; pages whose
+# scale did not change requantize by exactly 1.0, which is bit-exact, so
+# prefix-shared pages keep identical bits across sequences.  An all-zero page
+# keeps scale 0.0 and quantizes via a `scale > 0` guard (`x / 0` would be
+# inf).  The fp32 cache is never kept: the ref backends dequantize after the
+# gather, the cuda kernels while staging each tile.  Every step below is the
+# JAX package's, in the same order and precision (round half to even, a true
+# division), so the pools come out bitwise equal.
+# --------------------------------------------------------------------------- #
+
+_Q_MAX = 127.0
+
+
+def _scale_bytes(specs) -> float:
+    return float(sum(s.nbytes for s in specs if len(s.shape) == 2
+                     and s.dtype == "float32"))
+
+
+# ---- paged_cache_update_q ------------------------------------------------- #
+# inputs (pages (N,P,H,D) int8, scales (N,H) f32, new (B,T,H,D) f32,
+#         tables (B,MP) i32, start (B,), n_new (B,)) -> [pages, scales]
+
+def _paged_update_q_shape(specs, attrs):
+    pages, scales, new, tables = specs[0], specs[1], specs[2], specs[3]
+    if pages.dtype != "int8":
+        raise ValueError(f"quantized pages must be int8, got {pages.dtype}")
+    if scales.shape != (pages.shape[0], pages.shape[2]):
+        raise ValueError(f"scales {scales.shape} != (N, Hk) "
+                         f"({pages.shape[0]}, {pages.shape[2]})")
+    if pages.shape[2:] != new.shape[2:]:
+        raise ValueError(f"page/new head mismatch: {pages.shape} vs {new.shape}")
+    if new.shape[0] != tables.shape[0]:
+        raise ValueError(f"batch mismatch: {new.shape} vs {tables.shape}")
+    return [pages, scales]
+
+
+def _paged_update_q_cost(specs, attrs):
+    """int8-honest traffic: RMW of the written rows at 1 byte/elem, the
+    fp32 chunk read once, plus the full-pool requantize pass (read+write
+    every int8 page and both scale sidecar states)."""
+    pages, scales, new = specs[0], specs[1], specs[2]
+    return Cost(flops=2.0 * pages.nelems,
+                bytes=(2.0 * pages.nbytes + 3.0 * new.nelems + new.nbytes
+                       + 3.0 * scales.nbytes + _bytes(specs[3:])))
+
+
+defop("paged_cache_update_q", _paged_update_q_shape, _paged_update_q_cost,
+      doc="quantize-on-write scatter into an int8 page pool with running "
+          "per-(page, kv-head) max scales; inputs (pages (N,P,H,D) int8, "
+          "scales (N,Hk) f32, new (B,T,H,D), tables (B,MP) int32, "
+          "start (B,), n_new (B,)); outputs [pages, scales]")
+
+
+def _quantize_rows(x, scale):
+    """fp32 rows -> int8 given a broadcastable scale; scale==0 rows are
+    all-zero by construction (scale is their absmax / 127)."""
+    pos = scale > 0
+    q = torch.where(pos, x / torch.where(pos, scale, torch.ones_like(scale)),
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.clamp(torch.round(q), -_Q_MAX, _Q_MAX).to(torch.int8)
+
+
+def _paged_update_q_common(inputs):
+    """Shared scale bookkeeping: returns (requantized pages, new scales,
+    int8 rows to scatter, blk, row, valid).  Order-independent: scales use
+    a scatter-max, write targets are unique."""
+    pages, scales, new, tables, start, n_new = inputs
+    n_blocks, p = pages.shape[0], pages.shape[1]
+    b, t, h = new.shape[0], new.shape[1], new.shape[2]
+    blk, row = _paged_rows(tables, start, t, p, n_blocks)
+    valid = _valid_rows(n_new, t, pages.device)                      # (B, T)
+    tgt = torch.where(valid, blk, torch.full_like(blk, n_blocks))    # (B, T)
+    # running per-(page, head) max: only written pages can grow.  The max
+    # goes into a copy with one spare row, where every masked row lands and
+    # is cut off (JAX's scatter mode="drop").
+    row_amax = new.abs().amax(dim=-1)                                # (B, T, H)
+    row_scale = torch.where(valid[..., None], row_amax / _Q_MAX,
+                            torch.zeros((), dtype=new.dtype, device=new.device))
+    grown = torch.cat([scales, scales.new_zeros((1, h))])
+    grown.scatter_reduce_(0, tgt.reshape(-1, 1).expand(-1, h),
+                          row_scale.reshape(b * t, h), reduce="amax", include_self=True)
+    new_scales = grown[:-1].contiguous()
+    # requantize the pool by old/new; untouched pages have ratio exactly
+    # 1.0, so round(q * 1.0) == q and shared pages stay bit-identical
+    ratio = torch.where(new_scales > 0, scales / new_scales, torch.ones_like(scales))
+    pages_rq = torch.clamp(torch.round(pages.float() * ratio[:, None, :, None]),
+                           -_Q_MAX, _Q_MAX).to(torch.int8)
+    # quantize the incoming rows with their target page's final scale
+    tgt_scale = new_scales[torch.clamp(tgt, 0, n_blocks - 1)]        # (B, T, H)
+    q_rows = _quantize_rows(new, tgt_scale[..., None])
+    return pages_rq, new_scales, q_rows, blk, row, valid
+
+
+@impl("paged_cache_update_q", "ref",
+      note="int8 row scatter after the shared scale-growth/requantize "
+           "pass (the oracle); bitwise equal to repro's ref")
+def _paged_cache_update_q_ref(inputs, attrs):
+    pages_rq, new_scales, q_rows, blk, row, valid = _paged_update_q_common(inputs)
+    return [_scatter_rows(pages_rq, q_rows, blk, row, valid), new_scales]
+
+
+# ---- paged_chunk_attention_q ---------------------------------------------- #
+# inputs (q (B,T,Hq,D), pages_k (N,P,Hk,D) i8, k_scales (N,Hk) f32,
+#         pages_v i8, v_scales, tables (B,MP) i32, start (B,))
+
+def _paged_chunk_q_shape(specs, attrs):
+    pk, ks = specs[1], specs[2]
+    if pk.dtype != "int8":
+        raise ValueError(f"quantized pages must be int8, got {pk.dtype}")
+    if ks.shape != (pk.shape[0], pk.shape[2]):
+        raise ValueError(f"k_scales {ks.shape} != (N, Hk)")
+    return [specs[0]]
+
+
+def _paged_chunk_q_cost(specs, attrs):
+    """Streams the gathered K/V once at 1 byte/elem (int8) plus the scale
+    sidecars — the whole point of quantized pages on the memory-bound
+    serving path."""
+    q, pk, tables = specs[0], specs[1], specs[5]
+    b, t, hq, d = q.shape
+    s = tables.shape[1] * pk.shape[1]
+    gathered = 2.0 * _gathered_bytes(pk, tables)      # int8 itemsize
+    return Cost(flops=4.0 * b * hq * t * s * d,
+                bytes=2.0 * q.nbytes + tables.nbytes + gathered
+                + _scale_bytes(specs))
+
+
+defop("paged_chunk_attention_q", _paged_chunk_q_shape, _paged_chunk_q_cost,
+      doc="chunked-prefill attention over int8 pages, dequantized with "
+          "per-(page, kv-head) scales; inputs (q (B,T,Hq,D), pages_k int8, "
+          "k_scales (N,Hk), pages_v int8, v_scales, tables (B,MP) int32, "
+          "start (B,)); attrs: scale")
+
+
+def _paged_chunk_q_gather_cost(specs, attrs):
+    """Adds the materialised fp32 dequantized gather (written then re-read)
+    on top of the int8 streaming cost."""
+    tables, pk = specs[5], specs[1]
+    base = _paged_chunk_q_cost(specs, attrs)
+    b, mp = tables.shape
+    n, p, h, d = pk.shape
+    dense_f32 = 4.0 * b * mp * p * h * d
+    return Cost(flops=base.flops, bytes=base.bytes + 2.0 * 2.0 * dense_f32)
+
+
+@impl("paged_chunk_attention_q", "ref", cost_fn=_paged_chunk_q_gather_cost,
+      note="dequantize after the gather, then the dense fp32 offset-causal "
+           "oracle")
+def _paged_chunk_attention_q_ref(inputs, attrs):
+    q, pk, ks, pv, vs, tables, start = inputs
+    return _chunk_attention_ref(
+        [q, gather_pages(pk, tables, ks), gather_pages(pv, tables, vs), start], attrs)
+
+
+@impl("paged_chunk_attention_q", "cuda",
+      supports=lambda specs, attrs: _paged_attn_cuda_supports(
+          specs, "int8", paged_chunk_fits),
+      note="paged flash CUDA kernel over int8 pages, dequantized per "
+           "(page, kv head) while each 64-row tile is staged")
+def _paged_chunk_attention_q_cuda(inputs, attrs):
+    q, pk, ks, pv, vs, tables, start = inputs
+    return [flash_paged_chunk_attention(q, pk, pv, tables, start, k_scales=ks,
+                                        v_scales=vs, scale=attrs.get("scale"))]
+
+
+# ---- paged_decode_attention_q --------------------------------------------- #
+# inputs (q (B,Hq,D), pages_k (N,P,Hk,D) i8, k_scales (N,Hk) f32,
+#         pages_v i8, v_scales, tables (B,MP) i32, lengths (B,))
+
+def _paged_dec_q_shape(specs, attrs):
+    pk, ks = specs[1], specs[2]
+    if pk.dtype != "int8":
+        raise ValueError(f"quantized pages must be int8, got {pk.dtype}")
+    if ks.shape != (pk.shape[0], pk.shape[2]):
+        raise ValueError(f"k_scales {ks.shape} != (N, Hk)")
+    return [specs[0]]
+
+
+def _paged_dec_q_cost(specs, attrs):
+    """Streams the gathered K/V once at 1 byte/elem (int8) plus the
+    scale sidecars."""
+    q, pk, tables = specs[0], specs[1], specs[5]
+    b, hq, d = q.shape
+    s = tables.shape[1] * pk.shape[1]
+    gathered = 2.0 * _gathered_bytes(pk, tables)
+    return Cost(flops=4.0 * b * hq * s * d,
+                bytes=2.0 * q.nbytes + tables.nbytes + gathered
+                + _scale_bytes(specs))
+
+
+defop("paged_decode_attention_q", _paged_dec_q_shape, _paged_dec_q_cost,
+      doc="single-token attention over int8 pages, dequantized with "
+          "per-(page, kv-head) scales; inputs (q (B,Hq,D), pages_k int8, "
+          "k_scales (N,Hk), pages_v int8, v_scales, tables (B,MP) int32, "
+          "lengths (B,)); attrs: scale")
+
+
+def _paged_dec_q_gather_cost(specs, attrs):
+    """Adds the materialised fp32 dequantized gather on top of the int8
+    streaming cost."""
+    tables, pk = specs[5], specs[1]
+    base = _paged_dec_q_cost(specs, attrs)
+    b, mp = tables.shape
+    n, p, h, d = pk.shape
+    dense_f32 = 4.0 * b * mp * p * h * d
+    return Cost(flops=base.flops, bytes=base.bytes + 2.0 * 2.0 * dense_f32)
+
+
+@impl("paged_decode_attention_q", "ref", cost_fn=_paged_dec_q_gather_cost,
+      note="dequantize after the gather + the dense fp32 decode oracle")
+def _paged_decode_attention_q_ref(inputs, attrs):
+    q, pk, ks, pv, vs, tables, lengths = inputs
+    return [R.decode_attention_ref(q, gather_pages(pk, tables, ks),
+                                   gather_pages(pv, tables, vs), lengths,
+                                   scale=attrs.get("scale"))]
+
+
+@impl("paged_decode_attention_q", "cuda",
+      supports=lambda specs, attrs: _paged_attn_cuda_supports(
+          specs, "int8", paged_decode_fits),
+      note="paged flash-decode CUDA kernel over int8 pages, dequantized per "
+           "(page, kv head) while each 64-row tile is staged")
+def _paged_decode_attention_q_cuda(inputs, attrs):
+    q, pk, ks, pv, vs, tables, lengths = inputs
+    return [flash_paged_decode(q, pk, pv, tables, lengths, k_scales=ks, v_scales=vs,
+                               scale=attrs.get("scale"))]

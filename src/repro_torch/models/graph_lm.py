@@ -1,5 +1,6 @@
 """A decoder-only transformer LM expressed as GraphIR — the serving engine's
-model.  Counterpart of :mod:`repro.models.graph_lm`, dense-cache branch.
+model.  Counterpart of :mod:`repro.models.graph_lm`: the dense-cache and
+paged-cache (fp32 or int8 pages) graphs.
 
 The builders emit the same nodes, value names and attrs as ``repro``'s, so
 a graph compiled in either package is node for node the same, and
@@ -16,15 +17,19 @@ State is functional: KV caches are graph *inputs* and *outputs*
 * decode:  tokens (B, 1)  — one token per slot, ``decode_attention``.
 * prefill: tokens (B, T)  — one chunk per slot, ``chunk_attention``;
   ``n_new[b] <= T`` marks the valid prefix (0 = slot idle this step).
+* paged: the caches are one shared page pool per layer plus a
+  ``block_tables`` input; writes and attention go through the ``paged_*``
+  ops, and with ``kv_dtype="int8"`` through the ``*_q`` ops with
+  ``cache_{k,v}{i}_scale`` sidecars.
 
 The graph LM has no positional encoding (no RoPE), like ``repro``'s.  The
-paged, int8, verify and draft builders are not ported yet.
+verify and draft builders are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +39,8 @@ from repro_torch.core.ir import Graph, Node, TensorSpec
 
 __all__ = ["GraphLMConfig", "init_lm_params", "init_lm_params_torch",
            "params_from_numpy", "build_decode_graph", "build_prefill_graph",
-           "init_cache_inputs"]
+           "init_cache_inputs", "init_paged_cache_inputs", "build_paged_decode_graph",
+           "build_paged_prefill_graph"]
 
 
 @dataclass(frozen=True)
@@ -137,20 +143,63 @@ def init_cache_inputs(cfg: GraphLMConfig, batch: int,
     return out
 
 
+def init_paged_cache_inputs(cfg: GraphLMConfig, n_blocks: int,
+                            page_size: int, *,
+                            kv_dtype: str = "float32") -> Dict[str, np.ndarray]:
+    """Zeroed page-pool arrays matching the paged graphs' cache input
+    names.  Unlike the dense layout there is no batch dimension — one
+    shared pool of ``n_blocks`` fixed-size pages per layer, indexed
+    through per-sequence block tables.  With ``kv_dtype="int8"`` the
+    pools are int8 and each gains a ``cache_{k,v}{i}_scale`` sidecar
+    ((n_blocks, Hk) float32, all zeros = every page empty)."""
+    if kv_dtype not in ("float32", "int8"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+    shape = (n_blocks, page_size, cfg.n_kv_heads, cfg.d_head)
+    dt = np.int8 if kv_dtype == "int8" else np.float32
+    out: Dict[str, np.ndarray] = {}
+    for i in range(cfg.n_layers):
+        out[f"cache_k{i}"] = np.zeros(shape, dt)
+        out[f"cache_v{i}"] = np.zeros(shape, dt)
+        if kv_dtype == "int8":
+            sshape = (n_blocks, cfg.n_kv_heads)
+            out[f"cache_k{i}_scale"] = np.zeros(sshape, np.float32)
+            out[f"cache_v{i}_scale"] = np.zeros(sshape, np.float32)
+    return out
+
+
 def _lm_graph(cfg: GraphLMConfig, params: Dict[str, Any], *, batch: int,
-              t: int, cache_cap: int, decode: bool) -> Graph:
+              t: int, cache_cap: int, decode: bool,
+              paged: Optional[Tuple[int, int, int]] = None,
+              kv_dtype: str = "float32") -> Graph:
     if t > cache_cap:
         raise ValueError(f"chunk {t} exceeds cache capacity {cache_cap}")
+    if kv_dtype not in ("float32", "int8"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+    kv8 = kv_dtype == "int8"
+    if kv8 and paged is None:
+        raise ValueError("kv_dtype='int8' requires the paged cache layout")
     dm, dh, hq, hk = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     inputs: Dict[str, TensorSpec] = {
         "tokens": TensorSpec((batch, t), "int32"),
         "start": TensorSpec((batch,), "int32"),
         "n_new": TensorSpec((batch,), "int32"),
     }
-    for i in range(cfg.n_layers):
-        spec = TensorSpec((batch, cache_cap, hk, dh), "float32")
-        inputs[f"cache_k{i}"] = spec
-        inputs[f"cache_v{i}"] = spec
+    if paged is None:
+        for i in range(cfg.n_layers):
+            spec = TensorSpec((batch, cache_cap, hk, dh), "float32")
+            inputs[f"cache_k{i}"] = spec
+            inputs[f"cache_v{i}"] = spec
+    else:
+        n_blocks, page_size, max_pages = paged
+        inputs["block_tables"] = TensorSpec((batch, max_pages), "int32")
+        for i in range(cfg.n_layers):
+            spec = TensorSpec((n_blocks, page_size, hk, dh), kv_dtype)
+            inputs[f"cache_k{i}"] = spec
+            inputs[f"cache_v{i}"] = spec
+            if kv8:
+                sspec = TensorSpec((n_blocks, hk), "float32")
+                inputs[f"cache_k{i}_scale"] = sspec
+                inputs[f"cache_v{i}_scale"] = sspec
 
     nodes: List[Node] = [Node("embed_lookup", "embedding",
                               ["tokens", "embed"], ["x0"])]
@@ -169,29 +218,74 @@ def _lm_graph(cfg: GraphLMConfig, params: Dict[str, Any], *, batch: int,
                  {"shape": (batch, t, hk, dh)}),
             Node(f"{L}.v_heads", "reshape", [f"{L}.v"], [f"{L}.v4"],
                  {"shape": (batch, t, hk, dh)}),
-            Node(f"{L}.k_write", "cache_update",
-                 [f"cache_k{i}", f"{L}.k4", "start", "n_new"],
-                 [f"new_cache_k{i}"]),
-            Node(f"{L}.v_write", "cache_update",
-                 [f"cache_v{i}", f"{L}.v4", "start", "n_new"],
-                 [f"new_cache_v{i}"]),
         ]
-        if decode:
+        if paged is None:
             nodes += [
-                Node(f"{L}.q_heads", "reshape", [f"{L}.q"],
-                     [f"{L}.qd"], {"shape": (batch, hq, dh)}),
-                Node(f"{L}.attn", "decode_attention",
-                     [f"{L}.qd", f"new_cache_k{i}", f"new_cache_v{i}", "kvlen"],
-                     [f"{L}.att"]),
+                Node(f"{L}.k_write", "cache_update",
+                     [f"cache_k{i}", f"{L}.k4", "start", "n_new"],
+                     [f"new_cache_k{i}"]),
+                Node(f"{L}.v_write", "cache_update",
+                     [f"cache_v{i}", f"{L}.v4", "start", "n_new"],
+                     [f"new_cache_v{i}"]),
+            ]
+        elif kv8:
+            nodes += [
+                Node(f"{L}.k_write", "paged_cache_update_q",
+                     [f"cache_k{i}", f"cache_k{i}_scale", f"{L}.k4",
+                      "block_tables", "start", "n_new"],
+                     [f"new_cache_k{i}", f"new_cache_k{i}_scale"]),
+                Node(f"{L}.v_write", "paged_cache_update_q",
+                     [f"cache_v{i}", f"cache_v{i}_scale", f"{L}.v4",
+                      "block_tables", "start", "n_new"],
+                     [f"new_cache_v{i}", f"new_cache_v{i}_scale"]),
             ]
         else:
             nodes += [
-                Node(f"{L}.q_heads", "reshape", [f"{L}.q"],
-                     [f"{L}.q4"], {"shape": (batch, t, hq, dh)}),
-                Node(f"{L}.attn", "chunk_attention",
-                     [f"{L}.q4", f"new_cache_k{i}", f"new_cache_v{i}", "start"],
-                     [f"{L}.att"]),
+                Node(f"{L}.k_write", "paged_cache_update",
+                     [f"cache_k{i}", f"{L}.k4", "block_tables", "start", "n_new"],
+                     [f"new_cache_k{i}"]),
+                Node(f"{L}.v_write", "paged_cache_update",
+                     [f"cache_v{i}", f"{L}.v4", "block_tables", "start", "n_new"],
+                     [f"new_cache_v{i}"]),
             ]
+        if decode:
+            nodes.append(Node(f"{L}.q_heads", "reshape", [f"{L}.q"],
+                              [f"{L}.qd"], {"shape": (batch, hq, dh)}))
+            if paged is None:
+                nodes.append(Node(
+                    f"{L}.attn", "decode_attention",
+                    [f"{L}.qd", f"new_cache_k{i}", f"new_cache_v{i}", "kvlen"],
+                    [f"{L}.att"]))
+            elif kv8:
+                nodes.append(Node(
+                    f"{L}.attn", "paged_decode_attention_q",
+                    [f"{L}.qd", f"new_cache_k{i}", f"new_cache_k{i}_scale",
+                     f"new_cache_v{i}", f"new_cache_v{i}_scale",
+                     "block_tables", "kvlen"], [f"{L}.att"]))
+            else:
+                nodes.append(Node(
+                    f"{L}.attn", "paged_decode_attention",
+                    [f"{L}.qd", f"new_cache_k{i}", f"new_cache_v{i}",
+                     "block_tables", "kvlen"], [f"{L}.att"]))
+        else:
+            nodes.append(Node(f"{L}.q_heads", "reshape", [f"{L}.q"],
+                              [f"{L}.q4"], {"shape": (batch, t, hq, dh)}))
+            if paged is None:
+                nodes.append(Node(
+                    f"{L}.attn", "chunk_attention",
+                    [f"{L}.q4", f"new_cache_k{i}", f"new_cache_v{i}", "start"],
+                    [f"{L}.att"]))
+            elif kv8:
+                nodes.append(Node(
+                    f"{L}.attn", "paged_chunk_attention_q",
+                    [f"{L}.q4", f"new_cache_k{i}", f"new_cache_k{i}_scale",
+                     f"new_cache_v{i}", f"new_cache_v{i}_scale",
+                     "block_tables", "start"], [f"{L}.att"]))
+            else:
+                nodes.append(Node(
+                    f"{L}.attn", "paged_chunk_attention",
+                    [f"{L}.q4", f"new_cache_k{i}", f"new_cache_v{i}",
+                     "block_tables", "start"], [f"{L}.att"]))
         nodes += [
             Node(f"{L}.attn_flat", "reshape", [f"{L}.att"], [f"{L}.attn2"],
                  {"shape": (batch, t, hq * dh)}),
@@ -219,8 +313,11 @@ def _lm_graph(cfg: GraphLMConfig, params: Dict[str, Any], *, batch: int,
     outputs = ["logits"]
     for i in range(cfg.n_layers):
         outputs += [f"new_cache_k{i}", f"new_cache_v{i}"]
+        if kv8:
+            outputs += [f"new_cache_k{i}_scale", f"new_cache_v{i}_scale"]
     mode = "decode" if decode else "prefill"
-    g = Graph(name=f"graph_lm_{mode}_b{batch}_t{t}", inputs=inputs,
+    tag = ("paged_kv8_" if kv8 else "paged_") if paged is not None else ""
+    g = Graph(name=f"graph_lm_{tag}{mode}_b{batch}_t{t}", inputs=inputs,
               outputs=outputs, nodes=nodes, params=dict(params))
     g.validate()
     return g
@@ -243,3 +340,36 @@ def build_prefill_graph(cfg: GraphLMConfig, params: Dict[str, Any], *,
     cache rows are never written)."""
     return _lm_graph(cfg, params, batch=batch, t=chunk, cache_cap=cache_cap,
                      decode=False)
+
+
+def build_paged_decode_graph(cfg: GraphLMConfig, params: Dict[str, Any], *,
+                             batch: int, n_blocks: int, page_size: int,
+                             max_pages: int,
+                             kv_dtype: str = "float32") -> Graph:
+    """Paged decode step: the dense caches are replaced by one shared
+    page pool per layer (``(n_blocks, page_size, Hk, D)``) plus an int32
+    ``block_tables`` input ``(B, max_pages)`` mapping each slot's logical
+    page to a physical block.  Every activation value name matches the
+    dense variant.
+
+    ``kv_dtype="int8"`` swaps the pools to int8 with per-(page, kv-head)
+    float32 scale sidecars (``cache_{k,v}{i}_scale`` inputs ->
+    ``new_...`` outputs) and routes writes/attention through the
+    ``*_q`` serving ops."""
+    return _lm_graph(cfg, params, batch=batch, t=1,
+                     cache_cap=max_pages * page_size, decode=True,
+                     paged=(n_blocks, page_size, max_pages),
+                     kv_dtype=kv_dtype)
+
+
+def build_paged_prefill_graph(cfg: GraphLMConfig, params: Dict[str, Any], *,
+                              batch: int, chunk: int, n_blocks: int,
+                              page_size: int, max_pages: int,
+                              kv_dtype: str = "float32") -> Graph:
+    """Paged prefill chunk — see :func:`build_paged_decode_graph` for the
+    cache layout (and the ``kv_dtype`` knob); chunk semantics match
+    :func:`build_prefill_graph`."""
+    return _lm_graph(cfg, params, batch=batch, t=chunk,
+                     cache_cap=max_pages * page_size, decode=False,
+                     paged=(n_blocks, page_size, max_pages),
+                     kv_dtype=kv_dtype)

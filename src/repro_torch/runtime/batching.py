@@ -65,6 +65,10 @@ class SlotScheduler:
         self.n_submitted += 1
         self.n_rejected += 1
 
+    def peek(self) -> Optional[Any]:
+        """The request :meth:`admit` would consider first, or None."""
+        return self._heap[0][2] if self._heap else None
+
     @property
     def busy_slots(self) -> int:
         return sum(1 for s in self.active if s is not None)
@@ -72,12 +76,22 @@ class SlotScheduler:
     def has_work(self) -> bool:
         return bool(self._heap) or any(s is not None for s in self.active)
 
-    def admit(self) -> List[Tuple[int, Any]]:
+    def admit(self, can_admit: Optional[Callable[[Any], bool]] = None
+              ) -> List[Tuple[int, Any]]:
         """Fill free slots from the queue; returns newly (slot, request)
-        pairs in admission order."""
+        pairs in admission order.
+
+        ``can_admit`` gates each candidate on a resource check beyond slot
+        count (the paged engine passes a block-availability predicate).
+        Admission stops at the first refused request rather than skipping
+        past it: FIFO-among-equal-priority order is part of the scheduler
+        contract, so a briefly-unadmittable request causes head-of-line
+        blocking instead of being silently overtaken."""
         out: List[Tuple[int, Any]] = []
         for slot in range(self.n_slots):
             if self.active[slot] is None and self._heap:
+                if can_admit is not None and not can_admit(self._heap[0][2]):
+                    break
                 _, _, req = heapq.heappop(self._heap)
                 self.active[slot] = req
                 out.append((slot, req))

@@ -1,4 +1,4 @@
-"""Program-backed serving engine, dense KV cache — counterpart of
+"""Program-backed serving engine, dense or paged KV cache — counterpart of
 :mod:`repro.runtime.engine`.
 
 Both engine steps are compiled :class:`~repro_torch.core.program.Program`\\ s
@@ -9,6 +9,13 @@ over the GraphIR LM (:mod:`repro_torch.models.graph_lm`):
 * prefill Program — tokens (B, chunk) + caches -> per-position logits;
   long prompts are split into fixed-size chunks interleaved with decode
   ticks.
+
+With ``paged=True`` the per-slot dense caches become one shared page pool
+per layer (fp32 or int8 pages) reached through block tables;
+:class:`PagedProgramStepper` owns the pool tensors and a
+:class:`~repro_torch.runtime.kv_cache.BlockPool` owns the bookkeeping
+(prefix reuse, copy-on-write), and admission waits on blocks as well as
+slots.
 
 Scheduling is deterministic and tick-based (wall-clock only feeds
 metrics): :class:`~repro_torch.runtime.batching.SlotScheduler` supplies
@@ -21,7 +28,7 @@ B=1 Programs compiled from the same graphs.  On the card this holds
 because every kernel computes a sequence's rows with arithmetic that does
 not depend on the batch (see ``csrc/``).
 
-Not ported yet (see ROADMAP.md): the paged cache, int8, speculative
+Not ported yet (see ROADMAP.md): int8 weights (``quantize``), speculative
 decoding, self-healing and tier-aware overload control, tensor parallel
 serving, ``AsyncEngine``, dense resume (``relocate_slots``).
 """
@@ -39,13 +46,17 @@ from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.core.program import compile
 from repro_torch.core.selector import BackendPolicy
 from repro_torch.models.graph_lm import (GraphLMConfig, build_decode_graph,
+                                         build_paged_decode_graph,
+                                         build_paged_prefill_graph,
                                          build_prefill_graph, init_cache_inputs,
-                                         init_lm_params, params_from_numpy)
+                                         init_lm_params, init_paged_cache_inputs,
+                                         params_from_numpy)
 from repro_torch.runtime.batching import SlotScheduler
+from repro_torch.runtime.kv_cache import BlockPool, kv_page_bytes
 
 __all__ = [
     "EngineRequest", "EngineMetrics", "Engine", "ProgramStepper",
-    "UnbatchedReference", "build_lm_serving", "padded_len",
+    "PagedProgramStepper", "UnbatchedReference", "build_lm_serving", "padded_len",
 ]
 
 
@@ -182,6 +193,8 @@ class ProgramStepper:
     Step dispatch goes through :meth:`Program.bind`, the positional
     fast-call path."""
 
+    paged = False
+
     def __init__(self, cfg: GraphLMConfig, params: Mapping[str, Any], *,
                  n_slots: int, chunk: int, cache_cap: int,
                  policy: Optional[BackendPolicy] = None,
@@ -206,9 +219,10 @@ class ProgramStepper:
             name: torch.zeros(shape, dtype=torch.float32, device=self.device)
             for name in cache_inputs}
 
-    def _call(self, fn, tokens, start, n_new) -> np.ndarray:
+    def _call(self, fn, tokens, start, n_new, *extra) -> np.ndarray:
         dev = self.device
         outs = fn(to_tensor(tokens, dev), to_tensor(start, dev), to_tensor(n_new, dev),
+                  *[to_tensor(e, dev) for e in extra],
                   *[self.caches[n] for n in sorted(self.caches)])
         logits = outs[0].cpu().numpy()
         for name, arr in zip(self.cache_names, outs[1:]):
@@ -241,6 +255,127 @@ class ProgramStepper:
         return self._call(self._dec, tokens, start, n_new)
 
 
+class PagedProgramStepper(ProgramStepper):
+    """Paged variant: the per-slot dense caches are replaced by one shared
+    page pool per layer plus per-sequence block tables
+    (:class:`~repro_torch.runtime.kv_cache.BlockPool` owns the host-side
+    block bookkeeping; this class owns the device page tensors and the
+    compiled paged Programs).
+
+    The engine's view is unchanged — same ``prefill(tokens, start, n_new)``
+    / ``decode(...)`` signatures — because this class records the written
+    rows with the pool itself (it sees the token values and ``n_new``),
+    applies any pending copy-on-write page copies to the device tensors,
+    and threads the freshly built block tables into the Program call.
+    What the engine gains on top is the admission interface:
+    :meth:`try_admit` (claim cached prefix blocks + reserve worst-case
+    growth; ``None`` = not enough blocks right now), :meth:`attach` and
+    :meth:`release`.
+    """
+
+    paged = True
+
+    def __init__(self, cfg: GraphLMConfig, params: Mapping[str, Any], *,
+                 n_slots: int, chunk: int, page_size: int, n_blocks: int,
+                 max_pages: int, kv_dtype: str = "float32",
+                 policy: Optional[BackendPolicy] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.chunk = chunk
+        self.page_size = page_size
+        self.n_blocks = n_blocks
+        self.max_pages = max_pages
+        self.kv_dtype = kv_dtype
+        self.cache_cap = max_pages * page_size   # per-sequence logical cap
+        self.device = resolve_device(device)
+        dec_g = build_paged_decode_graph(cfg, params, batch=n_slots, n_blocks=n_blocks,
+                                         page_size=page_size, max_pages=max_pages,
+                                         kv_dtype=kv_dtype)
+        pre_g = build_paged_prefill_graph(cfg, params, batch=n_slots, chunk=chunk,
+                                          n_blocks=n_blocks, page_size=page_size,
+                                          max_pages=max_pages, kv_dtype=kv_dtype)
+        self.decode_program = compile(dec_g, policy=policy, device=self.device)
+        self.prefill_program = compile(pre_g, policy=policy, device=self.device)
+        self.cache_names = list(dec_g.outputs[1:])  # new_cache_* (+ _scale)
+        pools = init_paged_cache_inputs(cfg, n_blocks, page_size, kv_dtype=kv_dtype)
+        cache_inputs = sorted(pools)
+        self._input_names = ("tokens", "start", "n_new", "block_tables", *cache_inputs)
+        self._dec = self.decode_program.bind(*self._input_names, donate=cache_inputs)
+        self._pre = self.prefill_program.bind(*self._input_names, donate=cache_inputs)
+        self.caches: Dict[str, torch.Tensor] = {
+            name: torch.zeros(arr.shape, dtype=torch.int8 if arr.dtype == np.int8
+                              else torch.float32, device=self.device)
+            for name, arr in pools.items()}
+        self.pool = BlockPool(
+            n_blocks, page_size, kv_dtype=kv_dtype,
+            page_bytes=kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head,
+                                     page_size, kv_dtype))
+        self._slot_seq: Dict[int, int] = {}
+
+    # ---------------------------- admission --------------------------- #
+    def try_admit(self, prompt: np.ndarray,
+                  max_new_tokens: int) -> Optional[Tuple[int, int]]:
+        """Claim the request's cached prefix and reserve its worst-case
+        block count.  Returns ``(sequence id, reused_tokens)`` or ``None``
+        when the pool cannot currently cover it (leave it queued)."""
+        return self.pool.admit([int(t) for t in prompt], max_new_tokens)
+
+    def attach(self, slot: int, sid: int) -> None:
+        self._slot_seq[slot] = sid
+
+    def release(self, slot: int, *, register: bool = True) -> None:
+        """Return the slot's blocks to the pool; a finished sequence
+        (``register=True``) leaves its pages in the prefix index for
+        future prompts to share."""
+        self.pool.release(self._slot_seq.pop(slot), register=register)
+
+    # ------------------------------ steps ----------------------------- #
+    def _record_writes(self, tokens: np.ndarray, start: np.ndarray,
+                       n_new: np.ndarray) -> None:
+        """Mirror this step's row writes into the pool (allocating pages
+        and triggering CoW), then apply the resulting page copies to the
+        device tensors BEFORE the Program call writes the new rows."""
+        for s in range(self.n_slots):
+            n = int(n_new[s])
+            if n == 0:
+                continue
+            sid = self._slot_seq[s]
+            seq = self.pool.sequence(sid)
+            if seq.n_tokens != int(start[s]):
+                raise RuntimeError(f"slot {s}: pool at {seq.n_tokens}, engine "
+                                   f"writing at {int(start[s])}")
+            self.pool.append(sid, [int(t) for t in tokens[s, :n]])
+        copies = self.pool.take_copies()
+        if copies:
+            src = torch.tensor([c[0] for c in copies], dtype=torch.long, device=self.device)
+            dst = torch.tensor([c[1] for c in copies], dtype=torch.long, device=self.device)
+            # axis 0 is the block id of every cache tensor — the page pools
+            # AND the int8 (N, Hk) scale sidecars — so one copy keeps a
+            # quantized CoW page bit-identical to its source.  In place: the
+            # stepper owns these tensors (every Program op is functional and
+            # hands back new ones), so nothing else can see the write.
+            for arr in self.caches.values():
+                arr.index_copy_(0, dst, arr[src])
+
+    def _tables(self) -> np.ndarray:
+        bt = np.zeros((self.n_slots, self.max_pages), np.int32)
+        for s, sid in self._slot_seq.items():
+            table = self.pool.block_table(sid)
+            bt[s, :len(table)] = table
+        return bt
+
+    def prefill(self, tokens: np.ndarray, start: np.ndarray,
+                n_new: np.ndarray) -> np.ndarray:
+        self._record_writes(tokens, start, n_new)
+        return self._call(self._pre, tokens, start, n_new, self._tables())
+
+    def decode(self, tokens: np.ndarray, start: np.ndarray,
+               n_new: np.ndarray) -> np.ndarray:
+        self._record_writes(tokens, start, n_new)
+        return self._call(self._dec, tokens, start, n_new, self._tables())
+
+
 # --------------------------------------------------------------------------- #
 # The engine
 # --------------------------------------------------------------------------- #
@@ -262,6 +397,10 @@ class Engine:
     decode Program call over the whole slot batch.  When both phases have
     work the engine alternates, which bounds any request's inter-token gap
     to roughly one chunk of someone else's prompt.
+
+    With a :class:`PagedProgramStepper`, admission is also gated on BLOCK
+    availability, a prefix hit fast-forwards prefill past the reused rows,
+    and a finished sequence leaves its pages in the prefix index.
     """
 
     def __init__(self, stepper: ProgramStepper, *, eos_id: int = -1,
@@ -270,6 +409,7 @@ class Engine:
         self.n_slots = stepper.n_slots
         self.chunk = stepper.chunk
         self.cache_cap = stepper.cache_cap
+        self.paged = stepper.paged
         self.eos_id = eos_id
         self.sched = SlotScheduler(self.n_slots, max_queue=max_queue)
         self.slots: List[Optional[_SlotState]] = [None] * self.n_slots
@@ -279,6 +419,10 @@ class Engine:
         self.metrics = EngineMetrics(n_slots=self.n_slots)
         self._last_was_prefill = False
         self._t0: Optional[float] = None
+        # (head uid, pool version) of the last admission gate refusal —
+        # skips re-running the prefix lookup every tick while nothing that
+        # could free blocks has happened
+        self._gate_blocked: Optional[Tuple[int, int]] = None
 
     def submit(self, req: EngineRequest) -> bool:
         """Admission control: False (with ``req.dropped`` set) when the
@@ -291,6 +435,9 @@ class Engine:
         if len(req.prompt) == 0 or req.max_new_tokens < 1:
             return self._reject(req, "empty")
         if len(req.prompt) + req.max_new_tokens - 1 > self.cache_cap:
+            return self._reject(req, "too_long")
+        if self.paged and not self.stepper.pool.fits_ever(
+                len(req.prompt), req.max_new_tokens):
             return self._reject(req, "too_long")
         if not self.sched.submit(req):
             req.dropped = "queue_full"
@@ -338,6 +485,9 @@ class Engine:
         req = self.sched.finish(slot)
         req.done = True
         self.slots[slot] = None
+        if self.paged:
+            # finished sequences donate their pages to the prefix index
+            self.stepper.release(slot, register=True)
         self.finished.append(req)
         self.metrics.n_finished += 1
         self._finalize(req)
@@ -347,6 +497,8 @@ class Engine:
         req = self.sched.drop(slot)
         req.dropped = reason
         self.slots[slot] = None
+        if self.paged:
+            self.stepper.release(slot, register=False)
         self.dropped.append(req)
         self.metrics.n_dropped += 1
         self._finalize(req)
@@ -371,8 +523,11 @@ class Engine:
         self.tick += 1
         self.metrics.ticks += 1
         self._expire()
-        for slot, req in self.sched.admit():
-            self.slots[slot] = _SlotState(req=req)
+        if self.paged:
+            self._admit_paged()
+        else:
+            for slot, req in self.sched.admit():
+                self.slots[slot] = _SlotState(req=req)
         prefill = [i for i, st in enumerate(self.slots)
                    if st is not None and not st.decoding]
         decode = [i for i, st in enumerate(self.slots)
@@ -384,6 +539,36 @@ class Engine:
             self._decode_tick(decode)
             self._last_was_prefill = False
         self.metrics.wall_s = time.perf_counter() - self._t0
+
+    def _admit_paged(self) -> None:
+        """Admission gated on BLOCK availability, not slot count alone.  The
+        gate performs the pool admission (claims cached prefix blocks +
+        reserves worst-case growth) so consecutive admissions in one tick
+        see each other's reservations."""
+        pool = self.stepper.pool
+        head = self.sched.peek()
+        if head is not None and self._gate_blocked == (head.uid, pool.version):
+            return
+        claims: Dict[int, Tuple[int, int]] = {}
+        refused: List[EngineRequest] = []
+
+        def gate(req: EngineRequest) -> bool:
+            admitted = self.stepper.try_admit(req.prompt, req.max_new_tokens)
+            if admitted is None:
+                refused.append(req)
+                return False
+            claims[id(req)] = admitted
+            return True
+
+        for slot, req in self.sched.admit(gate):
+            sid, reused = claims[id(req)]
+            self.stepper.attach(slot, sid)
+            # a prefix hit fast-forwards prefill past the reused rows
+            self.slots[slot] = _SlotState(req=req, pos=reused)
+        # remember a refused head: until a block reaches refcount 0 or a
+        # reservation returns (pool.version bump), re-running its prefix
+        # lookup every tick cannot change the answer
+        self._gate_blocked = (refused[0].uid, pool.version) if refused else None
 
     def _prefill_tick(self, slots: List[int]) -> None:
         t_begin = time.perf_counter()
@@ -540,11 +725,9 @@ class UnbatchedReference:
         return out
 
 
-# Options of repro's build_lm_serving that this slice of the port serves
-# only at their default: option -> (default, ROADMAP.md item that ports it).
+# Options of repro's build_lm_serving that the port serves only at their
+# default so far: option -> (default, ROADMAP.md item that ports it).
 _NOT_PORTED = {
-    "paged": (False, "Queue 1 item 5 (paged KV)"),
-    "kv_dtype": ("float32", "Queue 1 item 6 (int8)"),
     "quantize": (None, "Queue 1 item 6 (int8)"),
     "spec_k": (0, "Queue 1 item 7 (speculative decoding)"),
     "self_heal": (False, "Queue 1 item 8 (self-heal, tier-aware scheduling)"),
@@ -560,6 +743,10 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
                      seed: int = 0, eos_id: int = -1,
                      max_queue: Optional[int] = None,
                      params: Optional[Mapping[str, Any]] = None,
+                     paged: bool = False, page_size: int = 8,
+                     n_blocks: Optional[int] = None,
+                     max_pages: Optional[int] = None,
+                     kv_dtype: str = "float32",
                      device: DeviceLike = None,
                      **options: Any) -> Tuple[Engine, UnbatchedReference]:
     """Compile the serving Programs for a graph LM and return the engine
@@ -568,10 +755,22 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
 
     ``params`` may be the JAX package's numpy weights or tensors (tensors
     already on the device are shared, not copied); by default they are
-    ``init_lm_params(cfg, seed)``.  ``repro``'s other options (``paged``,
-    ``kv_dtype``, ``quantize``, ``spec_k``, ``self_heal``, ``tier_aware``,
-    ``mesh``, ``tp``) are accepted at their defaults only; anything else
-    raises ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    ``init_lm_params(cfg, seed)``.
+
+    ``paged=True`` swaps the dense per-slot caches for the paged KV cache
+    (:class:`PagedProgramStepper`): ``cache_cap`` becomes the per-sequence
+    logical capacity (rounded up to whole pages of ``page_size``, or
+    ``max_pages`` pages) and ``n_blocks`` sizes the shared pool —
+    defaulting to the same total memory as the dense layout (``n_slots *
+    ceil(cache_cap / page_size)`` pages).  ``kv_dtype="int8"`` (paged only)
+    stores the pools in int8 with per-(page, kv-head) scale sidecars and
+    routes the hot path through the ``*_q`` ops.  The reference stays dense
+    fp32 either way: it is the paged engine's token-exactness oracle.
+
+    ``repro``'s other options (``quantize``, ``spec_k``, ``self_heal``,
+    ``tier_aware``, ``mesh``, ``tp``) are accepted at their defaults only;
+    anything else raises ``NotImplementedError`` naming the ROADMAP item
+    that ports it."""
     for name, value in options.items():
         if name not in _NOT_PORTED:
             raise TypeError(f"build_lm_serving() got an unexpected keyword argument {name!r}")
@@ -581,12 +780,22 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
                 f"build_lm_serving({name}={value!r}) is not ported yet: "
                 f"see ROADMAP.md {item}")
     cfg = cfg or GraphLMConfig()
+    if kv_dtype != "float32" and not paged:
+        raise ValueError("kv_dtype requires paged=True")
     dev = resolve_device(device)
     params = params_from_numpy(
         params if params is not None else init_lm_params(cfg, seed), dev)
-    stepper = ProgramStepper(cfg, params, n_slots=n_slots, chunk=chunk,
-                             cache_cap=cache_cap, policy=policy, device=dev)
+    if paged:
+        mp = max_pages if max_pages is not None else -(-cache_cap // page_size)
+        nb = n_blocks if n_blocks is not None else n_slots * mp
+        stepper: ProgramStepper = PagedProgramStepper(
+            cfg, params, n_slots=n_slots, chunk=chunk, page_size=page_size,
+            n_blocks=nb, max_pages=mp, kv_dtype=kv_dtype, policy=policy, device=dev)
+    else:
+        stepper = ProgramStepper(cfg, params, n_slots=n_slots, chunk=chunk,
+                                 cache_cap=cache_cap, policy=policy, device=dev)
     engine = Engine(stepper, eos_id=eos_id, max_queue=max_queue)
-    reference = UnbatchedReference(cfg, params, cache_cap=cache_cap,
+    reference = UnbatchedReference(cfg, params,
+                                   cache_cap=max(cache_cap, stepper.cache_cap),
                                    policy=policy, device=dev)
     return engine, reference

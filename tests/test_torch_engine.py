@@ -2,7 +2,7 @@
 UnbatchedReference and against repro's engine (Pallas kernels in interpret
 mode) on the same weights and prompts, including a prompt of exactly
 cache_cap; admission control, deadlines, metrics, and the options that
-this slice does not serve yet."""
+the port does not serve yet."""
 
 import numpy as np
 import pytest
@@ -134,7 +134,6 @@ def test_scheduler_is_priority_fifo():
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("paged", True, "item 5"), ("kv_dtype", "int8", "item 6"),
     ("quantize", "int8", "item 6"), ("spec_k", 2, "item 7"),
     ("self_heal", True, "item 8"), ("tier_aware", True, "item 8"),
     ("mesh", object(), "item 12"), ("tp", 2, "item 12")])
@@ -142,9 +141,8 @@ def test_options_outside_the_slice_name_their_roadmap_item(option, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         build_lm_serving(CFG, device="cpu", **{option: value})
     build_lm_serving(CFG, n_slots=1, chunk=2, cache_cap=4, device="cpu",
-                     **{option: {"paged": False, "kv_dtype": "float32", "quantize": None,
-                                 "spec_k": 0, "self_heal": False, "tier_aware": False,
-                                 "mesh": None, "tp": None}[option]})
+                     **{option: {"quantize": None, "spec_k": 0, "self_heal": False,
+                                 "tier_aware": False, "mesh": None, "tp": None}[option]})
 
 
 def test_unknown_option_is_a_type_error():

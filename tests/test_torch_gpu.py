@@ -140,3 +140,160 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gemm(x, torch.randn(4, 3))
     with pytest.raises(TypeError, match="float32"):
         rmsnorm(x.double(), torch.ones(4, device=dev, dtype=torch.float64))
+
+
+def _paged_inputs(gen, dev, *, b, hq, hk, d, dv, page, mp, quant, lengths):
+    """A scrambled page pool: every sequence's live pages are distinct
+    blocks in random order, table entries past a sequence's live pages
+    are junk (any block id, even out of range), and with ``quant`` one
+    page is all zeros with scale 0."""
+    n = b * mp + 3
+    perm = torch.randperm(n, generator=gen, device=dev)
+    tables = torch.randint(-2, n + 2, (b, mp), generator=gen, device=dev)
+    for bi in range(b):
+        live = -(-int(lengths[bi]) // page)
+        tables[bi, :live] = perm[bi * mp:bi * mp + live]
+    tables = tables.to(torch.int32)
+    q_shape = (b, hq, d)
+    if quant:
+        pk = torch.randint(-127, 128, (n, page, hk, d), generator=gen, device=dev,
+                           dtype=torch.int8)
+        pv = torch.randint(-127, 128, (n, page, hk, dv), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand(n, hk, generator=gen, device=dev) * 0.05
+        vs = torch.rand(n, hk, generator=gen, device=dev) * 0.05
+        zero = int(perm[0])
+        pk[zero], pv[zero], ks[zero], vs[zero] = 0, 0, 0.0, 0.0
+        return q_shape, pk, pv, tables, dict(k_scales=ks, v_scales=vs)
+    pk = torch.randn(n, page, hk, d, generator=gen, device=dev)
+    pv = torch.randn(n, page, hk, dv, generator=gen, device=dev)
+    return q_shape, pk, pv, tables, {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_match_their_plain_versions_on_the_card(quant):
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_paged_chunk_attention,
+                                                     flash_paged_chunk_attention_plain)
+    from repro_torch.kernels.flash_decode import flash_paged_decode, flash_paged_decode_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    before = (flash_paged_decode.launches, flash_paged_chunk_attention.launches)
+    for hq, hk in GQA:
+        for page, mp in ((1, 70), (5, 14), (16, 5), (64, 2), (128, 1)):
+            cap = page * mp
+            for scale in (None, 0.0):
+                lengths = torch.tensor([0, cap, 37, 1], dtype=torch.int32, device=dev)
+                q_shape, pk, pv, tables, sc = _paged_inputs(
+                    gen, dev, b=4, hq=hq, hk=hk, d=96, dv=64, page=page, mp=mp,
+                    quant=quant, lengths=lengths)
+                q = torch.randn(*q_shape, generator=gen, device=dev)
+                s = 1 / math.sqrt(96) if scale is None else scale
+                out = flash_paged_decode(q, pk, pv, tables, lengths, scale=scale, **sc)
+                torch.testing.assert_close(out, flash_paged_decode_plain(
+                    q, pk, pv, tables, lengths, s, sc.get("k_scales"), sc.get("v_scales")),
+                    **TOL)
+                assert float(out[0].abs().max()) == 0.0      # length 0 gives 0
+                t = 16
+                start = torch.tensor([0, cap - t, 5, cap // 2], dtype=torch.int32, device=dev)
+                filled = torch.full((4,), cap, dtype=torch.int32, device=dev)
+                q_shape, pk, pv, tables, sc = _paged_inputs(
+                    gen, dev, b=4, hq=hq, hk=hk, d=32, dv=32, page=page, mp=mp,
+                    quant=quant, lengths=filled)
+                q = torch.randn(4, t, hq, 32, generator=gen, device=dev)
+                s = 1 / math.sqrt(32) if scale is None else scale
+                torch.testing.assert_close(
+                    flash_paged_chunk_attention(q, pk, pv, tables, start, scale=scale, **sc),
+                    flash_paged_chunk_attention_plain(q, pk, pv, tables, start, s,
+                                                      sc.get("k_scales"),
+                                                      sc.get("v_scales")), **TOL)
+    after = (flash_paged_decode.launches, flash_paged_chunk_attention.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [1, 5, 16, 64])
+def test_fp32_paged_kernels_equal_the_dense_kernels_bitwise(page):
+    """Same 64-row logical tiles and arithmetic: a paged row is bit for bit
+    the dense kernel's row on the gathered cache, junk entries included."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_chunk_attention,
+                                                     flash_paged_chunk_attention)
+    from repro_torch.kernels.flash_decode import (flash_decode, flash_paged_decode,
+                                                  gather_pages)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    mp = -(-300 // page)
+    lengths = torch.tensor([290, 0, 64, 1], dtype=torch.int32, device=dev)
+    q_shape, pk, pv, tables, _ = _paged_inputs(gen, dev, b=4, hq=8, hk=4, d=96, dv=96,
+                                               page=page, mp=mp, quant=False,
+                                               lengths=lengths)
+    k, v = gather_pages(pk, tables), gather_pages(pv, tables)
+    q = torch.randn(*q_shape, generator=gen, device=dev)
+    assert torch.equal(flash_paged_decode(q, pk, pv, tables, lengths),
+                       flash_decode(q, k, v, lengths))
+    start = torch.tensor([200, 0, 63, 5], dtype=torch.int32, device=dev)
+    filled = torch.full((4,), page * mp, dtype=torch.int32, device=dev)
+    _, pk, pv, tables, _ = _paged_inputs(gen, dev, b=4, hq=8, hk=4, d=96, dv=96,
+                                         page=page, mp=mp, quant=False, lengths=filled)
+    q = torch.randn(4, 64, 8, 96, generator=gen, device=dev)
+    assert torch.equal(flash_paged_chunk_attention(q, pk, pv, tables, start),
+                       flash_chunk_attention(q, gather_pages(pk, tables),
+                                             gather_pages(pv, tables), start))
+
+
+@pytest.mark.gpu
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_paged_chunk_attention
+    from repro_torch.kernels.flash_decode import flash_paged_decode
+    pk = torch.zeros(4, 8, 2, 300, device=dev)
+    tables = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    lengths = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):          # D > 256
+        flash_paged_decode(torch.zeros(1, 2, 300, device=dev), pk, pk, tables, lengths)
+    pk8 = torch.zeros(4, 8, 2, 16, dtype=torch.int8, device=dev)
+    sc = torch.zeros(4, 2, device=dev)
+    with pytest.raises(ValueError, match="both"):
+        flash_paged_decode(torch.zeros(1, 2, 16, device=dev), pk8, pk8, tables, lengths,
+                           k_scales=sc)
+    with pytest.raises(TypeError, match="int8"):
+        flash_paged_chunk_attention(torch.zeros(1, 3, 2, 16, device=dev), pk8.float(),
+                                    pk8.float(), tables, lengths, k_scales=sc, v_scales=sc)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_paged_decode(torch.zeros(1, 2, 16, device=dev), pk8, pk8, tables.cpu(),
+                           lengths, k_scales=sc, v_scales=sc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_small_paged_engine_on_the_card_matches_the_cpu(kv_dtype):
+    dev = _card()
+    from repro_torch.kernels.flash_decode import flash_paged_decode
+    from repro_torch.models.graph_lm import GraphLMConfig, init_lm_params
+    from repro_torch.runtime.engine import EngineRequest, build_lm_serving
+    cfg = GraphLMConfig(vocab=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=96)
+    params = init_lm_params(cfg, 0)
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab, 21).astype(np.int32)
+    prompts = [(np.concatenate([prefix, rng.integers(0, cfg.vocab, i).astype(np.int32)]), 4)
+               for i in range(1, 5)]
+    outs = {}
+    for device in (dev, "cpu"):
+        engine, reference = build_lm_serving(cfg, n_slots=3, chunk=8, cache_cap=48,
+                                             paged=True, page_size=5, kv_dtype=kv_dtype,
+                                             params=params, device=device)
+        launches = flash_paged_decode.launches
+        for p, n in prompts:       # one at a time: each later one hits the prefix
+            r = EngineRequest(uid=len(outs), prompt=p, max_new_tokens=n)
+            assert engine.submit(r)
+            engine.run()
+            outs.setdefault(str(device), []).append(r.out_tokens)
+            if kv_dtype == "float32":
+                assert r.out_tokens == reference.generate(p, n, chunk=8)
+        engine.stepper.pool.check_integrity()
+        assert engine.stepper.pool.hit_tokens > 0
+        if device == dev:
+            assert flash_paged_decode.launches > launches
+    assert outs[str(dev)] == outs["cpu"]
