@@ -8,12 +8,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a) into
              one shared library; print the time and ptxas' register lines.
-3. kernels — hold each of the six kernels against its plain PyTorch
+3. kernels — hold each of the seven kernels against its plain PyTorch
              version on the card: small edge cases, then the shapes the
-             full-width serving path gives it; time kernel, plain version
-             and one PyTorch library call with CUDA events (cold L2), beside
-             the least time the card could take (H100 SXM data-sheet peaks:
-             67 TFLOP/s fp32, 3.35 TB/s).  The two paged kernels run in both
+             full-width serving paths give it (phi3-mini widths for the
+             engine, gemma3-1b widths for the layer-stack batcher); time
+             kernel, plain version and one PyTorch library call with CUDA
+             events (cold L2), beside the least time the card could take
+             (H100 SXM data-sheet peaks: 67 TFLOP/s fp32, 3.35 TB/s).  The two paged kernels run in both
              modes (fp32 and int8 pages); their fp32 output must be bitwise
              equal to the dense kernel's on the gathered cache, and the
              dense kernel's time at the same logical shape is their
@@ -21,7 +22,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              The cache-write ops of the three serving paths are timed too.
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
-             paged fp32 (1e-4) and paged int8 (logits within 5e-2).
+             paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
+             reduced gemma3-1b layer-stack LM's prefill and decode on the
+             card agree with the CPU's (1e-4).
 5. serving — phi3-mini widths, all 32 layers, random weights from a seed:
              the engine serves 8 requests (4 slots, chunk 64, cache 1024);
              every request's tokens must equal the unbatched reference's,
@@ -40,6 +43,13 @@ Phases, each printing its own lines; any failure exits non-zero:
              equal bytes; completion, launches, hits and copies are checked,
              and agreement with the fp32 reference is reported, not
              asserted (int8 KV is lossy).
+8. layerstack — gemma3-1b at its published widths, all 26 layers, fp32,
+             random weights from seed 0 drawn on the card: the continuous
+             batcher (4 slots, cache 2048) serves 8 requests of 200-1400
+             prompt tokens (both sides of the 512 window) and 32 new tokens
+             each; every request must equal the unbatched greedy prefill +
+             decode on the card token for token, and flash_attention,
+             flash_decode, rmsnorm and gemm must launch as the path needs.
 
 The last three lines of standard output are JSON: the serving numbers, one
 entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
@@ -171,6 +181,25 @@ def kernel_cases(torch, K):
                                 K.flash_chunk_attention(q, k, v, start, scale=scale),
                                 K.flash_chunk_attention_plain(q, k, v, start, sc), **tol)
                     n += 1
+    # flash_attention: causal or not, windows 1, 16, past the sequence and
+    # none, Sq < Skv, GQA 1/2/4, D 16-256, Dv != D, lengths off the tiles
+    for b, sq, skv, hq, hk, d, dv in ((2, 37, 37, 4, 4, 16, 16), (1, 70, 100, 4, 2, 96, 96),
+                                      (2, 45, 45, 4, 1, 128, 128), (1, 130, 130, 4, 1, 256, 256),
+                                      (1, 33, 50, 2, 1, 24, 16), (3, 20, 97, 2, 2, 96, 64)):
+        q, k, v = rn(b, sq, hq, d), rn(b, skv, hk, d), rn(b, skv, hk, dv)
+        for causal in (True, False):
+            for window in (None, 1, 16, skv + 5):
+                got = K.flash_attention(q, k, v, causal=causal, window=window)
+                check_close(torch, f"flash_attention {b}x{sq}x{skv} hq={hq} hk={hk} d={d} "
+                            f"dv={dv} causal={causal} window={window}", got,
+                            K.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                    scale=1.0 / math.sqrt(d)), **tol)
+                n += 1
+    q, k, v = rn(4, 4, 256), rn(4, 512, 1, 256), rn(4, 512, 1, 256)   # gemma3's decode
+    lengths = torch.tensor([512, 300, 1, 0], dtype=torch.int32, device="cuda")
+    check_close(torch, "flash_decode D=256 G=4", K.flash_decode(q, k, v, lengths),
+                K.flash_decode_plain(q, k, v, lengths, 1.0 / 16), **tol)
+    n += 1
     torch.cuda.synchronize()
     return n + paged_kernel_cases(torch, K, rn, g, tol)
 
@@ -273,7 +302,7 @@ def full_width_shapes(cfg, n_slots, chunk, cache_cap):
     return gemm, rms
 
 
-def kernels_phase(torch, K, cfg, n_slots, chunk, cache_cap, page, pools, limit_line):
+def kernels_phase(torch, K, cfg, lcfg, n_slots, chunk, cache_cap, page, pools, limit_line):
     timer = Timer(torch)
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -372,6 +401,8 @@ def kernels_phase(torch, K, cfg, n_slots, chunk, cache_cap, page, pools, limit_l
                err, ms, plain, lib, 2.0 * cols * hq * 2 * dh,
                4.0 * (rows_read * hk * 2 * dh + 2 * b * t * hq * dh + b))
         del q, k, v
+
+    layerstack_kernels(torch, K, lcfg, rn, timer, record, full_tol)
 
     # the paged kernels at the engine's shapes: pools of the serving phases
     # (fp32: 256 blocks, int8: the block count of equal bytes), page 16
@@ -474,6 +505,126 @@ def kernels_phase(torch, K, cfg, n_slots, chunk, cache_cap, page, pools, limit_l
     return results, by_tag, ops_ms
 
 
+def attention_pairs(sq, skv, causal, window):
+    """(query row, column) pairs flash_attention's mask allows (row i at
+    position skv - sq + i): the work this input needs."""
+    n = 0
+    for i in range(sq):
+        row = skv - sq + i
+        hi = min(skv - 1, row) if causal else skv - 1
+        lo = max(0, row - window + 1) if window is not None else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+LAYERSTACK_PREFILL = 1024     # the prompt length phase 3 times the prefill kernels at
+
+
+def layerstack_kernels(torch, K, lcfg, rn, timer, record, full_tol):
+    """The layer-stack path's kernels at gemma3-1b widths: the GEMMs and
+    rmsnorm of a batch-4 decode step and of a 1024-token prefill,
+    flash_decode over the global (2048) and rolling local (512) caches, and
+    flash_attention over a 1024-token prompt with the 512 window and
+    without.  The library yardstick of the attentions is SDPA with the
+    same boolean mask (GQA through enable_gqa)."""
+    F = torch.nn.functional
+    dm, ff, vocab = lcfg.d_model, lcfg.d_ff, lcfg.vocab_padded
+    hq, hk, dh = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    L = LAYERSTACK_PREFILL
+    shapes = []
+    for m, tag in ((4, "layerstack decode"), (L, "layerstack prefill")):
+        for kk, nn, what in ((dm, hq * dh, "q"), (dm, hk * dh, "k/v"), (hq * dh, dm, "o"),
+                             (dm, ff, "gate/up"), (ff, dm, "down")):
+            shapes.append((f"{tag} {what}", m, nn, kk))
+    shapes += [("layerstack decode head", 4, vocab, dm), ("layerstack prefill head", 1, vocab, dm)]
+    for tag, m, nn, kk in shapes:
+        x, w = rn(m, kk), rn(kk, nn, scale=1.0 / math.sqrt(kk))
+        err = check_close(torch, f"gemm {tag}", K.gemm(x, w), K.gemm_plain(x, w), **full_tol)
+        ms = timer.ms(lambda: K.gemm(x, w))
+        plain = timer.ms(lambda: K.gemm_plain(x, w))
+        lib = timer.ms(lambda: torch.matmul(x, w))
+        record("gemm", tag, f"{tag} M={m} N={nn} K={kk}", err, ms, plain, lib,
+               2.0 * m * nn * kk, 4.0 * (m * kk + kk * nn + m * nn))
+        del x, w
+    for tag, rows in (("layerstack decode", 4), ("layerstack prefill", L)):
+        x, w = rn(rows, dm), 1.0 + 0.1 * rn(dm)
+        eps = lcfg.norm_eps
+        err = check_close(torch, f"rmsnorm {tag}", K.rmsnorm(x, w, eps=eps),
+                          K.rmsnorm_plain(x, w, eps=eps), **full_tol)
+        ms = timer.ms(lambda: K.rmsnorm(x, w, eps=eps))
+        plain = timer.ms(lambda: K.rmsnorm_plain(x, w, eps=eps))
+        lib = timer.ms(lambda: F.rms_norm(x, (dm,), w, eps))
+        record("rmsnorm", tag, f"{tag} rows={rows} D={dm}", err, ms, plain, lib,
+               3.0 * rows * dm, 4.0 * (2 * rows * dm + dm))
+    sc = 1.0 / math.sqrt(dh)
+    for tag, s_len, lens in (("layerstack decode global", 2048, [1400, 1000, 600, 250]),
+                             ("layerstack decode local", lcfg.window, [512, 512, 512, 251])):
+        b = len(lens)
+        q, k, v = rn(b, hq, dh), rn(b, s_len, hk, dh), rn(b, s_len, hk, dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        err = check_close(torch, f"flash_decode {tag}", K.flash_decode(q, k, v, lengths),
+                          K.flash_decode_plain(q, k, v, lengths, sc), **full_tol)
+        ms = timer.ms(lambda: K.flash_decode(q, k, v, lengths))
+        plain = timer.ms(lambda: K.flash_decode_plain(q, k, v, lengths, sc))
+        mask = (torch.arange(s_len, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                              enable_gqa=True))
+        live = sum(lens)
+        record("flash_decode", tag, f"{tag} B={b} Hq={hq} Hk={hk} D={dh} S={s_len} len={lens}",
+               err, ms, plain, lib, 2.0 * live * hq * 2 * dh,
+               4.0 * (live * hk * 2 * dh + 2 * b * hq * dh + b))
+        del q, k, v
+    for tag, window in (("layerstack prefill window", lcfg.window), ("layerstack prefill global",
+                                                                    None)):
+        q, k, v = rn(1, L, hq, dh), rn(1, L, hk, dh), rn(1, L, hk, dh)
+        err = check_close(torch, f"flash_attention {tag}", K.flash_attention(q, k, v, window=window),
+                          K.flash_attention_plain(q, k, v, causal=True, window=window, scale=sc),
+                          **full_tol)
+        ms = timer.ms(lambda: K.flash_attention(q, k, v, window=window))
+        plain = timer.ms(lambda: K.flash_attention_plain(q, k, v, causal=True, window=window,
+                                                         scale=sc))
+        row = torch.arange(L, device="cuda")[:, None]
+        col = torch.arange(L, device="cuda")[None, :]
+        mask = (col <= row) & ((col > row - window) if window is not None else True)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                              enable_gqa=True))
+        pairs = attention_pairs(L, L, True, window)
+        record("flash_attention", tag, f"{tag} B=1 L={L} Hq={hq} Hk={hk} D={dh} "
+               f"window={window}", err, ms, plain, lib, 2.0 * pairs * hq * 2 * dh,
+               4.0 * (2 * L * hq * dh + 2 * L * hk * dh))
+        del q, k, v
+
+
+def layerstack_estimate(by_tag, lcfg):
+    """Milliseconds of one batch-4 decode step and of one 1024-token
+    prefill of the layer-stack path, by part, from phase 3's single-call
+    times (each part timed alone; see tick_estimate)."""
+    n_local = sum(b.mixer == "attn_local" for b in lcfg.plan.all_blocks())
+    n_global = lcfg.n_layers - n_local
+    out = {}
+    for phase in ("decode", "prefill"):
+        tag = f"layerstack {phase}"
+
+        def g(what):
+            return by_tag[("gemm", f"{tag} {what}")]
+
+        layer_gemm = g("q") + 2 * g("k/v") + g("o") + 2 * g("gate/up") + g("down")
+        if phase == "decode":
+            attn = (n_global * by_tag[("flash_decode", "layerstack decode global")]
+                    + n_local * by_tag[("flash_decode", "layerstack decode local")])
+        else:
+            attn = (n_global * by_tag[("flash_attention", "layerstack prefill global")]
+                    + n_local * by_tag[("flash_attention", "layerstack prefill window")])
+        out[phase] = {
+            "gemm": lcfg.n_layers * layer_gemm + g("head"),
+            "rmsnorm": (2 * lcfg.n_layers + 1) * by_tag[("rmsnorm", tag)],
+            "attention": attn,
+        }
+    return out
+
+
 def tick_estimate(by_tag, ops_ms, n_layers, path):
     """Milliseconds of one engine tick of a serving path, by part: each
     kernel's time at the tick's shapes (phase 3) times its launches per
@@ -570,6 +721,35 @@ def model_phase(torch):
     return worst, worst_kv8
 
 
+def layerstack_model_phase(torch):
+    """The reduced gemma3-1b layer-stack LM (local and global layers, MQA):
+    prefill of two 24-token prompts (past the window of 16), its caches,
+    and four decode steps on the card (the kernels) against the CPU (the
+    plain ``ref`` path), from the same weights.  Returns the worst
+    |card - CPU| (tolerance 1e-4)."""
+    import numpy as np
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import LM, params_from_numpy
+
+    card, cpu = (LM(serving_config("gemma3-1b", device=d)) for d in ("cuda", "cpu"))
+    p_cpu = cpu.init_params(4, device="cpu")
+    p_card = params_from_numpy(p_cpu, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cpu.cfg.vocab, (2, 28))
+                            .astype(np.int32))
+    runs = []
+    for model, params, dev in ((card, p_card, "cuda"), (cpu, p_cpu, "cpu")):
+        t = toks.to(dev)
+        lg, caches, lengths = model.prefill(params, {"tokens": t[:, :24]}, cache_cap=40)
+        outs = [lg] + _leaves(caches)
+        for i in range(24, 28):
+            lg, caches = model.decode_step(params, t[:, i], caches, lengths)
+            lengths = lengths + 1
+            outs.append(lg)
+        runs.append(outs + _leaves(caches))
+    return max(check_close(torch, "layer-stack LM card vs CPU", got.cpu(), want,
+                           atol=1e-4, rtol=1e-4) for got, want in zip(*runs))
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: serving at full width
 # --------------------------------------------------------------------------- #
@@ -617,7 +797,7 @@ def serving_phase(torch, K, cfg, params, n_slots, chunk, cache_cap, n_requests, 
         f"{m.decode_ticks} decode ticks")
     say(f"  launches during the engine run: {launches}")
     for name, n in launches.items():
-        if (n == 0) != name.startswith("flash_paged"):
+        if (n == 0) != (name.startswith("flash_paged") or name == "flash_attention"):
             fail(f"kernel {name}: {n} launches by the dense-cache engine")
     ticks = m.prefill_ticks + m.decode_ticks
     per_tick = {"gemm": 7 * cfg.n_layers + 1, "rmsnorm": 2 * cfg.n_layers + 1}
@@ -742,7 +922,7 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     want = {"gemm": (7 * L + 1) * ticks, "rmsnorm": (2 * L + 1) * ticks,
             "flash_paged_chunk_attention": L * m.prefill_ticks,
             "flash_paged_decode": L * m.decode_ticks,
-            "flash_decode": 0, "flash_chunk_attention": 0}
+            "flash_decode": 0, "flash_chunk_attention": 0, "flash_attention": 0}
     if launches != want:
         fail(f"{kv_dtype}: launches {launches} != expected {want}")
     stats = {
@@ -781,8 +961,128 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     return launches, stats, agreement
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: the layer-stack LM under the continuous batcher, at full width
+# --------------------------------------------------------------------------- #
+
+def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_requests=8,
+                     max_new=32):
+    """``cfg`` (gemma3-1b at its published widths, fp32, from
+    ``serving_config``) served by the continuous batcher through the entry
+    points a user calls (``LM``, ``ContinuousBatcher``).  Returns the
+    launches and the serving numbers; fails unless every request equals
+    the unbatched greedy prefill + decode on the card."""
+    import numpy as np
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.batching import ContinuousBatcher, Request
+
+    class TimedLM(LM):
+        """Host clock around each prefill and decode step, ending in a
+        synchronise (the batcher reads the argmax right after anyway)."""
+
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.prefill_s, self.decode_s = [], []
+
+        def prefill(self, *args, **kw):
+            t = time.perf_counter()
+            out = super().prefill(*args, **kw)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t)
+            return out
+
+        def decode_step(self, *args, **kw):
+            t = time.perf_counter()
+            out = super().decode_step(*args, **kw)
+            torch.cuda.synchronize()
+            self.decode_s.append(time.perf_counter() - t)
+            return out
+
+    model = TimedLM(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params)) - params["embed_t"].numel()
+    say(f"  weights {n_params / 1e9:.4f} B params ({4 * n_params / 1e9:.2f} GB fp32, plus "
+        f"the {4 * params['embed_t'].numel() / 1e9:.2f} GB transposed tied embedding), drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(200, 1401, n_requests)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new_tokens=max_new) for i, n in enumerate(lens)]
+    if not (min(lens) <= cfg.window < max(lens)):
+        fail(f"prompt lengths {lens.tolist()} do not straddle the window {cfg.window}")
+    batcher = ContinuousBatcher(model, params, n_slots=n_slots, cache_cap=cache_cap, eos_id=-1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in K.KERNELS:
+        kern.launches = 0
+    for r in reqs:
+        batcher.submit(r)
+    t_run = time.perf_counter()
+    finished = batcher.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  batcher: {len(reqs)} requests, prompts {lens.tolist()}, {batcher.steps} decode "
+        f"steps in {t_run:.2f} s")
+    say(f"  launches during the batcher run: {launches}")
+    if len(finished) != len(reqs) or any(len(r.out_tokens) != max_new for r in reqs):
+        fail("layerstack: not every request finished with its tokens")
+    L, calls = cfg.n_layers, len(reqs) + batcher.steps
+    want = {"gemm": (7 * L + 1) * calls, "rmsnorm": (2 * L + 1) * calls,
+            "flash_attention": L * len(reqs), "flash_decode": L * batcher.steps,
+            "flash_chunk_attention": 0, "flash_paged_decode": 0,
+            "flash_paged_chunk_attention": 0}
+    if launches != want:
+        fail(f"layerstack: launches {launches} != expected {want}")
+    n_out = sum(len(r.out_tokens) for r in reqs)
+    stats = {
+        "prefill_ms_per_request": 1e3 * sum(model.prefill_s) / len(model.prefill_s),
+        "prefill_ms_per_token": 1e3 * sum(model.prefill_s) / int(lens.sum()),
+        "decode_ms_per_step": 1e3 * sum(model.decode_s) / len(model.decode_s),
+        "tokens_per_s": n_out / t_run,
+        "slot_utilisation": batcher.utilisation,
+        "max_memory_allocated_gb": peak / 1e9,
+        "batcher_wall_s": t_run,
+        "decode_steps": batcher.steps,
+        "prompt_tokens": int(lens.sum()),
+        "tokens_out": n_out,
+    }
+    say(f"  serving (layer-stack batcher): {json.dumps(stats)} [{card}]")
+
+    t_ref = time.perf_counter()
+    for r in reqs:
+        lg, caches, lengths = model.prefill(
+            params, {"tokens": torch.as_tensor(r.prompt, device="cuda")[None]},
+            cache_cap=cache_cap)
+        ref = [int(lg[0].argmax())]
+        while len(ref) < max_new:
+            lg, caches = model.decode_step(
+                params, torch.tensor([ref[-1]], dtype=torch.int32, device="cuda"), caches,
+                lengths)
+            lengths = lengths + 1
+            ref.append(int(lg[0].argmax()))
+        if r.out_tokens != ref:
+            fail(f"layerstack request {r.uid} (prompt {len(r.prompt)}): batcher "
+                 f"{r.out_tokens} != unbatched {ref}")
+    say(f"  all {len(reqs)} requests token-exact against the unbatched greedy prefill + "
+        f"decode on the card ({time.perf_counter() - t_ref:.2f} s)")
+    del params, batcher
+    return launches, stats
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 class Kernels:
-    """The port's four kernel wrappers and their plain versions."""
+    """The port's kernel wrappers and their plain versions."""
 
     def __init__(self):
         from repro_torch.kernels import flash_attention as fa
@@ -798,9 +1098,12 @@ class Kernels:
         self.flash_paged_decode_plain = fd.flash_paged_decode_plain
         self.flash_paged_chunk_attention = fa.flash_paged_chunk_attention
         self.flash_paged_chunk_attention_plain = fa.flash_paged_chunk_attention_plain
+        self.flash_attention = fa.flash_attention
+        self.flash_attention_plain = fa.flash_attention_plain
         self.gather_pages = fd.gather_pages
         self.KERNELS = (gemm, rmsnorm, fd.flash_decode, fa.flash_chunk_attention,
-                        fd.flash_paged_decode, fa.flash_paged_chunk_attention)
+                        fd.flash_paged_decode, fa.flash_paged_chunk_attention,
+                        fa.flash_attention)
 
 
 SOURCES = {
@@ -814,6 +1117,8 @@ SOURCES = {
                            "src/repro/kernels/flash_decode.py:206"),
     "flash_paged_chunk_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                     "src/repro/kernels/flash_attention.py:297"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:94"),
 }
 
 
@@ -857,6 +1162,7 @@ def main() -> int:
     phase_s["build"] = time.perf_counter() - t
 
     from repro_torch.core.device import resolve_device
+    from repro_torch.launch.serve import serving_config
     from repro_torch.models.graph_lm import GraphLMConfig, init_lm_params_torch
     from repro_torch.runtime.kv_cache import kv_page_bytes
     resolve_device("cuda")  # pins fp32 matmuls (no TF32) for the plain versions
@@ -873,6 +1179,10 @@ def main() -> int:
     n_int8 = n_fp32 * kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head, page) \
         // kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head, page, "int8")
     pools = {"fp32": n_fp32, "int8": n_int8}
+    # gemma3-1b at its published widths (src/repro/configs/gemma3_1b.py), fp32:
+    # d_model 1152, 4 heads on 1 kv head of 256, d_ff 6912, vocab 262144 (tied),
+    # 26 layers (5 local : 1 global, window 512), RoPE theta 1e6
+    lcfg = serving_config("gemma3-1b", full=True, device="cuda")
 
     # 3. kernels
     t = time.perf_counter()
@@ -881,8 +1191,8 @@ def main() -> int:
         f"(atol = rtol = 2e-5); fp32 paged outputs bitwise equal to the dense kernels")
     say(f"[kernels] full-width shapes (tolerance atol = rtol = 1e-4; median of 15 "
         f"cold-L2 launches; bound from 67 TFLOP/s fp32 and 3.35 TB/s):")
-    results, by_tag, ops_ms = kernels_phase(torch, K, cfg, n_slots, chunk, cache_cap, page,
-                                            pools, limit_line)
+    results, by_tag, ops_ms = kernels_phase(torch, K, cfg, lcfg, n_slots, chunk, cache_cap,
+                                            page, pools, limit_line)
     phase_s["kernels"] = time.perf_counter() - t
 
     # 4. small model, card vs CPU
@@ -891,6 +1201,9 @@ def main() -> int:
     say(f"[model] small model prefill + decode Programs, dense and paged fp32: card vs CPU "
         f"max |err| {worst:.2e} (atol = rtol = 1e-4); paged int8: max |logit err| "
         f"{worst_kv8:.2e} (bound 5e-2)")
+    worst_ls = layerstack_model_phase(torch)
+    say(f"[model] reduced gemma3-1b layer-stack LM, prefill + caches + 4 decode steps: card "
+        f"vs CPU max |err| {worst_ls:.2e} (atol = rtol = 1e-4)")
     phase_s["model"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -924,6 +1237,16 @@ def main() -> int:
         runs[f"paged {mode}"] = (launches, stats)
         agreement[mode] = agree
         phase_s[phase] = time.perf_counter() - t
+    del params
+    torch.cuda.empty_cache()
+
+    # 8. the layer-stack LM under the continuous batcher
+    t = time.perf_counter()
+    say(f"[layerstack] gemma3-1b widths, {lcfg.n_layers} layers, fp32, 4 slots, cache 2048 "
+        f"[{limit_line}]")
+    ls_launches, ls_stats = layerstack_phase(torch, K, lcfg, limit_line)
+    torch.cuda.empty_cache()
+    phase_s["layerstack"] = time.perf_counter() - t
 
     for path, (_, stats) in runs.items():
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path)
@@ -937,6 +1260,21 @@ def main() -> int:
             say(f"[breakdown] {path} {phase} tick {tick_ms:.2f} ms: {parts}, remainder "
                 f"(other plain ops, logits to host, Python, less the overlap of parts "
                 f"timed alone) {rest:.2f} ms ({100 * rest / tick_ms:.0f}%) [{limit_line}]")
+    est = layerstack_estimate(by_tag, lcfg)
+    for phase, measured, what in (
+            ("decode", ls_stats["decode_ms_per_step"], "step"),
+            ("prefill", ls_stats["prefill_ms_per_token"] * LAYERSTACK_PREFILL,
+             f"{LAYERSTACK_PREFILL}-token prefill (measured ms per prompt token x "
+             f"{LAYERSTACK_PREFILL})")):
+        parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / measured:.0f}%)"
+                          for k, v in est[phase].items())
+        rest = measured - sum(est[phase].values())
+        say(f"[breakdown] layerstack {phase} {what} {measured:.2f} ms: {parts}, remainder "
+            f"(plain ops, logits to host, Python, less overlap) {rest:.2f} ms "
+            f"({100 * rest / measured:.0f}%) [{limit_line}]")
+    serving["layerstack"] = ls_stats
+    estimates["layerstack"] = est
+    runs["layerstack"] = (ls_launches, ls_stats)
     phase_s["total"] = time.perf_counter() - t_start
     say(f"[done] wall seconds per phase {json.dumps(phase_s)}")
 

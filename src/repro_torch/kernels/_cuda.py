@@ -52,6 +52,8 @@ _SIGNATURES: Dict[str, tuple] = {
     # q, pages_k, pages_v, tables, start, o; B, T, Hq, Hk, N, P, MP, D, Dv
     "flash_paged_chunk_attention_f32": (*[_P] * 6, *[_I] * 9, _F, _P),
     "flash_paged_chunk_attention_i8": (*[_P] * 8, *[_I] * 9, _F, _P),
+    # q, k, v, o; B, T, Hq, Hk, Skv, D, Dv, causal, window
+    "flash_attention_f32": (*[_P] * 4, *[_I] * 9, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,2 +1,3 @@
-"""Serving runtime of the port: slot scheduling (:mod:`.batching`) and the
-Program-backed dense-cache engine (:mod:`.engine`)."""
+"""Serving runtime of the port: slot scheduling and the continuous batcher
+over layer-stack models (:mod:`.batching`), and the Program-backed
+dense and paged engine (:mod:`.engine`)."""

@@ -1,18 +1,33 @@
-"""Slot scheduling for fixed-batch serving — counterpart of
-:class:`repro.runtime.batching.SlotScheduler` (the JAX package's
-``ContinuousBatcher`` over layer-stack models is not ported).
-
-Priority FIFO admission, bounded-queue admission control and conservation
-accounting: every submitted request reaches exactly one terminal state —
-finished, rejected, or dropped — and is handed out exactly once.
+"""Continuous batching for serving — counterpart of
+:mod:`repro.runtime.batching`: :class:`SlotScheduler` (priority FIFO
+admission, bounded-queue admission control and conservation accounting:
+every submitted request reaches exactly one terminal state — finished,
+rejected, or dropped — and is handed out exactly once) and
+:class:`ContinuousBatcher`, which runs a layer-stack LM
+(:class:`repro_torch.models.lm.LM`) over a fixed decode batch, refilling
+finished slots from the queue via a single-sequence prefill whose cache is
+spliced into the slot.
 """
 
 from __future__ import annotations
 
 import heapq
+from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Tuple
 
-__all__ = ["SlotScheduler"]
+import numpy as np
+import torch
+
+__all__ = ["Request", "ContinuousBatcher", "SlotScheduler"]
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray               # (prompt_len,) int32
+    max_new_tokens: int
+    out_tokens: List[int] = field(default_factory=list)
+    done: bool = False
 
 
 class SlotScheduler:
@@ -136,3 +151,110 @@ class SlotScheduler:
         assert accounted == self.n_submitted, (
             f"conservation violated: submitted={self.n_submitted} "
             f"accounted={accounted}")
+
+
+class ContinuousBatcher:
+    """Drives an LM's (prefill, decode_step) over a slot-based batch.
+
+    ``model.prefill(params, {"tokens": (1, L)}, cache_cap)`` admits one
+    request into a free slot; ``model.decode_step`` then runs all
+    ``n_slots`` sequences every step (idle slots compute but are ignored —
+    the fixed-batch tradeoff), on the device the params live on.  Greedy:
+    the next token is the argmax of the logits (first index on ties)."""
+
+    def __init__(self, model, params, *, n_slots: int, cache_cap: int, eos_id: int = 1):
+        self.model = model
+        self.params = params
+        self.n_slots = n_slots
+        self.cache_cap = cache_cap
+        self.eos_id = eos_id
+        self.device = params["embed"].device
+        self.sched = SlotScheduler(n_slots)
+        self.submitted: List[Request] = []
+        self.caches = model.init_caches(n_slots, cache_cap, device=self.device)
+        self.lengths = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self.next_token = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self.steps = 0
+        self.busy_slot_steps = 0
+
+    @property
+    def active(self) -> List[Optional[Request]]:
+        return self.sched.active
+
+    # ------------------------------------------------------------------ #
+    def submit(self, req: Request) -> None:
+        self.sched.submit(req)
+        self.submitted.append(req)
+
+    def _splice_cache(self, slot: int, cache1: Any) -> None:
+        """Write a single-sequence prefill cache into batch slot ``slot``
+        (in place: the batcher owns its caches)."""
+        def walk(full, one):
+            if isinstance(full, dict):
+                for k in full:
+                    walk(full[k], one[k])
+            elif isinstance(full, list):
+                for f, o in zip(full, one):
+                    walk(f, o)
+            elif full is not None:
+                _set_slot(full, one, slot)
+        walk(self.caches, cache1)
+
+    def _admit(self) -> None:
+        for slot, req in self.sched.admit():
+            toks = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                   device=self.device)[None, :]
+            logits, cache1, lengths1 = self.model.prefill(self.params, {"tokens": toks},
+                                                          cache_cap=self.cache_cap)
+            self._splice_cache(slot, cache1)
+            self.lengths[slot] = lengths1[0]
+            first = int(torch.argmax(logits[0]))
+            req.out_tokens.append(first)
+            self.next_token[slot] = first
+
+    # ------------------------------------------------------------------ #
+    def step(self) -> None:
+        """One decode step over all slots."""
+        self._admit()
+        logits, self.caches = self.model.decode_step(self.params, self.next_token,
+                                                     self.caches, self.lengths)
+        active = torch.tensor([r is not None for r in self.active], dtype=torch.int32,
+                              device=self.device)
+        self.lengths = self.lengths + active
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        self.next_token = nxt
+        self.steps += 1
+        toks = nxt.tolist()
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.busy_slot_steps += 1
+            tok = toks[slot]
+            req.out_tokens.append(tok)
+            if tok == self.eos_id or len(req.out_tokens) >= req.max_new_tokens:
+                req.done = True
+                self.sched.finish(slot)
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        """Drive until queue and slots drain (or ``max_steps``); returns
+        every submitted request that finished, each exactly once."""
+        while self.sched.has_work() and self.steps < max_steps:
+            self.step()
+        finished = [r for r in self.submitted if r.done]
+        self.submitted = [r for r in self.submitted if not r.done]
+        return finished
+
+    @property
+    def utilisation(self) -> float:
+        return self.busy_slot_steps / max(self.steps * self.n_slots, 1)
+
+
+def _set_slot(full: torch.Tensor, one: torch.Tensor, slot: int) -> None:
+    """Set batch index ``slot`` of ``full`` from single-batch ``one``, in
+    place.  Works for both stacked (n_periods, B, ...) and plain (B, ...)
+    leaves: the batch dim is the first whose size differs (one has size 1)."""
+    for axis in range(full.dim()):
+        if one.shape[axis] == 1 and full.shape[axis] != 1:
+            full.narrow(axis, slot, 1).copy_(one)
+            return
+    raise ValueError(f"no batch axis found: {tuple(full.shape)} vs {tuple(one.shape)}")

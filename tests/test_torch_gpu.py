@@ -297,3 +297,105 @@ def test_small_paged_engine_on_the_card_matches_the_cpu(kv_dtype):
         if device == dev:
             assert flash_paged_decode.launches > launches
     assert outs[str(dev)] == outs["cpu"]
+
+
+# (B, Sq, Skv, Hq, Hk, D, Dv): Sq < Skv, GQA 1/2/4, lengths off the 32/64
+# tiles, D 16 to 256, Dv != D
+ATTENTION_SHAPES = [(2, 37, 37, 4, 4, 16, 16), (1, 70, 100, 4, 2, 96, 96),
+                    (2, 45, 45, 4, 1, 128, 128), (1, 130, 130, 4, 1, 256, 256),
+                    (1, 33, 50, 2, 1, 24, 16)]
+ATTENTION_MASKS = [(True, None), (False, None), (True, 1), (True, 16), (False, 16),
+                   (True, 200)]
+
+
+@pytest.mark.gpu
+def test_flash_attention_matches_its_plain_version_on_the_card():
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rn = _rn(gen, dev)
+    before = flash_attention.launches
+    for b, sq, skv, hq, hk, d, dv in ATTENTION_SHAPES:
+        q, k, v = rn(b, sq, hq, d), rn(b, skv, hk, d), rn(b, skv, hk, dv)
+        for causal, window in ATTENTION_MASKS:
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         scale=1 / math.sqrt(d))
+            torch.testing.assert_close(out, want, **TOL)
+    q, k, v = rn(1, 12, 2, 16), rn(1, 8, 1, 16), rn(1, 8, 1, 16)   # Sq > Skv
+    assert float(flash_attention(q, k, v)[:, :4].abs().max()) == 0.0
+    assert flash_attention.launches > before
+    # the layer-stack decode: D = 256, a group of 4 query heads on one kv head
+    q, k, v = rn(4, 4, 256), rn(4, 512, 1, 256), rn(4, 512, 1, 256)
+    lengths = torch.tensor([512, 300, 1, 0], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(flash_decode(q, k, v, lengths),
+                               flash_decode_plain(q, k, v, lengths, 1 / 16), **TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_the_kernel_does_not_take():
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention
+    x = torch.zeros(1, 8, 2, 300, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):            # D > 256
+        flash_attention(x, x, x)
+    q = torch.zeros(1, 8, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, q, q, window=0)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+
+
+@pytest.mark.gpu
+def test_layerstack_batcher_on_the_card_matches_its_reference_and_the_cpu():
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.batching import ContinuousBatcher, Request
+    outs = {}
+    for device in (dev, "cpu"):
+        cfg = serving_config("gemma3-1b", device=device)
+        model = LM(cfg)
+        params = model.init_params(0, device="cpu")       # the same weights on both sides
+        if device == dev:
+            params = _to(params, dev)
+        rng = np.random.default_rng(2)
+        reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, int(rng.integers(3, 40)))
+                        .astype(np.int32), max_new_tokens=int(rng.integers(2, 9)))
+                for i in range(7)]
+        batcher = ContinuousBatcher(model, params, n_slots=3, cache_cap=64, eos_id=-1)
+        for r in reqs:
+            batcher.submit(r)
+        launches = flash_attention.launches
+        batcher.run()
+        outs[str(device)] = [r.out_tokens for r in reqs]
+        if device == dev:
+            assert flash_attention.launches > launches
+            for r in reqs:       # batch 3 on the card == batch 1 on the card
+                lg, caches, lengths = model.prefill(
+                    params, {"tokens": torch.as_tensor(r.prompt, device=dev)[None]},
+                    cache_cap=64)
+                want = [int(lg[0].argmax())]
+                while len(want) < r.max_new_tokens:
+                    lg, caches = model.decode_step(
+                        params, torch.tensor([want[-1]], dtype=torch.int32, device=dev),
+                        caches, lengths)
+                    lengths = lengths + 1
+                    want.append(int(lg[0].argmax()))
+                assert r.out_tokens == want, r.uid
+    assert outs[str(dev)] == outs["cpu"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
