@@ -8,10 +8,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a) into
              one shared library; print the time and ptxas' register lines.
-3. kernels — hold each of the seven kernels against its plain PyTorch
+3. kernels — hold each of the nine kernels against its plain PyTorch
              version on the card: small edge cases, then the shapes the
              full-width serving paths give it (phi3-mini widths for the
-             engine, gemma3-1b widths for the layer-stack batcher); time
+             engine, gemma3-1b, qwen2-moe-a2.7b and mamba2-370m widths for
+             the layer-stack batcher); time
              kernel, plain version and one PyTorch library call with CUDA
              events (cold L2), beside the least time the card could take
              (H100 SXM data-sheet peaks: 67 TFLOP/s fp32, 3.35 TB/s).  The two paged kernels run in both
@@ -23,8 +24,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
-             reduced gemma3-1b layer-stack LM's prefill and decode on the
-             card agree with the CPU's (1e-4).
+             reduced gemma3-1b, qwen2-moe-a2.7b and mamba2-370m layer-stack
+             LMs' prefill and decode on the card agree with the CPU's (1e-4).
 5. serving — phi3-mini widths, all 32 layers, random weights from a seed:
              the engine serves 8 requests (4 slots, chunk 64, cache 1024);
              every request's tokens must equal the unbatched reference's,
@@ -50,6 +51,19 @@ Phases, each printing its own lines; any failure exits non-zero:
              each; every request must equal the unbatched greedy prefill +
              decode on the card token for token, and flash_attention,
              flash_decode, rmsnorm and gemm must launch as the path needs.
+9. moe     — qwen2-moe-a2.7b at its published widths, all 24 layers, fp32
+             (60.6 GB of weights drawn on the card from seed 0; 64 experts
+             of which 60 routed, top-4, local dispatch): the same batcher
+             set-up serves 8 requests of 200-1400 tokens, 16 new tokens
+             each, token-exact against batch-1 greedy; batched_gemm (72
+             launches per call), gemm, rmsnorm, flash_attention and
+             flash_decode launch exactly as the path needs.
+10. ssm    — mamba2-370m at its published widths, all 48 layers, fp32: 8
+             requests of 200-1400 tokens, 32 new each, token-exact; ssd_scan
+             launches 48 times per prefill.
+             Phase 3 times every kernel call of phases 8-10 at a batch-4
+             decode step and a 1024-token prefill, and each phase's time is
+             printed by kernel beside the sum of the kernels' bounds.
 
 The last three lines of standard output are JSON: the serving numbers, one
 entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
@@ -200,6 +214,26 @@ def kernel_cases(torch, K):
     check_close(torch, "flash_decode D=256 G=4", K.flash_decode(q, k, v, lengths),
                 K.flash_decode_plain(q, k, v, lengths, 1.0 / 16), **tol)
     n += 1
+    # batched_gemm: M, N and K ragged against the 64x64 tile and the 16-deep
+    # K step, one expert to 64
+    for e, m, nn, kk in ((3, 5, 37, 19), (1, 64, 64, 64), (8, 70, 65, 200), (64, 3, 16, 33)):
+        x, w = rn(e, m, kk), rn(e, kk, nn)
+        check_close(torch, f"batched_gemm {e}x{m}x{nn}x{kk}", K.batched_gemm(x, w),
+                    K.batched_gemm_plain(x, w), **tol)
+        n += 1
+    # ssd_scan: chunks of 16-128 (37 rows: off the 32-row score tiles), 1-4
+    # chunks, G = 1-3 groups, state 8-128, P off the 16-column block tile
+    for b, sl, h, p, grp, nn, q in ((2, 64, 4, 16, 1, 16, 16), (1, 37, 6, 8, 3, 32, 128),
+                                   (1, 128, 2, 64, 2, 128, 64), (2, 96, 4, 24, 1, 8, 32)):
+        x, bm, cm = rn(b, sl, h, p), 0.3 * rn(b, sl, grp, nn), 0.3 * rn(b, sl, grp, nn)
+        dt = torch.nn.functional.softplus(rn(b, sl, h) - 2.0)
+        a = -torch.linspace(0.5, 4.0, h, device="cuda")
+        y, st = K.ssd_scan(x, dt, a, bm, cm, chunk=q)
+        yp, stp = K.ssd_scan_plain(x, dt, a, bm, cm, chunk=q)
+        tag = f"ssd_scan B={b} S={sl} H={h} P={p} G={grp} N={nn} Q={min(q, sl)}"
+        check_close(torch, f"{tag} y", y, yp, **tol)
+        check_close(torch, f"{tag} state", st, stp, **tol)
+        n += 1
     torch.cuda.synchronize()
     return n + paged_kernel_cases(torch, K, rn, g, tol)
 
@@ -302,7 +336,7 @@ def full_width_shapes(cfg, n_slots, chunk, cache_cap):
     return gemm, rms
 
 
-def kernels_phase(torch, K, cfg, lcfg, n_slots, chunk, cache_cap, page, pools, limit_line):
+def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, limit_line):
     timer = Timer(torch)
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -318,8 +352,8 @@ def kernels_phase(torch, K, cfg, lcfg, n_slots, chunk, cache_cap, page, pools, l
                mode=None, dense_ms=None):
         by_tag[(name, tag)] = ms
         b_ms, b_by = bound(flops, nbytes)
-        other = (f"library {lib_ms:.4g} ms" if dense_ms is None
-                 else f"dense kernel {dense_ms:.4g} ms")
+        other = (f"dense kernel {dense_ms:.4g} ms" if dense_ms is not None
+                 else "no library call" if lib_ms is None else f"library {lib_ms:.4g} ms")
         say(f"  {name:27s} {shape_tag:44s} err {err:.2e}  kernel {ms:.4g} ms  "
             f"plain {plain_ms:.4g} ms  {other}  bound {b_ms:.4g} ms ({b_by})  "
             f"[{limit_line}]")
@@ -402,7 +436,7 @@ def kernels_phase(torch, K, cfg, lcfg, n_slots, chunk, cache_cap, page, pools, l
                4.0 * (rows_read * hk * 2 * dh + 2 * b * t * hq * dh + b))
         del q, k, v
 
-    layerstack_kernels(torch, K, lcfg, rn, timer, record, full_tol)
+    stack_est = {c.name: stack_kernels(torch, K, c, rn, timer, record, full_tol) for c in scfgs}
 
     # the paged kernels at the engine's shapes: pools of the serving phases
     # (fp32: 256 blocks, int8: the block count of equal bytes), page 16
@@ -502,7 +536,7 @@ def kernels_phase(torch, K, cfg, lcfg, n_slots, chunk, cache_cap, page, pools, l
             f"{2 * cfg.n_layers} calls per tick  [{limit_line}]")
     del timer
     torch.cuda.empty_cache()
-    return results, by_tag, ops_ms
+    return results, by_tag, ops_ms, stack_est
 
 
 def attention_pairs(sq, skv, causal, window):
@@ -517,111 +551,174 @@ def attention_pairs(sq, skv, causal, window):
     return n
 
 
+def ssd_flops(b, sl, h, p, n, q):
+    """Operations the SSD scan needs (2 per multiply-add): in each chunk of
+    q the score product C.B and the score-xbar product over the q(q+1)/2
+    causal pairs only, then C.state and the state update, per (sequence,
+    head)."""
+    q = min(q, sl)
+    pairs = q * (q + 1) / 2
+    return b * h * -(-sl // q) * (pairs * 2.0 * (n + p) + 4.0 * q * n * p)
+
+
 LAYERSTACK_PREFILL = 1024     # the prompt length phase 3 times the prefill kernels at
+DECODE_LENS = (1400, 1000, 600, 250)   # the cache lengths it times a batch-4 decode step at
 
 
-def layerstack_kernels(torch, K, lcfg, rn, timer, record, full_tol):
-    """The layer-stack path's kernels at gemma3-1b widths: the GEMMs and
-    rmsnorm of a batch-4 decode step and of a 1024-token prefill,
-    flash_decode over the global (2048) and rolling local (512) caches, and
-    flash_attention over a 1024-token prompt with the 512 window and
-    without.  The library yardstick of the attentions is SDPA with the
-    same boolean mask (GQA through enable_gqa)."""
+def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
+    """The kernel calls of one batch-4 decode step (``phase="decode"``) or
+    one LAYERSTACK_PREFILL-token prefill of a layer-stack config:
+    {(kernel, shape): calls}.  gemm shapes are (M, K, N), batched_gemm
+    (E, M, K, N); a sliding-window layer's decode reads its rolling cache of
+    ``window`` rows, and its prefill attends within the window."""
+    from repro_torch.layers.moe import _capacity
+    dec = phase == "decode"
+    m, d = (n_slots if dec else LAYERSTACK_PREFILL), cfg.d_model
+    calls = {}
+
+    def add(kernel, shape, n=1):
+        calls[(kernel, shape)] = calls.get((kernel, shape), 0) + n
+
+    for blk in cfg.plan.all_blocks():
+        add("rmsnorm", (m, d))
+        if blk.mixer == "mamba":
+            s = cfg.ssm
+            gn = s.n_groups * s.state
+            for nn in (s.d_inner, s.d_inner, gn, gn, s.n_heads):
+                add("gemm", (m, d, nn))
+            add("gemm", (m, s.d_inner, d))
+            add("rmsnorm", (m, s.d_inner))
+            if not dec:
+                add("ssd_scan", (1, m, s.n_heads, s.head_dim, s.n_groups, s.state, s.chunk))
+        else:
+            hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            window = cfg.window if blk.mixer == "attn_local" else None
+            for kk, nn in ((d, hq * dh), (d, hk * dh), (d, hk * dh), (hq * dh, d)):
+                add("gemm", (m, kk, nn))
+            if dec:
+                rows = min(window or cache_cap, cache_cap)
+                lens = tuple(min(n, rows) for n in DECODE_LENS[:n_slots])
+                add("flash_decode", (n_slots, hq, hk, dh, rows, lens))
+            else:
+                add("flash_attention", (1, m, hq, hk, dh, window))
+        if blk.ffn == "moe":
+            mo = cfg.moe
+            add("rmsnorm", (m, d))
+            add("gemm", (m, d, mo.n_experts))
+            if mo.n_shared:
+                add("gemm", (m, d, mo.d_shared), 2)
+                add("gemm", (m, mo.d_shared, d))
+            rows = n_slots * _capacity(1, cfg) if dec else _capacity(m, cfg)
+            add("batched_gemm", (mo.n_experts, rows, d, mo.d_expert), 2)
+            add("batched_gemm", (mo.n_experts, rows, mo.d_expert, d))
+        elif blk.ffn != "none":
+            add("rmsnorm", (m, d))
+            add("gemm", (m, d, cfg.d_ff), 2 if blk.ffn == "swiglu" else 1)
+            add("gemm", (m, cfg.d_ff, d))
+    add("rmsnorm", (m, d))
+    add("gemm", (n_slots if dec else 1, d, cfg.vocab_padded))
+    return calls
+
+
+def stack_launches(cfg, prefills, steps, names):
+    """Each kernel's launches over ``prefills`` prefills and ``steps``
+    decode steps of a layer-stack config (every name in ``names`` a key)."""
+    want = dict.fromkeys(names, 0)
+    for phase, n in (("prefill", prefills), ("decode", steps)):
+        for (kernel, _), calls in stack_calls(cfg, phase).items():
+            want[kernel] += calls * n
+    return want
+
+
+def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
+    """Every kernel call of ``cfg``'s batch-4 decode step and 1024-token
+    prefill (stack_calls): each distinct shape checked against its plain
+    version and timed with it and with one PyTorch library call (matmul,
+    rms_norm, SDPA with the same boolean mask and GQA, bmm; the SSD scan
+    has none).  Returns {phase: ({kernel: ms per phase}, sum of the calls'
+    bounds in ms)}."""
     F = torch.nn.functional
-    dm, ff, vocab = lcfg.d_model, lcfg.d_ff, lcfg.vocab_padded
-    hq, hk, dh = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
-    L = LAYERSTACK_PREFILL
-    shapes = []
-    for m, tag in ((4, "layerstack decode"), (L, "layerstack prefill")):
-        for kk, nn, what in ((dm, hq * dh, "q"), (dm, hk * dh, "k/v"), (hq * dh, dm, "o"),
-                             (dm, ff, "gate/up"), (ff, dm, "down")):
-            shapes.append((f"{tag} {what}", m, nn, kk))
-    shapes += [("layerstack decode head", 4, vocab, dm), ("layerstack prefill head", 1, vocab, dm)]
-    for tag, m, nn, kk in shapes:
-        x, w = rn(m, kk), rn(kk, nn, scale=1.0 / math.sqrt(kk))
-        err = check_close(torch, f"gemm {tag}", K.gemm(x, w), K.gemm_plain(x, w), **full_tol)
-        ms = timer.ms(lambda: K.gemm(x, w))
-        plain = timer.ms(lambda: K.gemm_plain(x, w))
-        lib = timer.ms(lambda: torch.matmul(x, w))
-        record("gemm", tag, f"{tag} M={m} N={nn} K={kk}", err, ms, plain, lib,
-               2.0 * m * nn * kk, 4.0 * (m * kk + kk * nn + m * nn))
-        del x, w
-    for tag, rows in (("layerstack decode", 4), ("layerstack prefill", L)):
-        x, w = rn(rows, dm), 1.0 + 0.1 * rn(dm)
-        eps = lcfg.norm_eps
-        err = check_close(torch, f"rmsnorm {tag}", K.rmsnorm(x, w, eps=eps),
-                          K.rmsnorm_plain(x, w, eps=eps), **full_tol)
-        ms = timer.ms(lambda: K.rmsnorm(x, w, eps=eps))
-        plain = timer.ms(lambda: K.rmsnorm_plain(x, w, eps=eps))
-        lib = timer.ms(lambda: F.rms_norm(x, (dm,), w, eps))
-        record("rmsnorm", tag, f"{tag} rows={rows} D={dm}", err, ms, plain, lib,
-               3.0 * rows * dm, 4.0 * (2 * rows * dm + dm))
-    sc = 1.0 / math.sqrt(dh)
-    for tag, s_len, lens in (("layerstack decode global", 2048, [1400, 1000, 600, 250]),
-                             ("layerstack decode local", lcfg.window, [512, 512, 512, 251])):
-        b = len(lens)
-        q, k, v = rn(b, hq, dh), rn(b, s_len, hk, dh), rn(b, s_len, hk, dh)
-        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        err = check_close(torch, f"flash_decode {tag}", K.flash_decode(q, k, v, lengths),
-                          K.flash_decode_plain(q, k, v, lengths, sc), **full_tol)
-        ms = timer.ms(lambda: K.flash_decode(q, k, v, lengths))
-        plain = timer.ms(lambda: K.flash_decode_plain(q, k, v, lengths, sc))
-        mask = (torch.arange(s_len, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-        lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                                              enable_gqa=True))
-        live = sum(lens)
-        record("flash_decode", tag, f"{tag} B={b} Hq={hq} Hk={hk} D={dh} S={s_len} len={lens}",
-               err, ms, plain, lib, 2.0 * live * hq * 2 * dh,
-               4.0 * (live * hk * 2 * dh + 2 * b * hq * dh + b))
-        del q, k, v
-    for tag, window in (("layerstack prefill window", lcfg.window), ("layerstack prefill global",
-                                                                    None)):
-        q, k, v = rn(1, L, hq, dh), rn(1, L, hk, dh), rn(1, L, hk, dh)
-        err = check_close(torch, f"flash_attention {tag}", K.flash_attention(q, k, v, window=window),
-                          K.flash_attention_plain(q, k, v, causal=True, window=window, scale=sc),
-                          **full_tol)
-        ms = timer.ms(lambda: K.flash_attention(q, k, v, window=window))
-        plain = timer.ms(lambda: K.flash_attention_plain(q, k, v, causal=True, window=window,
-                                                         scale=sc))
-        row = torch.arange(L, device="cuda")[:, None]
-        col = torch.arange(L, device="cuda")[None, :]
-        mask = (col <= row) & ((col > row - window) if window is not None else True)
-        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                                              enable_gqa=True))
-        pairs = attention_pairs(L, L, True, window)
-        record("flash_attention", tag, f"{tag} B=1 L={L} Hq={hq} Hk={hk} D={dh} "
-               f"window={window}", err, ms, plain, lib, 2.0 * pairs * hq * 2 * dh,
-               4.0 * (2 * L * hq * dh + 2 * L * hk * dh))
-        del q, k, v
+    times = {}
 
+    def measure(kernel, shape, phase):
+        label = f"{cfg.name} {phase} {kernel} {shape}"
+        lib = None
+        if kernel == "gemm":
+            m, kk, nn = shape
+            args = (rn(m, kk), rn(kk, nn, scale=1.0 / math.sqrt(kk)))
+            fn, plain, lib = K.gemm, K.gemm_plain, torch.matmul
+            flops, nbytes = 2.0 * m * kk * nn, 4.0 * (m * kk + kk * nn + m * nn)
+        elif kernel == "batched_gemm":
+            e, m, kk, nn = shape
+            args = (rn(e, m, kk), rn(e, kk, nn, scale=1.0 / math.sqrt(kk)))
+            fn, plain, lib = K.batched_gemm, K.batched_gemm_plain, torch.bmm
+            flops, nbytes = 2.0 * e * m * kk * nn, 4.0 * e * (m * kk + kk * nn + m * nn)
+        elif kernel == "rmsnorm":
+            rows, d = shape
+            eps = cfg.norm_eps
+            args = (rn(rows, d), 1.0 + 0.1 * rn(d))
+            fn = lambda x, w: K.rmsnorm(x, w, eps=eps)                      # noqa: E731
+            plain = lambda x, w: K.rmsnorm_plain(x, w, eps=eps)             # noqa: E731
+            lib = lambda x, w: F.rms_norm(x, (d,), w, eps)                  # noqa: E731
+            flops, nbytes = 3.0 * rows * d, 4.0 * (2 * rows * d + d)
+        elif kernel == "flash_decode":
+            b, hq, hk, dh, s_len, lens = shape
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            args = (rn(b, hq, dh), rn(b, s_len, hk, dh), rn(b, s_len, hk, dh))
+            mask = (torch.arange(s_len, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            fn = lambda q, k, v: K.flash_decode(q, k, v, lengths)           # noqa: E731
+            plain = lambda q, k, v: K.flash_decode_plain(q, k, v, lengths,  # noqa: E731
+                                                         1.0 / math.sqrt(dh))
+            lib = lambda q, k, v: F.scaled_dot_product_attention(           # noqa: E731
+                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)
+            live = sum(lens)
+            flops = 2.0 * live * hq * 2 * dh
+            nbytes = 4.0 * (live * hk * 2 * dh + 2 * b * hq * dh + b)
+        elif kernel == "flash_attention":
+            b, sl, hq, hk, dh, window = shape
+            args = (rn(b, sl, hq, dh), rn(b, sl, hk, dh), rn(b, sl, hk, dh))
+            row = torch.arange(sl, device="cuda")[:, None]
+            col = torch.arange(sl, device="cuda")[None, :]
+            mask = (col <= row) & ((col > row - window) if window is not None else True)
+            fn = lambda q, k, v: K.flash_attention(q, k, v, window=window)  # noqa: E731
+            plain = lambda q, k, v: K.flash_attention_plain(                # noqa: E731
+                q, k, v, causal=True, window=window, scale=1.0 / math.sqrt(dh))
+            lib = lambda q, k, v: F.scaled_dot_product_attention(           # noqa: E731
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)
+            flops = 2.0 * attention_pairs(sl, sl, True, window) * hq * 2 * dh
+            nbytes = 4.0 * (2 * sl * hq * dh + 2 * sl * hk * dh)
+        else:                                                               # ssd_scan
+            b, sl, h, p, grp, nn, q = shape
+            args = (rn(b, sl, h, p), F.softplus(rn(b, sl, h) - 3.0),   # dt ~ mamba2's 1e-3..0.1
+                    -torch.linspace(1.0, 16.0, h, device="cuda"),
+                    0.3 * rn(b, sl, grp, nn), 0.3 * rn(b, sl, grp, nn))
+            fn = lambda *a: K.ssd_scan(*a, chunk=q)                         # noqa: E731
+            plain = lambda *a: K.ssd_scan_plain(*a, chunk=q)                # noqa: E731
+            flops = ssd_flops(b, sl, h, p, nn, q)
+            nbytes = 4.0 * (sum(a.numel() for a in args) + b * sl * h * p + b * h * p * nn)
+        got, want = fn(*args), plain(*args)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max(check_close(torch, label, a, b_, **full_tol) for a, b_ in pairs)
+        ms = timer.ms(lambda: fn(*args))
+        plain_ms = timer.ms(lambda: plain(*args))
+        lib_ms = None if lib is None else timer.ms(lambda: lib(*args))
+        record(kernel, f"{cfg.name} {phase}", label, err, ms, plain_ms, lib_ms, flops, nbytes)
+        del args, got, want
+        return ms, bound(flops, nbytes)[0]
 
-def layerstack_estimate(by_tag, lcfg):
-    """Milliseconds of one batch-4 decode step and of one 1024-token
-    prefill of the layer-stack path, by part, from phase 3's single-call
-    times (each part timed alone; see tick_estimate)."""
-    n_local = sum(b.mixer == "attn_local" for b in lcfg.plan.all_blocks())
-    n_global = lcfg.n_layers - n_local
     out = {}
     for phase in ("decode", "prefill"):
-        tag = f"layerstack {phase}"
-
-        def g(what):
-            return by_tag[("gemm", f"{tag} {what}")]
-
-        layer_gemm = g("q") + 2 * g("k/v") + g("o") + 2 * g("gate/up") + g("down")
-        if phase == "decode":
-            attn = (n_global * by_tag[("flash_decode", "layerstack decode global")]
-                    + n_local * by_tag[("flash_decode", "layerstack decode local")])
-        else:
-            attn = (n_global * by_tag[("flash_attention", "layerstack prefill global")]
-                    + n_local * by_tag[("flash_attention", "layerstack prefill window")])
-        out[phase] = {
-            "gemm": lcfg.n_layers * layer_gemm + g("head"),
-            "rmsnorm": (2 * lcfg.n_layers + 1) * by_tag[("rmsnorm", tag)],
-            "attention": attn,
-        }
+        parts, bound_ms = {}, 0.0
+        for (kernel, shape), calls in stack_calls(cfg, phase).items():
+            if (kernel, shape) not in times:
+                times[(kernel, shape)] = measure(kernel, shape, phase)
+            ms, b_ms = times[(kernel, shape)]
+            parts[kernel] = parts.get(kernel, 0.0) + calls * ms
+            bound_ms += calls * b_ms
+        out[phase] = (parts, bound_ms)
     return out
 
 
@@ -721,17 +818,18 @@ def model_phase(torch):
     return worst, worst_kv8
 
 
-def layerstack_model_phase(torch):
-    """The reduced gemma3-1b layer-stack LM (local and global layers, MQA):
-    prefill of two 24-token prompts (past the window of 16), its caches,
-    and four decode steps on the card (the kernels) against the CPU (the
-    plain ``ref`` path), from the same weights.  Returns the worst
+def layerstack_model_phase(torch, arch):
+    """A reduced layer-stack LM (gemma3-1b: local and global layers, MQA;
+    qwen2-moe-a2.7b: MoE FFNs; mamba2-370m: SSD mixers): prefill of two
+    24-token prompts (past gemma3's window of 16, off mamba2's chunk of 16),
+    its caches, and four decode steps on the card (the kernels) against the
+    CPU (the plain path), from the same weights.  Returns the worst
     |card - CPU| (tolerance 1e-4)."""
     import numpy as np
     from repro_torch.launch.serve import serving_config
     from repro_torch.models.lm import LM, params_from_numpy
 
-    card, cpu = (LM(serving_config("gemma3-1b", device=d)) for d in ("cuda", "cpu"))
+    card, cpu = (LM(serving_config(arch, device=d)) for d in ("cuda", "cpu"))
     p_cpu = cpu.init_params(4, device="cpu")
     p_card = params_from_numpy(p_cpu, "cuda")
     toks = torch.from_numpy(np.random.default_rng(4).integers(0, cpu.cfg.vocab, (2, 28))
@@ -746,7 +844,7 @@ def layerstack_model_phase(torch):
             lengths = lengths + 1
             outs.append(lg)
         runs.append(outs + _leaves(caches))
-    return max(check_close(torch, "layer-stack LM card vs CPU", got.cpu(), want,
+    return max(check_close(torch, f"{arch} layer-stack LM card vs CPU", got.cpu(), want,
                            atol=1e-4, rtol=1e-4) for got, want in zip(*runs))
 
 
@@ -797,7 +895,7 @@ def serving_phase(torch, K, cfg, params, n_slots, chunk, cache_cap, n_requests, 
         f"{m.decode_ticks} decode ticks")
     say(f"  launches during the engine run: {launches}")
     for name, n in launches.items():
-        if (n == 0) != (name.startswith("flash_paged") or name == "flash_attention"):
+        if (n == 0) != (name not in ("gemm", "rmsnorm", "flash_decode", "flash_chunk_attention")):
             fail(f"kernel {name}: {n} launches by the dense-cache engine")
     ticks = m.prefill_ticks + m.decode_ticks
     per_tick = {"gemm": 7 * cfg.n_layers + 1, "rmsnorm": 2 * cfg.n_layers + 1}
@@ -919,10 +1017,10 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
         fail(f"{kv_dtype}: wave 2 hit {hits} tokens (need >= {need}) with {cows} copies "
              "(need >= 1)")
     L, ticks = cfg.n_layers, m.prefill_ticks + m.decode_ticks
-    want = {"gemm": (7 * L + 1) * ticks, "rmsnorm": (2 * L + 1) * ticks,
-            "flash_paged_chunk_attention": L * m.prefill_ticks,
-            "flash_paged_decode": L * m.decode_ticks,
-            "flash_decode": 0, "flash_chunk_attention": 0, "flash_attention": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update({"gemm": (7 * L + 1) * ticks, "rmsnorm": (2 * L + 1) * ticks,
+                 "flash_paged_chunk_attention": L * m.prefill_ticks,
+                 "flash_paged_decode": L * m.decode_ticks})
     if launches != want:
         fail(f"{kv_dtype}: launches {launches} != expected {want}")
     stats = {
@@ -966,12 +1064,14 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
 # --------------------------------------------------------------------------- #
 
 def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_requests=8,
-                     max_new=32):
-    """``cfg`` (gemma3-1b at its published widths, fp32, from
-    ``serving_config``) served by the continuous batcher through the entry
+                     max_new=32, tag="layerstack"):
+    """``cfg`` (a config at its published widths, fp32, from
+    ``serving_config``: gemma3-1b in phase 8, qwen2-moe-a2.7b in 9,
+    mamba2-370m in 10) served by the continuous batcher through the entry
     points a user calls (``LM``, ``ContinuousBatcher``).  Returns the
     launches and the serving numbers; fails unless every request equals
-    the unbatched greedy prefill + decode on the card."""
+    the unbatched greedy prefill + decode on the card and each kernel
+    launched exactly as the path needs."""
     import numpy as np
     from repro_torch.models.lm import LM
     from repro_torch.runtime.batching import ContinuousBatcher, Request
@@ -1002,15 +1102,17 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
     t0 = time.perf_counter()
     params = model.init_params(0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params)) - params["embed_t"].numel()
+    tied = params["embed_t"].numel() if "embed_t" in params else 0
+    n_params = sum(x.numel() for x in _leaves(params)) - tied
     say(f"  weights {n_params / 1e9:.4f} B params ({4 * n_params / 1e9:.2f} GB fp32, plus "
-        f"the {4 * params['embed_t'].numel() / 1e9:.2f} GB transposed tied embedding), drawn "
-        f"on the card in {time.perf_counter() - t0:.1f} s")
+        f"the {4 * tied / 1e9:.2f} GB transposed tied embedding), drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated")
     rng = np.random.default_rng(0)
     lens = rng.integers(200, 1401, n_requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
                     max_new_tokens=max_new) for i, n in enumerate(lens)]
-    if not (min(lens) <= cfg.window < max(lens)):
+    if cfg.window and not (min(lens) <= cfg.window < max(lens)):
         fail(f"prompt lengths {lens.tolist()} do not straddle the window {cfg.window}")
     batcher = ContinuousBatcher(model, params, n_slots=n_slots, cache_cap=cache_cap, eos_id=-1)
     torch.cuda.synchronize()
@@ -1029,14 +1131,10 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
         f"steps in {t_run:.2f} s")
     say(f"  launches during the batcher run: {launches}")
     if len(finished) != len(reqs) or any(len(r.out_tokens) != max_new for r in reqs):
-        fail("layerstack: not every request finished with its tokens")
-    L, calls = cfg.n_layers, len(reqs) + batcher.steps
-    want = {"gemm": (7 * L + 1) * calls, "rmsnorm": (2 * L + 1) * calls,
-            "flash_attention": L * len(reqs), "flash_decode": L * batcher.steps,
-            "flash_chunk_attention": 0, "flash_paged_decode": 0,
-            "flash_paged_chunk_attention": 0}
+        fail(f"{tag}: not every request finished with its tokens")
+    want = stack_launches(cfg, len(reqs), batcher.steps, launches)
     if launches != want:
-        fail(f"layerstack: launches {launches} != expected {want}")
+        fail(f"{tag}: launches {launches} != expected {want}")
     n_out = sum(len(r.out_tokens) for r in reqs)
     stats = {
         "prefill_ms_per_request": 1e3 * sum(model.prefill_s) / len(model.prefill_s),
@@ -1050,7 +1148,9 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
         "prompt_tokens": int(lens.sum()),
         "tokens_out": n_out,
     }
-    say(f"  serving (layer-stack batcher): {json.dumps(stats)} [{card}]")
+    say(f"  serving ({tag} batcher): {json.dumps(stats)} [{card}]")
+    del batcher                    # its caches; the reference makes its own
+    torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
     for r in reqs:
@@ -1065,11 +1165,11 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
             lengths = lengths + 1
             ref.append(int(lg[0].argmax()))
         if r.out_tokens != ref:
-            fail(f"layerstack request {r.uid} (prompt {len(r.prompt)}): batcher "
+            fail(f"{tag} request {r.uid} (prompt {len(r.prompt)}): batcher "
                  f"{r.out_tokens} != unbatched {ref}")
     say(f"  all {len(reqs)} requests token-exact against the unbatched greedy prefill + "
         f"decode on the card ({time.perf_counter() - t_ref:.2f} s)")
-    del params, batcher
+    del params
     return launches, stats
 
 
@@ -1087,9 +1187,12 @@ class Kernels:
     def __init__(self):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import flash_decode as fd
-        from repro_torch.kernels.gemm import gemm, gemm_plain
+        from repro_torch.kernels import ssd
+        from repro_torch.kernels.gemm import batched_gemm, batched_gemm_plain, gemm, gemm_plain
         from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
         self.gemm, self.gemm_plain = gemm, gemm_plain
+        self.batched_gemm, self.batched_gemm_plain = batched_gemm, batched_gemm_plain
+        self.ssd_scan, self.ssd_scan_plain = ssd.ssd_scan, ssd.ssd_scan_plain
         self.rmsnorm, self.rmsnorm_plain = rmsnorm, rmsnorm_plain
         self.flash_decode, self.flash_decode_plain = fd.flash_decode, fd.flash_decode_plain
         self.flash_chunk_attention = fa.flash_chunk_attention
@@ -1103,7 +1206,7 @@ class Kernels:
         self.gather_pages = fd.gather_pages
         self.KERNELS = (gemm, rmsnorm, fd.flash_decode, fa.flash_chunk_attention,
                         fd.flash_paged_decode, fa.flash_paged_chunk_attention,
-                        fa.flash_attention)
+                        fa.flash_attention, batched_gemm, ssd.ssd_scan)
 
 
 SOURCES = {
@@ -1119,6 +1222,8 @@ SOURCES = {
                                     "src/repro/kernels/flash_attention.py:297"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:94"),
+    "batched_gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:92"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:73"),
 }
 
 
@@ -1179,10 +1284,20 @@ def main() -> int:
     n_int8 = n_fp32 * kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head, page) \
         // kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head, page, "int8")
     pools = {"fp32": n_fp32, "int8": n_int8}
-    # gemma3-1b at its published widths (src/repro/configs/gemma3_1b.py), fp32:
-    # d_model 1152, 4 heads on 1 kv head of 256, d_ff 6912, vocab 262144 (tied),
-    # 26 layers (5 local : 1 global, window 512), RoPE theta 1e6
-    lcfg = serving_config("gemma3-1b", full=True, device="cuda")
+    # the layer-stack phases at published widths, fp32, with their new tokens:
+    # 8. gemma3-1b (src/repro/configs/gemma3_1b.py): d_model 1152, 4 heads on 1
+    #    kv head of 256, d_ff 6912, vocab 262144 (tied), 26 layers (5 local : 1
+    #    global, window 512), RoPE theta 1e6;
+    # 9. qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2_7b.py): d_model 2048,
+    #    16 heads on 16 kv heads of 128, 24 layers, 64 experts (60 routed,
+    #    top-4) of width 1408, a shared SwiGLU of 5632, local dispatch at
+    #    capacity factor 1.25, untied vocab 151936;
+    # 10. mamba2-370m (src/repro/configs/mamba2_370m.py): d_model 1024, 48
+    #    layers, d_inner 2048 in 32 heads of 64, state 128, 1 group, conv 4,
+    #    chunk 128, tied vocab 50280
+    stack_phases = [("layerstack", serving_config("gemma3-1b", full=True, device="cuda"), 32),
+                    ("moe", serving_config("qwen2-moe-a2.7b", full=True, device="cuda"), 16),
+                    ("ssm", serving_config("mamba2-370m", full=True, device="cuda"), 32)]
 
     # 3. kernels
     t = time.perf_counter()
@@ -1191,8 +1306,9 @@ def main() -> int:
         f"(atol = rtol = 2e-5); fp32 paged outputs bitwise equal to the dense kernels")
     say(f"[kernels] full-width shapes (tolerance atol = rtol = 1e-4; median of 15 "
         f"cold-L2 launches; bound from 67 TFLOP/s fp32 and 3.35 TB/s):")
-    results, by_tag, ops_ms = kernels_phase(torch, K, cfg, lcfg, n_slots, chunk, cache_cap,
-                                            page, pools, limit_line)
+    results, by_tag, ops_ms, stack_est = kernels_phase(
+        torch, K, cfg, [c for _, c, _ in stack_phases], n_slots, chunk, cache_cap, page, pools,
+        limit_line)
     phase_s["kernels"] = time.perf_counter() - t
 
     # 4. small model, card vs CPU
@@ -1201,9 +1317,10 @@ def main() -> int:
     say(f"[model] small model prefill + decode Programs, dense and paged fp32: card vs CPU "
         f"max |err| {worst:.2e} (atol = rtol = 1e-4); paged int8: max |logit err| "
         f"{worst_kv8:.2e} (bound 5e-2)")
-    worst_ls = layerstack_model_phase(torch)
-    say(f"[model] reduced gemma3-1b layer-stack LM, prefill + caches + 4 decode steps: card "
-        f"vs CPU max |err| {worst_ls:.2e} (atol = rtol = 1e-4)")
+    for arch in ("gemma3-1b", "qwen2-moe-a2.7b", "mamba2-370m"):
+        worst_ls = layerstack_model_phase(torch, arch)
+        say(f"[model] reduced {arch} layer-stack LM, prefill + caches + 4 decode steps: card "
+            f"vs CPU max |err| {worst_ls:.2e} (atol = rtol = 1e-4)")
     phase_s["model"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -1240,15 +1357,17 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 8. the layer-stack LM under the continuous batcher
-    t = time.perf_counter()
-    say(f"[layerstack] gemma3-1b widths, {lcfg.n_layers} layers, fp32, 4 slots, cache 2048 "
-        f"[{limit_line}]")
-    ls_launches, ls_stats = layerstack_phase(torch, K, lcfg, limit_line)
-    torch.cuda.empty_cache()
-    phase_s["layerstack"] = time.perf_counter() - t
+    # 8., 9. and 10. the layer-stack LMs under the continuous batcher
+    for phase, scfg, max_new in stack_phases:
+        t = time.perf_counter()
+        say(f"[{phase}] {scfg.name} widths, {scfg.n_layers} layers, fp32, 4 slots, cache "
+            f"2048, {max_new} new tokens [{limit_line}]")
+        runs[phase] = layerstack_phase(torch, K, scfg, limit_line, max_new=max_new, tag=phase)
+        torch.cuda.empty_cache()
+        phase_s[phase] = time.perf_counter() - t
 
-    for path, (_, stats) in runs.items():
+    for path in ("dense", "paged fp32", "paged int8"):
+        stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path)
         serving[path] = stats
         for phase in ("decode", "prefill"):
@@ -1260,21 +1379,24 @@ def main() -> int:
             say(f"[breakdown] {path} {phase} tick {tick_ms:.2f} ms: {parts}, remainder "
                 f"(other plain ops, logits to host, Python, less the overlap of parts "
                 f"timed alone) {rest:.2f} ms ({100 * rest / tick_ms:.0f}%) [{limit_line}]")
-    est = layerstack_estimate(by_tag, lcfg)
-    for phase, measured, what in (
-            ("decode", ls_stats["decode_ms_per_step"], "step"),
-            ("prefill", ls_stats["prefill_ms_per_token"] * LAYERSTACK_PREFILL,
-             f"{LAYERSTACK_PREFILL}-token prefill (measured ms per prompt token x "
-             f"{LAYERSTACK_PREFILL})")):
-        parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / measured:.0f}%)"
-                          for k, v in est[phase].items())
-        rest = measured - sum(est[phase].values())
-        say(f"[breakdown] layerstack {phase} {what} {measured:.2f} ms: {parts}, remainder "
-            f"(plain ops, logits to host, Python, less overlap) {rest:.2f} ms "
-            f"({100 * rest / measured:.0f}%) [{limit_line}]")
-    serving["layerstack"] = ls_stats
-    estimates["layerstack"] = est
-    runs["layerstack"] = (ls_launches, ls_stats)
+    for phase, scfg, _ in stack_phases:
+        stats = runs[phase][1]
+        serving[phase] = stats
+        estimates[phase] = {}
+        for part, measured, what in (
+                ("decode", stats["decode_ms_per_step"], "step"),
+                ("prefill", stats["prefill_ms_per_token"] * LAYERSTACK_PREFILL,
+                 f"{LAYERSTACK_PREFILL}-token prefill (measured ms per prompt token x "
+                 f"{LAYERSTACK_PREFILL})")):
+            parts_ms, bound_ms = stack_est[scfg.name][part]
+            estimates[phase][part] = {**parts_ms, "bound": bound_ms}
+            parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / measured:.0f}%)"
+                              for k, v in parts_ms.items())
+            rest = measured - sum(parts_ms.values())
+            say(f"[breakdown] {phase} ({scfg.name}) {part} {what} {measured:.2f} ms: {parts}, "
+                f"remainder (plain ops, logits to host, Python, less overlap) {rest:.2f} ms "
+                f"({100 * rest / measured:.0f}%); sum of the kernels' bounds {bound_ms:.2f} ms "
+                f"[{limit_line}]")
     phase_s["total"] = time.perf_counter() - t_start
     say(f"[done] wall seconds per phase {json.dumps(phase_s)}")
 

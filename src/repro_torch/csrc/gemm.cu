@@ -17,10 +17,23 @@
 // is one FMA chain over k = 0..K-1, so a row of C is bit-identical whatever
 // other rows share its launch (the serving engine's batch-4 product equals
 // its batch-1 reference).
-// Ragged M, N and K edges are masked with zero fill.  Known limits: at M <= 64
-// the grid has only ceil(N/64) blocks (48 for N = 3072, fewer than the 132
-// SMs), and FFMA from shared memory reaches a fraction of the fp32 peak;
-// wgmma/TMA and split-K with a fixed split are later work.
+// Ragged M, N and K edges are masked with zero fill.
+//
+// batched_gemm: C[e] (M, N) = A[e] (M, K) @ B[e] (K, N) for e < E, the expert
+// as blockIdx.z.  Replaces src/repro/kernels/gemm.py::batched_gemm (the
+// Pallas grid (E, M/bm, N/bn, K/bk), behind `moe_gemm` pallas, ops.py:386).
+// The same body with per-expert strides, so a row of expert e's output is
+// the same FMA chain as in gemm_f32 and bitwise independent of M: the MoE
+// layer folds the decode batch into M (one (E, B*cap, d) launch per
+// projection), reading each expert's weights once per step.  At qwen2's
+// decode (E = 64, M = 32, 2048 -> 1408) the launch reads 738 MB of weights
+// at 2*M flops per 4-byte weight: bound by bytes; at a 1024-token prefill
+// (M = 80) by FFMA issue.
+//
+// Known limits of both: at M <= 64 gemm_f32's grid has only ceil(N/64)
+// blocks (48 for N = 3072, fewer than the 132 SMs), and FFMA from shared
+// memory reaches a fraction of the fp32 peak; wgmma/TMA and split-K with a
+// fixed split are later work.
 #include "common.cuh"
 
 namespace {
@@ -28,9 +41,15 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
 constexpr int TM = 4, TN = 4;  // micro-tile per thread: rows ty+16i, cols tx+16j
 
+// kBatched: the expert is blockIdx.z, its operands `stride_*` floats apart.
+// The offsets go into the indices, and gemm_f32's instance has none: moving
+// the __restrict__ pointers themselves made the plain GEMM a fifth slower
+// on the H100.
+template <bool kBatched>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-            float* __restrict__ C, int M, int N, int K) {
+            float* __restrict__ C, int M, int N, int K, size_t stride_a, size_t stride_b,
+            size_t stride_c) {
   // A is stored transposed ([k][m]) so the inner loop reads a column of the
   // tile with a broadcast; +4 pads the rows against bank conflicts on store.
   __shared__ float As[2][BK][BM + 4];
@@ -39,18 +58,21 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int b_row = tid / BN, b_col = tid % BN;
+  const size_t a0 = kBatched ? blockIdx.z * stride_a : 0;
+  const size_t b0 = kBatched ? blockIdx.z * stride_b : 0;
+  const size_t c0 = kBatched ? blockIdx.z * stride_c : 0;
 
   float a_reg[4], b_reg[4];
   auto load = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gm = m0 + ty + 16 * i, gk = k0 + tx;
-      a_reg[i] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+      a_reg[i] = (gm < M && gk < K) ? A[a0 + (size_t)gm * K + gk] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gk = k0 + b_row + 4 * i, gn = n0 + b_col;
-      b_reg[i] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
+      b_reg[i] = (gk < K && gn < N) ? B[b0 + (size_t)gk * N + gn] : 0.f;
     }
   };
   auto store = [&](int buf) {
@@ -97,7 +119,7 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
+      if (gn < N) C[c0 + (size_t)gm * N + gn] = acc[i][j];
     }
   }
 }
@@ -107,7 +129,17 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 extern "C" int gemm_f32(const float* a, const float* b, float* c, int M, int N,
                         int K, void* stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, b, c, M, N, K);
+  gemm_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, b, c, M, N,
+                                                                               K, 0, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a (E, M, K), b (E, K, N), c (E, M, N), each contiguous; E <= 65535.
+extern "C" int batched_gemm_f32(const float* a, const float* b, float* c, int E, int M,
+                                int N, int K, void* stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+  gemm_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, c, M, N, K, (size_t)M * K, (size_t)K * N, (size_t)M * N);
   return static_cast<int>(cudaGetLastError());
 }
 

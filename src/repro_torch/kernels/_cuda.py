@@ -27,7 +27,7 @@ __all__ = ["library", "build", "check", "stream_of", "BUILD_DIR", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES: Tuple[str, ...] = ("gemm.cu", "rmsnorm.cu", "flash_decode.cu",
-                            "flash_attention.cu")
+                            "flash_attention.cu", "ssd.cu")
 HEADERS: Tuple[str, ...] = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +41,8 @@ MAX_HEAD_DIM = 256
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES: Dict[str, tuple] = {
     "gemm_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # a, b, c; E, M, N, K
+    "batched_gemm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "rmsnorm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
     "flash_decode_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "flash_chunk_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -54,6 +56,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_paged_chunk_attention_i8": (*[_P] * 8, *[_I] * 9, _F, _P),
     # q, k, v, o; B, T, Hq, Hk, Skv, D, Dv, causal, window
     "flash_attention_f32": (*[_P] * 4, *[_I] * 9, _F, _P),
+    # xbar, la, B, C, y, state; B, S, H, P, G, N, Q
+    "ssd_scan_f32": (*[_P] * 6, *[_I] * 7, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,24 +1,32 @@
 """Kernel ops + registry integration — counterpart of
 :mod:`repro.kernels.ops`, for the ops of the dense serving path and the
-layer-stack models' attention.
+layer-stack models' mixers.
 
-Declares ``attention``, ``decode_attention``, ``rmsnorm`` and ``swiglu``
-(shape and cost functions match ``repro``'s), registers their ``ref``
-backends (the plain PyTorch oracles of :mod:`repro_torch.kernels.ref`) and
-the ``cuda`` backends of ``attention``, ``decode_attention``, ``rmsnorm``
-and ``dense`` (the hand-written Hopper kernels, in the slot ``pallas``
-fills in ``repro``).  A ``cuda`` backend runs its kernel's plain version on
-CPU tensors.  The dispatchers ``attention``, ``decode_attention``,
-``rmsnorm`` and ``swiglu`` are what :mod:`repro_torch.layers` calls.
+Declares ``attention``, ``decode_attention``, ``rmsnorm``, ``ssd``,
+``moe_gemm`` and ``swiglu`` (shape and cost functions match ``repro``'s),
+registers their ``ref`` backends (the plain PyTorch oracles of
+:mod:`repro_torch.kernels.ref`; ``ssd`` also has ``chunked``, the plain
+chunked algorithm) and the ``cuda`` backends of ``attention``,
+``decode_attention``, ``rmsnorm``, ``ssd``, ``moe_gemm`` and ``dense``
+(the hand-written Hopper kernels, in the slot ``pallas`` fills in
+``repro``).  A ``cuda`` backend runs its kernel's plain version on CPU
+tensors.  The dispatchers ``attention``, ``decode_attention``,
+``rmsnorm``, ``ssd``, ``ssd_step``, ``moe_gemm`` and ``swiglu`` are what
+:mod:`repro_torch.layers` calls.
 
 The ``cuda`` guards are only what the kernels need (whole GQA groups,
-head widths <= 256, fp32); the TPU's block-divisibility guards are not
-carried over, because each kernel masks its own ragged edges.
+head widths <= 256, fp32, a chunk of at most 128); the TPU's
+block-divisibility guards are not carried over, because each kernel masks
+its own ragged edges.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core import nnops as _nnops  # noqa: F401  (declares dense)
 from repro_torch.core.ir import TensorSpec
@@ -26,10 +34,14 @@ from repro_torch.core.registry import Cost, defop, get_impl, impl
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import attention_fits, flash_attention
 from repro_torch.kernels.flash_decode import decode_fits, flash_decode
+from repro_torch.kernels.gemm import batched_gemm as _batched_gemm_kernel
 from repro_torch.kernels.gemm import gemm as _gemm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
+from repro_torch.kernels.ssd import scan_fits, ssd_scan_plain
+from repro_torch.kernels.ssd import ssd_scan as _ssd_kernel
 
-__all__ = ["attention", "decode_attention", "rmsnorm", "swiglu"]
+__all__ = ["attention", "decode_attention", "rmsnorm", "ssd", "ssd_step", "moe_gemm",
+           "swiglu"]
 
 
 def _bytes(specs: Sequence[TensorSpec]) -> float:
@@ -175,6 +187,151 @@ def _rms_cuda_impl(inputs, attrs):
 def rmsnorm(x, w, *, eps=1e-6, residual=None, backend="ref", **kw):
     inputs = [x, w] if residual is None else [x, w, residual]
     return get_impl("rmsnorm", backend)(inputs, {"eps": eps, **kw})[0]
+
+
+# --------------------------------------------------------------------------- #
+# ssd (Mamba2) — inputs (x, dt, A, B, C, D) -> (y, final_state)
+# --------------------------------------------------------------------------- #
+
+def _ssd_shape(specs, attrs):
+    x, B = specs[0], specs[3]
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    return [x, TensorSpec((b, h, p, n), "float32")]
+
+
+def _ssd_cost(specs, attrs):
+    x, B = specs[0], specs[3]
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    q = int(attrs.get("chunk", 128))
+    # intra: (Q,N)x(N,Q) + (Q,Q)x(Q,P); inter: (Q,N)x(N,P); state: (Q,P)x(Q,N)
+    per_chunk = 2.0 * q * q * n + 2.0 * q * q * p + 4.0 * q * n * p
+    flops = b * h * (s / q) * per_chunk
+    return Cost(flops=flops, bytes=_bytes([sp for sp in specs if sp is not None]) + x.nbytes)
+
+
+defop("ssd", _ssd_shape, _ssd_cost,
+      doc="Mamba2 SSD scan -> (y, final_state); attrs: chunk")
+
+
+@impl("ssd", "ref", note="exact sequential recurrence (a Python loop over steps)")
+def _ssd_ref_impl(inputs, attrs):
+    x, dt, A, B, C, D = inputs
+    y, st = R.ssd_ref(x, dt, A, B, C, D)
+    return [y, st]
+
+
+def _ssd_pad_chunk(x, dt, B, C, q):
+    """Pad seq to a chunk multiple with dt=0 steps — exactly state-preserving
+    (decay exp(0·A)=1, contribution dt·x=0); padded outputs are discarded."""
+    s = x.shape[1]
+    pad = (-s) % q
+    if pad == 0:
+        return x, dt, B, C, s
+    pad4 = (0, 0, 0, 0, 0, pad)                    # F.pad counts from the last axis
+    return (F.pad(x, pad4), F.pad(dt, (0, 0, 0, pad)), F.pad(B, pad4), F.pad(C, pad4), s)
+
+
+def _ssd_padded(scan, inputs, attrs):
+    """``scan`` (the kernel or its plain version) over the sequence padded to
+    a chunk multiple; the padded rows of y are dropped."""
+    x, dt, A, B, C, D = inputs
+    q = min(int(attrs.get("chunk", 128)), x.shape[1])
+    xp, dtp, Bp, Cp, s = _ssd_pad_chunk(x, dt, B, C, q)
+    y, st = scan(xp, dtp, A, Bp.contiguous(), Cp.contiguous(), D, chunk=q)
+    return [y[:, :s], st]
+
+
+@impl("ssd", "chunked", note="chunked SSD in plain PyTorch (matmul form)")
+def _ssd_chunked_impl(inputs, attrs):
+    return _ssd_padded(ssd_scan_plain, inputs, attrs)
+
+
+def _ssd_cuda_supports(specs, attrs):
+    x, B = specs[0], specs[3]
+    q = min(int(attrs.get("chunk", 128)), x.shape[1])
+    return _all_f32(specs[:5]) and scan_fits(q, B.shape[3])
+
+
+@impl("ssd", "cuda", supports=_ssd_cuda_supports,
+      note="SSD scan CUDA kernel; one block per (16 state columns, head, sequence), "
+           "chunks in order with the state slice in shared memory")
+def _ssd_cuda_impl(inputs, attrs):
+    return _ssd_padded(_ssd_kernel, inputs, attrs)
+
+
+def ssd(x, dt, A, B, C, D=None, *, chunk=128, backend="ref", **kw):
+    y, st = get_impl("ssd", backend)([x, dt, A, B, C, D], {"chunk": chunk, **kw})
+    return y, st
+
+
+def _sum_last(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by halving it: an order fixed by its length
+    alone, in elementwise adds, so each output's arithmetic is the same
+    whatever the other axes hold (a library reduction or batched product
+    may pick its strategy by the batch size)."""
+    while t.shape[-1] > 1:
+        n = t.shape[-1]
+        half = t[..., :n // 2] + t[..., n // 2:2 * (n // 2)]
+        t = torch.cat([half, t[..., 2 * (n // 2):]], dim=-1) if n % 2 else half
+    return t[..., 0]
+
+
+def ssd_step(x, dt, A, B, C, D, state):
+    """Single decode step in plain PyTorch (JAX has no kernel for it: O(1)
+    work per token).  x (B,H,P), dt (B,H), B/C (B,G,N), state (B,H,P,N) ->
+    (y (B,H,P), new_state).  ``ref.ssd_step_ref``'s arithmetic with the
+    (P,N)·(N,) contraction summed by :func:`_sum_last`, so a sequence's
+    step gives the same bits at any batch size."""
+    hpg = x.shape[1] // B.shape[1]
+    Bh = torch.repeat_interleave(B, hpg, dim=1).float()            # (B,H,N)
+    Ch = torch.repeat_interleave(C, hpg, dim=1).float()
+    a = torch.exp(dt.float() * A.float()[None, :])
+    xbar = x.float() * dt.float()[..., None]
+    new_state = state.float() * a[..., None, None] + xbar[..., None] * Bh[:, :, None, :]
+    y = _sum_last(new_state * Ch[:, :, None, :])
+    if D is not None:
+        y = y + x.float() * D.float()[None, :, None]
+    return y.to(x.dtype), new_state
+
+
+# --------------------------------------------------------------------------- #
+# moe_gemm — (E, C, d) @ (E, d, f): expert GEMMs after dispatch
+# --------------------------------------------------------------------------- #
+
+def _moe_gemm_shape(specs, attrs):
+    x, w = specs
+    return [TensorSpec((x.shape[0], x.shape[1], w.shape[2]), x.dtype)]
+
+
+def _moe_gemm_cost(specs, attrs):
+    x, w = specs
+    e, c, d = x.shape
+    f = w.shape[2]
+    out_b = e * c * f * np.dtype(x.dtype).itemsize
+    return Cost(flops=2.0 * e * c * d * f, bytes=_bytes(specs) + out_b)
+
+
+defop("moe_gemm", _moe_gemm_shape, _moe_gemm_cost,
+      doc="batched expert GEMM (E,C,d)@(E,d,f)")
+
+
+@impl("moe_gemm", "ref")
+def _moe_gemm_ref_impl(inputs, attrs):
+    return [R.batched_gemm_ref(*inputs)]
+
+
+@impl("moe_gemm", "cuda", supports=lambda specs, attrs: _all_f32(specs),
+      note="batched fp32 FFMA GEMM, expert as blockIdx.z, fixed 64x64 tile "
+           "(row results independent of M)")
+def _moe_gemm_cuda_impl(inputs, attrs):
+    x, w = inputs
+    return [_batched_gemm_kernel(x.contiguous(), w.contiguous())]
+
+
+def moe_gemm(x, w, *, backend="ref", **kw):
+    return get_impl("moe_gemm", backend)([x, w], kw)[0]
 
 
 # --------------------------------------------------------------------------- #

@@ -10,18 +10,24 @@ attention:        q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), Hq % Hkv == 0
 decode_attention: q (B, Hq, D), k/v (B, Skv, Hkv, D), lengths (B,)
 rmsnorm:          x (..., D), w (D,)
 gemm:             x (M, K) @ w (K, N)
+batched_gemm:     x (E, M, K) @ w (E, K, N)
+ssd:              x (B, S, H, P), dt (B, S, H), A (H,), B/C (B, S, G, N)
+
+JAX's ``lax.scan`` loops (the sequential and the chunked SSD) are Python
+loops here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["attention_mask", "attention_ref", "decode_attention_ref", "rmsnorm_ref",
-           "gemm_ref", "swiglu_ref"]
+           "gemm_ref", "batched_gemm_ref", "swiglu_ref", "ssd_ref", "ssd_step_ref",
+           "ssd_chunked_ref", "with_d"]
 
 _NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
@@ -104,5 +110,105 @@ def gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+def batched_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, M, K) @ (E, K, N) -> (E, M, N)."""
+    return torch.einsum("emk,ekn->emn", x.float(), w.float()).to(x.dtype)
+
+
 def swiglu_ref(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return (F.silu(gate.float()) * up.float()).to(gate.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Mamba2 SSD
+# --------------------------------------------------------------------------- #
+
+def _state0(init_state, b, h, p, n, device) -> torch.Tensor:
+    if init_state is None:
+        return torch.zeros((b, h, p, n), dtype=torch.float32, device=device)
+    return init_state.float()
+
+
+def with_d(y: torch.Tensor, x: torch.Tensor, D: Optional[torch.Tensor]) -> torch.Tensor:
+    """y + D x per head (the SSD skip term), in fp32, cast to x's dtype."""
+    if D is not None:
+        y = y.float() + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, D: Optional[torch.Tensor] = None,
+            init_state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential state-space-duality recurrence (the exact oracle).
+
+    x (B,S,H,P), dt (B,S,H), A (H,) negative, B/C (B,S,G,N) with H % G == 0.
+    Returns y (B,S,H,P) and final state (B,H,P,N).
+
+        a_t   = exp(dt_t * A)            (per head, scalar)
+        S_t   = a_t S_{t-1} + (dt_t x_t) B_t^T   (P x N)
+        y_t   = S_t C_t + D x_t
+    """
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    hpg = h // B.shape[2]
+    Bh = torch.repeat_interleave(B, hpg, dim=2).float()        # (B,S,H,N)
+    Ch = torch.repeat_interleave(C, hpg, dim=2).float()
+    a = torch.exp(dt.float() * A.float()[None, None, :])
+    xbar = x.float() * dt.float()[..., None]
+    state = _state0(init_state, b, h, p, n, x.device)
+    ys = []
+    for t in range(s):
+        state = state * a[:, t, :, None, None] + xbar[:, t, :, :, None] * Bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros((b, 0, h, p), device=x.device)
+    return with_d(y, x, D), state
+
+
+def ssd_step_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, D: Optional[torch.Tensor],
+                 state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step. x (B,H,P), dt (B,H), B/C (B,G,N), state (B,H,P,N).
+    Returns (y (B,H,P), new_state)."""
+    y, new_state = ssd_ref(x[:, None], dt[:, None], A, B[:, None], C[:, None], D,
+                           init_state=state)
+    return y[:, 0], new_state
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, D: Optional[torch.Tensor] = None,
+                    init_state: Optional[torch.Tensor] = None,
+                    chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD — the algorithm the kernel implements (intra-chunk
+    quadratic + inter-chunk state carry).  The decay ``exp(cs_i - cs_j)`` is
+    taken only where j <= i (elsewhere the difference is positive and the
+    exp could overflow; JAX masks it after the exp, which gives the same
+    numbers wherever it is finite)."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    if s % chunk:
+        raise ValueError(f"pad sequence {s} to a multiple of the chunk {chunk}")
+    nc = s // chunk
+    hpg = h // B.shape[2]
+    Bh = torch.repeat_interleave(B, hpg, dim=2).float()
+    Ch = torch.repeat_interleave(C, hpg, dim=2).float()
+    la = dt.float() * A.float()[None, None, :]                  # log a
+    xbar = x.float() * dt.float()[..., None]
+    state = _state0(init_state, b, h, p, n, x.device)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    ys = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        lac, xc, Bc, Cc = la[:, sl], xbar[:, sl], Bh[:, sl], Ch[:, sl]
+        cs = torch.cumsum(lac, dim=1)                             # (B,chunk,H)
+        smat = torch.einsum("bihn,bjhn->bhij", Cc, Bc)
+        dec = cs[:, :, None, :] - cs[:, None, :, :]               # (B,i,j,H)
+        L = torch.exp(torch.where(mask[None, :, :, None], dec, torch.zeros_like(dec)))
+        L = torch.where(mask[None, :, :, None], L, torch.zeros_like(L))
+        y_intra = torch.einsum("bhij,bjhp->bihp", smat * L.permute(0, 3, 1, 2), xc)
+        y_inter = torch.einsum("bihn,bhpn->bihp", Cc, state) * torch.exp(cs)[..., None]
+        w = torch.exp(cs[:, -1:, :] - cs)                         # (B,chunk,H)
+        state = (state * torch.exp(cs[:, -1, :])[..., None, None]
+                 + torch.einsum("bjhp,bjhn->bhpn", xc * w[..., None], Bc))
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1) if ys else torch.zeros((b, 0, h, p), device=x.device)
+    return with_d(y, x, D), state

@@ -10,7 +10,9 @@ Program-backed engine over the graph LM — counterpart of
 
 Default mode submits a stream of random-prompt requests and runs the
 slot-based continuous batcher (prefill on admit, batched decode) over a
-:class:`repro_torch.models.lm.LM` with random weights from seed 0; it
+:class:`repro_torch.models.lm.LM` with random weights from seed 0 (the
+attention configs, qwen2-moe-a2.7b's MoE and mamba2-370m's SSD blocks;
+``--arch qwen2-moe-a2.7b --full`` holds 60.6 GB of fp32 weights); it
 serves the reduced config, or with ``--full`` the published one in fp32
 (every kernel of the port is fp32; that is the one change from the
 published config).  On the card every op runs on the port's hand-written

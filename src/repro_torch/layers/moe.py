@@ -1,0 +1,184 @@
+"""Mixture-of-Experts channel mixer (routed top-k + optional shared experts)
+— counterpart of :mod:`repro.layers.moe`.
+
+Dispatch is capacity-based (Switch/GShard style): the routed tokens are
+written into a dense (E, capacity, d) buffer and the expert FFNs run as
+batched GEMMs through the registry (``moe_gemm``: ``ref`` einsum or the
+``cuda`` batched-GEMM kernel).  Position-within-expert is a stable-sort
+rank; tokens over capacity are dropped (weight 0).  Padding experts (qwen2's
+60 -> 64) get router logits of -1e30, so they are never selected.
+
+``dispatch="global"`` pools the capacity over all tokens of the call;
+``"local"`` pools it per batch row, as JAX's vmapped dispatch does.  The
+local path folds the batch into the GEMMs' rows: one (E, B*cap, d) launch
+per projection, row ``b*cap + pos`` of expert e holding row b's token at
+position ``pos``.  Each row's arithmetic is the same as in JAX's per-row
+products (the ``cuda`` kernel's rows do not depend on M), and the experts'
+weights are read once per call instead of once per row.  JAX's mesh
+constraints on the dispatched buffer belong to tensor parallelism (ROADMAP
+Queue 1 item 12) and are not carried over.
+
+The writes and sums have a fixed order on any device: kept tokens are
+written with a plain (non-accumulating) index assignment — their (expert,
+slot) pairs are distinct, and dropped tokens are never written — and each
+token's top-k contributions are added in k order, as JAX's scatter-add
+does on the CPU (an accumulating scatter may reorder the adds on the card).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.layers.common import dense, dense_init
+from repro_torch.layers.mlp import swiglu_apply, swiglu_init
+
+Params = Dict[str, Any]
+
+__all__ = ["moe_init", "route", "moe_apply", "moe_apply_local"]
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, *,
+             dtype: torch.dtype = torch.float32) -> Params:
+    mo = cfg.moe
+    d, f, e = cfg.d_model, mo.d_expert, mo.n_experts
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+    scale = 1.0 / math.sqrt(d)
+    p: Params = {
+        "router": dense_init(gen, d, e, dtype=torch.float32, scale=0.02),
+        "w_gate": (randn((e, d, f)) * scale).to(dtype),
+        "w_up": (randn((e, d, f)) * scale).to(dtype),
+        "w_down": (randn((e, f, d)) / math.sqrt(f)).to(dtype),
+    }
+    if mo.n_shared:
+        p["shared"] = swiglu_init(gen, d, mo.d_shared, dtype=dtype)
+    return p
+
+
+def _capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    """Slots per expert.  The round-up to 8 is part of the semantics: it
+    decides which tokens drop."""
+    mo = cfg.moe
+    c = int(math.ceil(n_tokens * mo.top_k / mo.n_experts * mo.capacity_factor))
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def route(logits: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T, E) router logits -> (top-k weights, top-k expert ids), ids in
+    descending weight order."""
+    mo = cfg.moe
+    if mo.n_routed_padded and mo.n_routed_padded > mo.n_routed:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= mo.n_routed
+        logits = torch.where(pad[None, :], torch.full_like(logits, -1e30), logits)
+    probs = torch.softmax(logits.float(), dim=-1)
+    topw, topi = torch.topk(probs, mo.top_k, dim=-1, sorted=True)
+    if mo.router_norm_topk:
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    return topw, topi
+
+
+def _aux_loss(logits: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Tensor:
+    """Switch load-balance loss E * sum_e f_e p_e, from the unmasked logits."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    frac_tokens = torch.bincount(topi.reshape(-1), minlength=e).float() / topi.numel()
+    return e * torch.sum(frac_tokens * probs.mean(0))
+
+
+def _positions(fi: torch.Tensor, e: int) -> torch.Tensor:
+    """fi (R, T*k) expert ids per pool -> each entry's position within its
+    expert, in token order (a stable sort's rank)."""
+    order = torch.argsort(fi, dim=-1, stable=True)
+    counts = torch.zeros((fi.shape[0], e), dtype=torch.long, device=fi.device)
+    counts.scatter_add_(1, fi, torch.ones_like(fi))
+    starts = torch.cumsum(counts, dim=-1) - counts
+    ranks = torch.arange(fi.shape[1], device=fi.device)[None, :]
+    pos_sorted = ranks - torch.gather(starts, 1, torch.gather(fi, 1, order))
+    return torch.empty_like(fi).scatter_(1, order, pos_sorted)
+
+
+def _experts(p: Params, xe: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(E, M, d) dispatched rows -> (E, M, d) through the expert SwiGLUs."""
+    mb = cfg.backend("moe_gemm")
+    g = kops.moe_gemm(xe, p["w_gate"].to(xe.dtype), backend=mb)
+    u = kops.moe_gemm(xe, p["w_up"].to(xe.dtype), backend=mb)
+    h = kops.swiglu(g, u, backend=cfg.backend("swiglu"))
+    return kops.moe_gemm(h, p["w_down"].to(xe.dtype), backend=mb)
+
+
+def _combine(gathered: torch.Tensor) -> torch.Tensor:
+    """(..., k, d) weighted expert outputs -> (..., d), added in k order."""
+    y = gathered[..., 0, :]
+    for j in range(1, gathered.shape[-2]):
+        y = y + gathered[..., j, :]
+    return y
+
+
+def _route_and_aux(p: Params, xt: torch.Tensor, cfg: ArchConfig):
+    logits = dense(xt.float(), p["router"].float(), backend=cfg.backend("dense"))
+    topw, topi = route(logits, cfg)
+    return topw, topi, _aux_loss(logits, topi, cfg.moe.n_experts)
+
+
+def moe_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d), aux_loss scalar tensor)."""
+    if cfg.moe.dispatch == "local":
+        return moe_apply_local(p, x, cfg=cfg)
+    mo = cfg.moe
+    b, s, d = x.shape
+    t, k, e = b * s, mo.top_k, mo.n_experts
+    xt = x.reshape(t, d)
+    topw, topi, aux = _route_and_aux(p, xt, cfg)
+
+    cap = _capacity(t, cfg)
+    fi = topi.reshape(-1)                                        # (T*k,)
+    pos = _positions(fi[None], e)[0]
+    keep = pos < cap
+    pos_c = torch.clamp(pos, max=cap - 1)
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+
+    xe = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    xe[fi[keep], pos[keep]] = xt[tok[keep]]
+    ye = _experts(p, xe, cfg)                                    # (E, cap, d)
+
+    weight = (keep * topw.reshape(-1)).to(x.dtype)
+    y = _combine((ye[fi, pos_c] * weight[:, None]).reshape(t, k, d))
+    if mo.n_shared:
+        y = y + swiglu_apply(p["shared"], xt, cfg=cfg)
+    return y.reshape(b, s, d), aux
+
+
+def moe_apply_local(p: Params, x: torch.Tensor, *, cfg: ArchConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-local dispatch: capacity pools and ranks per batch row (per-row
+    drops instead of global drops), the rows folded into one GEMM row axis."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    k, e = mo.top_k, mo.n_experts
+    cap = _capacity(s, cfg)
+    topw, topi, aux = _route_and_aux(p, x.reshape(b * s, d), cfg)
+
+    fi = topi.reshape(b, s * k)
+    pos = _positions(fi, e)
+    keep = pos < cap
+    rows = torch.arange(b, device=x.device)[:, None] * cap
+    slot, slot_c = rows + pos, rows + torch.clamp(pos, max=cap - 1)
+    tok = torch.arange(s, device=x.device).repeat_interleave(k)
+    src = (torch.arange(b, device=x.device)[:, None] * s + tok[None, :])[keep]
+
+    xe = torch.zeros((e, b * cap, d), dtype=x.dtype, device=x.device)
+    xe[fi[keep], slot[keep]] = x.reshape(b * s, d)[src]
+    ye = _experts(p, xe, cfg)                                    # (E, B*cap, d)
+
+    weight = (keep * topw.reshape(b, s * k)).to(x.dtype)
+    y = _combine((ye[fi, slot_c] * weight[..., None]).reshape(b, s, k, d))
+    if mo.n_shared:
+        y = y + swiglu_apply(p["shared"], x.reshape(b * s, d), cfg=cfg).reshape(b, s, d)
+    return y, aux

@@ -1,9 +1,11 @@
 """Decoder-only LM assembled from a LayerPlan: embed -> stack -> norm -> head
 — counterpart of :class:`repro.models.lm.LM`, for the configs whose blocks
-are all ``attn``/``attn_local`` with ``swiglu``/``mlp`` FFNs (gemma3-1b,
-phi3-mini-3.8b, stablelm-12b, minitron-4b, and pixtral-12b through its
-``embeds`` frontend).  Any other config raises on ``LM(cfg)`` with the
-ROADMAP item that brings it.
+have ``attn``/``attn_local``/``mamba`` mixers and ``swiglu``/``mlp``/``moe``
+FFNs (gemma3-1b, phi3-mini-3.8b, stablelm-12b, minitron-4b, qwen2-moe-a2.7b,
+mamba2-370m, and pixtral-12b through its ``embeds`` frontend).  Any other
+config (deepseek-v2-lite's MLA, zamba2's shared attention blocks,
+seamless-m4t's encoder) raises on ``LM(cfg)`` with the ROADMAP item that
+brings it.
 
 API (functions of params, a dict tree of tensors):
   init_params(seed, device)                -> params (drawn on the device)
@@ -37,9 +39,10 @@ __all__ = ["LM", "CUDA_BACKENDS", "mask_vocab", "params_from_numpy"]
 
 Params = Dict[str, Any]
 
-# The op backends the port serves with on the card: the hand-written kernels.
+# The op backends the port serves with on the card: the hand-written kernels
+# (they override a config's own choice, such as mamba2's ``ssd: chunked``).
 CUDA_BACKENDS = {"attention": "cuda", "decode_attention": "cuda", "rmsnorm": "cuda",
-                 "dense": "cuda"}
+                 "dense": "cuda", "moe_gemm": "cuda", "ssd": "cuda"}
 
 
 def _dtype(name: str) -> torch.dtype:

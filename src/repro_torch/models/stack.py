@@ -5,10 +5,14 @@ Parameters for position i of the period are stacked along axis 0
 (n_periods, ...), as in the JAX package, and caches follow the same layout.
 JAX scans over that axis; here the period loop is a Python loop over it.
 
-Blocks with ``attn``/``attn_local`` mixers and ``swiglu``/``mlp`` FFNs are
-ported.  ``mla``, ``mamba`` and ``shared_attn`` mixers, ``moe`` FFNs and
+Blocks with ``attn``/``attn_local``/``mamba`` mixers and ``swiglu``/
+``mlp``/``moe`` FFNs are ported.  ``mla`` and ``shared_attn`` mixers and
 cross-attention raise ``NotImplementedError`` naming the ROADMAP item that
 brings them.
+
+:func:`stack_init` copies each period's parameters into one preallocated
+``(n_periods, ...)`` tensor per leaf as soon as they are drawn: at most one
+period's parameters exist beside the stacked ones.
 """
 
 from __future__ import annotations
@@ -22,13 +26,12 @@ from repro_torch.layers.attention import (CROSS_ITEM, MLA_ITEM, SHARED_ITEM, att
                                           attn_init)
 from repro_torch.layers.common import norm
 from repro_torch.layers.mlp import mlp_apply, mlp_init, swiglu_apply, swiglu_init
+from repro_torch.layers.moe import moe_apply, moe_init
+from repro_torch.layers.ssm import mamba_apply, mamba_init
 
 Params = Dict[str, Any]
 
-MAMBA_ITEM = "Mamba2 (SSD) mixers are not ported yet (ROADMAP Queue 1 item 13c)"
-MOE_ITEM = "MoE FFNs are not ported yet (ROADMAP Queue 1 item 13b)"
-_NOT_PORTED = {"mla": MLA_ITEM, "mamba": MAMBA_ITEM, "shared_attn": SHARED_ITEM,
-               "moe": MOE_ITEM}
+_NOT_PORTED = {"mla": MLA_ITEM, "shared_attn": SHARED_ITEM}
 
 
 def check_block(blk: Block) -> None:
@@ -39,9 +42,9 @@ def check_block(blk: Block) -> None:
             raise NotImplementedError(_NOT_PORTED[kind])
     if blk.cross:
         raise NotImplementedError(CROSS_ITEM)
-    if blk.mixer not in ("attn", "attn_local"):
+    if blk.mixer not in ("attn", "attn_local", "mamba"):
         raise ValueError(f"unknown mixer {blk.mixer!r}")
-    if blk.ffn not in ("swiglu", "mlp", "none"):
+    if blk.ffn not in ("swiglu", "mlp", "moe", "none"):
         raise ValueError(f"unknown ffn {blk.ffn!r}")
 
 
@@ -65,43 +68,55 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, blk: Block, *,
                dtype: torch.dtype = torch.float32) -> Params:
     check_block(blk)
     d = cfg.d_model
+    mixer = mamba_init if blk.mixer == "mamba" else attn_init
     p: Params = {"norm1": torch.ones((d,), dtype=dtype, device=gen.device),
-                 "mixer": attn_init(gen, cfg, dtype=dtype)}
+                 "mixer": mixer(gen, cfg, dtype=dtype)}
     if blk.ffn != "none":
         p["norm2"] = torch.ones((d,), dtype=dtype, device=gen.device)
-        init = swiglu_init if blk.ffn == "swiglu" else mlp_init
-        p["ffn"] = init(gen, d, cfg.d_ff, dtype=dtype)
+        if blk.ffn == "moe":
+            p["ffn"] = moe_init(gen, cfg, dtype=dtype)
+        else:
+            init = swiglu_init if blk.ffn == "swiglu" else mlp_init
+            p["ffn"] = init(gen, d, cfg.d_ff, dtype=dtype)
     return p
 
 
 def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
                 mode: str, cache: Any = None, lengths=None,
                 cache_cap: Optional[int] = None, causal: bool = True
-                ) -> Tuple[torch.Tensor, Any, float]:
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (h, new_cache, aux_loss). ``cache`` is a dict with optional
-    key 'mix' (block-level cache container).  aux_loss is 0: only MoE
-    blocks have one."""
+    key 'mix' (block-level cache container).  aux_loss is a float32 scalar
+    tensor, 0 unless the FFN is MoE."""
     check_block(blk)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = cache or {}
     new_cache: Dict[str, Any] = {}
     nb = cfg.backend("rmsnorm")
     eps = cfg.norm_eps
 
     x = norm(h, p["norm1"], eps=eps, backend=nb)
-    window = cfg.window if blk.mixer == "attn_local" else None
-    y, c = attn_apply(p["mixer"], x, cfg=cfg, mode=mode, window=window,
-                      cache=cache.get("mix"), lengths=lengths,
-                      cache_cap=cache_cap, causal=causal)
+    if blk.mixer == "mamba":
+        y, c = mamba_apply(p["mixer"], x, cfg=cfg, mode=mode, cache=cache.get("mix"),
+                           lengths=lengths)
+    else:
+        window = cfg.window if blk.mixer == "attn_local" else None
+        y, c = attn_apply(p["mixer"], x, cfg=cfg, mode=mode, window=window,
+                          cache=cache.get("mix"), lengths=lengths,
+                          cache_cap=cache_cap, causal=causal)
     h = h + y
     if c is not None:
         new_cache["mix"] = c
 
     if blk.ffn != "none":
         x = norm(h, p["norm2"], eps=eps, backend=nb)
-        fn = swiglu_apply if blk.ffn == "swiglu" else mlp_apply
-        h = h + fn(p["ffn"], x, cfg=cfg)
+        if blk.ffn == "moe":
+            y, aux = moe_apply(p["ffn"], x, cfg=cfg)
+        else:
+            y = (swiglu_apply if blk.ffn == "swiglu" else mlp_apply)(p["ffn"], x, cfg=cfg)
+        h = h + y
 
-    return h, (new_cache if new_cache else None), 0.0
+    return h, (new_cache if new_cache else None), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -110,12 +125,21 @@ def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
 
 def stack_init(gen: torch.Generator, cfg: ArchConfig, plan: LayerPlan, *,
                dtype: torch.dtype = torch.float32) -> Params:
+    """Parameters drawn on ``gen``'s device; period leaves stacked on axis 0.
+    Each stacked tensor is allocated from the first period's draw, and every
+    period is copied into its slot as soon as it is drawn."""
     p: Params = {"prefix": [], "period": [], "suffix": []}
     for blk in plan.prefix:
         p["prefix"].append(block_init(gen, cfg, blk, dtype=dtype))
     for blk in plan.period:
-        per = [block_init(gen, cfg, blk, dtype=dtype) for _ in range(plan.n_periods)]
-        p["period"].append(_tree_map(lambda *xs: torch.stack(xs), *per) if per else {})
+        stacked: Params = {}
+        for i in range(plan.n_periods):
+            one = block_init(gen, cfg, blk, dtype=dtype)
+            if i == 0:
+                stacked = _tree_map(lambda a: torch.empty((plan.n_periods, *a.shape),
+                                                          dtype=a.dtype, device=a.device), one)
+            _tree_map(lambda out, a: out[i].copy_(a), stacked, one)
+        p["period"].append(stacked)
     for blk in plan.suffix:
         p["suffix"].append(block_init(gen, cfg, blk, dtype=dtype))
     return p
@@ -125,7 +149,7 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
                 cfg: ArchConfig, mode: str, caches: Any = None,
                 lengths=None, cache_cap: Optional[int] = None, causal: bool = True):
     """Returns (h, new_caches, aux_total); new_caches is None in train mode."""
-    aux_total = 0.0
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = caches or {"prefix": [None] * len(plan.prefix),
                         "period": [None] * len(plan.period),
                         "suffix": [None] * len(plan.suffix)}
@@ -138,19 +162,26 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
         aux_total = aux_total + aux
 
     if plan.n_periods > 0:
-        collected: List[List[Any]] = []
+        # each period's new cache is copied into one (n_periods, ...) tensor
+        # per leaf as soon as it exists, so at most one period's worth of
+        # new caches lives beside the stacked input and output
+        stacked: List[Any] = [None] * len(plan.period)
         for pidx in range(plan.n_periods):
-            cs = []
             for j, blk in enumerate(plan.period):
                 bp = _tree_map(lambda a: a[pidx], params["period"][j])
                 bc = caches["period"][j]
                 bc = None if bc is None else _tree_map(lambda a: a[pidx], bc)
                 h, c, aux = block_apply(bp, h, blk, cache=bc, **common)
                 aux_total = aux_total + aux
-                cs.append(c)
-            collected.append(cs)
+                if mode == "train" or c is None:
+                    continue
+                if stacked[j] is None:
+                    stacked[j] = _tree_map(
+                        lambda a: torch.empty((plan.n_periods, *a.shape), dtype=a.dtype,
+                                              device=a.device), c)
+                _tree_map(lambda out, a: out[pidx].copy_(a), stacked[j], c)
         if mode != "train":
-            new_caches["period"] = _tree_map(lambda *xs: torch.stack(xs), *collected)
+            new_caches["period"] = stacked
 
     for blk, bp, bc in zip(plan.suffix, params["suffix"], caches["suffix"]):
         h, c, aux = block_apply(bp, h, blk, cache=bc, **common)
@@ -164,13 +195,24 @@ def init_stack_caches(cfg: ArchConfig, plan: LayerPlan, batch: int, cache_cap: i
                       dtype: torch.dtype = torch.float32,
                       device: Optional[torch.device] = None) -> Any:
     """Zero caches for decode-from-scratch (period caches are real stacked
-    tensors, not broadcast views: the batcher writes slots into them)."""
+    tensors, not broadcast views: the batcher writes slots into them).  A
+    mamba block's cache is its conv tails in ``dtype`` and its SSM state in
+    float32."""
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     def one(blk: Block, lead=()):
         check_block(blk)
+        if blk.mixer == "mamba":
+            s = cfg.ssm
+            gn, tail = s.n_groups * s.state, lead + (batch, s.conv_kernel - 1)
+            return {"mix": {"conv_x": zeros(tail + (s.d_inner,)),
+                            "conv_B": zeros(tail + (gn,)), "conv_C": zeros(tail + (gn,)),
+                            "ssm": zeros(lead + (batch, s.n_heads, s.head_dim, s.state),
+                                         torch.float32)}}
         cap = min(cfg.window, cache_cap) if blk.mixer == "attn_local" else cache_cap
         shape = lead + (batch, cap, cfg.n_kv_heads, cfg.head_dim)
-        return {"mix": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}}
+        return {"mix": {"k": zeros(shape), "v": zeros(shape)}}
 
     return {
         "prefix": [one(b) for b in plan.prefix],

@@ -252,7 +252,11 @@ class ContinuousBatcher:
 def _set_slot(full: torch.Tensor, one: torch.Tensor, slot: int) -> None:
     """Set batch index ``slot`` of ``full`` from single-batch ``one``, in
     place.  Works for both stacked (n_periods, B, ...) and plain (B, ...)
-    leaves: the batch dim is the first whose size differs (one has size 1)."""
+    leaves: the batch dim is the first whose size differs (one has size 1).
+    With one slot the shapes are equal and the slot is the whole leaf."""
+    if full.shape == one.shape and slot == 0:
+        full.copy_(one)
+        return
     for axis in range(full.dim()):
         if one.shape[axis] == 1 and full.shape[axis] != 1:
             full.narrow(axis, slot, 1).copy_(one)

@@ -1,9 +1,11 @@
-"""The port's ContinuousBatcher on the CPU (gemma3-1b reduced: local and
-global layers, MQA, prompts on both sides of the window of 16): every
-request equals the port's unbatched greedy prefill + decode, and equals
-the JAX package's ContinuousBatcher on the same weights and requests.
-Also slot reuse, utilisation, the scheduler's conservation, and the
-serving entry point ``python -m repro_torch.launch.serve``."""
+"""The port's ContinuousBatcher on the CPU, on three reduced configs:
+gemma3-1b (local and global layers, MQA, prompts on both sides of the
+window of 16), qwen2-moe-a2.7b (MoE FFNs) and mamba2-370m (SSD mixers,
+conv and SSM state caches).  Every request equals the port's unbatched
+greedy prefill + decode, and equals the JAX package's ContinuousBatcher on
+the same weights and requests.  Also slot reuse, utilisation, the
+scheduler's conservation, the splice of attention and mamba caches, and
+the serving entry point ``python -m repro_torch.launch.serve``."""
 
 import sys
 
@@ -25,6 +27,7 @@ from repro_torch.models.lm import LM, params_from_numpy
 from repro_torch.runtime.batching import ContinuousBatcher, Request
 
 ARCH, SLOTS, CAP = "gemma3-1b", 3, 64
+ARCHS = [ARCH, "qwen2-moe-a2.7b", "mamba2-370m"]
 # two prompt lengths (JAX compiles one prefill per length), one past the window
 LENGTHS, MAX_NEW = (6, 21, 21, 6, 21, 6, 6, 21), (5, 3, 7, 4, 6, 2, 8, 5)
 
@@ -35,24 +38,38 @@ def _requests(cls, vocab):
             for i, (n, m) in enumerate(zip(LENGTHS, MAX_NEW))]
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jmodel = JLM(jget_reduced(ARCH))
+def _setup(arch):
+    jmodel = JLM(jget_reduced(arch))
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
-    model = LM(get_reduced(ARCH))
+    model = LM(get_reduced(arch))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     return jmodel, jparams, model, params
 
 
 @pytest.fixture(scope="module")
+def setup():
+    return _setup(ARCH)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def served(request):
+    """(setup, port_run) of one reduced config."""
+    return _serve(_setup(request.param))
+
+
+@pytest.fixture(scope="module")
 def port_run(setup):
+    return _serve(setup)[1]
+
+
+def _serve(setup):
     _, _, model, params = setup
     batcher = ContinuousBatcher(model, params, n_slots=SLOTS, cache_cap=CAP, eos_id=-1)
     reqs = _requests(Request, model.cfg.vocab)
     for r in reqs:
         batcher.submit(r)
     finished = batcher.run()
-    return batcher, reqs, finished
+    return setup, (batcher, reqs, finished)
 
 
 def _greedy(model, params, prompt, n):
@@ -67,17 +84,15 @@ def _greedy(model, params, prompt, n):
     return out
 
 
-def test_batched_equals_unbatched_greedy(setup, port_run):
-    _, _, model, params = setup
-    _, reqs, _ = port_run
+def test_batched_equals_unbatched_greedy(served):
+    (_, _, model, params), (_, reqs, _) = served
     for r in reqs:
         assert r.done and len(r.out_tokens) == r.max_new_tokens
         assert r.out_tokens == _greedy(model, params, r.prompt, r.max_new_tokens), r.uid
 
 
-def test_batched_equals_the_jax_batcher(setup, port_run):
-    jmodel, jparams, model, _ = setup
-    _, reqs, _ = port_run
+def test_batched_equals_the_jax_batcher(served):
+    (jmodel, jparams, model, _), (_, reqs, _) = served
     jb = JBatcher(jmodel, jparams, n_slots=SLOTS, cache_cap=CAP, eos_id=-1)
     jreqs = _requests(JRequest, model.cfg.vocab)
     for r in jreqs:
@@ -86,8 +101,8 @@ def test_batched_equals_the_jax_batcher(setup, port_run):
     assert [r.out_tokens for r in reqs] == [r.out_tokens for r in jreqs]
 
 
-def test_slots_are_reused_and_kept_busy(port_run):
-    batcher, reqs, finished = port_run
+def test_slots_are_reused_and_kept_busy(served):
+    _, (batcher, reqs, finished) = served
     assert sorted(r.uid for r in finished) == [r.uid for r in reqs]
     assert batcher.run() == []                     # handed out exactly once
     assert batcher.steps < sum(MAX_NEW)            # slots were shared across requests
@@ -120,12 +135,52 @@ def test_splice_writes_one_slot_of_stacked_and_plain_caches(setup):
         assert float(full.narrow(b_axis, 0, 1).abs().max()) == 0.0
 
 
+def test_one_slot_batcher_equals_unbatched_greedy(setup):
+    """With one slot every cache leaf has the prefill's shape: the splice
+    writes the whole leaf."""
+    _, _, model, params = setup
+    batcher = ContinuousBatcher(model, params, n_slots=1, cache_cap=CAP, eos_id=-1)
+    reqs = _requests(Request, model.cfg.vocab)[:3]
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    for r in reqs:
+        assert r.out_tokens == _greedy(model, params, r.prompt, r.max_new_tokens), r.uid
+
+
+def test_splice_writes_one_slot_of_mamba_caches():
+    """A mamba block's conv tails (n_periods, B, K-1, C) and SSM state
+    (n_periods, B, H, P, N) take the prefill's batch-1 leaves in one slot."""
+    _, _, model, params = _setup("mamba2-370m")
+    batcher = ContinuousBatcher(model, params, n_slots=SLOTS, cache_cap=CAP)
+    _, cache1, _ = model.prefill(params, {"tokens": torch.arange(2, 23)[None]}, cache_cap=CAP)
+    s = model.cfg.ssm
+    full = batcher.caches["period"][0]["mix"]
+    shapes = {"conv_x": (s.conv_kernel - 1, s.d_inner),
+              "ssm": (s.n_heads, s.head_dim, s.state)}
+    batcher._splice_cache(2, cache1)
+    for name, tail in shapes.items():
+        assert tuple(full[name].shape) == (model.cfg.plan.n_periods, SLOTS) + tail
+        one = cache1["period"][0]["mix"][name]
+        assert torch.equal(full[name][:, 2:3], one) and float(full[name][:, :2].abs().max()) == 0
+    assert full["ssm"].dtype == torch.float32
+
+
 def test_serve_entry_point_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["serve", "--arch", ARCH, "--device", "cpu",
                                       "--requests", "5", "--max-new", "4"])
     serve.main()
     out = capsys.readouterr().out
     assert "arch=gemma3-1b-reduced device=cpu" in out and "completed 5/5" in out
+
+
+@pytest.mark.parametrize("arch", ARCHS[1:])
+def test_serve_entry_point_serves_moe_and_mamba(monkeypatch, capsys, arch):
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--device", "cpu",
+                                      "--requests", "5", "--max-new", "4"])
+    serve.main()
+    out = capsys.readouterr().out
+    assert f"arch={arch}-reduced device=cpu" in out and "completed 5/5" in out
 
 
 def test_serving_config():

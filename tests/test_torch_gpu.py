@@ -399,3 +399,122 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+@pytest.mark.gpu
+def test_batched_gemm_matches_bmm_and_its_rows_do_not_depend_on_m():
+    dev = _card()
+    from repro_torch.kernels.gemm import batched_gemm, batched_gemm_plain, gemm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rn = _rn(gen, dev)
+    launches = batched_gemm.launches
+    for e, m, n, k in ((3, 5, 37, 19), (2, 70, 65, 200), (4, 1, 3, 1), (64, 32, 96, 130)):
+        x, w = rn(e, m, k), rn(e, k, n)
+        torch.testing.assert_close(batched_gemm(x, w), batched_gemm_plain(x, w), **TOL)
+    assert batched_gemm.launches == launches + 4
+    x, w = rn(8, 96, 150), rn(8, 150, 70)
+    full = batched_gemm(x, w)
+    for m in (1, 3, 64, 65):             # a row's bits do not depend on M or its block
+        assert torch.equal(batched_gemm(x[:, -m:].contiguous(), w), full[:, -m:])
+    assert torch.equal(full[2], gemm(x[2].contiguous(), w[2].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(2, 64, 4, 16, 1, 16, 16), (1, 50, 4, 24, 2, 32, 16),
+                                               (2, 37, 6, 8, 3, 128, 128), (1, 256, 2, 64, 1, 128, 128)])
+def test_ssd_matches_its_plain_version_on_the_card(b, s, h, p, g, n, chunk):
+    dev = _card()
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd import ssd_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    rn = _rn(gen, dev)
+    x, B, C = rn(b, s, h, p), rn(b, s, g, n) * 0.3, rn(b, s, g, n) * 0.3
+    dt = torch.nn.functional.softplus(rn(b, s, h) - 2.0)
+    A, D = -torch.linspace(0.5, 4.0, h, device=dev), rn(h)
+    launches = ssd_scan.launches
+    for with_d in (None, D):             # S off the chunk: the op pads with dt = 0 steps
+        y, st = ops.ssd(x, dt, A, B, C, with_d, chunk=chunk, backend="cuda")
+        y_ref, st_ref = ssd_ref(x, dt, A, B, C, with_d)
+        yc, stc = ops.ssd(x, dt, A, B, C, with_d, chunk=chunk, backend="chunked")
+        for got, want in ((y, yc), (st, stc), (y, y_ref), (st, st_ref)):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert ssd_scan.launches == launches + 2
+
+
+@pytest.mark.gpu
+def test_mamba_decode_step_is_bitwise_across_the_batch():
+    dev = _card()
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rn = _rn(gen, dev)
+    b, h, p, g, n = 4, 32, 64, 1, 128               # mamba2-370m's step
+    x, dt, B, C = rn(b, h, p), torch.rand(b, h, device=dev) * 0.1, rn(b, g, n), rn(b, g, n)
+    A, D, state = -torch.linspace(1.0, 16.0, h, device=dev), torch.ones(h, device=dev), \
+        rn(b, h, p, n)
+    y, st = ops.ssd_step(x, dt, A, B, C, D, state)
+    for i in range(b):
+        y1, st1 = ops.ssd_step(x[i:i + 1], dt[i:i + 1], A, B[i:i + 1], C[i:i + 1], D,
+                               state[i:i + 1])
+        assert torch.equal(y1, y[i:i + 1]) and torch.equal(st1, st[i:i + 1])
+
+
+@pytest.mark.gpu
+def test_ssd_and_batched_gemm_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    from repro_torch.kernels.gemm import batched_gemm
+    from repro_torch.kernels.ssd import ssd_scan
+    x = torch.zeros(2, 4, 8, device=dev)
+    with pytest.raises(ValueError, match="needs"):
+        batched_gemm(x, torch.zeros(3, 8, 4, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        batched_gemm(x.half(), x.transpose(1, 2).contiguous().half())
+    with pytest.raises(ValueError, match="contiguous"):
+        batched_gemm(x, torch.zeros(2, 4, 8, device=dev).transpose(1, 2))
+    xs, dt, A = torch.zeros(1, 256, 2, 8, device=dev), torch.zeros(1, 256, 2, device=dev), \
+        torch.zeros(2, device=dev)
+    bc = torch.zeros(1, 256, 1, 16, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):             # chunk > 128
+        ssd_scan(xs, dt, A, bc, bc, chunk=256)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan(xs[:, :100], dt[:, :100], A, bc[:, :100], bc[:, :100], chunk=64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_scan(xs, dt.cpu(), A, bc, bc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-370m"])
+def test_moe_and_mamba_batchers_on_the_card_match_batch_one(arch):
+    dev = _card()
+    from repro_torch.kernels.gemm import batched_gemm
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.batching import ContinuousBatcher, Request
+    cfg = serving_config(arch, device=dev)
+    model = LM(cfg)
+    params = model.init_params(0, device=dev)
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, int(rng.integers(3, 40)))
+                    .astype(np.int32), max_new_tokens=int(rng.integers(2, 9))) for i in range(7)]
+    kern = batched_gemm if arch.startswith("qwen2") else ssd_scan
+    launches = kern.launches
+    batcher = ContinuousBatcher(model, params, n_slots=3, cache_cap=64, eos_id=-1)
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    assert kern.launches > launches
+    for r in reqs:                       # batch 3 on the card == batch 1 on the card
+        lg, caches, lengths = model.prefill(
+            params, {"tokens": torch.as_tensor(r.prompt, device=dev)[None]}, cache_cap=64)
+        want = [int(lg[0].argmax())]
+        while len(want) < r.max_new_tokens:
+            lg, caches = model.decode_step(
+                params, torch.tensor([want[-1]], dtype=torch.int32, device=dev), caches,
+                lengths)
+            lengths = lengths + 1
+            want.append(int(lg[0].argmax()))
+        assert r.out_tokens == want, r.uid

@@ -4,9 +4,12 @@ serves: the same weights (``params_from_numpy``), prefill logits and
 caches, then eight decode steps, within 1e-4 (a whole fp32 forward, summed
 in other orders on the two sides).  Prompts of 24 tokens are longer than
 the reduced window of 16, so gemma3's local layers take the rolling-buffer
-branch.  Also the configs copied into the port, the teacher-forcing check
-of ``tests/test_arch_smoke.py`` inside the port, and the configs the port
-does not serve yet."""
+branch; qwen2-moe-a2.7b runs its MoE FFNs (global dispatch, padded
+experts) and mamba2-370m its SSD mixers (prompts off the chunk of 16).
+Also the configs copied into the port, ``params_from_numpy`` and
+``init_params`` on the new leaves, the teacher-forcing check of
+``tests/test_arch_smoke.py`` inside the port, and the configs the port does
+not serve yet."""
 
 import dataclasses
 
@@ -27,9 +30,9 @@ from repro_torch.configs import get_config, get_reduced, list_configs
 from repro_torch.layers.common import rope_table
 from repro_torch.models.lm import CUDA_BACKENDS, LM, params_from_numpy
 
-SERVED = ["gemma3-1b", "phi3-mini-3.8b", "stablelm-12b", "minitron-4b"]
-NOT_SERVED = {"qwen2-moe-a2.7b": "13b", "deepseek-v2-lite-16b": "13d", "mamba2-370m": "13c",
-              "zamba2-7b": "13c", "seamless-m4t-medium": "13e"}
+SERVED = ["gemma3-1b", "phi3-mini-3.8b", "stablelm-12b", "minitron-4b", "qwen2-moe-a2.7b",
+          "mamba2-370m"]
+NOT_SERVED = {"deepseek-v2-lite-16b": "13d", "zamba2-7b": "13c", "seamless-m4t-medium": "13e"}
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S0, CAP, STEPS = 2, 24, 40, 8
 
@@ -155,6 +158,73 @@ def test_init_params_has_the_jax_tree_on_the_device():
     assert abs(float(params["embed"].std()) - 0.02) < 2e-3
     again = LM(cfg).init_params(0, device="cpu")
     assert all(torch.equal(again_v, flat[k]) for k, again_v in _flat(again).items())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-370m"])
+def test_params_from_numpy_carries_every_leaf_bit_for_bit(arch):
+    """The JAX tree's MoE and Mamba2 leaves (router, stacked (n_periods, E,
+    d, f) experts, shared expert, conv weights, A_log, D, dt_bias) arrive
+    unchanged, and ``init_params`` draws the same tree."""
+    jparams = _tree_np(JLM(jget_reduced(arch)).init_params(jax.random.PRNGKey(0)))
+    params = params_from_numpy(jparams, "cpu")
+    flat, jflat = _flat(params), _flat(jparams)
+    want = {"qwen2-moe-a2.7b": ["/ffn/router", "/ffn/w_gate", "/ffn/w_up", "/ffn/w_down",
+                                "/ffn/shared/w_gate"],
+            "mamba2-370m": ["/mixer/conv_x", "/mixer/conv_B", "/mixer/A_log", "/mixer/D",
+                            "/mixer/dt_bias", "/mixer/out_proj"]}[arch]
+    for leaf in want:
+        assert f"/stack/period/0{leaf}" in jflat, leaf
+    for k, v in jflat.items():
+        assert np.array_equal(flat[k].numpy(), v) and flat[k].dtype == torch.float32, k
+    cfg = get_reduced(arch)
+    if arch.startswith("qwen2"):
+        mo = cfg.moe
+        assert tuple(flat["/stack/period/0/ffn/w_gate"].shape) == \
+            (cfg.plan.n_periods, mo.n_experts, cfg.d_model, mo.d_expert)
+    drawn = _flat(LM(cfg).init_params(0, device="cpu"))
+    assert sorted(drawn) == sorted(flat)
+    assert all(tuple(drawn[k].shape) == tuple(v.shape) for k, v in flat.items())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-370m", "gemma3-1b"])
+def test_stacked_params_keep_their_shapes_and_scales(arch):
+    """``stack_init`` draws each period leaf into one (n_periods, ...)
+    tensor: the shapes are JAX's, every period is its own draw, and each
+    leaf has its init's scale."""
+    cfg = dataclasses.replace(get_reduced(arch), d_model=256)
+    jcfg = dataclasses.replace(jget_reduced(arch), d_model=256)
+    if cfg.moe is not None:       # wide enough experts for a scale to read
+        mo = dataclasses.replace(cfg.moe, d_expert=256)
+        cfg = cfg.with_overrides(moe=mo)
+        jcfg = jcfg.with_overrides(moe=dataclasses.replace(jcfg.moe, d_expert=256))
+    params = LM(cfg).init_params(3, device="cpu")
+    jshapes = jax.eval_shape(lambda: JLM(jcfg).init_params(jax.random.PRNGKey(0)))
+    flat, jflat = _flat(params), _flat(jshapes)
+    assert sorted(flat) == sorted([*jflat, *(["/embed_t"] if cfg.tie_embeddings else [])])
+    for k, v in jflat.items():
+        assert tuple(flat[k].shape) == v.shape, k
+    d = cfg.d_model
+    scales = {"wq": d ** -0.5, "w_gate": d ** -0.5, "w_down": cfg.d_ff ** -0.5 if cfg.d_ff else 0,
+              "router": 0.02, "wz": d ** -0.5, "conv_x": 0.5, "out_proj": None}
+    if cfg.moe is not None:
+        scales["w_down"] = cfg.moe.d_expert ** -0.5
+    if cfg.ssm is not None:
+        scales["out_proj"] = cfg.ssm.d_inner ** -0.5
+    n = cfg.plan.n_periods
+    for k, t in flat.items():
+        name = k.rsplit("/", 1)[-1]
+        if "/period/" not in k or scales.get(name) is None or "shared" in k:
+            continue
+        assert t.shape[0] == n
+        for i in range(n):
+            assert abs(float(t[i].std()) / scales[name] - 1.0) < 0.1, (k, i)
+        assert not torch.equal(t[0], t[1]), f"{k}: the periods share one draw"
+    if cfg.ssm is not None:
+        a_log = flat["/stack/period/0/mixer/A_log"]
+        h = cfg.ssm.n_heads
+        assert torch.allclose(a_log[1], torch.log(torch.linspace(1.0, 16.0, h)))
+        dt = torch.nn.functional.softplus(flat["/stack/period/0/mixer/dt_bias"])
+        assert float(dt.min()) >= cfg.ssm.dt_min * 0.999 and float(dt.max()) <= cfg.ssm.dt_max * 1.001
 
 
 def test_caches_keep_their_size_over_decode_steps():
