@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a) into
              one shared library; print the time and ptxas' register lines.
-3. kernels — hold each of the nine kernels against its plain PyTorch
+3. kernels — hold each of the ten kernels against its plain PyTorch
              version on the card: small edge cases, then the shapes the
              full-width serving paths give it (phi3-mini widths for the
              engine, gemma3-1b, qwen2-moe-a2.7b and mamba2-370m widths for
@@ -21,6 +21,15 @@ Phases, each printing its own lines; any failure exits non-zero:
              dense kernel's time at the same logical shape is their
              yardstick (no PyTorch call reads KV through a block table).
              The cache-write ops of the three serving paths are timed too.
+             The split-KV partial kernel (flash_decode_partial) is held
+             against its plain version on lengths 0, wholly empty shards
+             and lengths across shard edges, GQA 1-8, D 64-256 with Dv != D,
+             n_splits 2/4/8, then timed with the cuda_split backend
+             (kernel + combine) beside flash_decode and SDPA at phi3-mini's
+             engine decode and at gemma3-1b's global decode for n_splits
+             2/4/8/16; conv2d cuda (im2col + gemm) is timed beside its
+             plain version and the torch backend (F.conv2d) at three
+             ResNet-50 layers.
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
@@ -64,6 +73,32 @@ Phases, each printing its own lines; any failure exits non-zero:
              Phase 3 times every kernel call of phases 8-10 at a batch-4
              decode step and a 1024-token prefill, and each phase's time is
              printed by kernel beside the sum of the kernels' bounds.
+11. split  — (run right after phase 7, on phase 5's weights) phase 5's
+             model, requests, slots, chunk and cache served by
+             build_lm_serving under FixedPolicy(per_op={"decode_attention":
+             ("cuda_split", "cuda", "ref")}): every request token-exact
+             against an UnbatchedReference compiled under the same policy,
+             flash_decode_partial launched once per layer per decode tick
+             and flash_decode never, the decode assignment cuda_split;
+             agreement with phase 5's tokens is reported, not asserted (the
+             split reorders float adds).  Then the engine's decode and
+             prefill Programs are compiled under AutotunePolicy (a cache
+             file in a temporary directory) and CostModelPolicy(H100_SXM):
+             their picks and decode_attention's timings are printed, no
+             cuda* backend may be timed as inf, and a second
+             AutotunePolicy on the same file must measure nothing.
+12. cnn    — the paper's five CNNs (WRN-40-2, MobileNetV1, ResNet-18,
+             Inception-v3, ResNet-50) at their published widths and input
+             sizes, batch 1, simplified once and compiled under the six
+             assignments of repro_torch.launch.cnn_eval (gemm, cuda,
+             direct, winograd, cost_model, autotune): every output within
+             max|a - b| / max|b| <= 1e-4 of the gemm assignment's (1e-3
+             where an assignment holds a winograd layer), the simplified
+             graph within 1e-4 of the unsimplified one, gemm.cu launched
+             once per cuda conv node and no other kernel; ms per model and
+             assignment (median of 5 after a warm-up, synchronised), the
+             winner, and ResNet-50's five slowest layers under autotune
+             (run_instrumented).
 
 The last three lines of standard output are JSON: the serving numbers, one
 entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
@@ -74,8 +109,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -235,7 +272,44 @@ def kernel_cases(torch, K):
         check_close(torch, f"{tag} state", st, stp, **tol)
         n += 1
     torch.cuda.synchronize()
-    return n + paged_kernel_cases(torch, K, rn, g, tol)
+    return n + paged_kernel_cases(torch, K, rn, g, tol) + split_kernel_cases(torch, K, rn, tol)
+
+
+def split_kernel_cases(torch, K, rn, tol):
+    """flash_decode_partial against its plain version: shards of 96 rows (a
+    ragged second tile), lengths 0, 1, on and across the shard edges and
+    the whole cache, so some shards are wholly empty; GQA groups 1-8, D
+    64-256 with Dv != D, n_splits 2/4/8.  An empty shard must give acc 0,
+    m -1e30 and l 0; the cuda_split backend must agree with flash_decode."""
+    n = 0
+    for n_splits in (2, 4, 8):
+        part = 96
+        s_len = part * n_splits
+        lens = [0, 1, part - 1, part, part + 1, s_len // 2 + 5, s_len - 1, s_len]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        shard0 = part * torch.arange(n_splits, device="cuda")[:, None]
+        empty = (lengths[None, :] - shard0) <= 0
+        for hq, hk in ((1, 1), (2, 1), (4, 2), (8, 1)):
+            for d, dv in ((64, 64), (96, 96), (128, 64), (256, 256), (96, 128)):
+                q, k, v = rn(len(lens), hq, d), rn(len(lens), s_len, hk, d), \
+                    rn(len(lens), s_len, hk, dv)
+                tag = f"flash_decode_partial n_splits={n_splits} hq={hq} hk={hk} d={d} dv={dv}"
+                got = K.flash_decode_partial(q, k, v, lengths, n_splits=n_splits)
+                want = K.flash_decode_partial_plain(q, k, v, lengths, 1.0 / math.sqrt(d),
+                                                    n_splits)
+                for part_name, a, b in zip(("acc", "m", "l"), got, want):
+                    check_close(torch, f"{tag} {part_name}", a, b, **tol)
+                acc, m, l = got
+                if not (bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+                        and float(acc[empty].abs().max()) == 0.0):
+                    fail(f"{tag}: an empty shard is not (acc 0, m -1e30, l 0)")
+                check_close(torch, f"{tag} cuda_split",
+                            K.decode_attention(q, k, v, lengths, backend="cuda_split",
+                                               n_splits=n_splits),
+                            K.flash_decode(q, k, v, lengths), **tol)
+                n += 1
+    torch.cuda.synchronize()
+    return n
 
 
 def paged_layout(torch, g, *, b, n, page, mp, hk, d, dv, lengths, quant):
@@ -436,6 +510,8 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
                4.0 * (rows_read * hk * 2 * dh + 2 * b * t * hq * dh + b))
         del q, k, v
 
+    extra = {"split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
+             "conv2d": conv_kernels(torch, rn, timer, full_tol, limit_line)}
     stack_est = {c.name: stack_kernels(torch, K, c, rn, timer, record, full_tol) for c in scfgs}
 
     # the paged kernels at the engine's shapes: pools of the serving phases
@@ -536,7 +612,105 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
             f"{2 * cfg.n_layers} calls per tick  [{limit_line}]")
     del timer
     torch.cuda.empty_cache()
-    return results, by_tag, ops_ms, stack_est
+    return results, by_tag, ops_ms, stack_est, extra
+
+
+# (tag, B, Hq, Hk, D, S, lengths, n_splits timed): phi3-mini's engine decode
+# (phase 11's shape, n_splits 2 as served) and gemma3-1b's global decode
+SPLIT_SHAPES = (
+    ("phi3-mini engine decode", 4, 32, 32, 96, 1024, [731, 400, 129, 0], (2,)),
+    ("gemma3-1b global decode", 4, 4, 1, 256, 2048, [1400, 1000, 600, 250], (2, 4, 8, 16)),
+)
+
+
+def split_kernels(torch, K, rn, timer, record, full_tol, limit_line):
+    """flash_decode_partial and the cuda_split backend (kernel + combine)
+    at SPLIT_SHAPES beside flash_decode and SDPA at the same shape.  The
+    kernel's bound counts q, the live K/V rows and the lengths read once and
+    the partials n_splits * B * Hq * (Dv + 2) floats written once; the
+    backend's adds the partials read again by the combine and the output
+    written.  Returns the rows (the n_splits curve)."""
+    F = torch.nn.functional
+    rows = []
+    for tag, b, hq, hk, dh, s_len, lens, splits in SPLIT_SHAPES:
+        q, k, v = rn(b, hq, dh), rn(b, s_len, hk, dh), rn(b, s_len, hk, dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        sc = 1.0 / math.sqrt(dh)
+        mask = (torch.arange(s_len, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        dense_ms = timer.ms(lambda: K.flash_decode(q, k, v, lengths))
+        sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True))
+        live = sum(min(max(x, 0), s_len) for x in lens)
+        flops = 2.0 * live * hq * 2 * dh
+        for n_splits in splits:
+            got = K.flash_decode_partial(q, k, v, lengths, n_splits=n_splits)
+            want = K.flash_decode_partial_plain(q, k, v, lengths, sc, n_splits)
+            err = max(check_close(torch, f"flash_decode_partial {tag} n_splits={n_splits}",
+                                  a, b_, **full_tol) for a, b_ in zip(got, want))
+            check_close(torch, f"cuda_split {tag} n_splits={n_splits}",
+                        K.decode_attention(q, k, v, lengths, backend="cuda_split",
+                                           n_splits=n_splits),
+                        K.flash_decode(q, k, v, lengths), **full_tol)
+            ms = timer.ms(lambda: K.flash_decode_partial(q, k, v, lengths, n_splits=n_splits))
+            plain = timer.ms(lambda: K.flash_decode_partial_plain(q, k, v, lengths, sc,
+                                                                  n_splits))
+            split_ms = timer.ms(lambda: K.decode_attention(q, k, v, lengths,
+                                                           backend="cuda_split",
+                                                           n_splits=n_splits))
+            partials = 4.0 * n_splits * b * hq * (dh + 2)
+            kbytes = 4.0 * (live * hk * 2 * dh + b * hq * dh + b) + partials
+            sbytes = kbytes + partials + 4.0 * b * hq * dh
+            record("flash_decode_partial", f"{tag} n_splits={n_splits}",
+                   f"{tag} B={b} Hq={hq} Hk={hk} D={dh} S={s_len} len={lens} "
+                   f"n_splits={n_splits}", err, ms, plain, None, flops, kbytes)
+            b_split, _ = bound(flops, sbytes)
+            say(f"    cuda_split backend (kernel + combine) {split_ms:.4g} ms (bound "
+                f"{b_split:.4g} ms); flash_decode {dense_ms:.4g} ms; SDPA {sdpa_ms:.4g} ms; "
+                f"blocks B*Hk*n_splits = {b * hk * n_splits} on 132 SMs  [{limit_line}]")
+            rows.append(dict(shape=tag, n_splits=n_splits, blocks=b * hk * n_splits,
+                             kernel_ms=ms, kernel_bound_ms=bound(flops, kbytes)[0],
+                             split_ms=split_ms, split_bound_ms=b_split, plain_ms=plain,
+                             flash_decode_ms=dense_ms, sdpa_ms=sdpa_ms, max_abs_err=err))
+        del q, k, v
+    return rows
+
+
+# ResNet-50's 7x7/2 stem, a 3x3 at 56x56x64 and a 1x1 at 7x7x2048
+CONV_LAYERS = (("resnet-50 stem 7x7/2", (1, 224, 224, 3), (7, 7, 3, 64), 2),
+               ("resnet-50 3x3 at 56x56x64", (1, 56, 56, 64), (3, 3, 64, 64), 1),
+               ("resnet-50 1x1 at 7x7x2048", (1, 7, 7, 2048), (1, 1, 2048, 512), 1))
+
+
+def conv_kernels(torch, rn, timer, full_tol, limit_line):
+    """conv2d cuda (im2col in PyTorch + gemm.cu) at CONV_LAYERS beside its
+    plain version (the ref backend: im2col + matmul) and the torch backend
+    (one F.conv2d, F.pad first where SAME pads unevenly; TF32 off), with the
+    bound of the convolution (x, w, out bytes; 2 * MACs)."""
+    from repro_torch.core.registry import get_impl
+    cuda, ref, lib = (get_impl("conv2d", b) for b in ("cuda", "ref", "torch"))
+    rows = []
+    for tag, xs, ws, stride in CONV_LAYERS:
+        attrs = {"stride": stride, "padding": "SAME"}
+        x, w = rn(*xs), rn(*ws, scale=1.0 / math.sqrt(ws[0] * ws[1] * ws[2]))
+        (got,) = cuda([x, w], attrs)
+        err = check_close(torch, f"conv2d cuda {tag}", got, ref([x, w], attrs)[0], **full_tol)
+        check_close(torch, f"conv2d torch {tag}", lib([x, w], attrs)[0], got, **full_tol)
+        ms = timer.ms(lambda: cuda([x, w], attrs))
+        plain = timer.ms(lambda: ref([x, w], attrs))
+        lib_ms = timer.ms(lambda: lib([x, w], attrs))
+        n, oh, ow, co = got.shape
+        flops = 2.0 * n * oh * ow * co * ws[0] * ws[1] * ws[2]
+        nbytes = 4.0 * (x.numel() + w.numel() + got.numel())
+        b_ms, b_by = bound(flops, nbytes)
+        say(f"  conv2d cuda (im2col + gemm) {tag:27s} err {err:.2e}  kernel {ms:.4g} ms  plain "
+            f"{plain:.4g} ms  torch (F.conv2d) {lib_ms:.4g} ms  bound {b_ms:.4g} ms ({b_by})  "
+            f"[{limit_line}]")
+        rows.append(dict(shape=f"{tag} x={xs} w={ws} stride={stride}", max_abs_err=err, ms=ms,
+                         plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        del x, w, got
+    return rows
 
 
 def attention_pairs(sq, skv, causal, window):
@@ -722,15 +896,16 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
     return out
 
 
-def tick_estimate(by_tag, ops_ms, n_layers, path):
+def tick_estimate(by_tag, ops_ms, n_layers, path, split_ms=None):
     """Milliseconds of one engine tick of a serving path, by part: each
     kernel's time at the tick's shapes (phase 3) times its launches per
     tick, and the cache-write ops' time times their calls per tick.
     Attention is timed at representative cache lengths, not the run's
-    own.  Each part was timed alone, from its first launch to its last
-    kernel's end; in the engine the host's dispatch of one part overlaps
-    the device work of the one before, so the parts can add up to more
-    than the tick."""
+    own; on the "split" path (phase 11, the dense cache) the decode's is
+    the cuda_split backend's time, ``split_ms`` (kernel + combine).  Each
+    part was timed alone, from its first launch to its last kernel's end;
+    in the engine the host's dispatch of one part overlaps the device work
+    of the one before, so the parts can add up to more than the tick."""
     L = n_layers
     out = {}
     for phase, attn in (("decode", "flash_decode"), ("prefill", "flash_chunk_attention")):
@@ -739,7 +914,9 @@ def tick_estimate(by_tag, ops_ms, n_layers, path):
         def g(what):
             return by_tag[("gemm", f"{tag} {what}")]
 
-        if path == "dense":
+        if path == "split" and phase == "decode":
+            attn_ms = split_ms
+        elif path in ("dense", "split"):
             attn_ms = by_tag[(attn, tag)]
         else:
             mode = path.split()[-1]
@@ -748,7 +925,7 @@ def tick_estimate(by_tag, ops_ms, n_layers, path):
             "gemm": 4 * L * g("q/k/v/o") + 2 * L * g("gate/up") + L * g("down") + g("lm_head"),
             "rmsnorm": (2 * L + 1) * by_tag[("rmsnorm", tag)],
             "attention": L * attn_ms,
-            "cache writes": 2 * L * ops_ms[(path, phase)],
+            "cache writes": 2 * L * ops_ms[("dense" if path == "split" else path, phase)],
         }
     return out
 
@@ -1060,6 +1237,223 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
 
 
 # --------------------------------------------------------------------------- #
+# phase 11: split-KV decode under the selection policies
+# --------------------------------------------------------------------------- #
+
+SERVING_OPS = ("embedding", "dense", "rmsnorm", "swiglu", "cache_update", "chunk_attention",
+               "decode_attention")
+
+
+def _picks(prog):
+    """{op: {backend: nodes}} of a Program, for the serving ops."""
+    out = {}
+    for node in prog.graph.nodes:
+        if node.op in SERVING_OPS:
+            by = out.setdefault(node.op, {})
+            b = prog.assignment[node.name]
+            by[b] = by.get(b, 0) + 1
+    return out
+
+
+def split_phase(torch, K, cfg, params, served, *, n_slots, chunk, cache_cap, max_new, card):
+    """Phase 11 (see the module docstring).  Returns the launches, the
+    serving numbers and a record of the agreement and the policies' picks."""
+    from repro_torch.core.program import compile
+    from repro_torch.core.selector import (H100_SXM, AutotunePolicy, CostModelPolicy,
+                                           FixedPolicy)
+    from repro_torch.runtime.engine import EngineRequest, build_lm_serving
+
+    policy = FixedPolicy(per_op={"decode_attention": ("cuda_split", "cuda", "ref")})
+    t0 = time.perf_counter()
+    engine, reference = build_lm_serving(cfg, n_slots=n_slots, chunk=chunk,
+                                         cache_cap=cache_cap, params=params, policy=policy,
+                                         device="cuda")
+    say(f"  engine built in {time.perf_counter() - t0:.1f} s")
+    summary = engine.stepper.backend_summary()
+    if set(summary["decode"]["decode_attention"]) != {"cuda_split"}:
+        fail(f"decode_attention assigned {summary['decode']['decode_attention']}, expected "
+             "cuda_split only")
+    for phase, op in (("prefill", "dense"), ("prefill", "chunk_attention"),
+                      ("decode", "dense"), ("decode", "rmsnorm")):
+        if set(summary[phase][op]) != {"cuda"}:
+            fail(f"split: {phase} {op} assigned {summary[phase][op]}, expected cuda only")
+    say(f"  step assignment: {json.dumps(summary, sort_keys=True)}")
+    reqs = [EngineRequest(uid=i, prompt=prompt, max_new_tokens=max_new)
+            for i, (prompt, _) in enumerate(served)]
+    torch.cuda.reset_peak_memory_stats()
+    for kern in K.KERNELS:
+        kern.launches = 0
+    for r in reqs:
+        if not engine.submit(r):
+            fail(f"split request {r.uid} rejected: {r.dropped}")
+    t_run = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    m = engine.metrics
+    say(f"  engine: {len(reqs)} requests, {m.tokens_out} tokens in {t_run:.2f} s; "
+        f"{m.prefill_ticks} prefill + {m.decode_ticks} decode ticks")
+    say(f"  launches during the engine run: {launches}")
+    L, ticks = cfg.n_layers, m.prefill_ticks + m.decode_ticks
+    want = dict.fromkeys(launches, 0)
+    want.update({"gemm": (7 * L + 1) * ticks, "rmsnorm": (2 * L + 1) * ticks,
+                 "flash_chunk_attention": L * m.prefill_ticks,
+                 "flash_decode_partial": L * m.decode_ticks})
+    if launches != want:
+        fail(f"split: launches {launches} != expected {want}")
+    if any(not r.done or len(r.out_tokens) != max_new for r in reqs):
+        fail("split: not every request finished with its tokens")
+    stats = {
+        "tokens_per_s": m.tokens_per_s,
+        "ttft_p50_s": m.summary()["ttft_s"]["p50"],
+        "decode_ms_per_tick": 1e3 * m.decode_wall_s / max(m.decode_ticks, 1),
+        "prefill_ms_per_tick": 1e3 * m.prefill_wall_s / max(m.prefill_ticks, 1),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "engine_wall_s": t_run,
+    }
+    say(f"  serving (cuda_split decode): {json.dumps(stats)} [{card}]")
+    t_ref = time.perf_counter()
+    same_as_phase5 = 0
+    for r, (prompt, phase5) in zip(reqs, served):
+        ref = reference.generate(r.prompt, max_new, chunk=chunk)
+        if r.out_tokens != ref:
+            fail(f"split request {r.uid}: engine {r.out_tokens} != reference {ref}")
+        same_as_phase5 += r.out_tokens == phase5
+    say(f"  all {len(reqs)} requests token-exact against the unbatched reference under the "
+        f"same policy ({time.perf_counter() - t_ref:.2f} s); {same_as_phase5} of {len(reqs)} "
+        "equal phase 5's tokens (reported, not asserted: the split reorders float adds)")
+
+    st = engine.stepper
+    graphs = {"decode": st.decode_program.graph, "prefill": st.prefill_program.graph}
+    record = {"same_as_phase5": same_as_phase5, "requests": len(reqs), "picks": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "autotune.json")
+        tune = AutotunePolicy(reps=5, cache_path=cache, device="cuda")
+        for label, pol in (("autotune", tune), ("cost_model", CostModelPolicy(H100_SXM))):
+            t = time.perf_counter()
+            for phase, g in graphs.items():
+                prog = compile(g, policy=pol, pipeline=(), device="cuda")
+                record["picks"][f"{label} {phase}"] = _picks(prog)
+                if phase == "decode":
+                    node = next(n for n in prog.graph.nodes if n.op == "decode_attention")
+                    specs = [prog.graph.spec_of(v) for v in node.inputs]
+                    if label == "autotune":
+                        record["decode_attention_timings_s"] = tune.timings(node, specs)
+                    else:
+                        record["decode_attention_estimates_s"] = pol.estimate(node, specs)
+                del prog
+            say(f"  {label}: picks {json.dumps(record['picks'][f'{label} decode'])} (decode), "
+                f"{json.dumps(record['picks'][f'{label} prefill'])} (prefill); compiled in "
+                f"{time.perf_counter() - t:.1f} s")
+        say(f"  decode_attention autotune timings (s, min of 5, lengths drawn in {{0, 1}} as "
+            f"JAX's inputs): {json.dumps(record['decode_attention_timings_s'])}; cost-model "
+            f"estimates (s): {json.dumps(record['decode_attention_estimates_s'])} [{card}]")
+        inf = [(key, b) for key, times in tune._timings.items() for b, t in times.items()
+               if b.startswith("cuda") and t == float("inf")]
+        if inf:
+            fail(f"autotune timed cuda backends as inf (could not run): {inf}")
+        again = AutotunePolicy(reps=5, cache_path=cache, device="cuda")
+        for g in graphs.values():
+            compile(g, policy=again, pipeline=(), device="cuda")
+        if again.n_measured != 0:
+            fail(f"a second AutotunePolicy on the same cache measured {again.n_measured} "
+                 "signatures")
+        say(f"  autotune measured {tune.n_measured} signatures; a second policy on the same "
+            f"file loaded {again.n_loaded} and measured {again.n_measured}")
+        record["autotune_measured"] = tune.n_measured
+    del engine, reference
+    return launches, stats, record
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the paper's five CNNs under six assignments
+# --------------------------------------------------------------------------- #
+
+def cnn_phase(torch, K, card):
+    """Phase 12 (see the module docstring).  Returns the launches over one
+    forward pass of every model under every assignment, the rows {model,
+    assignment: ms, winner}, and ResNet-50's five slowest layers under
+    autotune."""
+    import numpy as np
+    from repro_torch.core.pipeline import default_pipeline
+    from repro_torch.core.program import compile
+    from repro_torch.launch import cnn_eval
+    from repro_torch.models.cnn import CNN_MODELS, build_cnn
+
+    rng = np.random.default_rng(0)
+    total = {kern.__name__: 0 for kern in K.KERNELS}
+    rows, slowest = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        pols = cnn_eval.policies(autotune_cache=os.path.join(tmp, "autotune.json"),
+                                 device="cuda")
+        for name in CNN_MODELS:
+            t = time.perf_counter()
+            raw = build_cnn(name, batch=1)
+            g = default_pipeline().run(raw)
+            x = torch.from_numpy(rng.standard_normal(g.inputs["x"].shape)
+                                 .astype(np.float32)).cuda()
+            progs = cnn_eval.compile_all(g, pols, device="cuda")
+            outs, row, errs = {}, {"model": name}, {}
+            for label, prog in progs.items():
+                for kern in K.KERNELS:
+                    kern.launches = 0
+                (y,) = prog(x=x)
+                torch.cuda.synchronize()
+                launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+                n_cuda = sum(b == "cuda" for b in prog.assignment.values())
+                if launches != {**dict.fromkeys(launches, 0), "gemm": n_cuda}:
+                    fail(f"{name} {label}: launches {launches}, expected gemm x {n_cuda} only")
+                if label == "cuda" and n_cuda == 0:
+                    fail(f"{name}: the cuda assignment runs no cuda conv")
+                for k_, v_ in launches.items():
+                    total[k_] += v_
+                if not bool(torch.isfinite(y).all()) or y.shape[0] != 1:
+                    fail(f"{name} {label}: output {tuple(y.shape)} not finite")
+                outs[label] = y
+            base = outs["gemm"]
+            for label, y in outs.items():
+                rel = float((y - base).abs().max() / base.abs().max())
+                tol = 1e-3 if "winograd" in progs[label].assignment.values() else 1e-4
+                if rel > tol:
+                    fail(f"{name} {label}: max|a - b| / max|b| = {rel:.2e} against gemm > {tol}")
+                errs[label] = rel
+            (y_raw,) = compile(raw, policy=pols["gemm"], pipeline=(), device="cuda")(x=x)
+            rel_raw = float((y_raw - base).abs().max() / base.abs().max())
+            if rel_raw > 1e-4:
+                fail(f"{name}: simplified vs unsimplified graph {rel_raw:.2e} > 1e-4")
+            for label, prog in progs.items():
+                row[label] = 1e3 * cnn_eval.time_program(prog, x, reps=5)
+            best = min(row[label] for label in progs)
+            row["winner"] = next(label for label in progs if row[label] == best)
+            mix = {label: sorted(set(prog.assignment.values())) for label, prog in progs.items()}
+            n_conv = sum(n.op.startswith("conv2d") for n in g.nodes)
+            say(f"  {name}: {len(g.nodes)} nodes ({n_conv} conv), "
+                f"{sum(p.nbytes for p in g.params.values()) / 1e6:.1f} MB of weights; ms "
+                + ", ".join(f"{label} {row[label]:.3f}" for label in progs)
+                + f"; winner {row['winner']}  [{card}]")
+            say(f"    max|a - gemm| / max|gemm|: {json.dumps(errs)}; simplified vs raw "
+                f"{rel_raw:.2e}; backends per assignment {json.dumps(mix)}; "
+                f"{time.perf_counter() - t:.1f} s")
+            if name == "resnet-50":
+                _, reports = progs["autotune"].run_instrumented(x=x)
+                top = sorted(reports, key=lambda r: -r.seconds)[:5]
+                slowest = [dict(name=r.name, op=r.op, backend=r.backend, ms=1e3 * r.seconds,
+                                out=list(r.out_spec.shape)) for r in top]
+                total_ms = 1e3 * sum(r.seconds for r in reports)
+                say(f"    resnet-50 autotune, run_instrumented: {len(reports)} nodes, "
+                    f"{total_ms:.3f} ms summed; five slowest {json.dumps(slowest)}  [{card}]")
+            rows.append(row)
+            del progs, outs
+            torch.cuda.empty_cache()
+        inf = [(key, b) for key, times in pols["autotune"]._timings.items()
+               for b, t_ in times.items() if b.startswith("cuda") and t_ == float("inf")]
+        if inf:
+            fail(f"cnn autotune timed cuda backends as inf (could not run): {inf}")
+    return total, rows, slowest
+
+
+# --------------------------------------------------------------------------- #
 # phase 8: the layer-stack LM under the continuous batcher, at full width
 # --------------------------------------------------------------------------- #
 
@@ -1204,9 +1598,14 @@ class Kernels:
         self.flash_attention = fa.flash_attention
         self.flash_attention_plain = fa.flash_attention_plain
         self.gather_pages = fd.gather_pages
+        self.flash_decode_partial = fd.flash_decode_partial
+        self.flash_decode_partial_plain = fd.flash_decode_partial_plain
+        from repro_torch.kernels.ops import decode_attention
+        self.decode_attention = decode_attention
         self.KERNELS = (gemm, rmsnorm, fd.flash_decode, fa.flash_chunk_attention,
                         fd.flash_paged_decode, fa.flash_paged_chunk_attention,
-                        fa.flash_attention, batched_gemm, ssd.ssd_scan)
+                        fa.flash_attention, batched_gemm, ssd.ssd_scan,
+                        fd.flash_decode_partial)
 
 
 SOURCES = {
@@ -1224,6 +1623,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:94"),
     "batched_gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:92"),
     "ssd_scan": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:73"),
+    "flash_decode_partial": ("src/repro_torch/csrc/flash_decode.cu",
+                             "src/repro/kernels/flash_decode.py:158"),
 }
 
 
@@ -1306,7 +1707,7 @@ def main() -> int:
         f"(atol = rtol = 2e-5); fp32 paged outputs bitwise equal to the dense kernels")
     say(f"[kernels] full-width shapes (tolerance atol = rtol = 1e-4; median of 15 "
         f"cold-L2 launches; bound from 67 TFLOP/s fp32 and 3.35 TB/s):")
-    results, by_tag, ops_ms, stack_est = kernels_phase(
+    results, by_tag, ops_ms, stack_est, extra = kernels_phase(
         torch, K, cfg, [c for _, c, _ in stack_phases], n_slots, chunk, cache_cap, page, pools,
         limit_line)
     phase_s["kernels"] = time.perf_counter() - t
@@ -1354,6 +1755,17 @@ def main() -> int:
         runs[f"paged {mode}"] = (launches, stats)
         agreement[mode] = agree
         phase_s[phase] = time.perf_counter() - t
+
+    # 11. split-KV decode under the selection policies, on phase 5's weights
+    t = time.perf_counter()
+    say(f"[split] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
+        f"cache {cache_cap}, decode_attention cuda_split (n_splits 2) [{limit_line}]")
+    launches, stats, split_record = split_phase(
+        torch, K, cfg, params, served, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap,
+        max_new=max_new, card=limit_line)
+    runs["split"] = (launches, stats)
+    torch.cuda.empty_cache()
+    phase_s["split"] = time.perf_counter() - t
     del params
     torch.cuda.empty_cache()
 
@@ -1366,9 +1778,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_s[phase] = time.perf_counter() - t
 
-    for path in ("dense", "paged fp32", "paged int8"):
+    # 12. the paper's five CNNs under six assignments
+    t = time.perf_counter()
+    say(f"[cnn] five CNNs, batch 1, six assignments [{limit_line}]")
+    cnn_launches, cnn_rows, cnn_slowest = cnn_phase(torch, K, limit_line)
+    runs["cnn"] = (cnn_launches, {"ms": cnn_rows})
+    phase_s["cnn"] = time.perf_counter() - t
+
+    split_ms = next(r["split_ms"] for r in extra["split"]
+                    if r["shape"] == "phi3-mini engine decode" and r["n_splits"] == 2)
+    for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
-        estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path)
+        estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)
         serving[path] = stats
         for phase in ("decode", "prefill"):
             tick_ms = stats[f"{phase}_ms_per_tick"]
@@ -1408,6 +1829,10 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
                  **{k: r[k] for k in keys}}
+        if name == "flash_decode_partial":
+            entry["n_splits_curve"] = extra["split"]
+        if name == "gemm":
+            entry["conv2d"] = extra["conv2d"]
         if "int8" in r:
             entry["dense_kernel_ms"] = r["dense_kernel_ms"]
             entry["fp32"] = {"launches": by_path["paged fp32"],
@@ -1417,7 +1842,8 @@ def main() -> int:
                              "dense_kernel_ms": r["int8"]["dense_kernel_ms"]}
         kernels.append(entry)
     say(json.dumps({"serving": serving, "tick_ms_by_part": estimates,
-                    "kv8_agreement": agreement, "card": limit_line}))
+                    "kv8_agreement": agreement, "split": split_record, "cnn_ms": cnn_rows,
+                    "cnn_resnet50_slowest": cnn_slowest, "card": limit_line}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": count}}))

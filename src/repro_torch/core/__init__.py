@@ -11,24 +11,29 @@ from repro_torch.core import nnops as _nnops  # noqa: F401  (registers standard 
 from repro_torch.core.device import resolve_device, to_tensor
 from repro_torch.core.ir import Graph, GraphError, Node, TensorSpec, topological_order
 from repro_torch.core.passes import (eliminate_common_subexpr, eliminate_dead,
-                                     fold_constants, fuse_elementwise, infer_shapes)
+                                     fold_batchnorm, fold_constants, fuse_bias_act,
+                                     fuse_elementwise, infer_shapes, simplify)
 from repro_torch.core.pipeline import (DEFAULT_PASSES, PassManager, PassStats,
                                        PipelineError, default_pipeline, get_pass,
                                        register_pass)
-from repro_torch.core.program import Program, compile
+from repro_torch.core.program import NodeReport, Program, compile
 from repro_torch.core.registry import (Cost, OpDef, OpImpl, backends_for, defop,
                                        get_impl, get_op, impl)
-from repro_torch.core.selector import BackendPolicy, FixedPolicy
+from repro_torch.core.selector import (H100_SXM, HOST_CPU, AutotunePolicy, BackendPolicy,
+                                       CostModelPolicy, FixedPolicy, HardwareProfile,
+                                       default_cache_path, hardware_fingerprint)
 
 __all__ = [
-    "compile", "Program",
+    "compile", "Program", "NodeReport",
     "Graph", "GraphError", "Node", "TensorSpec", "topological_order",
-    "eliminate_common_subexpr", "eliminate_dead", "fold_constants",
-    "fuse_elementwise", "infer_shapes",
+    "eliminate_common_subexpr", "eliminate_dead", "fold_batchnorm", "fold_constants",
+    "fuse_bias_act", "fuse_elementwise", "infer_shapes", "simplify",
     "DEFAULT_PASSES", "PassManager", "PassStats", "PipelineError",
     "default_pipeline", "get_pass", "register_pass",
     "Cost", "OpDef", "OpImpl", "backends_for", "defop", "get_impl", "get_op",
     "impl",
-    "BackendPolicy", "FixedPolicy",
+    "BackendPolicy", "FixedPolicy", "CostModelPolicy", "AutotunePolicy",
+    "HardwareProfile", "H100_SXM", "HOST_CPU", "hardware_fingerprint",
+    "default_cache_path",
     "resolve_device", "to_tensor",
 ]

@@ -1,33 +1,35 @@
 """Graph simplification passes — counterpart of :mod:`repro.core.passes`.
 
 Passes are pure functions ``Graph -> Graph`` (input untouched), registered
-by name in the :mod:`repro_torch.core.pipeline` registry.  The port has
-the passes the serving graphs go through:
+by name in the :mod:`repro_torch.core.pipeline` registry.  The standard
+pipeline (:func:`simplify`, also ``pipeline.default_pipeline()``) runs:
 
-    infer_shapes -> fold_constants -> fuse_elementwise
-                 -> eliminate_common_subexpr -> eliminate_dead -> infer_shapes
-
-``fold_batchnorm`` and ``fuse_bias_act`` (the CNN path) are not ported yet.
+    infer_shapes -> fold_constants -> fold_batchnorm -> fuse_bias_act
+                 -> fuse_elementwise -> eliminate_common_subexpr
+                 -> eliminate_dead -> infer_shapes
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.device import to_tensor
 from repro_torch.core.ir import Graph, GraphError, Node, TensorSpec, topological_order
-from repro_torch.core.pipeline import register_pass
+from repro_torch.core.pipeline import PassManager, register_pass
 from repro_torch.core.registry import get_impl, get_op
 
 __all__ = [
     "infer_shapes",
     "fold_constants",
+    "fold_batchnorm",
+    "fuse_bias_act",
     "fuse_elementwise",
     "eliminate_dead",
     "eliminate_common_subexpr",
+    "simplify",
 ]
 
 
@@ -81,6 +83,109 @@ def fold_constants(graph: Graph, max_bytes: int = 1 << 27) -> Graph:
         new_nodes.append(node)
     g.nodes = new_nodes
     return eliminate_dead(g)
+
+
+def _host(x: Any) -> np.ndarray:
+    """A param as a numpy array (a tensor is copied to the host)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+@register_pass("fold_batchnorm")
+def fold_batchnorm(graph: Graph) -> Graph:
+    """Fold inference batchnorm into a preceding conv2d when the conv weight
+    and all BN stats are graph params:  w' = w * s,  b' = (bias - mean*s)
+    with s = scale / sqrt(var + eps), broadcast over output channels (in
+    float64 on the host, as ``repro`` does, so the folded params are
+    bitwise its own).
+
+    Produces a ``conv2d_fused`` node (bias folded in, act 'none') so a later
+    activation can still fuse into it."""
+    g = infer_shapes(graph)
+    producers = g.producers()
+    consumers = g.consumers()
+    replaced: Dict[str, Node] = {}
+    drop: set = set()
+    for node in g.nodes:
+        if node.op != "batchnorm":
+            continue
+        x = node.inputs[0]
+        prev = producers.get(x)
+        if prev is None or prev.op != "conv2d" or len(consumers.get(x, [])) != 1:
+            continue
+        wname = prev.inputs[1]
+        stats = node.inputs[1:]
+        if wname not in g.params or any(s not in g.params for s in stats):
+            continue
+        w0 = _host(g.params[wname])
+        w = w0.astype(np.float64)
+        scale, bias, mean, var = (_host(g.params[s]).astype(np.float64) for s in stats)
+        eps = float(node.attrs.get("eps", 1e-5))
+        s = scale / np.sqrt(var + eps)
+        new_w = f"{prev.name}.folded_w"
+        new_b = f"{prev.name}.folded_b"
+        g.params[new_w] = (w * s[None, None, None, :]).astype(w0.dtype)
+        g.params[new_b] = (bias - mean * s).astype(w0.dtype)
+        fused = Node(name=f"{prev.name}.bnfold", op="conv2d_fused",
+                     inputs=[prev.inputs[0], new_w, new_b],
+                     outputs=list(node.outputs),
+                     attrs={**prev.attrs, "act": "none"},
+                     backend=prev.backend)
+        replaced[prev.name] = fused
+        drop.add(node.name)
+    if not replaced:
+        return g
+    g.nodes = [replaced.get(n.name, n) for n in g.nodes if n.name not in drop]
+    return eliminate_dead(infer_shapes(g))
+
+
+_ACTS = {"relu", "relu6", "gelu", "silu", "sigmoid", "tanh"}
+_FUSABLE = {"conv2d": "conv2d_fused", "conv2d_fused": "conv2d_fused",
+            "dense": "dense_fused", "dense_fused": "dense_fused"}
+
+
+@register_pass("fuse_bias_act")
+def fuse_bias_act(graph: Graph) -> Graph:
+    """Pattern-fuse  (conv2d|dense) [-> bias_add] [-> activation]  into the
+    corresponding fused op.  Only fires when the intermediate value has a
+    single consumer and is not a graph output."""
+    g = infer_shapes(graph)
+    changed = True
+    while changed:
+        changed = False
+        consumers = g.consumers()
+
+        def sole_consumer(v: str) -> Optional[Node]:
+            cs = consumers.get(v, [])
+            return cs[0] if len(cs) == 1 and v not in g.outputs else None
+
+        for node in list(g.nodes):
+            if node.op not in _FUSABLE:
+                continue
+            out = node.outputs[0]
+            nxt = sole_consumer(out)
+            if nxt is None:
+                continue
+            fused: Optional[Node] = None
+            if nxt.op == "bias_add" and nxt.inputs[0] == out and node.op in ("conv2d", "dense"):
+                fused = Node(name=f"{node.name}.fb", op=_FUSABLE[node.op],
+                             inputs=list(node.inputs) + [nxt.inputs[1]],
+                             outputs=list(nxt.outputs),
+                             attrs={**node.attrs, "act": "none"}, backend=node.backend)
+            elif nxt.op in _ACTS and node.op in ("conv2d_fused", "dense_fused") \
+                    and node.attrs.get("act", "none") in ("none", None):
+                fused = node.clone(name=f"{node.name}.fa",
+                                   outputs=list(nxt.outputs),
+                                   attrs={**node.attrs, "act": nxt.op})
+            if fused is not None:
+                g.nodes = [n for n in g.nodes if n.name not in (node.name, nxt.name)]
+                g.nodes.append(fused)
+                g.nodes = topological_order(g)
+                g = infer_shapes(g)
+                changed = True
+                break
+    return g
 
 
 # Unary elementwise ops that can be collapsed into one fused_elementwise node.
@@ -187,3 +292,23 @@ def eliminate_common_subexpr(graph: Graph) -> Graph:
     g.nodes = new_nodes
     g.outputs = [rename.get(v, v) for v in g.outputs]
     return eliminate_dead(g)
+
+
+def simplify(graph: Graph, *, fold_bn: bool = True, fuse: bool = True,
+             fold_const: bool = True, cse: bool = True,
+             fuse_ew: bool = True) -> Graph:
+    """The standard simplification pipeline as one call; drop a flag to
+    skip the corresponding pass, or build a PassManager for full control."""
+    names = ["infer_shapes"]
+    if fold_const:
+        names.append("fold_constants")
+    if fold_bn:
+        names.append("fold_batchnorm")
+    if fuse:
+        names.append("fuse_bias_act")
+    if fuse_ew:
+        names.append("fuse_elementwise")
+    if cse:
+        names.append("eliminate_common_subexpr")
+    names += ["eliminate_dead", "infer_shapes"]
+    return PassManager(names, name="simplify").run(graph)

@@ -157,11 +157,11 @@ class PassManager:
                 f"validate={self.validate}, fixpoint={self.fixpoint})")
 
 
-# The passes the port has, in the order of ``repro``'s DEFAULT_PASSES
-# (fold_batchnorm and fuse_bias_act belong to the CNN path, not ported yet).
 DEFAULT_PASSES: Tuple[str, ...] = (
     "infer_shapes",
     "fold_constants",
+    "fold_batchnorm",
+    "fuse_bias_act",
     "fuse_elementwise",
     "eliminate_common_subexpr",
     "eliminate_dead",

@@ -7,6 +7,8 @@ Counterpart of :mod:`repro.core.program`:
 * :class:`Program` — the simplified graph, the frozen backend assignment
   and the analytic cost table.  There is no ``jit``: a Program runs its
   nodes in topological order, eagerly, on its ``device``.
+  :meth:`Program.run_instrumented` times each node alone (the paper's
+  per-layer evaluation).
 
 Weights are placed on the device once per Program, and a parameter that is
 already a tensor on that device is shared, never copied — the serving
@@ -17,18 +19,30 @@ engine builds four Programs over one 15 GB weight set.
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
 from types import MappingProxyType
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
-from repro_torch.core.ir import Graph, topological_order
+from repro_torch.core.ir import Graph, Node, TensorSpec, topological_order
 from repro_torch.core.pipeline import PassManager, PassStats, default_pipeline
 from repro_torch.core.registry import Cost, get_impl
 from repro_torch.core.selector import BackendPolicy, FixedPolicy
 
-__all__ = ["Program", "compile"]
+__all__ = ["Program", "NodeReport", "compile"]
+
+
+@dataclass
+class NodeReport:
+    name: str
+    op: str
+    backend: str
+    seconds: float
+    cost: Cost
+    out_spec: TensorSpec
 
 
 class Program:
@@ -74,6 +88,15 @@ class Program:
     def cost_table(self) -> Mapping[str, Tuple[str, Cost]]:
         return self._cost_table
 
+    def costs(self) -> List[Tuple[Node, str, Cost]]:
+        return [(node, *self._cost_table[node.name]) for node in self._order]
+
+    def total_cost(self) -> Cost:
+        total = Cost()
+        for _, cost in self._cost_table.values():
+            total = total + cost
+        return total
+
     def _stored_params(self) -> Dict[str, torch.Tensor]:
         """The graph params as tensors on ``device``, built once and shared
         by ``__call__`` and every ``bind()``.  Params already on the device
@@ -99,6 +122,37 @@ class Program:
         if missing:
             raise ValueError(f"missing graph inputs: {sorted(missing)}")
         return self._run(self._stored_params(), inputs)
+
+    def run_instrumented(self, **inputs: Any) -> Tuple[Tuple[Any, ...], List[NodeReport]]:
+        """Node-by-node execution with each node timed alone — the paper's
+        individual-layer evaluation.  Each node runs once to warm up, then
+        once timed on the host clock with the device synchronised before
+        and after (on the card: the node's kernels, launch included)."""
+        missing = set(self._graph.inputs) - set(inputs)
+        if missing:
+            raise ValueError(f"missing graph inputs: {sorted(missing)}")
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+        env: Dict[str, Any] = dict(self._stored_params())
+        for k, v in inputs.items():
+            env[k] = to_tensor(v, self.device)
+        reports: List[NodeReport] = []
+        with torch.no_grad():
+            for node, fn in self._impls:
+                args = [env[v] for v in node.inputs]
+                fn(args, node.attrs)                     # warm
+                sync()
+                t0 = time.perf_counter()
+                outs = fn(args, node.attrs)
+                sync()
+                dt = time.perf_counter() - t0
+                backend, cost = self._cost_table[node.name]
+                reports.append(NodeReport(
+                    name=node.name, op=node.op, backend=backend, seconds=dt, cost=cost,
+                    out_spec=self._graph.spec_of(node.outputs[0])))
+                for v, val in zip(node.outputs, outs):
+                    env[v] = val
+        return tuple(env[v] for v in self._graph.outputs), reports
 
     def bind(self, *names: str,
              donate: Sequence[str] = ()) -> Callable[..., Tuple[Any, ...]]:

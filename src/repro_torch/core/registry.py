@@ -8,6 +8,12 @@ port never registers into ``repro``'s.  Backends used in the port:
   slot that ``pallas`` fills in ``repro``.  On a CPU tensor a ``cuda``
   backend runs its kernel's plain PyTorch version; on a CUDA tensor it
   launches the kernel or raises.
+
+A backend that cannot run in this environment says so by raising
+``NotImplementedError`` before it launches anything;
+:class:`~repro_torch.core.selector.AutotunePolicy` records such a backend
+as ``inf``.  Any other exception, a failure to build, load or launch a
+kernel among them, propagates: a backend that ``supports`` a node must run.
 """
 
 from __future__ import annotations

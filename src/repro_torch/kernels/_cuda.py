@@ -8,7 +8,8 @@ whose hash matches is reused; nothing is built when the module is imported.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception.  There is no fallback: a build or launch that fails raises.
+exception.  There is no fallback: a build or launch that fails raises
+(a build or load failure as :class:`KernelBuildError`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
-__all__ = ["library", "build", "check", "stream_of", "BUILD_DIR", "SOURCES"]
+__all__ = ["library", "build", "check", "stream_of", "BUILD_DIR", "SOURCES",
+           "KernelBuildError"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES: Tuple[str, ...] = ("gemm.cu", "rmsnorm.cu", "flash_decode.cu",
@@ -45,6 +47,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "batched_gemm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "rmsnorm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
     "flash_decode_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, lengths, acc, m, l; B, Hq, Hk, S, D, Dv, n_splits
+    "flash_decode_partial_f32": (*[_P] * 7, *[_I] * 7, _F, _P),
     "flash_chunk_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _F, _P),
     # q, pages_k, pages_v, tables, lengths, o; B, Hq, Hk, N, P, MP, D, Dv
@@ -63,6 +67,10 @@ _SIGNATURES: Dict[str, tuple] = {
 _lib: Optional[ctypes.CDLL] = None
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be built or loaded."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
@@ -73,7 +81,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def _source_key() -> str:
@@ -114,14 +122,14 @@ def build() -> Tuple[Path, float, str]:
             if proc.returncode != 0:
                 failed.append(src)
         if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+            raise KernelBuildError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
         tmp_so = Path(tmp) / so.name
         link = subprocess.run(
             [nvcc, *ARCH, "-shared", "-o", str(tmp_so), *[str(o) for _, o, _ in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         logs.append(f"== link\n{link.stdout}")
         if link.returncode != 0:
-            raise RuntimeError("linking the kernel library failed:\n" + "\n".join(logs))
+            raise KernelBuildError("linking the kernel library failed:\n" + "\n".join(logs))
         os.replace(tmp_so, so)
     log = "\n".join(logs)
     (BUILD_DIR / (so.stem + ".log")).write_text(log)
@@ -133,7 +141,10 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {path}: {e}") from e
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)

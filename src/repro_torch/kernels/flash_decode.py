@@ -1,5 +1,7 @@
 """Flash-decode: one-token GQA attention over a KV cache — counterpart of
-:func:`repro.kernels.flash_decode.flash_decode` (dense cache) and
+:func:`repro.kernels.flash_decode.flash_decode` (dense cache),
+:func:`repro.kernels.flash_decode.flash_decode_partial` (the unnormalised
+partials of KV shards, for split-KV decode) and
 :func:`repro.kernels.flash_decode.flash_paged_decode` (page pool reached
 through block tables, fp32 or int8 pages).
 
@@ -7,7 +9,9 @@ through block tables, fp32 or int8 pages).
 CUDA kernel ``csrc/flash_decode.cu`` (one block per (sequence, kv head)
 holding the whole query group; K/V streamed in fixed 64-row logical tiles)
 on CUDA tensors and run :func:`flash_decode_plain` /
-:func:`flash_paged_decode_plain` on CPU tensors.  Both follow the Pallas
+:func:`flash_paged_decode_plain` on CPU tensors; :func:`flash_decode_partial`
+launches the same kernel body once over every shard (grid (B * Hk,
+n_splits)) and runs :func:`flash_decode_partial_plain` on CPU tensors.  Both follow the Pallas
 kernel, not the ``ref`` oracle: a sequence of length 0 gives 0 (``acc /
 max(l, 1e-30)`` with a finite -1e30 mask), where ``ref`` gives the mean of
 V.  Each wrapper's ``launches`` attribute counts its kernel launches.
@@ -22,7 +26,8 @@ import torch
 
 from repro_torch.kernels import _cuda
 
-__all__ = ["flash_decode", "flash_decode_plain", "decode_fits", "flash_paged_decode",
+__all__ = ["flash_decode", "flash_decode_plain", "flash_decode_partial",
+           "flash_decode_partial_plain", "decode_fits", "flash_paged_decode",
            "flash_paged_decode_plain", "paged_decode_fits", "gather_pages"]
 
 _NEG_INF = -1e30
@@ -59,34 +64,50 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, hq, v.shape[3])
 
 
+def _check_dense(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor, scale: Optional[float]) -> float:
+    """Validate a dense-cache decode call; returns the resolved scale."""
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, hq, d = q.shape
+    s_len, hk = k.shape[1], k.shape[2]
+    dv = v.shape[3]
+    if k.shape != (b, s_len, hk, d) or v.shape[:3] != (b, s_len, hk):
+        raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
+    if not decode_fits(hq, hk, d, dv):
+        raise ValueError(f"{fn}: unsupported heads/widths Hq={hq} Hk={hk} D={d} Dv={dv}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"{fn}: lengths must be ({b},) int32, got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    return (1.0 / math.sqrt(d)) if scale is None else float(scale)
+
+
+def _on_card(fn: str, tensors) -> bool:
+    """False for CPU tensors (the plain version runs); True for tensors on
+    one CUDA device, contiguous (the kernel runs); raises otherwise."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return False
+    q = tensors[0]
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{fn}: all inputs must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{fn}: inputs must be contiguous")
+    return True
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *,
                  scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, D), k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32
     -> (B, Hq, Dv), softmax-normalised over positions < lengths[b]."""
-    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash_decode: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    b, hq, d = q.shape
-    s_len, hk = k.shape[1], k.shape[2]
-    dv = v.shape[3]
-    if k.shape != (b, s_len, hk, d) or v.shape[:3] != (b, s_len, hk):
-        raise ValueError(f"flash_decode: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_decode: {name} must be float32, got {t.dtype}")
-    if not decode_fits(hq, hk, d, dv):
-        raise ValueError(f"flash_decode: unsupported heads/widths Hq={hq} Hk={hk} D={d} Dv={dv}")
-    scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
-    if lengths.shape != (b,) or lengths.dtype != torch.int32:
-        raise ValueError(f"flash_decode: lengths must be ({b},) int32, got "
-                         f"{tuple(lengths.shape)} {lengths.dtype}")
-    tensors = (q, k, v, lengths)
-    if all(t.device.type == "cpu" for t in tensors):
+    scale = _check_dense("flash_decode", q, k, v, lengths, scale)
+    if not _on_card("flash_decode", (q, k, v, lengths)):
         return flash_decode_plain(q, k, v, lengths, scale)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("flash_decode: all inputs must be on one CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_decode: inputs must be contiguous")
+    b, hq, d = q.shape
+    s_len, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((b, hq, dv), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
@@ -99,6 +120,67 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               lengths: torch.Tensor, scale: float, n_splits: int = 1):
+    """The partial kernel's function in plain PyTorch (fp32): for each shard
+    i of S / n_splits rows, with length clip(len - i * part, 0, part), the
+    running max m of the masked scores (-1e30 for an empty shard), the sum
+    l of exp(s - m) over the valid rows, and acc = sum of exp(s - m) * v.
+    Returns acc (n_splits, B, Hq, Dv), m and l (n_splits, B, Hq)."""
+    b, hq, d = q.shape
+    s_len, hk = k.shape[1], k.shape[2]
+    g, part = hq // hk, s_len // n_splits
+    qg = (q * scale).reshape(b, hk, g, d)
+    lengths = lengths.to(q.device).long().clamp(0, s_len)
+    accs, ms, ls = [], [], []
+    for i in range(n_splits):
+        ks, vs = k[:, i * part:(i + 1) * part], v[:, i * part:(i + 1) * part]
+        n_i = (lengths - i * part).clamp(0, part)
+        s = torch.einsum("bhgd,bshd->bhgs", qg, ks)
+        valid = (torch.arange(part, device=q.device)[None, :] < n_i[:, None])[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+        accs.append(torch.einsum("bhgs,bshd->bhgd", p, vs).reshape(b, hq, v.shape[3]))
+        ms.append(m.reshape(b, hq))
+        ls.append(p.sum(dim=-1).reshape(b, hq))
+    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, *, scale: Optional[float] = None,
+                         n_splits: int = 1):
+    """Unnormalised flash partials of each of ``n_splits`` KV shards (rows
+    [i * S / n_splits, (i + 1) * S / n_splits)) in one launch: q (B, Hq, D),
+    k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32 -> acc (n_splits,
+    B, Hq, Dv), m (n_splits, B, Hq), l (n_splits, B, Hq).  With
+    ``n_splits=1`` it is JAX's ``flash_decode_partial`` over the whole cache
+    (with a leading axis of 1).  Combine with ``ref.combine_partials_ref``."""
+    fn = "flash_decode_partial"
+    scale = _check_dense(fn, q, k, v, lengths, scale)
+    b, hq, d = q.shape
+    s_len, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if n_splits < 1 or s_len % n_splits:
+        raise ValueError(f"{fn}: n_splits={n_splits} must be >= 1 and divide S={s_len}")
+    if not _on_card(fn, (q, k, v, lengths)):
+        return flash_decode_partial_plain(q, k, v, lengths, scale, n_splits)
+    acc = torch.empty((n_splits, b, hq, dv), dtype=torch.float32, device=q.device)
+    m = torch.empty((n_splits, b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty((n_splits, b, hq), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return acc, m, l
+    err = _cuda.library().flash_decode_partial_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, hq, hk, s_len, d, dv, n_splits, scale,
+        _cuda.stream_of(q))
+    _cuda.check(err, fn)
+    flash_decode_partial.launches += 1
+    return acc, m, l
+
+
+flash_decode_partial.launches = 0
 
 
 # The paged kernel stages the same tiles as the dense one: its shared memory

@@ -7,41 +7,47 @@ Declares ``attention``, ``decode_attention``, ``rmsnorm``, ``ssd``,
 registers their ``ref`` backends (the plain PyTorch oracles of
 :mod:`repro_torch.kernels.ref`; ``ssd`` also has ``chunked``, the plain
 chunked algorithm) and the ``cuda`` backends of ``attention``,
-``decode_attention``, ``rmsnorm``, ``ssd``, ``moe_gemm`` and ``dense``
-(the hand-written Hopper kernels, in the slot ``pallas`` fills in
-``repro``).  A ``cuda`` backend runs its kernel's plain version on CPU
-tensors.  The dispatchers ``attention``, ``decode_attention``,
-``rmsnorm``, ``ssd``, ``ssd_step``, ``moe_gemm`` and ``swiglu`` are what
-:mod:`repro_torch.layers` calls.
+``decode_attention``, ``rmsnorm``, ``ssd``, ``moe_gemm``, ``dense``,
+``conv2d`` and ``conv2d_fused`` (the hand-written Hopper kernels, in the
+slot ``pallas`` fills in ``repro``; the convolutions are im2col + the GEMM
+kernel).  ``decode_attention`` also has ``cuda_split`` (the slot of
+``pallas_split``): the partial kernel over ``n_splits`` KV shards in one
+launch, combined in a fixed order.  A ``cuda`` backend runs its kernel's
+plain version on CPU tensors.  The dispatchers ``attention``,
+``decode_attention``, ``decode_attention_partial``, ``rmsnorm``, ``ssd``,
+``ssd_step``, ``moe_gemm`` and ``swiglu`` are what :mod:`repro_torch.layers`
+calls.
 
 The ``cuda`` guards are only what the kernels need (whole GQA groups,
-head widths <= 256, fp32, a chunk of at most 128); the TPU's
-block-divisibility guards are not carried over, because each kernel masks
-its own ragged edges.
+head widths <= 256, fp32, a chunk of at most 128, ungrouped convolutions);
+the TPU's block-divisibility guards are not carried over, because each
+kernel masks its own ragged edges.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import nnops as _nnops  # noqa: F401  (declares dense)
+from repro_torch.core import nnops as _nnops
 from repro_torch.core.ir import TensorSpec
 from repro_torch.core.registry import Cost, defop, get_impl, impl
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import attention_fits, flash_attention
-from repro_torch.kernels.flash_decode import decode_fits, flash_decode
+from repro_torch.kernels.flash_decode import (decode_fits, flash_decode, flash_decode_partial,
+                                              flash_decode_partial_plain)
 from repro_torch.kernels.gemm import batched_gemm as _batched_gemm_kernel
 from repro_torch.kernels.gemm import gemm as _gemm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
 from repro_torch.kernels.ssd import scan_fits, ssd_scan_plain
 from repro_torch.kernels.ssd import ssd_scan as _ssd_kernel
 
-__all__ = ["attention", "decode_attention", "rmsnorm", "ssd", "ssd_step", "moe_gemm",
-           "swiglu"]
+__all__ = ["attention", "decode_attention", "decode_attention_partial", "rmsnorm", "ssd",
+           "ssd_step", "moe_gemm", "swiglu"]
 
 
 def _bytes(specs: Sequence[TensorSpec]) -> float:
@@ -146,9 +152,65 @@ def _decode_cuda_impl(inputs, attrs):
     return [flash_decode(q, k, v, lengths, scale=attrs.get("scale"))]
 
 
+def _full_lengths(lengths, q, k):
+    if lengths is None:
+        return torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
+    return lengths
+
+
+def _dec_split_supports(specs, attrs):
+    """What the partial kernel needs (re-derived, not JAX's guard): the
+    cuda backend's fp32 and shared-memory guard, n_splits >= 2, and S a
+    multiple of n_splits (equal shards, one launch).  JAX's "shards of >= 8
+    rows" and "each shard a multiple of its block_kv" are TPU sublane and
+    BlockSpec rules: the kernel walks 64-row tiles from each shard's first
+    row and masks the ragged end, so a shard of any length >= 1 works."""
+    k = specs[1]
+    n_splits = int(attrs.get("n_splits", 2))
+    return (_dec_cuda_supports(specs, attrs) and n_splits >= 2
+            and k.shape[1] % n_splits == 0)
+
+
+def _dec_split_cost(specs, attrs):
+    """Adds the combine overhead: per-split (acc, m, l) partials written
+    then re-read by the exact merge (repro's model as is)."""
+    q = specs[0]
+    n_splits = int(attrs.get("n_splits", 2))
+    base = _dec_cost(specs, attrs)
+    partials = n_splits * (q.nbytes + 8.0 * q.shape[0] * q.shape[1])
+    return Cost(flops=base.flops, bytes=base.bytes + 2.0 * partials)
+
+
+@impl("decode_attention", "cuda_split", supports=_dec_split_supports, cost_fn=_dec_split_cost,
+      note="split-KV flash-decode: the partials of n_splits shards in one launch of the "
+           "partial kernel (grid B*Hk x n_splits), combined in index order")
+def _decode_split_impl(inputs, attrs):
+    q, k, v, lengths = inputs
+    acc, m, l = flash_decode_partial(q, k, v, _full_lengths(lengths, q, k),
+                                     scale=attrs.get("scale"),
+                                     n_splits=int(attrs.get("n_splits", 2)))
+    return [R.combine_partials_ref(acc, m, l).to(q.dtype)]
+
+
 def decode_attention(q, k, v, lengths=None, *, scale=None, backend="ref", **kw):
     return get_impl("decode_attention", backend)(
         [q, k, v, lengths], {"scale": scale, **kw})[0]
+
+
+def decode_attention_partial(q, k, v, lengths=None, *, scale=None, backend="cuda", **kw):
+    """(acc, m, l) partials over this KV shard, for cross-shard combination
+    (``ref.combine_partials_ref``): acc (B, Hq, Dv), m and l (B, Hq).
+    ``cuda``: the partial kernel over one shard; otherwise its plain
+    version.  An empty row gives acc 0, m -1e30 and l 0 on both, where JAX's
+    dense ``ref`` partial gives l = S and acc = the sum of v: the combined
+    result is the same wherever another shard holds a valid row."""
+    lengths = _full_lengths(lengths, q, k)
+    if backend == "cuda":
+        acc, m, l = flash_decode_partial(q, k, v, lengths, scale=scale)
+    else:
+        scale_ = (1.0 / math.sqrt(q.shape[2])) if scale is None else scale
+        acc, m, l = flash_decode_partial_plain(q, k, v, lengths, scale_)
+    return acc[0], m[0], l[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -353,8 +415,33 @@ def swiglu(gate, up, *, backend="ref", **kw):
 
 
 # --------------------------------------------------------------------------- #
-# cuda backend of the graph op dense
+# cuda backends of the graph ops conv2d / conv2d_fused / dense — the paper's
+# GEMM convolution on the hand-written GEMM kernel
 # --------------------------------------------------------------------------- #
+
+def _conv_cuda_supports(specs, attrs):
+    """Ungrouped fp32 convolutions (JAX's pallas guard is groups == 1; the
+    kernel is fp32 only)."""
+    return int(attrs.get("groups", 1)) == 1 and _all_f32(specs[:2])
+
+
+@impl("conv2d", "cuda", supports=_conv_cuda_supports,
+      note="GEMM convolution: im2col in PyTorch + the fp32 GEMM kernel")
+def _conv2d_cuda_impl(inputs, attrs):
+    x, w = inputs
+    kh, kw, ci, co = w.shape
+    stride, dilation, _, pads = _nnops._conv_args(x, w, attrs)
+    cols = _nnops._im2col(x, (kh, kw), stride, pads, dilation)
+    n, oh, ow, kk = cols.shape
+    out = _gemm_kernel(cols.reshape(n * oh * ow, kk).contiguous(),
+                       w.reshape(kk, co).contiguous())
+    return [out.reshape(n, oh, ow, co)]
+
+
+impl("conv2d_fused", "cuda",
+     supports=lambda specs, attrs: _conv_cuda_supports(specs[:2], attrs),
+     note="GEMM conv + bias + act (epilogue in PyTorch)")(_nnops.fused_from(_conv2d_cuda_impl))
+
 
 @impl("dense", "cuda",
       supports=lambda specs, attrs: _all_f32(specs[:2]) and len(specs[1].shape) == 2,

@@ -25,8 +25,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["attention_mask", "attention_ref", "decode_attention_ref", "rmsnorm_ref",
-           "gemm_ref", "batched_gemm_ref", "swiglu_ref", "ssd_ref", "ssd_step_ref",
+__all__ = ["attention_mask", "attention_ref", "decode_attention_ref",
+           "combine_partials_ref", "rmsnorm_ref", "gemm_ref", "batched_gemm_ref", "swiglu_ref", "ssd_ref", "ssd_step_ref",
            "ssd_chunked_ref", "with_d"]
 
 _NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -93,6 +93,28 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhk,bkhd->bhd", p, v.float())
     return o.to(q.dtype)
+
+
+def combine_partials_ref(outs: torch.Tensor, ms: torch.Tensor,
+                         ls: torch.Tensor) -> torch.Tensor:
+    """Combine flash partials over a leading 'split' axis.
+
+    outs (S, ..., D) unnormalised accumulators, ms (S, ...) running max,
+    ls (S, ...) running sum of exp.  Returns the exact softmax-weighted
+    output.  The splits are merged in index order by elementwise ops (no
+    library reduction, whose strategy may depend on the shape), so a row's
+    result does not depend on the other rows.  An empty shard (m = -1e30,
+    l = 0, acc = 0) weighs exp(-1e30 - m) = 0, and all-empty rows give 0."""
+    m = ms[0]
+    for i in range(1, ms.shape[0]):
+        m = torch.maximum(m, ms[i])
+    l = torch.zeros_like(ls[0])
+    o = torch.zeros_like(outs[0])
+    for i in range(ms.shape[0]):
+        alpha = torch.exp(ms[i] - m)
+        l = l + ls[i] * alpha
+        o = o + outs[i] * alpha[..., None]
+    return o / torch.clamp(l, min=1e-30)[..., None]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,

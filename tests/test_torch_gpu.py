@@ -518,3 +518,86 @@ def test_moe_and_mamba_batchers_on_the_card_match_batch_one(arch):
             lengths = lengths + 1
             want.append(int(lg[0].argmax()))
         assert r.out_tokens == want, r.uid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_splits", [2, 4, 8])
+def test_partial_kernel_matches_its_plain_version_on_the_card(n_splits):
+    """Lengths 0, shards wholly empty, lengths on and across shard edges;
+    GQA groups 1-8; D 64-256 with Dv != D."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (flash_decode_partial,
+                                                  flash_decode_partial_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n_splits)
+    rn = _rn(gen, dev)
+    before = flash_decode_partial.launches
+    s = 64 * n_splits + 32 * n_splits          # shards of 96 rows: a ragged second tile
+    part = s // n_splits
+    lens = [0, 1, part - 1, part, part + 1, s // 2 + 5, s - 1, s]
+    for hq, hk in ((1, 1), (2, 1), (4, 2), (8, 1), (8, 8)):
+        for d, dv in ((64, 64), (96, 96), (128, 64), (256, 256), (96, 128)):
+            b = len(lens)
+            q, k, v = rn(b, hq, d), rn(b, s, hk, d), rn(b, s, hk, dv)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            sc = 1 / math.sqrt(d)
+            acc, m, l = flash_decode_partial(q, k, v, lengths, n_splits=n_splits)
+            pa, pm, pl = flash_decode_partial_plain(q, k, v, lengths, sc, n_splits)
+            torch.testing.assert_close(acc, pa, **TOL)
+            torch.testing.assert_close(m, pm, **TOL)
+            torch.testing.assert_close(l, pl, **TOL)
+            empty = (lengths[None, :] - part * torch.arange(n_splits, device=dev)[:, None]) <= 0
+            assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+            assert float(acc[empty].abs().max()) == 0.0
+    assert flash_decode_partial.launches == before + 25
+
+
+@pytest.mark.gpu
+def test_split_decode_rows_do_not_depend_on_the_batch():
+    dev = _card()
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+    from repro_torch.kernels.ops import decode_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rn = _rn(gen, dev)
+    q, k, v = rn(8, 4, 256), rn(8, 1024, 1, 256), rn(8, 1024, 1, 256)
+    lengths = torch.tensor([1000, 0, 511, 512, 513, 1, 1024, 300], dtype=torch.int32,
+                           device=dev)
+    before = flash_decode_partial.launches
+    for n_splits in (2, 4, 8):
+        full = decode_attention(q, k, v, lengths, backend="cuda_split", n_splits=n_splits)
+        for lo, hi in ((0, 1), (3, 4), (2, 6), (5, 8)):
+            part = decode_attention(q[lo:hi].contiguous(), k[lo:hi].contiguous(),
+                                    v[lo:hi].contiguous(), lengths[lo:hi].contiguous(),
+                                    backend="cuda_split", n_splits=n_splits)
+            assert torch.equal(part, full[lo:hi])
+        ref = decode_attention(q, k, v, lengths, backend="cuda")
+        torch.testing.assert_close(full, ref, **TOL)
+    assert flash_decode_partial.launches == before + 15
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_conv2d_cuda_matches_its_plain_version_on_the_card(fused):
+    dev = _card()
+    from repro_torch.core.registry import get_impl
+    from repro_torch.kernels.gemm import gemm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rn = _rn(gen, dev)
+    op = "conv2d_fused" if fused else "conv2d"
+    before = gemm.launches
+    cases = (((1, 56, 56, 64), (3, 3, 64, 64), {"stride": 1, "padding": "SAME"}),
+             ((1, 224, 224, 3), (7, 7, 3, 64), {"stride": 2, "padding": "SAME"}),
+             ((1, 7, 7, 2048), (1, 1, 2048, 512), {"stride": 1, "padding": "SAME"}),
+             ((2, 17, 13, 5), (3, 3, 5, 7), {"stride": 2, "padding": "VALID", "dilation": 1}),
+             ((1, 9, 9, 4), (3, 3, 4, 6), {"stride": 1, "padding": ((1, 2), (0, 1)),
+                                           "dilation": 2}))
+    for xs, ws, attrs in cases:
+        x, w = rn(*xs), rn(*ws) / math.sqrt(ws[0] * ws[1] * ws[2])
+        args = [x, w] + ([rn(ws[-1])] if fused else [])
+        attrs = {**attrs, "act": "relu"} if fused else attrs
+        (got,) = get_impl(op, "cuda")(args, attrs)
+        (want,) = get_impl(op, "ref")(args, attrs)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert gemm.launches == before + len(cases)
