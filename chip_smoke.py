@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a) into
              one shared library; print the time and ptxas' register lines.
-3. kernels — hold each of the ten kernels against its plain PyTorch
+3. kernels — hold each of the eleven kernels against its plain PyTorch
              version on the card: small edge cases, then the shapes the
              full-width serving paths give it (phi3-mini widths for the
              engine, gemma3-1b, qwen2-moe-a2.7b and mamba2-370m widths for
@@ -25,9 +25,13 @@ Phases, each printing its own lines; any failure exits non-zero:
              against its plain version on lengths 0, wholly empty shards
              and lengths across shard edges, GQA 1-8, D 64-256 with Dv != D,
              n_splits 2/4/8, then timed with the cuda_split backend
-             (kernel + combine) beside flash_decode and SDPA at phi3-mini's
-             engine decode and at gemma3-1b's global decode for n_splits
-             2/4/8/16; conv2d cuda (im2col + gemm) is timed beside its
+             (kernel + combine kernel) beside flash_decode and SDPA at
+             phi3-mini's engine decode and at gemma3-1b's global decode for
+             n_splits 2/4/8/16; the combine kernel (combine_partials) is
+             held against combine_partials_ref and timed at the partials
+             flash_decode merges at those two shapes and at the split
+             backend's; gemm is held at M on both sides of the
+             skinny/tiled threshold; conv2d cuda (im2col + gemm) is timed beside its
              plain version and the torch backend (F.conv2d) at three
              ResNet-50 layers.
 4. model   — a small model's prefill and decode Programs on the card agree
@@ -199,9 +203,18 @@ def kernel_cases(torch, K):
 
     tol = dict(atol=2e-5, rtol=2e-5)
     n = 0
-    for m, nn, kk in ((5, 37, 19), (1, 64, 64), (64, 130, 33), (4, 3, 1), (70, 65, 200)):
+    for m, nn, kk in ((5, 37, 19), (1, 64, 64), (64, 130, 33), (4, 3, 1), (70, 65, 200),
+                      (16, 300, 301), (17, 300, 301), (16, 77, 300), (17, 77, 300)):
         x, w = rn(m, kk), rn(kk, nn)
         check_close(torch, f"gemm {m}x{nn}x{kk}", K.gemm(x, w), K.gemm_plain(x, w), **tol)
+        n += 1
+    # rows bitwise through the skinny/tiled threshold and across the tiles:
+    # M = 256 takes 128x128 at this N, M = 17..127 take 32x64
+    x, w = rn(256, 301), rn(301, 8269)
+    full = K.gemm(x, w)
+    for m in (1, 4, 16, 17, 127):
+        if not torch.equal(K.gemm(x[:m].contiguous(), w), full[:m]):
+            fail(f"gemm: rows at M={m} are not bitwise those at M=256")
         n += 1
     for rows, d in ((1, 8), (7, 96), (3, 3072), (5, 100)):
         x, w, r = rn(rows, d), rn(d), rn(rows, d)
@@ -275,6 +288,18 @@ def kernel_cases(torch, K):
     return n + paged_kernel_cases(torch, K, rn, g, tol) + split_kernel_cases(torch, K, rn, tol)
 
 
+def combine_check(torch, K, tag, parts, tol):
+    """The combine kernel against combine_partials_ref on partials; a row
+    whose shards are all empty must give 0.  Returns the max |err|."""
+    got = K.combine_partials(*parts)
+    err = check_close(torch, f"combine_partials {tag}", got, K.combine_partials_ref(*parts),
+                      **tol)
+    empty = (parts[2] == 0).all(dim=0)
+    if bool(empty.any()) and float(got[empty].abs().max()) != 0.0:
+        fail(f"combine_partials {tag}: an all-empty row is not 0")
+    return err
+
+
 def split_kernel_cases(torch, K, rn, tol):
     """flash_decode_partial against its plain version: shards of 96 rows (a
     ragged second tile), lengths 0, 1, on and across the shard edges and
@@ -307,7 +332,8 @@ def split_kernel_cases(torch, K, rn, tol):
                             K.decode_attention(q, k, v, lengths, backend="cuda_split",
                                                n_splits=n_splits),
                             K.flash_decode(q, k, v, lengths), **tol)
-                n += 1
+                combine_check(torch, K, tag, got, tol)
+                n += 2
     torch.cuda.synchronize()
     return n
 
@@ -446,13 +472,15 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
     gemm_shapes, rms_shapes = full_width_shapes(cfg, n_slots, chunk, cache_cap)
     for tag, m, nn, kk in gemm_shapes:
         x, w = rn(m, kk), rn(kk, nn, scale=1.0 / math.sqrt(kk))
-        err = check_close(torch, f"gemm {tag}", K.gemm(x, w), K.gemm_plain(x, w), **full_tol)
+        got = K.gemm(x, w)
+        err = check_close(torch, f"gemm {tag}", got, K.gemm_plain(x, w), **full_tol)
         ms = timer.ms(lambda: K.gemm(x, w))
         plain = timer.ms(lambda: K.gemm_plain(x, w))
         lib = timer.ms(lambda: torch.matmul(x, w))
-        record("gemm", tag, f"{tag} M={m} N={nn} K={kk}", err, ms, plain, lib,
+        variant = K.gemm_variant(m) + (f" {K.gemm_tile(m, nn)}" if m > K.SKINNY_MAX_M else "")
+        record("gemm", tag, f"{tag} M={m} N={nn} K={kk} [{variant}]", err, ms, plain, lib,
                2.0 * m * nn * kk, 4.0 * (m * kk + kk * nn + m * nn))
-        del x, w
+        del x, w, got
 
     d = cfg.d_model
     for tag, rows in rms_shapes:
@@ -510,7 +538,8 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
                4.0 * (rows_read * hk * 2 * dh + 2 * b * t * hq * dh + b))
         del q, k, v
 
-    extra = {"split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
+    extra = {"combine": combine_kernels(torch, K, rn, timer, record, full_tol),
+             "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
              "conv2d": conv_kernels(torch, rn, timer, full_tol, limit_line)}
     stack_est = {c.name: stack_kernels(torch, K, c, rn, timer, record, full_tol) for c in scfgs}
 
@@ -677,6 +706,33 @@ def split_kernels(torch, K, rn, timer, record, full_tol, limit_line):
     return rows
 
 
+def combine_kernels(torch, K, rn, timer, record, full_tol):
+    """The combine kernel at SPLIT_SHAPES, on the partials it merges there:
+    flash_decode's shards of decode_shard_rows(S) rows (gemma3-1b's global
+    decode first: the headline) and the cuda_split backend's n_splits as
+    phase 11 serves it (phi3-mini, 2) and the widest curve point (gemma3-1b,
+    16).  Plain version: combine_partials_ref; no single PyTorch call merges
+    flash partials.  Bound: the partials read once and the output written
+    once; 3 flops per partial element (exp weight, multiply, add)."""
+    rows = []
+    for tag, b, hq, hk, dh, s_len, lens, splits in reversed(SPLIT_SHAPES):
+        q, k, v = rn(b, hq, dh), rn(b, s_len, hk, dh), rn(b, s_len, hk, dh)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for what, ns in (("flash_decode", s_len // K.decode_shard_rows(s_len)),
+                         ("cuda_split", max(splits))):
+            parts = K.flash_decode_partial(q, k, v, lengths, n_splits=ns)
+            err = combine_check(torch, K, f"{tag} {what} {ns} shards", parts, full_tol)
+            ms = timer.ms(lambda: K.combine_partials(*parts))
+            plain = timer.ms(lambda: K.combine_partials_ref(*parts))
+            label = f"{tag} {what} shards={ns} B={b} Hq={hq} Dv={dh}"
+            record("combine_partials", f"{tag} {what}", label, err, ms, plain, None,
+                   3.0 * ns * b * hq * dh, 4.0 * (ns * b * hq * (dh + 2) + b * hq * dh))
+            rows.append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain))
+            del parts
+        del q, k, v
+    return rows
+
+
 # ResNet-50's 7x7/2 stem, a 3x3 at 56x56x64 and a 1x1 at 7x7x2048
 CONV_LAYERS = (("resnet-50 stem 7x7/2", (1, 224, 224, 3), (7, 7, 3, 64), 2),
                ("resnet-50 3x3 at 56x56x64", (1, 56, 56, 64), (3, 3, 64, 64), 1),
@@ -801,6 +857,7 @@ def stack_launches(cfg, prefills, steps, names):
     for phase, n in (("prefill", prefills), ("decode", steps)):
         for (kernel, _), calls in stack_calls(cfg, phase).items():
             want[kernel] += calls * n
+    want["combine_partials"] = want["flash_decode"]   # one merge per flash_decode call
     return want
 
 
@@ -1072,8 +1129,12 @@ def serving_phase(torch, K, cfg, params, n_slots, chunk, cache_cap, n_requests, 
         f"{m.decode_ticks} decode ticks")
     say(f"  launches during the engine run: {launches}")
     for name, n in launches.items():
-        if (n == 0) != (name not in ("gemm", "rmsnorm", "flash_decode", "flash_chunk_attention")):
+        if (n == 0) != (name not in ("gemm", "rmsnorm", "flash_decode", "flash_chunk_attention",
+                                     "combine_partials")):
             fail(f"kernel {name}: {n} launches by the dense-cache engine")
+    if launches["combine_partials"] != launches["flash_decode"]:
+        fail(f"combine_partials: {launches['combine_partials']} launches, expected one per "
+             f"flash_decode call ({launches['flash_decode']})")
     ticks = m.prefill_ticks + m.decode_ticks
     per_tick = {"gemm": 7 * cfg.n_layers + 1, "rmsnorm": 2 * cfg.n_layers + 1}
     for name, n in per_tick.items():
@@ -1197,7 +1258,8 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     want = dict.fromkeys(launches, 0)
     want.update({"gemm": (7 * L + 1) * ticks, "rmsnorm": (2 * L + 1) * ticks,
                  "flash_paged_chunk_attention": L * m.prefill_ticks,
-                 "flash_paged_decode": L * m.decode_ticks})
+                 "flash_paged_decode": L * m.decode_ticks,
+                 "combine_partials": L * m.decode_ticks})
     if launches != want:
         fail(f"{kv_dtype}: launches {launches} != expected {want}")
     stats = {
@@ -1299,7 +1361,8 @@ def split_phase(torch, K, cfg, params, served, *, n_slots, chunk, cache_cap, max
     want = dict.fromkeys(launches, 0)
     want.update({"gemm": (7 * L + 1) * ticks, "rmsnorm": (2 * L + 1) * ticks,
                  "flash_chunk_attention": L * m.prefill_ticks,
-                 "flash_decode_partial": L * m.decode_ticks})
+                 "flash_decode_partial": L * m.decode_ticks,
+                 "combine_partials": L * m.decode_ticks})
     if launches != want:
         fail(f"split: launches {launches} != expected {want}")
     if any(not r.done or len(r.out_tokens) != max_new for r in reqs):
@@ -1582,9 +1645,12 @@ class Kernels:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import flash_decode as fd
         from repro_torch.kernels import ssd
-        from repro_torch.kernels.gemm import batched_gemm, batched_gemm_plain, gemm, gemm_plain
+        from repro_torch.kernels.gemm import (SKINNY_MAX_M, batched_gemm, batched_gemm_plain,
+                                              gemm, gemm_plain, gemm_tile, gemm_variant)
         from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
         self.gemm, self.gemm_plain = gemm, gemm_plain
+        self.gemm_variant, self.gemm_tile = gemm_variant, gemm_tile
+        self.SKINNY_MAX_M = SKINNY_MAX_M
         self.batched_gemm, self.batched_gemm_plain = batched_gemm, batched_gemm_plain
         self.ssd_scan, self.ssd_scan_plain = ssd.ssd_scan, ssd.ssd_scan_plain
         self.rmsnorm, self.rmsnorm_plain = rmsnorm, rmsnorm_plain
@@ -1600,12 +1666,16 @@ class Kernels:
         self.gather_pages = fd.gather_pages
         self.flash_decode_partial = fd.flash_decode_partial
         self.flash_decode_partial_plain = fd.flash_decode_partial_plain
+        self.combine_partials = fd.combine_partials
+        self.decode_shard_rows = fd.decode_shard_rows
+        from repro_torch.kernels.ref import combine_partials_ref
+        self.combine_partials_ref = combine_partials_ref
         from repro_torch.kernels.ops import decode_attention
         self.decode_attention = decode_attention
         self.KERNELS = (gemm, rmsnorm, fd.flash_decode, fa.flash_chunk_attention,
                         fd.flash_paged_decode, fa.flash_paged_chunk_attention,
                         fa.flash_attention, batched_gemm, ssd.ssd_scan,
-                        fd.flash_decode_partial)
+                        fd.flash_decode_partial, fd.combine_partials)
 
 
 SOURCES = {
@@ -1625,6 +1695,10 @@ SOURCES = {
     "ssd_scan": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:73"),
     "flash_decode_partial": ("src/repro_torch/csrc/flash_decode.cu",
                              "src/repro/kernels/flash_decode.py:158"),
+    # JAX merges the split partials in plain jnp (ops.py:201, the
+    # pallas_split backend): no Pallas kernel, the port's merge is a kernel
+    "combine_partials": ("src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/ops.py:201"),
 }
 
 
@@ -1831,6 +1905,8 @@ def main() -> int:
                  **{k: r[k] for k in keys}}
         if name == "flash_decode_partial":
             entry["n_splits_curve"] = extra["split"]
+        if name == "combine_partials":
+            entry["shapes"] = extra["combine"]
         if name == "gemm":
             entry["conv2d"] = extra["conv2d"]
         if "int8" in r:

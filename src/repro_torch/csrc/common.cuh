@@ -31,14 +31,72 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// KV row sources of the attention kernels.  The kernels are templates over
+// Asynchronous copies global -> shared (sm_80+).  `valid` false copies no
+// byte and fills the destination with zeros (src-size 0); `src` must still
+// be a mapped address.  A thread sees its own copies after cp_async_wait;
+// other threads after a barrier (__syncwarp / __syncthreads) that follows it.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid = true) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The paged cache's layout, for every paged kernel: logical column col of
+// (sequence b, kv head h) is row col % P of block table[b, col / P] (table
+// (B, MP) int32), the block clipped to [0, N-1] as the Pallas kernels'
+// table is.  Returns the row index into the (N * P * Hk, width) view of the
+// pages; `blk` gets the block, whose int8 scales are scale[blk * Hk + h].
+__device__ __forceinline__ size_t paged_row(const int* table, int MP, int P, int N, int Hk,
+                                            int b, int h, int col, int& blk) {
+  blk = min(max(table[(size_t)b * MP + col / P], 0), N - 1);
+  return ((size_t)blk * P + col % P) * Hk + h;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory on the current device
+// (cudaFuncAttributeMaxDynamicSharedMemorySize).  `set` is the launch
+// site's record of the limit already set on each device, so the runtime is
+// called only when a launch needs more than the last one did, not on every
+// launch.
+constexpr int kMaxDevices = 64;
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, int (&set)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && set[dev] >= static_cast<int>(bytes)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices) set[dev] = static_cast<int>(bytes);
+  return err;
+}
+
+// KV row sources of the chunk-attention kernels (flash_attention.cu;
+// flash_decode.cu stages its rows itself).  The kernels are templates over
 // the source and take the K and V base pointers as __restrict__ parameters
 // of element type Source::Elem.  A source stages one 64-row logical K/V
 // tile of (sequence b, kv head h) from column j0 into shared memory as fp32
 // — K rows padded to D+1 floats, V rows Dv wide — with rows j >= n
 // zero-filled and never loaded; nothing else in a kernel knows how the
-// cache is laid out.  The kernels only ever ask for rows below the
-// sequence's length (decode) or its last allowed column (chunk).
+// cache is laid out.  The kernels only ever ask for rows below their last
+// allowed column.
 
 // Dense cache: k (B, S, Hk, D), v (B, S, Hk, Dv).  These are the dense
 // kernels' staging loops as they were before the paged source existed.
@@ -62,12 +120,11 @@ struct DenseKV {
 };
 
 // Paged cache: pages_k (N, P, Hk, D), pages_v (N, P, Hk, Dv), table (B, MP)
-// int32.  Logical column col of sequence b is row col % P of block
-// table[b, col / P], clipped to [0, N-1] as the Pallas kernel's table is.
-// T = int8_t: each element is dequantized as float(x) * scale[block, h]
-// with the (N, Hk) fp32 sidecars.  One warp stages one tile row at a time:
-// the table is read once per row, not once per element, and the lanes read
-// the row's contiguous elements together.
+// int32, rows located by paged_row.  T = int8_t: each element is
+// dequantized as float(x) * scale[block, h] with the (N, Hk) fp32 sidecars.
+// One warp stages one tile row at a time: the table is read once per row,
+// not once per element, and the lanes read the row's contiguous elements
+// together.
 template <typename T>
 struct PagedKV {
   using Elem = T;
@@ -88,9 +145,8 @@ struct PagedKV {
         for (int d = lane; d < Dv; d += 32) vr[d] = 0.f;
         continue;
       }
-      const int col = j0 + j;
-      const int blk = min(max(table[(size_t)b * MP + col / P], 0), N - 1);
-      const size_t row = ((size_t)blk * P + col % P) * Hk + h;
+      int blk;
+      const size_t row = paged_row(table, MP, P, N, Hk, b, h, j0 + j, blk);
       if constexpr (sizeof(T) == 1) {
         const float sk = k_scale[(size_t)blk * Hk + h], sv = v_scale[(size_t)blk * Hk + h];
         for (int d = lane; d < D; d += 32) kr[d] = static_cast<float>(k[row * D + d]) * sk;

@@ -1,17 +1,22 @@
 // flash_decode: one-token GQA attention over a KV cache, fp32 arithmetic.
 //   q (B, Hq, D), lengths (B,) int32 -> o (B, Hq, Dv); cache positions
-//   >= lengths[b] are masked.  Three entry points share one kernel body,
-//   a template over the KV row source (common.cuh):
+//   >= lengths[b] are masked.  Every entry point runs one kernel body,
+//   decode_shard_kernel, a template over the KV row source:
 //   flash_decode_f32        dense k (B, S, Hk, D), v (B, S, Hk, Dv);
 //   flash_paged_decode_f32  pages (N, P, Hk, D/Dv) fp32 through block
 //                           tables (B, MP);
 //   flash_paged_decode_i8   int8 pages with (N, Hk) fp32 scales, dequantized
 //                           as float(x) * scale while a tile is staged;
-//   flash_decode_partial_f32  the dense cache cut into n_splits shards of
-//                           part = S / n_splits rows, all in one launch:
-//                           acc (n_splits, B, Hq, Dv), m and l (n_splits, B,
-//                           Hq), the unnormalised flash partials of each
-//                           shard (the body with its finish swapped).
+//   these three cut the cache into shards of `shard` rows (the wrapper's
+//   decode_shard_rows(S), never a function of B), write each shard's
+//   unnormalised partials (acc, m, l) into a workspace the wrapper
+//   allocates, and merge them with combine_kernel in shard order;
+//   flash_decode_partial_f32  the same body over n_splits shards of
+//                           S / n_splits rows, partials out (no combine):
+//                           acc (n_splits, B, Hq, Dv), m and l (n_splits,
+//                           B, Hq);
+//   combine_partials_f32    (acc, m, l) over NS shards -> out, in shard
+//                           index order (ref.combine_partials_ref).
 //
 // Replaces: src/repro/kernels/flash_decode.py::flash_decode (_flash_decode,
 // body _decode_kernel with emit_stats=False), behind `decode_attention`
@@ -23,203 +28,467 @@
 //
 // What bounds it on the H100: bytes.  Each cache byte is read once per step
 // for O(1) flops (about 0.5 flop/byte at Hq = Hk), so its least time is the
-// live cache rows over 3.35 TB/s.
+// live cache rows over 3.35 TB/s.  Reaching it takes many SMs, each with
+// tens of KB of cache rows in flight.
 //
-// Design: one 128-thread block per (b, kv head) holds that head's whole query
-// group, so K/V are read once per group, not once per query head.  K/V tiles
-// of 64 rows stream through dynamic shared memory (at D = Dv = 96 one K tile
-// plus one V tile is 48 KiB, the whole static limit, hence
-// cudaFuncSetAttribute); K rows are padded to D+1 floats so the score loop,
-// where each thread walks one row, is free of bank conflicts.  The online
-// softmax runs in fp32 with the Pallas kernel's finite -1e30 and its
-// acc / max(l, 1e-30) finish, so an empty cache (length 0: an idle slot)
-// gives 0.  Tiles start at row 0 and have a fixed size, and tiles past
-// lengths[b] are skipped: a sequence's result does not depend on the batch.
+// Design:
+// - Grid (B * Hk * ceil(G / GM), shards): one 128-thread block per
+//   (sequence, kv head, group of up to GM = 8 query heads of that kv head,
+//   shard), so K/V are read once per query group and a long sequence is
+//   spread over S / shard blocks.  A shard past lengths[b] writes the empty
+//   partial (acc 0, m -1e30, l 0) and returns.
+// - Each warp walks its own 4-row tiles of the shard (tile t to warp t % 4)
+//   with its own online softmax, and stages them through its own ring of
+//   NST = 3 slots with 16-byte cp.async copies (4-byte ones when a width is
+//   not a multiple of 4 or a pointer not 16-byte aligned): two tiles are in
+//   flight while one is scored, and no barrier other than __syncwarp runs
+//   inside the loop.  int8 pages are loaded 4 bytes at a time and
+//   dequantized into the fp32 slot as they are staged.  At D = Dv = 256 the
+//   block takes 104 KB of shared memory, so two blocks fit on an SM.
+// - Scores: the lanes split D, each holding float4 groups 4c..4c+3 for
+//   c = lane, lane + 32; a lane's products are one FMA chain in that order
+//   and warp_sum (a fixed xor butterfly) adds the lanes.  P.V: each lane
+//   owns the same float4 groups of Dv and adds the tile's rows in row order
+//   into its accumulator after the exp(m_old - m_new) rescale.  Widths are
+//   padded to a multiple of 4 with zeros in shared memory.
+// - At the end of the shard the four warps' (acc, m, l) are merged in warp
+//   order, then the shards' in shard order (combine_kernel) — the merge of
+//   ref.combine_partials_ref: max of m, then l and acc summed with weights
+//   exp(m_i - m).  The softmax keeps the Pallas kernel's finite -1e30 and
+//   its acc / max(l, 1e-30) finish, so an empty cache (length 0: an idle
+//   slot) gives 0.
+// - Every order above is fixed by D, Dv, the shard size and a row's
+//   position: tiles start at the shard's first row, the shard size is not
+//   chosen from B and tiles past a length are skipped, so a sequence's
+//   result does not depend on the batch.  No atomics.
 //
-// Paged: the kernel walks the same fixed 64-row logical tiles from column 0
-// as the dense one and fills each tile row by row through the block table,
-// for any page size P (the Pallas kernel takes one page per grid step).  The
-// score and P.V loops are the dense ones, so an fp32 paged row is bitwise
-// equal to the dense kernel's row on the gathered cache, and shared memory
-// does not depend on P.  Rows past lengths[b] (junk table entries) are never
-// loaded: they are zero-filled in shared memory like the dense tail.  int8
-// pages read a quarter of the bytes; the bound is then the int8 rows plus
-// the scale sidecars.
+// Paged: the same rows, located through the block table by common.cuh's
+// paged_row (logical column col is row col % P of block table[b, col / P],
+// clipped to [0, N-1]); rows past lengths[b] (junk table entries) are never
+// loaded.  The score and P.V code
+// is the dense code, so an fp32 paged row is bitwise equal to the dense
+// kernel's row on the gathered cache.  int8 pages read a quarter of the
+// bytes; the bound is then the int8 rows plus the scale sidecars.
 //
-// Partial (split-KV): grid (B * Hk, n_splits); block (bh, i) runs the same
-// loop over shard i, rows [i * part, (i + 1) * part), with the shard's
-// length clip(len - i * part, 0, part) and its 64-row tiles counted from the
-// shard's first row, and writes (acc, m, l) instead of acc / max(l, 1e-30).
-// An empty shard writes acc 0, m -1e30, l 0.  One launch covers the shards
-// that JAX's backend computes in n_splits calls, and it multiplies the
-// blocks by n_splits: the dense kernel has only B * Hk of them (4 on 132
-// SMs at gemma3-1b's batch-4 decode).  The bound is the dense kernel's plus
-// the partials, n_splits * B * Hq * (Dv + 2) floats written once and read
-// once by the combine.  The combine (ref.combine_partials_ref) runs after
-// it in plain PyTorch, over the splits in index order; the shards do not
-// depend on B, so neither does a row's result.
+// Partial (split-KV, flash_decode_partial_f32): shard = S / n_splits, the
+// caller's n_splits equal shards, partials out; the bound adds the
+// partials, n_splits * B * Hq * (Dv + 2) floats written once.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128, NWARPS = THREADS / 32, BKV = 64;
+constexpr int THREADS = 128, NWARPS = THREADS / 32;
+constexpr int ROWS = 4;  // rows per warp tile
+constexpr int NST = 3;   // ring slots per warp
+constexpr int GMAX = 8;  // query heads per block
+constexpr int NCH = 2;   // float4 groups per lane: D, Dv <= 32 * 4 * NCH = 256
 
-// floats of dynamic shared memory for a query group of G heads
-__host__ __device__ inline size_t decode_smem_floats(int G, int D, int Dv) {
-  return (size_t)G * D + (size_t)G * Dv + (size_t)G * BKV + 3 * (size_t)G +
-         (size_t)BKV * (D + 1) + (size_t)BKV * Dv;
+__host__ __device__ inline int pad4(int x) { return (x + 3) & ~3; }
+
+// floats of dynamic shared memory: q [GMAX][D4], then each warp's ring of
+// NST slots of ROWS K rows [D4] and ROWS V rows [Dv4].  After the loop the
+// rings hold the warps' (m, l, acc) for the merge.
+__host__ __device__ inline size_t decode_smem_floats(int D, int Dv) {
+  return (size_t)GMAX * pad4(D) + (size_t)NWARPS * NST * ROWS * (pad4(D) + pad4(Dv));
 }
 
-// kPartial: block (bh, blockIdx.y) covers shard blockIdx.y of `part` rows
-// and writes its unnormalised (acc, m, l); otherwise part == S, one shard.
-template <bool kPartial, class KV>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_kernel(const float* __restrict__ q, const typename KV::Elem* __restrict__ k,
-                    const typename KV::Elem* __restrict__ v,
-                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                    const KV kv, const int* __restrict__ lengths, float* __restrict__ o,
-                    float* __restrict__ m_out, float* __restrict__ l_out,
-                    int Hq, int Hk, int S, int D, int Dv, int part, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / Hk, h = blockIdx.x % Hk;
-  const int split = blockIdx.y, row0 = split * part;
-  const int G = Hq / Hk;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float* qs = smem;                 // [G][D], pre-scaled
-  float* acc = qs + G * D;          // [G][Dv]
-  float* sc = acc + G * Dv;         // [G][BKV] scores, then probabilities
-  float* ms = sc + G * BKV;         // [G] running max
-  float* ls = ms + G;               // [G] running sum of exp
-  float* al = ls + G;               // [G] rescale factor of this tile
-  float* ks = al + G;               // [BKV][D+1]
-  float* vs = ks + BKV * (D + 1);   // [BKV][Dv]
+// Where logical row `col` of (sequence b, kv head h) lives, as a row index
+// of the (rows, D) view of the K (or V) tensor; `blk` gets the page (0 for
+// the dense cache).
+struct DenseRows {
+  int S, Hk;
+  __device__ __forceinline__ size_t row(int b, int h, int col, int& blk) const {
+    blk = 0;
+    return ((size_t)b * S + col) * Hk + h;
+  }
+};
 
-  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), part);
-  const size_t q_base = ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int i = tid; i < G * D; i += THREADS) qs[i] = q[q_base + i] * scale;
-  for (int i = tid; i < G * Dv; i += THREADS) acc[i] = 0.f;
-  for (int g = tid; g < G; g += THREADS) {
-    ms[g] = repro_torch::kNegInf;
-    ls[g] = 0.f;
+struct PagedRows {
+  const int* table;
+  int MP, P, N, Hk;
+  __device__ __forceinline__ size_t row(int b, int h, int col, int& blk) const {
+    return repro_torch::paged_row(table, MP, P, N, Hk, b, h, col, blk);
+  }
+};
+
+// One row of width W (padded to W4) from src (its first element) into dst,
+// by the warp's lanes: fp32 with cp.async (16-byte pieces when `vec`),
+// int8 with 4-byte loads dequantized as float(x) * s.  Pad columns get 0.
+__device__ __forceinline__ void stage_row(float* dst, const float* src, float, int W, int W4,
+                                          bool vec, int lane) {
+  if (vec) {
+    for (int c = lane; c < W / 4; c += 32) repro_torch::cp_async16(dst + 4 * c, src + 4 * c);
+  } else {
+    for (int d = lane; d < W4; d += 32) {
+      if (d < W)
+        repro_torch::cp_async4(dst + d, src + d);
+      else
+        dst[d] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_row(float* dst, const int8_t* src, float s, int W, int W4,
+                                          bool vec, int lane) {
+  if (vec) {
+    for (int c = lane; c < W / 4; c += 32) {
+      const char4 x = *reinterpret_cast<const char4*>(src + 4 * c);
+      *reinterpret_cast<float4*>(dst + 4 * c) =
+          make_float4(static_cast<float>(x.x) * s, static_cast<float>(x.y) * s,
+                      static_cast<float>(x.z) * s, static_cast<float>(x.w) * s);
+    }
+  } else {
+    for (int d = lane; d < W4; d += 32) dst[d] = d < W ? static_cast<float>(src[d]) * s : 0.f;
+  }
+}
+
+__device__ __forceinline__ void fma4(float p, const float4& v, float4& a) {
+  a.x = fmaf(p, v.x, a.x);
+  a.y = fmaf(p, v.y, a.y);
+  a.z = fmaf(p, v.z, a.z);
+  a.w = fmaf(p, v.w, a.w);
+}
+
+// Block (x, i): rows [i * shard, (i + 1) * shard) of the sequence, the
+// query heads g0 .. g0 + gn - 1 of kv head h; writes rows (i, b, h * G + g0
+// + g) of the (shards, B, Hq) partials.  GM is a compile-time bound on gn
+// (1, 2, 4 or 8), so the accumulators stay in registers.
+template <class Rows, typename T, int GM>
+__global__ void __launch_bounds__(THREADS, 2)
+decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, const Rows rows,
+                    const int* __restrict__ lengths, float* __restrict__ acc_out,
+                    float* __restrict__ m_out, float* __restrict__ l_out, int B, int Hq,
+                    int Hk, int S, int D, int Dv, int shard, float scale, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = Hq / Hk, n_grp = (G + GM - 1) / GM;
+  const int bh = blockIdx.x / n_grp, g0 = (blockIdx.x % n_grp) * GM;
+  const int b = bh / Hk, h = bh % Hk, gn = min(GM, G - g0);
+  const int row0 = blockIdx.y * shard;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int D4 = pad4(D), Dv4 = pad4(Dv);
+  const size_t out_row = ((size_t)blockIdx.y * B + b) * Hq + (size_t)h * G + g0;
+
+  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), shard);
+  if (len == 0) {  // block-uniform
+    for (int i = tid; i < gn * Dv; i += THREADS) acc_out[out_row * Dv + i] = 0.f;
+    for (int g = tid; g < gn; g += THREADS) {
+      m_out[out_row + g] = repro_torch::kNegInf;
+      l_out[out_row + g] = 0.f;
+    }
+    return;
+  }
+
+  float* qs = smem;  // [GMAX][D4], pre-scaled, zero past D and gn
+  const size_t q_base = ((size_t)b * Hq + (size_t)h * G + g0) * D;
+  for (int i = tid; i < GM * D4; i += THREADS) {
+    const int g = i / D4, d = i % D4;
+    qs[i] = (g < gn && d < D) ? q[q_base + (size_t)g * D + d] * scale : 0.f;
   }
   __syncthreads();
 
-  for (int j0 = 0; j0 < len; j0 += BKV) {
-    const int n = min(BKV, len - j0);
-    kv.template stage<THREADS, BKV>(k, v, k_scale, v_scale, ks, vs, b, h, row0 + j0, n, D,
-                                    Dv);
-    __syncthreads();
+  const int slot_floats = ROWS * (D4 + Dv4);
+  float* ring = smem + GMAX * D4 + (size_t)warp * NST * slot_floats;
+  const int n_tiles = (len + ROWS - 1) / ROWS;
+  const int my_tiles = n_tiles > warp ? (n_tiles - warp + NWARPS - 1) / NWARPS : 0;
 
-    for (int i = tid; i < G * BKV; i += THREADS) {
-      const int g = i / BKV, j = i % BKV;
-      const float* qr = qs + g * D;
-      const float* kr = ks + j * (D + 1);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      sc[i] = j < n ? s : repro_torch::kNegInf;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += NWARPS) {
-      float* row = sc + g * BKV;
-      const float s0 = row[lane], s1 = row[lane + 32];
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, repro_torch::warp_max(fmaxf(s0, s1)));
-      const float p0 = lane < n ? expf(s0 - m_new) : 0.f;
-      const float p1 = lane + 32 < n ? expf(s1 - m_new) : 0.f;
-      const float sum = repro_torch::warp_sum(p0 + p1);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        al[g] = alpha;
-        ls[g] = ls[g] * alpha + sum;
-        ms[g] = m_new;
+  // stage this warp's i-th tile (tile warp + NWARPS * i) into slot i % NST
+  auto stage = [&](int i) {
+    const int j0 = (warp + NWARPS * i) * ROWS, n = min(ROWS, len - j0);
+    float* ks = ring + (i % NST) * slot_floats;
+    float* vs = ks + ROWS * D4;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r < n) {
+        int blk;
+        const size_t row = rows.row(b, h, row0 + j0 + r, blk);
+        float sk = 1.f, sv = 1.f;
+        if constexpr (sizeof(T) == 1) {
+          sk = k_scale[(size_t)blk * Hk + h];
+          sv = v_scale[(size_t)blk * Hk + h];
+        }
+        stage_row(ks + r * D4, k + row * D, sk, D, D4, vec, lane);
+        stage_row(vs + r * Dv4, v + row * Dv, sv, Dv, Dv4, vec, lane);
       }
     }
-    __syncthreads();
+  };
 
-    for (int i = tid; i < G * Dv; i += THREADS) {
-      const int g = i / Dv, d = i % Dv;
-      const float* p = sc + g * BKV;
-      float pv = 0.f;
-      for (int j = 0; j < n; ++j) pv = fmaf(p[j], vs[j * Dv + d], pv);
-      acc[i] = acc[i] * al[g] + pv;
-    }
-    __syncthreads();
+  float m[GM], l[GM];
+  float4 acc[GM][NCH];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = repro_torch::kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[g][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  const int nk = D4 / 4, nv = Dv4 / 4;  // float4 groups of a K row and a V row
 
-  // row (split, b, h * G + g) of the (n_splits, B, Hq) outputs
-  const size_t row_base = ((size_t)split * (gridDim.x / Hk) + b) * Hq + (size_t)h * G;
-  if constexpr (kPartial) {
-    for (int i = tid; i < G * Dv; i += THREADS) o[row_base * Dv + i] = acc[i];
-    for (int g = tid; g < G; g += THREADS) {
-      m_out[row_base + g] = ms[g];
-      l_out[row_base + g] = ls[g];
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < my_tiles) stage(s);
+    repro_torch::cp_async_commit();
+  }
+  for (int i = 0; i < my_tiles; ++i) {
+    if (i + NST - 1 < my_tiles) stage(i + NST - 1);
+    repro_torch::cp_async_commit();
+    repro_torch::cp_async_wait<NST - 1>();
+    __syncwarp();
+
+    const int n = min(ROWS, len - (warp + NWARPS * i) * ROWS);
+    const float* ks = ring + (i % NST) * slot_floats;
+    const float* vs = ks + ROWS * D4;
+    float p[GM][ROWS];  // scores, then probabilities
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float4 kr[NCH];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int cc = lane + 32 * c;
+        kr[c] = (r < n && cc < nk) ? *reinterpret_cast<const float4*>(ks + r * D4 + 4 * cc)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const int cc = lane + 32 * c;
+          if (cc < nk) {
+            const float4 qv = *reinterpret_cast<const float4*>(qs + g * D4 + 4 * cc);
+            part = fmaf(qv.x, kr[c].x, part);
+            part = fmaf(qv.y, kr[c].y, part);
+            part = fmaf(qv.z, kr[c].z, part);
+            part = fmaf(qv.w, kr[c].w, part);
+          }
+        }
+        const float sum = repro_torch::warp_sum(part);
+        p[g][r] = r < n ? sum : repro_torch::kNegInf;
+      }
     }
-  } else {
-    for (int i = tid; i < G * Dv; i += THREADS) {
-      const int g = i / Dv;
-      o[row_base * Dv + i] = acc[i] / fmaxf(ls[g], 1e-30f);
+
+    float alpha[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float mx = p[g][0];
+#pragma unroll
+      for (int r = 1; r < ROWS; ++r) mx = fmaxf(mx, p[g][r]);
+      const float m_new = fmaxf(m[g], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        p[g][r] = r < n ? expf(p[g][r] - m_new) : 0.f;
+        sum += p[g][r];
+      }
+      alpha[g] = expf(m[g] - m_new);
+      l[g] = l[g] * alpha[g] + sum;
+      m[g] = m_new;
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int cc = lane + 32 * c;
+      if (cc < nv) {
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          acc[g][c].x *= alpha[g];
+          acc[g][c].y *= alpha[g];
+          acc[g][c].z *= alpha[g];
+          acc[g][c].w *= alpha[g];
+        }
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (r < n) {
+            const float4 vv = *reinterpret_cast<const float4*>(vs + r * Dv4 + 4 * cc);
+#pragma unroll
+            for (int g = 0; g < GM; ++g) fma4(p[g][r], vv, acc[g][c]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // slot i % NST is staged again in the next iteration
+  }
+  repro_torch::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the rings: reuse them
+
+  // the warps' partials: [NWARPS][GM] m, [NWARPS][GM] l, [NWARPS][GM][Dv4] acc
+  float* wm = smem + GMAX * D4;
+  float* wl = wm + NWARPS * GM;
+  float* wacc = wl + NWARPS * GM;
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      wm[warp * GM + g] = m[g];
+      wl[warp * GM + g] = l[g];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int cc = lane + 32 * c;
+      if (cc < nv) *reinterpret_cast<float4*>(wacc + ((size_t)warp * GM + g) * Dv4 + 4 * cc) =
+          acc[g][c];
+    }
+  __syncthreads();
+
+  for (int i = tid; i < gn * Dv; i += THREADS) {
+    const int g = i / Dv, d = i % Dv;
+    float mm = wm[g];
+#pragma unroll
+    for (int w = 1; w < NWARPS; ++w) mm = fmaxf(mm, wm[w * GM + g]);
+    float ls = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float a = expf(wm[w * GM + g] - mm);
+      ls = ls + wl[w * GM + g] * a;
+      o = o + wacc[((size_t)w * GM + g) * Dv4 + d] * a;
+    }
+    acc_out[(out_row + g) * Dv + d] = o;
+    if (d == 0) {
+      m_out[out_row + g] = mm;
+      l_out[out_row + g] = ls;
     }
   }
 }
 
-template <bool kPartial = false, class KV>
-int launch(const float* q, const typename KV::Elem* k, const typename KV::Elem* v,
-           const float* k_scale, const float* v_scale, const KV& kv, const int* lengths,
-           float* o, int B, int Hq, int Hk, int S, int D, int Dv, float scale, void* stream,
-           float* m_out = nullptr, float* l_out = nullptr, int n_splits = 1) {
-  const size_t smem = decode_smem_floats(Hq / Hk, D, Dv) * sizeof(float);
-  if (smem > (size_t)repro_torch::kMaxSmemBytes || n_splits < 1 || S % n_splits)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<kPartial, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * Hk, n_splits);
-  flash_decode_kernel<kPartial, KV><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, k_scale, v_scale, kv, lengths, o, m_out, l_out, Hq, Hk, S, D, Dv, S / n_splits,
-      scale);
+// Block `row` of the R = B * Hq rows: the NS shards' weights exp(m_i - m)
+// once into shared memory, then out[row, d] = sum_i acc_i[d] * w_i /
+// max(sum_i l_i * w_i, 1e-30), every sum in shard order.
+__global__ void __launch_bounds__(THREADS)
+combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
+               const float* __restrict__ l, float* __restrict__ out, int NS, int R, int Dv) {
+  extern __shared__ float w[];  // [NS] weights
+  __shared__ float l_sum;
+  const int row = blockIdx.x, tid = threadIdx.x;
+  if (tid == 0) {
+    float mm = m[row];
+    for (int i = 1; i < NS; ++i) mm = fmaxf(mm, m[(size_t)i * R + row]);
+    float ls = 0.f;
+    for (int i = 0; i < NS; ++i) {
+      const float a = expf(m[(size_t)i * R + row] - mm);
+      w[i] = a;
+      ls = ls + l[(size_t)i * R + row] * a;
+    }
+    l_sum = fmaxf(ls, 1e-30f);
+  }
+  __syncthreads();
+  for (int d = tid; d < Dv; d += THREADS) {
+    float o = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < NS; ++i) o = o + acc[((size_t)i * R + row) * Dv + d] * w[i];
+    out[(size_t)row * Dv + d] = o / l_sum;
+  }
+}
+
+int combine(const float* acc, const float* m, const float* l, float* out, int NS, int R,
+            int Dv, cudaStream_t stream) {
+  const size_t smem = (size_t)NS * sizeof(float);
+  if (NS < 1 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  combine_kernel<<<R, THREADS, smem, stream>>>(acc, m, l, out, NS, R, Dv);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Rows, typename T, int GM>
+int launch_shards_gm(const float* q, const T* k, const T* v, const float* k_scale,
+                     const float* v_scale, const Rows& rows, const int* lengths, float* acc,
+                     float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
+                     float scale, bool vec, cudaStream_t stream) {
+  const size_t smem = decode_smem_floats(D, Dv) * sizeof(float);
+  auto kernel = decode_shard_kernel<Rows, T, GM>;
+  static int smem_set[repro_torch::kMaxDevices];
+  const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = Hq / Hk;
+  const dim3 grid(B * Hk * ((G + GM - 1) / GM), (S + shard - 1) / shard);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, B,
+                                          Hq, Hk, S, D, Dv, shard, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard kernel over shards of `shard` rows; partials (ceil(S / shard), B,
+// Hq[, Dv]) into acc, m, l.
+template <class Rows, typename T>
+int launch_shards(const float* q, const T* k, const T* v, const float* k_scale,
+                  const float* v_scale, const Rows& rows, const int* lengths, float* acc,
+                  float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
+                  float scale, cudaStream_t stream) {
+  if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || D > 32 * 4 * NCH ||
+      Dv > 32 * 4 * NCH || S < 1 || shard < 1 ||
+      decode_smem_floats(D, Dv) * sizeof(float) > (size_t)repro_torch::kMaxSmemBytes ||
+      (S + shard - 1) / shard > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies (fp32) or 4-byte loads (int8) where every row starts aligned
+  const size_t al = sizeof(T) == 1 ? 4 : 16;
+  const bool vec = D % 4 == 0 && Dv % 4 == 0 && reinterpret_cast<uintptr_t>(k) % al == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % al == 0;
+  const int G = Hq / Hk;
+#define REPRO_SHARDS(GM)                                                                      \
+  launch_shards_gm<Rows, T, GM>(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, B, Hq, Hk, \
+                                S, D, Dv, shard, scale, vec, stream)
+  if (G == 1) return REPRO_SHARDS(1);
+  if (G == 2) return REPRO_SHARDS(2);
+  if (G <= 4) return REPRO_SHARDS(4);
+  return REPRO_SHARDS(8);
+#undef REPRO_SHARDS
+}
+
+// Shards, then their combine into o.
+template <class Rows, typename T>
+int decode(const float* q, const T* k, const T* v, const float* k_scale, const float* v_scale,
+           const Rows& rows, const int* lengths, float* acc, float* m, float* l, float* o,
+           int B, int Hq, int Hk, int S, int D, int Dv, int shard, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = launch_shards(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, B, Hq, Hk, S, D,
+                          Dv, shard, scale, st);
+  if (err) return err;
+  return combine(acc, m, l, o, (S + shard - 1) / shard, B * Hq, Dv, st);
 }
 
 }  // namespace
 
+// acc (ceil(S / shard), B, Hq, Dv), m and l (ceil(S / shard), B, Hq): the
+// workspace of the shards' partials.
 extern "C" int flash_decode_f32(const float* q, const float* k, const float* v,
-                                const int* lengths, float* o, int B, int Hq, int Hk,
-                                int S, int D, int Dv, float scale, void* stream) {
-  return launch(q, k, v, nullptr, nullptr, repro_torch::DenseKV{S, Hk}, lengths, o, B, Hq,
-                Hk, S, D, Dv, scale, stream);
+                                const int* lengths, float* acc, float* m, float* l, float* o,
+                                int B, int Hq, int Hk, int S, int D, int Dv, int shard,
+                                float scale, void* stream) {
+  return decode(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, o, B, Hq, Hk,
+                S, D, Dv, shard, scale, stream);
 }
 
 extern "C" int flash_paged_decode_f32(const float* q, const float* pages_k,
                                       const float* pages_v, const int* tables,
-                                      const int* lengths, float* o, int B, int Hq, int Hk,
-                                      int N, int P, int MP, int D, int Dv, float scale,
-                                      void* stream) {
-  return launch(q, pages_k, pages_v, nullptr, nullptr,
-                repro_torch::PagedKV<float>{tables, MP, P, N, Hk}, lengths, o, B, Hq, Hk,
-                MP * P, D, Dv, scale, stream);
+                                      const int* lengths, float* acc, float* m, float* l,
+                                      float* o, int B, int Hq, int Hk, int N, int P, int MP,
+                                      int D, int Dv, int shard, float scale, void* stream) {
+  return decode(q, pages_k, pages_v, nullptr, nullptr, PagedRows{tables, MP, P, N, Hk}, lengths,
+                acc, m, l, o, B, Hq, Hk, MP * P, D, Dv, shard, scale, stream);
 }
 
 extern "C" int flash_paged_decode_i8(const float* q, const int8_t* pages_k,
                                      const float* k_scales, const int8_t* pages_v,
                                      const float* v_scales, const int* tables,
-                                     const int* lengths, float* o, int B, int Hq, int Hk,
-                                     int N, int P, int MP, int D, int Dv, float scale,
-                                     void* stream) {
-  return launch(q, pages_k, pages_v, k_scales, v_scales,
-                repro_torch::PagedKV<int8_t>{tables, MP, P, N, Hk}, lengths, o, B, Hq, Hk,
-                MP * P, D, Dv, scale, stream);
+                                     const int* lengths, float* acc, float* m, float* l,
+                                     float* o, int B, int Hq, int Hk, int N, int P, int MP,
+                                     int D, int Dv, int shard, float scale, void* stream) {
+  return decode(q, pages_k, pages_v, k_scales, v_scales, PagedRows{tables, MP, P, N, Hk},
+                lengths, acc, m, l, o, B, Hq, Hk, MP * P, D, Dv, shard, scale, stream);
 }
 
 extern "C" int flash_decode_partial_f32(const float* q, const float* k, const float* v,
                                         const int* lengths, float* acc, float* m, float* l,
                                         int B, int Hq, int Hk, int S, int D, int Dv,
                                         int n_splits, float scale, void* stream) {
-  return launch<true>(q, k, v, nullptr, nullptr, repro_torch::DenseKV{S, Hk}, lengths, acc, B,
-                      Hq, Hk, S, D, Dv, scale, stream, m, l, n_splits);
+  if (n_splits < 1 || S % n_splits) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_shards(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, B, Hq,
+                       Hk, S, D, Dv, S / n_splits, scale, static_cast<cudaStream_t>(stream));
+}
+
+// acc (NS, R, Dv), m and l (NS, R) -> out (R, Dv).
+extern "C" int combine_partials_f32(const float* acc, const float* m, const float* l,
+                                    float* out, int NS, int R, int Dv, void* stream) {
+  return combine(acc, m, l, out, NS, R, Dv, static_cast<cudaStream_t>(stream));
 }

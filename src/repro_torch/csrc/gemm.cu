@@ -3,53 +3,272 @@
 // Replaces: src/repro/kernels/gemm.py::gemm (body _gemm_kernel), the Pallas
 // MXU-tiled GEMM behind every `dense` node (`dense` pallas, ops.py:453).
 //
-// What bounds it on the H100: at decode (M = 1..4) the product reads each
+// What bounds it on the H100: at decode (M = 1..16) the product reads each
 // weight once and does 2*M flops per 4-byte weight, far below the fp32 ridge
 // (67 TFLOP/s / 3.35 TB/s = 20 flop/byte), so it is bound by bytes; at
 // prefill (M = 256) it does 128 flop/byte and is bound by fp32 FFMA issue.
 //
-// Design: one fixed 64x64 output tile per 256-thread block, a 16-deep K step
-// staged in shared memory (double-buffered, next step prefetched into
-// registers during the current one), and a 4x4 micro-tile per thread.  At
-// M <= 64 the grid is one row of blocks and every weight byte is read by
-// exactly one block, so the bytes-bound decode case streams W once.  The
-// tile, the K step and the K order never depend on M: each output element
-// is one FMA chain over k = 0..K-1, so a row of C is bit-identical whatever
-// other rows share its launch (the serving engine's batch-4 product equals
-// its batch-1 reference).
-// Ragged M, N and K edges are masked with zero fill.
+// Two kernels, chosen by the wrapper from M (gemm.py SKINNY_MAX_M):
+// - gemm_f32_skinny, M <= 16: a 128-thread block per 32-column strip of B
+//   (16-column strips for N <= 2048, so a small N still covers the SMs):
+//   thread (column, slot) keeps its rows' accumulators in registers, and
+//   B and A stream through a 4-slot ring of 128-deep K steps with 16-byte
+//   cp.async copies (48 KB of B in flight per block at 32 columns).  Each
+//   weight byte is read by exactly one block: N = 3072 gives 96 blocks,
+//   N = 262144 gives 8192.
+// - gemm_f32_tiled, M > 16: 128x128 output tiles on 256 threads with an
+//   8x8 micro-tile per thread where M >= 128 and that gives about one block
+//   per SM, else 32x64 tiles on 128 threads with a 4x4 micro-tile (gemm.py
+//   gemm_tile); float4 reads from shared memory, a 4-slot cp.async ring of
+//   16-deep K steps (A stored transposed by 4-byte copies, B by 16-byte
+//   ones).
+// In both, every output element is one FMA chain over k = 0..K-1 from 0
+// (the steps past K are zero-filled and add fma(0, 0, acc) = acc), with no
+// split-K: a row of C is bit-identical whatever M is and whichever kernel
+// or tile ran it, so the serving engine's batch-4 product equals its
+// batch-1 reference.  Ragged M, N and K edges are zero-filled; widths that
+// are not a multiple of 4, or unaligned pointers, take 4-byte copies.
+// Known limits: without split-K a small N with a long K (gemma3-1b's down
+// projection, N = 1152, K = 6912) leaves SMs idle, and the tiled kernel
+// reaches about half the fp32 FFMA peak.
 //
 // batched_gemm: C[e] (M, N) = A[e] (M, K) @ B[e] (K, N) for e < E, the expert
 // as blockIdx.z.  Replaces src/repro/kernels/gemm.py::batched_gemm (the
 // Pallas grid (E, M/bm, N/bn, K/bk), behind `moe_gemm` pallas, ops.py:386).
-// The same body with per-expert strides, so a row of expert e's output is
-// the same FMA chain as in gemm_f32 and bitwise independent of M: the MoE
-// layer folds the decode batch into M (one (E, B*cap, d) launch per
-// projection), reading each expert's weights once per step.  At qwen2's
-// decode (E = 64, M = 32, 2048 -> 1408) the launch reads 738 MB of weights
-// at 2*M flops per 4-byte weight: bound by bytes; at a 1024-token prefill
-// (M = 80) by FFMA issue.
-//
-// Known limits of both: at M <= 64 gemm_f32's grid has only ceil(N/64)
-// blocks (48 for N = 3072, fewer than the 132 SMs), and FFMA from shared
-// memory reaches a fraction of the fp32 peak; wgmma/TMA and split-K with a
-// fixed split are later work.
+// Its own kernel, batched_gemm_kernel: a fixed 64x64 tile per 256-thread
+// block, a 16-deep K step double-buffered through registers, a 4x4
+// micro-tile per thread, and the same one FMA chain per element, so a row
+// of expert e's output is bitwise independent of M: the MoE layer folds the
+// decode batch into M (one (E, B*cap, d) launch per projection), reading
+// each expert's weights once per step.  At qwen2's decode (E = 64, M = 32,
+// 2048 -> 1408) the launch reads 738 MB of weights at 2*M flops per 4-byte
+// weight: bound by bytes; at a 1024-token prefill (M = 80) by FFMA issue.
+// Known limit: FFMA from shared memory with few bytes in flight reaches a
+// fraction of either bound.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
+// ---------------------------------------------------------------- skinny --
+constexpr int SK_BK = 128, SK_NST = 4, SK_THREADS = 128;
+
+// BN columns per block; SL = 128 / BN threads share a column, thread slot q
+// taking rows q, q + SL, ... (RW of them); As holds MA = SL * RW >= MT rows,
+// those past M zero-filled.
+template <int MT, int BN>
+struct Skinny {
+  static constexpr int SL = SK_THREADS / BN, RW = (MT + SL - 1) / SL, MA = SL * RW;
+  static constexpr int SLOT = SK_BK * BN + MA * SK_BK;  // floats of one ring slot
+  static constexpr size_t SMEM = sizeof(float) * SK_NST * SLOT;
+};
+
+// Block x: columns [BN x, BN x + BN) of C, all of its M <= MT rows, so each
+// weight is staged once.  Slot s holds Bs [SK_BK][BN] and As [MA][SK_BK]
+// (rows of A as they are stored).
+template <int MT, int BN>
+__global__ void __launch_bounds__(SK_THREADS)
+gemm_skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ C, int M, int N, int K, bool vec_a, bool vec_b) {
+  using S = Skinny<MT, BN>;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, col = tid % BN, q = tid / BN, n0 = blockIdx.x * BN;
+
+  auto stage = [&](int t) {
+    const int k0 = t * SK_BK;
+    float* bsl = smem + (t % SK_NST) * S::SLOT;
+    float* asl = bsl + SK_BK * BN;
+    if (vec_b) {
+#pragma unroll
+      for (int i = 0; i < SK_BK * BN / 4 / SK_THREADS; ++i) {
+        const int p = tid + SK_THREADS * i, r = p / (BN / 4), c = 4 * (p % (BN / 4));
+        const int gk = k0 + r, gn = n0 + c;
+        const bool ok = gk < K && gn < N;
+        repro_torch::cp_async16(bsl + r * BN + c, ok ? B + (size_t)gk * N + gn : B, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < SK_BK * BN / SK_THREADS; ++i) {
+        const int p = tid + SK_THREADS * i, r = p / BN, c = p % BN;
+        const int gk = k0 + r, gn = n0 + c;
+        const bool ok = gk < K && gn < N;
+        repro_torch::cp_async4(bsl + r * BN + c, ok ? B + (size_t)gk * N + gn : B, ok);
+      }
+    }
+    if (vec_a) {
+      for (int p = tid; p < S::MA * SK_BK / 4; p += SK_THREADS) {
+        const int m = p / (SK_BK / 4), c = 4 * (p % (SK_BK / 4));
+        const bool ok = m < M && k0 + c < K;
+        repro_torch::cp_async16(asl + m * SK_BK + c, ok ? A + (size_t)m * K + k0 + c : A, ok);
+      }
+    } else {
+      for (int p = tid; p < S::MA * SK_BK; p += SK_THREADS) {
+        const int m = p / SK_BK, c = p % SK_BK;
+        const bool ok = m < M && k0 + c < K;
+        repro_torch::cp_async4(asl + m * SK_BK + c, ok ? A + (size_t)m * K + k0 + c : A, ok);
+      }
+    }
+  };
+
+  float acc[S::RW];
+#pragma unroll
+  for (int i = 0; i < S::RW; ++i) acc[i] = 0.f;
+
+  const int n_steps = (K + SK_BK - 1) / SK_BK;
+#pragma unroll
+  for (int s = 0; s < SK_NST - 1; ++s) {
+    if (s < n_steps) stage(s);
+    repro_torch::cp_async_commit();
+  }
+  for (int t = 0; t < n_steps; ++t) {
+    repro_torch::cp_async_wait<SK_NST - 2>();
+    __syncthreads();  // step t is visible, and every thread is done with step t - 1's slot
+    if (t + SK_NST - 1 < n_steps) stage(t + SK_NST - 1);
+    repro_torch::cp_async_commit();
+    const float* bsl = smem + (t % SK_NST) * S::SLOT;
+    const float* asl = bsl + SK_BK * BN;
+#pragma unroll 8
+    for (int kk = 0; kk < SK_BK; kk += 4) {
+      const float b0 = bsl[(kk + 0) * BN + col], b1 = bsl[(kk + 1) * BN + col];
+      const float b2 = bsl[(kk + 2) * BN + col], b3 = bsl[(kk + 3) * BN + col];
+#pragma unroll
+      for (int i = 0; i < S::RW; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(asl + (q + S::SL * i) * SK_BK + kk);
+        acc[i] = fmaf(a.x, b0, acc[i]);
+        acc[i] = fmaf(a.y, b1, acc[i]);
+        acc[i] = fmaf(a.z, b2, acc[i]);
+        acc[i] = fmaf(a.w, b3, acc[i]);
+      }
+    }
+  }
+  repro_torch::cp_async_wait<0>();
+
+  const int gn = n0 + col;
+  if (gn < N) {
+#pragma unroll
+    for (int i = 0; i < S::RW; ++i) {
+      const int m = q + S::SL * i;
+      if (m < M) C[(size_t)m * N + gn] = acc[i];
+    }
+  }
+}
+
+// ----------------------------------------------------------------- tiled --
+constexpr int TL_NST = 4;
+
+template <int BM, int BN, int BK>
+constexpr size_t tiled_smem_bytes() {
+  return sizeof(float) * TL_NST * ((size_t)BK * (BM + 4) + (size_t)BK * BN);
+}
+
+// Block (x, y): C[BM y : BM y + BM, BN x : BN x + BN] by (BM / TM) x
+// (BN / TN) threads.  Thread (tx, ty) owns a TM x TN micro-tile: rows
+// 4ty + i + 4 TY u and columns 4tx + j + 4 TX v (i, j < 4; TY = BM / TM,
+// TX = BN / TN threads along m and n), read as float4 from shared memory.
+// Slot s holds As [BK][BM + 4] (A transposed; the pad spreads one m's
+// 4-byte stores over 8 banks) and Bs [BK][BN].
+template <int BM, int BN, int TM, int TN, int BK, int MINB>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
+gemm_tiled_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                  float* __restrict__ C, int M, int N, int K, bool vec_b) {
+  constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY, AS = BM + 4;
+  constexpr int UM = TM / 4, UN = TN / 4;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  auto as = [&](int s) { return smem + (size_t)s * (BK * AS + BK * BN); };
+
+  auto stage = [&](int t) {
+    const int k0 = t * BK;
+    float* asl = as(t % TL_NST);
+    float* bsl = asl + BK * AS;
+    // A: consecutive threads read consecutive k of one row
+#pragma unroll
+    for (int i = 0; i < BM * BK / NT; ++i) {
+      const int e = tid + NT * i, m = e / BK, kk = e % BK;
+      const bool ok = m0 + m < M && k0 + kk < K;
+      repro_torch::cp_async4(asl + kk * AS + m, ok ? A + (size_t)(m0 + m) * K + k0 + kk : A, ok);
+    }
+    if (vec_b) {
+#pragma unroll
+      for (int i = 0; i < BK * BN / 4 / NT; ++i) {
+        const int p = tid + NT * i, r = p / (BN / 4), c = 4 * (p % (BN / 4));
+        const bool ok = k0 + r < K && n0 + c < N;
+        repro_torch::cp_async16(bsl + r * BN + c, ok ? B + (size_t)(k0 + r) * N + n0 + c : B,
+                                ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK * BN / NT; ++i) {
+        const int p = tid + NT * i, r = p / BN, c = p % BN;
+        const bool ok = k0 + r < K && n0 + c < N;
+        repro_torch::cp_async4(bsl + r * BN + c, ok ? B + (size_t)(k0 + r) * N + n0 + c : B, ok);
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  const int n_steps = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < TL_NST - 1; ++s) {
+    if (s < n_steps) stage(s);
+    repro_torch::cp_async_commit();
+  }
+  for (int t = 0; t < n_steps; ++t) {
+    repro_torch::cp_async_wait<TL_NST - 2>();
+    __syncthreads();  // step t is visible, and every thread is done with step t - 1's slot
+    if (t + TL_NST - 1 < n_steps) stage(t + TL_NST - 1);
+    repro_torch::cp_async_commit();
+    const float* asl = as(t % TL_NST);
+    const float* bsl = asl + BK * AS;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int u = 0; u < UM; ++u) {
+        const float4 v = *reinterpret_cast<const float4*>(asl + kk * AS + 4 * TY * u + 4 * ty);
+        a[4 * u] = v.x, a[4 * u + 1] = v.y, a[4 * u + 2] = v.z, a[4 * u + 3] = v.w;
+      }
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const float4 v = *reinterpret_cast<const float4*>(bsl + kk * BN + 4 * TX * u + 4 * tx);
+        b[4 * u] = v.x, b[4 * u + 1] = v.y, b[4 * u + 2] = v.z, b[4 * u + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  repro_torch::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + 4 * TY * (i / 4) + 4 * ty + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + 4 * TX * (j / 4) + 4 * tx + j % 4;
+      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
+    }
+  }
+}
+
+// --------------------------------------------------------------- batched --
 constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
 constexpr int TM = 4, TN = 4;  // micro-tile per thread: rows ty+16i, cols tx+16j
 
-// kBatched: the expert is blockIdx.z, its operands `stride_*` floats apart.
-// The offsets go into the indices, and gemm_f32's instance has none: moving
-// the __restrict__ pointers themselves made the plain GEMM a fifth slower
-// on the H100.
-template <bool kBatched>
+// The expert is blockIdx.z, its operands `stride_*` floats apart.
 __global__ void __launch_bounds__(THREADS)
-gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-            float* __restrict__ C, int M, int N, int K, size_t stride_a, size_t stride_b,
-            size_t stride_c) {
+batched_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                    float* __restrict__ C, int M, int N, int K, size_t stride_a,
+                    size_t stride_b, size_t stride_c) {
   // A is stored transposed ([k][m]) so the inner loop reads a column of the
   // tile with a broadcast; +4 pads the rows against bank conflicts on store.
   __shared__ float As[2][BK][BM + 4];
@@ -58,9 +277,9 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int b_row = tid / BN, b_col = tid % BN;
-  const size_t a0 = kBatched ? blockIdx.z * stride_a : 0;
-  const size_t b0 = kBatched ? blockIdx.z * stride_b : 0;
-  const size_t c0 = kBatched ? blockIdx.z * stride_c : 0;
+  const size_t a0 = blockIdx.z * stride_a;
+  const size_t b0 = blockIdx.z * stride_b;
+  const size_t c0 = blockIdx.z * stride_c;
 
   float a_reg[4], b_reg[4];
   auto load = [&](int k0) {
@@ -124,21 +343,70 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int MT, int BN>
+int launch_skinny(const float* a, const float* b, float* c, int M, int N, int K,
+                  cudaStream_t stream) {
+  constexpr size_t smem = Skinny<MT, BN>::SMEM;
+  auto kernel = gemm_skinny_kernel<MT, BN>;
+  static int smem_set[repro_torch::kMaxDevices];
+  const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(N + BN - 1) / BN, SK_THREADS, smem, stream>>>(
+      a, b, c, M, N, K, K % 4 == 0 && aligned16(a), N % 4 == 0 && aligned16(b));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN, int TM, int TN, int BK, int MINB>
+int launch_tiled(const float* a, const float* b, float* c, int M, int N, int K,
+                 cudaStream_t stream) {
+  constexpr size_t smem = tiled_smem_bytes<BM, BN, BK>();
+  auto kernel = gemm_tiled_kernel<BM, BN, TM, TN, BK, MINB>;
+  static int smem_set[repro_torch::kMaxDevices];
+  const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((M + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, (BM / TM) * (BN / TN), smem, stream>>>(a, b, c, M, N, K,
+                                                       N % 4 == 0 && aligned16(b));
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+template <int BN>
+int skinny_rows(const float* a, const float* b, float* c, int M, int N, int K,
+                cudaStream_t st) {
+  if (M <= 4) return launch_skinny<4, BN>(a, b, c, M, N, K, st);
+  if (M <= 8) return launch_skinny<8, BN>(a, b, c, M, N, K, st);
+  return launch_skinny<16, BN>(a, b, c, M, N, K, st);
+}
+
 }  // namespace
 
-extern "C" int gemm_f32(const float* a, const float* b, float* c, int M, int N,
-                        int K, void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, b, c, M, N,
-                                                                               K, 0, 0, 0);
-  return static_cast<int>(cudaGetLastError());
+// M <= 16 (the wrapper's SKINNY_MAX_M).  16-column strips up to N = 2048
+// (twice the blocks where 32-column ones leave SMs idle), 32 above.
+extern "C" int gemm_f32_skinny(const float* a, const float* b, float* c, int M, int N, int K,
+                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || M > 16) return static_cast<int>(cudaErrorInvalidValue);
+  return N <= 2048 ? skinny_rows<16>(a, b, c, M, N, K, st) : skinny_rows<32>(a, b, c, M, N, K, st);
+}
+
+// M > 16; the tile (bm, bn) is 128x128 or 32x64 (the wrapper's gemm_tile).
+extern "C" int gemm_f32_tiled(const float* a, const float* b, float* c, int M, int N, int K,
+                              int bm, int bn, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bm == 128 && bn == 128) return launch_tiled<128, 128, 8, 8, 16, 1>(a, b, c, M, N, K, st);
+  if (bm == 32 && bn == 64) return launch_tiled<32, 64, 4, 4, 16, 4>(a, b, c, M, N, K, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // a (E, M, K), b (E, K, N), c (E, M, N), each contiguous; E <= 65535.
 extern "C" int batched_gemm_f32(const float* a, const float* b, float* c, int E, int M,
                                 int N, int K, void* stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-  gemm_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  batched_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, c, M, N, K, (size_t)M * K, (size_t)K * N, (size_t)M * N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,16 +5,25 @@ partials of KV shards, for split-KV decode) and
 :func:`repro.kernels.flash_decode.flash_paged_decode` (page pool reached
 through block tables, fp32 or int8 pages).
 
-:func:`flash_decode` and :func:`flash_paged_decode` launch the hand-written
-CUDA kernel ``csrc/flash_decode.cu`` (one block per (sequence, kv head)
-holding the whole query group; K/V streamed in fixed 64-row logical tiles)
-on CUDA tensors and run :func:`flash_decode_plain` /
-:func:`flash_paged_decode_plain` on CPU tensors; :func:`flash_decode_partial`
-launches the same kernel body once over every shard (grid (B * Hk,
-n_splits)) and runs :func:`flash_decode_partial_plain` on CPU tensors.  Both follow the Pallas
-kernel, not the ``ref`` oracle: a sequence of length 0 gives 0 (``acc /
-max(l, 1e-30)`` with a finite -1e30 mask), where ``ref`` gives the mean of
-V.  Each wrapper's ``launches`` attribute counts its kernel launches.
+All of them run one hand-written CUDA kernel body, ``csrc/flash_decode.cu``:
+a block per (sequence, kv head, up to 8 query heads of its group, shard of
+the cache), each warp streaming its own 4-row tiles through a ring of
+asynchronous copies with its own online softmax.  :func:`flash_decode` and
+:func:`flash_paged_decode` cut the cache into shards of
+:func:`decode_shard_rows` rows (a function of the cache's row count only,
+never of the batch) and merge the shards' partials in shard order with the
+combine kernel, in one call; :func:`flash_decode_partial` takes the
+caller's ``n_splits`` equal shards and returns the partials;
+:func:`combine_partials` is the combine kernel alone (the ``cuda_split``
+backend's merge), whose plain version is ``ref.combine_partials_ref``.  On
+CPU tensors each wrapper runs its plain version
+(:func:`flash_decode_plain`, :func:`flash_paged_decode_plain`,
+:func:`flash_decode_partial_plain`).  They follow the Pallas kernel, not
+the ``ref`` oracle: a sequence of length 0 gives 0 (``acc / max(l, 1e-30)``
+with a finite -1e30 mask), where ``ref`` gives the mean of V.  Each
+wrapper's ``launches`` attribute counts its kernel launches; the combine
+kernel's count rises with every :func:`flash_decode`,
+:func:`flash_paged_decode` and :func:`combine_partials` call on the card.
 """
 
 from __future__ import annotations
@@ -25,24 +34,63 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.ref import combine_partials_ref
 
 __all__ = ["flash_decode", "flash_decode_plain", "flash_decode_partial",
-           "flash_decode_partial_plain", "decode_fits", "flash_paged_decode",
+           "flash_decode_partial_plain", "decode_fits", "decode_shard_rows",
+           "decode_smem_bytes", "combine_partials", "flash_paged_decode",
            "flash_paged_decode_plain", "paged_decode_fits", "gather_pages"]
 
 _NEG_INF = -1e30
-BLOCK_KV = 64          # rows per K/V tile (csrc/flash_decode.cu BKV)
+# The layout of csrc/flash_decode.cu:
+BLOCK_KV = 4           # rows per warp tile (ROWS)
+WARPS = 4              # warps per block, tile t to warp t % 4 (NWARPS)
+RING = 3               # ring slots per warp (NST)
+GROUP_HEADS = 8        # query heads per block (GMAX)
+SHARD_ROWS = 64        # rows per shard of a cache of up to 64 * MAX_SHARDS rows
+MAX_SHARDS = 128
+MAX_COMBINE_SHARDS = 12288   # the combine kernel keeps one weight per shard in 48 KB
+
+
+def decode_shard_rows(s_len: int) -> int:
+    """Rows per shard of :func:`flash_decode` and :func:`flash_paged_decode`
+    over a cache of ``s_len`` rows: SHARD_ROWS, doubled until the cache has
+    at most MAX_SHARDS shards.  It depends on the cache's row count alone,
+    never on the batch, so a sequence's shards (and its result) are the same
+    at batch 4 as at batch 1."""
+    shard = SHARD_ROWS
+    while -(-s_len // shard) > MAX_SHARDS:
+        shard *= 2
+    return shard
+
+
+def decode_smem_bytes(d: int, dv: int) -> int:
+    """Dynamic shared memory of one block (csrc/flash_decode.cu
+    decode_smem_floats): the pre-scaled queries of GROUP_HEADS heads, then
+    each warp's ring of RING tiles of BLOCK_KV K and V rows, widths padded
+    to a multiple of 4.  It does not depend on the group size or the batch."""
+    d4, dv4 = -(-d // 4) * 4, -(-dv // 4) * 4
+    return 4 * (GROUP_HEADS * d4 + WARPS * RING * BLOCK_KV * (d4 + dv4))
 
 
 def decode_fits(hq: int, hk: int, d: int, dv: int) -> bool:
     """Whether the kernel takes these head counts and widths: whole GQA
-    groups, D and Dv <= 256, and the group's shared memory (the layout of
-    csrc/flash_decode.cu) within the H100's 227 KB per block."""
+    groups (any size: a block takes up to GROUP_HEADS of them), D and Dv
+    <= 256, and the block's shared memory within the H100's 227 KB."""
     if hk < 1 or hq % hk or not (0 < d <= _cuda.MAX_HEAD_DIM and 0 < dv <= _cuda.MAX_HEAD_DIM):
         return False
-    g = hq // hk
-    floats = g * d + g * dv + g * BLOCK_KV + 3 * g + BLOCK_KV * (d + 1) + BLOCK_KV * dv
-    return 4 * floats <= _cuda.MAX_SMEM_BYTES
+    return decode_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES
+
+
+def _workspace(n_shards: int, b: int, hq: int, dv: int, device):
+    """The shards' partials acc (n_shards, B, Hq, Dv), m and l (n_shards,
+    B, Hq), written by the shard kernel and read by the combine: views of
+    one allocation."""
+    rows = n_shards * b * hq
+    buf = torch.empty(rows * (dv + 2), dtype=torch.float32, device=device)
+    return (buf[:rows * dv].view(n_shards, b, hq, dv),
+            buf[rows * dv:rows * (dv + 1)].view(n_shards, b, hq),
+            buf[rows * (dv + 1):].view(n_shards, b, hq))
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,17 +157,53 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, d = q.shape
     s_len, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((b, hq, dv), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return out
+    if b == 0 or s_len == 0:
+        return out.zero_()
+    shard = decode_shard_rows(s_len)
+    acc, m, l = _workspace(-(-s_len // shard), b, hq, dv, q.device)
     err = _cuda.library().flash_decode_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hq, hk, s_len, d, dv, scale, _cuda.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), out.data_ptr(), b, hq, hk, s_len, d, dv, shard, scale,
+        _cuda.stream_of(q))
     _cuda.check(err, "flash_decode")
     flash_decode.launches += 1
+    combine_partials.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Merge flash partials over their leading shard axis: acc (NS, ..., Dv),
+    m and l (NS, ...) -> (..., Dv), the shards in index order (the combine
+    kernel of csrc/flash_decode.cu on CUDA tensors,
+    ``ref.combine_partials_ref`` on CPU tensors).  An empty shard (acc 0,
+    m -1e30, l 0) weighs 0; a row whose shards are all empty gives 0."""
+    fn = "combine_partials"
+    if acc.dim() < 2 or m.shape != acc.shape[:-1] or l.shape != m.shape:
+        raise ValueError(f"{fn}: acc {tuple(acc.shape)}, m {tuple(m.shape)}, l {tuple(l.shape)}")
+    for name, t in (("acc", acc), ("m", m), ("l", l)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
+    if not _on_card(fn, (acc, m, l)):
+        return combine_partials_ref(acc, m, l)
+    ns, dv = acc.shape[0], acc.shape[-1]
+    if not 1 <= ns <= MAX_COMBINE_SHARDS:
+        raise ValueError(f"{fn}: {ns} shards, the kernel takes 1 to {MAX_COMBINE_SHARDS}")
+    out = torch.empty(acc.shape[1:], dtype=torch.float32, device=acc.device)
+    rows = m[0].numel()
+    if rows == 0 or dv == 0:
+        return out
+    err = _cuda.library().combine_partials_f32(
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), ns, rows, dv,
+        _cuda.stream_of(acc))
+    _cuda.check(err, fn)
+    combine_partials.launches += 1
+    return out
+
+
+combine_partials.launches = 0
 
 
 def flash_decode_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,7 +241,7 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32 -> acc (n_splits,
     B, Hq, Dv), m (n_splits, B, Hq), l (n_splits, B, Hq).  With
     ``n_splits=1`` it is JAX's ``flash_decode_partial`` over the whole cache
-    (with a leading axis of 1).  Combine with ``ref.combine_partials_ref``."""
+    (with a leading axis of 1).  Combine with :func:`combine_partials`."""
     fn = "flash_decode_partial"
     scale = _check_dense(fn, q, k, v, lengths, scale)
     b, hq, d = q.shape
@@ -166,11 +250,11 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{fn}: n_splits={n_splits} must be >= 1 and divide S={s_len}")
     if not _on_card(fn, (q, k, v, lengths)):
         return flash_decode_partial_plain(q, k, v, lengths, scale, n_splits)
-    acc = torch.empty((n_splits, b, hq, dv), dtype=torch.float32, device=q.device)
-    m = torch.empty((n_splits, b, hq), dtype=torch.float32, device=q.device)
-    l = torch.empty((n_splits, b, hq), dtype=torch.float32, device=q.device)
+    acc, m, l = _workspace(n_splits, b, hq, dv, q.device)
     if b == 0:
         return acc, m, l
+    if s_len == 0:
+        return acc.zero_(), m.fill_(_NEG_INF), l.zero_()
     err = _cuda.library().flash_decode_partial_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
         m.data_ptr(), l.data_ptr(), b, hq, hk, s_len, d, dv, n_splits, scale,
@@ -282,21 +366,24 @@ def flash_paged_decode(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Te
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn}: inputs must be contiguous")
     out = torch.empty((b, hq, dv), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return out
+    if b == 0 or mp * page == 0:
+        return out.zero_()
+    shard = decode_shard_rows(mp * page)
+    acc, m, l = _workspace(-(-(mp * page) // shard), b, hq, dv, q.device)
     lib = _cuda.library()
-    dims = (b, hq, hk, n, page, mp, d, dv, scale, _cuda.stream_of(q))
+    parts = (acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr())
+    dims = (b, hq, hk, n, page, mp, d, dv, shard, scale, _cuda.stream_of(q))
     if quant:
         err = lib.flash_paged_decode_i8(
             q.data_ptr(), pages_k.data_ptr(), k_scales.data_ptr(), pages_v.data_ptr(),
-            v_scales.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), *dims)
+            v_scales.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(), *parts, *dims)
     else:
         err = lib.flash_paged_decode_f32(
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), block_tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), *dims)
+            lengths.data_ptr(), *parts, *dims)
     _cuda.check(err, fn)
     flash_paged_decode.launches += 1
+    combine_partials.launches += 1
     return out
 
 

@@ -1,12 +1,19 @@
 """fp32 GEMM, plain and batched — counterpart of
 :func:`repro.kernels.gemm.gemm` and :func:`repro.kernels.gemm.batched_gemm`.
 
-:func:`gemm` and :func:`batched_gemm` launch the hand-written CUDA kernel
-``csrc/gemm.cu`` on CUDA tensors (fixed 64x64 tile, 16-deep K step, FFMA;
-the batched entry takes the expert as ``blockIdx.z``; see the source for
-what bounds it and why each row's result is independent of M) and run
-:func:`gemm_plain` / :func:`batched_gemm_plain` on CPU tensors.  Each
-wrapper's ``launches`` attribute counts its kernel launches.
+:func:`gemm` launches one of two hand-written CUDA kernels of
+``csrc/gemm.cu`` on CUDA tensors, chosen by :func:`gemm_variant` from M:
+``skinny`` for M <= SKINNY_MAX_M (a 32- or 16-column strip per block,
+each column's M row accumulators in registers, the weights streamed
+through a ring of asynchronous copies) and ``tiled`` above it (output
+tiles of 128x128 or 32x64 by :func:`gemm_tile`, an 8x8 or 4x4 micro-tile
+per thread).  Both compute each output element as one FMA chain
+over k = 0..K-1, so a row's bits depend neither on M nor on which kernel
+or tile ran it.
+:func:`batched_gemm` launches the batched kernel (fixed 64x64 tile,
+16-deep K step, the expert as ``blockIdx.z``).  On CPU tensors they run
+:func:`gemm_plain` / :func:`batched_gemm_plain`.  Each wrapper's
+``launches`` attribute counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -15,7 +22,35 @@ import torch
 
 from repro_torch.kernels import _cuda
 
-__all__ = ["gemm", "gemm_plain", "batched_gemm", "batched_gemm_plain"]
+__all__ = ["gemm", "gemm_plain", "gemm_variant", "gemm_tile", "batched_gemm",
+           "batched_gemm_plain", "SKINNY_MAX_M", "TILES", "MIN_BIG_TILE_BLOCKS"]
+
+SKINNY_MAX_M = 16        # the largest M of the skinny kernel (gemm_f32_skinny)
+
+
+def gemm_variant(m: int) -> str:
+    """The kernel :func:`gemm` launches for an (M, K) @ (K, N) product:
+    ``"skinny"`` for M <= SKINNY_MAX_M, else ``"tiled"``.  Only the speed
+    depends on it: both give every element the same FMA chain."""
+    return "skinny" if m <= SKINNY_MAX_M else "tiled"
+
+
+# the tiled kernel's instances (BM, BN): 8x8 micro-tiles on 256 threads, 4x4
+# on 128
+TILES = ((128, 128), (32, 64))
+MIN_BIG_TILE_BLOCKS = 128    # about one 128x128 block for each of the 132 SMs
+
+
+def gemm_tile(m: int, n: int) -> tuple:
+    """The tiled kernel's output tile (BM, BN) for an (M, N) result:
+    128x128 when M fills its rows and it still gives MIN_BIG_TILE_BLOCKS
+    blocks (the most reuse of each staged byte), else 32x64 (a smaller
+    product spread over more SMs: the tile is never split along K).  Only
+    the speed depends on the tile."""
+    big = TILES[0]
+    if m >= big[0] and -(-m // big[0]) * -(-n // big[1]) >= MIN_BIG_TILE_BLOCKS:
+        return big
+    return TILES[1]
 
 
 def gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -57,8 +92,12 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    err = _cuda.library().gemm_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                   m, n, k, _cuda.stream_of(x))
+    lib = _cuda.library()
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k)
+    if gemm_variant(m) == "skinny":
+        err = lib.gemm_f32_skinny(*args, _cuda.stream_of(x))
+    else:
+        err = lib.gemm_f32_tiled(*args, *gemm_tile(m, n), _cuda.stream_of(x))
     _cuda.check(err, "gemm")
     gemm.launches += 1
     return out

@@ -38,8 +38,8 @@ from repro_torch.core.ir import TensorSpec
 from repro_torch.core.registry import Cost, defop, get_impl, impl
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import attention_fits, flash_attention
-from repro_torch.kernels.flash_decode import (decode_fits, flash_decode, flash_decode_partial,
-                                              flash_decode_partial_plain)
+from repro_torch.kernels.flash_decode import (combine_partials, decode_fits, flash_decode,
+                                              flash_decode_partial, flash_decode_partial_plain)
 from repro_torch.kernels.gemm import batched_gemm as _batched_gemm_kernel
 from repro_torch.kernels.gemm import gemm as _gemm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
@@ -145,8 +145,8 @@ def _dec_cuda_supports(specs, attrs):
 
 
 @impl("decode_attention", "cuda", supports=_dec_cuda_supports,
-      note="flash-decode CUDA kernel; one block per (b, kv head), the GQA "
-           "group shares one K/V read")
+      note="flash-decode CUDA kernel; one block per (b, kv head, shard), the "
+           "GQA group shares one K/V read, shards combined in order")
 def _decode_cuda_impl(inputs, attrs):
     q, k, v, lengths = inputs
     return [flash_decode(q, k, v, lengths, scale=attrs.get("scale"))]
@@ -163,7 +163,7 @@ def _dec_split_supports(specs, attrs):
     cuda backend's fp32 and shared-memory guard, n_splits >= 2, and S a
     multiple of n_splits (equal shards, one launch).  JAX's "shards of >= 8
     rows" and "each shard a multiple of its block_kv" are TPU sublane and
-    BlockSpec rules: the kernel walks 64-row tiles from each shard's first
+    BlockSpec rules: the kernel walks 4-row tiles from each shard's first
     row and masks the ragged end, so a shard of any length >= 1 works."""
     k = specs[1]
     n_splits = int(attrs.get("n_splits", 2))
@@ -183,13 +183,13 @@ def _dec_split_cost(specs, attrs):
 
 @impl("decode_attention", "cuda_split", supports=_dec_split_supports, cost_fn=_dec_split_cost,
       note="split-KV flash-decode: the partials of n_splits shards in one launch of the "
-           "partial kernel (grid B*Hk x n_splits), combined in index order")
+           "partial kernel, merged in index order by the combine kernel")
 def _decode_split_impl(inputs, attrs):
     q, k, v, lengths = inputs
     acc, m, l = flash_decode_partial(q, k, v, _full_lengths(lengths, q, k),
                                      scale=attrs.get("scale"),
                                      n_splits=int(attrs.get("n_splits", 2)))
-    return [R.combine_partials_ref(acc, m, l).to(q.dtype)]
+    return [combine_partials(acc, m, l).to(q.dtype)]
 
 
 def decode_attention(q, k, v, lengths=None, *, scale=None, backend="ref", **kw):
@@ -199,7 +199,7 @@ def decode_attention(q, k, v, lengths=None, *, scale=None, backend="ref", **kw):
 
 def decode_attention_partial(q, k, v, lengths=None, *, scale=None, backend="cuda", **kw):
     """(acc, m, l) partials over this KV shard, for cross-shard combination
-    (``ref.combine_partials_ref``): acc (B, Hq, Dv), m and l (B, Hq).
+    (``combine_partials``): acc (B, Hq, Dv), m and l (B, Hq).
     ``cuda``: the partial kernel over one shard; otherwise its plain
     version.  An empty row gives acc 0, m -1e30 and l 0 on both, where JAX's
     dense ``ref`` partial gives l = S and acc = the sum of v: the combined

@@ -380,8 +380,8 @@ def _paged_decode_attention_ref(inputs, attrs):
 @impl("paged_decode_attention", "cuda",
       supports=lambda specs, attrs: _paged_attn_cuda_supports(
           specs, "float32", paged_decode_fits),
-      note="paged flash-decode CUDA kernel; one block per (b, kv head), "
-           "64-row logical tiles filled through the block table")
+      note="paged flash-decode CUDA kernel; one block per (b, kv head, shard), "
+           "rows staged through the block table, shards combined in order")
 def _paged_decode_attention_cuda(inputs, attrs):
     q, pk, pv, tables, lengths = inputs
     return [flash_paged_decode(q, pk, pv, tables, lengths, scale=attrs.get("scale"))]
@@ -612,7 +612,7 @@ def _paged_decode_attention_q_ref(inputs, attrs):
       supports=lambda specs, attrs: _paged_attn_cuda_supports(
           specs, "int8", paged_decode_fits),
       note="paged flash-decode CUDA kernel over int8 pages, dequantized per "
-           "(page, kv head) while each 64-row tile is staged")
+           "(page, kv head) while each row is staged")
 def _paged_decode_attention_q_cuda(inputs, attrs):
     q, pk, ks, pv, vs, tables, lengths = inputs
     return [flash_paged_decode(q, pk, pv, tables, lengths, k_scales=ks, v_scales=vs,

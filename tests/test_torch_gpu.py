@@ -72,15 +72,26 @@ def test_kernels_match_their_plain_versions_on_the_card():
 
 @pytest.mark.gpu
 def test_gemm_rows_do_not_depend_on_the_batch():
+    """Through the skinny/tiled threshold and across the tiles: every
+    element is one FMA chain over k = 0..K-1 in both kernels.  At these N
+    the rows of M = 256 take the 128x128 tile and M = 17 and 64 the 32x64
+    one; N ragged against both tiles; K 301 (4-byte copies) and 300
+    (16-byte copies), a multiple of neither K step."""
     dev = _card()
-    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.gemm import (SKINNY_MAX_M, TILES, gemm, gemm_plain, gemm_tile,
+                                          gemm_variant)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rn = _rn(gen, dev)
-    x, w = rn(256, 300), rn(300, 70)
-    full = gemm(x, w)
-    for m in (1, 4, 64):
-        assert torch.equal(gemm(x[:m].contiguous(), w), full[:m])
+    ms = (1, 4, SKINNY_MAX_M, SKINNY_MAX_M + 1, 64, 256)
+    assert {gemm_variant(m) for m in ms} == {"skinny", "tiled"}
+    for k, n in ((301, 8269), (300, 8300)):
+        assert {gemm_tile(m, n) for m in ms if gemm_variant(m) == "tiled"} == set(TILES)
+        x, w = rn(256, k), rn(k, n) / math.sqrt(k)
+        full = gemm(x, w)
+        torch.testing.assert_close(full, gemm_plain(x, w), **TOL)
+        for m in ms:
+            assert torch.equal(gemm(x[:m].contiguous(), w), full[:m]), m
 
 
 @pytest.mark.gpu
@@ -555,7 +566,7 @@ def test_partial_kernel_matches_its_plain_version_on_the_card(n_splits):
 @pytest.mark.gpu
 def test_split_decode_rows_do_not_depend_on_the_batch():
     dev = _card()
-    from repro_torch.kernels.flash_decode import flash_decode_partial
+    from repro_torch.kernels.flash_decode import combine_partials, flash_decode_partial
     from repro_torch.kernels.ops import decode_attention
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -564,6 +575,7 @@ def test_split_decode_rows_do_not_depend_on_the_batch():
     lengths = torch.tensor([1000, 0, 511, 512, 513, 1, 1024, 300], dtype=torch.int32,
                            device=dev)
     before = flash_decode_partial.launches
+    before_combine = combine_partials.launches
     for n_splits in (2, 4, 8):
         full = decode_attention(q, k, v, lengths, backend="cuda_split", n_splits=n_splits)
         for lo, hi in ((0, 1), (3, 4), (2, 6), (5, 8)):
@@ -574,6 +586,59 @@ def test_split_decode_rows_do_not_depend_on_the_batch():
         ref = decode_attention(q, k, v, lengths, backend="cuda")
         torch.testing.assert_close(full, ref, **TOL)
     assert flash_decode_partial.launches == before + 15
+    # one combine per cuda_split call and one inside each flash_decode call
+    assert combine_partials.launches == before_combine + 15 + 3
+
+
+@pytest.mark.gpu
+def test_decode_rows_do_not_depend_on_the_batch():
+    """gemma3-1b's global decode shape (Hq 4, Hk 1, D 256, S 2048), lengths
+    on the shard edges, one row off them, and 0: the dense and paged fp32
+    kernels give a sequence the same bits at every batch size."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (decode_shard_rows, flash_decode,
+                                                  flash_paged_decode)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rn = _rn(gen, dev)
+    s = 2048
+    sh = decode_shard_rows(s)
+    lens = [0, 1, sh - 1, sh, sh + 1, 3 * sh - 1, 3 * sh + 1, s]
+    b = len(lens)
+    q, k, v = rn(b, 4, 256), rn(b, s, 1, 256), rn(b, s, 1, 256)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    full = flash_decode(q, k, v, lengths)
+    assert float(full[0].abs().max()) == 0.0
+    page = 16
+    pk, pv = k.reshape(b * s // page, page, 1, 256), v.reshape(b * s // page, page, 1, 256)
+    tables = torch.arange(b * s // page, dtype=torch.int32, device=dev).reshape(b, s // page)
+    assert torch.equal(flash_paged_decode(q, pk, pv, tables, lengths), full)
+    for lo, hi in ((0, 1), (2, 3), (3, 6), (1, 8), (7, 8)):
+        part = flash_decode(q[lo:hi].contiguous(), k[lo:hi].contiguous(),
+                            v[lo:hi].contiguous(), lengths[lo:hi].contiguous())
+        assert torch.equal(part, full[lo:hi]), (lo, hi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [1, 2, 16, 33])
+def test_combine_kernel_matches_combine_partials_ref(n_shards):
+    """Real partials with empty shards, and a row whose shards are all
+    empty (acc 0, m -1e30, l 0), which gives 0."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import combine_partials, flash_decode_partial
+    from repro_torch.kernels.ref import combine_partials_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n_shards)
+    rn = _rn(gen, dev)
+    s = 8 * n_shards
+    q, k, v = rn(3, 4, 96), rn(3, s, 2, 96), rn(3, s, 2, 72)
+    lengths = torch.tensor([0, s // 2 + 1, s], dtype=torch.int32, device=dev)
+    parts = flash_decode_partial(q, k, v, lengths, n_splits=n_shards)
+    before = combine_partials.launches
+    got = combine_partials(*parts)
+    assert combine_partials.launches == before + 1
+    torch.testing.assert_close(got, combine_partials_ref(*parts), **TOL)
+    assert float(got[0].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
