@@ -33,7 +33,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              backend's; gemm is held at M on both sides of the
              skinny/tiled threshold; conv2d cuda (im2col + gemm) is timed beside its
              plain version and the torch backend (F.conv2d) at three
-             ResNet-50 layers.
+             ResNet-50 layers.  The attention kernel (flash_attention.cu:
+             chunk, paged chunk and whole-sequence, one body over shards of
+             attention_shard_cols(S) columns and a combine) is held over
+             several shards at D 96-256 and Dv != D, and its rows must be
+             bitwise the same at B = 1 and B = 4, in one T = 64 chunk or in
+             two (17 + 47), through fp32 pages and with fewer query rows;
+             batched_gemm's rows bitwise at M = 1-128 (both kernels, both
+             tiles) and equal to gemm's product per expert.
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
@@ -264,9 +271,10 @@ def kernel_cases(torch, K):
     check_close(torch, "flash_decode D=256 G=4", K.flash_decode(q, k, v, lengths),
                 K.flash_decode_plain(q, k, v, lengths, 1.0 / 16), **tol)
     n += 1
-    # batched_gemm: M, N and K ragged against the 64x64 tile and the 16-deep
-    # K step, one expert to 64
-    for e, m, nn, kk in ((3, 5, 37, 19), (1, 64, 64, 64), (8, 70, 65, 200), (64, 3, 16, 33)):
+    # batched_gemm: M, N and K ragged against the tiles and the K steps, M on
+    # both sides of the skinny/tiled threshold, one expert to 64
+    for e, m, nn, kk in ((3, 5, 37, 19), (1, 64, 64, 64), (8, 70, 65, 200), (64, 3, 16, 33),
+                         (5, 16, 77, 300), (5, 17, 77, 300)):
         x, w = rn(e, m, kk), rn(e, kk, nn)
         check_close(torch, f"batched_gemm {e}x{m}x{nn}x{kk}", K.batched_gemm(x, w),
                     K.batched_gemm_plain(x, w), **tol)
@@ -285,7 +293,94 @@ def kernel_cases(torch, K):
         check_close(torch, f"{tag} state", st, stp, **tol)
         n += 1
     torch.cuda.synchronize()
-    return n + paged_kernel_cases(torch, K, rn, g, tol) + split_kernel_cases(torch, K, rn, tol)
+    return (n + paged_kernel_cases(torch, K, rn, g, tol) + split_kernel_cases(torch, K, rn, tol)
+            + shard_kernel_cases(torch, K, rn, tol))
+
+
+def shard_kernel_cases(torch, K, rn, tol):
+    """The attention kernel over several shards of attention_shard_cols(S)
+    and batched_gemm across its variants: the plain versions within
+    ``tol``, and rows bitwise at B = 1 and B = 4, in one T = 64 chunk or two
+    (17 then 47) at the same positions, through fp32 pages, with fewer
+    query rows, and (batched_gemm) at every M and against gemm per expert."""
+    n = 0
+    s_len = 1024
+    for hq, hk, d in ((8, 8, 96), (4, 1, 256)):
+        q, k, v = rn(4, 64, hq, d), rn(4, s_len, hk, d), rn(4, s_len, hk, d)
+        sh = K.attention_shard_cols(s_len)
+        start = torch.tensor([sh - 18, 2 * sh - 1, 0, s_len - 64], dtype=torch.int32,
+                             device="cuda")
+        full = K.flash_chunk_attention(q, k, v, start)
+        check_close(torch, f"flash_chunk_attention S={s_len} hq={hq} hk={hk} d={d}", full,
+                    K.flash_chunk_attention_plain(q, k, v, start, 1.0 / math.sqrt(d)), **tol)
+        for i in range(4):
+            one = K.flash_chunk_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                          v[i:i + 1].contiguous(), start[i:i + 1].contiguous())
+            if not torch.equal(one, full[i:i + 1]):
+                fail(f"flash_chunk_attention d={d}: sequence {i} at B=1 is not bitwise B=4's")
+        split = torch.cat([K.flash_chunk_attention(q[:, :17].contiguous(), k, v, start),
+                           K.flash_chunk_attention(q[:, 17:].contiguous(), k, v, start + 17)],
+                          dim=1)
+        if not torch.equal(split, full):
+            fail(f"flash_chunk_attention d={d}: chunks of 17 + 47 are not bitwise one of 64")
+        page = 16
+        tables = torch.arange(4 * s_len // page, dtype=torch.int32,
+                              device="cuda").reshape(4, -1)
+        pk, pv = (x.reshape(-1, page, hk, d) for x in (k, v))
+        if not torch.equal(K.flash_paged_chunk_attention(q, pk, pv, tables, start), full):
+            fail(f"flash_paged_chunk_attention d={d}: not bitwise equal to the dense kernel")
+        n += 4
+    for d, dv in ((96, 96), (128, 128), (256, 256), (128, 64)):
+        q, k, v = rn(2, 700, 4, d), rn(2, 700, 1, d), rn(2, 700, 1, dv)
+        for causal, window in ((True, None), (True, 512), (False, 300)):
+            full = K.flash_attention(q, k, v, causal=causal, window=window)
+            check_close(torch, f"flash_attention L=700 d={d} dv={dv} causal={causal} "
+                        f"window={window}", full,
+                        K.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                scale=1.0 / math.sqrt(d)), **tol)
+            for first in (1, 255, 257, 511):
+                part = K.flash_attention(q[:1, first:].contiguous(), k[:1].contiguous(),
+                                         v[:1].contiguous(), causal=causal, window=window)
+                if not torch.equal(part, full[:1, first:]):
+                    fail(f"flash_attention d={d} causal={causal} window={window}: rows from "
+                         f"{first} at B=1 are not bitwise those of the whole batch")
+            n += 2
+    # widths off the float4 groups (4-byte copies; int8 loads element by
+    # element) over two shards
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    q, k, v = rn(2, 300, 4, 6), rn(2, 300, 2, 6), rn(2, 300, 2, 10)
+    check_close(torch, "flash_attention L=300 d=6 dv=10", K.flash_attention(q, k, v),
+                K.flash_attention_plain(q, k, v, causal=True, window=None,
+                                        scale=1.0 / math.sqrt(6)), **tol)
+    start = torch.tensor([250, 0], dtype=torch.int32, device="cuda")
+    qc = rn(2, 16, 4, 6)
+    for quant in (False, True):
+        pk, pv, tables, sc = paged_layout(torch, g, b=2, n=43, page=16, mp=20, hk=2, d=6,
+                                          dv=10, lengths=[266, 16], quant=quant)
+        got = K.flash_paged_chunk_attention(qc, pk, pv, tables, start, **sc)
+        check_close(torch, f"flash_paged_chunk_attention d=6 dv=10 quant={quant}", got,
+                    K.flash_paged_chunk_attention_plain(qc, pk, pv, tables, start,
+                                                        1.0 / math.sqrt(6), sc.get("k_scales"),
+                                                        sc.get("v_scales")), **tol)
+        if not quant and not torch.equal(got, K.flash_chunk_attention(
+                qc, K.gather_pages(pk, tables), K.gather_pages(pv, tables), start)):
+            fail("flash_paged_chunk_attention d=6 dv=10: not bitwise equal to the dense kernel")
+        n += 2
+    for kk, nn in ((2048, 1408), (1408, 2048)):
+        x, w = rn(64, 128, kk), rn(64, kk, nn) / math.sqrt(kk)
+        full = K.batched_gemm(x, w)
+        check_close(torch, f"batched_gemm E=64 M=128 {kk}->{nn}", full,
+                    K.batched_gemm_plain(x, w), atol=1e-4, rtol=1e-4)
+        for m in (1, 8, 16, 17, 32, 80):
+            if not torch.equal(K.batched_gemm(x[:, :m].contiguous(), w), full[:, :m]):
+                fail(f"batched_gemm {kk}->{nn}: rows at M={m} are not bitwise those at M=128")
+        for e in (0, 63):
+            if not torch.equal(full[e], K.gemm(x[e].contiguous(), w[e].contiguous())):
+                fail(f"batched_gemm {kk}->{nn}: expert {e} is not bitwise gemm's product")
+        n += 8
+    torch.cuda.synchronize()
+    return n
 
 
 def combine_check(torch, K, tag, parts, tol):
@@ -1668,6 +1763,7 @@ class Kernels:
         self.flash_decode_partial_plain = fd.flash_decode_partial_plain
         self.combine_partials = fd.combine_partials
         self.decode_shard_rows = fd.decode_shard_rows
+        self.attention_shard_cols = fa.attention_shard_cols
         from repro_torch.kernels.ref import combine_partials_ref
         self.combine_partials_ref = combine_partials_ref
         from repro_torch.kernels.ops import decode_attention

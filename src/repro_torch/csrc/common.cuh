@@ -88,74 +88,31 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, int (&set)[kMaxDevice
   return err;
 }
 
-// KV row sources of the chunk-attention kernels (flash_attention.cu;
-// flash_decode.cu stages its rows itself).  The kernels are templates over
-// the source and take the K and V base pointers as __restrict__ parameters
-// of element type Source::Elem.  A source stages one 64-row logical K/V
-// tile of (sequence b, kv head h) from column j0 into shared memory as fp32
-// — K rows padded to D+1 floats, V rows Dv wide — with rows j >= n
-// zero-filled and never loaded; nothing else in a kernel knows how the
-// cache is laid out.  The kernels only ever ask for rows below their last
-// allowed column.
+// Widths are padded to a multiple of 4 floats in shared memory (float4 reads).
+__host__ __device__ inline int pad4(int x) { return (x + 3) & ~3; }
 
-// Dense cache: k (B, S, Hk, D), v (B, S, Hk, Dv).  These are the dense
-// kernels' staging loops as they were before the paged source existed.
-struct DenseKV {
-  using Elem = float;
+// Where logical row `col` of (sequence b, kv head h) of a KV cache lives, as
+// a row index of the (rows, width) view of the K (or V) tensor; `blk` gets
+// the page (0 for the dense cache).  The attention kernels (flash_decode.cu,
+// flash_attention.cu) are templates over these, so nothing else in them
+// knows how the cache is laid out, and an fp32 paged row runs the dense
+// row's arithmetic.
+
+// Dense cache: k (B, S, Hk, D), v (B, S, Hk, Dv).
+struct DenseRows {
   int S, Hk;
-  template <int THREADS, int BKV>
-  __device__ __forceinline__ void stage(const float* __restrict__ k,
-                                        const float* __restrict__ v, const float*,
-                                        const float*, float* ks, float* vs, int b, int h,
-                                        int j0, int n, int D, int Dv) const {
-    for (int i = threadIdx.x; i < BKV * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      ks[j * (D + 1) + d] = j < n ? k[(((size_t)b * S + j0 + j) * Hk + h) * D + d] : 0.f;
-    }
-    for (int i = threadIdx.x; i < BKV * Dv; i += THREADS) {
-      const int j = i / Dv, d = i % Dv;
-      vs[i] = j < n ? v[(((size_t)b * S + j0 + j) * Hk + h) * Dv + d] : 0.f;
-    }
+  __device__ __forceinline__ size_t row(int b, int h, int col, int& blk) const {
+    blk = 0;
+    return ((size_t)b * S + col) * Hk + h;
   }
 };
 
-// Paged cache: pages_k (N, P, Hk, D), pages_v (N, P, Hk, Dv), table (B, MP)
-// int32, rows located by paged_row.  T = int8_t: each element is
-// dequantized as float(x) * scale[block, h] with the (N, Hk) fp32 sidecars.
-// One warp stages one tile row at a time: the table is read once per row,
-// not once per element, and the lanes read the row's contiguous elements
-// together.
-template <typename T>
-struct PagedKV {
-  using Elem = T;
+// Paged cache: pages (N, P, Hk, D/Dv), table (B, MP) int32 (paged_row).
+struct PagedRows {
   const int* table;
   int MP, P, N, Hk;
-  template <int THREADS, int BKV>
-  __device__ __forceinline__ void stage(const T* __restrict__ k, const T* __restrict__ v,
-                                        const float* __restrict__ k_scale,
-                                        const float* __restrict__ v_scale, float* ks,
-                                        float* vs, int b, int h, int j0, int n, int D,
-                                        int Dv) const {
-    const int lane = threadIdx.x % 32;
-    for (int j = threadIdx.x / 32; j < BKV; j += THREADS / 32) {
-      float* kr = ks + j * (D + 1);
-      float* vr = vs + j * Dv;
-      if (j >= n) {                       // warp-uniform: no divergence
-        for (int d = lane; d < D; d += 32) kr[d] = 0.f;
-        for (int d = lane; d < Dv; d += 32) vr[d] = 0.f;
-        continue;
-      }
-      int blk;
-      const size_t row = paged_row(table, MP, P, N, Hk, b, h, j0 + j, blk);
-      if constexpr (sizeof(T) == 1) {
-        const float sk = k_scale[(size_t)blk * Hk + h], sv = v_scale[(size_t)blk * Hk + h];
-        for (int d = lane; d < D; d += 32) kr[d] = static_cast<float>(k[row * D + d]) * sk;
-        for (int d = lane; d < Dv; d += 32) vr[d] = static_cast<float>(v[row * Dv + d]) * sv;
-      } else {
-        for (int d = lane; d < D; d += 32) kr[d] = k[row * D + d];
-        for (int d = lane; d < Dv; d += 32) vr[d] = v[row * Dv + d];
-      }
-    }
+  __device__ __forceinline__ size_t row(int b, int h, int col, int& blk) const {
+    return paged_row(table, MP, P, N, Hk, b, h, col, blk);
   }
 };
 

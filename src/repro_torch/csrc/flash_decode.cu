@@ -79,13 +79,15 @@
 
 namespace {
 
+using repro_torch::DenseRows;
+using repro_torch::PagedRows;
+using repro_torch::pad4;
+
 constexpr int THREADS = 128, NWARPS = THREADS / 32;
 constexpr int ROWS = 4;  // rows per warp tile
 constexpr int NST = 3;   // ring slots per warp
 constexpr int GMAX = 8;  // query heads per block
 constexpr int NCH = 2;   // float4 groups per lane: D, Dv <= 32 * 4 * NCH = 256
-
-__host__ __device__ inline int pad4(int x) { return (x + 3) & ~3; }
 
 // floats of dynamic shared memory: q [GMAX][D4], then each warp's ring of
 // NST slots of ROWS K rows [D4] and ROWS V rows [Dv4].  After the loop the
@@ -93,25 +95,6 @@ __host__ __device__ inline int pad4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline size_t decode_smem_floats(int D, int Dv) {
   return (size_t)GMAX * pad4(D) + (size_t)NWARPS * NST * ROWS * (pad4(D) + pad4(Dv));
 }
-
-// Where logical row `col` of (sequence b, kv head h) lives, as a row index
-// of the (rows, D) view of the K (or V) tensor; `blk` gets the page (0 for
-// the dense cache).
-struct DenseRows {
-  int S, Hk;
-  __device__ __forceinline__ size_t row(int b, int h, int col, int& blk) const {
-    blk = 0;
-    return ((size_t)b * S + col) * Hk + h;
-  }
-};
-
-struct PagedRows {
-  const int* table;
-  int MP, P, N, Hk;
-  __device__ __forceinline__ size_t row(int b, int h, int col, int& blk) const {
-    return repro_torch::paged_row(table, MP, P, N, Hk, b, h, col, blk);
-  }
-};
 
 // One row of width W (padded to W4) from src (its first element) into dst,
 // by the warp's lanes: fp32 with cp.async (16-byte pieces when `vec`),

@@ -32,19 +32,20 @@
 // projection, N = 1152, K = 6912) leaves SMs idle, and the tiled kernel
 // reaches about half the fp32 FFMA peak.
 //
-// batched_gemm: C[e] (M, N) = A[e] (M, K) @ B[e] (K, N) for e < E, the expert
-// as blockIdx.z.  Replaces src/repro/kernels/gemm.py::batched_gemm (the
-// Pallas grid (E, M/bm, N/bn, K/bk), behind `moe_gemm` pallas, ops.py:386).
-// Its own kernel, batched_gemm_kernel: a fixed 64x64 tile per 256-thread
-// block, a 16-deep K step double-buffered through registers, a 4x4
-// micro-tile per thread, and the same one FMA chain per element, so a row
-// of expert e's output is bitwise independent of M: the MoE layer folds the
+// batched_gemm: C[e] (M, N) = A[e] (M, K) @ B[e] (K, N) for e < E.  Replaces
+// src/repro/kernels/gemm.py::batched_gemm (the Pallas grid (E, M/bm, N/bn,
+// K/bk), behind `moe_gemm` pallas, ops.py:386).  The MoE layer folds the
 // decode batch into M (one (E, B*cap, d) launch per projection), reading
-// each expert's weights once per step.  At qwen2's decode (E = 64, M = 32,
-// 2048 -> 1408) the launch reads 738 MB of weights at 2*M flops per 4-byte
-// weight: bound by bytes; at a 1024-token prefill (M = 80) by FFMA issue.
-// Known limit: FFMA from shared memory with few bytes in flight reaches a
-// fraction of either bound.
+// each expert's weights once per step: at qwen2's decode (E = 64, M = 32,
+// 2048 -> 1408) a launch reads 738 MB of weights at 2*M flops per 4-byte
+// weight, near both bounds; at a 1024-token prefill (M = 80) FFMA issue
+// bounds it.  It runs the two kernels above per expert, the expert as
+// blockIdx.z (the same M <= 16 / M > 16 split and tiles), each an instance
+// with kBatched = true: only those offset A, B and C by the expert, so
+// gemm_f32's instances are the code they were (offsetting its __restrict__
+// pointers always cost the single GEMM 20%).  Every element is the same one
+// FMA chain, so a row of expert e is bitwise the same whatever M, kernel or
+// tile, and equal to gemm_f32's row of the product A[e] @ B[e].
 #include <cstdint>
 
 #include "common.cuh"
@@ -67,11 +68,16 @@ struct Skinny {
 // Block x: columns [BN x, BN x + BN) of C, all of its M <= MT rows, so each
 // weight is staged once.  Slot s holds Bs [SK_BK][BN] and As [MA][SK_BK]
 // (rows of A as they are stored).
-template <int MT, int BN>
+template <int MT, int BN, bool kBatched>
 __global__ void __launch_bounds__(SK_THREADS)
 gemm_skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    float* __restrict__ C, int M, int N, int K, bool vec_a, bool vec_b) {
   using S = Skinny<MT, BN>;
+  if constexpr (kBatched) {  // the expert blockIdx.z
+    A += (size_t)blockIdx.z * M * K;
+    B += (size_t)blockIdx.z * K * N;
+    C += (size_t)blockIdx.z * M * N;
+  }
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, col = tid % BN, q = tid / BN, n0 = blockIdx.x * BN;
 
@@ -168,11 +174,16 @@ constexpr size_t tiled_smem_bytes() {
 // TX = BN / TN threads along m and n), read as float4 from shared memory.
 // Slot s holds As [BK][BM + 4] (A transposed; the pad spreads one m's
 // 4-byte stores over 8 banks) and Bs [BK][BN].
-template <int BM, int BN, int TM, int TN, int BK, int MINB>
+template <int BM, int BN, int TM, int TN, int BK, int MINB, bool kBatched>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), MINB)
 gemm_tiled_kernel(const float* __restrict__ A, const float* __restrict__ B,
                   float* __restrict__ C, int M, int N, int K, bool vec_b) {
   constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY, AS = BM + 4;
+  if constexpr (kBatched) {  // the expert blockIdx.z
+    A += (size_t)blockIdx.z * M * K;
+    B += (size_t)blockIdx.z * K * N;
+    C += (size_t)blockIdx.z * M * N;
+  }
   constexpr int UM = TM / 4, UN = TN / 4;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
@@ -260,155 +271,86 @@ gemm_tiled_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// --------------------------------------------------------------- batched --
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
-constexpr int TM = 4, TN = 4;  // micro-tile per thread: rows ty+16i, cols tx+16j
-
-// The expert is blockIdx.z, its operands `stride_*` floats apart.
-__global__ void __launch_bounds__(THREADS)
-batched_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                    float* __restrict__ C, int M, int N, int K, size_t stride_a,
-                    size_t stride_b, size_t stride_c) {
-  // A is stored transposed ([k][m]) so the inner loop reads a column of the
-  // tile with a broadcast; +4 pads the rows against bank conflicts on store.
-  __shared__ float As[2][BK][BM + 4];
-  __shared__ float Bs[2][BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int b_row = tid / BN, b_col = tid % BN;
-  const size_t a0 = blockIdx.z * stride_a;
-  const size_t b0 = blockIdx.z * stride_b;
-  const size_t c0 = blockIdx.z * stride_c;
-
-  float a_reg[4], b_reg[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gm = m0 + ty + 16 * i, gk = k0 + tx;
-      a_reg[i] = (gm < M && gk < K) ? A[a0 + (size_t)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = k0 + b_row + 4 * i, gn = n0 + b_col;
-      b_reg[i] = (gk < K && gn < N) ? B[b0 + (size_t)gk * N + gn] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[buf][tx][ty + 16 * i] = a_reg[i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Bs[buf][b_row + 4 * i][b_col] = b_reg[i];
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int n_steps = (K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int t = 0; t < n_steps; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < n_steps) load((t + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[cur][kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[cur][kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // buffer cur^1 was last read before the barrier that ended step t-1
-    if (t + 1 < n_steps) store(cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) C[c0 + (size_t)gm * N + gn] = acc[i][j];
-    }
-  }
-}
-
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int MT, int BN>
-int launch_skinny(const float* a, const float* b, float* c, int M, int N, int K,
+// E > 1 only with kBatched (grid z = E).
+template <int MT, int BN, bool kBatched>
+int launch_skinny(const float* a, const float* b, float* c, int E, int M, int N, int K,
                   cudaStream_t stream) {
   constexpr size_t smem = Skinny<MT, BN>::SMEM;
-  auto kernel = gemm_skinny_kernel<MT, BN>;
+  auto kernel = gemm_skinny_kernel<MT, BN, kBatched>;
   static int smem_set[repro_torch::kMaxDevices];
   const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(N + BN - 1) / BN, SK_THREADS, smem, stream>>>(
+  kernel<<<dim3((N + BN - 1) / BN, 1, E), SK_THREADS, smem, stream>>>(
       a, b, c, M, N, K, K % 4 == 0 && aligned16(a), N % 4 == 0 && aligned16(b));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN, int TM, int TN, int BK, int MINB>
-int launch_tiled(const float* a, const float* b, float* c, int M, int N, int K,
+template <int BM, int BN, int TM, int TN, int BK, int MINB, bool kBatched>
+int launch_tiled(const float* a, const float* b, float* c, int E, int M, int N, int K,
                  cudaStream_t stream) {
   constexpr size_t smem = tiled_smem_bytes<BM, BN, BK>();
-  auto kernel = gemm_tiled_kernel<BM, BN, TM, TN, BK, MINB>;
+  auto kernel = gemm_tiled_kernel<BM, BN, TM, TN, BK, MINB, kBatched>;
   static int smem_set[repro_torch::kMaxDevices];
   const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((M + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   kernel<<<grid, (BM / TM) * (BN / TN), smem, stream>>>(a, b, c, M, N, K,
                                                        N % 4 == 0 && aligned16(b));
   return static_cast<int>(cudaGetLastError());
 }
 
-
-template <int BN>
-int skinny_rows(const float* a, const float* b, float* c, int M, int N, int K,
+template <int BN, bool kBatched>
+int skinny_rows(const float* a, const float* b, float* c, int E, int M, int N, int K,
                 cudaStream_t st) {
-  if (M <= 4) return launch_skinny<4, BN>(a, b, c, M, N, K, st);
-  if (M <= 8) return launch_skinny<8, BN>(a, b, c, M, N, K, st);
-  return launch_skinny<16, BN>(a, b, c, M, N, K, st);
+  if (M <= 4) return launch_skinny<4, BN, kBatched>(a, b, c, E, M, N, K, st);
+  if (M <= 8) return launch_skinny<8, BN, kBatched>(a, b, c, E, M, N, K, st);
+  return launch_skinny<16, BN, kBatched>(a, b, c, E, M, N, K, st);
+}
+
+// M <= 16 (the wrapper's SKINNY_MAX_M).  16-column strips up to N = 2048
+// (twice the blocks where 32-column ones leave SMs idle), 32 above.
+template <bool kBatched>
+int skinny(const float* a, const float* b, float* c, int E, int M, int N, int K,
+           cudaStream_t st) {
+  if (M < 1 || M > 16) return static_cast<int>(cudaErrorInvalidValue);
+  return N <= 2048 ? skinny_rows<16, kBatched>(a, b, c, E, M, N, K, st)
+                   : skinny_rows<32, kBatched>(a, b, c, E, M, N, K, st);
+}
+
+// M > 16; the tile (bm, bn) is 128x128 or 32x64 (the wrapper's gemm_tile).
+template <bool kBatched>
+int tiled(const float* a, const float* b, float* c, int E, int M, int N, int K, int bm, int bn,
+          cudaStream_t st) {
+  if (bm == 128 && bn == 128)
+    return launch_tiled<128, 128, 8, 8, 16, 1, kBatched>(a, b, c, E, M, N, K, st);
+  if (bm == 32 && bn == 64)
+    return launch_tiled<32, 64, 4, 4, 16, 4, kBatched>(a, b, c, E, M, N, K, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// M <= 16 (the wrapper's SKINNY_MAX_M).  16-column strips up to N = 2048
-// (twice the blocks where 32-column ones leave SMs idle), 32 above.
 extern "C" int gemm_f32_skinny(const float* a, const float* b, float* c, int M, int N, int K,
                                void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || M > 16) return static_cast<int>(cudaErrorInvalidValue);
-  return N <= 2048 ? skinny_rows<16>(a, b, c, M, N, K, st) : skinny_rows<32>(a, b, c, M, N, K, st);
+  return skinny<false>(a, b, c, 1, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
-// M > 16; the tile (bm, bn) is 128x128 or 32x64 (the wrapper's gemm_tile).
 extern "C" int gemm_f32_tiled(const float* a, const float* b, float* c, int M, int N, int K,
                               int bm, int bn, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bm == 128 && bn == 128) return launch_tiled<128, 128, 8, 8, 16, 1>(a, b, c, M, N, K, st);
-  if (bm == 32 && bn == 64) return launch_tiled<32, 64, 4, 4, 16, 4>(a, b, c, M, N, K, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tiled<false>(a, b, c, 1, M, N, K, bm, bn, static_cast<cudaStream_t>(stream));
 }
 
-// a (E, M, K), b (E, K, N), c (E, M, N), each contiguous; E <= 65535.
-extern "C" int batched_gemm_f32(const float* a, const float* b, float* c, int E, int M,
-                                int N, int K, void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-  batched_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, M, N, K, (size_t)M * K, (size_t)K * N, (size_t)M * N);
-  return static_cast<int>(cudaGetLastError());
+// a (E, M, K), b (E, K, N), c (E, M, N), each contiguous; E <= 65535.  M <=
+// 16 runs the skinny kernel, M > 16 the tiled one with the tile (bm, bn).
+extern "C" int batched_gemm_f32(const float* a, const float* b, float* c, int E, int M, int N,
+                                int K, int bm, int bn, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return M <= 16 ? skinny<true>(a, b, c, E, M, N, K, st)
+                 : tiled<true>(a, b, c, E, M, N, K, bm, bn, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -187,8 +187,8 @@ extern "C" int ssd_scan_f32(const float* xbar, const float* la, const float* Bm,
                             const float* Cm, float* y, float* state, int B, int S, int H,
                             int P, int G, int N, int Q, void* stream) {
   const int smem = smem_bytes(N, Q);
-  cudaError_t err = cudaFuncSetAttribute(ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
+  static int smem_set[repro_torch::kMaxDevices];
+  const cudaError_t err = repro_torch::allow_smem(ssd_kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((P + PT - 1) / PT, H, B);
   ssd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -46,8 +46,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "gemm_f32_skinny": (_P, _P, _P, _I, _I, _I, _P),
     # a, b, c; M, N, K, bm, bn
     "gemm_f32_tiled": (_P, _P, _P, *[_I] * 5, _P),
-    # a, b, c; E, M, N, K
-    "batched_gemm_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # a, b, c; E, M, N, K, bm, bn
+    "batched_gemm_f32": (_P, _P, _P, *[_I] * 6, _P),
     "rmsnorm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
     # q, k, v, lengths, acc, m, l (the shards' partials), o; B, Hq, Hk, S,
     # D, Dv, shard
@@ -56,19 +56,23 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_decode_partial_f32": (*[_P] * 7, *[_I] * 7, _F, _P),
     # acc, m, l, out; NS, R, Dv
     "combine_partials_f32": (*[_P] * 4, *[_I] * 3, _P),
-    "flash_chunk_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _F, _P),
+    # q, k, v, start, acc, m, l (the shards' partials), o; B, T, Hq, Hk, S,
+    # D, Dv, shard
+    "flash_chunk_attention_f32": (*[_P] * 8, *[_I] * 8, _F, _P),
     # q, pages_k, pages_v, tables, lengths, acc, m, l, o; B, Hq, Hk, N, P,
     # MP, D, Dv, shard
     "flash_paged_decode_f32": (*[_P] * 9, *[_I] * 9, _F, _P),
     # q, pages_k, k_scales, pages_v, v_scales, tables, lengths, acc, m, l,
     # o; as above
     "flash_paged_decode_i8": (*[_P] * 11, *[_I] * 9, _F, _P),
-    # q, pages_k, pages_v, tables, start, o; B, T, Hq, Hk, N, P, MP, D, Dv
-    "flash_paged_chunk_attention_f32": (*[_P] * 6, *[_I] * 9, _F, _P),
-    "flash_paged_chunk_attention_i8": (*[_P] * 8, *[_I] * 9, _F, _P),
-    # q, k, v, o; B, T, Hq, Hk, Skv, D, Dv, causal, window
-    "flash_attention_f32": (*[_P] * 4, *[_I] * 9, _F, _P),
+    # q, pages_k, pages_v, tables, start, acc, m, l, o; B, T, Hq, Hk, N, P,
+    # MP, D, Dv, shard
+    "flash_paged_chunk_attention_f32": (*[_P] * 9, *[_I] * 10, _F, _P),
+    # q, pages_k, k_scales, pages_v, v_scales, tables, start, acc, m, l, o;
+    # as above
+    "flash_paged_chunk_attention_i8": (*[_P] * 11, *[_I] * 10, _F, _P),
+    # q, k, v, acc, m, l, o; B, T, Hq, Hk, Skv, D, Dv, causal, window, shard
+    "flash_attention_f32": (*[_P] * 7, *[_I] * 10, _F, _P),
     # xbar, la, B, C, y, state; B, S, H, P, G, N, Q
     "ssd_scan_f32": (*[_P] * 6, *[_I] * 7, _P),
 }

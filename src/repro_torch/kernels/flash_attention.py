@@ -7,12 +7,16 @@ prefill over a dense cache) and
 pool reached through block tables, fp32 or int8 pages).
 
 The three wrappers launch the hand-written CUDA kernel
-``csrc/flash_attention.cu`` (one block per (sequence, query head, 32-row
-query tile); fixed 64-row K/V tiles, the walk starting at the aligned tile
-holding the first column the query tile may see) on CUDA tensors and run
-their plain versions on CPU tensors.  For the chunk wrappers query row t of
-sequence b sits at ``start[b] + t`` and attends cache columns ``<= start[b]
-+ t``.  Each wrapper's ``launches`` attribute counts its kernel launches.
+``csrc/flash_attention.cu`` on CUDA tensors and run their plain versions on
+CPU tensors.  The kernel gives one block 64 query rows (every query head of
+a GQA group at 64 / G positions) and one shard of
+:func:`attention_shard_cols` cache columns (a function of the cache's
+column count alone, never of the batch or the chunk), walks the shard in
+fixed tiles of 64 columns, and merges a row's
+shards in shard order with a combine kernel in the same call.  For the
+chunk wrappers query row t of sequence b sits at ``start[b] + t`` and
+attends cache columns ``<= start[b] + t``.  Each wrapper's ``launches``
+attribute counts its calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -23,28 +27,70 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.flash_decode import check_paged, gather_pages
+from repro_torch.kernels.flash_decode import _workspace, check_paged, gather_pages
 from repro_torch.kernels.ref import attention_mask
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention_fits",
            "flash_chunk_attention", "flash_chunk_attention_plain", "chunk_fits",
            "flash_paged_chunk_attention", "flash_paged_chunk_attention_plain",
-           "paged_chunk_fits"]
+           "paged_chunk_fits", "attention_shard_cols", "attention_smem_bytes"]
 
 _NEG_INF = -1e30
-BLOCK_Q = 32           # query rows per block (csrc/flash_attention.cu BQ)
-BLOCK_KV = 64          # rows per K/V tile (BKV)
+# The layout of csrc/flash_attention.cu:
+BLOCK_ROWS = 64        # query rows per block (BR): 64 / G positions of G heads
+BLOCK_KV = 64          # columns per K/V tile (BKV)
+SHARD_COLS = 256       # columns per shard of a cache of up to 256 * MAX_SHARDS
+MAX_SHARDS = 8
+
+
+def attention_shard_cols(s_len: int) -> int:
+    """Columns per shard of the attention kernel over ``s_len`` cache (or
+    key) columns: SHARD_COLS, doubled until there are at most MAX_SHARDS
+    shards.  It depends on the column count alone, never on the batch or
+    the chunk, so a row's shards (and its result) are the same at batch 4
+    as at batch 1 and wherever its chunk starts."""
+    shard = SHARD_COLS
+    while -(-s_len // shard) > MAX_SHARDS:
+        shard *= 2
+    return shard
+
+
+def _pad4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def attention_smem_bytes(d: int, dv: int) -> int:
+    """Dynamic shared memory of one block (csrc/flash_attention.cu
+    attn_smem_floats): pre-scaled Q [BLOCK_ROWS][D4], K [BLOCK_KV][D4 + 4],
+    V [BLOCK_KV][Dv4] and P [BLOCK_ROWS][BLOCK_KV], widths padded to 4."""
+    d4, dv4 = _pad4(d), _pad4(dv)
+    return 4 * (BLOCK_ROWS * d4 + BLOCK_KV * (d4 + 4) + BLOCK_KV * dv4
+                + BLOCK_ROWS * BLOCK_KV)
 
 
 def chunk_fits(hq: int, hk: int, d: int, dv: int) -> bool:
     """Whether the kernel takes these head counts and widths: whole GQA
-    groups, D and Dv <= 256, and its shared memory (the layout of
-    csrc/flash_attention.cu) within the H100's 227 KB per block."""
-    if hk < 1 or hq % hk or not (0 < d <= _cuda.MAX_HEAD_DIM and 0 < dv <= _cuda.MAX_HEAD_DIM):
+    groups of at most BLOCK_ROWS heads, D and Dv <= 256, and its shared
+    memory within the H100's 227 KB per block."""
+    if hk < 1 or hq % hk or hq // hk > BLOCK_ROWS:
         return False
-    floats = (BLOCK_Q * d + BLOCK_Q * dv + BLOCK_Q * BLOCK_KV + 3 * BLOCK_Q
-              + BLOCK_KV * (d + 1) + BLOCK_KV * dv)
-    return 4 * floats <= _cuda.MAX_SMEM_BYTES
+    if not (0 < d <= _cuda.MAX_HEAD_DIM and 0 < dv <= _cuda.MAX_HEAD_DIM):
+        return False
+    return attention_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES
+
+
+def _partials(s_len: int, b: int, t: int, hq: int, dv: int, device):
+    """The shard size and the workspace of the shards' partials: acc (NS,
+    B*T, Hq, Dv), m and l (NS, B*T, Hq), views of one allocation, or None
+    when the cache is one shard (the C entry points then take null
+    pointers)."""
+    shard = attention_shard_cols(s_len)
+    n_shards = -(-s_len // shard)
+    return shard, (_workspace(n_shards, b * t, hq, dv, device) if n_shards > 1 else None)
+
+
+def _pointers(ws) -> tuple:
+    return (0, 0, 0) if ws is None else tuple(x.data_ptr() for x in ws)
 
 
 def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,9 +157,12 @@ def flash_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, t, hq, dv), dtype=torch.float32, device=q.device)
     if b == 0 or t == 0:
         return out
+    if s_len == 0:                   # every row sees nothing
+        return out.zero_()
+    shard, ws = _partials(s_len, b, t, hq, dv, q.device)
     err = _cuda.library().flash_chunk_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(), out.data_ptr(),
-        b, t, hq, hk, s_len, d, dv, scale, _cuda.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(), *_pointers(ws),
+        out.data_ptr(), b, t, hq, hk, s_len, d, dv, shard, scale, _cuda.stream_of(q))
     _cuda.check(err, "flash_chunk_attention")
     flash_chunk_attention.launches += 1
     return out
@@ -122,9 +171,8 @@ def flash_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_chunk_attention.launches = 0
 
 
-# flash_attention and the paged kernel stage the same tiles as the chunk
-# kernel: their shared memory is the same (and does not depend on the page
-# size).
+# flash_attention and the paged kernel run the chunk kernel's body: their
+# shared memory is the same (and does not depend on the page size).
 attention_fits = chunk_fits
 paged_chunk_fits = chunk_fits
 
@@ -177,9 +225,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, hq, dv), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
         return out
+    if skv == 0:
+        return out.zero_()
+    shard, ws = _partials(skv, b, sq, hq, dv, q.device)
     err = _cuda.library().flash_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, hq, hk, skv, d, dv,
-        int(bool(causal)), 0 if window is None else int(window), scale, _cuda.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *_pointers(ws), out.data_ptr(), b, sq, hq,
+        hk, skv, d, dv, int(bool(causal)), 0 if window is None else int(window), shard, scale,
+        _cuda.stream_of(q))
     _cuda.check(err, fn)
     flash_attention.launches += 1
     return out
@@ -239,17 +291,20 @@ def flash_paged_chunk_attention(q: torch.Tensor, pages_k: torch.Tensor,
     out = torch.empty((b, t, hq, dv), dtype=torch.float32, device=q.device)
     if b == 0 or t == 0:
         return out
+    if mp * page == 0:
+        return out.zero_()
     lib = _cuda.library()
-    dims = (b, t, hq, hk, n, page, mp, d, dv, scale, _cuda.stream_of(q))
+    shard, ws = _partials(mp * page, b, t, hq, dv, q.device)
+    dims = (b, t, hq, hk, n, page, mp, d, dv, shard, scale, _cuda.stream_of(q))
     if quant:
         err = lib.flash_paged_chunk_attention_i8(
             q.data_ptr(), pages_k.data_ptr(), k_scales.data_ptr(), pages_v.data_ptr(),
-            v_scales.data_ptr(), block_tables.data_ptr(), start.data_ptr(),
+            v_scales.data_ptr(), block_tables.data_ptr(), start.data_ptr(), *_pointers(ws),
             out.data_ptr(), *dims)
     else:
         err = lib.flash_paged_chunk_attention_f32(
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), block_tables.data_ptr(),
-            start.data_ptr(), out.data_ptr(), *dims)
+            start.data_ptr(), *_pointers(ws), out.data_ptr(), *dims)
     _cuda.check(err, fn)
     flash_paged_chunk_attention.launches += 1
     return out

@@ -10,8 +10,10 @@ tiles of 128x128 or 32x64 by :func:`gemm_tile`, an 8x8 or 4x4 micro-tile
 per thread).  Both compute each output element as one FMA chain
 over k = 0..K-1, so a row's bits depend neither on M nor on which kernel
 or tile ran it.
-:func:`batched_gemm` launches the batched kernel (fixed 64x64 tile,
-16-deep K step, the expert as ``blockIdx.z``).  On CPU tensors they run
+:func:`batched_gemm` runs the same two kernels per expert, the expert as
+``blockIdx.z`` (the same variant by M and tile by :func:`gemm_tile`), so a
+row of expert e has the bits of :func:`gemm`'s row of ``x[e] @ w[e]``
+whatever M is.  On CPU tensors they run
 :func:`gemm_plain` / :func:`batched_gemm_plain`.  Each wrapper's
 ``launches`` attribute counts its kernel launches.
 """
@@ -41,14 +43,15 @@ TILES = ((128, 128), (32, 64))
 MIN_BIG_TILE_BLOCKS = 128    # about one 128x128 block for each of the 132 SMs
 
 
-def gemm_tile(m: int, n: int) -> tuple:
-    """The tiled kernel's output tile (BM, BN) for an (M, N) result:
-    128x128 when M fills its rows and it still gives MIN_BIG_TILE_BLOCKS
-    blocks (the most reuse of each staged byte), else 32x64 (a smaller
-    product spread over more SMs: the tile is never split along K).  Only
-    the speed depends on the tile."""
+def gemm_tile(m: int, n: int, count: int = 1) -> tuple:
+    """The tiled kernel's output tile (BM, BN) for ``count`` (M, N) results
+    in one launch (:func:`batched_gemm`'s experts): 128x128 when M fills
+    its rows and the launch still gets MIN_BIG_TILE_BLOCKS blocks (the most
+    reuse of each staged byte), else 32x64 (a smaller product spread over
+    more SMs: the tile is never split along K).  Only the speed depends on
+    the tile."""
     big = TILES[0]
-    if m >= big[0] and -(-m // big[0]) * -(-n // big[1]) >= MIN_BIG_TILE_BLOCKS:
+    if m >= big[0] and count * -(-m // big[0]) * -(-n // big[1]) >= MIN_BIG_TILE_BLOCKS:
         return big
     return TILES[1]
 
@@ -111,7 +114,7 @@ MAX_EXPERTS = 65535      # gridDim.z
 
 def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, M, K) @ (E, K, N) -> (E, M, N), fp32; row m of expert e is the
-    same FMA chain whatever M is."""
+    same FMA chain whatever M is, the one :func:`gemm` gives it."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"batched_gemm needs (E, M, K) @ (E, K, N), got {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
@@ -128,8 +131,9 @@ def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
+    tile = gemm_tile(m, n, e) if gemm_variant(m) == "tiled" else (0, 0)
     err = _cuda.library().batched_gemm_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                           e, m, n, k, _cuda.stream_of(x))
+                                           e, m, n, k, *tile, _cuda.stream_of(x))
     _cuda.check(err, "batched_gemm")
     batched_gemm.launches += 1
     return out

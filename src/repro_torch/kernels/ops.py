@@ -98,8 +98,9 @@ def _attn_cuda_supports(specs, attrs):
 
 
 @impl("attention", "cuda", supports=_attn_cuda_supports,
-      note="flash attention CUDA kernel; 32-row query tiles over fixed 64-row "
-           "K/V tiles, tiles outside the causal/window mask skipped")
+      note="flash attention CUDA kernel; 64 query rows of a GQA group per "
+           "block over fixed 256-column shards of 64-column K/V tiles, tiles "
+           "outside the causal/window mask skipped, shards merged in order")
 def _attention_cuda_impl(inputs, attrs):
     q, k, v = inputs
     return [flash_attention(q, k, v, causal=attrs.get("causal", True),
@@ -385,8 +386,8 @@ def _moe_gemm_ref_impl(inputs, attrs):
 
 
 @impl("moe_gemm", "cuda", supports=lambda specs, attrs: _all_f32(specs),
-      note="batched fp32 FFMA GEMM, expert as blockIdx.z, fixed 64x64 tile "
-           "(row results independent of M)")
+      note="batched fp32 FFMA GEMM: the dense kernels per expert "
+           "(blockIdx.z), row results independent of M")
 def _moe_gemm_cuda_impl(inputs, attrs):
     x, w = inputs
     return [_batched_gemm_kernel(x.contiguous(), w.contiguous())]
@@ -445,7 +446,8 @@ impl("conv2d_fused", "cuda",
 
 @impl("dense", "cuda",
       supports=lambda specs, attrs: _all_f32(specs[:2]) and len(specs[1].shape) == 2,
-      note="fp32 FFMA GEMM, fixed 64x64 tile (row results independent of M)")
+      note="fp32 FFMA GEMM, skinny (M <= 16) or tiled kernel (row results "
+           "independent of M)")
 def _dense_cuda_impl(inputs, attrs):
     x, w = inputs
     lead = x.shape[:-1]

@@ -666,3 +666,253 @@ def test_conv2d_cuda_matches_its_plain_version_on_the_card(fused):
         (want,) = get_impl(op, "ref")(args, attrs)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert gemm.launches == before + len(cases)
+
+
+# ---- the sharded attention kernel and the per-expert GEMM (csrc/flash_attention.cu,
+# csrc/gemm.cu batched_gemm_f32): rows bitwise across the batch, the chunk
+# split, shard and tile edges and M
+
+def _dense_to_pages(k, page):
+    """A dense cache (B, S, Hk, D) as pages (B*S/page, page, Hk, D) and the
+    identity block tables (B, S/page)."""
+    b, s = k.shape[:2]
+    tables = torch.arange(b * s // page, dtype=torch.int32, device=k.device).reshape(b, -1)
+    return k.reshape(b * s // page, page, *k.shape[2:]), tables
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hk,d", [(8, 8, 96), (8, 2, 128), (4, 1, 256)])
+def test_chunk_attention_rows_do_not_depend_on_the_batch_or_the_chunk(hq, hk, d):
+    """phi3's engine chunk shape and two GQA ones at S = 1024 (four shards):
+    a row has the same bits at B = 1 and B = 4, computed in one T = 64 chunk
+    or in two (T = 17 then 47) at the same positions, and through fp32
+    pages; starts put rows on both sides of the shard and tile edges."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (attention_shard_cols,
+                                                     flash_chunk_attention,
+                                                     flash_chunk_attention_plain,
+                                                     flash_paged_chunk_attention)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rn = _rn(gen, dev)
+    s, t = 1024, 64
+    sh = attention_shard_cols(s)
+    assert sh < s
+    starts = [sh - 1 - 17, sh - 40, 2 * sh - 1, 0]
+    q, k, v = rn(4, t, hq, d), rn(4, s, hk, d), rn(4, s, hk, d)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    full = flash_chunk_attention(q, k, v, start)
+    torch.testing.assert_close(full, flash_chunk_attention_plain(q, k, v, start,
+                                                                 1 / math.sqrt(d)), **TOL)
+    for i in range(4):
+        one = flash_chunk_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                    v[i:i + 1].contiguous(), start[i:i + 1].contiguous())
+        assert torch.equal(one, full[i:i + 1]), i
+    head = flash_chunk_attention(q[:, :17].contiguous(), k, v, start)
+    tail = flash_chunk_attention(q[:, 17:].contiguous(), k, v, start + 17)
+    assert torch.equal(torch.cat([head, tail], dim=1), full)
+    pk, tables = _dense_to_pages(k, 16)
+    pv, _ = _dense_to_pages(v, 16)
+    assert torch.equal(flash_paged_chunk_attention(q, pk, pv, tables, start), full)
+
+
+@pytest.mark.gpu
+def test_chunk_attention_rows_at_shard_and_tile_edges():
+    """Every position within one row of a 64-column tile edge or a shard
+    edge, and position 0 (one column): its row computed inside a T = 1024
+    chunk from 0 and inside T = 64 chunks starting at, before and after the
+    edge has the same bits."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import attention_shard_cols, flash_chunk_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    rn = _rn(gen, dev)
+    s, hq, hk, d = 1024, 4, 1, 96
+    qall, k, v = rn(1, s, hq, d), rn(1, s, hk, d), rn(1, s, hk, d)
+    ref = flash_chunk_attention(qall, k, v, torch.zeros(1, dtype=torch.int32, device=dev))
+    sh = attention_shard_cols(s)
+    edges = sorted({e for e in range(0, s + 1, 64)} | {e for e in range(0, s + 1, sh)})
+    starts = sorted({min(max(e + off, 0), s - 64) for e in edges for off in (-64, -63, -1, 0, 1)})
+    for s0 in starts:
+        got = flash_chunk_attention(qall[:, s0:s0 + 64].contiguous(), k, v,
+                                    torch.tensor([s0], dtype=torch.int32, device=dev))
+        assert torch.equal(got, ref[:, s0:s0 + 64]), s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", [(96, 96), (128, 128), (256, 256), (192, 128), (96, 64)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 512), (False, None),
+                                           (False, 300)])
+def test_flash_attention_widths_against_the_plain_version(d, dv, causal, window):
+    """Several shards (Skv = 700 and 1024), GQA 4 and 1, Dv != D, Sq < Skv."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d + dv)
+    rn = _rn(gen, dev)
+    for b, sq, skv, hq, hk in ((1, 1024, 1024, 4, 1), (2, 300, 700, 2, 2)):
+        q, k, v = rn(b, sq, hq, d), rn(b, skv, hk, d), rn(b, skv, hk, dv)
+        torch.testing.assert_close(
+            flash_attention(q, k, v, causal=causal, window=window),
+            flash_attention_plain(q, k, v, causal=causal, window=window, scale=1 / math.sqrt(d)),
+            **TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_rows_do_not_depend_on_the_batch_or_the_query_count():
+    """gemma3-1b's prefill heads (4 on 1, D = 256) over 1024 keys, causal
+    and with its 512 window: a row has the same bits at B = 1 and B = 3,
+    and with fewer query rows (the last m, at the same positions), m
+    putting the first row on both sides of tile and shard edges."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import attention_shard_cols, flash_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    rn = _rn(gen, dev)
+    s = 1024
+    sh = attention_shard_cols(s)
+    q, k, v = rn(3, s, 4, 256), rn(3, s, 1, 256), rn(3, s, 1, 256)
+    for window in (None, 512):
+        full = flash_attention(q, k, v, window=window)
+        for i in range(3):
+            one = flash_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                  v[i:i + 1].contiguous(), window=window)
+            assert torch.equal(one, full[i:i + 1]), (window, i)
+        for first in (0, 1, 63, 64, 65, sh - 1, sh, sh + 1, 3 * sh + 1, s - 1):
+            part = flash_attention(q[:, first:].contiguous(), k, v, window=window)
+            assert torch.equal(part, full[:, first:]), (window, first)
+
+
+@pytest.mark.gpu
+def test_paged_chunk_attention_over_shards_matches_its_plain_version():
+    """int8 pages (scrambled tables, junk entries, an all-zero page) over
+    four shards, against the plain version; fp32 pages bitwise equal to the
+    dense kernel."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_chunk_attention,
+                                                     flash_paged_chunk_attention,
+                                                     flash_paged_chunk_attention_plain)
+    from repro_torch.kernels.flash_decode import gather_pages
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    page, mp = 16, 64
+    start = torch.tensor([640, 320, 64, 0], dtype=torch.int32, device=dev)
+    filled = start + 64
+    for quant in (False, True):
+        _, pk, pv, tables, sc = _paged_inputs(gen, dev, b=4, hq=8, hk=8, d=96, dv=96,
+                                              page=page, mp=mp, quant=quant, lengths=filled)
+        q = torch.randn(4, 64, 8, 96, generator=gen, device=dev)
+        got = flash_paged_chunk_attention(q, pk, pv, tables, start, **sc)
+        torch.testing.assert_close(got, flash_paged_chunk_attention_plain(
+            q, pk, pv, tables, start, 1 / math.sqrt(96), sc.get("k_scales"),
+            sc.get("v_scales")), **TOL)
+        if not quant:
+            assert torch.equal(got, flash_chunk_attention(
+                q, gather_pages(pk, tables), gather_pages(pv, tables), start))
+
+
+@pytest.mark.gpu
+def test_batched_gemm_rows_across_m_variant_and_tile_equal_gemm():
+    """qwen2's expert shapes: a row of expert e has the same bits at every M
+    (skinny at 1, 8, 16; tiled 32x64 at 17, 32, 80; 128x128 at 128 with 64
+    experts) and equals gemm's row of x[e] @ w[e]."""
+    dev = _card()
+    from repro_torch.kernels.gemm import (batched_gemm, batched_gemm_plain, gemm, gemm_tile,
+                                          gemm_variant)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    rn = _rn(gen, dev)
+    assert gemm_tile(128, 1408, 64) == (128, 128) and gemm_tile(80, 1408, 64) == (32, 64)
+    for kk, nn in ((2048, 1408), (1408, 2048)):
+        x, w = rn(64, 128, kk), rn(64, kk, nn) / math.sqrt(kk)
+        full = batched_gemm(x, w)
+        torch.testing.assert_close(full, batched_gemm_plain(x, w), rtol=1e-4, atol=1e-4)
+        for e in (0, 37, 63):
+            assert torch.equal(full[e], gemm(x[e].contiguous(), w[e].contiguous()))
+        for m in (1, 8, 16, 17, 32, 80):
+            assert gemm_variant(m) == ("skinny" if m <= 16 else "tiled")
+            assert torch.equal(batched_gemm(x[:, :m].contiguous(), w), full[:, :m]), (kk, m)
+
+
+@pytest.mark.gpu
+def test_every_launch_counter_moves_once_per_launch():
+    dev = _card()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.gemm import batched_gemm, gemm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    rn = _rn(gen, dev)
+    lengths = torch.tensor([300, 0], dtype=torch.int32, device=dev)
+    start = torch.tensor([250, 0], dtype=torch.int32, device=dev)
+    q1, q8 = rn(2, 4, 64), rn(2, 8, 4, 64)
+    k, v = rn(2, 512, 2, 64), rn(2, 512, 2, 64)
+    pk, tables = _dense_to_pages(k, 16)
+    pv, _ = _dense_to_pages(v, 16)
+    _, qk, qv, qtables, sc = _paged_inputs(gen, dev, b=2, hq=4, hk=2, d=64, dv=64, page=16,
+                                           mp=32, quant=True, lengths=start + 8)
+    calls = [
+        (gemm, lambda: gemm(rn(4, 64), rn(64, 32))),
+        (rmsnorm, lambda: rmsnorm(rn(4, 64), rn(64))),
+        (fd.flash_decode, lambda: fd.flash_decode(q1, k, v, lengths)),
+        (fd.flash_paged_decode, lambda: fd.flash_paged_decode(q1, pk, pv, tables, lengths)),
+        (fd.flash_decode_partial,
+         lambda: fd.flash_decode_partial(q1, k, v, lengths, n_splits=2)),
+        (fd.combine_partials,
+         lambda: fd.combine_partials(*fd.flash_decode_partial(q1, k, v, lengths, n_splits=2))),
+        (fa.flash_chunk_attention, lambda: fa.flash_chunk_attention(q8, k, v, start)),
+        (fa.flash_paged_chunk_attention,
+         lambda: fa.flash_paged_chunk_attention(q8, pk, pv, tables, start)),
+        (fa.flash_paged_chunk_attention,
+         lambda: fa.flash_paged_chunk_attention(q8, qk, qv, qtables, start, **sc)),
+        (fa.flash_attention, lambda: fa.flash_attention(rn(1, 300, 4, 64), rn(1, 300, 2, 64),
+                                                        rn(1, 300, 2, 64), window=100)),
+        (batched_gemm, lambda: batched_gemm(rn(4, 5, 64), rn(4, 64, 32))),
+        (batched_gemm, lambda: batched_gemm(rn(4, 40, 64), rn(4, 64, 32))),
+        (ssd.ssd_scan, lambda: ssd.ssd_scan(rn(1, 32, 2, 16),
+                                            torch.nn.functional.softplus(rn(1, 32, 2)),
+                                            -torch.ones(2, device=dev), rn(1, 32, 1, 8),
+                                            rn(1, 32, 1, 8), chunk=16)),
+    ]
+    for kern, call in calls:
+        before = kern.launches
+        call()
+        assert kern.launches == before + 1, kern.__name__
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_attention_kernels_at_widths_off_the_float4_groups():
+    """D = 6 and Dv = 10 take the 4-byte copies (and int8 pages the
+    element-by-element loads) over two shards: each kernel against its plain
+    version, fp32 pages bitwise equal to the dense kernel."""
+    dev = _card()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_decode import gather_pages
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    rn = _rn(gen, dev)
+    d, dv, page, mp = 6, 10, 16, 20
+    q, k, v = rn(2, 300, 4, d), rn(2, 300, 2, d), rn(2, 300, 2, dv)
+    for causal, window in ((True, None), (False, 70)):
+        torch.testing.assert_close(
+            fa.flash_attention(q, k, v, causal=causal, window=window),
+            fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=1 / math.sqrt(d)), **TOL)
+    start = torch.tensor([250, 0], dtype=torch.int32, device=dev)
+    qc = rn(2, 16, 4, d)
+    for quant in (False, True):
+        _, pk, pv, tables, sc = _paged_inputs(gen, dev, b=2, hq=4, hk=2, d=d, dv=dv,
+                                              page=page, mp=mp, quant=quant, lengths=start + 16)
+        got = fa.flash_paged_chunk_attention(qc, pk, pv, tables, start, **sc)
+        torch.testing.assert_close(got, fa.flash_paged_chunk_attention_plain(
+            qc, pk, pv, tables, start, 1 / math.sqrt(d), sc.get("k_scales"),
+            sc.get("v_scales")), **TOL)
+        if not quant:
+            kd, vd = gather_pages(pk, tables), gather_pages(pv, tables)
+            dense = fa.flash_chunk_attention(qc, kd, vd, start)
+            assert torch.equal(got, dense)
+            torch.testing.assert_close(dense, fa.flash_chunk_attention_plain(
+                qc, kd, vd, start, 1 / math.sqrt(d)), **TOL)

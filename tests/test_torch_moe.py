@@ -33,8 +33,8 @@ from repro_torch.models.lm import params_from_numpy
 ARCH = "qwen2-moe-a2.7b"
 GEMM_TOL = dict(rtol=2e-5, atol=2e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)
-# (E, M, N, K): ragged against the 64x64 tile and the 16-deep K step, and
-# against the small Pallas blocks below
+# (E, M, N, K): ragged against the GEMM tiles and K steps, M on both sides
+# of the skinny/tiled threshold, and against the small Pallas blocks below
 SHAPES = [(3, 5, 37, 19), (2, 13, 70, 33), (4, 1, 3, 1), (8, 24, 32, 64)]
 
 
