@@ -33,7 +33,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              backend's; gemm is held at M on both sides of the
              skinny/tiled threshold; conv2d cuda (im2col + gemm) is timed beside its
              plain version and the torch backend (F.conv2d) at three
-             ResNet-50 layers.  The attention kernel (flash_attention.cu:
+             ResNet-50 layers.  The SSD scan is also timed as the mamba
+             layer calls it (with D) at every chunk-padded prompt length of
+             phase 10, and one empty kernel launched through the same
+             ctypes path gives the floor under every short row; after
+             phase 12, torch.profiler gives the device time alone of the
+             empty launch, of rmsnorm beside F.rms_norm and of the SSD
+             scan's three kernels.  The
+             attention kernel (flash_attention.cu:
              chunk, paged chunk and whole-sequence, one body over shards of
              attention_shard_cols(S) columns and a combine) is held over
              several shards at D 96-256 and Dv != D, and its rows must be
@@ -173,6 +180,27 @@ class Timer:
         return vals[len(vals) // 2]
 
 
+def device_ms(torch, timer, fn, reps=15):
+    """Device time of ``fn``'s kernels per call, by kernel name, from
+    torch.profiler (each call after the Timer's L2 flush, whose fill kernel
+    is left out): what a short row's event time holds besides its launch
+    path.  {} when the profiler records no device time on this machine."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if t and "fill" not in e.key.lower() and not e.key.startswith(("aten::", "cuda")):
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            out[name.split("(")[0].split("::")[-1][:40]] = t / reps / 1e3
+    return out
+
+
 def bound(flops: float, nbytes: float):
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -223,7 +251,7 @@ def kernel_cases(torch, K):
         if not torch.equal(K.gemm(x[:m].contiguous(), w), full[:m]):
             fail(f"gemm: rows at M={m} are not bitwise those at M=256")
         n += 1
-    for rows, d in ((1, 8), (7, 96), (3, 3072), (5, 100)):
+    for rows, d in ((1, 8), (7, 96), (3, 3072), (5, 100), (2, 3), (3, 7168), (2, 9001)):
         x, w, r = rn(rows, d), rn(d), rn(rows, d)
         check_close(torch, "rmsnorm", K.rmsnorm(x, w), K.rmsnorm_plain(x, w), **tol)
         check_close(torch, "rmsnorm+res", K.rmsnorm(x, w, residual=r),
@@ -279,19 +307,23 @@ def kernel_cases(torch, K):
         check_close(torch, f"batched_gemm {e}x{m}x{nn}x{kk}", K.batched_gemm(x, w),
                     K.batched_gemm_plain(x, w), **tol)
         n += 1
-    # ssd_scan: chunks of 16-128 (37 rows: off the 32-row score tiles), 1-4
-    # chunks, G = 1-3 groups, state 8-128, P off the 16-column block tile
+    # ssd_scan: chunks of 10-128 (37 rows: off the 32-step contraction and the
+    # 64-row tile), 1-4 chunks, G = 1-3 groups, state 5-128, P and N off the
+    # 64-wide tiles (72, 70) and off the float4 groups (6, 5), with and without D
     for b, sl, h, p, grp, nn, q in ((2, 64, 4, 16, 1, 16, 16), (1, 37, 6, 8, 3, 32, 128),
-                                   (1, 128, 2, 64, 2, 128, 64), (2, 96, 4, 24, 1, 8, 32)):
+                                   (1, 128, 2, 64, 2, 128, 64), (2, 96, 4, 24, 1, 8, 32),
+                                   (2, 256, 2, 72, 1, 70, 128), (1, 60, 2, 6, 1, 5, 10)):
         x, bm, cm = rn(b, sl, h, p), 0.3 * rn(b, sl, grp, nn), 0.3 * rn(b, sl, grp, nn)
         dt = torch.nn.functional.softplus(rn(b, sl, h) - 2.0)
         a = -torch.linspace(0.5, 4.0, h, device="cuda")
-        y, st = K.ssd_scan(x, dt, a, bm, cm, chunk=q)
-        yp, stp = K.ssd_scan_plain(x, dt, a, bm, cm, chunk=q)
-        tag = f"ssd_scan B={b} S={sl} H={h} P={p} G={grp} N={nn} Q={min(q, sl)}"
-        check_close(torch, f"{tag} y", y, yp, **tol)
-        check_close(torch, f"{tag} state", st, stp, **tol)
-        n += 1
+        for dd in (None, rn(h)):
+            y, st = K.ssd_scan(x, dt, a, bm, cm, dd, chunk=q)
+            yp, stp = K.ssd_scan_plain(x, dt, a, bm, cm, dd, chunk=q)
+            tag = (f"ssd_scan B={b} S={sl} H={h} P={p} G={grp} N={nn} Q={min(q, sl)} "
+                   f"D={dd is not None}")
+            check_close(torch, f"{tag} y", y, yp, **tol)
+            check_close(torch, f"{tag} state", st, stp, **tol)
+            n += 1
     torch.cuda.synchronize()
     return (n + paged_kernel_cases(torch, K, rn, g, tol) + split_kernel_cases(torch, K, rn, tol)
             + shard_kernel_cases(torch, K, rn, tol))
@@ -540,7 +572,7 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
         return torch.randn(*shape, generator=g, device="cuda") * scale
 
     F = torch.nn.functional
-    results, by_tag = {}, {}
+    results, by_tag, shapes = {}, {}, {}
     full_tol = dict(atol=1e-4, rtol=1e-4)
 
     def record(name, tag, shape_tag, err, ms, plain_ms, lib_ms, flops, nbytes,
@@ -556,6 +588,7 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if dense_ms is not None:
             entry["dense_kernel_ms"] = dense_ms
+        shapes.setdefault(name, []).append(entry)
         if name not in results:
             results[name] = entry
         elif mode is not None and mode not in results[name]:
@@ -587,6 +620,11 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
         lib = timer.ms(lambda: F.rms_norm(x, (d,), w, cfg.eps))
         record("rmsnorm", tag, f"{tag} rows={rows} D={d}", err, ms, plain, lib,
                3.0 * rows * d, 4.0 * (2 * rows * d + d))
+    # the floor under every short row: one empty kernel through the same
+    # ctypes launch path (stream lookup, call, error check), same timer
+    empty_ms = timer.ms(lambda: K.empty_launch(x))
+    say(f"  {'empty launch':27s} {'one empty kernel through _cuda':44s} kernel {empty_ms:.4g} ms"
+        f"  (the floor of every wrapper's call)  [{limit_line}]")
 
     hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     for tag, b, lens in (("engine decode", n_slots, [731, 400, 129, 0]),
@@ -633,7 +671,8 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
                4.0 * (rows_read * hk * 2 * dh + 2 * b * t * hq * dh + b))
         del q, k, v
 
-    extra = {"combine": combine_kernels(torch, K, rn, timer, record, full_tol),
+    extra = {"empty_launch_ms": empty_ms, "shapes": shapes,
+             "combine": combine_kernels(torch, K, rn, timer, record, full_tol),
              "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
              "conv2d": conv_kernels(torch, rn, timer, full_tol, limit_line)}
     stack_est = {c.name: stack_kernels(torch, K, c, rn, timer, record, full_tol) for c in scfgs}
@@ -737,6 +776,39 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
     del timer
     torch.cuda.empty_cache()
     return results, by_tag, ops_ms, stack_est, extra
+
+
+def device_times(torch, K, limit_line):
+    """Device time (torch.profiler) of the empty launch, of rmsnorm beside
+    F.rms_norm at the row counts and widths the paths run, and of ssd_scan's
+    three kernels at mamba2-370m's 1024-token prefill (with D).  Run after
+    the serving phases: the profiler's hooks stay in the process and slow
+    every later launch on the host."""
+    F = torch.nn.functional
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    one = rn(1)
+    out = {"empty launch": device_ms(torch, timer, lambda: K.empty_launch(one))}
+    for rows, d in ((4, 3072), (256, 3072), (4, 1152), (1024, 1152), (1024, 1024),
+                    (1024, 2048), (4, 7168)):
+        x, w = rn(rows, d), 1.0 + 0.1 * rn(d)
+        out[f"rmsnorm {rows}x{d}"] = device_ms(torch, timer, lambda: K.rmsnorm(x, w))
+        out[f"F.rms_norm {rows}x{d}"] = device_ms(
+            torch, timer, lambda: F.rms_norm(x, (d,), w, 1e-6))
+    sl, h, p, n = LAYERSTACK_PREFILL, 32, 64, 128
+    args = (rn(1, sl, h, p), F.softplus(rn(1, sl, h) - 3.0),
+            -torch.linspace(1.0, 16.0, h, device="cuda"), 0.3 * rn(1, sl, 1, n),
+            0.3 * rn(1, sl, 1, n), rn(h))
+    out[f"ssd_scan mamba2 S={sl} with D"] = device_ms(torch, timer, lambda: K.ssd_scan(*args))
+    for what, kernels in out.items():
+        parts = ", ".join(f"{k} {v:.4g} ms" for k, v in kernels.items()) or "not measured"
+        say(f"  device time (torch.profiler) {what:34s} {parts}  [{limit_line}]")
+    return out
 
 
 # (tag, B, Hq, Hk, D, S, lengths, n_splits timed): phi3-mini's engine decode
@@ -876,14 +948,17 @@ def attention_pairs(sq, skv, causal, window):
     return n
 
 
-def ssd_flops(b, sl, h, p, n, q):
-    """Operations the SSD scan needs (2 per multiply-add): in each chunk of
-    q the score product C.B and the score-xbar product over the q(q+1)/2
-    causal pairs only, then C.state and the state update, per (sequence,
-    head)."""
+def ssd_flops(b, sl, h, p, g, n, q, per_head_scores=False):
+    """Operations the SSD scan needs (2 per multiply-add), in each chunk of
+    q: the score product C.B over the q(q+1)/2 causal pairs once per
+    (sequence, group), since the heads of a group share it; per (sequence,
+    head) the score-xbar product over those pairs, C.state and the state
+    update.  ``per_head_scores`` counts the scores once per head, as PRs
+    14-17 did."""
     q = min(q, sl)
     pairs = q * (q + 1) / 2
-    return b * h * -(-sl // q) * (pairs * 2.0 * (n + p) + 4.0 * q * n * p)
+    scores = (h if per_head_scores else g) * pairs * 2.0 * n
+    return b * -(-sl // q) * (scores + h * (pairs * 2.0 * p + 4.0 * q * n * p))
 
 
 LAYERSTACK_PREFILL = 1024     # the prompt length phase 3 times the prefill kernels at
@@ -1023,7 +1098,10 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
                     0.3 * rn(b, sl, grp, nn), 0.3 * rn(b, sl, grp, nn))
             fn = lambda *a: K.ssd_scan(*a, chunk=q)                         # noqa: E731
             plain = lambda *a: K.ssd_scan_plain(*a, chunk=q)                # noqa: E731
-            flops = ssd_flops(b, sl, h, p, nn, q)
+            flops = ssd_flops(b, sl, h, p, grp, nn, q)
+            say(f"  ssd_scan bound at {shape}: {flops / 1e9:.4g} GFLOP with the scores once "
+                f"per group, {ssd_flops(b, sl, h, p, grp, nn, q, True) / 1e9:.4g} GFLOP "
+                "counted once per head (PRs 14-17)")
             nbytes = 4.0 * (sum(a.numel() for a in args) + b * sl * h * p + b * h * p * nn)
         got, want = fn(*args), plain(*args)
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -1045,7 +1123,35 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
             parts[kernel] = parts.get(kernel, 0.0) + calls * ms
             bound_ms += calls * b_ms
         out[phase] = (parts, bound_ms)
+    if cfg.ssm is not None:
+        ssd_path_shapes(torch, K, cfg, rn, timer, record, full_tol)
     return out
+
+
+def ssd_path_shapes(torch, K, cfg, rn, timer, record, full_tol):
+    """ssd_scan as the mamba layer calls it (with D) at the
+    LAYERSTACK_PREFILL-token prefill and at every chunk-padded prompt length
+    phase 10 prefills (layerstack_phase's requests), each against its plain
+    version and timed with it (no PyTorch call computes the scan)."""
+    import numpy as np
+    F = torch.nn.functional
+    s = cfg.ssm
+    h, p, grp, nn, q = s.n_heads, s.head_dim, s.n_groups, s.state, s.chunk
+    lens = np.random.default_rng(0).integers(200, 1401, 8)     # layerstack_phase's prompts
+    padded = sorted({-(-int(n) // q) * q for n in lens} | {LAYERSTACK_PREFILL})
+    for sl in padded:
+        args = (rn(1, sl, h, p), F.softplus(rn(1, sl, h) - 3.0),
+                -torch.linspace(1.0, 16.0, h, device="cuda"), 0.3 * rn(1, sl, grp, nn),
+                0.3 * rn(1, sl, grp, nn), rn(h))
+        got, want = K.ssd_scan(*args, chunk=q), K.ssd_scan_plain(*args, chunk=q)
+        label = f"{cfg.name} prefill ssd_scan with D, S={sl} (phase 10)"
+        err = max(check_close(torch, label, a, b, **full_tol) for a, b in zip(got, want))
+        ms = timer.ms(lambda: K.ssd_scan(*args, chunk=q))
+        plain_ms = timer.ms(lambda: K.ssd_scan_plain(*args, chunk=q))
+        nbytes = 4.0 * (sum(a.numel() for a in args) + sl * h * p + h * p * nn)
+        record("ssd_scan", f"{cfg.name} prefill S={sl} with D", label, err, ms, plain_ms, None,
+               ssd_flops(1, sl, h, p, grp, nn, q), nbytes)
+        del args, got, want
 
 
 def tick_estimate(by_tag, ops_ms, n_layers, path, split_ms=None):
@@ -1766,6 +1872,8 @@ class Kernels:
         self.attention_shard_cols = fa.attention_shard_cols
         from repro_torch.kernels.ref import combine_partials_ref
         self.combine_partials_ref = combine_partials_ref
+        from repro_torch.kernels._cuda import empty_launch
+        self.empty_launch = empty_launch
         from repro_torch.kernels.ops import decode_attention
         self.decode_attention = decode_attention
         self.KERNELS = (gemm, rmsnorm, fd.flash_decode, fa.flash_chunk_attention,
@@ -1955,6 +2063,13 @@ def main() -> int:
     runs["cnn"] = (cnn_launches, {"ms": cnn_rows})
     phase_s["cnn"] = time.perf_counter() - t
 
+    # 3, continued: device-only times (torch.profiler), after every timed phase
+    t = time.perf_counter()
+    say(f"[kernels] device time by kernel (torch.profiler), mean of 15 cold-L2 calls "
+        f"[{limit_line}]")
+    extra["device_ms"] = device_times(torch, K, limit_line)
+    phase_s["device_times"] = time.perf_counter() - t
+
     split_ms = next(r["split_ms"] for r in extra["split"]
                     if r["shape"] == "phi3-mini engine decode" and r["n_splits"] == 2)
     for path in ("dense", "paged fp32", "paged int8", "split"):
@@ -2005,6 +2120,11 @@ def main() -> int:
             entry["shapes"] = extra["combine"]
         if name == "gemm":
             entry["conv2d"] = extra["conv2d"]
+        if name in ("rmsnorm", "ssd_scan"):
+            entry["all_shapes"] = extra["shapes"][name]
+            entry["empty_launch_ms"] = extra["empty_launch_ms"]
+            entry["device_ms"] = {k: v for k, v in extra["device_ms"].items()
+                                  if name in k or "rms_norm" in k or "empty" in k}
         if "int8" in r:
             entry["dense_kernel_ms"] = r["dense_kernel_ms"]
             entry["fp32"] = {"launches": by_path["paged fp32"],
@@ -2015,7 +2135,8 @@ def main() -> int:
         kernels.append(entry)
     say(json.dumps({"serving": serving, "tick_ms_by_part": estimates,
                     "kv8_agreement": agreement, "split": split_record, "cnn_ms": cnn_rows,
-                    "cnn_resnet50_slowest": cnn_slowest, "card": limit_line}))
+                    "cnn_resnet50_slowest": cnn_slowest,
+                    "empty_launch_ms": extra["empty_launch_ms"], "card": limit_line}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": count}}))

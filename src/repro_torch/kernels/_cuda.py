@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
-__all__ = ["library", "build", "check", "stream_of", "BUILD_DIR", "SOURCES",
+__all__ = ["library", "build", "check", "stream_of", "empty_launch", "BUILD_DIR", "SOURCES",
            "KernelBuildError"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -73,8 +73,11 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_paged_chunk_attention_i8": (*[_P] * 11, *[_I] * 10, _F, _P),
     # q, k, v, acc, m, l, o; B, T, Hq, Hk, Skv, D, Dv, causal, window, shard
     "flash_attention_f32": (*[_P] * 7, *[_I] * 10, _F, _P),
-    # xbar, la, B, C, y, state; B, S, H, P, G, N, Q
-    "ssd_scan_f32": (*[_P] * 6, *[_I] * 7, _P),
+    # x, dt, A, D, B, C, y, state, st, sc, cs (the scratch); B, S, H, P, G,
+    # N, Q
+    "ssd_scan_f32": (*[_P] * 11, *[_I] * 7, _P),
+    # stream: one empty kernel (the launch path's floor)
+    "empty_launch": (_P,),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -179,3 +182,10 @@ def stream_of(tensor) -> int:
     """Handle of PyTorch's current stream on ``tensor``'s device."""
     import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def empty_launch(tensor) -> None:
+    """Launch an empty kernel on the current stream of ``tensor``'s device
+    through the path every wrapper takes (``stream_of``, the ctypes call,
+    :func:`check`): the floor under the time of a short kernel's call."""
+    check(library().empty_launch(stream_of(tensor)), "empty_launch")

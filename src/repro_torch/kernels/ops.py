@@ -240,7 +240,8 @@ def _rms_ref_impl(inputs, attrs):
 
 
 @impl("rmsnorm", "cuda", supports=lambda specs, attrs: _all_f32(specs),
-      note="one block per row: fused residual + fixed-order reduction + scale")
+      note="rows in registers over a D-sized thread group: fused residual + fixed-order "
+           "reduction + scale")
 def _rms_cuda_impl(inputs, attrs):
     x, w = inputs[0], inputs[1]
     res = inputs[2] if len(inputs) > 2 else None
@@ -318,8 +319,8 @@ def _ssd_cuda_supports(specs, attrs):
 
 
 @impl("ssd", "cuda", supports=_ssd_cuda_supports,
-      note="SSD scan CUDA kernel; one block per (16 state columns, head, sequence), "
-           "chunks in order with the state slice in shared memory")
+      note="SSD scan CUDA kernels: chunk states and per-group scores with every chunk at "
+           "once, the start states in chunk order, then every chunk's output at once")
 def _ssd_cuda_impl(inputs, attrs):
     return _ssd_padded(_ssd_kernel, inputs, attrs)
 

@@ -1,21 +1,41 @@
 """Fused RMSNorm (+ optional residual add) — counterpart of
 :func:`repro.kernels.rmsnorm.rmsnorm`.
 
-:func:`rmsnorm` launches the hand-written CUDA kernel ``csrc/rmsnorm.cu``
-(one block per row, fixed-order reduction) on CUDA tensors and runs
-:func:`rmsnorm_plain` on CPU tensors.  ``rmsnorm.launches`` counts kernel
-launches.
+:func:`rmsnorm` launches the hand-written CUDA kernel ``csrc/rmsnorm.cu`` on
+CUDA tensors and runs :func:`rmsnorm_plain` on CPU tensors.  The kernel
+holds each row in registers (read from device memory once), spread over
+:func:`row_layout`'s threads, a function of the row width alone, and reduces
+in a fixed order, so a row's result does not depend on the row count.
+``rmsnorm.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _cuda
 
-__all__ = ["rmsnorm", "rmsnorm_plain"]
+__all__ = ["rmsnorm", "rmsnorm_plain", "row_layout"]
+
+# The layout of csrc/rmsnorm.cu:
+THREADS = 256      # threads per block
+MAX_VPT = 8        # float4 groups a thread holds in registers
+
+_F32 = torch.float32
+
+
+def row_layout(d: int) -> Tuple[int, int]:
+    """(threads per row, float4 groups per thread) of the kernel for rows of
+    ``d`` floats: the fewest threads, a power of 2 from 32 to 256, that hold
+    the row's ceil(d / 4) groups at most MAX_VPT a thread.  Past d = 8192 a
+    thread takes more groups and the kernel reads the row twice."""
+    g4 = -(-d // 4)
+    t = 32
+    while t < THREADS and t * MAX_VPT < g4:
+        t *= 2
+    return t, -(-g4 // t)
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -30,27 +50,29 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., D), w (D,) -> (..., D); optionally normalises x + residual."""
-    tensors = [("x", x), ("w", w)] + ([] if residual is None else [("residual", residual)])
-    for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"rmsnorm: {name} must be float32, got {t.dtype}")
+    res = residual
+    if x.dtype != _F32 or w.dtype != _F32 or (res is not None and res.dtype != _F32):
+        bad = [f"{n} {t.dtype}" for n, t in (("x", x), ("w", w), ("residual", res))
+               if t is not None and t.dtype != _F32]
+        raise TypeError(f"rmsnorm: inputs must be float32, got {', '.join(bad)}")
     d = x.shape[-1]
-    if w.shape != (d,) or (residual is not None and residual.shape != x.shape):
+    if w.shape != (d,) or (res is not None and res.shape != x.shape):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)}, w {tuple(w.shape)}, residual "
-                         f"{None if residual is None else tuple(residual.shape)}")
-    if all(t.device.type == "cpu" for _, t in tensors):
-        return rmsnorm_plain(x, w, eps=eps, residual=residual)
-    if x.device.type != "cuda" or any(t.device != x.device for _, t in tensors):
+                         f"{None if res is None else tuple(res.shape)}")
+    dev = x.device
+    if dev.type == "cpu" and w.device.type == "cpu" and (res is None or res.device.type == "cpu"):
+        return rmsnorm_plain(x, w, eps=eps, residual=res)
+    if dev.type != "cuda" or w.device != dev or (res is not None and res.device != dev):
         raise ValueError("rmsnorm: all inputs must be on one CUDA device")
-    if not all(t.is_contiguous() for _, t in tensors):
+    if not (x.is_contiguous() and w.is_contiguous() and (res is None or res.is_contiguous())):
         raise ValueError("rmsnorm: inputs must be contiguous")
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:
         return out
     err = _cuda.library().rmsnorm_f32(
-        x.data_ptr(), None if residual is None else residual.data_ptr(),
-        w.data_ptr(), out.data_ptr(), rows, d, float(eps), _cuda.stream_of(x))
+        x.data_ptr(), None if res is None else res.data_ptr(), w.data_ptr(), out.data_ptr(),
+        rows, d, eps, _cuda.stream_of(x))
     _cuda.check(err, "rmsnorm")
     rmsnorm.launches += 1
     return out

@@ -1,13 +1,15 @@
 """Mamba2 SSD chunked scan — counterpart of :func:`repro.kernels.ssd.ssd_scan`.
 
-:func:`ssd_scan` precomputes ``xbar = x * dt`` and ``la = dt * A`` (as the
-JAX wrapper does) and launches the hand-written CUDA kernel ``csrc/ssd.cu``
-on CUDA tensors: one block per (16 state columns, head, sequence), the
-chunks in order inside the block with the state slice in shared memory;
-see the source for what bounds it.  On CPU tensors it runs
-:func:`ssd_scan_plain`, the same chunked algorithm in plain PyTorch
-(:func:`repro_torch.kernels.ref.ssd_chunked_ref`).  ``ssd_scan.launches``
-counts kernel launches.
+:func:`ssd_scan` launches the hand-written CUDA kernels of ``csrc/ssd.cu`` on
+CUDA tensors, one C entry for the three phases of the state-passing
+decomposition: every chunk's cumsum, own state contribution and C.B scores
+(once per group) at once; the chunks' start states in order; every chunk's
+output at once.  The kernels read x, dt, A and D themselves (the JAX wrapper
+forms x * dt, dt * A and the D term outside its kernel).  The scratch comes
+from one ``torch.empty`` per call, sized by :func:`scan_scratch`.  On CPU
+tensors it runs :func:`ssd_scan_plain`, the chunked algorithm in plain
+PyTorch (:func:`repro_torch.kernels.ref.ssd_chunked_ref`).
+``ssd_scan.launches`` counts calls that launched the kernels.
 
 Shapes as in ``ref.ssd_ref``: x (B,S,H,P), dt (B,S,H), A (H,), B/C
 (B,S,G,N) with H % G == 0 -> y (B,S,H,P), final state (B,H,P,N) fp32.
@@ -22,23 +24,34 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.ref import ssd_chunked_ref, with_d
+from repro_torch.kernels.ref import ssd_chunked_ref
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "scan_fits"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "scan_fits", "scan_scratch"]
 
-MAX_CHUNK = 128       # csrc/ssd.cu MAX_Q
-_PT, _RT = 16, 32     # state columns per block, score rows per tile
+# The layout of csrc/ssd.cu:
+TILE = 64             # every product's output tile is TILE x TILE
+MAX_CHUNK = 128       # chunk length the per-chunk vectors hold (MAX_Q)
+
+
+def _up(n: int) -> int:
+    return -(-n // TILE) * TILE
+
+
+def scan_scratch(s: int, h: int, p: int, g: int, n: int, chunk: int) -> Tuple[int, int, int]:
+    """Floats of the kernel's scratch for ONE sequence of ``s`` steps:
+    the chunks' states (S/q, H, N, PP), the C.B scores (S/q, G, QR, QR) and
+    the cumsum of dt * A (H, S), with q = min(chunk, s) and PP, QR the head
+    width and q rounded up to TILE.  A batch of B takes B times each."""
+    q = min(chunk, s)
+    nc = s // q
+    return nc * h * n * _up(p), nc * g * _up(q) ** 2, h * s
 
 
 def scan_fits(chunk: int, n: int) -> bool:
-    """Whether the kernel takes this chunk length and state size: chunk <=
-    128, and its shared memory (the layout of csrc/ssd.cu) within the
-    H100's 227 KB per block."""
-    if not (0 < chunk <= MAX_CHUNK and n > 0):
-        return False
-    floats = (chunk * (n + 1) + chunk * n + chunk * _PT + _PT * (n + 1) + 2 * MAX_CHUNK
-              + _RT * MAX_CHUNK)
-    return 4 * floats <= _cuda.MAX_SMEM_BYTES
+    """Whether the kernel takes this chunk length and state size: 0 < chunk
+    <= 128 (the per-chunk vectors) and n > 0.  Every other width is tiled,
+    and the kernels' shared memory is static, whatever the shapes."""
+    return 0 < chunk <= MAX_CHUNK and n > 0
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -49,14 +62,15 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.
     return ssd_chunked_ref(x, dt, A, B, C, D, chunk=q)
 
 
-def _check(x, dt, A, B, C) -> None:
+def _check(x, dt, A, B, C, D) -> None:
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4 or C.shape != B.shape:
         raise ValueError(f"ssd_scan needs x (B,S,H,P), dt (B,S,H), A (H,), B/C (B,S,G,N); got "
                          f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(A.shape)}, "
                          f"{tuple(B.shape)}, {tuple(C.shape)}")
     b, s, h, _ = x.shape
-    if tuple(dt.shape) != (b, s, h) or A.shape[0] != h or B.shape[:2] != x.shape[:2]:
-        raise ValueError("ssd_scan: x, dt, A, B and C disagree on B, S or H")
+    if tuple(dt.shape) != (b, s, h) or A.shape[0] != h or B.shape[:2] != x.shape[:2] or \
+            (D is not None and tuple(D.shape) != (h,)):
+        raise ValueError("ssd_scan: x, dt, A, B, C and D disagree on B, S or H")
     if B.shape[2] < 1 or h % B.shape[2]:
         raise ValueError(f"ssd_scan: {h} heads are not a multiple of {B.shape[2]} groups")
 
@@ -64,8 +78,9 @@ def _check(x, dt, A, B, C) -> None:
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, D: Optional[torch.Tensor] = None, *,
              chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan -> (y (B,S,H,P), final state (B,H,P,N) fp32)."""
-    _check(x, dt, A, B, C)
+    """Chunked SSD scan -> (y (B,S,H,P) with the D term, final state
+    (B,H,P,N) fp32)."""
+    _check(x, dt, A, B, C, D)
     tensors = (x, dt, A, B, C) + (() if D is None else (D,))
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
@@ -73,7 +88,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"ssd_scan: inputs on {sorted({str(t.device) for t in tensors})}; "
                          "need one CUDA device")
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+    for name, t in zip("x dt A B C D".split(), tensors):
         if t.dtype != torch.float32:
             raise TypeError(f"ssd_scan: {name} must be float32, got {t.dtype}")
     if not (B.is_contiguous() and C.is_contiguous()):
@@ -84,20 +99,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     if s % q:
         raise ValueError(f"ssd_scan: sequence {s} is not a multiple of the chunk {q}")
     if not scan_fits(q, n):
-        raise ValueError(f"ssd_scan: chunk {q} with state {n} is unsupported (chunk <= "
-                         f"{MAX_CHUNK}, shared memory <= {_cuda.MAX_SMEM_BYTES} B)")
-    la = (dt * A[None, None, :]).contiguous()
-    xbar = (x * dt[..., None]).contiguous()
+        raise ValueError(f"ssd_scan: chunk {q} with state {n} is unsupported (0 < chunk <= "
+                         f"{MAX_CHUNK})")
+    x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()
+    D = None if D is None else D.contiguous()
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     if y.numel() == 0 or state.numel() == 0:
-        return with_d(y, x, D), state.zero_()
-    err = _cuda.library().ssd_scan_f32(xbar.data_ptr(), la.data_ptr(), B.data_ptr(),
-                                       C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                                       b, s, h, p, g, n, q, _cuda.stream_of(x))
+        return y, state.zero_()
+    n_st, n_sc, n_cs = (b * f for f in scan_scratch(s, h, p, g, n, q))
+    work = torch.empty(n_st + n_sc + n_cs, dtype=torch.float32, device=dev)
+    w0 = work.data_ptr()
+    err = _cuda.library().ssd_scan_f32(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), None if D is None else D.data_ptr(),
+        B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
+        w0, w0 + 4 * n_st, w0 + 4 * (n_st + n_sc), b, s, h, p, g, n, q, _cuda.stream_of(x))
     _cuda.check(err, "ssd_scan")
     ssd_scan.launches += 1
-    return with_d(y, x, D), state
+    return y, state
 
 
 ssd_scan.launches = 0

@@ -916,3 +916,122 @@ def test_attention_kernels_at_widths_off_the_float4_groups():
             assert torch.equal(got, dense)
             torch.testing.assert_close(dense, fa.flash_chunk_attention_plain(
                 qc, kd, vd, start, 1 / math.sqrt(d)), **TOL)
+
+
+def _ssd_inputs(rn, dev, b, s, h, p, g, n):
+    """mamba2-like inputs: dt ~ softplus(N(0,1) - 3), A in [-16, -1]."""
+    return (rn(b, s, h, p), torch.nn.functional.softplus(rn(b, s, h) - 3.0),
+            -torch.linspace(1.0, 16.0, h, device=dev), 0.3 * rn(b, s, g, n),
+            0.3 * rn(b, s, g, n), rn(h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_chunks", [1, 2, 5, 8])
+def test_ssd_sequences_are_bitwise_alone_at_mamba2_width(n_chunks):
+    """mamba2-370m's widths (H = 32, P = 64, G = 1, N = 128, Q = 128): each
+    sequence of a B = 3 call is the same bits as that sequence alone (the
+    others hold other data); y and the final state within 1e-4 of the plain
+    version."""
+    dev = _card()
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18 + n_chunks)
+    x, dt, A, B, C, D = _ssd_inputs(_rn(gen, dev), dev, 3, 128 * n_chunks, 32, 64, 1, 128)
+    y, st = ssd_scan(x, dt, A, B, C, D)
+    yp, stp = ssd_scan_plain(x, dt, A, B, C, D)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, stp, rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        sl = slice(i, i + 1)
+        y1, st1 = ssd_scan(x[sl], dt[sl], A, B[sl].contiguous(), C[sl].contiguous(), D)
+        assert torch.equal(y1, y[sl]) and torch.equal(st1, st[sl]), i
+
+
+@pytest.mark.gpu
+def test_ssd_widths_off_the_tiles_and_the_float4_groups():
+    """P = 72 and N = 70 (two tiles each, the second ragged), P = 6 and N =
+    5 (4-byte copies), Q = 37 (off the 32-step contraction and the 64-row
+    tile), G = 3: against the plain version, with and without D."""
+    dev = _card()
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    rn = _rn(gen, dev)
+    for b, s, h, p, g, n, q in ((2, 256, 2, 72, 1, 70, 128), (1, 60, 2, 6, 1, 5, 20),
+                                (2, 111, 6, 16, 3, 32, 37)):
+        x, dt, A, B, C, D = _ssd_inputs(rn, dev, b, s, h, p, g, n)
+        for d in (None, D):
+            for got, want in zip(ssd_scan(x, dt, A, B, C, d, chunk=q),
+                                 ssd_scan_plain(x, dt, A, B, C, d, chunk=q)):
+                torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 1152, 2048, 3072, 7168])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_rows_do_not_depend_on_the_row_count(d, residual):
+    """A row is the same bits in a 1-row and a 1024-row call (the layout is a
+    function of D alone), and within 1e-5 of the plain version."""
+    dev = _card()
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d)
+    rn = _rn(gen, dev)
+    x, w = rn(1024, d), 1.0 + 0.1 * rn(d)
+    r = rn(1024, d) if residual else None
+    full = rmsnorm(x, w, residual=r)
+    torch.testing.assert_close(full, rmsnorm_plain(x, w, residual=r), rtol=1e-5, atol=1e-5)
+    for i in (0, 517, 1023):
+        one = rmsnorm(x[i:i + 1], w, residual=None if r is None else r[i:i + 1])
+        assert torch.equal(one, full[i:i + 1]), i
+
+
+@pytest.mark.gpu
+def test_ssd_and_rmsnorm_count_one_launch_per_call():
+    """ssd_scan's three kernels are one launch of its counter; rmsnorm's
+    counter moves once per call whatever path (float4 or element by element,
+    registers or the second read past D = 8192) the kernel takes; an empty
+    call launches nothing."""
+    dev = _card()
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd import ssd_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    rn = _rn(gen, dev)
+    x, dt, A, B, C, D = _ssd_inputs(rn, dev, 2, 256, 4, 64, 1, 128)
+    before = ssd_scan.launches
+    ssd_scan(x, dt, A, B, C, D)
+    ssd_scan(x, dt, A, B, C)
+    assert ssd_scan.launches == before + 2
+    before = rmsnorm.launches
+    for d in (3, 64, 9000):
+        rmsnorm(rn(5, d), rn(d), residual=rn(5, d))
+    rmsnorm(rn(0, 64), rn(64))
+    assert rmsnorm.launches == before + 3
+    _cuda.empty_launch(x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_refused_launches_and_inputs_raise():
+    """A launch the runtime refuses (65536 sequences: past the grid's z limit)
+    raises, with nothing counted; so do inputs the kernels do not take."""
+    dev = _card()
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd import ssd_scan
+    x, dt, A = torch.zeros(65536, 1, 1, 4, device=dev), torch.zeros(65536, 1, 1, device=dev), \
+        torch.zeros(1, device=dev)
+    bc = torch.zeros(65536, 1, 1, 4, device=dev)
+    before = ssd_scan.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_scan(x, dt, A, bc, bc)
+    assert ssd_scan.launches == before
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x[:2], dt[:2], A, bc[:2], bc[:2], torch.zeros(1, device=dev, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(torch.zeros(8, 6, device=dev).t(), torch.ones(8, device=dev))
+    with pytest.raises(ValueError, match="CUDA device"):
+        rmsnorm(torch.zeros(2, 8, device=dev), torch.ones(8, device=dev),
+                residual=torch.zeros(2, 8))
+    torch.cuda.synchronize()
