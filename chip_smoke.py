@@ -47,7 +47,15 @@ Phases, each printing its own lines; any failure exits non-zero:
              bitwise the same at B = 1 and B = 4, in one T = 64 chunk or in
              two (17 + 47), through fp32 pages and with fewer query rows;
              batched_gemm's rows bitwise at M = 1-128 (both kernels, both
-             tiles) and equal to gemm's product per expert.
+             tiles) and equal to gemm's product per expert.  The chunk
+             and paged chunk kernels are also held at phase 14's verify
+             shape (phi3-mini, B 4, T = spec_k + 1 = 4, S 1024, starts
+             731/400/129/0): verify_attention, paged_verify_attention over
+             fp32 pages (bitwise the dense kernel's) and the two-source
+             paged_verify_attention_q over int8 pages, each beside SDPA;
+             dense_q is timed at phi3-mini's engine decode and prefill
+             shapes as ref (float64), torch (dequantize + matmul) and the
+             fp32 gemm.cu on fp32 weights (numbers only: no int8 kernel).
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
@@ -116,7 +124,33 @@ Phases, each printing its own lines; any failure exits non-zero:
              once per cuda conv node and no other kernel; ms per model and
              assignment (median of 5 after a warm-up, synchronised), the
              winner, and ResNet-50's five slowest layers under autotune
-             (run_instrumented).
+             (run_instrumented).  Then cnn_eval --int8: each model's fp32
+             and int8 Programs under (torch, ref), the int8 output within
+             JAX_INT8_MAX_ABS_ERR x INT8_ERR_MARGIN of the fp32 one (the JAX
+             package's run_quant error at the same seed), weights >= 3.9x
+             smaller.
+13. int8w  — (after phase 11, on phase 5's weights) phase 5's requests
+             served by build_lm_serving(quantize="int8") on the dense cache:
+             every request token-exact against the quantized unbatched
+             reference (one shared calibration on the card); agreement with
+             phase 5's fp32 tokens reported; every dense node dense_q on ref
+             (no gemm launch), rmsnorm and the attention kernels launched
+             exactly as the graphs need; the quantized weights >= 3.9x
+             smaller (the whole Program's ratio printed: the embedding stays
+             fp32); decode and prefill ms a tick, peak GB.
+14. spec   — the same model and requests with spec_k 3 and the default
+             draft (16 of 32 layers): the dense, paged fp32 and int8-weight
+             engines token-exact against their references (phases 5 and
+             13); then the int8-page engine over phase 7's two waves, its
+             tokens bitwise phase 7's.  Each prints spec ticks, proposed,
+             accepted, accept rate, ms per emitted token and peak GB;
+             conservation and pool integrity are checked, and every Program
+             call (prefill, draft prefill, draft, verify, commit) launches
+             exactly its graph's kernels: the verify rows once per layer a
+             verify call, the kv8 verify's paged decode (spec_k + 1) x 32
+             times.  The dense stepper's verify logits are compared with
+             its decode logits at the same positions (max |diff| and the
+             top-2 gap wherever the argmax differs are printed).
 
 The last three lines of standard output are JSON: the serving numbers, one
 entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
@@ -125,6 +159,7 @@ repository's ``src/``, it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -138,6 +173,23 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 
+# Max |int8 - fp32| of each CNN's output as the JAX package reports it:
+# benchmarks/fig2_inference_time.py::run_quant([model]) for each model alone
+# (FixedPolicy(("xla", "ref")), the input the first draw of seed 0,
+# calibrated on it), run on the CPU;
+# tests/test_torch_quant.py recomputes two of them.  Phase 12 holds the
+# card's int8 outputs to these times INT8_ERR_MARGIN: the port calibrates
+# in another summation order, so a few activations round the other way
+# (on the CPU its errors lie within 0.06% of these).
+JAX_INT8_MAX_ABS_ERR = {
+    "wrn-40-2": 0.0486445426940918,
+    "mobilenet-v1": 0.0015187263488769531,
+    "resnet-18": 0.024120330810546875,
+    "inception-v3": 0.003762483596801758,
+    "resnet-50": 0.0269317626953125,
+}
+INT8_ERR_MARGIN = 1.05
+
 
 def fail(msg: str, code: int = 1) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
@@ -146,6 +198,14 @@ def fail(msg: str, code: int = 1) -> None:
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def release(torch) -> None:
+    """Free the card's memory of what a phase dropped: count_calls' wrappers
+    hold their stepper in a reference cycle, which only the collector
+    breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -742,6 +802,11 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
                mode=mode, dense_ms=dense)
         del pk, pv, k, v, q
 
+    extra["verify"] = verify_kernels(torch, K, g, rn, timer, record, full_tol, cfg,
+                                     n_slots=n_slots, cache_cap=cache_cap, page=page,
+                                     pools=pools, limit_line=limit_line)
+    extra["dense_q"] = dense_q_times(torch, K, rn, timer, cfg, n_slots, chunk, limit_line)
+
     # the cache writes of the three serving paths (plain PyTorch ops, not
     # kernels): each copies its whole cache or pool (functional, as in JAX);
     # the int8 write also requantizes the whole pool
@@ -776,6 +841,135 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
     del timer
     torch.cuda.empty_cache()
     return results, by_tag, ops_ms, stack_est, extra
+
+
+SPEC_K = 3                       # phase 14's speculation width is SPEC_K + 1
+VERIFY_STARTS = [731, 400, 129, 0]
+
+
+def verify_kernels(torch, K, g, rn, timer, record, full_tol, cfg, *, n_slots, cache_cap, page,
+                   pools, limit_line):
+    """Rows 2 and 3 at the speculative verify shape of phase 14 (phi3-mini,
+    B = 4, T = SPEC_K + 1 = 4, S = 1024, starts 731/400/129/0): the dense
+    chunk kernel (``verify_attention``), the paged chunk kernel over fp32 and
+    int8 pages (``paged_verify_attention``), and ``paged_verify_attention_q``'s
+    cuda backend (gather, dequantize and patch in PyTorch, then the dense
+    chunk kernel; two-source, so its bytes count the committed prefix from
+    int8 pages and the T new rows in fp32).  Each held against its plain
+    version; SDPA timed on the dense (gathered) cache.  Returns the rows."""
+    import numpy as np
+    from repro_torch.core.registry import get_impl
+    F = torch.nn.functional
+    hq, hk, dh, t = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, SPEC_K + 1
+    mp, b, sc_ = cache_cap // page, n_slots, 1.0 / math.sqrt(cfg.d_head)
+    starts = VERIFY_STARTS
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    ends = [s0 + t for s0 in starts]
+    cols = sum(min(cache_cap, s0 + i + 1) for s0 in starts for i in range(t))
+    rows_read = sum(min(cache_cap, e) for e in ends)
+    flops = 2.0 * cols * hq * 2 * dh
+    qpos = start[:, None] + torch.arange(t, device="cuda")[None, :]
+    mask = (torch.arange(cache_cap, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
+
+    def sdpa(q, k, v):
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        return timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+
+    out = []
+    q = rn(b, t, hq, dh)
+    k, v = rn(b, cache_cap, hk, dh), rn(b, cache_cap, hk, dh)
+    fn = get_impl("verify_attention", "cuda")
+    got = fn([q, k, v, start], {})[0]
+    err = check_close(torch, "verify_attention", got,
+                      K.flash_chunk_attention_plain(q, k, v, start, sc_), **full_tol)
+    ms = timer.ms(lambda: fn([q, k, v, start], {}))
+    plain = timer.ms(lambda: K.flash_chunk_attention_plain(q, k, v, start, sc_))
+    lib = sdpa(q, k, v)
+    record("flash_chunk_attention", "verify", f"verify B={b} T={t} S={cache_cap} "
+           f"start={starts}", err, ms, plain, lib, flops,
+           4.0 * (rows_read * hk * 2 * dh + 2 * b * t * hq * dh + b), mode="verify")
+    out.append(dict(op="verify_attention", kernel="flash_chunk_attention", ms=ms,
+                    plain_ms=plain, sdpa_ms=lib, max_abs_err=err))
+    del k, v
+    for mode, n_blocks in pools.items():
+        quant = mode == "int8"
+        pk, pv, tables, scs = paged_layout(torch, g, b=b, n=n_blocks, page=page, mp=mp, hk=hk,
+                                           d=dh, dv=dh, lengths=ends, quant=quant)
+        kd = K.gather_pages(pk, tables, scs.get("k_scales"))
+        vd = K.gather_pages(pv, tables, scs.get("v_scales"))
+        pages_live = sum(-(-e // page) for e in ends)
+        if not quant:
+            fn = get_impl("paged_verify_attention", "cuda")
+            args = [q, pk, pv, tables, start]
+            got = fn(args, {})[0]
+            if not torch.equal(got, K.flash_chunk_attention(q, kd, vd, start)):
+                fail("paged_verify_attention fp32: not bitwise equal to the dense chunk "
+                     "kernel at the verify shape")
+            want = K.flash_paged_chunk_attention_plain(q, pk, pv, tables, start, sc_)
+            plain_fn = (lambda: K.flash_paged_chunk_attention_plain(q, pk, pv, tables,
+                                                                    start, sc_))
+            name, kern, nbytes = "paged_verify_attention", "flash_paged_chunk_attention", \
+                4.0 * (rows_read * hk * 2 * dh + pages_live + 2 * b * t * hq * dh + b)
+        else:
+            # the int8 verify op is two-source: the call's own rows are fp32
+            kn, vn = rn(b, t, hk, dh), rn(b, t, hk, dh)
+            fn = get_impl("paged_verify_attention_q", "cuda")
+            ref = get_impl("paged_verify_attention_q", "ref")
+            args = [q, pk, scs["k_scales"], pv, scs["v_scales"], tables, start, kn, vn]
+            got = fn(args, {})[0]
+            want = ref(args, {})[0]
+            plain_fn = (lambda: ref(args, {}))
+            committed = sum(min(cache_cap, s0) for s0 in starts)
+            name, kern = "paged_verify_attention_q", "flash_chunk_attention"
+            nbytes = (committed * hk * 2 * dh + 8.0 * pages_live * hk
+                      + 4.0 * (2 * b * t * hk * dh + pages_live + 2 * b * t * hq * dh + b))
+        err = check_close(torch, f"{name} {mode}", got, want, **full_tol)
+        ms = timer.ms(lambda: fn(args, {}))
+        plain = timer.ms(plain_fn)
+        dense = timer.ms(lambda: K.flash_chunk_attention(q, kd, vd, start))
+        lib = sdpa(q, kd, vd)
+        say(f"    SDPA on the gathered {mode} cache: {lib:.4g} ms  [{limit_line}]")
+        tag = "verify int8 two-source" if quant else "verify fp32"
+        record(kern, tag, f"{name} {mode} B={b} T={t} P={page} N={n_blocks} start={starts}",
+               err, ms, plain, None, flops, nbytes, mode=tag, dense_ms=dense)
+        out.append(dict(op=name, kernel=kern, pages=mode, ms=ms, plain_ms=plain, sdpa_ms=lib,
+                        dense_kernel_ms=dense, max_abs_err=err))
+        del pk, pv, kd, vd, args
+    return out
+
+
+def dense_q_times(torch, K, rn, timer, cfg, n_slots, chunk, limit_line):
+    """``dense_q`` at phi3-mini's engine decode (M = 4) and prefill (M =
+    256) shapes: ``ref`` (int8 values accumulated in float64, the
+    batch-invariant oracle phase 13 serves on), ``torch`` (dequantize, then
+    one fp32 ``matmul``) and the fp32 ``gemm.cu`` on fp32 weights of the same
+    shape.  Numbers for the record: dense_q has no kernel."""
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.core.registry import get_impl
+    dm, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    rows = []
+    for m, tag in ((n_slots, "engine decode"), (n_slots * chunk, "engine prefill")):
+        for kk, nn, what in ((dm, ff, "gate/up"), (dm, dm, "q/k/v/o"), (ff, dm, "down"),
+                             (dm, v, "lm_head")):
+            x, w = rn(m, kk), rn(kk, nn, scale=1.0 / math.sqrt(kk))
+            w_q, w_s = quantize_weight(w, 1)
+            attrs = {"w_scale": w_s, "zero_point": 0,
+                     "x_scale": float(x.abs().max()) / 127}
+            ref, lib = get_impl("dense_q", "ref"), get_impl("dense_q", "torch")
+            err = max_err(torch, ref([x, w_q], attrs)[0], lib([x, w_q], attrs)[0])
+            row = dict(shape=f"{tag} {what} M={m} N={nn} K={kk}",
+                       ref_ms=timer.ms(lambda: ref([x, w_q], attrs)),
+                       torch_ms=timer.ms(lambda: lib([x, w_q], attrs)),
+                       gemm_fp32_ms=timer.ms(lambda: K.gemm(x, w)),
+                       int8_bound_ms=bound(2.0 * m * nn * kk,
+                                           kk * nn + 4.0 * (m * kk + m * nn + nn))[0],
+                       ref_vs_torch_max_abs=err)
+            say(f"  dense_q {row['shape']:42s} ref (float64) {row['ref_ms']:.4g} ms  torch "
+                f"{row['torch_ms']:.4g} ms  fp32 gemm.cu {row['gemm_fp32_ms']:.4g} ms  "
+                f"|ref - torch| {err:.2e}  [{limit_line}]")
+            rows.append(row)
+            del x, w, w_q
+    return rows
 
 
 def device_times(torch, K, limit_line):
@@ -1378,12 +1572,16 @@ def first_divergence(got, want):
 
 
 def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, chunk,
-                        cache_cap, page, n_blocks, kv_dtype, max_new, card):
-    """Phases 6 and 7: the paged engine in two waves (see the module
-    docstring).  ``served`` is phase 5's (prompt, reference tokens) list;
-    ``ref_cache`` maps a prompt's bytes to the dense reference's tokens and
-    is filled here, so phase 7 reuses phase 6's reference runs.  Returns
-    the launches, the serving numbers and the agreement record."""
+                        cache_cap, page, n_blocks, kv_dtype, max_new, card, spec_k=0,
+                        expect=None):
+    """Phases 6 and 7 (and phase 14's kv8 spec engine): the paged engine in
+    two waves (see the module docstring).  ``served`` is phase 5's (prompt,
+    reference tokens) list; ``ref_cache`` maps a prompt's bytes to the dense
+    reference's tokens and is filled here, so phase 7 reuses phase 6's
+    reference runs.  With ``spec_k`` the engine speculates and every
+    request's tokens must equal ``expect`` (uid -> tokens, phase 7's).
+    Returns the launches, the serving numbers, the agreement record and
+    every request's tokens by uid."""
     import numpy as np
     from repro_torch.runtime.engine import EngineRequest, build_lm_serving
 
@@ -1391,7 +1589,7 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     engine, reference = build_lm_serving(cfg, n_slots=n_slots, chunk=chunk,
                                          cache_cap=cache_cap, params=params, paged=True,
                                          page_size=page, n_blocks=n_blocks,
-                                         kv_dtype=kv_dtype, device="cuda")
+                                         kv_dtype=kv_dtype, spec_k=spec_k, device="cuda")
     st, pool = engine.stepper, engine.stepper.pool
     say(f"  {kv_dtype} pool: {n_blocks} blocks of {page} rows, "
         f"{pool.page_bytes * n_blocks / 1e9:.3f} GB ({pool.page_bytes} B per page); "
@@ -1416,6 +1614,7 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     a = EngineRequest(uid=len(wave1), prompt=extend(40), max_new_tokens=max_new)
     wave1.append(a)              # last: its pages are the newest cached ones
     b_prompt, c_prompt = extend(24), extend(80)
+    counted = count_calls(K, st) if spec_k else None
     torch.cuda.reset_peak_memory_stats()
     for kern in K.KERNELS:
         kern.launches = 0
@@ -1461,7 +1660,9 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
                  "flash_paged_chunk_attention": L * m.prefill_ticks,
                  "flash_paged_decode": L * m.decode_ticks,
                  "combine_partials": L * m.decode_ticks})
-    if launches != want:
+    if counted is not None:
+        check_launches(f"spec {kv_dtype}", K, st, counted, launches, L)
+    elif launches != want:
         fail(f"{kv_dtype}: launches {launches} != expected {want}")
     stats = {
         "tokens_per_s": m.tokens_per_s,
@@ -1475,7 +1676,18 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
         "wave2_hit_tokens": hits,
         "wave2_cow_copies": cows,
     }
-    say(f"  serving ({kv_dtype} pages): {json.dumps(stats)} [{card}]")
+    if spec_k:
+        stats.update(spec_stats(m))
+    say(f"  serving ({kv_dtype} pages{', spec' if spec_k else ''}): {json.dumps(stats)} "
+        f"[{card}]")
+    tokens = {r.uid: list(r.out_tokens) for r in reqs}
+    if expect is not None:
+        differ = [u for u in expect if tokens[u] != expect[u]]
+        if differ:
+            fail(f"spec {kv_dtype}: requests {differ} differ from the non-speculative "
+                 f"engine's tokens")
+        say(f"  all {len(reqs)} requests' tokens bitwise equal to the non-speculative "
+            f"{kv_dtype} engine's (phase 7)")
 
     t_ref = time.perf_counter()
     known = {p.tobytes(): toks for p, toks in served}
@@ -1496,7 +1708,352 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     say(f"  {agreement['exact']} of {len(reqs)} requests token-exact against the dense fp32 "
         f"reference; first divergence (request: token index) "
         f"{agreement['first_divergence']} ({time.perf_counter() - t_ref:.2f} s)")
-    return launches, stats, agreement
+    return launches, stats, agreement, tokens
+
+
+# --------------------------------------------------------------------------- #
+# launch accounting of the int8-weight and speculative engines
+# --------------------------------------------------------------------------- #
+
+# op -> the kernels its cuda backend launches (one each per call)
+OP_KERNELS = {
+    "dense": ("gemm",), "rmsnorm": ("rmsnorm",),
+    "decode_attention": ("flash_decode", "combine_partials"),
+    "chunk_attention": ("flash_chunk_attention",),
+    "verify_attention": ("flash_chunk_attention",),
+    "paged_verify_attention_q": ("flash_chunk_attention",),
+    "paged_chunk_attention": ("flash_paged_chunk_attention",),
+    "paged_chunk_attention_q": ("flash_paged_chunk_attention",),
+    "paged_verify_attention": ("flash_paged_chunk_attention",),
+    "paged_decode_attention": ("flash_paged_decode", "combine_partials"),
+    "paged_decode_attention_q": ("flash_paged_decode", "combine_partials"),
+}
+STEPPER_PROGRAMS = {"prefill": "prefill_program", "decode": "decode_program",
+                    "verify": "verify_program", "draft": "draft_program",
+                    "draft_prefill": "draft_prefill_program",
+                    "commit_spec": "spec_commit_program"}
+
+
+def program_launches(K, prog):
+    """Kernel launches one call of ``prog`` makes: one per kernel of every
+    node assigned ``cuda`` (OP_KERNELS)."""
+    out = {kern.__name__: 0 for kern in K.KERNELS}
+    for node in prog.graph.nodes:
+        if prog.assignment[node.name] == "cuda":
+            for name in OP_KERNELS[node.op]:
+                out[name] += 1
+    return out
+
+
+def count_calls(K, stepper):
+    """Wrap the stepper's Program-calling methods to count their calls and
+    the kernel launches made inside each: (calls, launches by method)."""
+    names = [n for n, attr in STEPPER_PROGRAMS.items() if hasattr(stepper, attr)]
+    calls = dict.fromkeys(names, 0)
+    inside = {n: {kern.__name__: 0 for kern in K.KERNELS} for n in names}
+    for n in names:
+        def wrapped(*args, _fn=getattr(stepper, n), _n=n):
+            before = [kern.launches for kern in K.KERNELS]
+            out = _fn(*args)
+            calls[_n] += 1
+            for kern, b in zip(K.KERNELS, before):
+                inside[_n][kern.__name__] += kern.launches - b
+            return out
+        setattr(stepper, n, wrapped)
+    return calls, inside
+
+
+def check_launches(tag, K, stepper, counted, launches, n_layers):
+    """Every Program call launched exactly its graph's kernels, and all the
+    run's launches happened inside those calls; the verify calls launch the
+    verify rows (the chunk kernels once per layer; the decode-unrolled
+    verify of int8 pages or int8 weights its decode kernel (SPEC_K + 1) x
+    n_layers times)."""
+    calls, inside = counted
+    total = {kern.__name__: 0 for kern in K.KERNELS}
+    for n, c in calls.items():
+        per_call = program_launches(K, getattr(stepper, STEPPER_PROGRAMS[n]))
+        want = {k: v * c for k, v in per_call.items()}
+        if inside[n] != want:
+            fail(f"{tag}: {n} x {c} launched {inside[n]}, its graph needs {want}")
+        for k, v in inside[n].items():
+            total[k] += v
+    if total != launches:
+        fail(f"{tag}: launches {launches} outside the Program calls ({total} inside)")
+    v = calls.get("verify", 0)
+    if getattr(stepper, "spec_k", 0):
+        vops = {node.op for node in stepper.verify_program.graph.nodes}
+        attn, stages = next((OP_KERNELS[op][0], n) for op, n in (
+            ("verify_attention", 1), ("paged_verify_attention", 1),
+            ("decode_attention", SPEC_K + 1), ("paged_decode_attention", SPEC_K + 1),
+            ("paged_decode_attention_q", SPEC_K + 1)) if op in vops)
+        per = n_layers * stages
+        if v == 0 or inside["verify"][attn] != per * v:
+            fail(f"{tag}: {v} verify calls launched {attn} {inside['verify'][attn]} times, "
+                 f"expected {per} per call")
+    say(f"  calls {json.dumps(calls)}; launches inside verify {json.dumps(inside.get('verify'))}")
+
+
+def spec_stats(m):
+    return {"spec_ticks": m.spec_ticks, "proposed": m.spec_proposed,
+            "accepted": m.spec_accepted, "accept_rate": m.accept_rate,
+            "ms_per_emitted_token": 1e3 * m.decode_wall_s / max(m.decode_tokens, 1)}
+
+
+def weight_split(params, prog):
+    """(fp32 bytes of the weights the int8 Program quantized, their int8
+    bytes with the fp32 scales, fp32 bytes of every weight, bytes of the
+    int8 Program's weights)."""
+    from repro_torch.tools.report import weight_bytes
+    fp32_q = int8_q = 0
+    for node in prog.graph.nodes:
+        if node.op.endswith("_q"):
+            w = prog.graph.params[node.inputs[1]]
+            fp32_q += 4 * w.numel()
+            int8_q += w.numel() + 4 * node.attrs["w_scale"].numel()
+    return fp32_q, int8_q, sum(4 * p.numel() for p in params.values()), weight_bytes(prog)
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: int8 weights on the dense-cache engine
+# --------------------------------------------------------------------------- #
+
+def int8w_phase(torch, K, cfg, params, served, *, n_slots, chunk, cache_cap, max_new, card):
+    """Phase 13: phase 5's model, weights and requests served by
+    build_lm_serving(quantize="int8"); every request token-exact against
+    the quantized UnbatchedReference (same shared calibration); agreement
+    with phase 5's fp32 tokens reported.  Returns the launches, the numbers,
+    the reference's tokens and its calibration ranges."""
+    import numpy as np
+    from repro_torch.runtime.engine import EngineRequest, build_lm_serving
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, reference = build_lm_serving(cfg, n_slots=n_slots, chunk=chunk,
+                                         cache_cap=cache_cap, params=params,
+                                         quantize="int8", device="cuda")
+    torch.cuda.synchronize()
+    build_s, build_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    st, L = engine.stepper, cfg.n_layers
+    summary = st.backend_summary()
+    for phase, attn in (("prefill", "chunk_attention"), ("decode", "decode_attention")):
+        ops = summary[phase]
+        if "dense" in ops or ops["dense_q"] != {"ref": 7 * L + 1}:
+            fail(f"int8w {phase}: dense nodes {ops.get('dense')}, dense_q {ops['dense_q']}; "
+                 f"expected every one of the {7 * L + 1} dense_q on ref")
+        if ops["rmsnorm"] != {"cuda": 2 * L + 1} or ops[attn] != {"cuda": L}:
+            fail(f"int8w {phase}: rmsnorm {ops['rmsnorm']}, {attn} {ops[attn]}")
+    fp32_q, int8_q, fp32_all, int8_all = weight_split(params, st.decode_program)
+    ratio = fp32_q / int8_q
+    say(f"  engine built in {build_s:.1f} s (shared calibration included; peak "
+        f"{build_gb:.2f} GB); quantized weights {fp32_q / 1e9:.3f} GB fp32 -> "
+        f"{int8_q / 1e9:.3f} GB int8 + scales, ratio {ratio:.3f}; the whole Program "
+        f"{fp32_all / 1e9:.3f} -> {int8_all / 1e9:.3f} GB ({fp32_all / int8_all:.3f}x: the "
+        f"embedding table stays fp32, as in JAX)")
+    if ratio < 3.9:
+        fail(f"int8w: weight-bytes ratio {ratio:.3f} < 3.9")
+    counted = count_calls(K, st)
+    reqs = [EngineRequest(uid=i, prompt=p, max_new_tokens=max_new)
+            for i, (p, _) in enumerate(served)]
+    torch.cuda.reset_peak_memory_stats()
+    for kern in K.KERNELS:
+        kern.launches = 0
+    t_run = time.perf_counter()
+    for r in reqs:
+        if not engine.submit(r):
+            fail(f"int8w request {r.uid} rejected: {r.dropped}")
+    engine.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    m = engine.metrics
+    say(f"  engine: {len(reqs)} requests, {m.tokens_out} tokens in {t_run:.2f} s; "
+        f"{m.prefill_ticks} prefill + {m.decode_ticks} decode ticks; launches {launches}")
+    check_launches("int8w", K, st, counted, launches, L)
+    if launches["gemm"] != 0 or launches["rmsnorm"] == 0:
+        fail(f"int8w: launches {launches}")
+    engine.sched.check_conservation()
+    stats = {
+        "tokens_per_s": m.tokens_per_s,
+        "ttft_p50_s": m.summary()["ttft_s"]["p50"],
+        "decode_ms_per_tick": 1e3 * m.decode_wall_s / max(m.decode_ticks, 1),
+        "prefill_ms_per_tick": 1e3 * m.prefill_wall_s / max(m.prefill_ticks, 1),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "build_max_memory_allocated_gb": build_gb,
+        "engine_wall_s": t_run,
+        "quantized_weight_bytes_fp32": fp32_q, "quantized_weight_bytes_int8": int8_q,
+        "weight_bytes_ratio": ratio, "program_weight_bytes_fp32": fp32_all,
+        "program_weight_bytes_int8": int8_all,
+    }
+    if any(not r.done or len(r.out_tokens) != max_new for r in reqs):
+        fail("int8w: not every request finished with its tokens")
+    t_ref = time.perf_counter()
+    qtokens, same_fp32 = {}, 0
+    for r, (prompt, fp32_tokens) in zip(reqs, served):
+        want = reference.generate(prompt, max_new, chunk=chunk)
+        if r.out_tokens != want:
+            fail(f"int8w request {r.uid}: engine {r.out_tokens} != quantized reference {want}")
+        qtokens[prompt.tobytes()] = want
+        same_fp32 += first_divergence(want, fp32_tokens) is None
+    stats["same_as_fp32"] = same_fp32
+    say(f"  serving (int8 weights): {json.dumps(stats)} [{card}]")
+    say(f"  all {len(reqs)} requests token-exact against the quantized unbatched reference "
+        f"({time.perf_counter() - t_ref:.2f} s); {same_fp32} of {len(reqs)} equal phase 5's "
+        f"fp32 tokens (reported, not asserted: int8 weights are lossy)")
+    return launches, stats, qtokens, reference._ranges
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: speculative decoding on the dense, paged fp32, kv8 and int8 engines
+# --------------------------------------------------------------------------- #
+
+def verify_vs_decode(torch, st, prompts, chunk):
+    """The dense stepper's verify logits against its decode logits at the
+    same positions: slot 0 prefills a prompt, decodes SPEC_K + 1 greedy
+    tokens, then verifies those tokens from the same start.  Returns the max
+    |verify - decode| logit and the decode top-2 gap at every position whose
+    argmax differs."""
+    import numpy as np
+    b, w = st.n_slots, SPEC_K + 1
+    worst, gaps = 0.0, []
+    for prompt in prompts:
+        pos, logits = 0, None
+        while pos < len(prompt):
+            n = min(chunk, len(prompt) - pos)
+            toks = np.zeros((b, chunk), np.int32)
+            toks[0, :n] = prompt[pos:pos + n]
+            logits = st.prefill(toks, np.asarray([pos] + [0] * (b - 1), np.int32),
+                                np.asarray([n] + [0] * (b - 1), np.int32))
+            pos += n
+        fed, dec = [int(np.argmax(logits[0, n - 1]))], []
+        for i in range(w):
+            toks = np.zeros((b, 1), np.int32)
+            toks[0, 0] = fed[-1]
+            lg = st.decode(toks, np.asarray([len(prompt) + i] + [0] * (b - 1), np.int32),
+                           np.asarray([1] + [0] * (b - 1), np.int32))
+            dec.append(lg[0])
+            fed.append(int(np.argmax(lg[0])))
+        vt = np.zeros((b, w), np.int32)
+        vt[0] = fed[:w]
+        ver = st.verify(vt, np.asarray([len(prompt)] + [0] * (b - 1), np.int32),
+                        np.asarray([w] + [0] * (b - 1), np.int32))[0]
+        for i in range(w):
+            worst = max(worst, float(np.abs(ver[i] - dec[i]).max()))
+            if int(np.argmax(ver[i])) != int(np.argmax(dec[i])):
+                top = np.sort(dec[i])[-2:]
+                gaps.append(float(top[1] - top[0]))
+    return worst, gaps
+
+
+def spec_engine_run(torch, K, tag, engine, reference, prompts, want, *, chunk, max_new, card):
+    """Serve ``prompts`` on a speculative engine: every request's tokens
+    equal ``want`` (the reference's, by prompt bytes; generated here when
+    missing), launches exactly as its graphs need, conservation (and pool
+    integrity).  Returns (launches, stats)."""
+    from repro_torch.runtime.engine import EngineRequest
+    st = engine.stepper
+    counted = count_calls(K, st)
+    reqs = [EngineRequest(uid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    for kern in K.KERNELS:
+        kern.launches = 0
+    t_run = time.perf_counter()
+    for r in reqs:
+        if not engine.submit(r):
+            fail(f"{tag} request {r.uid} rejected: {r.dropped}")
+    engine.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    m = engine.metrics
+    check_launches(tag, K, st, counted, launches, engine.stepper.cfg.n_layers)
+    engine.sched.check_conservation()
+    if engine.paged:
+        engine.stepper.pool.check_integrity()
+    if any(not r.done or len(r.out_tokens) != max_new for r in reqs):
+        fail(f"{tag}: not every request finished with its tokens")
+    for r in reqs:
+        key = r.prompt.tobytes()
+        if key not in want:
+            want[key] = reference.generate(r.prompt, max_new, chunk=chunk)
+        if r.out_tokens != want[key]:
+            fail(f"{tag} request {r.uid}: engine {r.out_tokens} != reference {want[key]} "
+                 f"(first divergence {first_divergence(r.out_tokens, want[key])})")
+    stats = {"tokens_per_s": m.tokens_per_s, "engine_wall_s": t_run,
+             "prefill_ticks": m.prefill_ticks, "decode_ticks": m.decode_ticks,
+             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+             **spec_stats(m)}
+    say(f"  {tag}: {len(reqs)} requests, {m.tokens_out} tokens in {t_run:.2f} s, all "
+        f"token-exact against the unbatched reference; {json.dumps(stats)}  [{card}]")
+    return launches, stats
+
+
+def spec_phase(torch, K, cfg, params, served, qtokens, q_ranges, *, n_slots, chunk,
+               cache_cap, max_new, card):
+    """Phase 14, the dense-cache and paged fp32 engines and the int8-weight
+    dense engine with SPEC_K = 3 and the default draft (the first half of
+    the layers), each token-exact against its UnbatchedReference (phase 5's
+    and phase 13's tokens).  The kv8 engine runs in paged_serving_phase.
+    Returns {path: (launches, stats)} and the verify-vs-decode record."""
+    from repro_torch.runtime.engine import build_lm_serving
+    prompts = [p for p, _ in served]
+    fp32_want = {p.tobytes(): toks for p, toks in served}
+    runs, record = {}, {}
+    for tag, kw in (("spec dense", {}), ("spec paged fp32", dict(paged=True, page_size=16)),
+                    ("spec int8w", dict(quantize="int8"))):
+        t0 = time.perf_counter()
+        engine, reference = build_lm_serving(cfg, n_slots=n_slots, chunk=chunk,
+                                             cache_cap=cache_cap, params=params,
+                                             spec_k=SPEC_K, device="cuda", **kw)
+        st = engine.stepper
+        say(f"  [{tag}] built in {time.perf_counter() - t0:.1f} s: draft {st.draft_layers} of "
+            f"{cfg.n_layers} layers, draft caches {st.draft_cap} rows; verify assignment "
+            f"{json.dumps(st.backend_summary()['verify'], sort_keys=True)}")
+        want = fp32_want
+        if kw.get("quantize"):
+            same = reference._ranges == q_ranges
+            say(f"  [{tag}] shared calibration {'equal to' if same else 'DIFFERENT from'} "
+                f"phase 13's: {'its' if same else 'a new'} reference's tokens")
+            want = dict(qtokens) if same else {}
+        runs[tag] = spec_engine_run(torch, K, tag, engine, reference, prompts, want,
+                                    chunk=chunk, max_new=max_new, card=card)
+        if tag == "spec dense":
+            worst, gaps = verify_vs_decode(torch, st, prompts[:2], chunk)
+            record = {"max_abs_verify_minus_decode_logit": worst, "argmax_flips": len(gaps),
+                      "top2_gaps_at_flips": gaps}
+            say(f"  verify vs decode logits at {2 * (SPEC_K + 1)} positions: max |diff| "
+                f"{worst:.3e}; argmax differs at {len(gaps)} (decode top-2 gaps {gaps})")
+        del engine, reference, st
+        release(torch)
+    return runs, record
+
+
+# --------------------------------------------------------------------------- #
+# phase 12, continued: the int8 CNN builds
+# --------------------------------------------------------------------------- #
+
+def cnn_int8_phase(torch, card):
+    """cnn_eval --int8 on the card: each CNN's fp32 and int8 Programs under
+    the library assignment (torch, ref); the int8 output within
+    JAX_INT8_MAX_ABS_ERR x INT8_ERR_MARGIN of the fp32 one, weights at
+    least 3.9x smaller.  Returns the rows."""
+    from repro_torch.launch import cnn_eval
+    from repro_torch.models.cnn import CNN_MODELS
+    # each model alone, as JAX_INT8_MAX_ABS_ERR was taken: its input is
+    # the first draw of seed 0
+    rows = [cnn_eval.run_quant([name], reps=5, device="cuda")[0] for name in CNN_MODELS]
+    for r in rows:
+        bound_err = JAX_INT8_MAX_ABS_ERR[r["model"]] * INT8_ERR_MARGIN
+        say(f"  {r['model']}: fp32 {1e3 * r['fp32_s']:.3f} ms, int8 {1e3 * r['int8_s']:.3f} ms; "
+            f"weights {r['fp32_weight_bytes']} -> {r['int8_weight_bytes']} B "
+            f"({r['bytes_ratio']:.3f}x); max |int8 - fp32| {r['max_abs_err']:.4g} (JAX "
+            f"run_quant {JAX_INT8_MAX_ABS_ERR[r['model']]:.4g})  [{card}]")
+        if not r["max_abs_err"] <= bound_err:
+            fail(f"{r['model']} int8: max abs error {r['max_abs_err']:.4g} > {bound_err:.4g}")
+        if r["bytes_ratio"] < 3.9:
+            fail(f"{r['model']} int8: weight-bytes ratio {r['bytes_ratio']:.3f} < 3.9")
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -2019,13 +2576,13 @@ def main() -> int:
 
     # 6. and 7. serving, paged cache
     ref_cache = {}
-    agreement = {}
+    agreement, paged_tokens = {}, {}
     for phase, mode, kv_dtype in (("paged", "fp32", "float32"), ("kv8", "int8", "int8")):
         t = time.perf_counter()
         say(f"[{phase}] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk "
             f"{chunk}, cache {cache_cap}, {kv_dtype} pages of {page} rows, {pools[mode]} "
             f"blocks [{limit_line}]")
-        launches, stats, agree = paged_serving_phase(
+        launches, stats, agree, paged_tokens[mode] = paged_serving_phase(
             torch, K, cfg, params, served, ref_cache, n_slots=n_slots, chunk=chunk,
             cache_cap=cache_cap, page=page, n_blocks=pools[mode], kv_dtype=kv_dtype,
             max_new=max_new, card=limit_line)
@@ -2044,8 +2601,35 @@ def main() -> int:
     runs["split"] = (launches, stats)
     torch.cuda.empty_cache()
     phase_s["split"] = time.perf_counter() - t
+
+    # 13. int8 weights, on phase 5's weights and requests
+    t = time.perf_counter()
+    say(f"[int8w] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
+        f"cache {cache_cap}, build_lm_serving(quantize=\"int8\") [{limit_line}]")
+    launches, stats, qtokens, q_ranges = int8w_phase(
+        torch, K, cfg, params, served, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap,
+        max_new=max_new, card=limit_line)
+    runs["int8w"] = (launches, stats)
+    release(torch)
+    phase_s["int8w"] = time.perf_counter() - t
+
+    # 14. speculative decoding: dense, paged fp32, int8 weights, then kv8 pages
+    t = time.perf_counter()
+    say(f"[spec] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
+        f"cache {cache_cap}, spec_k {SPEC_K}, default draft [{limit_line}]")
+    spec_runs, spec_record = spec_phase(
+        torch, K, cfg, params, served, qtokens, q_ranges, n_slots=n_slots, chunk=chunk,
+        cache_cap=cache_cap, max_new=max_new, card=limit_line)
+    runs.update(spec_runs)
+    say(f"  [spec kv8] phase 7's two waves, int8 pages of {page} rows, {pools['int8']} blocks")
+    launches, stats, _, _ = paged_serving_phase(
+        torch, K, cfg, params, served, ref_cache, n_slots=n_slots, chunk=chunk,
+        cache_cap=cache_cap, page=page, n_blocks=pools["int8"], kv_dtype="int8",
+        max_new=max_new, card=limit_line, spec_k=SPEC_K, expect=paged_tokens["int8"])
+    runs["spec kv8"] = (launches, stats)
+    phase_s["spec"] = time.perf_counter() - t
     del params
-    torch.cuda.empty_cache()
+    release(torch)
 
     # 8., 9. and 10. the layer-stack LMs under the continuous batcher
     for phase, scfg, max_new in stack_phases:
@@ -2061,6 +2645,8 @@ def main() -> int:
     say(f"[cnn] five CNNs, batch 1, six assignments [{limit_line}]")
     cnn_launches, cnn_rows, cnn_slowest = cnn_phase(torch, K, limit_line)
     runs["cnn"] = (cnn_launches, {"ms": cnn_rows})
+    say(f"[cnn] --int8: fp32 against int8 builds, (torch, ref) assignment [{limit_line}]")
+    cnn_int8 = cnn_int8_phase(torch, limit_line)
     phase_s["cnn"] = time.perf_counter() - t
 
     # 3, continued: device-only times (torch.profiler), after every timed phase
@@ -2072,6 +2658,8 @@ def main() -> int:
 
     split_ms = next(r["split_ms"] for r in extra["split"]
                     if r["shape"] == "phi3-mini engine decode" and r["n_splits"] == 2)
+    for path in ("int8w", "spec dense", "spec paged fp32", "spec int8w", "spec kv8"):
+        serving[path] = runs[path][1]
     for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)
@@ -2125,6 +2713,10 @@ def main() -> int:
             entry["empty_launch_ms"] = extra["empty_launch_ms"]
             entry["device_ms"] = {k: v for k, v in extra["device_ms"].items()
                                   if name in k or "rms_norm" in k or "empty" in k}
+        for mode in ("verify", "verify fp32", "verify int8 two-source"):
+            if mode in r:
+                entry[mode] = {k: r[mode][k] for k in keys + ("dense_kernel_ms",)
+                               if k in r[mode]}
         if "int8" in r:
             entry["dense_kernel_ms"] = r["dense_kernel_ms"]
             entry["fp32"] = {"launches": by_path["paged fp32"],
@@ -2135,6 +2727,8 @@ def main() -> int:
         kernels.append(entry)
     say(json.dumps({"serving": serving, "tick_ms_by_part": estimates,
                     "kv8_agreement": agreement, "split": split_record, "cnn_ms": cnn_rows,
+                    "cnn_int8": cnn_int8, "spec_verify_vs_decode": spec_record,
+                    "verify_rows": extra["verify"], "dense_q_ms": extra["dense_q"],
                     "cnn_resnet50_slowest": cnn_slowest,
                     "empty_launch_ms": extra["empty_launch_ms"], "card": limit_line}))
     say(json.dumps({"kernels": kernels}))

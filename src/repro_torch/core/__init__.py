@@ -2,7 +2,9 @@
 compiled Program (counterpart of :mod:`repro.core`).
 
 Importing this package registers the port's standard ops
-(:mod:`repro_torch.core.nnops`) and passes (:mod:`repro_torch.core.passes`).
+(:mod:`repro_torch.core.nnops`), the quantized ops and the ``quantize``
+pass (:mod:`repro_torch.core.quant`) and the passes
+(:mod:`repro_torch.core.passes`).
 
     graph --PassManager--> simplified graph --BackendPolicy--> Program
 """
@@ -17,6 +19,8 @@ from repro_torch.core.pipeline import (DEFAULT_PASSES, PassManager, PassStats,
                                        PipelineError, default_pipeline, get_pass,
                                        register_pass)
 from repro_torch.core.program import NodeReport, Program, compile
+from repro_torch.core.quant import (ValueRange, calibrate, is_quantized, quantize_graph,
+                                    quantize_weight)
 from repro_torch.core.registry import (Cost, OpDef, OpImpl, backends_for, defop,
                                        get_impl, get_op, impl)
 from repro_torch.core.selector import (H100_SXM, HOST_CPU, AutotunePolicy, BackendPolicy,
@@ -25,6 +29,7 @@ from repro_torch.core.selector import (H100_SXM, HOST_CPU, AutotunePolicy, Backe
 
 __all__ = [
     "compile", "Program", "NodeReport",
+    "calibrate", "quantize_graph", "quantize_weight", "is_quantized", "ValueRange",
     "Graph", "GraphError", "Node", "TensorSpec", "topological_order",
     "eliminate_common_subexpr", "eliminate_dead", "fold_batchnorm", "fold_constants",
     "fuse_bias_act", "fuse_elementwise", "infer_shapes", "simplify",

@@ -14,6 +14,8 @@ Weights are placed on the device once per Program, and a parameter that is
 already a tensor on that device is shared, never copied — the serving
 engine builds four Programs over one 15 GB weight set.
 
+``compile(..., quantize="int8")`` adds post-training quantization as a
+stage after the simplify pipeline (:mod:`repro_torch.core.quant`).
 ``Program.save`` / ``Program.load`` (OXF bundles) are not ported yet.
 """
 
@@ -184,14 +186,26 @@ class Program:
 
 def compile(graph: Graph, policy: Optional[BackendPolicy] = None,
             pipeline: Optional[Union[PassManager, Sequence]] = None,
-            *, validate: bool = False, device: DeviceLike = None) -> Program:
+            *, validate: bool = False, quantize: Optional[str] = None,
+            calib_data: Any = None,
+            calib_ranges: Optional[Mapping[str, Any]] = None,
+            device: DeviceLike = None) -> Program:
     """Graph -> Program.
 
     ``policy`` defaults to :class:`FixedPolicy` (cuda-then-ref); per-node
     ``Node.backend`` pins always win.  ``pipeline`` is ``None`` for the
     standard simplify pipeline, a :class:`PassManager`, or a sequence of
     pass names/callables (empty: no rewriting, shape inference only).
-    ``device`` is where the Program runs; ``None`` means ``"cuda"``."""
+    ``device`` is where the Program runs; ``None`` means ``"cuda"``.
+
+    ``quantize="int8"`` runs post-training quantization after the pipeline:
+    calibration on ``device`` when ``calib_data`` is given (a dict of
+    inputs, a sequence of them, or a bare array for a single-input graph),
+    then :func:`repro_torch.core.quant.quantize_graph`.  ``calib_ranges``
+    (``calibrate``'s output) is used instead of calibrating here, so that
+    several shape variants of one model share one set of activation
+    scales; it excludes ``calib_data``.  Without either, quantization is
+    weight-only and the ``ref`` backend scales activations per batch."""
     from repro_torch.core.passes import infer_shapes
     dev = resolve_device(device)
     if pipeline is None:
@@ -199,6 +213,18 @@ def compile(graph: Graph, policy: Optional[BackendPolicy] = None,
     elif not isinstance(pipeline, PassManager):
         pipeline = PassManager(list(pipeline), validate=validate, name="custom")
     g = pipeline.run(graph)
+    if quantize is not None:
+        from repro_torch.core import quant
+        if quantize != "int8":
+            raise ValueError(f"unsupported quantize mode {quantize!r} (only 'int8')")
+        if calib_data is not None and calib_ranges is not None:
+            raise ValueError("pass calib_data or calib_ranges, not both")
+        if calib_ranges is not None:
+            ranges: Any = calib_ranges
+        else:
+            ranges = (quant.calibrate(g, calib_data, device=dev)
+                      if calib_data is not None else None)
+        g = quant.quantize_graph(g, ranges)
     if not g.value_info:
         g = infer_shapes(g)
     policy = policy or FixedPolicy()

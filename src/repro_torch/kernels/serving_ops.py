@@ -14,14 +14,25 @@ the dense-cache and paged-cache paths.
 * ``paged_chunk_attention[_q]`` / ``paged_decode_attention[_q]`` —
   attention reading K/V through block tables (``ref``: gather, dequantize,
   dense oracle; ``cuda``: the hand-written paged flash kernels).
+* ``greedy_token`` — the in-graph argmax that feeds the draft Program's
+  greedy output back as its next input token (``ref``; ties break to the
+  lowest id, as ``np.argmax``).
+* ``verify_attention`` / ``paged_verify_attention`` /
+  ``paged_verify_attention_q`` — speculative verify: the committed next
+  token and the draft proposals (T = spec_k + 1 rows) scored in one call,
+  offset-causal like a prefill chunk (``ref``, and ``cuda``: the chunk and
+  paged chunk kernels at the verify shape).  The int8 form is two-source:
+  the committed prefix dequantizes from the pages, the call's own rows come
+  in as float32 and are never written to the pages.
 
 Op names, input order, attrs, shape and cost functions match ``repro``'s.
 The ``cuda`` guards are only what the kernels need (fp32 q, fp32 or int8
 pages as the op says, whole GQA groups, head widths <= 256, shared memory);
 the TPU's ``page_size % 8`` and ``T % block_q`` guards are not carried over,
 because the kernels walk fixed logical tiles for any page size and mask
-their own ragged edges.  The verify and tensor-parallel serving ops are not
-ported yet.
+their own ragged edges; the verify ops' ``cuda`` guards are the chunk
+kernels' (any T: a verify call is a chunk of spec_k + 1 rows).  The
+tensor-parallel serving ops are not ported yet.
 """
 
 from __future__ import annotations
@@ -467,7 +478,10 @@ def _paged_update_q_common(inputs):
     # goes into a copy with one spare row, where every masked row lands and
     # is cut off (JAX's scatter mode="drop").
     row_amax = new.abs().amax(dim=-1)                                # (B, T, H)
-    row_scale = torch.where(valid[..., None], row_amax / _Q_MAX,
+    # divide by a tensor on the device: CUDA turns `x / python_scalar` into
+    # a multiply by the reciprocal, one bit off JAX's true division
+    q_max = torch.full((), _Q_MAX, dtype=new.dtype, device=new.device)
+    row_scale = torch.where(valid[..., None], row_amax / q_max,
                             torch.zeros((), dtype=new.dtype, device=new.device))
     grown = torch.cat([scales, scales.new_zeros((1, h))])
     grown.scatter_reduce_(0, tgt.reshape(-1, 1).expand(-1, h),
@@ -617,3 +631,159 @@ def _paged_decode_attention_q_cuda(inputs, attrs):
     q, pk, ks, pv, vs, tables, lengths = inputs
     return [flash_paged_decode(q, pk, pv, tables, lengths, k_scales=ks, v_scales=vs,
                                scale=attrs.get("scale"))]
+
+
+# --------------------------------------------------------------------------- #
+# Speculative-decoding ops.  ``verify_attention`` and its paged forms are
+# chunk attention at T = spec_k + 1, registered as their own ops so that a
+# policy picks a backend for the verify shape apart from the prefill chunk;
+# their backends are the chunk ops' (the same offset-causal function).
+# --------------------------------------------------------------------------- #
+
+def _greedy_token_shape(specs, attrs):
+    logits = specs[0]
+    if len(logits.shape) != 2:
+        raise ValueError(f"greedy_token wants (B, V) logits, got {logits.shape}")
+    return [TensorSpec((logits.shape[0], 1), "int32")]
+
+
+def _greedy_token_cost(specs, attrs):
+    # stream the logits once; the output is negligible
+    return Cost(flops=float(specs[0].nelems), bytes=_bytes(specs))
+
+
+defop("greedy_token", _greedy_token_shape, _greedy_token_cost,
+      doc="greedy sampling inside a graph: (B, V) logits -> (B, 1) int32 "
+          "argmax token ids (ties break to the lowest id, matching "
+          "np.argmax on the host)")
+
+
+@impl("greedy_token", "ref",
+      note="torch.argmax over the vocab axis; ties break to the lowest id, "
+           "as the engine's host-side np.argmax")
+def _greedy_token_ref(inputs, attrs):
+    return [torch.argmax(inputs[0], dim=-1, keepdim=True).to(torch.int32)]
+
+
+# ---- verify_attention (dense) --------------------------------------------- #
+# inputs (q (B,T,Hq,D), k (B,S,Hk,D), v (B,S,Hk,D), start (B,)); T = K+1
+
+defop("verify_attention", _chunk_attn_shape, _chunk_attn_cost,
+      doc="speculative-verify attention: score K+1 tokens (committed next "
+          "token + K draft proposals) against the dense cache in one call; "
+          "offset-causal exactly like chunk_attention (row t attends "
+          "positions <= start+t); inputs (q (B,T,Hq,D), k (B,S,Hk,D), v, "
+          "start (B,)); attrs: scale")
+
+impl("verify_attention", "ref", cost_fn=_chunk_attn_ref_cost,
+     note="dense offset-causal masked attention in fp32 (the chunk_attention "
+          "oracle: a verify step is a T=K+1 chunk)")(_chunk_attention_ref)
+impl("verify_attention", "cuda", supports=_chunk_attn_cuda_supports,
+     note="the flash chunk CUDA kernel at the T=K+1 verify shape")(_chunk_attention_cuda)
+
+
+# ---- paged_verify_attention ----------------------------------------------- #
+# inputs (q (B,T,Hq,D), pages_k (N,P,Hk,D), pages_v, tables (B,MP), start)
+
+defop("paged_verify_attention", _paged_chunk_shape, _paged_chunk_cost,
+      doc="speculative-verify attention reading K/V through block tables "
+          "(paged_chunk_attention semantics at T = K+1); inputs "
+          "(q (B,T,Hq,D), pages_k (N,P,Hk,D), pages_v, tables (B,MP) "
+          "int32, start (B,)); attrs: scale")
+
+impl("paged_verify_attention", "ref", cost_fn=_paged_chunk_ref_cost,
+     note="gather pages to a dense view, then the dense fp32 offset-causal "
+          "oracle")(_paged_chunk_attention_ref)
+impl("paged_verify_attention", "cuda",
+     supports=lambda specs, attrs: _paged_attn_cuda_supports(
+         specs, "float32", paged_chunk_fits),
+     note="the paged flash chunk CUDA kernel at the verify shape, reading "
+          "pages in place through the block table")(_paged_chunk_attention_cuda)
+
+
+# ---- paged_verify_attention_q --------------------------------------------- #
+# inputs (q (B,T,Hq,D), pages_k i8, k_scales (N,Hk), pages_v i8, v_scales,
+#         tables (B,MP), start, k_new (B,T,Hk,D) f32, v_new (B,T,Hk,D) f32)
+#
+# TWO-SOURCE on purpose: the committed prefix streams from the int8 pages,
+# but this call's own K+1 speculative rows come in as fp32 ``k_new/v_new``
+# and are NEVER written to the pages here.  Quantize-on-write page scales
+# only grow, and a raise requantizes the whole page, so writing draft rows
+# that are later rejected would lossily perturb committed rows sharing
+# their page.  Accepted rows are written afterwards by the spec-commit
+# Program.
+
+def _paged_verify_q_shape(specs, attrs):
+    q, pk, ks, kn, vn = specs[0], specs[1], specs[2], specs[7], specs[8]
+    if pk.dtype != "int8":
+        raise ValueError(f"quantized pages must be int8, got {pk.dtype}")
+    if ks.shape != (pk.shape[0], pk.shape[2]):
+        raise ValueError(f"k_scales {ks.shape} != (N, Hk)")
+    want = (q.shape[0], q.shape[1], pk.shape[2], pk.shape[3])
+    for name, spec in (("k_new", kn), ("v_new", vn)):
+        if spec.shape != want:
+            raise ValueError(f"{name} {spec.shape} != (B, T, Hk, D) {want}")
+    return [specs[0]]
+
+
+def _paged_verify_q_cost(specs, attrs):
+    base = _paged_chunk_q_cost(specs[:7], attrs)
+    return Cost(flops=base.flops, bytes=base.bytes + _bytes(specs[7:]))
+
+
+def _paged_verify_q_gather_cost(specs, attrs):
+    base = _paged_chunk_q_gather_cost(specs[:7], attrs)
+    return Cost(flops=base.flops, bytes=base.bytes + _bytes(specs[7:]))
+
+
+defop("paged_verify_attention_q", _paged_verify_q_shape, _paged_verify_q_cost,
+      doc="speculative-verify attention over int8 pages: the committed "
+          "prefix dequantizes from the pages, this call's K+1 rows read "
+          "from fp32 k_new/v_new (two-source — speculative rows are never "
+          "quantized into pages before acceptance); inputs (q (B,T,Hq,D), "
+          "pages_k int8, k_scales (N,Hk), pages_v int8, v_scales, tables "
+          "(B,MP) int32, start (B,), k_new (B,T,Hk,D), v_new); attrs: scale")
+
+
+def _patch_new_rows(dense, new, start):
+    """A copy of the dequantized gather ``dense`` (B, S, Hk, D) with this
+    call's fp32 rows written at rows ``start + 0..T-1`` (per batch); rows
+    past the dense view are dropped, as JAX's ``mode="drop"``."""
+    b, s, t = dense.shape[0], dense.shape[1], new.shape[1]
+    pos = start.long()[:, None] + torch.arange(t, device=dense.device)[None, :]
+    seq = torch.arange(b, device=dense.device)[:, None].expand(b, t)
+    return _scatter_rows(dense, new, seq, pos.clamp(0, s - 1), pos < s)
+
+
+def _paged_verify_q_sources(inputs):
+    q, pk, ks, pv, vs, tables, start, kn, vn = inputs
+    k = _patch_new_rows(gather_pages(pk, tables, ks), kn, start)
+    v = _patch_new_rows(gather_pages(pv, tables, vs), vn, start)
+    return q, k, v, start
+
+
+@impl("paged_verify_attention_q", "ref", cost_fn=_paged_verify_q_gather_cost,
+      note="dequantize after the gather, patch in the fp32 speculative "
+           "rows, then the dense fp32 offset-causal oracle")
+def _paged_verify_attention_q_ref(inputs, attrs):
+    return _chunk_attention_ref(list(_paged_verify_q_sources(inputs)), attrs)
+
+
+def _paged_verify_q_cuda_supports(specs, attrs):
+    """int8 pages with fp32 scales, fp32 q and new rows, and the dense chunk
+    kernel's fits check (whole GQA groups, D and Dv <= 256, shared memory);
+    any T and page size.  The TPU's ``T % block_q`` guard does not apply:
+    the kernel masks its own ragged query tile."""
+    q, pk, ks, pv, vs, kn, vn = (specs[0], specs[1], specs[2], specs[3], specs[4],
+                                 specs[7], specs[8])
+    return (q.dtype == kn.dtype == vn.dtype == ks.dtype == vs.dtype == "float32"
+            and pk.dtype == pv.dtype == "int8"
+            and chunk_fits(q.shape[2], pk.shape[2], q.shape[3], pv.shape[3]))
+
+
+@impl("paged_verify_attention_q", "cuda", supports=_paged_verify_q_cuda_supports,
+      note="gather, dequantize and patch in plain PyTorch feeding the flash "
+           "chunk CUDA kernel at the verify shape (the two-source patch "
+           "cannot stream pages in place)")
+def _paged_verify_attention_q_cuda(inputs, attrs):
+    return _chunk_attention_cuda(list(_paged_verify_q_sources(inputs)), attrs)

@@ -10,6 +10,16 @@ over the GraphIR LM (:mod:`repro_torch.models.graph_lm`):
   long prompts are split into fixed-size chunks interleaved with decode
   ticks.
 
+``quantize="int8"`` compiles every Program with int8 weights, all of them
+(and the reference) from one :func:`shared_calibration`, so they share
+activation scales.  ``spec_k > 0`` adds greedy speculative decoding: a
+draft Program (the target's first ``draft_layers`` layers, ``spec_k`` steps
+unrolled) proposes tokens and a verify Program scores them in one call
+(for int8 pages: the decode step unrolled, its accepted writes replayed by
+a commit Program), so the output stays token-identical to plain decode.
+With int8 weights the verify is the decode step unrolled as well (a port
+addition, :func:`~repro_torch.models.graph_lm.build_verify_seq_graph`).
+
 With ``paged=True`` the per-slot dense caches become one shared page pool
 per layer (fp32 or int8 pages) reached through block tables;
 :class:`PagedProgramStepper` owns the pool tensors and a
@@ -28,15 +38,15 @@ B=1 Programs compiled from the same graphs.  On the card this holds
 because every kernel computes a sequence's rows with arithmetic that does
 not depend on the batch (see ``csrc/``).
 
-Not ported yet (see ROADMAP.md): int8 weights (``quantize``), speculative
-decoding, self-healing and tier-aware overload control, tensor parallel
-serving, ``AsyncEngine``, dense resume (``relocate_slots``).
+Not ported yet (see ROADMAP.md): self-healing and tier-aware overload
+control, tensor parallel serving, ``AsyncEngine``, dense resume
+(``relocate_slots``).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,17 +56,22 @@ from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.core.program import compile
 from repro_torch.core.selector import BackendPolicy
 from repro_torch.models.graph_lm import (GraphLMConfig, build_decode_graph,
-                                         build_paged_decode_graph,
+                                         build_draft_graph, build_paged_decode_graph,
                                          build_paged_prefill_graph,
-                                         build_prefill_graph, init_cache_inputs,
-                                         init_lm_params, init_paged_cache_inputs,
-                                         params_from_numpy)
+                                         build_paged_verify_graph,
+                                         build_paged_verify_seq_graph,
+                                         build_prefill_graph, build_spec_commit_graph,
+                                         build_verify_graph, build_verify_seq_graph,
+                                         expand_spec_ranges,
+                                         init_cache_inputs, init_lm_params,
+                                         init_paged_cache_inputs, params_from_numpy)
 from repro_torch.runtime.batching import SlotScheduler
 from repro_torch.runtime.kv_cache import BlockPool, kv_page_bytes
 
 __all__ = [
     "EngineRequest", "EngineMetrics", "Engine", "ProgramStepper",
     "PagedProgramStepper", "UnbatchedReference", "build_lm_serving", "padded_len",
+    "shared_calibration",
 ]
 
 
@@ -141,6 +156,12 @@ class EngineMetrics:
     latencies_s: List[float] = field(default_factory=list)
     ttfts_s: List[float] = field(default_factory=list)
     max_intertoken_gap_s: float = 0.0
+    # speculative decoding (all zero when spec_k == 0)
+    spec_ticks: int = 0         # draft+verify ticks (counted in decode_ticks)
+    spec_proposed: int = 0      # draft tokens offered to verification
+    spec_accepted: int = 0      # draft tokens the target model agreed with
+    # decode-phase throughput: tokens emitted by decode/spec ticks over the
+    # wall time spent inside those ticks
     decode_tokens: int = 0
     decode_wall_s: float = 0.0
     prefill_wall_s: float = 0.0
@@ -152,6 +173,11 @@ class EngineMetrics:
     @property
     def tokens_per_s(self) -> float:
         return self.tokens_out / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def accept_rate(self) -> float:
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed > 0 else 0.0)
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -173,6 +199,15 @@ class EngineMetrics:
             "latency_s": _pct_dict(self.latencies_s),
             "ttft_s": _pct_dict(self.ttfts_s),
             "max_intertoken_gap_s": self.max_intertoken_gap_s,
+            "spec": {
+                "spec_ticks": self.spec_ticks,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "accept_rate": self.accept_rate,
+                "decode_tokens": self.decode_tokens,
+                "decode_wall_s": self.decode_wall_s,
+                "decode_tokens_per_s": self.decode_tokens_per_s,
+            },
             "decode_tokens": self.decode_tokens,
             "decode_wall_s": self.decode_wall_s,
             "decode_tokens_per_s": self.decode_tokens_per_s,
@@ -188,29 +223,42 @@ def _cache_names(cfg: GraphLMConfig) -> List[str]:
     return sorted(init_cache_inputs(cfg, 1, 1))
 
 
+def _stage_names(width: int) -> List[str]:
+    """Per-stage inputs of a decode-unrolled verify Program."""
+    return [*[f"tokens.s{j}" for j in range(width)], *[f"n_new.s{j}" for j in range(width)]]
+
+
 class ProgramStepper:
-    """Owns the two compiled Programs plus the cache tensors they thread.
+    """Owns the compiled Programs plus the cache tensors they thread.
     Step dispatch goes through :meth:`Program.bind`, the positional
-    fast-call path."""
+    fast-call path.  ``quantize``/``calib_ranges`` compile every Program
+    with int8 weights and the given shared activation ranges; ``spec_k``
+    adds the speculative Programs (:meth:`_init_spec`)."""
 
     paged = False
 
     def __init__(self, cfg: GraphLMConfig, params: Mapping[str, Any], *,
                  n_slots: int, chunk: int, cache_cap: int,
                  policy: Optional[BackendPolicy] = None,
+                 quantize: Optional[str] = None,
+                 calib_ranges: Optional[Mapping[str, Any]] = None,
+                 spec_k: int = 0, draft_layers: Optional[int] = None,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.chunk = chunk
         self.cache_cap = cache_cap
         self.device = resolve_device(device)
+        qkw = dict(policy=policy, quantize=quantize, calib_ranges=calib_ranges,
+                   device=self.device)
         dec_g = build_decode_graph(cfg, params, batch=n_slots, cache_cap=cache_cap)
         pre_g = build_prefill_graph(cfg, params, batch=n_slots, chunk=chunk,
                                     cache_cap=cache_cap)
-        self.decode_program = compile(dec_g, policy=policy, device=self.device)
-        self.prefill_program = compile(pre_g, policy=policy, device=self.device)
+        self.decode_program = compile(dec_g, **qkw)
+        self.prefill_program = compile(pre_g, **qkw)
         self.cache_names = list(dec_g.outputs[1:])  # new_cache_*
         cache_inputs = _cache_names(cfg)
+        self._cache_input_names = cache_inputs
         self._input_names = ("tokens", "start", "n_new", *cache_inputs)
         self._dec = self.decode_program.bind(*self._input_names, donate=cache_inputs)
         self._pre = self.prefill_program.bind(*self._input_names, donate=cache_inputs)
@@ -218,6 +266,19 @@ class ProgramStepper:
         self.caches: Dict[str, torch.Tensor] = {
             name: torch.zeros(shape, dtype=torch.float32, device=self.device)
             for name in cache_inputs}
+        verify_g, ver_bind = None, None
+        w = spec_k + 1
+        if spec_k > 0 and quantize is not None:
+            verify_g = build_verify_seq_graph(cfg, params, batch=n_slots, width=w,
+                                              cache_cap=cache_cap)
+            ver_bind = ("start", *_stage_names(w), *cache_inputs)
+        elif spec_k > 0:
+            verify_g = build_verify_graph(cfg, params, batch=n_slots, width=w,
+                                          cache_cap=cache_cap)
+        self._init_spec(params, policy=policy, quantize=quantize,
+                        calib_ranges=calib_ranges, spec_k=spec_k,
+                        draft_layers=draft_layers, verify_graph=verify_g,
+                        verify_bind_names=ver_bind, verify_spec_ranges=ver_bind is not None)
 
     def _call(self, fn, tokens, start, n_new, *extra) -> np.ndarray:
         dev = self.device
@@ -225,16 +286,95 @@ class ProgramStepper:
                   *[to_tensor(e, dev) for e in extra],
                   *[self.caches[n] for n in sorted(self.caches)])
         logits = outs[0].cpu().numpy()
-        for name, arr in zip(self.cache_names, outs[1:]):
-            self.caches[name.replace("new_", "")] = arr
+        self._set_caches(outs[1:])
         return logits
+
+    def _set_caches(self, outs: Sequence[torch.Tensor]) -> None:
+        for name, arr in zip(self.cache_names, outs):
+            self.caches[name.replace("new_", "")] = arr
+
+    def _verify_seq_call(self, tokens, start, n_new, *extra):
+        """Call a decode-unrolled verify Program: stage j gets token column
+        j and the mask ``n_new > j``.  Returns (stage logits, the rest of
+        the outputs)."""
+        dev, w = self.device, self.spec_k + 1
+        cols = [to_tensor(tokens[:, j:j + 1], dev) for j in range(w)]
+        masks = [to_tensor((n_new > j).astype(np.int32), dev) for j in range(w)]
+        outs = self._ver(to_tensor(start, dev), *[to_tensor(e, dev) for e in extra], *cols,
+                         *masks, *[self.caches[n] for n in sorted(self.caches)])
+        return torch.stack(outs[:w], dim=1).cpu().numpy(), list(outs[w:])
+
+    def _init_spec(self, params: Mapping[str, Any], *,
+                   policy: Optional[BackendPolicy],
+                   quantize: Optional[str],
+                   calib_ranges: Optional[Mapping[str, Any]],
+                   spec_k: int, draft_layers: Optional[int],
+                   verify_graph, verify_donate: bool = True,
+                   verify_bind_names: Optional[Tuple[str, ...]] = None,
+                   verify_spec_ranges: bool = False) -> None:
+        """Compile the speculative-decoding Programs (shared by the dense
+        and paged steppers; ``verify_graph`` is the flavour's verify variant
+        of the target model).
+
+        The draft model is early-exit self-speculative: the target's first
+        ``draft_layers`` layers plus its embedding and head, so there is no
+        second set of weights, and because its value names match the
+        target's, the one shared calibration covers it
+        (:func:`expand_spec_ranges` maps the ranges onto the unrolled
+        step-suffixed names).  Its caches are private per-slot dense
+        buffers of ``cache_cap + spec_k + 1`` rows: a draft call writes up
+        to spec_k+1 rows past the committed length and is never rolled
+        back (stale rows are overwritten by the next catch-up or draft
+        call, and draft attention never reads past its kv length)."""
+        self.spec_k = spec_k
+        self._verify_seq = verify_bind_names is not None
+        if spec_k == 0:
+            return
+        cfg = self.cfg
+        dl = draft_layers if draft_layers is not None else max(1, cfg.n_layers // 2)
+        if not 1 <= dl <= cfg.n_layers:
+            raise ValueError(f"draft_layers {dl} outside [1, {cfg.n_layers}]")
+        self.draft_layers = dl
+        draft_cfg = replace(cfg, n_layers=dl)
+        self.draft_cap = self.cache_cap + spec_k + 1
+        draft_ranges = (expand_spec_ranges(dict(calib_ranges), spec_k)
+                        if calib_ranges is not None else None)
+        draft_g = build_draft_graph(draft_cfg, dict(params), batch=self.n_slots,
+                                    cache_cap=self.draft_cap, spec_k=spec_k)
+        draft_pre_g = build_prefill_graph(draft_cfg, dict(params), batch=self.n_slots,
+                                          chunk=self.chunk, cache_cap=self.draft_cap)
+        kw = dict(policy=policy, quantize=quantize, device=self.device)
+        self.draft_program = compile(draft_g, calib_ranges=draft_ranges, **kw)
+        self.draft_prefill_program = compile(draft_pre_g, calib_ranges=calib_ranges, **kw)
+        # the kv8 seq verify's value names are step-suffixed like the
+        # draft's, so it needs the expanded calibration to see the same
+        # static scales the decode Program uses
+        self.verify_program = compile(
+            verify_graph, calib_ranges=draft_ranges if verify_spec_ranges else calib_ranges,
+            **kw)
+        draft_cache_inputs = _cache_names(draft_cfg)
+        names = ("tokens", "start", "n_new", *draft_cache_inputs)
+        self._draft = self.draft_program.bind(*names, donate=draft_cache_inputs)
+        self._draft_pre = self.draft_prefill_program.bind(*names, donate=draft_cache_inputs)
+        # the kv8 verify only READS the pages (its cache inputs are not
+        # threaded back out), so they are not donated; the commit is
+        self._ver = self.verify_program.bind(
+            *(verify_bind_names if verify_bind_names is not None else self._input_names),
+            donate=self._cache_input_names if verify_donate else ())
+        self._draft_cache_names = list(draft_g.outputs[spec_k:])
+        shape = (self.n_slots, self.draft_cap, cfg.n_kv_heads, cfg.d_head)
+        self.draft_caches: Dict[str, torch.Tensor] = {
+            name: torch.zeros(shape, dtype=torch.float32, device=self.device)
+            for name in draft_cache_inputs}
 
     def backend_summary(self) -> Dict[str, Dict[str, Dict[str, int]]]:
         """Per-phase, per-op backend assignment counts:
-        ``{"prefill"|"decode": {op: {backend: node_count}}}``."""
+        ``{"prefill"|"decode"[|"verify"|"draft"]: {op: {backend: node_count}}}``."""
+        phases = [("prefill", self.prefill_program), ("decode", self.decode_program)]
+        if self.spec_k:
+            phases += [("verify", self.verify_program), ("draft", self.draft_program)]
         out: Dict[str, Dict[str, Dict[str, int]]] = {}
-        for phase, prog in (("prefill", self.prefill_program),
-                            ("decode", self.decode_program)):
+        for phase, prog in phases:
             per_op: Dict[str, Dict[str, int]] = {}
             assignment = prog.assignment
             for node in prog.graph.nodes:
@@ -253,6 +393,43 @@ class ProgramStepper:
                n_new: np.ndarray) -> np.ndarray:
         """tokens (B, 1) -> logits (B, V); caches advance."""
         return self._call(self._dec, tokens, start, n_new)
+
+    def verify(self, tokens: np.ndarray, start: np.ndarray,
+               n_new: np.ndarray) -> np.ndarray:
+        """tokens (B, spec_k+1) — committed next token + draft proposals —
+        -> per-position logits (B, spec_k+1, V); the main caches advance by
+        ``n_new[b]`` rows (rejected rows lie past the committed length the
+        engine rolls back to, and are overwritten by the next write)."""
+        if not self._verify_seq:
+            return self._call(self._ver, tokens, start, n_new)
+        logits, caches = self._verify_seq_call(tokens, start, n_new)
+        self._set_caches(caches)
+        return logits
+
+    def _draft_call(self, fn, tokens, start, n_new):
+        dev = self.device
+        outs = fn(to_tensor(tokens, dev), to_tensor(start, dev), to_tensor(n_new, dev),
+                  *[self.draft_caches[n] for n in sorted(self.draft_caches)])
+        k = len(outs) - len(self._draft_cache_names)
+        for name, arr in zip(self._draft_cache_names, outs[k:]):
+            self.draft_caches[name.replace("new_", "")] = arr
+        return outs[:k]
+
+    def draft_prefill(self, tokens: np.ndarray, start: np.ndarray,
+                      n_new: np.ndarray) -> None:
+        """Advance the private draft caches over already-committed tokens
+        (cold start and a prefix hit are both ``draft_len < length``
+        catch-up).  Drafting starts from the committed next token, so the
+        logits are not read back."""
+        self._draft_call(self._draft_pre, tokens, start, n_new)
+
+    def draft(self, tokens: np.ndarray, start: np.ndarray,
+              n_new: np.ndarray) -> np.ndarray:
+        """One unrolled draft call: tokens (B, 1) — the committed next
+        token — -> (B, spec_k) greedy proposals; the draft caches advance
+        spec_k+1 rows (the last makes a full accept need no catch-up)."""
+        toks = self._draft_call(self._draft, tokens, start, n_new)
+        return torch.cat(toks, dim=1).cpu().numpy()
 
 
 class PagedProgramStepper(ProgramStepper):
@@ -279,6 +456,9 @@ class PagedProgramStepper(ProgramStepper):
                  n_slots: int, chunk: int, page_size: int, n_blocks: int,
                  max_pages: int, kv_dtype: str = "float32",
                  policy: Optional[BackendPolicy] = None,
+                 quantize: Optional[str] = None,
+                 calib_ranges: Optional[Mapping[str, Any]] = None,
+                 spec_k: int = 0, draft_layers: Optional[int] = None,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.n_slots = n_slots
@@ -295,11 +475,14 @@ class PagedProgramStepper(ProgramStepper):
         pre_g = build_paged_prefill_graph(cfg, params, batch=n_slots, chunk=chunk,
                                           n_blocks=n_blocks, page_size=page_size,
                                           max_pages=max_pages, kv_dtype=kv_dtype)
-        self.decode_program = compile(dec_g, policy=policy, device=self.device)
-        self.prefill_program = compile(pre_g, policy=policy, device=self.device)
+        qkw = dict(policy=policy, quantize=quantize, calib_ranges=calib_ranges,
+                   device=self.device)
+        self.decode_program = compile(dec_g, **qkw)
+        self.prefill_program = compile(pre_g, **qkw)
         self.cache_names = list(dec_g.outputs[1:])  # new_cache_* (+ _scale)
         pools = init_paged_cache_inputs(cfg, n_blocks, page_size, kv_dtype=kv_dtype)
         cache_inputs = sorted(pools)
+        self._cache_input_names = cache_inputs
         self._input_names = ("tokens", "start", "n_new", "block_tables", *cache_inputs)
         self._dec = self.decode_program.bind(*self._input_names, donate=cache_inputs)
         self._pre = self.prefill_program.bind(*self._input_names, donate=cache_inputs)
@@ -312,6 +495,45 @@ class PagedProgramStepper(ProgramStepper):
             page_bytes=kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head,
                                      page_size, kv_dtype))
         self._slot_seq: Dict[int, int] = {}
+        verify_g = None
+        ver_bind: Optional[Tuple[str, ...]] = None
+        w = spec_k + 1
+        kv8 = kv_dtype == "int8"
+        if spec_k > 0 and kv8:
+            # quantize-on-write makes int8 page bytes history-dependent, so
+            # the kv8 verify is the decode step unrolled w times in one
+            # Program (logits bit-identical to plain decode) rather than the
+            # chunk-shaped verify of the fp32 flavours
+            verify_g = build_paged_verify_seq_graph(
+                cfg, params, batch=n_slots, width=w, n_blocks=n_blocks,
+                page_size=page_size, max_pages=max_pages)
+            ver_bind = ("start", "block_tables", *_stage_names(w), *cache_inputs)
+        elif spec_k > 0 and quantize is not None:
+            verify_g = build_verify_seq_graph(cfg, params, batch=n_slots, width=w,
+                                              paged=(n_blocks, page_size, max_pages))
+            ver_bind = ("start", "block_tables", *_stage_names(w), *cache_inputs)
+        elif spec_k > 0:
+            verify_g = build_paged_verify_graph(
+                cfg, params, batch=n_slots, width=w, n_blocks=n_blocks,
+                page_size=page_size, max_pages=max_pages, kv_dtype=kv_dtype)
+        self._init_spec(params, policy=policy, quantize=quantize,
+                        calib_ranges=calib_ranges, spec_k=spec_k,
+                        draft_layers=draft_layers, verify_graph=verify_g,
+                        verify_donate=not kv8, verify_bind_names=ver_bind,
+                        verify_spec_ranges=ver_bind is not None)
+        if spec_k > 0 and kv8:
+            commit_g = build_spec_commit_graph(cfg, batch=n_slots, width=w,
+                                               n_blocks=n_blocks, page_size=page_size,
+                                               max_pages=max_pages)
+            self.spec_commit_program = compile(commit_g, policy=policy, device=self.device)
+            # j-major, i-minor: the order the seq verify graph emits its
+            # per-stage fp32 rows in
+            kv_names = [x for j in range(w) for i in range(cfg.n_layers)
+                        for x in (f"k_new{i}.s{j}", f"v_new{i}.s{j}")]
+            self._commit = self.spec_commit_program.bind(
+                "start", "block_tables", *[f"n_new.s{j}" for j in range(w)], *kv_names,
+                *cache_inputs, donate=cache_inputs)
+            self._pending_kv: Optional[List[torch.Tensor]] = None
 
     # ---------------------------- admission --------------------------- #
     def try_admit(self, prompt: np.ndarray,
@@ -375,6 +597,49 @@ class PagedProgramStepper(ProgramStepper):
         self._record_writes(tokens, start, n_new)
         return self._call(self._dec, tokens, start, n_new, self._tables())
 
+    def verify(self, tokens: np.ndarray, start: np.ndarray,
+               n_new: np.ndarray) -> np.ndarray:
+        """fp32 pages: the speculative rows go through the normal paged
+        write and the engine calls :meth:`BlockPool.truncate` afterwards to
+        roll the rejected tail back (fp32 page writes are exact, so rejected
+        rows leave no residue).
+
+        int8 pages: the verify Program is the decode step unrolled
+        ``spec_k+1`` times, threading its quantize-on-write page state
+        internally and then discarding it, so each stage's logits are
+        bit-identical to plain decode's at that position while the live
+        pages stay untouched.  The pool bookkeeping and copy-on-write still
+        happen first, so the block tables cover the speculative rows; the
+        per-stage fp32 K/V rows come back and wait for :meth:`commit_spec`.
+
+        int8 weights over fp32 pages: the decode step unrolled too, writing
+        its rows as it goes (fp32 writes are exact)."""
+        self._record_writes(tokens, start, n_new)
+        if not self._verify_seq:
+            return self._call(self._ver, tokens, start, n_new, self._tables())
+        logits, rest = self._verify_seq_call(tokens, start, n_new, self._tables())
+        if self.kv_dtype == "int8":
+            self._pending_kv = rest
+        else:
+            self._set_caches(rest)
+        return logits
+
+    def commit_spec(self, start: np.ndarray, n_acc: np.ndarray) -> None:
+        """kv8 only: replay the accepted prefix (``n_acc[b]`` rows) of the
+        verify call's writes against the live pages, in the verify's order
+        (stage j-major, layer i-minor).  The pool already covers these rows
+        (recorded before the verify call, then truncated back to the
+        accepted length), so this is only the write-chain Program.
+        Replaying a write that already happened is bit-idempotent:
+        identical rows quantize to identical bytes and never raise a page
+        scale."""
+        dev, w = self.device, self.spec_k + 1
+        masks = [to_tensor((n_acc > j).astype(np.int32), dev) for j in range(w)]
+        outs = self._commit(to_tensor(start, dev), to_tensor(self._tables(), dev), *masks,
+                            *self._pending_kv, *[self.caches[n] for n in sorted(self.caches)])
+        self._set_caches(outs)
+        self._pending_kv = None
+
 
 # --------------------------------------------------------------------------- #
 # The engine
@@ -387,6 +652,9 @@ class _SlotState:
     length: int = 0       # valid cache entries
     next_token: int = 0
     decoding: bool = False
+    # committed rows present in the private draft cache (speculative
+    # engines only); a cold start and a prefix hit both catch up from here
+    draft_len: int = 0
 
 
 class Engine:
@@ -400,7 +668,9 @@ class Engine:
 
     With a :class:`PagedProgramStepper`, admission is also gated on BLOCK
     availability, a prefix hit fast-forwards prefill past the reused rows,
-    and a finished sequence leaves its pages in the prefix index.
+    and a finished sequence leaves its pages in the prefix index.  With a
+    stepper built with ``spec_k > 0`` every decode tick is a speculative
+    tick (:meth:`_spec_decode_tick`).
     """
 
     def __init__(self, stepper: ProgramStepper, *, eos_id: int = -1,
@@ -410,6 +680,7 @@ class Engine:
         self.chunk = stepper.chunk
         self.cache_cap = stepper.cache_cap
         self.paged = stepper.paged
+        self.spec_k = getattr(stepper, "spec_k", 0)
         self.eos_id = eos_id
         self.sched = SlotScheduler(self.n_slots, max_queue=max_queue)
         self.slots: List[Optional[_SlotState]] = [None] * self.n_slots
@@ -536,7 +807,10 @@ class Engine:
             self._prefill_tick(prefill)
             self._last_was_prefill = True
         elif decode:
-            self._decode_tick(decode)
+            if self.spec_k:
+                self._spec_decode_tick(decode)
+            else:
+                self._decode_tick(decode)
             self._last_was_prefill = False
         self.metrics.wall_s = time.perf_counter() - self._t0
 
@@ -623,6 +897,116 @@ class Engine:
         self.metrics.decode_tokens += len(slots)
         self.metrics.decode_wall_s += time.perf_counter() - t_begin
 
+    def _draft_catch_up(self, slots: List[int]) -> None:
+        """Bring every slot's private draft cache up to its committed
+        length with batched draft-prefill chunks over the committed token
+        stream (prompt + every generated token)."""
+        b, c = self.n_slots, self.chunk
+        while True:
+            behind = [s for s in slots if self.slots[s].draft_len < self.slots[s].length]
+            if not behind:
+                return
+            tokens = np.zeros((b, c), np.int32)
+            start = np.zeros((b,), np.int32)
+            n_new = np.zeros((b,), np.int32)
+            for s in behind:
+                st = self.slots[s]
+                full = np.concatenate([np.asarray(st.req.prompt, np.int32),
+                                       np.asarray(st.req.out_tokens, np.int32)])
+                n = min(c, st.length - st.draft_len)
+                tokens[s, :n] = full[st.draft_len:st.draft_len + n]
+                start[s] = st.draft_len
+                n_new[s] = n
+            self.stepper.draft_prefill(tokens, start, n_new)
+            for s in behind:
+                self.slots[s].draft_len += int(n_new[s])
+
+    def _spec_decode_tick(self, slots: List[int]) -> None:
+        """Speculative decode tick: one draft call proposes ``spec_k``
+        greedy tokens per slot, one verify call scores them (plus the
+        committed next token) against the target, and the greedy acceptance
+        walk emits every proposal that matches the target's own argmax, so
+        the emitted stream is token-identical to plain decode.  Rejected
+        rows are rolled back with :meth:`BlockPool.truncate` (paged) or
+        overwritten by the next write at the committed position (dense)."""
+        t_begin = time.perf_counter()
+        b, k = self.n_slots, self.spec_k
+        width = k + 1
+        self._draft_catch_up(slots)
+        tokens = np.zeros((b, 1), np.int32)
+        start = np.zeros((b,), np.int32)
+        n_new = np.zeros((b,), np.int32)
+        for s in slots:
+            st = self.slots[s]
+            tokens[s, 0] = st.next_token
+            start[s] = st.length
+            n_new[s] = 1
+        draft_toks = self.stepper.draft(tokens, start, n_new)
+        vtokens = np.zeros((b, width), np.int32)
+        vstart = np.zeros((b,), np.int32)
+        vn_new = np.zeros((b,), np.int32)
+        for s in slots:
+            st = self.slots[s]
+            remaining = st.req.max_new_tokens - len(st.req.out_tokens)
+            n = min(width, remaining)   # never write past the request cap
+            vtokens[s, 0] = st.next_token
+            vtokens[s, 1:n] = draft_toks[s, :n - 1]
+            vstart[s] = st.length
+            vn_new[s] = n
+        logits = self.stepper.verify(vtokens, vstart, vn_new)
+        self.metrics.decode_ticks += 1
+        self.metrics.spec_ticks += 1
+        self.metrics.busy_slot_ticks += len(slots)
+        # greedy acceptance walk: position i's argmax is what plain decode
+        # would emit after vtokens[:i+1]; keep walking while the next fed
+        # draft token IS that argmax.  Every slot is walked before any state
+        # changes, since the kv8 commit below is one batched call.
+        emits: Dict[int, List[int]] = {}
+        for s in slots:
+            st = self.slots[s]
+            n = int(vn_new[s])
+            emit: List[int] = []
+            for i in range(n):
+                g = int(np.argmax(logits[s, i]))
+                emit.append(g)
+                if g == self.eos_id or \
+                        len(st.req.out_tokens) + len(emit) >= st.req.max_new_tokens:
+                    break
+                if i + 1 < n and int(vtokens[s, i + 1]) == g:
+                    continue
+                break
+            emits[s] = emit      # len >= 1: position 0 re-scores the committed token
+        if self.paged:
+            # roll back the rejected speculative rows; rows 0..length+e-1
+            # hold exactly the committed stream
+            for s in slots:
+                self.stepper.pool.truncate(self.stepper._slot_seq[s],
+                                           self.slots[s].length + len(emits[s]))
+            if self.stepper.kv_dtype == "int8":
+                # the kv8 verify left the live pages untouched; replay the
+                # accepted prefix of its writes now that the block tables
+                # are truncated back to exactly those rows
+                commit_n = np.zeros((b,), np.int32)
+                for s in slots:
+                    commit_n[s] = len(emits[s])
+                self.stepper.commit_spec(vstart, commit_n)
+        emitted_total = 0
+        for s in slots:
+            st = self.slots[s]
+            emit = emits[s]
+            e = len(emit)
+            self.metrics.spec_proposed += int(vn_new[s]) - 1
+            self.metrics.spec_accepted += e - 1
+            st.length += e
+            st.draft_len = st.length   # accepted rows == draft-cache rows
+            st.next_token = emit[-1]
+            for tok in emit:
+                self._emit(st, tok)
+            emitted_total += e
+            self._maybe_finish(s, emit[-1])
+        self.metrics.decode_tokens += emitted_total
+        self.metrics.decode_wall_s += time.perf_counter() - t_begin
+
     def _maybe_finish(self, slot: int, tok: int) -> None:
         st = self.slots[slot]
         if tok == self.eos_id or len(st.req.out_tokens) >= st.req.max_new_tokens:
@@ -646,7 +1030,8 @@ class Engine:
 
 class UnbatchedReference:
     """No-batching greedy loop over B=1 Programs compiled from the same
-    graphs as the engine's — the token-exactness oracle.
+    graphs (and, for int8 weights, the same calibration ranges) as the
+    engine's — the token-exactness oracle.
 
     ``chunk=None`` prefills the whole prompt in one Program call; an
     integer chunk reproduces the engine's chunked prefill.  Programs are
@@ -654,17 +1039,22 @@ class UnbatchedReference:
 
     def __init__(self, cfg: GraphLMConfig, params: Mapping[str, Any], *,
                  cache_cap: int, policy: Optional[BackendPolicy] = None,
+                 quantize: Optional[str] = None,
+                 calib_ranges: Optional[Mapping[str, Any]] = None,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.params = dict(params)
         self.cache_cap = cache_cap
         self.device = resolve_device(device)
         self._policy = policy
+        self._quantize = quantize
+        self._ranges = calib_ranges
         self._decode: Optional[Tuple[Any, List[str]]] = None
         self._prefills: Dict[int, Tuple[Any, List[str]]] = {}
 
     def _compiled(self, graph) -> Tuple[Any, List[str]]:
-        prog = compile(graph, policy=self._policy, device=self.device)
+        prog = compile(graph, policy=self._policy, quantize=self._quantize,
+                       calib_ranges=self._ranges, device=self.device)
         cache_inputs = _cache_names(self.cfg)
         names = ("tokens", "start", "n_new", *cache_inputs)
         return prog.bind(*names, donate=cache_inputs), list(graph.outputs[1:])
@@ -684,7 +1074,12 @@ class UnbatchedReference:
         return self._decode
 
     def generate(self, prompt: np.ndarray, max_new_tokens: int, *,
-                 chunk: Optional[int] = None, eos_id: int = -1) -> List[int]:
+                 chunk: Optional[int] = None, eos_id: int = -1,
+                 record: Optional[List] = None) -> List[int]:
+        """Greedy tokens for one prompt.  ``record`` (a list) receives one
+        ``(kind, inputs)`` pair per Program call, ``kind`` "prefill" or
+        "decode" and ``inputs`` the call's graph inputs by name (the
+        cache tensors as the call read them) — calibration batches."""
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) == 0 or max_new_tokens < 1:
             raise ValueError("need a non-empty prompt and max_new_tokens >= 1")
@@ -698,7 +1093,10 @@ class UnbatchedReference:
         caches = {k: torch.zeros(shape, dtype=torch.float32, device=dev)
                   for k in _cache_names(self.cfg)}
 
-        def call(fn, outs, tokens, start, n_new):
+        def call(fn, outs, tokens, start, n_new, kind):
+            if record is not None:
+                record.append((kind, {"tokens": tokens, "start": start, "n_new": n_new,
+                                      **caches}))
             res = fn(to_tensor(tokens, dev), to_tensor(start, dev),
                      to_tensor(n_new, dev), *[caches[k] for k in sorted(caches)])
             for name, arr in zip(outs, res[1:]):
@@ -712,24 +1110,75 @@ class UnbatchedReference:
             toks = np.zeros((1, c), np.int32)
             toks[0, :n] = prompt[pos:pos + n]
             logits = call(pre, cache_outs, toks, np.asarray([pos], np.int32),
-                          np.asarray([n], np.int32))
+                          np.asarray([n], np.int32), "prefill")
             pos += n
         out = [int(np.argmax(logits[0, n - 1]))]
         dec, dec_outs = self._decode_fn()
         length = len(prompt)
         while out[-1] != eos_id and len(out) < max_new_tokens:
             logits = call(dec, dec_outs, np.asarray([[out[-1]]], np.int32),
-                          np.asarray([length], np.int32), np.asarray([1], np.int32))
+                          np.asarray([length], np.int32), np.asarray([1], np.int32),
+                          "decode")
             length += 1
             out.append(int(np.argmax(logits[0])))
         return out
 
 
+def _merge_ranges(*range_dicts: Mapping[str, Any]) -> Dict[str, Any]:
+    """Union of calibration ranges over value names: min lo, max hi.
+
+    ``channel_mean`` is taken from the first dict that has the value —
+    exact averaging would need per-batch counts.  It only feeds
+    quantize-time bias correction, which never fires for the bias-free
+    graph-LM dense nodes."""
+    from repro_torch.core.quant import ValueRange
+    out: Dict[str, Any] = {}
+    for d in range_dicts:
+        for name, vr in d.items():
+            if name in out:
+                prev = out[name]
+                out[name] = ValueRange(min(prev[0], vr[0]), max(prev[1], vr[1]),
+                                       getattr(prev, "channel_mean", None))
+            else:
+                out[name] = vr
+    return out
+
+
+def shared_calibration(cfg: GraphLMConfig, params: Mapping[str, Any], *,
+                       chunk: int, cache_cap: int, seed: int = 0,
+                       n_prompts: int = 3, max_new_tokens: int = 4,
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """One calibration for every Program variant of this model.
+
+    Records real serving traffic (a few fp32 reference generations on
+    ``device``) as input batches for the B=1 prefill and decode graphs,
+    calibrates each on the same device, and merges the ranges by value
+    name.  The graph builders use identical value names across batch and
+    chunk variants, so the result drives ``compile(..., quantize="int8",
+    calib_ranges=...)`` for the engine's batched Programs and the unbatched
+    reference alike: every variant gets the same static activation scales,
+    the precondition for batched-vs-unbatched token-exactness under int8.
+    The prompts are ``repro``'s (same seed, same draws)."""
+    from repro_torch.core.quant import calibrate
+    dev = resolve_device(device)
+    ref = UnbatchedReference(cfg, params, cache_cap=cache_cap, device=dev)
+    rng = np.random.default_rng(seed)
+    record: List[Tuple[str, Dict[str, Any]]] = []
+    for _ in range(n_prompts):
+        plen = int(rng.integers(1, max(2, 2 * chunk)))
+        prompt = rng.integers(0, cfg.vocab, size=plen).astype(np.int32)
+        ref.generate(prompt, max_new_tokens, chunk=chunk, record=record)
+    pre_batches = [inputs for kind, inputs in record if kind == "prefill"]
+    dec_batches = [inputs for kind, inputs in record if kind == "decode"]
+    g_pre = build_prefill_graph(cfg, params, batch=1, chunk=chunk, cache_cap=cache_cap)
+    g_dec = build_decode_graph(cfg, params, batch=1, cache_cap=cache_cap)
+    return _merge_ranges(calibrate(g_pre, pre_batches, device=dev),
+                         calibrate(g_dec, dec_batches, device=dev))
+
+
 # Options of repro's build_lm_serving that the port serves only at their
 # default so far: option -> (default, ROADMAP.md item that ports it).
 _NOT_PORTED = {
-    "quantize": (None, "Queue 1 item 6 (int8)"),
-    "spec_k": (0, "Queue 1 item 7 (speculative decoding)"),
     "self_heal": (False, "Queue 1 item 8 (self-heal, tier-aware scheduling)"),
     "tier_aware": (False, "Queue 1 item 8 (self-heal, tier-aware scheduling)"),
     "mesh": (None, "Queue 1 item 12 (tensor-parallel serving)"),
@@ -747,6 +1196,9 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
                      n_blocks: Optional[int] = None,
                      max_pages: Optional[int] = None,
                      kv_dtype: str = "float32",
+                     quantize: Optional[str] = None,
+                     spec_k: int = 0,
+                     draft_layers: Optional[int] = None,
                      device: DeviceLike = None,
                      **options: Any) -> Tuple[Engine, UnbatchedReference]:
     """Compile the serving Programs for a graph LM and return the engine
@@ -767,10 +1219,18 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
     routes the hot path through the ``*_q`` ops.  The reference stays dense
     fp32 either way: it is the paged engine's token-exactness oracle.
 
-    ``repro``'s other options (``quantize``, ``spec_k``, ``self_heal``,
-    ``tier_aware``, ``mesh``, ``tp``) are accepted at their defaults only;
-    anything else raises ``NotImplementedError`` naming the ROADMAP item
-    that ports it."""
+    ``quantize="int8"`` compiles every Program, the reference's included,
+    with int8 weights and the activation ranges of one
+    :func:`shared_calibration` (run here, on ``device``).
+
+    ``spec_k > 0`` turns on greedy speculative decoding: every decode tick
+    drafts ``spec_k`` tokens with an early-exit draft model (the target's
+    first ``draft_layers`` layers, default ``n_layers // 2``) and verifies
+    them in one call; the output stays token-identical to plain decode.
+
+    ``repro``'s other options (``self_heal``, ``tier_aware``, ``mesh``,
+    ``tp``) are accepted at their defaults only; anything else raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
     for name, value in options.items():
         if name not in _NOT_PORTED:
             raise TypeError(f"build_lm_serving() got an unexpected keyword argument {name!r}")
@@ -785,17 +1245,23 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
     dev = resolve_device(device)
     params = params_from_numpy(
         params if params is not None else init_lm_params(cfg, seed), dev)
+    ranges = None
+    if quantize is not None:
+        ranges = shared_calibration(cfg, params, chunk=chunk, cache_cap=cache_cap,
+                                    seed=seed, device=dev)
+    qkw = dict(policy=policy, quantize=quantize, calib_ranges=ranges, device=dev)
     if paged:
         mp = max_pages if max_pages is not None else -(-cache_cap // page_size)
         nb = n_blocks if n_blocks is not None else n_slots * mp
         stepper: ProgramStepper = PagedProgramStepper(
             cfg, params, n_slots=n_slots, chunk=chunk, page_size=page_size,
-            n_blocks=nb, max_pages=mp, kv_dtype=kv_dtype, policy=policy, device=dev)
+            n_blocks=nb, max_pages=mp, kv_dtype=kv_dtype, spec_k=spec_k,
+            draft_layers=draft_layers, **qkw)
     else:
         stepper = ProgramStepper(cfg, params, n_slots=n_slots, chunk=chunk,
-                                 cache_cap=cache_cap, policy=policy, device=dev)
+                                 cache_cap=cache_cap, spec_k=spec_k,
+                                 draft_layers=draft_layers, **qkw)
     engine = Engine(stepper, eos_id=eos_id, max_queue=max_queue)
     reference = UnbatchedReference(cfg, params,
-                                   cache_cap=max(cache_cap, stepper.cache_cap),
-                                   policy=policy, device=dev)
+                                   cache_cap=max(cache_cap, stepper.cache_cap), **qkw)
     return engine, reference

@@ -42,9 +42,10 @@ Reuse is capped at ``len(prompt) - 1`` tokens so at least one prompt
 position is always prefilled — the first output token comes from that
 position's logits.
 
-:meth:`BlockPool.snapshot` / :meth:`BlockPool.restore` and
-:meth:`BlockPool.truncate` (the JAX package's self-healing and speculative
-paths, not ported yet) and :meth:`BlockPool.fork` come along unchanged.
+:meth:`BlockPool.truncate` rolls back a speculative tick's rejected rows.
+:meth:`BlockPool.snapshot` / :meth:`BlockPool.restore` (the JAX package's
+self-healing path, not ported yet) and :meth:`BlockPool.fork` come along
+unchanged.
 """
 
 from __future__ import annotations

@@ -357,8 +357,12 @@ def test_cnn_eval_runs_on_the_cpu(tmp_path, capsys):
                         autotune_cache=str(tmp_path / "tune.json"))
     assert set(rows[0]) == {"model", "winner", *cnn_eval.ASSIGNMENTS}
     assert rows[0]["winner"] in cnn_eval.ASSIGNMENTS
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cnn_eval.main(["--int8", "--device", "cpu"])
+    cnn_eval.main(["--int8", "--fast", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "batch 1, median of 2 runs, on cpu"
+    rows = [line.split() for line in out[2:]]
+    assert [r[0] for r in rows] == list(cnn_eval.FAST_MODELS)
+    assert all(float(r[5].rstrip("x")) >= 3.9 for r in rows)
 
 
 # --------------------------------------------------------------------------- #

@@ -138,6 +138,14 @@ def test_scheduler_is_priority_fifo():
     ("self_heal", True, "item 8"), ("tier_aware", True, "item 8"),
     ("mesh", object(), "item 12"), ("tp", 2, "item 12")])
 def test_options_outside_the_slice_name_their_roadmap_item(option, value, item):
+    if option in ("quantize", "spec_k"):
+        # items 6 and 7 are ported: the option builds its engine
+        engine, _ = build_lm_serving(CFG, n_slots=1, chunk=2, cache_cap=8, device="cpu",
+                                     **{option: value})
+        assert engine.spec_k == (value if option == "spec_k" else 0)
+        ops = {n.op for n in engine.stepper.decode_program.graph.nodes}
+        assert ("dense_q" in ops) == (option == "quantize")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         build_lm_serving(CFG, device="cpu", **{option: value})
     build_lm_serving(CFG, n_slots=1, chunk=2, cache_cap=4, device="cpu",

@@ -1035,3 +1035,113 @@ def test_refused_launches_and_inputs_raise():
         rmsnorm(torch.zeros(2, 8, device=dev), torch.ones(8, device=dev),
                 residual=torch.zeros(2, 8))
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------- #
+# speculative verify and int8 weights on the card
+# --------------------------------------------------------------------------- #
+
+def _verify_case(rn, dev, op, b, t, d=96, hq=8, hk=4, n=40, p=16, mp=8):
+    """One verify op's inputs at T = t: starts 0, mid-page and reaching past
+    the last page (the patched rows beyond the cache are dropped)."""
+    start = torch.tensor([0, 37, mp * p - t + 1, 5][:b], dtype=torch.int32, device=dev)
+    q = rn(b, t, hq, d)
+    if op == "verify_attention":
+        return [q, rn(b, mp * p, hk, d), rn(b, mp * p, hk, d), start]
+    tables = torch.stack([torch.randperm(n, device=dev)[:mp] for _ in range(b)]).int()
+    if op == "paged_verify_attention":
+        return [q, rn(n, p, hk, d), rn(n, p, hk, d), tables, start]
+    pk = torch.randint(-127, 128, (n, p, hk, d), device=dev, dtype=torch.int8)
+    pv = torch.randint(-127, 128, (n, p, hk, d), device=dev, dtype=torch.int8)
+    return [q, pk, rn(n, hk).abs() * 0.02, pv, rn(n, hk).abs() * 0.02, tables, start,
+            rn(b, t, hk, d), rn(b, t, hk, d)]
+
+
+VERIFY_OPS = ["verify_attention", "paged_verify_attention", "paged_verify_attention_q"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", VERIFY_OPS)
+@pytest.mark.parametrize("t", [2, 3, 4, 5])
+def test_verify_ops_cuda_match_their_plain_versions(op, t):
+    """The verify ops' ``cuda`` backends (the chunk and paged chunk kernels
+    at T = spec_k + 1) against their ``ref`` backends on the card."""
+    dev = _card()
+    import repro_torch  # noqa: F401
+    from repro_torch.core.registry import get_impl
+    from repro_torch.kernels.flash_attention import (flash_chunk_attention,
+                                                     flash_paged_chunk_attention)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30 + t)
+    torch.manual_seed(t)
+    inputs = _verify_case(_rn(gen, dev), dev, op, 4, t)
+    kern = flash_paged_chunk_attention if op == "paged_verify_attention" \
+        else flash_chunk_attention
+    before = kern.launches
+    for scale in (None, 0.0):
+        (got,) = get_impl(op, "cuda")(inputs, {"scale": scale})
+        (want,) = get_impl(op, "ref")(inputs, {"scale": scale})
+        torch.testing.assert_close(got, want, **TOL)
+    assert kern.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", VERIFY_OPS)
+def test_verify_rows_are_bitwise_the_same_at_b1_and_b4(op):
+    dev = _card()
+    import repro_torch  # noqa: F401
+    from repro_torch.core.registry import get_impl
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(40)
+    torch.manual_seed(40)
+    inputs = _verify_case(_rn(gen, dev), dev, op, 4, 4)
+    (full,) = get_impl(op, "cuda")(inputs, {})
+    batch_args = {0, 5, 6, 7, 8} if op == "paged_verify_attention_q" else \
+        ({0, 3, 4} if op == "paged_verify_attention" else {0, 1, 2, 3})
+    for b in range(4):
+        one = [x[b:b + 1].contiguous() if i in batch_args else x for i, x in enumerate(inputs)]
+        (row,) = get_impl(op, "cuda")(one, {})
+        assert torch.equal(row[0], full[b]), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["dense_q", "dense_fused_q", "conv2d_q", "conv2d_fused_q"])
+@pytest.mark.parametrize("static", [True, False])
+def test_quantized_ref_on_the_card_equals_the_cpu_bitwise(op, static):
+    """The integer oracle accumulates in float64 on the card (no tensor
+    leaves it): exact, so its output equals the CPU's bit for bit, at
+    phi3-mini's widest K (8192) for dense."""
+    dev = _card()
+    import repro_torch  # noqa: F401
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.core.registry import get_impl
+    g = torch.Generator().manual_seed(50)
+    dense = op.startswith("dense")
+    x = torch.randn((4, 8192) if dense else (2, 14, 14, 64), generator=g)
+    w = torch.randn((8192, 96) if dense else (3, 3, 64, 32), generator=g) * 0.02
+    w_q, w_s = quantize_weight(w, 1 if dense else 3)
+    attrs = {"w_scale": w_s, "zero_point": 0, "act": "relu"}
+    if not dense:
+        attrs["padding"] = "SAME"
+    if static:
+        attrs["x_scale"] = float(x.abs().max()) * 0.8 / 127
+    cpu_in = [x, w_q] + ([torch.randn(w_q.shape[-1], generator=g)] if "fused" in op else [])
+    attrs_dev = dict(attrs, w_scale=w_s.to(dev))
+    (want,) = get_impl(op, "ref")(cpu_in, attrs)
+    (got,) = get_impl(op, "ref")([t.to(dev) for t in cpu_in], attrs_dev)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_weight_quantization_on_the_card_equals_numpy_bitwise():
+    """quantize_weight of a tensor on the card: the same int8 weights and
+    scales as the numpy path (true divisions, round half to even)."""
+    dev = _card()
+    from repro_torch.core.quant import quantize_weight
+    w = np.random.default_rng(51).standard_normal((3072, 8192)).astype(np.float32)
+    w[:, 7] = 0.0
+    q_np, s_np = quantize_weight(w, 1)
+    q_t, s_t = quantize_weight(torch.from_numpy(w).to(dev), 1)
+    assert np.array_equal(q_t.cpu().numpy(), q_np)
+    assert s_t.cpu().numpy().tobytes() == s_np.tobytes()
