@@ -151,9 +151,42 @@ Phases, each printing its own lines; any failure exits non-zero:
              times.  The dense stepper's verify logits are compared with
              its decode logits at the same positions (max |diff| and the
              top-2 gap wherever the argmax differs are printed).
+15. heal   — (after 14, on phase 5's weights) four engines built with
+             self_heal: dense and spec dense (spec_k 3) over phase 5's
+             requests, paged fp32 (256 blocks) and paged int8 (1021) over
+             phases 6 and 7's two waves.  Each is warmed with one request,
+             its hang deadline set to 4x its slowest warm call + 1 s, then
+             three faults at call indices drawn from HEAL_SEED land in it: a
+             Python exception, a real CUDA out-of-memory error (an
+             allocation of the card's whole memory) and a device spin
+             (torch.cuda._sleep) that overruns the deadline; at least one
+             in a prefill call, one in a decode (spec: verify) call.  Every
+             request must finish with the uninterrupted phase's tokens
+             (5, 6, 7, 14) and stream them without duplicate or skip;
+             crash / hang / recovery counts exactly as injected; the pool
+             intact after each recovery and leak-free at the end; rows
+             resumed from surviving state; the coordinator's generation up
+             once per recovery; every Program call launching exactly its
+             graph's kernels.  Prints failed ticks, recovered rows, extra
+             prefill ticks, ms from each failure to the next good tick, the
+             run's wall time beside the uninterrupted one, and the resumed
+             chunk-kernel logits against the decode (verify) logits the
+             failed tick computed at the same positions.
+16. load   — benchmarks/serve_bench.py's overload experiment at phi3-mini
+             width on the paged fp32 engine (page 16, 4 slots, chunk 64,
+             cache 1024, max_queue 8, self_heal, a pool sized so slots and
+             not blocks bind): 48 requests of a seeded two-tier trace
+             (phase16_trace_config) at 2x the drain rate, tier-blind then
+             tier-aware (slo_ttft_ticks 24), each after one warm-up
+             request.  Conservation, tier-aware high-tier SLO attainment
+             over offered requests strictly above tier-blind's, no
+             preemption blind and at least one aware, and every preempted
+             victim's and 8 other requests' tokens equal to the unbatched
+             reference; prints per tier attainment, goodput, TTFT in ticks
+             and seconds, shed and dropped.
 
-The last three lines of standard output are JSON: the serving numbers, one
-entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+The last three lines of standard output are JSON: the serving numbers
+(phases 15 and 16 under "heal" and "load"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -1546,6 +1579,8 @@ def serving_phase(torch, K, cfg, params, n_slots, chunk, cache_cap, n_requests, 
         "prefill_ms_per_tick": 1e3 * m.prefill_wall_s / max(m.prefill_ticks, 1),
         "max_memory_allocated_gb": peak / 1e9,
         "engine_wall_s": t_run,
+        "prefill_ticks": m.prefill_ticks,
+        "decode_ticks": m.decode_ticks,
     }
     say(f"  serving: {json.dumps(stats)}")
     if any(not r.done or len(r.out_tokens) != max_new for r in reqs):
@@ -1580,8 +1615,9 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     reference's tokens and is filled here, so phase 7 reuses phase 6's
     reference runs.  With ``spec_k`` the engine speculates and every
     request's tokens must equal ``expect`` (uid -> tokens, phase 7's).
-    Returns the launches, the serving numbers, the agreement record and
-    every request's tokens by uid."""
+    Returns the launches, the serving numbers, the agreement record, every
+    request's tokens by uid and the two waves' (uid, prompt) lists (phase 15
+    serves them again)."""
     import numpy as np
     from repro_torch.runtime.engine import EngineRequest, build_lm_serving
 
@@ -1708,7 +1744,8 @@ def paged_serving_phase(torch, K, cfg, params, served, ref_cache, *, n_slots, ch
     say(f"  {agreement['exact']} of {len(reqs)} requests token-exact against the dense fp32 "
         f"reference; first divergence (request: token index) "
         f"{agreement['first_divergence']} ({time.perf_counter() - t_ref:.2f} s)")
-    return launches, stats, agreement, tokens
+    waves = [[(r.uid, r.prompt) for r in wave] for wave in (wave1, wave2)]
+    return launches, stats, agreement, tokens, waves
 
 
 # --------------------------------------------------------------------------- #
@@ -2054,6 +2091,368 @@ def cnn_int8_phase(torch, card):
         if r["bytes_ratio"] < 3.9:
             fail(f"{r['model']} int8: weight-bytes ratio {r['bytes_ratio']:.3f} < 3.9")
     return rows
+
+
+# --------------------------------------------------------------------------- #
+# phase 15: self-healing under injected faults
+# --------------------------------------------------------------------------- #
+
+HEAL_SEED = 15            # fixes each heal engine's fault calls (printed)
+
+
+def plan_faults(rng, score_phase):
+    """Three faults — a Python exception ("crash"), a real CUDA out-of-memory
+    error ("oom") and a device-side overrun ("hang") — at (method, call
+    index) pairs: at least one prefill call and one ``score_phase`` call
+    (decode, or verify for a spec engine)."""
+    phases = ["prefill", score_phase, str(rng.choice(["prefill", score_phase]))]
+    rng.shuffle(phases)
+    faults = {}
+    for kind, phase in zip(("crash", "oom", "hang"), phases):
+        at = (phase, int(rng.integers(2, 13 if phase == "prefill" else 41)))
+        while at in faults:
+            at = (phase, at[1] + 1)
+        faults[at] = kind
+    return faults
+
+
+def sleep_cycles_per_s(torch):
+    """Device clock cycles ``torch.cuda._sleep`` spins per second (CUDA
+    events over one 50M-cycle spin)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(50_000_000)
+    end.record()
+    end.synchronize()
+    return 50_000_000 / (start.elapsed_time(end) / 1e3)
+
+
+def inject_faults(torch, engine, faults, hang_cycles, capture):
+    """Wrap the stepper's methods (outside count_calls' wrappers) so the
+    planned calls fail: "crash" raises after the call's work, "oom"
+    allocates more than the card has free after it, "hang" queues a device
+    spin before the call so its host read waits past the deadline.  Every
+    decode / verify call's logits at each active slot's scored position go
+    to ``capture["scored"]`` ((uid, position) -> logits) and every prefill
+    that ends a resumed decoding request's stream to ``capture["resumed"]``,
+    so the resumed chunk-kernel logits can be held against the decode
+    kernel's.  Returns the calls by method."""
+    import numpy as np
+    st, calls = engine.stepper, {}
+    for name in {p for p, _ in faults} | {"prefill"}:
+        calls[name] = 0
+
+        def wrapped(*args, _fn=getattr(st, name), _name=name):
+            calls[_name] += 1
+            kind = faults.get((_name, calls[_name]))
+            live = [(s, x) for s, x in enumerate(engine.slots) if x is not None]
+            if kind == "hang":
+                torch.cuda._sleep(hang_cycles)
+            out = _fn(*args)
+            tokens, start, n_new = args
+            for s, x in live:
+                if _name == "prefill" and x.stream is not None and x.req.out_tokens \
+                        and start[s] + n_new[s] == len(x.stream):
+                    capture["resumed"][(x.req.uid, int(start[s] + n_new[s] - 1))] = \
+                        np.array(out[s, n_new[s] - 1])
+                elif _name in ("decode", "verify") and n_new[s] > 0:
+                    capture["scored"][(x.req.uid, int(start[s]))] = \
+                        np.array(out[s] if _name == "decode" else out[s, 0])
+            if kind == "crash":
+                raise RuntimeError(f"injected fault at {_name} call {calls[_name]}")
+            if kind == "oom":
+                free, total = torch.cuda.mem_get_info()
+                torch.empty(total, dtype=torch.uint8, device=st.device)   # > free: raises
+            return out
+        setattr(st, name, wrapped)
+    return calls
+
+
+def heal_engine_run(torch, K, tag, engine, waves, want, faults, cycles_per_s, uninterrupted,
+                    card):
+    """One phase-15 engine (built with self_heal, a coordinator attached):
+    warm it with one request, derive the hang deadline from its slowest
+    call, rebuild the Engine on the warm stepper with that deadline, inject
+    ``faults`` and serve ``waves`` (lists of (uid, prompt)), holding every
+    hard gate of the module docstring.  Returns (launches, stats)."""
+    import numpy as np
+    from repro_torch.ft.coordinator import Coordinator
+    from repro_torch.runtime.engine import Engine, EngineRequest
+    st = engine.stepper
+    names = [n for n, attr in STEPPER_PROGRAMS.items() if hasattr(st, attr)]
+    slowest = [0.0]
+    for n in names:                          # time every call of the warm-up
+        def timed(*args, _fn=getattr(st, n)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*args)
+            torch.cuda.synchronize()
+            slowest[0] = max(slowest[0], time.perf_counter() - t)
+            return out
+        setattr(st, n, timed)
+    warm_prompt = np.random.default_rng(99).integers(0, st.cfg.vocab, 100).astype(np.int32)
+    warm = EngineRequest(uid=-1, prompt=warm_prompt, max_new_tokens=6)
+    engine.submit(warm)
+    engine.run()
+    for n in names:
+        delattr(st, n)
+    if not warm.done:
+        fail(f"{tag}: warm-up request did not finish")
+    hang_timeout = 4 * slowest[0] + 1.0
+    hang_cycles = int(cycles_per_s * (1.25 * hang_timeout + 0.25))
+    coord = Coordinator(deadline=3600.0)
+    engine = Engine(st, self_heal=True, hang_timeout=hang_timeout, coordinator=coord,
+                    host_id=tag)
+    gen0 = coord.generation
+    counted = count_calls(K, st)
+    capture = {"scored": {}, "resumed": {}}
+    calls = inject_faults(torch, engine, faults, hang_cycles, capture)
+    t_fail, to_next = [], []          # failures not yet followed by a good tick
+    recover, step = engine._recover, engine.step
+
+    def recover_checked(ckpt, failure):
+        t_fail.append(time.perf_counter())
+        recover(ckpt, failure)
+        if engine.paged:
+            st.pool.check_integrity()
+
+    def step_timed():
+        ticks = engine.metrics.prefill_ticks + engine.metrics.decode_ticks
+        n_rec = engine.metrics.n_recoveries
+        step()
+        done = engine.metrics.prefill_ticks + engine.metrics.decode_ticks > ticks
+        if done and engine.metrics.n_recoveries == n_rec:
+            now = time.perf_counter()
+            to_next.extend(1e3 * (now - t) for t in t_fail)
+            t_fail.clear()
+
+    engine._recover, engine.step = recover_checked, step_timed
+    for kern in K.KERNELS:
+        kern.launches = 0
+    reqs, streams = [], {}
+    t_run = time.perf_counter()
+    for wave in waves:
+        for uid, prompt in wave:
+            toks = streams[uid] = []
+            r = EngineRequest(uid=uid, prompt=prompt, max_new_tokens=len(want[uid]),
+                              on_token=lambda _r, t, toks=toks: toks.append(t))
+            if not engine.submit(r):
+                fail(f"{tag} request {uid} rejected: {r.dropped}")
+            reqs.append(r)
+        engine.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    m = engine.metrics
+    check_launches(tag, K, st, counted, launches, st.cfg.n_layers)
+    engine.sched.check_conservation()
+    for r in reqs:
+        if not r.done or r.dropped is not None:
+            fail(f"{tag} request {r.uid}: done {r.done}, dropped {r.dropped}")
+        if streams[r.uid] != r.out_tokens:
+            fail(f"{tag} request {r.uid}: streamed {streams[r.uid]} != {r.out_tokens}")
+        if r.out_tokens != want[r.uid]:
+            fail(f"{tag} request {r.uid}: {r.out_tokens} != the uninterrupted run's "
+                 f"{want[r.uid]} (first divergence "
+                 f"{first_divergence(r.out_tokens, want[r.uid])})")
+    kinds = list(faults.values())
+    expect = (kinds.count("crash") + kinds.count("oom"), kinds.count("hang"), len(faults))
+    got = (m.n_crash_failures, m.n_hang_failures, m.n_recoveries)
+    if got != expect or m.failed_ticks != len(faults):
+        fail(f"{tag}: crash / hang / recoveries {got}, failed ticks {m.failed_ticks}; "
+             f"injected {expect}")
+    if m.recovered_rows <= 0:
+        fail(f"{tag}: no rows resumed from surviving state")
+    if coord.generation != gen0 + m.n_recoveries:
+        fail(f"{tag}: coordinator generation {gen0} -> {coord.generation} over "
+             f"{m.n_recoveries} recoveries")
+    if engine.paged and (st.pool.live_sequences or st.pool.stats()["reserved_blocks"]):
+        fail(f"{tag}: pool leaks {st.pool.live_sequences} sequences, "
+             f"{st.pool.stats()['reserved_blocks']} reserved blocks")
+    if engine.paged:
+        st.pool.check_integrity()
+    diffs, gaps = [], []
+    for key, got_logits in capture["resumed"].items():
+        ref_logits = capture["scored"].get(key)
+        if ref_logits is None:
+            continue
+        diffs.append(float(np.abs(got_logits - ref_logits).max()))
+        if int(np.argmax(got_logits)) != int(np.argmax(ref_logits)):
+            top = np.sort(ref_logits)[-2:]
+            gaps.append(float(top[1] - top[0]))
+    stats = {
+        "faults": {f"{p} call {i}": k for (p, i), k in sorted(faults.items())},
+        "calls": calls, "hang_timeout_s": hang_timeout, "slowest_warm_call_s": slowest[0],
+        "failed_ticks": m.failed_ticks, "n_crash_failures": m.n_crash_failures,
+        "n_hang_failures": m.n_hang_failures, "n_recoveries": m.n_recoveries,
+        "requeued_requests": m.requeued_requests, "recovered_rows": m.recovered_rows,
+        "prefill_ticks": m.prefill_ticks, "decode_ticks": m.decode_ticks,
+        "extra_prefill_ticks": m.prefill_ticks - uninterrupted["prefill_ticks"],
+        "ms_failure_to_next_tick": to_next, "engine_wall_s": t_run,
+        "uninterrupted_wall_s": uninterrupted["engine_wall_s"],
+        "coordinator_generations": coord.generation - gen0,
+        "resumed_positions_compared": len(diffs),
+        "max_abs_resumed_minus_scored_logit": max(diffs, default=None),
+        "argmax_flips": len(gaps), "top2_gaps_at_flips": gaps,
+    }
+    say(f"  {tag}: {len(reqs)} requests token-exact against the uninterrupted run, streams "
+        f"without duplicate or skip; {json.dumps(stats)}  [{card}]")
+    return launches, stats
+
+
+def heal_phase(torch, K, cfg, params, served, paged_waves, paged_tokens, uninterrupted, *,
+               n_slots, chunk, cache_cap, page, pools, card):
+    """Phase 15 (see the module docstring).  Returns {path: (launches, stats)}."""
+    import numpy as np
+    from repro_torch.runtime.engine import build_lm_serving
+    rng = np.random.default_rng(HEAL_SEED)
+    cycles_per_s = sleep_cycles_per_s(torch)
+    say(f"  fault seed {HEAL_SEED}; torch.cuda._sleep spins {cycles_per_s:.4g} cycles a second")
+    dense_waves = [[(i, p) for i, (p, _) in enumerate(served)]]
+    dense_want = {i: toks for i, (_, toks) in enumerate(served)}
+    runs = {}
+    for tag, kw, waves, want, score in (
+            ("heal dense", {}, dense_waves, dense_want, "decode"),
+            ("heal paged fp32", dict(paged=True, page_size=page, n_blocks=pools["fp32"]),
+             paged_waves["fp32"], paged_tokens["fp32"], "decode"),
+            ("heal paged int8", dict(paged=True, page_size=page, n_blocks=pools["int8"],
+                                     kv_dtype="int8"),
+             paged_waves["int8"], paged_tokens["int8"], "decode"),
+            ("heal spec dense", dict(spec_k=SPEC_K), dense_waves, dense_want, "verify")):
+        faults = plan_faults(rng, score)
+        t0 = time.perf_counter()
+        engine, _ = build_lm_serving(cfg, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap,
+                                     params=params, self_heal=True, device="cuda", **kw)
+        say(f"  [{tag}] built in {time.perf_counter() - t0:.1f} s; faults "
+            f"{json.dumps({f'{p} call {i}': k for (p, i), k in sorted(faults.items())})}")
+        runs[tag] = heal_engine_run(torch, K, tag, engine, waves, want, faults, cycles_per_s,
+                                    uninterrupted[tag], card)
+        del engine
+        release(torch)
+    return runs
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: overload, tier-blind against tier-aware
+# --------------------------------------------------------------------------- #
+
+LOAD_SEED = 3             # serve_bench's overload trace seed (its seed 0 + 3)
+LOAD_SLO = (24, 12)       # (ttft_ticks, gap_ticks)
+
+
+def phase16_trace_config():
+    """benchmarks/serve_bench.py's overload trace at phi3-mini serving
+    shapes: 48 requests offered at 2x the drain rate of 4 slots at chunk 64
+    (a request costs prompt // chunk + 1 prefill and new-token decode
+    ticks), prompts of 256 mean tokens, 24 mean new tokens with a fat tail,
+    two tiers."""
+    from repro_torch.runtime.loadgen import TierSpec, TraceConfig
+    n_slots, chunk, prompt_mean, new_mean = 4, 64, 256, 24
+    cost = prompt_mean // chunk + 1 + new_mean
+    return TraceConfig(
+        seed=LOAD_SEED, n_requests=48, vocab=32064,
+        mean_interarrival_ticks=cost / (2 * n_slots), arrival="gamma", burstiness=4.0,
+        prompt_len_mean=float(prompt_mean), prompt_len_sigma=0.4, prompt_len_max=768,
+        new_tokens_mean=float(new_mean), new_tokens_sigma=0.8, new_tokens_max=64,
+        tiers=(TierSpec("interactive", priority=1, weight=0.35, deadline_ticks=400),
+               TierSpec("batch", priority=0, weight=0.65)))
+
+
+def load_phase(torch, K, cfg, params, *, n_slots, chunk, cache_cap, page, card):
+    """Phase 16 (see the module docstring).  Returns {path: (launches,
+    stats)} and the phase's record."""
+    from repro_torch.runtime.engine import EngineRequest, build_lm_serving
+    from repro_torch.runtime.kv_cache import pages_needed
+    from repro_torch.runtime.loadgen import SLO, generate_trace, run_load
+    tcfg = phase16_trace_config()
+    trace = generate_trace(tcfg)
+    slo = SLO(ttft_ticks=LOAD_SLO[0], gap_ticks=LOAD_SLO[1])
+    n_blocks = (n_slots + 2 * n_slots) * pages_needed(tcfg.prompt_len_max,
+                                                      tcfg.new_tokens_max, page)
+    say(f"  trace seed {LOAD_SEED}, digest {trace.digest()}; {json.dumps(trace.stats()['tiers'])}"
+        f", mean interarrival {tcfg.mean_interarrival_ticks} ticks; SLO ttft {slo.ttft_ticks} "
+        f"/ gap {slo.gap_ticks} ticks; pool {n_blocks} blocks of {page}")
+    runs, record, served, reference = {}, {"digest": trace.digest()}, {}, None
+    for policy in ("tier_blind", "tier_aware"):
+        aware = policy == "tier_aware"
+        engine, reference = build_lm_serving(
+            cfg, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap, params=params,
+            paged=True, page_size=page, n_blocks=n_blocks, max_queue=2 * n_slots,
+            self_heal=True, tier_aware=aware, slo_ttft_ticks=slo.ttft_ticks if aware else None,
+            device="cuda")
+        warm = EngineRequest(uid=-1, prompt=trace.requests[0].prompt, max_new_tokens=2)
+        engine.submit(warm)
+        engine.run()
+        engine.reset_metrics()
+        submitted, submit = [], engine.submit
+        engine.submit = lambda r, _s=submit: (submitted.append(r), _s(r))[1]
+        for kern in K.KERNELS:
+            kern.launches = 0
+        report = run_load(engine, trace, slo, tier_blind=not aware)
+        torch.cuda.synchronize()
+        launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+        m = engine.metrics
+        ov = report["overall"]
+        if ov["n_incomplete"] or ov["n_finished"] + ov["n_shed"] + ov["n_dropped"] != \
+                ov["n_offered"]:
+            fail(f"load {policy}: conservation {json.dumps(ov)}")
+        if m.n_crash_failures or m.n_hang_failures:
+            fail(f"load {policy}: {m.n_crash_failures} crashes, {m.n_hang_failures} hangs "
+                 "(none injected)")
+        engine.sched.check_conservation()
+        engine.stepper.pool.check_integrity()
+        served[policy] = {r.uid: r for r in submitted}
+        tiers = {}
+        for name, t in report["tiers"].items():
+            tiers[name] = {
+                "offered": t["n_offered"], "finished": t["n_finished"], "slo_met": t["n_slo_met"],
+                "attainment_finished": t["slo_attainment"],
+                "attainment_offered": t["n_slo_met"] / t["n_offered"] if t["n_offered"] else None,
+                "goodput_requests_per_s": t["goodput_requests_per_s"],
+                "goodput_tokens_per_s": t["goodput_tokens_per_s"],
+                "ttft_ticks_p50": t["ttft_ticks"]["p50"], "ttft_ticks_p99": t["ttft_ticks"]["p99"],
+                "ttft_s_p50": t["ttft_s"]["p50"], "ttft_s_p99": t["ttft_s"]["p99"],
+                "shed": t["n_shed"], "dropped": t["n_dropped"]}
+        stats = {"tiers": tiers, "n_preempted": m.n_preempted, "n_tier_shed": m.n_tier_shed,
+                 "ticks": report["ticks"], "wall_s": report["wall_s"],
+                 "recovered_rows": m.recovered_rows, "prefill_ticks": m.prefill_ticks,
+                 "decode_ticks": m.decode_ticks,
+                 "decode_ms_per_tick": 1e3 * m.decode_wall_s / max(m.decode_ticks, 1),
+                 "prefill_ms_per_tick": 1e3 * m.prefill_wall_s / max(m.prefill_ticks, 1)}
+        say(f"  {policy}: {json.dumps(stats)}  [{card}]")
+        runs[f"load {policy}"] = (launches, stats)
+        record[policy] = stats
+        del engine
+        release(torch)
+    att = {p: record[p]["tiers"]["interactive"]["attainment_offered"] or 0.0
+           for p in ("tier_blind", "tier_aware")}
+    record["high_tier_attainment_offered"] = att
+    if not att["tier_aware"] > att["tier_blind"]:
+        fail(f"load: tier-aware high-tier attainment {att['tier_aware']} is not above "
+             f"tier-blind's {att['tier_blind']}")
+    if record["tier_blind"]["n_preempted"] != 0 or record["tier_aware"]["n_preempted"] < 1:
+        fail(f"load: preemptions blind {record['tier_blind']['n_preempted']}, aware "
+             f"{record['tier_aware']['n_preempted']} (want 0 and >= 1)")
+    victims = sorted(u for u, r in served["tier_aware"].items() if r.n_requeues)
+    others = sorted(u for u, r in served["tier_aware"].items()
+                    if r.done and not r.n_requeues)[:8]
+    t_ref = time.perf_counter()
+    for uid in victims + others:
+        r = served["tier_aware"][uid]
+        want = reference.generate(r.prompt, r.max_new_tokens, chunk=chunk)
+        for policy in ("tier_blind", "tier_aware"):
+            got = served[policy][uid].out_tokens
+            if got != want[:len(got)] or (served[policy][uid].done and got != want):
+                fail(f"load {policy} request {uid}: {got} != reference {want}")
+    record["checked"] = {"victims": victims, "others": others}
+    say(f"  tier-aware high-tier attainment over offered {att['tier_aware']:.4f} against "
+        f"tier-blind's {att['tier_blind']:.4f}; {len(victims)} preempted victims and "
+        f"{len(others)} other finished requests token-exact against the unbatched reference "
+        f"in both runs ({time.perf_counter() - t_ref:.1f} s)  [{card}]")
+    del reference
+    release(torch)
+    return runs, record
 
 
 # --------------------------------------------------------------------------- #
@@ -2576,13 +2975,13 @@ def main() -> int:
 
     # 6. and 7. serving, paged cache
     ref_cache = {}
-    agreement, paged_tokens = {}, {}
+    agreement, paged_tokens, paged_waves = {}, {}, {}
     for phase, mode, kv_dtype in (("paged", "fp32", "float32"), ("kv8", "int8", "int8")):
         t = time.perf_counter()
         say(f"[{phase}] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk "
             f"{chunk}, cache {cache_cap}, {kv_dtype} pages of {page} rows, {pools[mode]} "
             f"blocks [{limit_line}]")
-        launches, stats, agree, paged_tokens[mode] = paged_serving_phase(
+        launches, stats, agree, paged_tokens[mode], paged_waves[mode] = paged_serving_phase(
             torch, K, cfg, params, served, ref_cache, n_slots=n_slots, chunk=chunk,
             cache_cap=cache_cap, page=page, n_blocks=pools[mode], kv_dtype=kv_dtype,
             max_new=max_new, card=limit_line)
@@ -2622,12 +3021,37 @@ def main() -> int:
         cache_cap=cache_cap, max_new=max_new, card=limit_line)
     runs.update(spec_runs)
     say(f"  [spec kv8] phase 7's two waves, int8 pages of {page} rows, {pools['int8']} blocks")
-    launches, stats, _, _ = paged_serving_phase(
+    launches, stats, _, _, _ = paged_serving_phase(
         torch, K, cfg, params, served, ref_cache, n_slots=n_slots, chunk=chunk,
         cache_cap=cache_cap, page=page, n_blocks=pools["int8"], kv_dtype="int8",
         max_new=max_new, card=limit_line, spec_k=SPEC_K, expect=paged_tokens["int8"])
     runs["spec kv8"] = (launches, stats)
     phase_s["spec"] = time.perf_counter() - t
+
+    # 15. self-healing under injected faults, on phase 5's weights; the
+    # uninterrupted runs of phases 5, 6, 7 and 14 are the oracles
+    t = time.perf_counter()
+    say(f"[heal] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
+        f"cache {cache_cap}, self_heal; a crash, a CUDA OOM and a device hang per engine "
+        f"[{limit_line}]")
+    uninterrupted = {"heal dense": runs["dense"][1], "heal paged fp32": runs["paged fp32"][1],
+                     "heal paged int8": runs["paged int8"][1],
+                     "heal spec dense": runs["spec dense"][1]}
+    heal_runs = heal_phase(torch, K, cfg, params, served, paged_waves, paged_tokens,
+                           uninterrupted, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap,
+                           page=page, pools=pools, card=limit_line)
+    runs.update(heal_runs)
+    phase_s["heal"] = time.perf_counter() - t
+
+    # 16. overload: serve_bench's overload trace, tier-blind then tier-aware
+    t = time.perf_counter()
+    say(f"[load] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
+        f"cache {cache_cap}, paged fp32 pages of {page}, max_queue {2 * n_slots}, self_heal, "
+        f"2x the drain rate [{limit_line}]")
+    load_runs, load_record = load_phase(torch, K, cfg, params, n_slots=n_slots, chunk=chunk,
+                                        cache_cap=cache_cap, page=page, card=limit_line)
+    runs.update(load_runs)
+    phase_s["load"] = time.perf_counter() - t
     del params
     release(torch)
 
@@ -2660,6 +3084,8 @@ def main() -> int:
                     if r["shape"] == "phi3-mini engine decode" and r["n_splits"] == 2)
     for path in ("int8w", "spec dense", "spec paged fp32", "spec int8w", "spec kv8"):
         serving[path] = runs[path][1]
+    serving["heal"] = {path: heal_runs[path][1] for path in heal_runs}
+    serving["load"] = load_record
     for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import heapq
 from dataclasses import dataclass, field
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,9 +36,13 @@ class SlotScheduler:
     Requests are admitted to free slots in (priority desc, submit order)
     — FIFO among equal priorities (``priority`` is read via ``getattr``,
     default 0).  With ``max_queue`` set, :meth:`submit` applies admission
-    control: a full queue rejects instead of growing without bound.
-    (``preempt`` and ``shed_lowest``, which recovery and tier-aware
-    overload control use in ``repro``, come with those features.)
+    control: a full queue rejects instead of growing without bound.  A
+    tier-aware caller can instead make room with :meth:`shed_lowest` —
+    evict the lowest-priority, most recently queued request below a
+    priority floor — so overload sheds low-tier work before high-tier work
+    is turned away; :meth:`preempt` moves a running request back into the
+    queue (self-healing recovery and tier-aware preemption).  The policies
+    live in the engine; this is only the mechanism.
 
     Invariants:
 
@@ -55,6 +59,7 @@ class SlotScheduler:
         self.max_queue = max_queue
         self.active: List[Optional[Any]] = [None] * n_slots
         self._heap: List[Tuple[int, int, Any]] = []   # (-priority, seq, req)
+        self._active_seq: Dict[int, int] = {}         # slot -> submit seq
         self._seq = 0
         self.n_submitted = 0
         self.n_rejected = 0
@@ -85,6 +90,10 @@ class SlotScheduler:
         return self._heap[0][2] if self._heap else None
 
     @property
+    def queue_len(self) -> int:
+        return len(self._heap)
+
+    @property
     def busy_slots(self) -> int:
         return sum(1 for s in self.active if s is not None)
 
@@ -107,8 +116,9 @@ class SlotScheduler:
             if self.active[slot] is None and self._heap:
                 if can_admit is not None and not can_admit(self._heap[0][2]):
                     break
-                _, _, req = heapq.heappop(self._heap)
+                _, seq, req = heapq.heappop(self._heap)
                 self.active[slot] = req
+                self._active_seq[slot] = seq
                 out.append((slot, req))
         return out
 
@@ -116,6 +126,18 @@ class SlotScheduler:
         """Release ``slot``, counting its request as finished."""
         req = self._release(slot)
         self.n_finished += 1
+        return req
+
+    def preempt(self, slot: int) -> Any:
+        """Evict ``slot``'s request back into the queue at its ORIGINAL
+        submit position (the self-healing engine requeues every in-flight
+        request after a failed tick).  Not a terminal state: no counter
+        moves (busy -> queued keeps conservation), and ``max_queue`` is not
+        applied — already-admitted work is never shed by its own
+        recovery."""
+        seq = self._active_seq[slot]
+        req = self._release(slot)
+        heapq.heappush(self._heap, (-getattr(req, "priority", 0), seq, req))
         return req
 
     def drop(self, slot: int) -> Any:
@@ -130,6 +152,28 @@ class SlotScheduler:
         if req is None:
             raise ValueError(f"slot {slot} is not active")
         self.active[slot] = None
+        self._active_seq.pop(slot, None)
+        return req
+
+    def shed_lowest(self, min_priority: int) -> Optional[Any]:
+        """Evict and return the queued request with the LOWEST priority
+        strictly below ``min_priority`` (ties broken toward the most
+        recently submitted — the entry with the least waiting time and the
+        least claim on FIFO fairness).  ``None`` when every queued request
+        is at or above the floor.  The victim is counted as rejected:
+        shed-at-admission is a terminal state, and conservation (queued ->
+        rejected) still balances."""
+        victim_i = None
+        for i, (neg_pri, seq, _req) in enumerate(self._heap):
+            if -neg_pri >= min_priority:
+                continue
+            if victim_i is None or (neg_pri, seq) > self._heap[victim_i][:2]:
+                victim_i = i
+        if victim_i is None:
+            return None
+        req = self._heap.pop(victim_i)[2]
+        heapq.heapify(self._heap)
+        self.n_rejected += 1
         return req
 
     def drop_queued(self, pred: Callable[[Any], bool]) -> List[Any]:

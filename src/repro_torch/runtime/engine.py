@@ -38,9 +38,36 @@ B=1 Programs compiled from the same graphs.  On the card this holds
 because every kernel computes a sequence's rows with arithmetic that does
 not depend on the batch (see ``csrc/``).
 
-Not ported yet (see ROADMAP.md): self-healing and tier-aware overload
-control, tensor parallel serving, ``AsyncEngine``, dense resume
-(``relocate_slots``).
+Self-healing (``self_heal=True``): every stepper call runs under the
+:mod:`repro_torch.ft` watchdogs — a
+:class:`~repro_torch.ft.watchdog.HangDetector` deadline (``hang_timeout``)
+and a :class:`~repro_torch.ft.watchdog.StepWatchdog` straggler tracker.  A
+tick that raises (a CUDA out-of-memory error included), or that overruns
+the hang deadline, is discarded: the engine restores the block pool to the
+checkpoint taken at the start of the tick (:meth:`Engine.checkpoint`),
+tears the slots down and requeues every in-flight request at its original
+queue position.  Resume is page-level on every stepper: a requeued request
+keeps every committed KV row (the paged stepper its sequence and block
+table, int8 scale sidecars included; the dense stepper its per-slot cache
+rows, relocated by :meth:`ProgramStepper.relocate_slots` when it lands in
+another slot), so prefill fast-forwards past them and re-executes only the
+failed tick's token position — through the prefill Program, as in
+``repro``, so a request that was decoding scores its resumed token with the
+chunk kernel.  Greedy output after a crash or hang equals an uninterrupted
+run's, and no token is re-emitted to a streaming callback.  Kernel launches
+are asynchronous, so on a CUDA device the guard synchronises inside itself
+(:meth:`Engine._guarded_call`); a sticky CUDA error (an illegal address)
+poisons the context and is not healed in-process.
+
+Tier-aware overload control (``tier_aware=True``): a full queue sheds its
+lowest-priority member to admit a higher-priority arrival, and when the
+highest-priority queued request would miss its TTFT budget
+(``slo_ttft_ticks`` and/or its deadline) while every slot is busy, the
+lowest-priority running slot is preempted; the victim requeues at its
+original position and resumes through the page-level path above.
+
+Not ported yet (see ROADMAP.md): tensor parallel serving (item 12),
+``AsyncEngine`` (item 9).
 """
 
 from __future__ import annotations
@@ -55,6 +82,8 @@ import torch
 from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.core.program import compile
 from repro_torch.core.selector import BackendPolicy
+from repro_torch.ft.coordinator import Coordinator
+from repro_torch.ft.watchdog import HangDetector, StepWatchdog
 from repro_torch.models.graph_lm import (GraphLMConfig, build_decode_graph,
                                          build_draft_graph, build_paged_decode_graph,
                                          build_paged_prefill_graph,
@@ -71,7 +100,7 @@ from repro_torch.runtime.kv_cache import BlockPool, kv_page_bytes
 __all__ = [
     "EngineRequest", "EngineMetrics", "Engine", "ProgramStepper",
     "PagedProgramStepper", "UnbatchedReference", "build_lm_serving", "padded_len",
-    "shared_calibration",
+    "shared_calibration", "EngineCheckpoint", "CheckpointSlot", "TickFailure",
 ]
 
 
@@ -94,6 +123,7 @@ class EngineRequest:
     prompt: np.ndarray                      # (prompt_len,) int32
     max_new_tokens: int
     priority: int = 0
+    tier: Optional[str] = None              # workload tier label (loadgen)
     deadline_tick: Optional[int] = None     # absolute engine tick to finish by
     on_token: Optional[Callable[["EngineRequest", int], None]] = None
     on_finish: Optional[Callable[["EngineRequest"], None]] = None
@@ -104,6 +134,8 @@ class EngineRequest:
     submit_tick: int = -1
     first_token_tick: Optional[int] = None
     finish_tick: Optional[int] = None
+    n_requeues: int = 0                     # times requeued (recovery or
+    #                                         tier preemption)
     t_submit: float = 0.0
     t_first: Optional[float] = None
     t_done: Optional[float] = None
@@ -156,6 +188,21 @@ class EngineMetrics:
     latencies_s: List[float] = field(default_factory=list)
     ttfts_s: List[float] = field(default_factory=list)
     max_intertoken_gap_s: float = 0.0
+    # self-healing counters (all zero when self_heal is off)
+    failed_ticks: int = 0       # discarded ticks (crash + hang)
+    n_crash_failures: int = 0
+    n_hang_failures: int = 0
+    n_recoveries: int = 0
+    requeued_requests: int = 0  # slot preemptions summed over recoveries
+    straggler_ticks: int = 0    # StepWatchdog rolling-median flags
+    recovered_rows: int = 0     # KV rows resumed from surviving state
+    #                             (pages / dense slot rows) instead of
+    #                             being re-prefilled after a requeue
+    # tier-aware overload counters (all zero when tier_aware is off)
+    n_preempted: int = 0        # running low-tier slots preempted for a
+    #                             high-tier request at TTFT risk
+    n_tier_shed: int = 0        # queued low-tier requests shed to make
+    #                             room for a higher-tier arrival
     # speculative decoding (all zero when spec_k == 0)
     spec_ticks: int = 0         # draft+verify ticks (counted in decode_ticks)
     spec_proposed: int = 0      # draft tokens offered to verification
@@ -199,6 +246,19 @@ class EngineMetrics:
             "latency_s": _pct_dict(self.latencies_s),
             "ttft_s": _pct_dict(self.ttfts_s),
             "max_intertoken_gap_s": self.max_intertoken_gap_s,
+            "self_heal": {
+                "failed_ticks": self.failed_ticks,
+                "n_crash_failures": self.n_crash_failures,
+                "n_hang_failures": self.n_hang_failures,
+                "n_recoveries": self.n_recoveries,
+                "requeued_requests": self.requeued_requests,
+                "straggler_ticks": self.straggler_ticks,
+                "recovered_rows": self.recovered_rows,
+            },
+            "overload": {
+                "n_preempted": self.n_preempted,
+                "n_tier_shed": self.n_tier_shed,
+            },
             "spec": {
                 "spec_ticks": self.spec_ticks,
                 "proposed": self.spec_proposed,
@@ -366,6 +426,22 @@ class ProgramStepper:
         self.draft_caches: Dict[str, torch.Tensor] = {
             name: torch.zeros(shape, dtype=torch.float32, device=self.device)
             for name in draft_cache_inputs}
+
+    def relocate_slots(self, moves: Sequence[Tuple[int, int]]) -> None:
+        """Copy per-slot cache rows ``src -> dst`` — dense page-level resume
+        for a request re-admitted to another slot than the one whose rows it
+        committed.  One batched gather per cache tensor (axis 0 is the slot
+        axis), in place: every source is read (the gather makes a copy)
+        before any destination is written, so a pair of swapped slots
+        relocates correctly.  Only the main caches move; the private draft
+        caches are rebuilt by draft catch-up (resume resets ``draft_len`` to
+        0), the path a cold admission takes."""
+        if not moves:
+            return
+        src = torch.tensor([m[0] for m in moves], dtype=torch.long, device=self.device)
+        dst = torch.tensor([m[1] for m in moves], dtype=torch.long, device=self.device)
+        for arr in self.caches.values():
+            arr[dst] = arr[src]
 
     def backend_summary(self) -> Dict[str, Dict[str, Dict[str, int]]]:
         """Per-phase, per-op backend assignment counts:
@@ -648,13 +724,81 @@ class PagedProgramStepper(ProgramStepper):
 @dataclass
 class _SlotState:
     req: EngineRequest
-    pos: int = 0          # prompt tokens prefilled so far
+    pos: int = 0          # stream tokens prefilled so far
     length: int = 0       # valid cache entries
     next_token: int = 0
     decoding: bool = False
     # committed rows present in the private draft cache (speculative
-    # engines only); a cold start and a prefix hit both catch up from here
+    # engines only); a cold start, a prefix hit and a post-recovery resume
+    # all catch up from here, so recovery never rolls draft caches back
     draft_len: int = 0
+    # the token stream prefill walks: the request's prompt, or — for a
+    # requeued request — prompt + tokens generated before the requeue
+    # (argmax at its final position is the NEXT token, so nothing is
+    # re-emitted)
+    stream: Optional[np.ndarray] = None
+
+    @property
+    def prompt(self) -> np.ndarray:
+        return self.req.prompt if self.stream is None else self.stream
+
+
+class TickFailure(RuntimeError):
+    """A guarded tick crashed or overran the hang deadline.  With
+    ``self_heal`` the engine recovers internally; this escapes only when
+    recovery is disabled or ``max_recoveries`` consecutive failures give up
+    (a deterministic crash loop is not something to retry forever)."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+@dataclass
+class CheckpointSlot:
+    """In-flight state of one slot, enough to rebuild it: the request's
+    identity, every token generated so far (the resume stream is ``prompt +
+    out_tokens``), the committed KV rows (``rows`` — what page-level resume
+    fast-forwards past), and — paged — the sequence id and block table
+    whose pages survive recovery."""
+
+    slot: int
+    uid: int
+    prompt: np.ndarray
+    out_tokens: List[int]
+    rows: int = 0
+    sid: Optional[int] = None
+    block_table: List[int] = field(default_factory=list)
+
+    @property
+    def stream(self) -> np.ndarray:
+        return np.concatenate([np.asarray(self.prompt, np.int32),
+                               np.asarray(self.out_tokens, np.int32)])
+
+
+@dataclass
+class EngineCheckpoint:
+    """Host-side engine state captured at the start of a guarded tick —
+    everything recovery needs (queued requests stay in the scheduler and are
+    only mutated between ticks, so they need no snapshot)."""
+
+    tick: int
+    slots: List[CheckpointSlot]
+    pool: Optional[Dict[str, Any]] = None    # BlockPool.snapshot()
+
+
+@dataclass
+class _Resume:
+    """Pending resume of a requeued in-flight request (keyed by uid).
+    ``slot``/``rows`` drive dense page-level resume: the per-slot cache rows
+    this request committed in ``slot`` are still valid unless an intervening
+    admission overwrote them (``Engine._dense_rows`` tracks the owner of
+    every slot's rows)."""
+
+    stream: np.ndarray
+    sid: Optional[int] = None
+    slot: Optional[int] = None
+    rows: int = 0
 
 
 class Engine:
@@ -670,11 +814,19 @@ class Engine:
     availability, a prefix hit fast-forwards prefill past the reused rows,
     and a finished sequence leaves its pages in the prefix index.  With a
     stepper built with ``spec_k > 0`` every decode tick is a speculative
-    tick (:meth:`_spec_decode_tick`).
+    tick (:meth:`_spec_decode_tick`).  ``self_heal`` and ``tier_aware`` are
+    the module docstring's.
     """
 
     def __init__(self, stepper: ProgramStepper, *, eos_id: int = -1,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None,
+                 self_heal: bool = False,
+                 hang_timeout: Optional[float] = None,
+                 max_recoveries: int = 8,
+                 coordinator: Optional[Coordinator] = None,
+                 host_id: str = "engine",
+                 tier_aware: bool = False,
+                 slo_ttft_ticks: Optional[int] = None):
         self.stepper = stepper
         self.n_slots = stepper.n_slots
         self.chunk = stepper.chunk
@@ -694,13 +846,39 @@ class Engine:
         # skips re-running the prefix lookup every tick while nothing that
         # could free blocks has happened
         self._gate_blocked: Optional[Tuple[int, int]] = None
+        # ---- tier-aware overload control ----
+        self.tier_aware = tier_aware
+        self.slo_ttft_ticks = slo_ttft_ticks
+        # dense page-level resume: slot -> uid whose cache rows occupy that
+        # slot (an admission overwrites them; resume checks this before
+        # trusting surviving rows)
+        self._dense_rows: Dict[int, int] = {}
+        # ---- self-healing (ft/ watchdogs wired into the tick loop) ----
+        self.self_heal = self_heal
+        self.hang_timeout = hang_timeout
+        self.max_recoveries = max_recoveries
+        self._watchdog = StepWatchdog()
+        self._hang = (HangDetector(hang_timeout, lambda: None)
+                      if hang_timeout is not None else None)
+        # the device whose queued work a guarded call waits for (see
+        # _guarded_call); None off the card or without self_heal
+        self._sync_device = (stepper.device if self_heal and stepper.device.type == "cuda"
+                             else None)
+        self._resume: Dict[int, _Resume] = {}      # uid -> pending resume
+        self._consec_failures = 0
+        self.coordinator = coordinator
+        self.host_id = host_id
+        if coordinator is not None:
+            coordinator.register(host_id)
 
     def submit(self, req: EngineRequest) -> bool:
         """Admission control: False (with ``req.dropped`` set) when the
         queue is full or the request could never fit the cache.  The fit
         check uses the unpadded prompt: the cache stores at most
         ``len(prompt) + max_new_tokens - 1`` rows (prefill padding rows are
-        dropped by the cache write)."""
+        dropped by the cache write).  With ``tier_aware`` a full queue sheds
+        its lowest-priority member (strictly below the arrival's priority)
+        instead of turning the arrival away."""
         req.submit_tick = self.tick
         req.t_submit = time.perf_counter()
         if len(req.prompt) == 0 or req.max_new_tokens < 1:
@@ -710,6 +888,17 @@ class Engine:
         if self.paged and not self.stepper.pool.fits_ever(
                 len(req.prompt), req.max_new_tokens):
             return self._reject(req, "too_long")
+        if (self.tier_aware and self.sched.max_queue is not None
+                and self.sched.queue_len >= self.sched.max_queue):
+            victim = self.sched.shed_lowest(req.priority)
+            if victim is not None:
+                victim.dropped = "shed_low_tier"
+                self.metrics.n_rejected += 1
+                self.metrics.n_tier_shed += 1
+                # a preempted request shed from the queue still owns its
+                # pool sequence; those blocks must come back
+                self._release_resume(victim)
+                self._finalize(victim)
         if not self.sched.submit(req):
             req.dropped = "queue_full"
             self.metrics.n_rejected += 1
@@ -729,6 +918,13 @@ class Engine:
         req.t_done = time.perf_counter()
         if req.on_finish is not None:
             req.on_finish(req)
+
+    def _release_resume(self, req: EngineRequest) -> None:
+        """Forget a requeued request's pending resume, returning the pool
+        sequence it still owns (it leaves the queue without a slot)."""
+        res = self._resume.pop(req.uid, None)
+        if res is not None and res.sid is not None:
+            self.stepper.pool.release(res.sid, register=False)
 
     def _emit(self, st: _SlotState, tok: int) -> None:
         req = st.req
@@ -779,6 +975,8 @@ class Engine:
             lambda r: r.deadline_tick is not None and self.tick >= r.deadline_tick)
         for req in expired:
             req.dropped = "deadline"
+            # a requeued in-flight request still owns its pool sequence
+            self._release_resume(req)
             self.dropped.append(req)
             self.metrics.n_dropped += 1
             self._finalize(req)
@@ -787,6 +985,70 @@ class Engine:
                     and self.tick >= st.req.deadline_tick:
                 self._drop_slot(slot, "deadline")
 
+    # ------------------------------------------------------------------ #
+    # tier-aware overload control
+    # ------------------------------------------------------------------ #
+    def _ttft_budget(self, req: EngineRequest) -> Optional[int]:
+        """Absolute tick by which ``req`` must emit its first token: the
+        tighter of the engine-wide TTFT SLO (relative to submit) and the
+        request's own deadline.  ``None`` when neither applies."""
+        budget = (None if self.slo_ttft_ticks is None
+                  else req.submit_tick + self.slo_ttft_ticks)
+        if req.deadline_tick is not None:
+            budget = (req.deadline_tick if budget is None
+                      else min(budget, req.deadline_tick))
+        return budget
+
+    def _overload_control(self) -> None:
+        """Preempt a running low-tier slot when the highest-priority queued
+        request would otherwise blow its TTFT budget.
+
+        Deterministic trigger: every slot is busy, the queue head outranks
+        the lowest-priority running request, and the head's remaining
+        budget no longer covers its own chunked prefill (with decode
+        interleaving, one chunk lands roughly every other tick) plus one
+        tick of slack.  At most one slot is preempted per tick; the victim
+        is the lowest-priority slot, ties broken toward the most remaining
+        work (it would hold the slot longest)."""
+        head = self.sched.peek()
+        if head is None or any(s is None for s in self.slots):
+            return
+        budget = self._ttft_budget(head)
+        if budget is None:
+            return
+        need = 2 * -(-len(head.prompt) // self.chunk) + 1
+        if self.tick + need < budget:
+            return
+        victim: Optional[Tuple[Tuple[int, int], int]] = None
+        for slot, st in enumerate(self.slots):
+            p = st.req.priority
+            if p >= head.priority:
+                continue
+            key = (p, -(st.req.max_new_tokens - len(st.req.out_tokens)))
+            if victim is None or key < victim[0]:
+                victim = (key, slot)
+        if victim is not None:
+            self._preempt_slot(victim[1])
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Move a running request back to the queue at its original submit
+        position, keeping what it computed: its pool sequence (paged —
+        pages and reservations stay live) or its dense cache rows, plus
+        ``prompt + out_tokens`` as the resume stream.  Not a terminal
+        state: busy -> queued keeps conservation, as recovery's requeue."""
+        st = self.slots[slot]
+        req = self.sched.preempt(slot)
+        req.n_requeues += 1
+        rows = st.length if st.decoding else st.pos
+        stream = np.concatenate([np.asarray(req.prompt, np.int32),
+                                 np.asarray(req.out_tokens, np.int32)])
+        sid = self.stepper._slot_seq.pop(slot) if self.paged else None
+        self._resume[req.uid] = _Resume(stream=stream, sid=sid, slot=slot, rows=rows)
+        self.slots[slot] = None
+        self.metrics.n_preempted += 1
+        self._gate_blocked = None
+
+    # ------------------------------------------------------------------ #
     def step(self) -> None:
         """One scheduling tick (see class docstring)."""
         if self._t0 is None:
@@ -794,31 +1056,69 @@ class Engine:
         self.tick += 1
         self.metrics.ticks += 1
         self._expire()
+        if self.tier_aware:
+            self._overload_control()
         if self.paged:
             self._admit_paged()
         else:
-            for slot, req in self.sched.admit():
-                self.slots[slot] = _SlotState(req=req)
+            self._admit_dense()
         prefill = [i for i, st in enumerate(self.slots)
                    if st is not None and not st.decoding]
         decode = [i for i, st in enumerate(self.slots)
                   if st is not None and st.decoding]
-        if prefill and (not decode or not self._last_was_prefill):
-            self._prefill_tick(prefill)
-            self._last_was_prefill = True
-        elif decode:
-            if self.spec_k:
-                self._spec_decode_tick(decode)
-            else:
-                self._decode_tick(decode)
-            self._last_was_prefill = False
+        ckpt = self.checkpoint() if self.self_heal and (prefill or decode) else None
+        try:
+            if prefill and (not decode or not self._last_was_prefill):
+                self._prefill_tick(prefill)
+                self._last_was_prefill = True
+            elif decode:
+                if self.spec_k:
+                    self._spec_decode_tick(decode)
+                else:
+                    self._decode_tick(decode)
+                self._last_was_prefill = False
+            self._consec_failures = 0
+            if self.coordinator is not None:
+                self.coordinator.heartbeat(self.host_id)
+        except TickFailure as failure:
+            if not self.self_heal:
+                raise
+            self._recover(ckpt, failure)
         self.metrics.wall_s = time.perf_counter() - self._t0
+
+    def _admit_dense(self) -> None:
+        """Slot admission for the dense cache, with page-level resume:
+        committed per-slot cache rows survive a discarded tick or a
+        preemption (writes are positional, and rows a failed tick wrote past
+        the committed length are overwritten before they are read), so a
+        resumed request fast-forwards past them — relocating the rows when
+        it lands in another slot.  An intervening admission overwrites a
+        slot's rows; ``owners`` is the pre-tick map (nothing is written
+        until this tick's Program call), and a clobbered resume falls back
+        to a full re-prefill of its stream."""
+        owners = dict(self._dense_rows)
+        moves: List[Tuple[int, int]] = []
+        for slot, req in self.sched.admit():
+            res = self._resume.pop(req.uid, None)
+            if res is None:
+                self.slots[slot] = _SlotState(req=req)
+            elif res.rows > 0 and res.slot is not None and owners.get(res.slot) == req.uid:
+                if res.slot != slot:
+                    moves.append((res.slot, slot))
+                self.slots[slot] = _SlotState(req=req, pos=res.rows, stream=res.stream)
+                self.metrics.recovered_rows += res.rows
+            else:
+                self.slots[slot] = _SlotState(req=req, stream=res.stream)
+            self._dense_rows[slot] = req.uid
+        self.stepper.relocate_slots(moves)
 
     def _admit_paged(self) -> None:
         """Admission gated on BLOCK availability, not slot count alone.  The
         gate performs the pool admission (claims cached prefix blocks +
         reserves worst-case growth) so consecutive admissions in one tick
-        see each other's reservations."""
+        see each other's reservations.  A requeued request kept its
+        sequence (blocks + reservations), so it needs no pool admission and
+        resumes from its surviving block table."""
         pool = self.stepper.pool
         head = self.sched.peek()
         if head is not None and self._gate_blocked == (head.uid, pool.version):
@@ -827,6 +1127,9 @@ class Engine:
         refused: List[EngineRequest] = []
 
         def gate(req: EngineRequest) -> bool:
+            res = self._resume.get(req.uid)
+            if res is not None and res.sid is not None:
+                return True
             admitted = self.stepper.try_admit(req.prompt, req.max_new_tokens)
             if admitted is None:
                 refused.append(req)
@@ -835,6 +1138,14 @@ class Engine:
             return True
 
         for slot, req in self.sched.admit(gate):
+            res = self._resume.pop(req.uid, None)
+            if res is not None and res.sid is not None:
+                # prefill fast-forwards past every row already in the pool
+                self.stepper.attach(slot, res.sid)
+                done = pool.sequence(res.sid).n_tokens
+                self.slots[slot] = _SlotState(req=req, pos=done, stream=res.stream)
+                self.metrics.recovered_rows += done
+                continue
             sid, reused = claims[id(req)]
             self.stepper.attach(slot, sid)
             # a prefix hit fast-forwards prefill past the reused rows
@@ -844,6 +1155,52 @@ class Engine:
         # lookup every tick cannot change the answer
         self._gate_blocked = (refused[0].uid, pool.version) if refused else None
 
+    def _guarded_call(self, fn, *args):
+        """One stepper call under the ft/ watchdogs.
+
+        With ``self_heal``, a raised exception becomes a
+        :class:`TickFailure` ("crash"), and a call that returns after the
+        :class:`~repro_torch.ft.watchdog.HangDetector` deadline fired is
+        treated as hung — its result is discarded by raising before any
+        slot state or emission is touched.  The
+        :class:`~repro_torch.ft.watchdog.StepWatchdog` rolling median flags
+        straggler ticks either way.
+
+        On a CUDA device the guard also waits for the call's device work
+        (``torch.cuda.synchronize``) before it reads the deadline.  Some
+        stepper calls (``draft_prefill``, ``commit_spec``) read nothing back
+        and return once their launches are queued: without the wait the
+        deadline would time the launches, not the device, and a device
+        error would surface in the next guarded call, charged to the wrong
+        tick and restored from the wrong checkpoint.  ``repro`` runs these
+        paths on the CPU and does not wait.  Without ``self_heal`` nothing
+        waits, so the ticks keep their launch overlap."""
+        self._watchdog.start()
+        try:
+            if self.self_heal and self._hang is not None:
+                with self._hang as hd:
+                    out = fn(*args)
+                    self._sync()
+                if hd.fired:
+                    raise TickFailure("hang")
+            else:
+                out = fn(*args)
+                self._sync()
+        except TickFailure:
+            raise
+        except Exception as e:
+            if self.self_heal:
+                raise TickFailure(f"crash: {type(e).__name__}: {e}") from e
+            raise
+        finally:
+            if self._watchdog.stop():
+                self.metrics.straggler_ticks += 1
+        return out
+
+    def _sync(self) -> None:
+        if self._sync_device is not None:
+            torch.cuda.synchronize(self._sync_device)
+
     def _prefill_tick(self, slots: List[int]) -> None:
         t_begin = time.perf_counter()
         b, c = self.n_slots, self.chunk
@@ -852,21 +1209,21 @@ class Engine:
         n_new = np.zeros((b,), np.int32)
         for s in slots:
             st = self.slots[s]
-            prompt = st.req.prompt
-            n = min(c, len(prompt) - st.pos)
-            tokens[s, :n] = prompt[st.pos:st.pos + n]
+            stream = st.prompt
+            n = min(c, len(stream) - st.pos)
+            tokens[s, :n] = stream[st.pos:st.pos + n]
             start[s] = st.pos
             n_new[s] = n
-        logits = self.stepper.prefill(tokens, start, n_new)
+        logits = self._guarded_call(self.stepper.prefill, tokens, start, n_new)
         self.metrics.prefill_ticks += 1
         self.metrics.busy_slot_ticks += len(slots)
         for s in slots:
             st = self.slots[s]
             n = int(n_new[s])
             st.pos += n
-            if st.pos >= len(st.req.prompt):
+            if st.pos >= len(st.prompt):
                 st.decoding = True
-                st.length = len(st.req.prompt)
+                st.length = len(st.prompt)
                 first = int(np.argmax(logits[s, n - 1]))
                 st.next_token = first
                 self._emit(st, first)
@@ -884,7 +1241,7 @@ class Engine:
             tokens[s, 0] = st.next_token
             start[s] = st.length
             n_new[s] = 1
-        logits = self.stepper.decode(tokens, start, n_new)
+        logits = self._guarded_call(self.stepper.decode, tokens, start, n_new)
         self.metrics.decode_ticks += 1
         self.metrics.busy_slot_ticks += len(slots)
         for s in slots:
@@ -917,7 +1274,7 @@ class Engine:
                 tokens[s, :n] = full[st.draft_len:st.draft_len + n]
                 start[s] = st.draft_len
                 n_new[s] = n
-            self.stepper.draft_prefill(tokens, start, n_new)
+            self._guarded_call(self.stepper.draft_prefill, tokens, start, n_new)
             for s in behind:
                 self.slots[s].draft_len += int(n_new[s])
 
@@ -941,7 +1298,7 @@ class Engine:
             tokens[s, 0] = st.next_token
             start[s] = st.length
             n_new[s] = 1
-        draft_toks = self.stepper.draft(tokens, start, n_new)
+        draft_toks = self._guarded_call(self.stepper.draft, tokens, start, n_new)
         vtokens = np.zeros((b, width), np.int32)
         vstart = np.zeros((b,), np.int32)
         vn_new = np.zeros((b,), np.int32)
@@ -953,14 +1310,14 @@ class Engine:
             vtokens[s, 1:n] = draft_toks[s, :n - 1]
             vstart[s] = st.length
             vn_new[s] = n
-        logits = self.stepper.verify(vtokens, vstart, vn_new)
+        logits = self._guarded_call(self.stepper.verify, vtokens, vstart, vn_new)
         self.metrics.decode_ticks += 1
         self.metrics.spec_ticks += 1
         self.metrics.busy_slot_ticks += len(slots)
         # greedy acceptance walk: position i's argmax is what plain decode
         # would emit after vtokens[:i+1]; keep walking while the next fed
         # draft token IS that argmax.  Every slot is walked before any state
-        # changes, since the kv8 commit below is one batched call.
+        # changes, since the kv8 commit below is one batched (guarded) call.
         emits: Dict[int, List[int]] = {}
         for s in slots:
             st = self.slots[s]
@@ -989,7 +1346,7 @@ class Engine:
                 commit_n = np.zeros((b,), np.int32)
                 for s in slots:
                     commit_n[s] = len(emits[s])
-                self.stepper.commit_spec(vstart, commit_n)
+                self._guarded_call(self.stepper.commit_spec, vstart, commit_n)
         emitted_total = 0
         for s in slots:
             st = self.slots[s]
@@ -1011,6 +1368,80 @@ class Engine:
         st = self.slots[slot]
         if tok == self.eos_id or len(st.req.out_tokens) >= st.req.max_new_tokens:
             self._finish_slot(slot)
+
+    # ------------------------------------------------------------------ #
+    # self-healing: checkpoint / recover
+    # ------------------------------------------------------------------ #
+    def checkpoint(self) -> EngineCheckpoint:
+        """In-flight state as of now: per-slot prompt + generated tokens
+        (+ sequence id and block table when paged) and a full
+        :meth:`~repro_torch.runtime.kv_cache.BlockPool.snapshot`.  Taken at
+        the start of every guarded tick; host-side slot state is only
+        mutated after a successful stepper call, so the checkpoint stays
+        valid through any failure of the tick it guards."""
+        slots: List[CheckpointSlot] = []
+        for slot, st in enumerate(self.slots):
+            if st is None:
+                continue
+            entry = CheckpointSlot(slot=slot, uid=st.req.uid, prompt=st.req.prompt,
+                                   out_tokens=list(st.req.out_tokens),
+                                   rows=st.length if st.decoding else st.pos)
+            if self.paged:
+                entry.sid = self.stepper._slot_seq[slot]
+                entry.block_table = self.stepper.pool.block_table(entry.sid)
+            slots.append(entry)
+        pool = self.stepper.pool.snapshot() if self.paged else None
+        return EngineCheckpoint(tick=self.tick, slots=slots, pool=pool)
+
+    def _recover(self, ckpt: EngineCheckpoint, failure: TickFailure) -> None:
+        """Discard the failed tick and rebuild from ``ckpt``: restore the
+        pool (bookkeeping back in lockstep with the device pages — the
+        failed tick's recorded-but-unwritten rows and index entries
+        vanish), drop a kv8 verify's rows that were never committed,
+        preempt every slot back into the queue at its original position,
+        and stage each request's resume stream.  The next ticks re-admit
+        them FIFO; paged requests keep their sequence, so prefill
+        fast-forwards past every surviving row."""
+        self.metrics.failed_ticks += 1
+        if failure.reason == "hang":
+            self.metrics.n_hang_failures += 1
+        else:
+            self.metrics.n_crash_failures += 1
+        self._consec_failures += 1
+        if self._consec_failures > self.max_recoveries:
+            raise TickFailure(f"giving up after {self._consec_failures} consecutive "
+                              f"tick failures (last: {failure.reason})") from failure
+        if self.paged:
+            self.stepper.pool.restore(ckpt.pool)   # ends in check_integrity
+            self.stepper._slot_seq.clear()
+            if hasattr(self.stepper, "_pending_kv"):
+                # the retried verify stashes its own; a stale one must never
+                # reach a commit
+                self.stepper._pending_kv = None
+        for entry in ckpt.slots:
+            req = self.sched.preempt(entry.slot)
+            if req.uid != entry.uid:
+                raise RuntimeError(f"slot {entry.slot}: checkpoint uid {entry.uid}, "
+                                   f"live {req.uid}")
+            req.n_requeues += 1
+            self._resume[req.uid] = _Resume(stream=entry.stream, sid=entry.sid,
+                                            slot=entry.slot, rows=entry.rows)
+            self.slots[entry.slot] = None
+            self.metrics.requeued_requests += 1
+        self._gate_blocked = None
+        self._last_was_prefill = False
+        self.metrics.n_recoveries += 1
+        if self.coordinator is not None:
+            # a hang past the membership deadline shows up as a death;
+            # re-registering is the "restarted engine" membership event
+            self.coordinator.sweep()
+            self.coordinator.register(self.host_id)
+
+    def reset_metrics(self) -> None:
+        """Zero the metrics window (e.g. after warm-up) without touching
+        scheduler state, slots or caches."""
+        self.metrics = EngineMetrics(n_slots=self.n_slots)
+        self._t0 = None
 
     def has_work(self) -> bool:
         return self.sched.has_work()
@@ -1179,8 +1610,6 @@ def shared_calibration(cfg: GraphLMConfig, params: Mapping[str, Any], *,
 # Options of repro's build_lm_serving that the port serves only at their
 # default so far: option -> (default, ROADMAP.md item that ports it).
 _NOT_PORTED = {
-    "self_heal": (False, "Queue 1 item 8 (self-heal, tier-aware scheduling)"),
-    "tier_aware": (False, "Queue 1 item 8 (self-heal, tier-aware scheduling)"),
     "mesh": (None, "Queue 1 item 12 (tensor-parallel serving)"),
     "tp": (None, "Queue 1 item 12 (tensor-parallel serving)"),
 }
@@ -1199,6 +1628,12 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
                      quantize: Optional[str] = None,
                      spec_k: int = 0,
                      draft_layers: Optional[int] = None,
+                     self_heal: bool = False,
+                     hang_timeout: Optional[float] = None,
+                     max_recoveries: int = 8,
+                     coordinator: Optional[Coordinator] = None,
+                     tier_aware: bool = False,
+                     slo_ttft_ticks: Optional[int] = None,
                      device: DeviceLike = None,
                      **options: Any) -> Tuple[Engine, UnbatchedReference]:
     """Compile the serving Programs for a graph LM and return the engine
@@ -1228,9 +1663,22 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
     first ``draft_layers`` layers, default ``n_layers // 2``) and verifies
     them in one call; the output stays token-identical to plain decode.
 
-    ``repro``'s other options (``self_heal``, ``tier_aware``, ``mesh``,
-    ``tp``) are accepted at their defaults only; anything else raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    ``self_heal=True`` discards a tick whose stepper call raises (a CUDA
+    out-of-memory error included) or overruns ``hang_timeout`` seconds,
+    restores the pool, requeues every in-flight request and resumes it from
+    its surviving KV rows, token-identical to an uninterrupted run; after
+    ``max_recoveries`` consecutive failures it gives up with
+    :class:`TickFailure`.  ``coordinator`` sees every recovery as a
+    membership event.  ``tier_aware=True`` turns on tier-aware overload
+    control: a full queue sheds its lowest-priority member to admit a
+    higher-priority arrival, and a running low-tier slot is preempted
+    (resuming later through the same page-level path) when the
+    highest-priority queued request would otherwise miss its TTFT budget
+    (``slo_ttft_ticks`` and/or its deadline).
+
+    ``repro``'s other options (``mesh``, ``tp``) are accepted at their
+    defaults only; anything else raises ``NotImplementedError`` naming the
+    ROADMAP item that ports it."""
     for name, value in options.items():
         if name not in _NOT_PORTED:
             raise TypeError(f"build_lm_serving() got an unexpected keyword argument {name!r}")
@@ -1261,7 +1709,10 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
         stepper = ProgramStepper(cfg, params, n_slots=n_slots, chunk=chunk,
                                  cache_cap=cache_cap, spec_k=spec_k,
                                  draft_layers=draft_layers, **qkw)
-    engine = Engine(stepper, eos_id=eos_id, max_queue=max_queue)
+    engine = Engine(stepper, eos_id=eos_id, max_queue=max_queue,
+                    self_heal=self_heal, hang_timeout=hang_timeout,
+                    max_recoveries=max_recoveries, coordinator=coordinator,
+                    tier_aware=tier_aware, slo_ttft_ticks=slo_ttft_ticks)
     reference = UnbatchedReference(cfg, params,
                                    cache_cap=max(cache_cap, stepper.cache_cap), **qkw)
     return engine, reference

@@ -43,9 +43,11 @@ position is always prefilled — the first output token comes from that
 position's logits.
 
 :meth:`BlockPool.truncate` rolls back a speculative tick's rejected rows.
-:meth:`BlockPool.snapshot` / :meth:`BlockPool.restore` (the JAX package's
-self-healing path, not ported yet) and :meth:`BlockPool.fork` come along
-unchanged.
+:meth:`BlockPool.snapshot` / :meth:`BlockPool.restore` are the self-healing
+engine's resume substrate: it snapshots the pool at the start of every
+guarded tick and restores it when the tick fails, so a requeued request
+resumes from the pages it kept (``Engine(self_heal=True)``).
+:meth:`BlockPool.fork` comes along unchanged.
 """
 
 from __future__ import annotations

@@ -146,6 +146,16 @@ def test_options_outside_the_slice_name_their_roadmap_item(option, value, item):
         ops = {n.op for n in engine.stepper.decode_program.graph.nodes}
         assert ("dense_q" in ops) == (option == "quantize")
         return
+    if option in ("self_heal", "tier_aware"):
+        # item 8 is ported: the option builds its engine and serves
+        engine, _ = build_lm_serving(CFG, n_slots=1, chunk=2, cache_cap=8, device="cpu",
+                                     **{option: value})
+        assert getattr(engine, option) is True
+        req = EngineRequest(uid=0, prompt=np.ones(3, np.int32), max_new_tokens=2)
+        assert engine.submit(req)
+        engine.run()
+        assert req.done and len(req.out_tokens) == 2
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         build_lm_serving(CFG, device="cpu", **{option: value})
     build_lm_serving(CFG, n_slots=1, chunk=2, cache_cap=4, device="cpu",

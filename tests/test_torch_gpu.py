@@ -1145,3 +1145,136 @@ def test_weight_quantization_on_the_card_equals_numpy_bitwise():
     q_t, s_t = quantize_weight(torch.from_numpy(w).to(dev), 1)
     assert np.array_equal(q_t.cpu().numpy(), q_np)
     assert s_t.cpu().numpy().tobytes() == s_np.tobytes()
+
+
+# --------------------------------------------------------------------------- #
+# self-healing on the card
+# --------------------------------------------------------------------------- #
+
+def _tiny_serving(dev, **kw):
+    from repro_torch.models.graph_lm import GraphLMConfig
+    from repro_torch.runtime.engine import build_lm_serving
+    cfg = GraphLMConfig(vocab=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=96)
+    return build_lm_serving(cfg, **{"n_slots": 3, "chunk": 8, "cache_cap": 48, **kw},
+                            device=dev)
+
+
+def _tiny_requests(n=5):
+    from repro_torch.runtime.engine import EngineRequest
+    rng = np.random.default_rng(3)
+    return [EngineRequest(uid=i, prompt=rng.integers(0, 97, int(rng.integers(3, 20)))
+                          .astype(np.int32), max_new_tokens=6) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_relocate_slots_on_the_card_is_bitwise():
+    """A swapped pair and a chain of per-slot cache rows on CUDA tensors:
+    every source is gathered before any destination is written."""
+    dev = _card()
+    engine, _ = _tiny_serving(dev, n_slots=4)
+    st = engine.stepper
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for name in st.caches:
+        st.caches[name] = torch.randn(st.caches[name].shape, generator=gen, device=dev)
+    before = {k: v.clone() for k, v in st.caches.items()}
+    st.relocate_slots([(0, 1), (1, 0)])
+    st.relocate_slots([(1, 2), (2, 3), (3, 1)])
+    for k, v in st.caches.items():
+        b = before[k]
+        # after the swap slot 0 holds 1's rows and 1 holds 0's; the chain
+        # then moves 1 -> 2, 2 -> 3, 3 -> 1
+        for slot, src in ((0, 1), (2, 0), (3, 2), (1, 3)):
+            assert torch.equal(v[slot], b[src]), (k, slot)
+
+
+@pytest.mark.gpu
+def test_a_device_overrun_in_draft_prefill_is_charged_to_its_own_call():
+    """draft_prefill reads nothing back, so its device work is still queued
+    when it returns.  A device spin queued inside it overruns the hang
+    deadline; the guard waits for the card, so the overrun is caught in
+    draft_prefill's own guarded call and tick, not in the next call's host
+    read — and the run heals token-exact."""
+    dev = _card()
+    want = {}
+    engine, _ = _tiny_serving(dev, spec_k=3)
+    for r in _tiny_requests():
+        assert engine.submit(r)
+        want[r.uid] = r
+    engine.run()
+    engine, _ = _tiny_serving(dev, spec_k=3, self_heal=True, hang_timeout=0.5)
+    st = engine.stepper
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(10_000_000 * 1.0e3 / start.elapsed_time(end))   # ~1 s of spinning
+    calls, spun, charged = [0], [], []
+    draft_prefill = st.draft_prefill
+
+    def spinning(*args):
+        calls[0] += 1
+        if calls[0] == 2:
+            spun.append(engine.tick)
+            out = draft_prefill(*args)
+            torch.cuda._sleep(cycles)
+            return out
+        return draft_prefill(*args)
+
+    st.draft_prefill = spinning
+    guarded = engine._guarded_call
+
+    def tracked(fn, *args):
+        try:
+            return guarded(fn, *args)
+        except Exception:
+            charged.append((engine.tick, fn.__name__))
+            raise
+
+    engine._guarded_call = tracked
+    reqs = _tiny_requests()
+    for r in reqs:
+        assert engine.submit(r)
+    engine.run()
+    assert charged == [(spun[0], "spinning")]
+    assert engine.metrics.n_hang_failures == 1 and engine.metrics.n_crash_failures == 0
+    for r in reqs:
+        assert r.done and r.out_tokens == want[r.uid].out_tokens
+
+
+@pytest.mark.gpu
+def test_small_paged_engine_heals_from_a_real_out_of_memory_error():
+    """An allocation larger than the card's free memory inside a decode call
+    raises torch.cuda.OutOfMemoryError, which leaves the context usable: the
+    tick is discarded and the paged engine resumes from its pages with the
+    uninterrupted run's tokens."""
+    dev = _card()
+    want = {}
+    engine, _ = _tiny_serving(dev, paged=True, page_size=8)
+    for r in _tiny_requests():
+        assert engine.submit(r)
+        want[r.uid] = r
+    engine.run()
+    engine, _ = _tiny_serving(dev, paged=True, page_size=8, self_heal=True)
+    st = engine.stepper
+    calls, decode = [0], st.decode
+
+    def oom(*args):
+        calls[0] += 1
+        out = decode(*args)
+        if calls[0] == 3:
+            free, total = torch.cuda.mem_get_info(dev)
+            torch.empty(total, dtype=torch.uint8, device=dev)
+        return out
+
+    st.decode = oom
+    reqs = _tiny_requests()
+    for r in reqs:
+        assert engine.submit(r)
+    engine.run()
+    assert engine.metrics.n_crash_failures == 1 and engine.metrics.recovered_rows > 0
+    st.pool.check_integrity()
+    assert st.pool.live_sequences == 0
+    for r in reqs:
+        assert r.done and r.out_tokens == want[r.uid].out_tokens
