@@ -185,8 +185,34 @@ Phases, each printing its own lines; any failure exits non-zero:
              reference; prints per tier attainment, goodput, TTFT in ticks
              and seconds, shed and dropped.
 
+17. deploy — OXF bundles and the asyncio front end; 17a, 17c and 17d run
+             right after phase 5 on its weights and engine (which then goes,
+             as in the phases after it), 17b right after phase 13.
+             17a: phase 5's decode (B 4, cache 1024) and prefill (chunk 64)
+             Programs rebuilt at DEPLOY_LAYERS (2) layers on phase 5's
+             weights under FixedPolicy, each saved to its own bundle in a
+             temporary directory under build/ and loaded with load_program
+             on the card: model.json pins "pallas" where the Program ran
+             "cuda", the loaded assignment equals the original's, every
+             output on two seeded inputs equals the original's bitwise with
+             the same kernel launches per call, and 16 greedy tokens of 4
+             prompts through the loaded prefill and decode pair equal the
+             originals'.  17b: phase 13's int8-weight decode Program (32
+             layers, shared calibration) saved, loaded and held the same
+             way, program.json saying quantized; footprint_table of phase
+             5's fp32 and this int8 decode Program.  17c: the golden bundle
+             tests/golden/tiny_int8 (pinned xla: torch in the port) gives
+             its expected_y on the card (rtol 1e-5, atol 1e-6) and re-saves
+             model.json and program.json byte-identical.  17d: phase 5's
+             engine, its metrics reset, streams phase 5's 8 requests as 8
+             concurrent AsyncEngine.generate streams driven by run(): every
+             stream equals phase 5's tokens, in phase 5's tick counts; then
+             launch.serve --engine --int8 at its defaults, in-process.
+             Prints bundle bytes, save, load and first-call seconds and the
+             async tokens/s beside phase 5's.
+
 The last three lines of standard output are JSON: the serving numbers
-(phases 15 and 16 under "heal" and "load"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+(phases 15, 16 and 17 under "heal", "load" and "deploy"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -1515,8 +1541,9 @@ def layerstack_model_phase(torch, arch):
 # --------------------------------------------------------------------------- #
 
 def serving_phase(torch, K, cfg, params, n_slots, chunk, cache_cap, n_requests, max_new):
-    """Returns the launches, the serving numbers, and each request's prompt
-    with the reference's tokens (phases 6 and 7 serve the same prompts)."""
+    """Returns the launches, the serving numbers, each request's prompt
+    with the reference's tokens (phases 6 and 7 serve the same prompts) and
+    the engine (phase 17 streams the requests again through it)."""
     import numpy as np
     from repro_torch.runtime.engine import EngineRequest, build_lm_serving
 
@@ -1595,7 +1622,7 @@ def serving_phase(torch, K, cfg, params, n_slots, chunk, cache_cap, n_requests, 
         served.append((r.prompt, want))
     say(f"  all {len(reqs)} requests token-exact against the unbatched reference "
         f"({time.perf_counter() - t_ref:.2f} s)")
-    return launches, stats, served
+    return launches, stats, served, engine
 
 
 def first_divergence(got, want):
@@ -1860,7 +1887,8 @@ def int8w_phase(torch, K, cfg, params, served, *, n_slots, chunk, cache_cap, max
     build_lm_serving(quantize="int8"); every request token-exact against
     the quantized UnbatchedReference (same shared calibration); agreement
     with phase 5's fp32 tokens reported.  Returns the launches, the numbers,
-    the reference's tokens and its calibration ranges."""
+    the reference's tokens, its calibration ranges and the engine's decode
+    Program (phase 17 saves it)."""
     import numpy as np
     from repro_torch.runtime.engine import EngineRequest, build_lm_serving
 
@@ -1937,7 +1965,303 @@ def int8w_phase(torch, K, cfg, params, served, *, n_slots, chunk, cache_cap, max
     say(f"  all {len(reqs)} requests token-exact against the quantized unbatched reference "
         f"({time.perf_counter() - t_ref:.2f} s); {same_fp32} of {len(reqs)} equal phase 5's "
         f"fp32 tokens (reported, not asserted: int8 weights are lossy)")
-    return launches, stats, qtokens, reference._ranges
+    return launches, stats, qtokens, reference._ranges, st.decode_program
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: deploy — OXF bundles and the asyncio front end
+# --------------------------------------------------------------------------- #
+
+GOLDEN = ROOT / "tests" / "golden" / "tiny_int8"
+DEPLOY_LAYERS = 2              # 17a's depth: full depth would write 15.3 GB per fp32 bundle
+GREEDY_TOKENS = 16
+
+
+def kernel_counts(K):
+    return {kern.__name__: kern.launches for kern in K.KERNELS}
+
+
+def bundle_inputs(torch, cfg, prog, *, chunk, cache_cap, seed):
+    """Seeded inputs of a dense decode (T = 1) or prefill (T = chunk)
+    Program: phase 3's starts, random caches on the card."""
+    import numpy as np
+    t = prog.graph.inputs["tokens"].shape[1]
+    b = prog.graph.inputs["tokens"].shape[0]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    feed = {"tokens": rng.integers(0, cfg.vocab, (b, t)).astype(np.int32),
+            "start": np.asarray(VERIFY_STARTS if t == 1 else [640, 320, 64, 0], np.int32),
+            "n_new": np.asarray([1] * b if t == 1 else [chunk, chunk, chunk - 27, chunk],
+                                np.int32)}
+    for name in prog.graph.inputs:
+        if name.startswith("cache_"):
+            feed[name] = torch.randn((b, cache_cap, cfg.n_kv_heads, cfg.d_head),
+                                     generator=gen, device="cuda")
+    return feed
+
+
+def timed_call(torch, K, prog, feed):
+    """(outputs, seconds, kernel launches) of one synchronised call."""
+    before = kernel_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = prog(**feed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return outs, dt, {k: v - before[k] for k, v in kernel_counts(K).items()}
+
+
+def bundle_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def check_bundle(torch, K, tag, prog, path, feeds, card):
+    """Save ``prog`` to ``path``, load it on the card, and hold the loaded
+    Program to the original: the format's pins (``pallas`` where it ran
+    ``cuda``), the same assignment, every output bitwise equal and the same
+    launches per call on each feed.  Returns (loaded Program, numbers)."""
+    from repro_torch.core import load_program
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog.save(str(path))
+    save_s = time.perf_counter() - t0
+    with open(Path(path) / "model.json") as f:
+        pins = {nd["name"]: nd["backend"] for nd in json.load(f)["nodes"]}
+    want_pins = {n: {"cuda": "pallas", "cuda_split": "pallas_split", "torch": "xla"}.get(b, b)
+                 for n, b in prog.assignment.items()}
+    if pins != want_pins or ("cuda" in prog.assignment.values()
+                             and "pallas" not in pins.values()):
+        fail(f"deploy {tag}: model.json pins {sorted(set(pins.values()))} are not the "
+             f"format's names of {sorted(set(prog.assignment.values()))}")
+    t0 = time.perf_counter()
+    loaded = load_program(str(path))
+    load_s = time.perf_counter() - t0
+    if loaded.device.type != "cuda" or loaded.assignment != prog.assignment:
+        fail(f"deploy {tag}: loaded on {loaded.device} with another assignment")
+    first_s = None
+    for i, feed in enumerate(feeds):
+        want, _, want_n = timed_call(torch, K, prog, feed)
+        got, dt, got_n = timed_call(torch, K, loaded, feed)
+        first_s = dt if first_s is None else first_s
+        if got_n != want_n:
+            fail(f"deploy {tag}: a loaded call launched {got_n}, the original {want_n}")
+        for j, (a, b) in enumerate(zip(want, got)):
+            if not torch.equal(a, b):
+                fail(f"deploy {tag}: output {j} of call {i} differs from the original's "
+                     f"(max |diff| {float((a - b).abs().max()):.3e})")
+    per_call = {k: v for k, v in want_n.items() if v}
+    numbers = {"bundle_bytes": bundle_bytes(path), "save_s": save_s, "load_s": load_s,
+               "first_call_s": first_s, "launches_per_call": per_call}
+    say(f"  {tag}: {numbers['bundle_bytes'] / 1e9:.3f} GB on disk; save {save_s:.2f} s, "
+        f"load {load_s:.2f} s, first call {first_s:.3f} s; outputs bitwise the "
+        f"original's, launches per call {json.dumps(per_call)} "
+        f"[{card}]")
+    return loaded, numbers
+
+
+def greedy_pair(torch, pre, dec, prompts, *, chunk, n_tokens):
+    """Greedy tokens for a batch of prompts through a prefill and a decode
+    Program (every row prefilled chunk by chunk, then decoded)."""
+    import numpy as np
+    b = len(prompts)
+    caches = {name: torch.zeros(spec.shape, dtype=torch.float32, device="cuda")
+              for name, spec in pre.graph.inputs.items() if name.startswith("cache_")}
+
+    def call(prog, tokens, start, n_new):
+        outs = prog(tokens=tokens, start=start, n_new=n_new, **caches)
+        for name, arr in zip(prog.graph.outputs[1:], outs[1:]):
+            caches[name.replace("new_", "")] = arr
+        return outs[0].cpu().numpy()
+
+    lens = np.asarray([len(p) for p in prompts])
+    last = [None] * b
+    for pos in range(0, int(lens.max()), chunk):
+        n = np.clip(lens - pos, 0, chunk).astype(np.int32)
+        toks = np.zeros((b, chunk), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :n[i]] = p[pos:pos + n[i]]
+        logits = call(pre, toks, np.full(b, pos, np.int32), n)
+        for i in range(b):
+            if n[i]:
+                last[i] = logits[i, n[i] - 1]
+    out = [[int(np.argmax(row))] for row in last]
+    length = lens.astype(np.int32)
+    while len(out[0]) < n_tokens:
+        logits = call(dec, np.asarray([[o[-1]] for o in out], np.int32), length,
+                      np.ones(b, np.int32))
+        length = length + 1
+        for i in range(b):
+            out[i].append(int(np.argmax(logits[i])))
+    return out
+
+
+def deploy_phase(torch, K, cfg, params, engine, served, serve_stats, *, n_slots, chunk,
+                 cache_cap, max_new, card):
+    """Phase 17, run right after phase 5 on its weights and engine: 17a the
+    fp32 decode and prefill Programs at DEPLOY_LAYERS layers through
+    bundles, 17c the golden bundle on the card, 17d phase 5's engine
+    through AsyncEngine and ``launch.serve --engine --int8``.  Returns the
+    launches of the phase and its numbers."""
+    import asyncio
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import FixedPolicy, compile, load_program
+    from repro_torch.models.graph_lm import build_decode_graph, build_prefill_graph
+    from repro_torch.runtime.engine import AsyncEngine
+
+    record = {}
+    for kern in K.KERNELS:
+        kern.launches = 0
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="bundles-") as tmp:
+        tmp = Path(tmp)
+        # 17a. fp32 at phi3-mini width, DEPLOY_LAYERS layers, phase 5's weights
+        cfg2 = dataclasses.replace(cfg, n_layers=DEPLOY_LAYERS)
+        keep = {f"l{i}." for i in range(DEPLOY_LAYERS)}
+        params2 = {k: v for k, v in params.items()
+                   if "." not in k or k[:k.index(".") + 1] in keep}
+        progs = {"decode": compile(build_decode_graph(cfg2, params2, batch=n_slots,
+                                                      cache_cap=cache_cap),
+                                   FixedPolicy(), device="cuda"),
+                 "prefill": compile(build_prefill_graph(cfg2, params2, batch=n_slots,
+                                                        chunk=chunk, cache_cap=cache_cap),
+                                    FixedPolicy(), device="cuda")}
+        loaded = {}
+        for kind, prog in progs.items():
+            feeds = [bundle_inputs(torch, cfg2, prog, chunk=chunk, cache_cap=cache_cap,
+                                   seed=seed) for seed in (17, 18)]
+            loaded[kind], record[f"fp32 {kind}"] = check_bundle(
+                torch, K, f"17a fp32 {kind} ({DEPLOY_LAYERS} layers)", prog, tmp / kind,
+                feeds, card)
+            del feeds
+        rng = np.random.default_rng(17)
+        prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+                   for n in rng.integers(17, 300, n_slots)]
+        want = greedy_pair(torch, progs["prefill"], progs["decode"], prompts, chunk=chunk,
+                           n_tokens=GREEDY_TOKENS)
+        got = greedy_pair(torch, loaded["prefill"], loaded["decode"], prompts, chunk=chunk,
+                          n_tokens=GREEDY_TOKENS)
+        if got != want:
+            fail(f"deploy 17a: greedy tokens of the loaded pair {got} != the originals' {want}")
+        say(f"  17a: {GREEDY_TOKENS} greedy tokens of {n_slots} prompts (lengths "
+            f"{[len(p) for p in prompts]}) through the loaded prefill + decode pair equal "
+            f"the originals'")
+        del progs, loaded
+        release(torch)
+
+        # 17c. the golden bundle on the card
+        golden = load_program(str(GOLDEN))
+        if set(golden.assignment.values()) != {"torch"}:
+            fail(f"deploy 17c: golden assignment {golden.assignment}, expected torch")
+        y = golden(x=np.load(GOLDEN / "input_x.npy"))[0]
+        expected = np.load(GOLDEN / "expected_y.npy")
+        err = float(np.abs(y.cpu().numpy() - expected).max())
+        if not (y.is_cuda and np.allclose(y.cpu().numpy(), expected, rtol=1e-5, atol=1e-6)):
+            fail(f"deploy 17c: golden output max |err| {err:.3e} (rtol 1e-5, atol 1e-6)")
+        golden.save(str(tmp / "golden"))
+        for name in ("model.json", "program.json"):
+            if (tmp / "golden" / name).read_bytes() != (GOLDEN / name).read_bytes():
+                fail(f"deploy 17c: the re-saved {name} differs from the golden file")
+        say(f"  17c: tests/golden/tiny_int8 on the card (xla pins -> torch): expected_y "
+            f"within rtol 1e-5, atol 1e-6 (max |err| {err:.3e}); model.json and "
+            f"program.json re-saved byte-identical")
+        record["golden_max_abs_err"] = err
+
+    # 17d. phase 5's engine through AsyncEngine
+    engine.reset_metrics()
+    aeng = AsyncEngine(engine)
+
+    async def collect(prompt):
+        return [tok async for tok in aeng.generate(prompt, max_new)]
+
+    async def stream_all():
+        return await asyncio.gather(*[collect(p) for p, _ in served], aeng.run())
+
+    t0 = time.perf_counter()
+    streams = asyncio.run(stream_all())[:-1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, (stream, (_, want_tokens)) in enumerate(zip(streams, served)):
+        if stream != want_tokens:
+            fail(f"deploy 17d: stream {i} {stream} != phase 5's {want_tokens}")
+    m = engine.metrics
+    ticks = (m.prefill_ticks, m.decode_ticks)
+    if ticks != (serve_stats["prefill_ticks"], serve_stats["decode_ticks"]):
+        fail(f"deploy 17d: {ticks} prefill + decode ticks, phase 5 ran "
+             f"{(serve_stats['prefill_ticks'], serve_stats['decode_ticks'])}")
+    engine.sched.check_conservation()
+    n_tok = sum(len(st) for st in streams)
+    # tokens_per_s is EngineMetrics' (first tick to last), as phase 5's
+    record["async"] = {"tokens": n_tok, "tokens_per_s": m.tokens_per_s,
+                       "phase5_tokens_per_s": serve_stats["tokens_per_s"],
+                       "wall_s": wall, "wall_tokens_per_s": n_tok / wall,
+                       "decode_ms_per_tick": 1e3 * m.decode_wall_s / max(m.decode_ticks, 1),
+                       "prefill_ms_per_tick": 1e3 * m.prefill_wall_s / max(m.prefill_ticks, 1),
+                       "prefill_ticks": ticks[0], "decode_ticks": ticks[1]}
+    say(f"  17d: {len(streams)} AsyncEngine streams of {max_new} tokens equal phase 5's, "
+        f"{ticks[0]} prefill + {ticks[1]} decode ticks as phase 5; {m.tokens_per_s:.2f} "
+        f"tokens/s (phase 5 {serve_stats['tokens_per_s']:.2f}), decode "
+        f"{record['async']['decode_ms_per_tick']:.2f} / prefill "
+        f"{record['async']['prefill_ms_per_tick']:.2f} ms a tick (phase 5 "
+        f"{serve_stats['decode_ms_per_tick']:.2f} / {serve_stats['prefill_ms_per_tick']:.2f}); "
+        f"{n_tok / wall:.2f} tokens/s over asyncio.run's wall [{card}]")
+
+    # 17d. launch.serve --engine --int8 at its defaults, in-process
+    from repro_torch.launch import serve
+    argv = sys.argv
+    sys.argv = ["repro_torch.launch.serve", "--engine", "--int8"]
+    try:
+        t0 = time.perf_counter()
+        serve.main()
+        record["serve_int8_s"] = time.perf_counter() - t0
+    finally:
+        sys.argv = argv
+    say(f"  17d: launch.serve --engine --int8 on the card took {record['serve_int8_s']:.2f} s "
+        f"[{card}]")
+    launches = kernel_counts(K)
+    say(f"  launches during phase 17 (a, c, d): {launches}")
+    for name in ("gemm", "rmsnorm", "flash_decode", "flash_chunk_attention", "combine_partials"):
+        if launches[name] == 0:
+            fail(f"deploy: kernel {name} launched no time in phase 17 (a, c, d)")
+    return launches, record
+
+
+def deploy_int8_phase(torch, K, cfg, fp32_decode, int8_decode, *, chunk, cache_cap, card):
+    """Phase 17b, run right after phase 13: its int8-weight decode Program
+    (full depth) through a bundle, and footprint_table of phase 5's fp32
+    decode Program beside it.  Returns the launches and the numbers."""
+    from repro_torch.tools.report import footprint_table, weight_bytes
+
+    record = {}
+    for kern in K.KERNELS:
+        kern.launches = 0
+    say(f"  17b: phase 13's int8-weight decode Program, {cfg.n_layers} layers, "
+        f"weight_bytes {weight_bytes(int8_decode)} ({weight_bytes(int8_decode) / 1e9:.3f} "
+        f"GB; phase 5's fp32 decode Program {weight_bytes(fp32_decode) / 1e9:.3f} GB) "
+        f"[{card}]")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="bundles-") as tmp:
+        feeds = [bundle_inputs(torch, cfg, int8_decode, chunk=chunk, cache_cap=cache_cap,
+                               seed=19)]
+        loaded, record["int8 decode"] = check_bundle(
+            torch, K, f"17b int8 decode ({cfg.n_layers} layers)", int8_decode,
+            Path(tmp) / "int8", feeds, card)
+        with open(Path(tmp) / "int8" / "program.json") as f:
+            if json.load(f)["quantized"] is not True:
+                fail("deploy 17b: program.json of the int8 bundle does not say quantized")
+        del feeds, loaded
+    table = footprint_table([("phase 5 fp32 decode", fp32_decode),
+                             ("phase 13 int8 decode", int8_decode)])
+    say("  17b footprint_table:")
+    for line in table.splitlines():
+        say(f"    {line}")
+    record["footprint_table"] = table
+    launches = kernel_counts(K)
+    say(f"  launches during phase 17b: {launches}")
+    for name in ("rmsnorm", "flash_decode", "combine_partials"):
+        if launches[name] == 0:
+            fail(f"deploy: kernel {name} launched no time in phase 17b")
+    return launches, record
 
 
 # --------------------------------------------------------------------------- #
@@ -2967,11 +3291,27 @@ def main() -> int:
     t = time.perf_counter()
     say(f"[serving] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
         f"cache {cache_cap} [{limit_line}]")
-    launches, stats, served = serving_phase(torch, K, cfg, params, n_slots, chunk, cache_cap,
-                                            n_requests=8, max_new=max_new)
+    launches, stats, served, engine5 = serving_phase(torch, K, cfg, params, n_slots, chunk,
+                                                     cache_cap, n_requests=8, max_new=max_new)
     torch.cuda.empty_cache()
     phase_s["serving"] = time.perf_counter() - t
     runs = {"dense": (launches, stats)}
+
+    # 17. deploy (a, c, d): OXF bundles of phase 5's Programs at 2 layers, the
+    # golden bundle, phase 5's engine through AsyncEngine; then the engine
+    # goes, as in every phase after 5 (only its decode Program stays, for
+    # 17b's footprint table: it shares phase 5's weights)
+    t = time.perf_counter()
+    say(f"[deploy] phi3-mini widths: fp32 bundles at {DEPLOY_LAYERS} layers, the golden "
+        f"bundle, AsyncEngine on phase 5's engine [{limit_line}]")
+    launches, deploy_record = deploy_phase(
+        torch, K, cfg, params, engine5, served, stats, n_slots=n_slots, chunk=chunk,
+        cache_cap=cache_cap, max_new=max_new, card=limit_line)
+    runs["deploy"] = (launches, deploy_record)
+    fp32_decode = engine5.stepper.decode_program
+    del engine5
+    release(torch)
+    phase_s["deploy"] = time.perf_counter() - t
 
     # 6. and 7. serving, paged cache
     ref_cache = {}
@@ -3005,12 +3345,25 @@ def main() -> int:
     t = time.perf_counter()
     say(f"[int8w] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
         f"cache {cache_cap}, build_lm_serving(quantize=\"int8\") [{limit_line}]")
-    launches, stats, qtokens, q_ranges = int8w_phase(
+    launches, stats, qtokens, q_ranges, int8_decode = int8w_phase(
         torch, K, cfg, params, served, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap,
         max_new=max_new, card=limit_line)
     runs["int8w"] = (launches, stats)
     release(torch)
     phase_s["int8w"] = time.perf_counter() - t
+
+    # 17b. deploy: phase 13's int8-weight decode Program through a bundle
+    t = time.perf_counter()
+    say(f"[deploy int8] phi3-mini widths, {cfg.n_layers} layers, phase 13's int8-weight "
+        f"decode Program [{limit_line}]")
+    launches, int8_record = deploy_int8_phase(torch, K, cfg, fp32_decode, int8_decode,
+                                              chunk=chunk, cache_cap=cache_cap,
+                                              card=limit_line)
+    runs["deploy int8"] = (launches, int8_record)
+    deploy_record.update(int8_record)
+    del fp32_decode, int8_decode
+    release(torch)
+    phase_s["deploy int8"] = time.perf_counter() - t
 
     # 14. speculative decoding: dense, paged fp32, int8 weights, then kv8 pages
     t = time.perf_counter()
@@ -3086,6 +3439,7 @@ def main() -> int:
         serving[path] = runs[path][1]
     serving["heal"] = {path: heal_runs[path][1] for path in heal_runs}
     serving["load"] = load_record
+    serving["deploy"] = deploy_record
     for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)

@@ -21,6 +21,7 @@ __all__ = [
     "PipelineError",
     "register_pass",
     "get_pass",
+    "registered_passes",
     "default_pipeline",
     "DEFAULT_PASSES",
 ]
@@ -65,6 +66,12 @@ def get_pass(name: str) -> PassFn:
     except KeyError:
         raise PipelineError(
             f"unknown pass {name!r}; registered: {sorted(_PASSES)}") from None
+
+
+def registered_passes() -> List[str]:
+    """Names of every registered pass (``repro``'s but ``partition``,
+    which comes with tensor-parallel serving)."""
+    return sorted(_PASSES)
 
 
 def _freeze(x):
@@ -151,6 +158,18 @@ class PassManager:
             if not self.fixpoint or _structure(g) == sig_before_iter:
                 break
         return g
+
+    def total_seconds(self) -> float:
+        return sum(s.seconds for s in self.stats)
+
+    def summary(self) -> str:
+        """Human-readable per-pass table of the last ``run``."""
+        lines = [f"{'pass':28s} {'nodes':>12s} {'time':>9s}  it"]
+        for s in self.stats:
+            lines.append(f"{s.name:28s} {s.nodes_before:5d} ->{s.nodes_after:4d} "
+                         f"{s.seconds*1e3:7.2f}ms  {s.iteration}")
+        lines.append(f"{'total':28s} {'':12s} {self.total_seconds()*1e3:7.2f}ms")
+        return "\n".join(lines)
 
     def __repr__(self) -> str:
         return (f"PassManager({self.name!r}, passes={self.pass_names()}, "

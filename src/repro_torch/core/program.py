@@ -16,11 +16,21 @@ engine builds four Programs over one 15 GB weight set.
 
 ``compile(..., quantize="int8")`` adds post-training quantization as a
 stage after the simplify pipeline (:mod:`repro_torch.core.quant`).
-``Program.save`` / ``Program.load`` (OXF bundles) are not ported yet.
+
+:meth:`Program.save` / :meth:`Program.load` write and read OXF bundles
+(:mod:`repro_torch.core.importer`), with the assignment pinned into each
+node in the format's backend names, so a Program compiled by either
+package deploys in the other with its assignment::
+
+    prog = compile(graph, device="cuda")
+    prog.save("model_dir")                 # pins "pallas" where prog ran "cuda"
+    prog2 = Program.load("model_dir")      # same assignment, no re-tuning
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass
 from types import MappingProxyType
@@ -29,6 +39,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
+from repro_torch.core.importer import (bundle_backend, bundle_cost, graph_from_dict,
+                                       read_bundle, save_graph)
 from repro_torch.core.ir import Graph, Node, TensorSpec, topological_order
 from repro_torch.core.pipeline import PassManager, PassStats, default_pipeline
 from repro_torch.core.registry import Cost, get_impl
@@ -72,6 +84,8 @@ class Program:
         self._impls = [(node, get_impl(node.op, self._assignment[node.name]))
                        for node in self._order]
         self._stored: Optional[Dict[str, torch.Tensor]] = None
+        # node -> backend name as read from an OXF bundle (Program.load)
+        self._bundle_names: Mapping[str, str] = MappingProxyType({})
 
     @property
     def graph(self) -> Graph:
@@ -182,6 +196,65 @@ class Program:
             return self._run(stored, dict(zip(order, args)))
 
         return fast
+
+    # ------------------------------------------------------------------ #
+    # Persistence (OXF bundle: model.json + weights.npz + program.json)
+    # ------------------------------------------------------------------ #
+    def bundle_assignment(self) -> Dict[str, str]:
+        """node name -> backend in the format's names: the name read from
+        the bundle this Program was loaded from, else the format's name
+        for the port backend (``cuda`` -> ``pallas``, ``torch`` -> ``xla``)."""
+        return {name: self._bundle_names.get(name, bundle_backend(b))
+                for name, b in self._assignment.items()}
+
+    def save(self, path: str) -> None:
+        """Serialize graph, weights and the frozen assignment.
+
+        Each node's ``backend`` is pinned in model.json in the format's
+        names (:meth:`bundle_assignment`); ``program.json`` records the
+        assignment, each node's cost on that backend as ``repro`` computes
+        it, and whether the graph is quantized.  The weights written are
+        the graph's params (device tensors are copied to the host one at a
+        time), never a second device copy."""
+        from repro_torch.core.quant import is_quantized
+        names = self.bundle_assignment()
+        pinned = self._graph.clone()
+        for node in pinned.nodes:
+            node.backend = names[node.name]
+        save_graph(pinned, path)
+        costs = {}
+        for node in self._order:
+            specs = [self._graph.spec_of(v) for v in node.inputs]
+            c = bundle_cost(node.op, names[node.name], specs, node.attrs)
+            costs[node.name] = {"backend": names[node.name], "flops": c.flops,
+                                "bytes": c.bytes}
+        meta = {"assignment": names, "cost_table": costs,
+                "quantized": is_quantized(self._graph)}
+        with open(os.path.join(path, "program.json"), "w") as f:
+            json.dump(meta, f, indent=1, sort_keys=True)
+
+    @classmethod
+    def load(cls, path: str, policy: Optional[BackendPolicy] = None,
+             device: DeviceLike = None) -> "Program":
+        """Rebuild a Program from an OXF bundle on ``device`` (``None``
+        means ``"cuda"``), with no pass run (a quantized bundle loads as it
+        is).  The pinned per-node backends, mapped to the port's names, win
+        over ``policy``, which only fills gaps (bundles written by a plain
+        ``save_graph``); the names read from the bundle are remembered, so
+        :meth:`save` writes them back unchanged.  A partitioned bundle
+        raises ``NotImplementedError``."""
+        meta_path = os.path.join(path, "program.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                if "partition" in json.load(f):
+                    raise NotImplementedError(
+                        f"{path}: partitioned bundles are not ported yet: see ROADMAP.md "
+                        "Queue 1 item 12 (tensor-parallel serving)")
+        d, params = read_bundle(path)
+        prog = compile(graph_from_dict(d, params), policy=policy, pipeline=(), device=device)
+        prog._bundle_names = MappingProxyType(
+            {nd["name"]: nd["backend"] for nd in d["nodes"] if nd.get("backend")})
+        return prog
 
 
 def compile(graph: Graph, policy: Optional[BackendPolicy] = None,

@@ -8,6 +8,10 @@ port never registers into ``repro``'s.  Backends used in the port:
   slot that ``pallas`` fills in ``repro``.  On a CPU tensor a ``cuda``
   backend runs its kernel's plain PyTorch version; on a CUDA tensor it
   launches the kernel or raises.
+* ``torch`` — one PyTorch library call, in the slot of ``repro``'s
+  ``xla``; where ``repro`` has an ``xla`` backend and the port none, the
+  port folded it into ``ref`` (:mod:`repro_torch.core.importer` maps the
+  names of an OXF bundle).
 
 A backend that cannot run in this environment says so by raising
 ``NotImplementedError`` before it launches anything;
@@ -32,6 +36,7 @@ __all__ = [
     "get_op",
     "get_impl",
     "backends_for",
+    "registered_ops",
     "RegistryError",
 ]
 
@@ -49,6 +54,9 @@ class Cost:
 
     def __add__(self, other: "Cost") -> "Cost":
         return Cost(self.flops + other.flops, self.bytes + other.bytes)
+
+    def arithmetic_intensity(self) -> float:
+        return self.flops / max(self.bytes, 1.0)
 
 
 ShapeFn = Callable[[Sequence[TensorSpec], Dict[str, Any]], List[TensorSpec]]
@@ -81,6 +89,10 @@ class OpDef:
     cost_fn: CostFn
     impls: Dict[str, OpImpl] = field(default_factory=dict)
     doc: str = ""
+    # repro's ``xla`` cost, where the port folded ``xla`` into ``ref`` and
+    # that cost is not the op's: what an OXF bundle's cost table records
+    # for an ``xla`` node (core/importer.py)
+    xla_cost: Optional[CostFn] = None
 
 
 _OPS: Dict[str, OpDef] = {}
@@ -140,3 +152,6 @@ def backends_for(name: str, specs: Optional[Sequence[TensorSpec]] = None,
     attrs = attrs or {}
     return [b for b in names if op.impls[b].supports(specs, attrs)]
 
+
+def registered_ops() -> List[str]:
+    return sorted(_OPS)

@@ -43,7 +43,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.ir import TensorSpec
-from repro_torch.core.registry import Cost, defop, impl
+from repro_torch.core.registry import Cost, defop, get_op, impl
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import (chunk_fits, flash_chunk_attention,
                                                  flash_paged_chunk_attention,
@@ -787,3 +787,40 @@ def _paged_verify_q_cuda_supports(specs, attrs):
            "cannot stream pages in place)")
 def _paged_verify_attention_q_cuda(inputs, attrs):
     return _chunk_attention_cuda(list(_paged_verify_q_sources(inputs)), attrs)
+
+
+# --------------------------------------------------------------------------- #
+# repro's ``xla`` backends of these ops, folded into ``ref`` in the port:
+# the cost an OXF bundle records for the name ``xla`` where it is not the
+# op's own (repro serving_ops.py's ``*_xla_cost``; core/importer.py)
+# --------------------------------------------------------------------------- #
+
+def _embedding_xla_cost(specs, attrs):
+    """One-hot matmul: 2*N*V*D flops plus the materialised (N, V)
+    one-hot, traded against the gather's pure byte cost."""
+    ids, table = specs
+    v, d = table.shape
+    n = ids.nelems
+    out = _embedding_shape(specs, attrs)[0]
+    return Cost(flops=2.0 * n * v * d,
+                bytes=table.nbytes + out.nbytes + 4.0 * n * v)
+
+
+def _paged_gather_xla_cost(op_cost):
+    def cost(specs, attrs):
+        """The materialised dense gather on top of the op's streaming cost;
+        GQA stays grouped."""
+        base = op_cost(specs, attrs)
+        return Cost(flops=base.flops,
+                    bytes=base.bytes + 2.0 * 2.0 * _gathered_bytes(specs[1], specs[3]))
+    return cost
+
+
+for _op, _cost in (("embedding", _embedding_xla_cost),
+                   ("paged_chunk_attention", _paged_gather_xla_cost(_paged_chunk_cost)),
+                   ("paged_verify_attention", _paged_gather_xla_cost(_paged_chunk_cost)),
+                   ("paged_decode_attention", _paged_gather_xla_cost(_paged_dec_cost)),
+                   ("paged_chunk_attention_q", _paged_chunk_q_gather_cost),
+                   ("paged_verify_attention_q", _paged_verify_q_gather_cost),
+                   ("paged_decode_attention_q", _paged_dec_q_gather_cost)):
+    get_op(_op).xla_cost = _cost

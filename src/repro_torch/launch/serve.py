@@ -5,7 +5,7 @@ Program-backed engine over the graph LM — counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b [--full] \\
         [--device cpu] [--requests 16 --slots 4 --cache-cap 64 --max-new 12]
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --engine [--paged] \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine [--int8] [--paged] \\
         [--kv-dtype int8] [--device cpu] --requests 16 --slots 4 --chunk 8
 
 Default mode submits a stream of random-prompt requests and runs the
@@ -19,7 +19,9 @@ published config).  On the card every op runs on the port's hand-written
 kernels (:data:`repro_torch.models.lm.CUDA_BACKENDS`); ``--device cpu``
 runs the plain ``ref`` backends.  Without ``--device`` it needs a
 card and raises without one.  ``--engine`` instead serves the graph LM
-through :func:`repro_torch.runtime.engine.build_lm_serving`.
+through :func:`repro_torch.runtime.engine.build_lm_serving` and prints the
+lines ``repro.launch.serve --engine`` prints; with ``--int8`` the decode
+and prefill Programs have int8 weights (one shared calibration).
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ def run_engine(args) -> None:
     cache_cap = max(args.cache_cap, args.chunk + args.max_new + 16)
     paged = args.paged or args.kv_dtype != "float32"
     engine, _ = build_lm_serving(cfg, n_slots=args.slots, chunk=args.chunk,
-                                 cache_cap=cache_cap, paged=paged, kv_dtype=args.kv_dtype,
-                                 device=args.device)
+                                 cache_cap=cache_cap,
+                                 quantize="int8" if args.int8 else None,
+                                 paged=paged, kv_dtype=args.kv_dtype, device=args.device)
     rng = np.random.default_rng(0)
     reqs = []
     for i in range(args.requests):
@@ -66,9 +69,15 @@ def run_engine(args) -> None:
     for r in reqs:
         engine.submit(r)
     engine.run(max_ticks=100_000)
-    print(f"engine: slots={args.slots} chunk={args.chunk} paged={paged} "
-          f"kv_dtype={args.kv_dtype} requests={len(reqs)}")
+    print(f"engine: slots={args.slots} chunk={args.chunk} "
+          f"int8={args.int8} paged={paged} kv_dtype={args.kv_dtype} "
+          f"requests={len(reqs)}")
     print(json.dumps(engine.metrics.summary(), indent=1, sort_keys=True))
+    if paged:
+        s = engine.stepper.pool.stats()
+        print(f"paged pool: {s['n_blocks']} blocks x {s['page_size']} rows "
+              f"({s['kv_dtype']}, {s['page_bytes']}B/page), "
+              f"hit rate {s['hit_rate']:.0%}, CoW {s['cow_count']}")
     for r in reqs[:3]:
         print(f"  req{r.uid}: prompt[:4]={r.prompt[:4].tolist()} "
               f"-> out[:6]={r.out_tokens[:6]}")
@@ -114,6 +123,8 @@ def main() -> None:
                     help="torch device (default: cuda; raises without a card)")
     ap.add_argument("--engine", action="store_true",
                     help="serve compiled Programs via the serving engine")
+    ap.add_argument("--int8", action="store_true",
+                    help="with --engine: serve int8-quantized Programs")
     ap.add_argument("--paged", action="store_true",
                     help="with --engine: serve through the paged KV cache")
     ap.add_argument("--kv-dtype", choices=("float32", "int8"), default="float32",

@@ -66,12 +66,16 @@ highest-priority queued request would miss its TTFT budget
 lowest-priority running slot is preempted; the victim requeues at its
 original position and resumes through the page-level path above.
 
-Not ported yet (see ROADMAP.md): tensor parallel serving (item 12),
-``AsyncEngine`` (item 9).
+Streaming: per-token ``on_token`` / ``on_finish`` callbacks on each
+request, and :class:`AsyncEngine`, an asyncio front end whose
+``generate`` is an async iterator over one request's tokens.
+
+Not ported yet (see ROADMAP.md): tensor parallel serving (item 12).
 """
 
 from __future__ import annotations
 
+import asyncio
 import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -99,7 +103,8 @@ from repro_torch.runtime.kv_cache import BlockPool, kv_page_bytes
 
 __all__ = [
     "EngineRequest", "EngineMetrics", "Engine", "ProgramStepper",
-    "PagedProgramStepper", "UnbatchedReference", "build_lm_serving", "padded_len",
+    "PagedProgramStepper", "UnbatchedReference", "AsyncEngine", "build_lm_serving",
+    "padded_len",
     "shared_calibration", "EngineCheckpoint", "CheckpointSlot", "TickFailure",
 ]
 
@@ -1453,6 +1458,58 @@ class Engine:
             self.step()
         out, self.finished = self.finished, []
         return out
+
+
+# --------------------------------------------------------------------------- #
+# Async front end
+# --------------------------------------------------------------------------- #
+
+_DONE = object()
+
+
+class AsyncEngine:
+    """Cooperative asyncio facade: per-token streaming via ``async for``.
+
+    Single-threaded and deterministic: :meth:`run` interleaves engine
+    ticks with consumer wakeups on the current event loop; no background
+    threads.  Tokens arrive through each request's ``on_token`` /
+    ``on_finish`` callbacks."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self._uid = 0
+
+    async def generate(self, prompt: np.ndarray, max_new_tokens: int, *,
+                       priority: int = 0, deadline_tick: Optional[int] = None):
+        """Async iterator of generated token ids for one request.  A request
+        rejected at submit raises ``RuntimeError``, and so does one dropped
+        mid-flight (its stream is truncated)."""
+        q: asyncio.Queue = asyncio.Queue()
+        self._uid += 1
+        req = EngineRequest(
+            uid=self._uid, prompt=np.asarray(prompt, np.int32),
+            max_new_tokens=max_new_tokens, priority=priority,
+            deadline_tick=deadline_tick,
+            on_token=lambda r, t: q.put_nowait(t),
+            on_finish=lambda r: q.put_nowait(_DONE))
+        if not self.engine.submit(req):
+            raise RuntimeError(f"request rejected: {req.dropped}")
+        while True:
+            tok = await q.get()
+            if tok is _DONE:
+                break
+            yield tok
+        if req.dropped is not None:
+            raise RuntimeError(
+                f"request {req.uid} dropped after "
+                f"{len(req.out_tokens)} tokens: {req.dropped}")
+
+    async def run(self, max_ticks: int = 100_000) -> None:
+        """Drive the engine until drained, yielding to consumers between
+        ticks."""
+        while self.engine.has_work() and self.engine.tick < max_ticks:
+            self.engine.step()
+            await asyncio.sleep(0)
 
 
 # --------------------------------------------------------------------------- #

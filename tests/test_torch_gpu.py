@@ -1278,3 +1278,60 @@ def test_small_paged_engine_heals_from_a_real_out_of_memory_error():
     assert st.pool.live_sequences == 0
     for r in reqs:
         assert r.done and r.out_tokens == want[r.uid].out_tokens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["fp32", "int8"])
+def test_bundle_round_trip_on_the_card_is_bitwise(kind, quantize, tmp_path):
+    """A Program on the card saved to an OXF bundle and loaded back on the
+    card: ``pallas`` pinned where it ran ``cuda``, the same assignment, and
+    every output equal bit for bit on the same inputs."""
+    dev = _card()
+    import json
+    from repro_torch.core import compile, load_program
+    from repro_torch.models import graph_lm as glm
+    cfg = glm.GraphLMConfig(vocab=61, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=64)
+    params = glm.params_from_numpy(glm.init_lm_params(cfg, 0), dev)
+    if kind == "decode":
+        g, t = glm.build_decode_graph(cfg, params, batch=2, cache_cap=16), 1
+    else:
+        g, t = glm.build_prefill_graph(cfg, params, batch=2, chunk=4, cache_cap=16), 4
+    prog = compile(g, quantize=quantize, device=dev)
+    prog.save(str(tmp_path))
+    with open(tmp_path / "model.json") as f:
+        pins = {nd["name"]: nd["backend"] for nd in json.load(f)["nodes"]}
+    assert pins == {n: {"cuda": "pallas"}.get(b, b) for n, b in prog.assignment.items()}
+    loaded = load_program(str(tmp_path))
+    assert loaded.device.type == "cuda" and loaded.assignment == prog.assignment
+    rng = np.random.default_rng(5)
+    feed = {"tokens": rng.integers(0, 61, (2, t)).astype(np.int32),
+            "start": np.asarray([3, 0], np.int32), "n_new": np.asarray([t, 1], np.int32)}
+    for i in range(cfg.n_layers):
+        for kv in "kv":
+            feed[f"cache_{kv}{i}"] = rng.standard_normal((2, 16, 2, 8)).astype(np.float32)
+    for a, b in zip(prog(**feed), loaded(**feed)):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_golden_bundle_on_the_card_gives_expected_y(tmp_path):
+    """tests/golden/tiny_int8 (pinned ``xla``: ``torch`` in the port) on the
+    card reproduces ``expected_y`` (rtol 1e-5, atol 1e-6, as the JAX
+    package's golden test) and re-saves byte-identically."""
+    import os
+    from repro_torch.core import load_program
+    _card()
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "tiny_int8")
+    prog = load_program(golden)
+    assert set(prog.assignment.values()) == {"torch"}
+    x = np.load(os.path.join(golden, "input_x.npy"))
+    y = prog(x=x)[0]
+    assert y.is_cuda
+    np.testing.assert_allclose(y.cpu().numpy(), np.load(os.path.join(golden, "expected_y.npy")),
+                               rtol=1e-5, atol=1e-6)
+    prog.save(str(tmp_path))
+    for name in ("model.json", "program.json"):
+        with open(os.path.join(golden, name), "rb") as a, open(tmp_path / name, "rb") as b:
+            assert a.read() == b.read(), name

@@ -9,7 +9,6 @@ against its reference and equal to JAX's under matching backends; and
 ``cnn_eval --int8`` against the JAX package's ``run_quant``."""
 
 import importlib.util
-import json
 import os
 import sys
 
@@ -25,7 +24,8 @@ from repro.core.selector import FixedPolicy as JFixed
 from repro.models import graph_lm as jlm
 from repro.runtime import engine as jeng
 from repro_torch.core import (FixedPolicy, Graph, Node, PassManager, TensorSpec, calibrate,
-                              compile, get_impl, is_quantized, quantize_graph, quantize_weight)
+                              compile, get_impl, is_quantized, load_graph, quantize_graph,
+                              quantize_weight)
 from repro_torch.core.quant import QMAX, activation_scale, weight_scales
 from repro_torch.models import graph_lm as tlm
 from repro_torch.runtime import engine as teng
@@ -402,27 +402,12 @@ def test_float64_accumulation_is_the_int64_product_at_k8192():
 # the golden int8 bundle
 # --------------------------------------------------------------------------- #
 
-def _decode_attr(v):
-    if isinstance(v, dict) and "__ndarray__" in v:
-        return np.asarray(v["__ndarray__"], dtype=v["dtype"])
-    return v
-
-
 def _read_golden():
-    """tests/golden/tiny_int8 as a port Graph: model.json's nodes (attrs
-    with their arrays), weights.npz's params."""
-    with open(os.path.join(GOLDEN, "model.json")) as f:
-        model = json.load(f)
-    z = np.load(os.path.join(GOLDEN, "weights.npz"))
-    g = Graph(name=model["name"],
-              inputs={k: TensorSpec(tuple(v["shape"]), v["dtype"])
-                      for k, v in model["inputs"].items()},
-              outputs=list(model["outputs"]),
-              nodes=[Node(n["name"], n["op"], n["inputs"], n["outputs"],
-                          {k: _decode_attr(v) for k, v in n["attrs"].items()})
-                     for n in model["nodes"]],
-              params={k: z[k] for k in z.files})
-    g.validate()
+    """tests/golden/tiny_int8 as a port Graph (the importer), its pins
+    cleared so that each test's policy chooses."""
+    g = load_graph(GOLDEN)
+    for n in g.nodes:
+        n.backend = None
     return g
 
 
