@@ -210,9 +210,42 @@ Phases, each printing its own lines; any failure exits non-zero:
              launch.serve --engine --int8 at its defaults, in-process.
              Prints bundle bytes, save, load and first-call seconds and the
              async tokens/s beside phase 5's.
+18. tp     — tensor-parallel serving (right after phase 16, on phase 5's
+             weights): the parent serves phase 5's 8 requests (32 new) on
+             single-rank dense, paged fp32 and paged int8 engines (phases
+             5-7's settings), then drops them and the weights; gloo's
+             batch_isend_irecv is tried directly on CUDA tensors by a
+             pair of ranks (a refusal may abort the pair: why the ring
+             matmul stages through host memory); then two ranks on cuda:0
+             over gloo (launch/mesh.py spawn_ranks) each draw the seed-0
+             weights on the card and build build_lm_serving(mesh=...) for
+             the three engines at the same depth: every attention node of
+             the decode and prefill Programs on "tp", each rank's caches
+             at 16 of 32 kv heads, tokens equal to the single-rank
+             engine's on both ranks, launches a rank exactly the tick
+             counts' (flash_decode + combine_partials or flash_paged_decode
+             + combine_partials a decode tick, flash_chunk_attention or
+             flash_paged_chunk_attention a prefill tick, 32 each, at 16 of
+             32 query heads; gemm and rmsnorm replicated); a self_heal
+             paged fp32 engine with crashes at stepper calls TP_HEAL_CALLS
+             on both ranks, two recoveries, the clean run's tokens; each
+             rank's flash_decode, flash_chunk_attention and the paged
+             kernels (fp32 and int8) at 16 of 32 heads against their
+             plain versions (phase 3's shapes and tolerance);
+             ring_allgather_matmul at the decode gemm against the whole
+             product (its chunks host-staged over gloo); then
+             tree_decode_attention at phase 3's engine decode shape and
+             the gemma3-1b global shape, the KV length split over the
+             ranks, within 1e-4 of flash_decode with one
+             flash_decode_partial launch a rank.  Prints ms a tick TP
+             against single-rank, the all-gathers' share of the ticks of
+             a short extra run on each TP engine under torch.profiler on
+             rank 0, peak GB a rank, the backend and transport; two
+             ranks on one card check the sharded path, they do not
+             measure TP speed.
 
 The last three lines of standard output are JSON: the serving numbers
-(phases 15, 16 and 17 under "heal", "load" and "deploy"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+(phases 15, 16, 17 and 18 under "heal", "load", "deploy" and "tp"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -590,8 +623,8 @@ def paged_layout(torch, g, *, b, n, page, mp, hk, d, dv, lengths, quant):
     out of range: the kernels clip and never read them), and int8 pools
     hold one all-zero page with scale 0.  Returns (pages_k, pages_v,
     tables, scales kwargs)."""
-    perm = torch.randperm(n, generator=g, device="cuda")
-    tables = torch.randint(-2, n + 2, (b, mp), generator=g, device="cuda")
+    perm = torch.randperm(n, generator=g, device=g.device)
+    tables = torch.randint(-2, n + 2, (b, mp), generator=g, device=g.device)
     used = 0
     for bi, length in enumerate(lengths):
         live = -(-min(length, mp * page) // page)
@@ -599,14 +632,14 @@ def paged_layout(torch, g, *, b, n, page, mp, hk, d, dv, lengths, quant):
         used += live
     tables = tables.to(torch.int32)
     if not quant:
-        return (torch.randn(n, page, hk, d, generator=g, device="cuda"),
-                torch.randn(n, page, hk, dv, generator=g, device="cuda"), tables, {})
-    pk = torch.randint(-127, 128, (n, page, hk, d), generator=g, device="cuda",
+        return (torch.randn(n, page, hk, d, generator=g, device=g.device),
+                torch.randn(n, page, hk, dv, generator=g, device=g.device), tables, {})
+    pk = torch.randint(-127, 128, (n, page, hk, d), generator=g, device=g.device,
                        dtype=torch.int8)
-    pv = torch.randint(-127, 128, (n, page, hk, dv), generator=g, device="cuda",
+    pv = torch.randint(-127, 128, (n, page, hk, dv), generator=g, device=g.device,
                        dtype=torch.int8)
-    ks = torch.rand(n, hk, generator=g, device="cuda") * 0.05
-    vs = torch.rand(n, hk, generator=g, device="cuda") * 0.05
+    ks = torch.rand(n, hk, generator=g, device=g.device) * 0.05
+    vs = torch.rand(n, hk, generator=g, device=g.device) * 0.05
     zero = int(perm[0])
     pk[zero], pv[zero], ks[zero], vs[zero] = 0, 0, 0.0, 0.0
     return pk, pv, tables, dict(k_scales=ks, v_scales=vs)
@@ -3119,6 +3152,453 @@ def _leaves(tree):
     return [tree]
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: tensor-parallel serving, two ranks on one card over gloo
+# --------------------------------------------------------------------------- #
+
+TP_DEGREE = 2
+TP_HEAL_CALLS = (9, 40)          # stepper calls that raise on every rank (a prefill, a decode)
+# tree decode shapes: (tag, B, Hq, Hk, D, S, lengths) — phase 3's engine decode and
+# gemma3-1b's global decode
+TREE_SHAPES = (("phi3-mini engine decode", 4, 32, 32, 96, 1024, (731, 400, 129, 0)),
+               ("gemma3-1b global decode", 4, 4, 1, 256, 2048, (1400, 1000, 600, 250)))
+TP_MODES = (("dense", {}), ("paged fp32", dict(paged=True, kv_dtype="float32")),
+            ("paged int8", dict(paged=True, kv_dtype="int8")))
+
+
+def tp_engine_kwargs(mode, page, pools):
+    kw = dict(TP_MODES)[mode]
+    if not kw:
+        return {}
+    return dict(kw, page_size=page, n_blocks=pools["int8" if kw["kv_dtype"] == "int8" else "fp32"])
+
+
+def tp_requests(cfg, n_requests=8):
+    """Phase 5's requests (the same seeded prompts), fresh."""
+    import numpy as np
+    from repro_torch.runtime.engine import EngineRequest
+    rng = np.random.default_rng(0)
+    return [(i, rng.integers(0, cfg.vocab, int(rng.integers(128, 701))).astype(np.int32))
+            for i in range(n_requests)]
+
+
+def _on_card(torch, dev, fn, *args):
+    """``torch.cuda.<fn>(*args)`` on a card, else nothing (a CPU rehearsal)."""
+    return getattr(torch.cuda, fn)(*args) if dev.type == "cuda" else 0
+
+
+def tp_serve(torch, K, engine, prompts, max_new, inject=()):
+    """Serve ``prompts`` once on a (rank's) engine: tokens, launches,
+    tick numbers and the peak memory."""
+    from repro_torch.runtime.engine import EngineRequest
+    dev = engine.stepper.device
+    if inject:
+        calls = [0]
+        for phase in ("decode", "prefill"):
+            orig = getattr(engine.stepper, phase)
+
+            def wrapped(*args, _orig=orig):
+                calls[0] += 1
+                if calls[0] in inject:
+                    raise RuntimeError(f"injected fault at call {calls[0]}")
+                return _orig(*args)
+            setattr(engine.stepper, phase, wrapped)
+    reqs = [EngineRequest(uid=i, prompt=p, max_new_tokens=max_new) for i, p in prompts]
+    _on_card(torch, dev, "synchronize", dev)
+    _on_card(torch, dev, "reset_peak_memory_stats", dev)
+    for kern in K.KERNELS:
+        kern.launches = 0
+    for r in reqs:
+        if not engine.submit(r):
+            raise RuntimeError(f"request {r.uid} rejected: {r.dropped}")
+    t0 = time.perf_counter()
+    engine.run()
+    _on_card(torch, dev, "synchronize", dev)
+    wall = time.perf_counter() - t0
+    launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    m = engine.metrics
+    if any(not r.done or len(r.out_tokens) != max_new for r in reqs):
+        raise RuntimeError("not every request finished with its tokens")
+    return {"tokens": {r.uid: list(r.out_tokens) for r in reqs}, "launches": launches,
+            "stats": {"tokens_per_s": m.tokens_per_s, "engine_wall_s": wall,
+                      "decode_ms_per_tick": 1e3 * m.decode_wall_s / max(m.decode_ticks, 1),
+                      "prefill_ms_per_tick": 1e3 * m.prefill_wall_s / max(m.prefill_ticks, 1),
+                      "decode_ticks": m.decode_ticks, "prefill_ticks": m.prefill_ticks,
+                      "recoveries": m.n_recoveries, "crash_failures": m.n_crash_failures,
+                      "recovered_rows": m.recovered_rows,
+                      "max_memory_allocated_gb":
+                          _on_card(torch, dev, "max_memory_allocated", dev) / 1e9}}
+
+
+def tp_gather_profile(torch, engine, prompts, rank, n_requests=2, max_new=8):
+    """The all-gathers' share of the ticks of a short extra run (the first
+    ``n_requests`` prompts, ``max_new`` tokens) on a TP engine, profiled
+    with torch.profiler on rank 0; the other ranks serve it unprofiled, in
+    step.  A gather spans from its call (``c10d::allgather_``, on the
+    serving thread) to the end of its gloo work (``gloo:all_gather``, on
+    gloo's thread), which the caller waits for; the span includes waiting
+    for the device work queued before the gather's input.  None off rank
+    0."""
+    from repro_torch.runtime.engine import EngineRequest
+    m = engine.metrics
+    before = m.decode_wall_s + m.prefill_wall_s
+    for i, p in prompts[:n_requests]:
+        if not engine.submit(EngineRequest(uid=10_000 + i, prompt=p, max_new_tokens=max_new)):
+            raise RuntimeError(f"profiled request {i} rejected")
+    prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+            if rank == 0 else None)
+    if prof is not None:
+        prof.start()
+    engine.run()
+    _on_card(torch, engine.stepper.device, "synchronize", engine.stepper.device)
+    if prof is None:
+        return None
+    prof.stop()
+    tick_s = m.decode_wall_s + m.prefill_wall_s - before
+    events = prof.events()
+    calls = sorted(float(ev.time_range.start) for ev in events if ev.name == "c10d::allgather_")
+    ends = sorted(float(ev.time_range.end) for ev in events if ev.name == "gloo:all_gather")
+    if not calls or len(calls) != len(ends):
+        names = sorted({ev.name for ev in events if "gather" in ev.name.lower()})
+        raise RuntimeError(f"profile: {len(calls)} gather calls, {len(ends)} gloo gathers "
+                           f"(events {names})")
+    span_s = sum(e - c for c, e in zip(calls, ends)) / 1e6
+    return {"gathers": len(calls), "gather_s": span_s, "tick_s": tick_s,
+            "share_of_ticks": span_s / tick_s}
+
+
+def tp_local_kernels(torch, K, cfg, dev, *, n_slots, chunk, cache_cap, page, pools):
+    """Each attention kernel of the tp nodes at one rank's shapes (Hq / TP_DEGREE
+    query and Hk / TP_DEGREE kv heads; phase 3's lengths, starts and page
+    pools) against its plain version on the same inputs, at phase 3's
+    tolerance.  Returns {kernel [mode]: max |err|}; raises on a miss."""
+    hq, hk, dh = cfg.n_heads // TP_DEGREE, cfg.n_kv_heads // TP_DEGREE, cfg.d_head
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    errs = {}
+
+    def check(name, got, want, atol=1e-4, rtol=1e-4):
+        diff = (got - want).abs()
+        if bool((diff > atol + rtol * want.abs()).any()):
+            raise RuntimeError(f"{name} at {hq} of {cfg.n_heads} heads: max |err| "
+                               f"{float(diff.max()):.3e} exceeds atol {atol} + rtol {rtol}*|plain|")
+        errs[name] = float(diff.max())
+
+    sc = 1.0 / math.sqrt(dh)
+    lens, starts = [731, 400, 129, 0], [640, 320, 64, 0]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    q, qc = rn(n_slots, hq, dh), rn(n_slots, chunk, hq, dh)
+    k, v = rn(n_slots, cache_cap, hk, dh), rn(n_slots, cache_cap, hk, dh)
+    check("flash_decode", K.flash_decode(q, k, v, lengths),
+          K.flash_decode_plain(q, k, v, lengths, sc))
+    check("flash_chunk_attention", K.flash_chunk_attention(qc, k, v, start),
+          K.flash_chunk_attention_plain(qc, k, v, start, sc))
+    del k, v
+    mp = cache_cap // page
+    for mode, n_blocks in pools.items():
+        quant = mode == "int8"
+        pk, pv, tables, scs = paged_layout(torch, g, b=n_slots, n=n_blocks, page=page, mp=mp,
+                                           hk=hk, d=dh, dv=dh, lengths=lens, quant=quant)
+        check(f"flash_paged_decode {mode}", K.flash_paged_decode(q, pk, pv, tables, lengths, **scs),
+              K.flash_paged_decode_plain(q, pk, pv, tables, lengths, sc, scs.get("k_scales"),
+                                         scs.get("v_scales")))
+        pk, pv, tables, scs = paged_layout(torch, g, b=n_slots, n=n_blocks, page=page, mp=mp,
+                                           hk=hk, d=dh, dv=dh,
+                                           lengths=[s0 + chunk for s0 in starts], quant=quant)
+        check(f"flash_paged_chunk_attention {mode}",
+              K.flash_paged_chunk_attention(qc, pk, pv, tables, start, **scs),
+              K.flash_paged_chunk_attention_plain(qc, pk, pv, tables, start, sc,
+                                                  scs.get("k_scales"), scs.get("v_scales")))
+        del pk, pv
+    return errs
+
+
+def tp_probe_rank(device):
+    """gloo's batch_isend_irecv on CUDA tensors, directly (no staging): a
+    rank of the pair returns what came back; gloo may abort the process
+    instead."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(TP_DEGREE, device=device)
+    x = torch.full((4, 8), float(mesh.rank + 1), device=mesh.device)
+    out = torch.empty_like(x)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, (mesh.rank + 1) % TP_DEGREE),
+        dist.P2POp(dist.irecv, out, (mesh.rank - 1) % TP_DEGREE)])
+    for w in works:
+        w.wait()
+    _on_card(torch, mesh.device, "synchronize")
+    return out.cpu().tolist()
+
+
+def tp_rank(cfg_kw, n_slots, chunk, cache_cap, page, pools, max_new, prompts, device):
+    """One rank of phase 18 (run by spawn_ranks): the weights of seed 0 on
+    the card, the three TP engines (each followed by a short run profiled
+    on rank 0), the crash-injected paged fp32 engine, the attention kernels
+    at the rank's heads against their plain versions, the ring matmul,
+    then tree decode.  Returns what the parent checks and prints."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import gc as gc_
+    import torch
+    from repro_torch.kernels.serving_ops import TP_ATTENTION_OPS
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.graph_lm import GraphLMConfig, init_lm_params_torch
+    from repro_torch.runtime.engine import build_lm_serving
+    from repro_torch.sharding.collectives import ring_allgather_matmul, tree_decode_attention
+    K = Kernels()
+    cfg = GraphLMConfig(**cfg_kw)
+    mesh = make_serving_mesh(TP_DEGREE, device=device)
+    if mesh.device != torch.device(device) or mesh.backend != "gloo":
+        raise RuntimeError(f"rank on {mesh.device} over {mesh.backend}, not {device} over gloo")
+    t0 = time.perf_counter()
+    params = init_lm_params_torch(cfg, seed=0, device=mesh.device)
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend,
+           "weights_s": time.perf_counter() - t0, "engines": {}}
+    for mode, inject in (("dense", ()), ("paged fp32", ()), ("paged int8", ()),
+                         ("heal paged fp32", TP_HEAL_CALLS)):
+        base = mode.replace("heal ", "")
+        t0 = time.perf_counter()
+        engine = build_lm_serving(cfg, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap,
+                                  params=params, mesh=mesh, self_heal=bool(inject),
+                                  **tp_engine_kwargs(base, page, pools))[0]
+        build_s = time.perf_counter() - t0
+        nodes = {}
+        for phase, prog in (("decode", engine.stepper.decode_program),
+                            ("prefill", engine.stepper.prefill_program)):
+            asn = prog.assignment
+            attn = [n.name for n in prog.graph.nodes if n.op in TP_ATTENTION_OPS]
+            if not attn or any(asn[n] != "tp" for n in attn):
+                raise RuntimeError(f"{mode} {phase}: attention not on tp: "
+                                   f"{ {n: asn[n] for n in attn} }")
+            nodes[phase] = attn
+        heads = sorted({int(c.shape[2]) for c in engine.stepper.caches.values() if c.dim() == 4})
+        run = tp_serve(torch, K, engine, prompts, max_new, inject=inject)
+        run["gather_profile"] = (None if inject else
+                                 tp_gather_profile(torch, engine, prompts, mesh.rank))
+        run.update(build_s=build_s, tp_nodes={p: len(v) for p, v in nodes.items()},
+                   tp_node_names={p: v[:2] + ["..."] for p, v in nodes.items()},
+                   local_cache_heads=heads)
+        out["engines"][mode] = run
+        del engine
+        gc_.collect()
+        _on_card(torch, mesh.device, "empty_cache")
+    del params
+    gc_.collect()
+    _on_card(torch, mesh.device, "empty_cache")
+    out["local_kernels"] = tp_local_kernels(torch, K, cfg, mesh.device, n_slots=n_slots,
+                                            chunk=chunk, cache_cap=cache_cap, page=page,
+                                            pools=pools)
+    # the ring matmul at the engine's decode gemm (M = n_slots x TP_DEGREE rows in all):
+    # over gloo its chunks travel through host memory
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(19)
+    x = torch.randn((n_slots * TP_DEGREE, cfg.d_model), generator=g, device=mesh.device)
+    w = torch.randn((cfg.d_model, cfg.d_ff), generator=g, device=mesh.device) \
+        / math.sqrt(cfg.d_model)
+    rows = slice(mesh.rank * n_slots, (mesh.rank + 1) * n_slots)
+    before = K.gemm.launches
+    got = ring_allgather_matmul(mesh, x[rows].contiguous(), w)
+    launched = K.gemm.launches - before
+    want = K.gemm_plain(x, w)
+    bad = (got - want).abs() > 1e-4 + 1e-4 * want.abs()
+    if got.device != mesh.device or bool(bad.any()):
+        raise RuntimeError(f"ring_allgather_matmul on {got.device}: max |err| "
+                           f"{float((got - want).abs().max()):.3e} against the whole product")
+    out["ring"] = {"max_abs_err": float((got - want).abs().max()), "gemm_launches": launched,
+                   "shape": f"M={x.shape[0]} K={cfg.d_model} N={cfg.d_ff}"}
+    del x, w, got, want
+    out["tree"] = []
+    for tag, b, hq, hk, d, s_len, lens in TREE_SHAPES:
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(18)
+        q = torch.randn((b, hq, d), generator=gen, device=mesh.device)
+        k = torch.randn((b, s_len, hk, d), generator=gen, device=mesh.device)
+        v = torch.randn((b, s_len, hk, d), generator=gen, device=mesh.device)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=mesh.device)
+        part = s_len // TP_DEGREE
+        rows = slice(mesh.rank * part, (mesh.rank + 1) * part)
+        k_loc, v_loc = k[:, rows].contiguous(), v[:, rows].contiguous()
+        want = K.flash_decode(q, k, v, lengths)
+        before = K.flash_decode_partial.launches
+        got = tree_decode_attention(mesh, q, k_loc, v_loc, lengths)
+        _on_card(torch, mesh.device, "synchronize")
+        launched = K.flash_decode_partial.launches - before
+        err = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"tree decode {tag}: non-finite output")
+        times = []
+        for _ in range(5):
+            _on_card(torch, mesh.device, "synchronize")
+            t0 = time.perf_counter()
+            tree_decode_attention(mesh, q, k_loc, v_loc, lengths)
+            _on_card(torch, mesh.device, "synchronize")
+            times.append(time.perf_counter() - t0)
+        out["tree"].append({"shape": tag, "max_abs_err": err, "partial_launches": launched,
+                            "host_ms_median_of_5": 1e3 * sorted(times)[2]})
+    out["peak_gb"] = _on_card(torch, mesh.device, "max_memory_allocated", mesh.device) / 1e9
+    return out
+
+
+def tp_phase(torch, K, cfg, weights, *, n_slots, chunk, cache_cap, page, pools, max_new,
+             card, device="cuda:0"):
+    """Phase 18 (see the module docstring).  The parent serves the three
+    single-rank engines on ``weights["params"]`` first, then drops them and
+    the weights (the caller holds no other reference) before the ranks
+    start.  Returns ({path: (launches, stats)}, the serving record)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.runtime.engine import build_lm_serving
+    params = weights.pop("params")
+    prompts = tp_requests(cfg)
+    single = {}
+    for mode, _ in TP_MODES:
+        t0 = time.perf_counter()
+        # the reference is not kept: it would hold the weights past their release
+        engine = build_lm_serving(cfg, n_slots=n_slots, chunk=chunk, cache_cap=cache_cap,
+                                  params=params, device=device,
+                                  **tp_engine_kwargs(mode, page, pools))[0]
+        single[mode] = tp_serve(torch, K, engine, prompts, max_new)
+        single[mode]["build_s"] = time.perf_counter() - t0
+        st = single[mode]["stats"]
+        say(f"  [single {mode}] {st['prefill_ticks']} prefill + {st['decode_ticks']} decode "
+            f"ticks, decode {st['decode_ms_per_tick']:.2f} ms, prefill "
+            f"{st['prefill_ms_per_tick']:.2f} ms a tick, {st['tokens_per_s']:.2f} tokens/s, "
+            f"peak {st['max_memory_allocated_gb']:.2f} GB [{card}]")
+        del engine
+        release(torch)
+    del params
+    release(torch)
+    say(f"  the parent's engines and weights released: "
+        f"{_on_card(torch, torch.device(device), 'memory_allocated') / 1e9:.2f} GB allocated "
+        f"here [{card}]")
+    # gloo's point-to-point ops on CUDA tensors, alone in a pair of ranks:
+    # why the ring matmul stages its chunks through host memory (the engines
+    # and tree decode send all_gather and all_reduce directly)
+    t0 = time.perf_counter()
+    try:
+        got = spawn_ranks(tp_probe_rank, TP_DEGREE, device, timeout=120)
+        probe = "taken" if got[0] == [[2.0] * 8] * 4 else f"wrong result {got[0][:1]}"
+    except RuntimeError as e:
+        probe = "refused (" + str(e).splitlines()[-1][:120] + ")"
+    say(f"  [probe] gloo batch_isend_irecv on CUDA tensors, direct: {probe} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    transport = {"all_gather": "direct", "all_reduce": "direct",
+                 "batch_isend_irecv": "host-staged"}
+    cfg_kw = {f: getattr(cfg, f) for f in ("vocab", "d_model", "n_layers", "n_heads",
+                                           "n_kv_heads", "d_ff")}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, TP_DEGREE, cfg_kw, n_slots, chunk, cache_cap, page, pools,
+                        max_new, prompts, device, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    say(f"  ranks: {[(r['rank'], r['device'], r['backend']) for r in ranks]}; transport "
+        f"{json.dumps(transport)}; {spawn_s:.1f} s from spawn to the ranks' results [{card}]")
+    runs, record = {}, {"single": {m: v["stats"] for m, v in single.items()},
+                        "probe_batch_isend_irecv": probe,
+                        "transport": transport, "backend": "gloo",
+                        "devices": [r["device"] for r in ranks], "spawn_s": spawn_s,
+                        "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+                        "weights_s_by_rank": [r["weights_s"] for r in ranks], "card": card}
+    n_layers = cfg.n_layers
+    for mode in [m for m, _ in TP_MODES] + ["heal paged fp32"]:
+        base = mode.replace("heal ", "")
+        want = single[base]["tokens"]
+        paged = base != "dense"
+        dec_k = "flash_paged_decode" if paged else "flash_decode"
+        pre_k = "flash_paged_chunk_attention" if paged else "flash_chunk_attention"
+        by_rank = []
+        for r in ranks:
+            run = r["engines"][mode]
+            st = run["stats"]
+            if run["tokens"] != want:
+                uid = next(u for u in want if run["tokens"][u] != want[u])
+                fail(f"tp {mode} rank {r['rank']}: request {uid} tokens "
+                     f"{run['tokens'][uid]} != single-rank {want[uid]}")
+            heads = cfg.n_kv_heads // TP_DEGREE
+            if run["local_cache_heads"] != [heads]:
+                fail(f"tp {mode} rank {r['rank']}: cache heads {run['local_cache_heads']}")
+            la = run["launches"]
+            ticks = st["prefill_ticks"] + st["decode_ticks"]
+            if mode.startswith("heal"):
+                if st["recoveries"] != len(TP_HEAL_CALLS) or \
+                        st["crash_failures"] != len(TP_HEAL_CALLS):
+                    fail(f"tp {mode} rank {r['rank']}: {st['recoveries']} recoveries, "
+                         f"{st['crash_failures']} crashes; {len(TP_HEAL_CALLS)} injected")
+            else:
+                expect = {"gemm": (7 * n_layers + 1) * ticks, "rmsnorm": (2 * n_layers + 1) * ticks,
+                          dec_k: n_layers * st["decode_ticks"],
+                          "combine_partials": n_layers * st["decode_ticks"],
+                          pre_k: n_layers * st["prefill_ticks"]}
+                for name, n in la.items():
+                    if n != expect.get(name, 0):
+                        fail(f"tp {mode} rank {r['rank']}: {name} {n} launches, expected "
+                             f"{expect.get(name, 0)}")
+            by_rank.append(run)
+        s0, s1 = by_rank[0]["stats"], single[base]["stats"]
+        launches = {k: sum(run["launches"][k] for run in by_rank) for k in by_rank[0]["launches"]}
+        runs[f"tp {mode}"] = (launches, s0)
+        record[mode] = {"rank_stats": [run["stats"] for run in by_rank],
+                        "build_s": [run["build_s"] for run in by_rank],
+                        "tp_nodes": by_rank[0]["tp_nodes"],
+                        "launches_per_rank": by_rank[0]["launches"],
+                        "gather_profile_rank0": by_rank[0]["gather_profile"]}
+        say(f"  [tp {mode}] token-exact on both ranks against the single-rank engine "
+            f"({len(want)} requests x {max_new}); tp nodes {by_rank[0]['tp_node_names']} "
+            f"({by_rank[0]['tp_nodes']} a Program), {dec_k} / {pre_k} at "
+            f"{cfg.n_heads // TP_DEGREE} of {cfg.n_heads} query heads and "
+            f"{cfg.n_kv_heads // TP_DEGREE} of {cfg.n_kv_heads} kv heads a rank; launches a "
+            f"rank {json.dumps({k: v for k, v in by_rank[0]['launches'].items() if v})}")
+        say(f"  [tp {mode}] rank 0: decode {s0['decode_ms_per_tick']:.2f} ms a tick (single "
+            f"{s1['decode_ms_per_tick']:.2f}), prefill {s0['prefill_ms_per_tick']:.2f} ms "
+            f"(single {s1['prefill_ms_per_tick']:.2f}), {s0['tokens_per_s']:.2f} tokens/s "
+            f"(single {s1['tokens_per_s']:.2f}); peak "
+            f"{[round(run['stats']['max_memory_allocated_gb'], 2) for run in by_rank]} GB a "
+            f"rank; recoveries {s0['recoveries']} [{card}]")
+        prof = by_rank[0]["gather_profile"]
+        if prof is not None:
+            say(f"  [tp {mode}] rank 0, a short run under torch.profiler (2 requests x 8 new): "
+                f"{prof['gathers']} all-gathers, {prof['gather_s']:.3f} s of "
+                f"{prof['tick_s']:.3f} s of ticks = {100 * prof['share_of_ticks']:.1f}% "
+                f"(from the call to the end of gloo's work) [{card}]")
+    for r in ranks:
+        say(f"  [tp kernels] rank {r['rank']}: at {cfg.n_heads // TP_DEGREE} of {cfg.n_heads} "
+            f"heads against the plain versions (atol 1e-4 + rtol 1e-4), max |err| "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in r['local_kernels'].items()})}; "
+            f"ring_allgather_matmul {r['ring']['shape']} (chunks host-staged over gloo) "
+            f"{r['ring']['max_abs_err']:.3e} from the whole product, "
+            f"{r['ring']['gemm_launches']} gemm launches [{card}]")
+        if r["ring"]["gemm_launches"] != TP_DEGREE:
+            fail(f"ring_allgather_matmul rank {r['rank']}: {r['ring']['gemm_launches']} gemm "
+                 f"launches, expected {TP_DEGREE}")
+    record["local_kernels"] = [r["local_kernels"] for r in ranks]
+    record["ring"] = [r["ring"] for r in ranks]
+    tree_launches = {k.__name__: 0 for k in K.KERNELS}
+    for r in ranks:
+        for row in r["tree"]:
+            if row["max_abs_err"] > 1e-4:
+                fail(f"tree decode {row['shape']} rank {r['rank']}: max |err| "
+                     f"{row['max_abs_err']:.3e} against flash_decode (1e-4)")
+            if row["partial_launches"] != 1:
+                fail(f"tree decode {row['shape']} rank {r['rank']}: "
+                     f"{row['partial_launches']} flash_decode_partial launches, expected 1")
+            tree_launches["flash_decode_partial"] += row["partial_launches"]
+    record["tree"] = [r["tree"] for r in ranks]
+    runs["tp tree"] = (tree_launches, {"rows": record["tree"]})
+    for row0, row1 in zip(ranks[0]["tree"], ranks[1]["tree"]):
+        say(f"  [tp tree] {row0['shape']}: max |err| against flash_decode {row0['max_abs_err']:.3e}"
+            f" / {row1['max_abs_err']:.3e} (ranks 0 / 1; 1e-4), flash_decode_partial launches "
+            f"{row0['partial_launches']} / {row1['partial_launches']}, host ms (sync, gloo "
+            f"all_reduce included) {row0['host_ms_median_of_5']:.3f} [{card}]")
+    say(f"  peak GB a rank {[round(r['peak_gb'], 2) for r in ranks]}; two ranks on one card "
+        f"over gloo check the sharded path, they do not measure TP speed [{card}]")
+    return runs, record
+
+
 class Kernels:
     """The port's kernel wrappers and their plain versions."""
 
@@ -3405,8 +3885,21 @@ def main() -> int:
                                         cache_cap=cache_cap, page=page, card=limit_line)
     runs.update(load_runs)
     phase_s["load"] = time.perf_counter() - t
-    del params
+
+    # 18. tensor-parallel serving: single-rank engines here on phase 5's
+    # weights, then (the weights dropped) two ranks on this card over gloo
+    t = time.perf_counter()
+    say(f"[tp] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
+        f"cache {cache_cap}; build_lm_serving(tp={TP_DEGREE}) dense, paged fp32 and paged "
+        f"int8, two ranks on cuda:0 over gloo, against single-rank engines [{limit_line}]")
+    weights = {"params": params}
+    del params                      # tp_phase drops the last reference before the ranks start
+    tp_runs, tp_record = tp_phase(torch, K, cfg, weights, n_slots=n_slots, chunk=chunk,
+                                  cache_cap=cache_cap, page=page, pools=pools, max_new=max_new,
+                                  card=limit_line)
     release(torch)
+    runs.update(tp_runs)
+    phase_s["tp"] = time.perf_counter() - t
 
     # 8., 9. and 10. the layer-stack LMs under the continuous batcher
     for phase, scfg, max_new in stack_phases:
@@ -3440,6 +3933,7 @@ def main() -> int:
     serving["heal"] = {path: heal_runs[path][1] for path in heal_runs}
     serving["load"] = load_record
     serving["deploy"] = deploy_record
+    serving["tp"] = tp_record
     for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)

@@ -25,8 +25,7 @@ is ``repro``'s; the port translates at this boundary, both ways:
     xla                         torch where the port registers torch for
                                 the op; otherwise ref (the port folded
                                 repro's xla variant into ref)
-    ref, winograd, chunked      the same name
-    tp                          NotImplementedError (ROADMAP item 12)
+    ref, winograd, chunked, tp  the same name
 
 There is no fallback: a pin the port cannot honour fails when the Program
 is compiled, and never runs another backend quietly.
@@ -54,7 +53,6 @@ _FORMAT_VERSION = 1
 # port backend -> the format's name; every other port name is the format's
 _TO_BUNDLE = {"cuda": "pallas", "cuda_split": "pallas_split", "torch": "xla"}
 _FROM_BUNDLE = {"pallas": "cuda", "pallas_split": "cuda_split"}
-_TP_ITEM = "Queue 1 item 12 (tensor-parallel serving)"
 
 
 def bundle_backend(backend: str) -> str:
@@ -65,10 +63,6 @@ def bundle_backend(backend: str) -> str:
 
 def port_backend(op: str, name: str) -> str:
     """The port backend that runs a bundle's backend ``name`` for ``op``."""
-    if name == "tp":
-        raise NotImplementedError(
-            f"{op}: backend 'tp' (tensor-parallel serving) is not ported yet: "
-            f"see ROADMAP.md {_TP_ITEM}")
     if name == "xla":
         return "torch" if "torch" in get_op(op).impls else "ref"
     return _FROM_BUNDLE.get(name, name)
@@ -211,10 +205,12 @@ def load_graph(path: str) -> Graph:
     return graph_from_dict(*read_bundle(path))
 
 
-def load_program(path: str, policy: Any = None, device: Any = None) -> "Any":
+def load_program(path: str, policy: Any = None, mesh: Any = None,
+                 device: Any = None) -> "Any":
     """Load an OXF bundle straight into an executable
     :class:`~repro_torch.core.program.Program` on ``device`` (``None``
     means ``"cuda"``).  Pins written by ``Program.save`` win over
-    ``policy``.  (Late import: program depends on this module.)"""
+    ``policy``; ``mesh`` checks (or, for a bundle without one, makes) the
+    partition.  (Late import: program depends on this module.)"""
     from repro_torch.core.program import Program
-    return Program.load(path, policy=policy, device=device)
+    return Program.load(path, policy=policy, mesh=mesh, device=device)

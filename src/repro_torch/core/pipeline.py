@@ -24,6 +24,7 @@ __all__ = [
     "registered_passes",
     "default_pipeline",
     "DEFAULT_PASSES",
+    "make_partition_pass",
 ]
 
 PassFn = Callable[[Graph], Graph]
@@ -69,9 +70,39 @@ def get_pass(name: str) -> PassFn:
 
 
 def registered_passes() -> List[str]:
-    """Names of every registered pass (``repro``'s but ``partition``,
-    which comes with tensor-parallel serving)."""
     return sorted(_PASSES)
+
+
+@register_pass("partition")
+def partition(graph: Graph) -> Graph:
+    """Stamp mesh partition specs onto the graph (no-op without a mesh).
+
+    The registry entry documents the stage; the working variant is the
+    closure from :func:`make_partition_pass`, which ``compile(mesh=...)``
+    appends as the *last* pass — rewrite passes rebuild Graph objects and
+    would drop the stamped attributes, so partitioning always runs on the
+    final graph."""
+    return graph
+
+
+def make_partition_pass(mesh) -> PassFn:
+    """Bind ``mesh`` into a `partition` pass instance: it derives a spec for
+    every graph input, param and output from the serving rules of
+    :mod:`repro_torch.sharding.specs` and stores them as
+    ``graph.partition_specs`` (name -> spec) plus ``graph.partition_mesh``
+    ({axis: size}), which :class:`~repro_torch.core.program.Program`
+    freezes into its ``partition`` and serialises through OXF."""
+    def partition(graph: Graph) -> Graph:
+        """Stamp partition specs for a bound mesh onto the final graph."""
+        from repro_torch.sharding.specs import graph_partition_specs, mesh_axes
+        missing = [o for o in graph.outputs
+                   if o not in graph.value_info and o not in graph.inputs]
+        if missing:  # pipeline=() loads arrive without value_info
+            graph = get_pass("infer_shapes")(graph)
+        graph.partition_specs = graph_partition_specs(graph, mesh)
+        graph.partition_mesh = mesh_axes(mesh)
+        return graph
+    return partition
 
 
 def _freeze(x):

@@ -25,6 +25,15 @@ package deploys in the other with its assignment::
     prog = compile(graph, device="cuda")
     prog.save("model_dir")                 # pins "pallas" where prog ran "cuda"
     prog2 = Program.load("model_dir")      # same assignment, no re-tuning
+
+``compile(..., mesh=...)`` runs the `partition` pass last and freezes its
+specs into :attr:`Program.partition`, which bundles carry in
+``program.json``.  Under an active serving mesh of tp > 1 ranks
+(:func:`repro_torch.kernels.serving_ops.serving_mesh`), a Program whose
+partition shards the KV heads runs on the rank's slice of its caches: its
+cache writes take the rank's heads of the whole new rows
+(``serving_ops.tp_write_slices``), and its attention nodes run the ``tp``
+backends.  The weights stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import json
 import os
 import time
 from dataclasses import dataclass
+from itertools import repeat
 from types import MappingProxyType
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -47,6 +57,12 @@ from repro_torch.core.registry import Cost, get_impl
 from repro_torch.core.selector import BackendPolicy, FixedPolicy
 
 __all__ = ["Program", "NodeReport", "compile"]
+
+
+def _freeze_partition(mesh: Mapping[str, int], specs: Mapping[str, Any]
+                      ) -> Dict[str, Mapping[str, Any]]:
+    return {"mesh": MappingProxyType({a: int(n) for a, n in mesh.items()}),
+            "specs": MappingProxyType(dict(specs))}
 
 
 @dataclass
@@ -68,6 +84,12 @@ class Program:
                  device: DeviceLike = None):
         from repro_torch.core.passes import infer_shapes
         self.device = resolve_device(device)
+        # freeze the layout the `partition` pass stamped before a Graph
+        # rebuild below can drop the dynamic attributes
+        part_specs = getattr(graph, "partition_specs", None)
+        self._partition: Optional[Dict[str, Mapping[str, Any]]] = (
+            None if part_specs is None
+            else _freeze_partition(getattr(graph, "partition_mesh", {}) or {}, part_specs))
         self._graph = graph if graph.value_info else infer_shapes(graph)
         self._order = topological_order(self._graph)
         missing = [n.name for n in self._order if n.name not in assignment]
@@ -83,6 +105,7 @@ class Program:
         self._cost_table: Mapping[str, Tuple[str, Cost]] = MappingProxyType(table)
         self._impls = [(node, get_impl(node.op, self._assignment[node.name]))
                        for node in self._order]
+        self._row_slices: Optional[List[Optional[Tuple[int, int]]]] = None
         self._stored: Optional[Dict[str, torch.Tensor]] = None
         # node -> backend name as read from an OXF bundle (Program.load)
         self._bundle_names: Mapping[str, str] = MappingProxyType({})
@@ -104,6 +127,42 @@ class Program:
     def cost_table(self) -> Mapping[str, Tuple[str, Cost]]:
         return self._cost_table
 
+    @property
+    def partition(self) -> Optional[Dict[str, Mapping[str, Any]]]:
+        """Frozen partition layout, or None for unpartitioned Programs:
+        ``{"mesh": {axis: size}, "specs": {value name: spec}}`` with a spec
+        for every graph input, param and output — stamped by
+        ``compile(mesh=...)``'s `partition` pass, carried through OXF, and
+        read by the serving engine to give each rank its slice of the
+        caches."""
+        return self._partition
+
+    def _set_partition(self, partition: Optional[Dict[str, Mapping[str, Any]]]) -> None:
+        self._partition = partition
+        self._row_slices = None
+
+    def _tp_rows(self) -> Tuple[Any, Optional[List[Optional[Tuple[int, int]]]]]:
+        """(mesh, per-node row slice) when this call runs on one rank of a
+        tp > 1 serving mesh and the partition shards the KV heads of a
+        cache this Program writes, else (None, None).  The slice is the
+        (input, head dim) of a cache write's whole new rows."""
+        if self._partition is None:
+            return None, None
+        from repro_torch.kernels.serving_ops import _tp_state, tp_write_slices
+        mesh, tp = _tp_state()
+        if mesh is None:
+            return None, None
+        if self._row_slices is None:
+            self._row_slices = tp_write_slices([node for node, _ in self._impls],
+                                               self._partition["specs"])
+        if not any(self._row_slices):
+            return None, None
+        want = self._partition["mesh"].get("model")
+        if want != tp:
+            raise ValueError(f"Program partitioned for model={want} called on a serving "
+                             f"mesh of model={tp}")
+        return mesh, self._row_slices
+
     def costs(self) -> List[Tuple[Node, str, Cost]]:
         return [(node, *self._cost_table[node.name]) for node in self._order]
 
@@ -123,12 +182,17 @@ class Program:
         return self._stored
 
     def _run(self, params: Mapping[str, Any], inputs: Mapping[str, Any]) -> Tuple[Any, ...]:
+        from repro_torch.kernels.serving_ops import tp_slice
         env: Dict[str, Any] = dict(params)
         for k, v in inputs.items():
             env[k] = to_tensor(v, self.device)
+        mesh, rows = self._tp_rows()
         with torch.no_grad():
-            for node, fn in self._impls:
-                outs = fn([env[v] for v in node.inputs], node.attrs)
+            for (node, fn), row in zip(self._impls, rows or repeat(None)):
+                args = [env[v] for v in node.inputs]
+                if row is not None:
+                    args[row[0]] = tp_slice(args[row[0]], row[1], mesh)
+                outs = fn(args, node.attrs)
                 for v, val in zip(node.outputs, outs):
                     env[v] = val
         return tuple(env[v] for v in self._graph.outputs)
@@ -147,15 +211,19 @@ class Program:
         missing = set(self._graph.inputs) - set(inputs)
         if missing:
             raise ValueError(f"missing graph inputs: {sorted(missing)}")
+        from repro_torch.kernels.serving_ops import tp_slice
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
         env: Dict[str, Any] = dict(self._stored_params())
         for k, v in inputs.items():
             env[k] = to_tensor(v, self.device)
         reports: List[NodeReport] = []
+        mesh, rows = self._tp_rows()
         with torch.no_grad():
-            for node, fn in self._impls:
+            for (node, fn), row in zip(self._impls, rows or repeat(None)):
                 args = [env[v] for v in node.inputs]
+                if row is not None:
+                    args[row[0]] = tp_slice(args[row[0]], row[1], mesh)
                 fn(args, node.attrs)                     # warm
                 sync()
                 t0 = time.perf_counter()
@@ -224,34 +292,57 @@ class Program:
         save_graph(pinned, path)
         costs = {}
         for node in self._order:
-            specs = [self._graph.spec_of(v) for v in node.inputs]
-            c = bundle_cost(node.op, names[node.name], specs, node.attrs)
+            backend, c = self._cost_table[node.name]
+            if bundle_backend(backend) != names[node.name]:
+                # a folded name (repro's xla run by ref): repro's own cost
+                specs = [self._graph.spec_of(v) for v in node.inputs]
+                c = bundle_cost(node.op, names[node.name], specs, node.attrs)
             costs[node.name] = {"backend": names[node.name], "flops": c.flops,
                                 "bytes": c.bytes}
         meta = {"assignment": names, "cost_table": costs,
                 "quantized": is_quantized(self._graph)}
+        if self._partition is not None:
+            # written only for partitioned Programs: unpartitioned bundles
+            # keep their bytes
+            from repro_torch.sharding.specs import partition_spec_to_json
+            meta["partition"] = {
+                "mesh": dict(self._partition["mesh"]),
+                "specs": {name: partition_spec_to_json(spec)
+                          for name, spec in self._partition["specs"].items()}}
         with open(os.path.join(path, "program.json"), "w") as f:
             json.dump(meta, f, indent=1, sort_keys=True)
 
     @classmethod
     def load(cls, path: str, policy: Optional[BackendPolicy] = None,
-             device: DeviceLike = None) -> "Program":
+             mesh: Optional[Any] = None, device: DeviceLike = None) -> "Program":
         """Rebuild a Program from an OXF bundle on ``device`` (``None``
         means ``"cuda"``), with no pass run (a quantized bundle loads as it
         is).  The pinned per-node backends, mapped to the port's names, win
         over ``policy``, which only fills gaps (bundles written by a plain
         ``save_graph``); the names read from the bundle are remembered, so
-        :meth:`save` writes them back unchanged.  A partitioned bundle
-        raises ``NotImplementedError``."""
+        :meth:`save` writes them back unchanged.
+
+        A partitioned bundle restores its recorded specs verbatim; a given
+        ``mesh`` is checked against the recorded axes (``ValueError`` on a
+        mismatch).  A bundle with no partition is partitioned fresh for
+        ``mesh`` by the `partition` pass."""
+        part = None
         meta_path = os.path.join(path, "program.json")
         if os.path.exists(meta_path):
             with open(meta_path) as f:
-                if "partition" in json.load(f):
-                    raise NotImplementedError(
-                        f"{path}: partitioned bundles are not ported yet: see ROADMAP.md "
-                        "Queue 1 item 12 (tensor-parallel serving)")
+                part = json.load(f).get("partition")
         d, params = read_bundle(path)
-        prog = compile(graph_from_dict(d, params), policy=policy, pipeline=(), device=device)
+        graph = graph_from_dict(d, params)
+        if part is None:
+            prog = compile(graph, policy=policy, pipeline=(), mesh=mesh, device=device)
+        else:
+            from repro_torch.sharding.specs import check_mesh_compat, partition_spec_from_json
+            if mesh is not None:
+                check_mesh_compat(part["mesh"], mesh)
+            prog = compile(graph, policy=policy, pipeline=(), device=device)
+            prog._set_partition(_freeze_partition(
+                part["mesh"], {n: partition_spec_from_json(e)
+                               for n, e in part["specs"].items()}))
         prog._bundle_names = MappingProxyType(
             {nd["name"]: nd["backend"] for nd in d["nodes"] if nd.get("backend")})
         return prog
@@ -262,7 +353,7 @@ def compile(graph: Graph, policy: Optional[BackendPolicy] = None,
             *, validate: bool = False, quantize: Optional[str] = None,
             calib_data: Any = None,
             calib_ranges: Optional[Mapping[str, Any]] = None,
-            device: DeviceLike = None) -> Program:
+            mesh: Optional[Any] = None, device: DeviceLike = None) -> Program:
     """Graph -> Program.
 
     ``policy`` defaults to :class:`FixedPolicy` (cuda-then-ref); per-node
@@ -278,7 +369,11 @@ def compile(graph: Graph, policy: Optional[BackendPolicy] = None,
     (``calibrate``'s output) is used instead of calibrating here, so that
     several shape variants of one model share one set of activation
     scales; it excludes ``calib_data``.  Without either, quantization is
-    weight-only and the ``ref`` backend scales activations per batch."""
+    weight-only and the ``ref`` backend scales activations per batch.
+
+    ``mesh`` (anything with ``axis_names`` and ``shape``) runs the
+    `partition` pass as the last stage, after every rewrite, and freezes
+    its specs into ``Program.partition``."""
     from repro_torch.core.passes import infer_shapes
     dev = resolve_device(device)
     if pipeline is None:
@@ -300,9 +395,15 @@ def compile(graph: Graph, policy: Optional[BackendPolicy] = None,
         g = quant.quantize_graph(g, ranges)
     if not g.value_info:
         g = infer_shapes(g)
+    pass_stats = tuple(pipeline.stats)
+    if mesh is not None:
+        from repro_torch.core.pipeline import make_partition_pass
+        pmesh = PassManager([make_partition_pass(mesh)], name="partition")
+        g = pmesh.run(g)
+        pass_stats += tuple(pmesh.stats)
     policy = policy or FixedPolicy()
     assignment: Dict[str, str] = {}
     for node in topological_order(g):
         in_specs = [g.spec_of(v) for v in node.inputs]
         assignment[node.name] = policy.resolve(node, in_specs)
-    return Program(g, assignment, pass_stats=tuple(pipeline.stats), device=dev)
+    return Program(g, assignment, pass_stats=pass_stats, device=dev)

@@ -31,19 +31,33 @@ pages as the op says, whole GQA groups, head widths <= 256, shared memory);
 the TPU's ``page_size % 8`` and ``T % block_q`` guards are not carried over,
 because the kernels walk fixed logical tiles for any page size and mask
 their own ragged edges; the verify ops' ``cuda`` guards are the chunk
-kernels' (any T: a verify call is a chunk of spec_k + 1 rows).  The
-tensor-parallel serving ops are not ported yet.
+kernels' (any T: a verify call is a chunk of spec_k + 1 rows).
+
+Tensor-parallel serving: the nine attention ops of :data:`TP_ATTENTION_OPS`
+have a ``tp`` backend, selected when a serving mesh (:func:`serving_mesh`)
+with a "model" axis of size tp > 1 is active and tp divides both head
+counts.  Each rank runs the op's ``cuda`` backend (on the card: the flash
+kernels) on its slice of the heads, and the slices are all-gathered back on
+the head dim (:func:`repro_torch.sharding.collectives.all_gather_heads`).
+The cache operands (dense caches, page pools, scale sidecars) arrive
+already head-sharded — the engine gives each rank its slice
+(``runtime/engine.py``); the query and the verify op's fp32 new rows arrive
+whole, from the whole-weight projections, and are sliced here.  The cache
+writes take whole new rows into sharded caches: a partitioned Program
+slices those rows to the rank's heads before the write
+(:func:`tp_write_slices`, ``core/program.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from contextlib import contextmanager
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.ir import TensorSpec
-from repro_torch.core.registry import Cost, defop, get_op, impl
+from repro_torch.core.registry import Cost, defop, get_impl, get_op, impl
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import (chunk_fits, flash_chunk_attention,
                                                  flash_paged_chunk_attention,
@@ -824,3 +838,176 @@ for _op, _cost in (("embedding", _embedding_xla_cost),
                    ("paged_verify_attention_q", _paged_verify_q_gather_cost),
                    ("paged_decode_attention_q", _paged_dec_q_gather_cost)):
     get_op(_op).xla_cost = _cost
+
+
+# --------------------------------------------------------------------------- #
+# Serving mesh context — how the ``tp`` backends learn about the mesh:
+# supports() and cost() run at compile time and the bodies at call time,
+# each with only (specs or inputs, attrs) in hand, so the engine publishes
+# its mesh here instead of threading it through every call.
+# --------------------------------------------------------------------------- #
+
+_SERVING_MESH: Optional[Any] = None
+
+
+@contextmanager
+def serving_mesh(mesh):
+    """Make ``mesh`` visible to the ``tp`` backends and to the executor of a
+    partitioned Program.  The engine wraps its compiles (so ``supports()``
+    sees the mesh during selection) and every Program call in it."""
+    global _SERVING_MESH
+    prev = _SERVING_MESH
+    _SERVING_MESH = mesh
+    try:
+        yield mesh
+    finally:
+        _SERVING_MESH = prev
+
+
+def current_serving_mesh():
+    """The mesh published by the innermost :func:`serving_mesh` (or None)."""
+    return _SERVING_MESH
+
+
+def _tp_state():
+    """(mesh, degree) when a serving mesh with a >1 "model" axis is active,
+    else (None, 1)."""
+    mesh = current_serving_mesh()
+    if mesh is None or "model" not in getattr(mesh, "axis_names", ()):
+        return None, 1
+    tp = int(mesh.shape["model"])
+    return (mesh, tp) if tp > 1 else (None, 1)
+
+
+def tp_slice(x: torch.Tensor, dim: int, mesh: Any) -> torch.Tensor:
+    """This rank's contiguous slice of ``x``'s heads along ``dim``: rank r of
+    tp holds heads [r * H / tp, (r + 1) * H / tp) (GQA groups stay whole:
+    q head h reads kv head h // (Hq / Hk))."""
+    tp = int(mesh.shape["model"])
+    h = x.shape[dim] // tp
+    return x.narrow(dim, mesh.rank * h, h).contiguous()
+
+
+# --------------------------------------------------------------------------- #
+# ``tp`` backends — tensor-parallel attention over the head dim.  Heads are
+# independent through the whole softmax, so each rank runs the single-rank
+# ``cuda`` backend on its head slice with no inner collective and, per head,
+# the single-rank arithmetic (the kernels' shards depend on the row counts
+# alone, never on the head count); the only collective is the exact
+# all-gather of the output.  (repro's per-device body is ``xla``, its
+# default policy's first choice; the port's default prefers ``cuda``, and
+# token identity with the single-rank engine needs the same body.)
+# --------------------------------------------------------------------------- #
+
+# op -> (replicated inputs sliced here, already head-sharded inputs), each
+# an (input index, head dim) pair; the query is input 0
+_TP_LAYOUT = {
+    "chunk_attention": (((0, 2),), ((1, 2), (2, 2))),
+    "verify_attention": (((0, 2),), ((1, 2), (2, 2))),
+    "decode_attention": (((0, 1),), ((1, 2), (2, 2))),
+    "paged_chunk_attention": (((0, 2),), ((1, 2), (2, 2))),
+    "paged_verify_attention": (((0, 2),), ((1, 2), (2, 2))),
+    "paged_decode_attention": (((0, 1),), ((1, 2), (2, 2))),
+    "paged_chunk_attention_q": (((0, 2),), ((1, 2), (2, 1), (3, 2), (4, 1))),
+    "paged_decode_attention_q": (((0, 1),), ((1, 2), (2, 1), (3, 2), (4, 1))),
+    "paged_verify_attention_q": (((0, 2), (7, 2), (8, 2)),
+                                 ((1, 2), (2, 1), (3, 2), (4, 1))),
+}
+
+# the ops whose ``tp`` backend the engine prefers when given a mesh
+TP_ATTENTION_OPS = tuple(_TP_LAYOUT)
+
+# the cache writes: op -> (cache input, new-rows input); both hold their
+# kv heads on dim 2
+_TP_WRITES = {"cache_update": (0, 1), "paged_cache_update": (0, 1),
+              "paged_cache_update_q": (0, 2)}
+
+
+def tp_write_slices(nodes, specs) -> List[Optional[Tuple[int, int]]]:
+    """For each node of a partitioned Program, in execution order: the
+    (input index, head dim) of the whole new rows that a cache write
+    slices to the rank's heads, because the cache it writes is sharded on
+    "model" at its head dim; None for every other node.  A cache's spec is
+    its partition spec, or, for a cache an earlier write produced, that
+    write's (a verify commit writes each cache once a stage)."""
+    sharded = {name for name, spec in specs.items()
+               if len(spec) > 2 and spec[2] == "model"}
+    out: List[Optional[Tuple[int, int]]] = []
+    for node in nodes:
+        io = _TP_WRITES.get(node.op)
+        if io is not None and node.inputs[io[0]] in sharded:
+            out.append((io[1], 2))
+            sharded.add(node.outputs[0])
+        else:
+            out.append(None)
+    return out
+
+
+def _tp_local_specs(op: str, specs, tp: int):
+    """The specs one rank's ``cuda`` body sees: every head dim over tp."""
+    local = list(specs)
+    for idx, dim in (*_TP_LAYOUT[op][0], *_TP_LAYOUT[op][1]):
+        shape = list(specs[idx].shape)
+        shape[dim] //= tp
+        local[idx] = TensorSpec(tuple(shape), specs[idx].dtype)
+    return local
+
+
+def tp_heads_divide(specs, tp: int) -> bool:
+    """tp divides both Hq and Hk: whole GQA groups on every rank."""
+    return specs[0].shape[-2] % tp == 0 and specs[1].shape[2] % tp == 0
+
+
+def tp_local_supported(op: str, specs, attrs, tp: int) -> bool:
+    """Whether the ``cuda`` backend takes one rank's slice of the heads."""
+    return get_impl(op, "cuda").supports(_tp_local_specs(op, specs, tp), attrs)
+
+
+def _tp_supports(op: str):
+    def supports(specs, attrs):
+        """serving mesh active with a "model" axis of size tp > 1 dividing
+        both Hq and Hk (whole GQA groups per rank), and the ``cuda``
+        backend taking the rank's slice of the heads"""
+        mesh, tp = _tp_state()
+        return (mesh is not None and tp_heads_divide(specs, tp)
+                and tp_local_supported(op, specs, attrs, tp))
+    return supports
+
+
+def _tp_cost_fn(op: str):
+    base_cost, shape_fn = get_op(op).cost_fn, get_op(op).shape_fn
+
+    def cost(specs, attrs):
+        """op streaming cost plus the (tp-1)/tp all-gather returning the
+        head-sharded output to the replicated Program (collectives.
+        allgather_bytes)"""
+        from repro_torch.sharding.collectives import allgather_bytes
+        _, tp = _tp_state()
+        base = base_cost(specs, attrs)
+        out = shape_fn(specs, attrs)[0]
+        return Cost(flops=base.flops, bytes=base.bytes + allgather_bytes(out.nbytes, tp))
+    return cost
+
+
+def _tp_body(op: str):
+    body = get_impl(op, "cuda").fn
+    sliced, _ = _TP_LAYOUT[op]
+    q_dim = sliced[0][1]
+
+    def run(inputs, attrs):
+        from repro_torch.sharding.collectives import all_gather_heads
+        mesh, tp = _tp_state()
+        if mesh is None:
+            raise RuntimeError(f"{op}: backend 'tp' called with no serving mesh of tp > 1")
+        local = list(inputs)
+        for idx, dim in sliced:
+            local[idx] = tp_slice(inputs[idx], dim, mesh)
+        out = body(local, attrs)[0]
+        return [all_gather_heads(out, mesh, q_dim)]
+    return run
+
+
+for _op in TP_ATTENTION_OPS:
+    impl(_op, "tp", supports=_tp_supports(_op), cost_fn=_tp_cost_fn(_op),
+         note="the cuda backend on this rank's heads of the serving mesh; the output "
+              "all-gathered back on the head dim")(_tp_body(_op))

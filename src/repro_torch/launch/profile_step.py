@@ -1,7 +1,8 @@
-"""Where a batcher decode step's time goes: host or device.
+"""Where a decode step's time goes: host or device.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step --arch mamba2-370m --full
     PYTHONPATH=src python -m repro_torch.launch.profile_step --arch gemma3-1b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.profile_step --engine dense paged --full
 
 Serves random-prompt requests through :class:`ContinuousBatcher` as
 ``chip_smoke.py``'s phases 8-10 do (8 requests of 200-1400 tokens from
@@ -16,6 +17,16 @@ the step), its idle share, the launches per step, and the kernels by
 device time and the host ops by self time per step.  Where the profile
 holds no device event (``--device cpu``) the device columns are 0 and the
 idle share is null.
+
+``--engine dense paged`` profiles the decode ticks of
+:func:`~repro_torch.runtime.engine.build_lm_serving`'s engines instead, one
+JSON line each (``--full``: phi3-mini-3.8b widths, 32 layers, 4 slots, chunk
+64, cache 1024, pages of 16; 8 requests of 128-700 tokens, 32 new, from seed
+0 — ``chip_smoke.py``'s phases 5 and 6; else the default small
+``GraphLMConfig``).  A tick is the stepper's decode call, which ends with
+the logits on the host.  The script imports only the package's public
+entry points, so run by path with another checkout's ``src`` on
+``PYTHONPATH`` it profiles that checkout's engine.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ from repro_torch.launch.serve import serving_config
 from repro_torch.models.lm import LM
 from repro_torch.runtime.batching import ContinuousBatcher, Request
 
-__all__ = ["busy_us", "step_profile", "main"]
+__all__ = ["busy_us", "step_profile", "engine_profiles", "main"]
 
 STEP_LABEL = "profile_step.decode_step"
 
@@ -117,12 +128,11 @@ def _events(prof) -> Tuple[List[Interval], list, list]:
     return sorted(steps), kernels, host
 
 
-class _ProfiledLM(LM):
-    """Times every decode step between two synchronises, and profiles the
-    steps in [warmup, warmup + n_prof)."""
+class _StepTimer:
+    """Times every call of a step function between two synchronises, and
+    profiles the calls in [warmup, warmup + n_prof)."""
 
-    def __init__(self, cfg, device, warmup: int, n_prof: int):
-        super().__init__(cfg)
+    def __init__(self, device, warmup: int, n_prof: int):
         self.device, self.warmup, self.n_prof = device, warmup, n_prof
         self.step_s: List[float] = []
         self.prof = None
@@ -131,7 +141,7 @@ class _ProfiledLM(LM):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def decode_step(self, *args, **kw):
+    def __call__(self, fn, *args, **kw):
         i = len(self.step_s)
         if i == self.warmup:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -142,12 +152,69 @@ class _ProfiledLM(LM):
         self._sync()
         t = time.perf_counter()
         with torch.profiler.record_function(STEP_LABEL):
-            out = super().decode_step(*args, **kw)
+            out = fn(*args, **kw)
             self._sync()
         self.step_s.append(time.perf_counter() - t)
         if i == self.warmup + self.n_prof - 1:
             self.prof.stop()
         return out
+
+    def report(self, **head) -> Dict:
+        """``head`` plus the unprofiled steps' and the profile's numbers."""
+        w, n = self.warmup, self.n_prof
+        if len(self.step_s) < w + n:
+            raise SystemExit(f"{len(self.step_s)} decode steps ran; --warmup + --steps need "
+                             f"{w + n}")
+        plain = self.step_s[:w] + self.step_s[w + n:]
+        out = dict(head, step_ms_unprofiled=1e3 * statistics.median(plain),
+                   step_ms_unprofiled_mean=1e3 * statistics.mean(plain),
+                   steps_unprofiled=len(plain),
+                   step_ms_profiled=1e3 * statistics.median(self.step_s[w:w + n]))
+        out.update(step_profile(*_events(self.prof)))
+        return out
+
+
+class _ProfiledLM(LM):
+    def __init__(self, cfg, timer: _StepTimer):
+        super().__init__(cfg)
+        self.timer = timer
+
+    def decode_step(self, *args, **kw):
+        return self.timer(super().decode_step, *args, **kw)
+
+
+def engine_profiles(modes: Sequence[str], device, warmup: int, n_prof: int,
+                    full: bool) -> List[Dict]:
+    """The decode ticks of one engine per mode (``dense`` or ``paged``:
+    fp32 pages), on one set of weights (the module docstring)."""
+    from repro_torch.models.graph_lm import GraphLMConfig, init_lm_params_torch
+    from repro_torch.runtime.engine import EngineRequest, build_lm_serving
+    if full:
+        cfg = GraphLMConfig(vocab=32064, d_model=3072, n_layers=32, n_heads=32,
+                            n_kv_heads=32, d_ff=8192)
+        chunk, cache_cap, page, lo, hi, new = 64, 1024, 16, 128, 701, 32
+    else:
+        cfg = GraphLMConfig()
+        chunk, cache_cap, page, lo, hi, new = 8, 64, 8, 8, 33, 8
+    params = init_lm_params_torch(cfg, seed=0, device=device)
+    outs = []
+    for mode in modes:
+        kw = (dict(paged=True, page_size=page, n_blocks=4 * cache_cap // page)
+              if mode == "paged" else {})
+        engine, _ = build_lm_serving(cfg, n_slots=4, chunk=chunk, cache_cap=cache_cap,
+                                     params=params, device=device, **kw)
+        timer = _StepTimer(device, warmup, n_prof)
+        decode = engine.stepper.decode
+        engine.stepper.decode = lambda *a, _f=decode: timer(_f, *a)
+        rng = np.random.default_rng(0)
+        for i in range(8):
+            prompt = rng.integers(0, cfg.vocab, int(rng.integers(lo, hi))).astype(np.int32)
+            engine.submit(EngineRequest(uid=i, prompt=prompt, max_new_tokens=new))
+        engine.run()
+        outs.append(timer.report(engine=mode, d_model=cfg.d_model, n_layers=cfg.n_layers,
+                                 device=str(device), decode_ticks=engine.metrics.decode_ticks))
+        del engine, decode
+    return outs
 
 
 def main(argv=None) -> Dict:
@@ -158,10 +225,18 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--warmup", type=int, default=8, help="decode steps before the profile")
     ap.add_argument("--steps", type=int, default=16, help="decode steps profiled")
+    ap.add_argument("--engine", nargs="+", choices=("dense", "paged"), default=None,
+                    help="profile these engines' decode ticks instead of a batcher step")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.engine:
+        outs = engine_profiles(args.engine, device, args.warmup, args.steps, args.full)
+        for out in outs:
+            print(json.dumps(out))
+        return outs[0] if len(outs) == 1 else {"engines": outs}
     cfg = serving_config(args.arch, full=args.full, device=device)
-    model = _ProfiledLM(cfg, device, args.warmup, args.steps)
+    timer = _StepTimer(device, args.warmup, args.steps)
+    model = _ProfiledLM(cfg, timer)
     params = model.init_params(0, device=device)
     rng = np.random.default_rng(0)
     batcher = ContinuousBatcher(model, params, n_slots=4, cache_cap=2048, eos_id=-1)
@@ -169,14 +244,7 @@ def main(argv=None) -> Dict:
         batcher.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
                                max_new_tokens=32))
     batcher.run(max_steps=args.warmup + args.steps)
-    if len(model.step_s) < args.warmup + args.steps:
-        raise SystemExit(f"{len(model.step_s)} decode steps ran; --warmup + --steps need "
-                         f"{args.warmup + args.steps}")
-    out = {"arch": cfg.name, "device": str(device),
-           "step_ms_unprofiled": 1e3 * statistics.median(model.step_s[:args.warmup]),
-           "step_ms_profiled": 1e3 * statistics.median(
-               model.step_s[args.warmup:args.warmup + args.steps])}
-    out.update(step_profile(*_events(model.prof)))
+    out = timer.report(arch=cfg.name, device=str(device))
     print(json.dumps(out))
     return out
 

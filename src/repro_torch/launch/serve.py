@@ -8,6 +8,8 @@ Program-backed engine over the graph LM — counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --engine [--int8] [--paged] \\
         [--kv-dtype int8] [--device cpu] --requests 16 --slots 4 --chunk 8
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine --tp 2 --device cuda:0
+
 Default mode submits a stream of random-prompt requests and runs the
 slot-based continuous batcher (prefill on admit, batched decode) over a
 :class:`repro_torch.models.lm.LM` with random weights from seed 0 (the
@@ -22,12 +24,21 @@ card and raises without one.  ``--engine`` instead serves the graph LM
 through :func:`repro_torch.runtime.engine.build_lm_serving` and prints the
 lines ``repro.launch.serve --engine`` prints; with ``--int8`` the decode
 and prefill Programs have int8 weights (one shared calibration).
+
+``--tp N`` (or ``--mesh model=N``) serves the engine tensor-parallel over N
+ranks, token-identical to one rank: the launcher spawns the N ranks
+(:func:`repro_torch.launch.mesh.spawn_ranks`), or, started under
+``torchrun``, joins the group the environment describes; every rank serves
+the same requests and rank 0 prints the lines.  ``--device cuda`` gives each
+rank a card of its own (NCCL), ``--device cuda:0`` puts every rank on card 0
+(gloo), ``--device cpu`` runs the ranks on the CPU (gloo).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -50,17 +61,46 @@ def serving_config(arch: str, *, full: bool = False, device: DeviceLike = None) 
     return cfg
 
 
+def tp_degree(args) -> int:
+    """The tensor-parallel degree ``--tp`` or ``--mesh model=N`` asks for
+    (1 without either)."""
+    if args.mesh:
+        if args.tp is not None:
+            raise SystemExit("pass --tp or --mesh, not both")
+        axis, _, size = args.mesh.partition("=")
+        if axis != "model" or not size.isdigit():
+            raise SystemExit(f"--mesh wants model=N, got {args.mesh!r}")
+        return int(size)
+    return args.tp if args.tp is not None else 1
+
+
 def run_engine(args) -> None:
+    tp = tp_degree(args)
+    if tp > 1 and "WORLD_SIZE" not in os.environ:
+        from repro_torch.launch.mesh import spawn_ranks
+        spawn_ranks(serve_engine, tp, args, tp)
+        return
+    serve_engine(args, tp)
+
+
+def serve_engine(args, tp: int = 1) -> None:
+    """Build the engine (one rank of ``tp`` when tp > 1), serve the
+    requests and print the lines (rank 0 only)."""
     from repro_torch.models.graph_lm import GraphLMConfig
     from repro_torch.runtime.engine import EngineRequest, build_lm_serving
 
     cfg = GraphLMConfig()
     cache_cap = max(args.cache_cap, args.chunk + args.max_new + 16)
     paged = args.paged or args.kv_dtype != "float32"
+    mesh = None
+    if tp > 1 or args.tp is not None or args.mesh:
+        from repro_torch.launch.mesh import make_serving_mesh
+        mesh = make_serving_mesh(tp, device=args.device)
     engine, _ = build_lm_serving(cfg, n_slots=args.slots, chunk=args.chunk,
                                  cache_cap=cache_cap,
                                  quantize="int8" if args.int8 else None,
-                                 paged=paged, kv_dtype=args.kv_dtype, device=args.device)
+                                 paged=paged, kv_dtype=args.kv_dtype,
+                                 device=None if mesh is not None else args.device, mesh=mesh)
     rng = np.random.default_rng(0)
     reqs = []
     for i in range(args.requests):
@@ -69,9 +109,15 @@ def run_engine(args) -> None:
     for r in reqs:
         engine.submit(r)
     engine.run(max_ticks=100_000)
+    if mesh is not None and mesh.rank != 0:
+        return
+    tp_note = ""
+    if mesh is not None:
+        part = engine.stepper.decode_program.partition
+        tp_note = f" mesh={dict(part['mesh'])}" if part is not None else " mesh=?"
     print(f"engine: slots={args.slots} chunk={args.chunk} "
           f"int8={args.int8} paged={paged} kv_dtype={args.kv_dtype} "
-          f"requests={len(reqs)}")
+          f"requests={len(reqs)}{tp_note}")
     print(json.dumps(engine.metrics.summary(), indent=1, sort_keys=True))
     if paged:
         s = engine.stepper.pool.stats()
@@ -131,6 +177,11 @@ def main() -> None:
                     help="with --engine: paged KV page storage dtype (int8 implies --paged)")
     ap.add_argument("--chunk", type=int, default=8,
                     help="with --engine: prefill chunk size")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="with --engine: tensor-parallel degree (N ranks, spawned here "
+                         "unless started under torchrun)")
+    ap.add_argument("--mesh", default=None, metavar="model=N",
+                    help="with --engine: the serving mesh (alternative to --tp)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-cap", type=int, default=64)

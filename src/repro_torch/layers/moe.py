@@ -15,8 +15,8 @@ per projection, row ``b*cap + pos`` of expert e holding row b's token at
 position ``pos``.  Each row's arithmetic is the same as in JAX's per-row
 products (the ``cuda`` kernel's rows do not depend on M), and the experts'
 weights are read once per call instead of once per row.  JAX's mesh
-constraints on the dispatched buffer belong to tensor parallelism (ROADMAP
-Queue 1 item 12) and are not carried over.
+constraints on the dispatched buffer (``constrain`` under ``jit``) bind
+specs to GSPMD and have no eager counterpart; they are not carried over.
 
 The writes and sums have a fixed order on any device: kept tokens are
 written with a plain (non-accumulating) index assignment — their (expert,

@@ -47,7 +47,8 @@ __all__ = ["GraphLMConfig", "init_lm_params", "init_lm_params_torch",
            "init_cache_inputs", "init_paged_cache_inputs", "build_paged_decode_graph",
            "build_paged_prefill_graph", "build_verify_graph", "build_paged_verify_graph",
            "build_paged_verify_seq_graph", "build_verify_seq_graph",
-           "build_spec_commit_graph", "build_draft_graph", "expand_spec_ranges"]
+           "build_spec_commit_graph", "build_draft_graph", "expand_spec_ranges",
+           "partition_roles"]
 
 
 @dataclass(frozen=True)
@@ -856,3 +857,25 @@ def expand_spec_ranges(ranges: Dict[str, Any], spec_k: int) -> Dict[str, Any]:
         for s in range(spec_k + 1):
             out[f"{name}.s{s}"] = vr
     return out
+
+
+def partition_roles(graph: Graph) -> Dict[str, str]:
+    """Serving-partition role of every value this graph exchanges with the
+    engine: each graph input and output name -> ``"col"`` (column / head
+    parallel weight), ``"kv_col"`` (column-parallel iff the KV-head count
+    divides the TP degree), ``"dense_cache"`` / ``"paged_pool"`` /
+    ``"kv_scale"`` (head-sharded serving state) or ``"replicated"``.
+
+    A mesh-free view over :func:`repro_torch.sharding.specs.serving_value_role`,
+    the rules the `partition` compile stage turns into specs: every value
+    these builders emit is named by its role (``l{i}.wq``, ``cache_k{i}``,
+    ``cache_k{i}_scale``, ``block_tables``, ``new_``-prefixed outputs)."""
+    from repro_torch.core.pipeline import get_pass
+    from repro_torch.sharding.specs import serving_value_role
+
+    if any(o not in graph.value_info and o not in graph.inputs for o in graph.outputs):
+        graph = get_pass("infer_shapes")(graph)
+    paged = "block_tables" in graph.inputs
+    names = list(graph.inputs) + [o for o in graph.outputs if o not in graph.inputs]
+    return {name: serving_value_role(name, graph.spec_of(name).shape, paged=paged)
+            for name in names}

@@ -70,13 +70,28 @@ Streaming: per-token ``on_token`` / ``on_finish`` callbacks on each
 request, and :class:`AsyncEngine`, an asyncio front end whose
 ``generate`` is an async iterator over one request's tokens.
 
-Not ported yet (see ROADMAP.md): tensor parallel serving (item 12).
+Tensor-parallel serving (``tp=N`` or ``mesh=``): one process a rank, each
+running this engine on the same requests.  Every Program that touches the
+caches compiles with ``compile(mesh=...)``; each rank holds the whole
+weights and its ``1/tp`` slice of the KV heads of every cache, page pool
+and scale sidecar (:meth:`ProgramStepper._place_caches`, by the decode
+Program's partition), runs its heads of every attention node through the
+``tp`` backends (the ``cuda`` kernels on its slice, the output
+all-gathered) and emits exactly the single-rank engine's tokens.  A model
+whose KV heads do not divide tp (GQA-small) keeps whole caches on every
+rank and runs attention replicated.  Host decisions are the same on every
+rank because every rank sees the same requests and the same logits; a
+tick's outcome (ok, crash, hang) is agreed with one ``all_reduce(MAX)``
+before any rank commits or recovers (:meth:`Engine._guarded_call`).  A rank
+that fails inside a collective, leaving its peer waiting there, is not
+healed: the peer's collective times out.
 """
 
 from __future__ import annotations
 
 import asyncio
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -85,7 +100,7 @@ import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.core.program import compile
-from repro_torch.core.selector import BackendPolicy
+from repro_torch.core.selector import AutotunePolicy, BackendPolicy, FixedPolicy
 from repro_torch.ft.coordinator import Coordinator
 from repro_torch.ft.watchdog import HangDetector, StepWatchdog
 from repro_torch.models.graph_lm import (GraphLMConfig, build_decode_graph,
@@ -293,12 +308,40 @@ def _stage_names(width: int) -> List[str]:
     return [*[f"tokens.s{j}" for j in range(width)], *[f"n_new.s{j}" for j in range(width)]]
 
 
+class _TPFirstPolicy(BackendPolicy):
+    """The policy of an engine on a serving mesh: the attention ops take
+    their ``tp`` backend whenever tp divides both head counts, and every
+    other decision goes to the wrapped policy.  A GQA-small model (tp does
+    not divide Hk) falls through to the replicated backends, its caches
+    whole on every rank.  Where the heads divide but the ``cuda`` backend
+    refuses one rank's slice of them, it raises: the caches are sharded
+    then, and no replicated body could read them."""
+
+    def __init__(self, base: BackendPolicy):
+        self.base = base
+
+    def choose(self, node, in_specs):
+        from repro_torch.kernels.serving_ops import (TP_ATTENTION_OPS, _tp_state,
+                                                     tp_heads_divide, tp_local_supported)
+        _, tp = _tp_state()
+        if node.op in TP_ATTENTION_OPS and tp > 1 and tp_heads_divide(in_specs, tp):
+            if not tp_local_supported(node.op, in_specs, node.attrs, tp):
+                raise ValueError(
+                    f"node {node.name}: the cuda backend of {node.op} does not take one "
+                    f"rank's {in_specs[0].shape[-2] // tp} of {in_specs[0].shape[-2]} query "
+                    f"heads ({[s.shape for s in in_specs]}), and the tp backend runs it")
+            return "tp"
+        return self.base.choose(node, in_specs)
+
+
 class ProgramStepper:
     """Owns the compiled Programs plus the cache tensors they thread.
     Step dispatch goes through :meth:`Program.bind`, the positional
     fast-call path.  ``quantize``/``calib_ranges`` compile every Program
     with int8 weights and the given shared activation ranges; ``spec_k``
-    adds the speculative Programs (:meth:`_init_spec`)."""
+    adds the speculative Programs (:meth:`_init_spec`).  ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.ServingMesh`) makes this one rank of
+    a tensor-parallel engine (the module docstring)."""
 
     paged = False
 
@@ -308,14 +351,24 @@ class ProgramStepper:
                  quantize: Optional[str] = None,
                  calib_ranges: Optional[Mapping[str, Any]] = None,
                  spec_k: int = 0, draft_layers: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Any] = None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.chunk = chunk
         self.cache_cap = cache_cap
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            policy = _TPFirstPolicy(policy or FixedPolicy())
+        with self._mesh_ctx():
+            self._dense_init(params, policy=policy, quantize=quantize,
+                             calib_ranges=calib_ranges, spec_k=spec_k,
+                             draft_layers=draft_layers)
+
+    def _dense_init(self, params, *, policy, quantize, calib_ranges, spec_k, draft_layers):
+        cfg, n_slots, chunk, cache_cap = self.cfg, self.n_slots, self.chunk, self.cache_cap
         qkw = dict(policy=policy, quantize=quantize, calib_ranges=calib_ranges,
-                   device=self.device)
+                   device=self.device, mesh=self.mesh)
         dec_g = build_decode_graph(cfg, params, batch=n_slots, cache_cap=cache_cap)
         pre_g = build_prefill_graph(cfg, params, batch=n_slots, chunk=chunk,
                                     cache_cap=cache_cap)
@@ -328,9 +381,8 @@ class ProgramStepper:
         self._dec = self.decode_program.bind(*self._input_names, donate=cache_inputs)
         self._pre = self.prefill_program.bind(*self._input_names, donate=cache_inputs)
         shape = (n_slots, cache_cap, cfg.n_kv_heads, cfg.d_head)
-        self.caches: Dict[str, torch.Tensor] = {
-            name: torch.zeros(shape, dtype=torch.float32, device=self.device)
-            for name in cache_inputs}
+        self.caches: Dict[str, torch.Tensor] = self._place_caches(
+            self.decode_program, {name: (shape, torch.float32) for name in cache_inputs})
         verify_g, ver_bind = None, None
         w = spec_k + 1
         if spec_k > 0 and quantize is not None:
@@ -345,11 +397,39 @@ class ProgramStepper:
                         draft_layers=draft_layers, verify_graph=verify_g,
                         verify_bind_names=ver_bind, verify_spec_ranges=ver_bind is not None)
 
+    def _mesh_ctx(self):
+        """The serving-mesh context of compiles and Program calls (no-op on
+        one rank): publishes the mesh to the ``tp`` backends' supports
+        guards at compile time and to their bodies and the partitioned
+        executor at call time."""
+        if self.mesh is None:
+            return nullcontext()
+        from repro_torch.kernels.serving_ops import serving_mesh
+        return serving_mesh(self.mesh)
+
+    def _place_caches(self, program, caches: Mapping[str, Tuple[tuple, torch.dtype]]
+                      ) -> Dict[str, torch.Tensor]:
+        """Zeroed cache tensors on the device, ``name -> (global shape,
+        dtype)``; on a serving mesh of tp > 1 each holds this rank's slice
+        of every dim ``program``'s partition shards on "model" (the KV
+        heads of caches, pools and scale sidecars), so a rank never
+        allocates the whole cache."""
+        tp = self.mesh.shape["model"] if self.mesh is not None else 1
+        specs = program.partition["specs"] if tp > 1 else {}
+        out = {}
+        for name, (shape, dtype) in caches.items():
+            spec = tuple(specs.get(name, ()))
+            local = tuple(n // tp if i < len(spec) and spec[i] == "model" else n
+                          for i, n in enumerate(shape))
+            out[name] = torch.zeros(local, dtype=dtype, device=self.device)
+        return out
+
     def _call(self, fn, tokens, start, n_new, *extra) -> np.ndarray:
         dev = self.device
-        outs = fn(to_tensor(tokens, dev), to_tensor(start, dev), to_tensor(n_new, dev),
-                  *[to_tensor(e, dev) for e in extra],
-                  *[self.caches[n] for n in sorted(self.caches)])
+        with self._mesh_ctx():
+            outs = fn(to_tensor(tokens, dev), to_tensor(start, dev), to_tensor(n_new, dev),
+                      *[to_tensor(e, dev) for e in extra],
+                      *[self.caches[n] for n in sorted(self.caches)])
         logits = outs[0].cpu().numpy()
         self._set_caches(outs[1:])
         return logits
@@ -365,8 +445,9 @@ class ProgramStepper:
         dev, w = self.device, self.spec_k + 1
         cols = [to_tensor(tokens[:, j:j + 1], dev) for j in range(w)]
         masks = [to_tensor((n_new > j).astype(np.int32), dev) for j in range(w)]
-        outs = self._ver(to_tensor(start, dev), *[to_tensor(e, dev) for e in extra], *cols,
-                         *masks, *[self.caches[n] for n in sorted(self.caches)])
+        with self._mesh_ctx():
+            outs = self._ver(to_tensor(start, dev), *[to_tensor(e, dev) for e in extra], *cols,
+                             *masks, *[self.caches[n] for n in sorted(self.caches)])
         return torch.stack(outs[:w], dim=1).cpu().numpy(), list(outs[w:])
 
     def _init_spec(self, params: Mapping[str, Any], *,
@@ -408,7 +489,7 @@ class ProgramStepper:
                                     cache_cap=self.draft_cap, spec_k=spec_k)
         draft_pre_g = build_prefill_graph(draft_cfg, dict(params), batch=self.n_slots,
                                           chunk=self.chunk, cache_cap=self.draft_cap)
-        kw = dict(policy=policy, quantize=quantize, device=self.device)
+        kw = dict(policy=policy, quantize=quantize, device=self.device, mesh=self.mesh)
         self.draft_program = compile(draft_g, calib_ranges=draft_ranges, **kw)
         self.draft_prefill_program = compile(draft_pre_g, calib_ranges=calib_ranges, **kw)
         # the kv8 seq verify's value names are step-suffixed like the
@@ -428,9 +509,8 @@ class ProgramStepper:
             donate=self._cache_input_names if verify_donate else ())
         self._draft_cache_names = list(draft_g.outputs[spec_k:])
         shape = (self.n_slots, self.draft_cap, cfg.n_kv_heads, cfg.d_head)
-        self.draft_caches: Dict[str, torch.Tensor] = {
-            name: torch.zeros(shape, dtype=torch.float32, device=self.device)
-            for name in draft_cache_inputs}
+        self.draft_caches: Dict[str, torch.Tensor] = self._place_caches(
+            self.draft_program, {name: (shape, torch.float32) for name in draft_cache_inputs})
 
     def relocate_slots(self, moves: Sequence[Tuple[int, int]]) -> None:
         """Copy per-slot cache rows ``src -> dst`` — dense page-level resume
@@ -489,8 +569,9 @@ class ProgramStepper:
 
     def _draft_call(self, fn, tokens, start, n_new):
         dev = self.device
-        outs = fn(to_tensor(tokens, dev), to_tensor(start, dev), to_tensor(n_new, dev),
-                  *[self.draft_caches[n] for n in sorted(self.draft_caches)])
+        with self._mesh_ctx():
+            outs = fn(to_tensor(tokens, dev), to_tensor(start, dev), to_tensor(n_new, dev),
+                      *[self.draft_caches[n] for n in sorted(self.draft_caches)])
         k = len(outs) - len(self._draft_cache_names)
         for name, arr in zip(self._draft_cache_names, outs[k:]):
             self.draft_caches[name.replace("new_", "")] = arr
@@ -540,7 +621,7 @@ class PagedProgramStepper(ProgramStepper):
                  quantize: Optional[str] = None,
                  calib_ranges: Optional[Mapping[str, Any]] = None,
                  spec_k: int = 0, draft_layers: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Any] = None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.chunk = chunk
@@ -550,6 +631,18 @@ class PagedProgramStepper(ProgramStepper):
         self.kv_dtype = kv_dtype
         self.cache_cap = max_pages * page_size   # per-sequence logical cap
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            policy = _TPFirstPolicy(policy or FixedPolicy())
+        with self._mesh_ctx():
+            self._paged_init(params, policy=policy, quantize=quantize,
+                             calib_ranges=calib_ranges, spec_k=spec_k,
+                             draft_layers=draft_layers)
+
+    def _paged_init(self, params, *, policy, quantize, calib_ranges, spec_k, draft_layers):
+        cfg, n_slots, chunk = self.cfg, self.n_slots, self.chunk
+        page_size, n_blocks, max_pages = self.page_size, self.n_blocks, self.max_pages
+        kv_dtype = self.kv_dtype
         dec_g = build_paged_decode_graph(cfg, params, batch=n_slots, n_blocks=n_blocks,
                                          page_size=page_size, max_pages=max_pages,
                                          kv_dtype=kv_dtype)
@@ -557,7 +650,7 @@ class PagedProgramStepper(ProgramStepper):
                                           n_blocks=n_blocks, page_size=page_size,
                                           max_pages=max_pages, kv_dtype=kv_dtype)
         qkw = dict(policy=policy, quantize=quantize, calib_ranges=calib_ranges,
-                   device=self.device)
+                   device=self.device, mesh=self.mesh)
         self.decode_program = compile(dec_g, **qkw)
         self.prefill_program = compile(pre_g, **qkw)
         self.cache_names = list(dec_g.outputs[1:])  # new_cache_* (+ _scale)
@@ -567,10 +660,9 @@ class PagedProgramStepper(ProgramStepper):
         self._input_names = ("tokens", "start", "n_new", "block_tables", *cache_inputs)
         self._dec = self.decode_program.bind(*self._input_names, donate=cache_inputs)
         self._pre = self.prefill_program.bind(*self._input_names, donate=cache_inputs)
-        self.caches: Dict[str, torch.Tensor] = {
-            name: torch.zeros(arr.shape, dtype=torch.int8 if arr.dtype == np.int8
-                              else torch.float32, device=self.device)
-            for name, arr in pools.items()}
+        self.caches: Dict[str, torch.Tensor] = self._place_caches(self.decode_program, {
+            name: (arr.shape, torch.int8 if arr.dtype == np.int8 else torch.float32)
+            for name, arr in pools.items()})
         self.pool = BlockPool(
             n_blocks, page_size, kv_dtype=kv_dtype,
             page_bytes=kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head,
@@ -606,7 +698,8 @@ class PagedProgramStepper(ProgramStepper):
             commit_g = build_spec_commit_graph(cfg, batch=n_slots, width=w,
                                                n_blocks=n_blocks, page_size=page_size,
                                                max_pages=max_pages)
-            self.spec_commit_program = compile(commit_g, policy=policy, device=self.device)
+            self.spec_commit_program = compile(commit_g, policy=policy, device=self.device,
+                                               mesh=self.mesh)
             # j-major, i-minor: the order the seq verify graph emits its
             # per-stage fp32 rows in
             kv_names = [x for j in range(w) for i in range(cfg.n_layers)
@@ -716,8 +809,10 @@ class PagedProgramStepper(ProgramStepper):
         scale."""
         dev, w = self.device, self.spec_k + 1
         masks = [to_tensor((n_acc > j).astype(np.int32), dev) for j in range(w)]
-        outs = self._commit(to_tensor(start, dev), to_tensor(self._tables(), dev), *masks,
-                            *self._pending_kv, *[self.caches[n] for n in sorted(self.caches)])
+        with self._mesh_ctx():
+            outs = self._commit(to_tensor(start, dev), to_tensor(self._tables(), dev), *masks,
+                                *self._pending_kv,
+                                *[self.caches[n] for n in sorted(self.caches)])
         self._set_caches(outs)
         self._pending_kv = None
 
@@ -869,6 +964,9 @@ class Engine:
         # _guarded_call); None off the card or without self_heal
         self._sync_device = (stepper.device if self_heal and stepper.device.type == "cuda"
                              else None)
+        mesh = getattr(stepper, "mesh", None)
+        # the serving mesh whose ranks agree each tick's outcome (tp > 1)
+        self._tp_mesh = mesh if mesh is not None and mesh.shape["model"] > 1 else None
         self._resume: Dict[int, _Resume] = {}      # uid -> pending resume
         self._consec_failures = 0
         self.coordinator = coordinator
@@ -1179,28 +1277,54 @@ class Engine:
         error would surface in the next guarded call, charged to the wrong
         tick and restored from the wrong checkpoint.  ``repro`` runs these
         paths on the CPU and does not wait.  Without ``self_heal`` nothing
-        waits, so the ticks keep their launch overlap."""
+        waits, so the ticks keep their launch overlap.
+
+        On a tensor-parallel engine every rank agrees the call's outcome
+        with its peers (:meth:`_agree`) before it returns or raises, so a
+        rank whose own call went through fails the tick with a peer that
+        crashed or hung, and no rank commits a tick another discards."""
         self._watchdog.start()
         try:
-            if self.self_heal and self._hang is not None:
-                with self._hang as hd:
+            failure: Optional[str] = None
+            error: Optional[BaseException] = None
+            try:
+                if self.self_heal and self._hang is not None:
+                    with self._hang as hd:
+                        out = fn(*args)
+                        self._sync()
+                    if hd.fired:
+                        failure = "hang"
+                else:
                     out = fn(*args)
                     self._sync()
-                if hd.fired:
-                    raise TickFailure("hang")
-            else:
-                out = fn(*args)
-                self._sync()
-        except TickFailure:
-            raise
-        except Exception as e:
-            if self.self_heal:
-                raise TickFailure(f"crash: {type(e).__name__}: {e}") from e
-            raise
+            except Exception as e:
+                if self._tp_mesh is None and not self.self_heal:
+                    raise
+                failure, error = f"crash: {type(e).__name__}: {e}", e
+            if self._tp_mesh is not None:
+                failure = self._agree(failure)
+            if failure is not None:
+                if not self.self_heal:
+                    raise error or TickFailure(failure)
+                raise TickFailure(failure) from error
         finally:
             if self._watchdog.stop():
                 self.metrics.straggler_ticks += 1
         return out
+
+    def _agree(self, failure: Optional[str]) -> Optional[str]:
+        """The tick's outcome agreed across the ranks of a tensor-parallel
+        engine, before any rank commits or recovers: one ``all_reduce(MAX)``
+        of 0 (ok), 1 (crash) or 2 (hang).  A rank whose own call went
+        through fails the tick with its peer."""
+        from repro_torch.sharding.collectives import agree_status
+        code = 0 if failure is None else (2 if failure == "hang" else 1)
+        agreed = agree_status(self._tp_mesh, code)
+        if agreed == 2:
+            return "hang"
+        if agreed == 1:
+            return failure if code == 1 else "crash: a peer rank failed this tick"
+        return None
 
     def _sync(self) -> None:
         if self._sync_device is not None:
@@ -1664,14 +1788,6 @@ def shared_calibration(cfg: GraphLMConfig, params: Mapping[str, Any], *,
                          calibrate(g_dec, dec_batches, device=dev))
 
 
-# Options of repro's build_lm_serving that the port serves only at their
-# default so far: option -> (default, ROADMAP.md item that ports it).
-_NOT_PORTED = {
-    "mesh": (None, "Queue 1 item 12 (tensor-parallel serving)"),
-    "tp": (None, "Queue 1 item 12 (tensor-parallel serving)"),
-}
-
-
 def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
                      n_slots: int = 4, chunk: int = 8, cache_cap: int = 64,
                      policy: Optional[BackendPolicy] = None,
@@ -1691,8 +1807,9 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
                      coordinator: Optional[Coordinator] = None,
                      tier_aware: bool = False,
                      slo_ttft_ticks: Optional[int] = None,
-                     device: DeviceLike = None,
-                     **options: Any) -> Tuple[Engine, UnbatchedReference]:
+                     mesh: Optional[Any] = None,
+                     tp: Optional[int] = None,
+                     device: DeviceLike = None) -> Tuple[Engine, UnbatchedReference]:
     """Compile the serving Programs for a graph LM and return the engine
     plus its unbatched reference, sharing one set of weights on ``device``
     (``None`` means ``"cuda"``).
@@ -1733,17 +1850,29 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
     highest-priority queued request would otherwise miss its TTFT budget
     (``slo_ttft_ticks`` and/or its deadline).
 
-    ``repro``'s other options (``mesh``, ``tp``) are accepted at their
-    defaults only; anything else raises ``NotImplementedError`` naming the
-    ROADMAP item that ports it."""
-    for name, value in options.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"build_lm_serving() got an unexpected keyword argument {name!r}")
-        default, item = _NOT_PORTED[name]
-        if value != default:
-            raise NotImplementedError(
-                f"build_lm_serving({name}={value!r}) is not ported yet: "
-                f"see ROADMAP.md {item}")
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.ServingMesh`) or ``tp``
+    (a tensor-parallel degree: the process group of ``tp`` ranks already
+    initialised, or made by :func:`~repro_torch.launch.mesh.make_serving_mesh`
+    from the environment, on ``device``) makes this process one rank of a
+    tensor-parallel engine: every rank calls this with the same arguments
+    and serves the same requests (the module docstring).  The reference
+    stays single-rank: it is the oracle.  ``AutotunePolicy`` is refused
+    there, since each rank would time its own candidates."""
+    if tp is not None:
+        if mesh is not None:
+            raise ValueError("pass mesh or tp, not both")
+        from repro_torch.launch.mesh import make_serving_mesh
+        mesh = make_serving_mesh(tp, device=device)
+    if mesh is not None and mesh.shape["model"] > 1:
+        if not hasattr(mesh, "rank"):
+            raise TypeError(f"mesh {mesh!r} is not a ServingMesh (make_serving_mesh)")
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device!r} is not the rank's {mesh.device}")
+        device = mesh.device
+        if isinstance(policy, AutotunePolicy):
+            raise ValueError("AutotunePolicy under tensor parallelism: each rank would time "
+                             "its own candidates and could pick other backends; compile with "
+                             "a fixed or cost-model policy")
     cfg = cfg or GraphLMConfig()
     if kv_dtype != "float32" and not paged:
         raise ValueError("kv_dtype requires paged=True")
@@ -1761,11 +1890,11 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
         stepper: ProgramStepper = PagedProgramStepper(
             cfg, params, n_slots=n_slots, chunk=chunk, page_size=page_size,
             n_blocks=nb, max_pages=mp, kv_dtype=kv_dtype, spec_k=spec_k,
-            draft_layers=draft_layers, **qkw)
+            draft_layers=draft_layers, mesh=mesh, **qkw)
     else:
         stepper = ProgramStepper(cfg, params, n_slots=n_slots, chunk=chunk,
                                  cache_cap=cache_cap, spec_k=spec_k,
-                                 draft_layers=draft_layers, **qkw)
+                                 draft_layers=draft_layers, mesh=mesh, **qkw)
     engine = Engine(stepper, eos_id=eos_id, max_queue=max_queue,
                     self_heal=self_heal, hang_timeout=hang_timeout,
                     max_recoveries=max_recoveries, coordinator=coordinator,

@@ -1,8 +1,8 @@
 """The port's dense serving engine on the CPU: token-exact against its own
 UnbatchedReference and against repro's engine (Pallas kernels in interpret
 mode) on the same weights and prompts, including a prompt of exactly
-cache_cap; admission control, deadlines, metrics, and the options that
-the port does not serve yet."""
+cache_cap; admission control, deadlines, metrics, and the options of
+repro's build_lm_serving (the tensor-parallel ones' errors)."""
 
 import numpy as np
 import pytest
@@ -136,7 +136,7 @@ def test_scheduler_is_priority_fifo():
 @pytest.mark.parametrize("option,value,item", [
     ("quantize", "int8", "item 6"), ("spec_k", 2, "item 7"),
     ("self_heal", True, "item 8"), ("tier_aware", True, "item 8"),
-    ("mesh", object(), "item 12"), ("tp", 2, "item 12")])
+    ("mesh", object(), "item 12"), ("tp", 3, "item 12")])
 def test_options_outside_the_slice_name_their_roadmap_item(option, value, item):
     if option in ("quantize", "spec_k"):
         # items 6 and 7 are ported: the option builds its engine
@@ -156,8 +156,16 @@ def test_options_outside_the_slice_name_their_roadmap_item(option, value, item):
         engine.run()
         assert req.done and len(req.out_tokens) == 2
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        build_lm_serving(CFG, device="cpu", **{option: value})
+    # item 12 is ported: the option asks for tensor-parallel ranks, with
+    # JAX's errors where the request cannot be met — mesh and tp together,
+    # and more ranks than the group has (a single process here; the
+    # 2-rank group's case is in test_torch_sharded_serving.py)
+    if option == "mesh":
+        with pytest.raises(ValueError, match="pass mesh or tp, not both"):
+            build_lm_serving(CFG, device="cpu", mesh=value, tp=2)
+        return
+    with pytest.raises(ValueError, match=f"tp={value} needs 1..1 devices"):
+        build_lm_serving(CFG, device="cpu", tp=value)
     build_lm_serving(CFG, n_slots=1, chunk=2, cache_cap=4, device="cpu",
                      **{option: {"quantize": None, "spec_k": 0, "self_heal": False,
                                  "tier_aware": False, "mesh": None, "tp": None}[option]})

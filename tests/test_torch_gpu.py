@@ -1335,3 +1335,120 @@ def test_golden_bundle_on_the_card_gives_expected_y(tmp_path):
     for name in ("model.json", "program.json"):
         with open(os.path.join(golden, name), "rb") as a, open(tmp_path / name, "rb") as b:
             assert a.read() == b.read(), name
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel serving: two ranks on cuda:0 over gloo (one spawn)
+# --------------------------------------------------------------------------- #
+
+# phi3-mini's attention at the engine's shapes: (op, B, T, S or pool, lengths or starts)
+TP_CARD_OPS = ("decode_attention", "chunk_attention", "paged_decode_attention",
+               "paged_chunk_attention", "paged_decode_attention_q",
+               "paged_chunk_attention_q", "paged_verify_attention_q")
+
+
+def _tp_card_inputs(op, dev, gen):
+    b, hq, hk, d, s, page, t = 4, 32, 32, 96, 1024, 16, 64
+    rn = _rn(gen, dev)
+    decode = "decode" in op
+    q = rn(b, hq, d) if decode else rn(b, 4 if "verify" in op else t, hq, d)
+    pos = torch.tensor([731, 400, 129, 1] if decode else [640, 320, 64, 0], dtype=torch.int32,
+                       device=dev)
+    if not op.startswith("paged"):
+        return [q, rn(b, s, hk, d), rn(b, s, hk, d), pos]
+    n, mp = b * (s // page), s // page
+    tables = torch.randperm(n, generator=gen, device=dev)[:b * mp].view(b, mp).int()
+    if not op.endswith("_q"):
+        return [q, rn(n, page, hk, d), rn(n, page, hk, d), tables, pos]
+    pk = torch.randint(-127, 128, (n, page, hk, d), generator=gen, device=dev).to(torch.int8)
+    pv = torch.randint(-127, 128, (n, page, hk, d), generator=gen, device=dev).to(torch.int8)
+    ks, vs = rn(n, hk).abs() * 0.01, rn(n, hk).abs() * 0.01
+    ins = [q, pk, ks, pv, vs, tables, pos]
+    if "verify" in op:
+        ins += [rn(b, 4, hk, d), rn(b, 4, hk, d)]
+    return ins
+
+
+def _tp_card_rank():
+    """A rank of the card TP checks: each tp backend against the single-rank
+    kernels bitwise, tree decode against flash_decode, the ring matmul (its
+    chunks staged through the host over gloo) against the whole product."""
+    from repro_torch.core.registry import get_impl
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partial
+    from repro_torch.kernels.gemm import gemm, gemm_plain
+    from repro_torch.kernels.serving_ops import _TP_LAYOUT, serving_mesh, tp_slice
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.sharding.collectives import ring_allgather_matmul, tree_decode_attention
+    mesh = make_serving_mesh(2, device="cuda:0")
+    dev = mesh.device
+    out = {"backend": mesh.backend, "device": str(dev), "ops": {}, "tree": []}
+    gen = torch.Generator(device=dev)
+    for i, op in enumerate(TP_CARD_OPS):
+        gen.manual_seed(i)
+        full = _tp_card_inputs(op, dev, gen)
+        single = get_impl(op, "cuda")(full, {"scale": None})[0]
+        local = list(full)
+        for idx, dim in _TP_LAYOUT[op][1]:
+            local[idx] = tp_slice(full[idx], dim, mesh)
+        with serving_mesh(mesh):
+            got = get_impl(op, "tp")(local, {"scale": None})[0]
+        out["ops"][op] = (got.is_cuda, bool(torch.equal(got, single)),
+                          float((got - single).abs().max()))
+    for b, hq, hk, d, s, lens in ((4, 32, 32, 96, 1024, (731, 400, 129, 0)),
+                                  (4, 4, 1, 256, 2048, (1400, 1000, 600, 250))):
+        gen.manual_seed(s)
+        rn = _rn(gen, dev)
+        q, k, v = rn(b, hq, d), rn(b, s, hk, d), rn(b, s, hk, d)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        rows = slice(mesh.rank * s // 2, (mesh.rank + 1) * s // 2)
+        before = flash_decode_partial.launches
+        got = tree_decode_attention(mesh, q, k[:, rows].contiguous(), v[:, rows].contiguous(),
+                                    lengths)
+        out["tree"].append((float((got - flash_decode(q, k, v, lengths)).abs().max()),
+                            flash_decode_partial.launches - before))
+    # phi3-mini's decode gate/up product, 4 rows a rank
+    gen.manual_seed(7)
+    rn = _rn(gen, dev)
+    x, w = rn(8, 3072), rn(3072, 8192) / 3072 ** 0.5
+    before = gemm.launches
+    got = ring_allgather_matmul(mesh, x[mesh.rank * 4:(mesh.rank + 1) * 4].contiguous(), w)
+    want = gemm_plain(x, w)
+    out["ring"] = (str(got.device), gemm.launches - before,
+                   bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()),
+                   float((got - want).abs().max()))
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_card_run():
+    _card()
+    from repro_torch.launch.mesh import spawn_ranks
+    return spawn_ranks(_tp_card_rank, 2, timeout=300)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", TP_CARD_OPS)
+def test_tp_backends_on_the_card_equal_the_single_rank_kernels(op, tp_card_run):
+    """Two ranks on cuda:0 over gloo, 16 of phi3-mini's 32 heads each: the
+    tp backend's gathered output is bitwise the single-rank kernels'."""
+    for r in tp_card_run:
+        assert (r["backend"], r["device"]) == ("gloo", "cuda:0")
+        on_card, equal, err = r["ops"][op]
+        assert on_card and equal, (op, err)
+
+
+@pytest.mark.gpu
+def test_tree_decode_on_the_card_is_within_1e4_of_flash_decode(tp_card_run):
+    for r in tp_card_run:
+        for err, launched in r["tree"]:
+            assert err <= 1e-4 and launched == 1, (err, launched)
+
+
+@pytest.mark.gpu
+def test_ring_allgather_matmul_on_the_card_equals_the_whole_product(tp_card_run):
+    """gloo takes no point-to-point op on CUDA tensors: the ring's chunks
+    travel through host memory, and each rank's two products run the gemm
+    kernel on the card."""
+    for r in tp_card_run:
+        device, launched, close, err = r["ring"]
+        assert device == "cuda:0" and launched == 2 and close, r["ring"]

@@ -12,13 +12,15 @@ loaded by the other, fp32 and int8 (shared calibration ranges), outputs
 within 1e-5; ``model.json`` and ``program.json`` written by the port
 byte-identical to JAX's for the same graph and assignment; assignments
 surviving JAX -> port -> JAX; the name map against both live registries;
-the version, partition and ``tp`` errors.  JAX compiles with
+the version errors; partitioned bundles and ``tp`` pins (tensor-parallel
+serving) through the port and back, byte for byte.  JAX compiles with
 FixedPolicy(("xla", "ref")) or ("ref",): no Pallas interpret run.
 """
 
 import json
 import os
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -335,10 +337,6 @@ def test_every_format_name_maps_to_a_port_backend():
     for op in jreg.registered_ops():
         port = set(treg.get_op(op).impls)
         for name in jreg.get_op(op).impls:
-            if name == "tp":
-                with pytest.raises(NotImplementedError, match="item 12"):
-                    port_backend(op, name)
-                continue
             backend = port_backend(op, name)
             assert backend in port, (op, name, backend)
             if bundle_backend(backend) != name:
@@ -379,27 +377,53 @@ def test_unknown_format_version_raises(tmp_path):
 
 
 def test_partitioned_bundle_raises(tmp_path):
+    """A bundle's partition is restored verbatim (the port's specs' JSON
+    form is the bundle's) and written back byte for byte; loading it onto
+    another mesh raises JAX's ValueError."""
     shutil.copytree(GOLDEN, tmp_path / "b")
     path = tmp_path / "b" / "program.json"
     meta = json.loads(path.read_text())
-    meta["partition"] = {"mesh": {"model": 2}, "specs": {}}
-    path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_program(str(tmp_path / "b"), device="cpu")
+    meta["partition"] = {"mesh": {"model": 2},
+                         "specs": {"x": [None, "model"], "y": [], "w1.q8": [["data", "model"]]}}
+    path.write_text(json.dumps(meta, indent=1, sort_keys=True))
+    prog = load_program(str(tmp_path / "b"), device="cpu")
+    assert dict(prog.partition["mesh"]) == {"model": 2}
+    assert prog.partition["specs"]["x"] == (None, "model")
+    assert prog.partition["specs"]["w1.q8"] == (("data", "model"),)
+    prog.save(str(tmp_path / "c"))
+    assert json.loads((tmp_path / "c" / "program.json").read_text())["partition"] == \
+        meta["partition"]
+    mesh4 = types.SimpleNamespace(axis_names=("model",), shape={"model": 4})
+    with pytest.raises(ValueError, match="mesh axes"):
+        load_program(str(tmp_path / "b"), mesh=mesh4, device="cpu")
 
 
 def test_tp_pin_raises(tmp_path):
-    """A ``tp`` pin is never ignored and never swapped for another
-    backend."""
-    jcompile(lm_graph(jlm, "decode"), J_REF).save(str(tmp_path))
-    path = tmp_path / "model.json"
-    d = json.loads(path.read_text())
-    node = next(nd for nd in d["nodes"] if nd["op"] == "chunk_attention"
-                or nd["op"] == "decode_attention")
-    node["backend"] = "tp"
-    path.write_text(json.dumps(d))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_program(str(tmp_path), device="cpu")
+    """A ``tp`` pin maps to the port's ``tp``: a bundle JAX compiled for a
+    2-way serving mesh (its attention pinned ``tp``, its caches
+    head-sharded) loads in the port under a serving mesh of the same axes
+    with the same assignment and partition, and re-saves byte for byte
+    (the ``tp`` costs carry the all-gather, as JAX's).  Away from a serving
+    mesh the pin is never ignored and never swapped for another backend:
+    the load raises."""
+    from repro.kernels.serving_ops import serving_mesh as jserving_mesh
+    from repro.runtime.engine import _TPFirstPolicy as JTPFirst
+    from repro_torch.kernels.serving_ops import serving_mesh
+    mesh2 = types.SimpleNamespace(axis_names=("model",), shape={"model": 2})
+    for kind in ("decode", "paged_prefill_int8"):
+        with jserving_mesh(mesh2):
+            jprog = jcompile(lm_graph(jlm, kind), JTPFirst(J_REF), mesh=mesh2)
+        assert "tp" in jprog.assignment.values()
+        a, b = str(tmp_path / kind / "a"), str(tmp_path / kind / "b")
+        jprog.save(a)
+        with serving_mesh(mesh2):
+            prog = load_program(a, mesh=mesh2, device="cpu")
+        assert prog.assignment == jprog.assignment
+        assert prog.partition["specs"]["cache_k0"] == (None, None, "model", None)
+        prog.save(b)
+        assert_same_files(a, b)
+        with pytest.raises(ValueError, match="pinned backend 'tp' not supported"):
+            load_program(a, device="cpu")
 
 
 def test_pin_the_port_cannot_run_fails_at_compile(tmp_path):

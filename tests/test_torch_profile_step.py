@@ -52,3 +52,18 @@ def test_profile_step_runs_on_the_cpu(capsys):
     assert out["launches_per_step"] == 0 and out["device_idle_share"] is None
     assert any(op["name"].startswith("aten::") for op in out["host_ops"])
     assert '"arch": "gemma3-1b' in capsys.readouterr().out
+
+
+def test_engine_profile_runs_on_the_cpu(capsys):
+    """``--engine``: one JSON line an engine, its decode ticks timed and
+    profiled (the stepper's decode call, logits on the host)."""
+    out = main(["--engine", "dense", "paged", "--device", "cpu", "--warmup", "2",
+                "--steps", "3"])["engines"]
+    assert [o["engine"] for o in out] == ["dense", "paged"]
+    for o in out:
+        assert o["steps"] == 3 and o["device"] == "cpu" and o["n_layers"] == 2
+        assert o["steps_unprofiled"] == o["decode_ticks"] - 3 > 0
+        assert o["wall_ms"] > 0 and o["step_ms_unprofiled"] > 0
+        assert o["device_idle_share"] is None
+        assert any(op["name"].startswith("aten::") for op in o["host_ops"])
+    assert capsys.readouterr().out.count('"engine": ') == 2

@@ -136,8 +136,7 @@ def test_registered_ops_and_passes():
     def own(names):
         return [p for p in names if not p.startswith("_")]
 
-    assert own(tpipe.registered_passes()) == [p for p in own(jpipe.registered_passes())
-                                              if p != "partition"]
+    assert own(tpipe.registered_passes()) == own(jpipe.registered_passes())
     assert "quantize" in tpipe.registered_passes()
 
 
