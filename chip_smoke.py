@@ -11,8 +11,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels — hold each of the eleven kernels against its plain PyTorch
              version on the card: small edge cases, then the shapes the
              full-width serving paths give it (phi3-mini widths for the
-             engine, gemma3-1b, qwen2-moe-a2.7b and mamba2-370m widths for
-             the layer-stack batcher); time
+             engine, gemma3-1b, qwen2-moe-a2.7b, mamba2-370m, zamba2-7b and
+             deepseek-v2-lite-16b widths for the layer-stack batcher,
+             seamless-m4t-medium's for the encoder-decoder: among them
+             flash_decode's wide layout at MLA's D 576 / Dv 512, flash_attention
+             non-causal with Sq != Skv and at D 192 / Dv 128 and D 112,
+             ssd_scan at 112 heads, batched_gemm at MLA's absorbed E 16, M
+             4; and MLA's k_cat copy, which is not a kernel); time
              kernel, plain version and one PyTorch library call with CUDA
              events (cold L2), beside the least time the card could take
              (H100 SXM data-sheet peaks: 67 TFLOP/s fp32, 3.35 TB/s).  The two paged kernels run in both
@@ -59,8 +64,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
-             reduced gemma3-1b, qwen2-moe-a2.7b and mamba2-370m layer-stack
-             LMs' prefill and decode on the card agree with the CPU's (1e-4).
+             reduced gemma3-1b, qwen2-moe-a2.7b, mamba2-370m, zamba2-7b and
+             deepseek-v2-lite-16b layer-stack LMs' and the reduced
+             seamless-m4t-medium EncDec's prefill, caches and decode on the
+             card agree with the CPU's (1e-4).
 5. serving — phi3-mini widths, all 32 layers, random weights from a seed:
              the engine serves 8 requests (4 slots, chunk 64, cache 1024);
              every request's tokens must equal the unbatched reference's,
@@ -244,8 +251,33 @@ Phases, each printing its own lines; any failure exits non-zero:
              ranks on one card check the sharded path, they do not
              measure TP speed.
 
+19. hybrid — zamba2-7b at its published widths, all 81 blocks (70 Mamba2,
+             11 applications of two alternating shared attention blocks on
+             concat(h, emb0)), fp32 (23.7 GB of weights from seed 0 on the
+             card): phase 8's batcher set-up, 8 requests of 200-1400 tokens,
+             32 new each, token-exact against batch-1 greedy; 11
+             flash_attention and 70 ssd_scan launches a prefill, 11
+             flash_decode launches a step, every kernel exactly as
+             stack_calls counts.
+20. mla    — deepseek-v2-lite-16b at its published widths, all 27 MLA + MoE
+             layers (64 routed experts top-6, 2 shared, local dispatch),
+             fp32 (64.8 GB of weights): the same set-up and gates; the
+             absorbed decode launches flash_decode's wide layout (D 576, Dv
+             512, 16 query heads on 1 KV head) 27 times a step and
+             batched_gemm 2 x 27 times for its per-head products.
+21. encdec — seamless-m4t-medium at its published widths (12 encoder + 12
+             decoder layers, fp32, 3.3 GB): EncDec.prefill of 4 sources of
+             ENCDEC_SRC (1024) numpy-seeded frame embeddings with
+             ENCDEC_PROMPT (64)-token prompts, then ENCDEC_NEW (32) greedy
+             tokens by decode_step; every source's tokens equal a batch-1
+             run of it; 12 non-causal encoder, 12 cross and 12 causal
+             flash_attention launches a prefill, 24 flash_decode launches a
+             step (12 self, 12 cross over the encoder rows).
+             Phases 19-21 run after 8-10, each dropping its weights first.
+
 The last three lines of standard output are JSON: the serving numbers
-(phases 15, 16, 17 and 18 under "heal", "load", "deploy" and "tp"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+(phases 15, 16, 17 and 18 under "heal", "load", "deploy" and "tp"; 19-21 under
+"hybrid", "mla" (with the k_cat copy's time) and "encdec"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -827,7 +859,8 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
              "combine": combine_kernels(torch, K, rn, timer, record, full_tol),
              "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
              "conv2d": conv_kernels(torch, rn, timer, full_tol, limit_line)}
-    stack_est = {c.name: stack_kernels(torch, K, c, rn, timer, record, full_tol) for c in scfgs}
+    stack_est = {c.name: stack_kernels(torch, K, c, rn, timer, record, full_tol, limit_line)
+                 for c in scfgs}
 
     # the paged kernels at the engine's shapes: pools of the serving phases
     # (fp32: 256 blocks, int8: the block count of equal bytes), page 16
@@ -1249,24 +1282,62 @@ def ssd_flops(b, sl, h, p, g, n, q, per_head_scores=False):
 
 LAYERSTACK_PREFILL = 1024     # the prompt length phase 3 times the prefill kernels at
 DECODE_LENS = (1400, 1000, 600, 250)   # the cache lengths it times a batch-4 decode step at
+# phase 21 (seamless-m4t-medium, EncDec): sources of ENCDEC_SRC frames and
+# prompts of ENCDEC_PROMPT tokens, prefilled together, then ENCDEC_NEW tokens
+ENCDEC_SRC, ENCDEC_PROMPT, ENCDEC_NEW = 1024, 64, 32
 
 
 def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
     """The kernel calls of one batch-4 decode step (``phase="decode"``) or
-    one LAYERSTACK_PREFILL-token prefill of a layer-stack config:
-    {(kernel, shape): calls}.  gemm shapes are (M, K, N), batched_gemm
-    (E, M, K, N); a sliding-window layer's decode reads its rolling cache of
-    ``window`` rows, and its prefill attends within the window."""
+    one prefill of a layer-stack config: {(kernel, shape): calls}.  A
+    decoder-only config's prefill is one LAYERSTACK_PREFILL-token sequence;
+    the encoder-decoder's is phase 21's: ``n_slots`` sources of ENCDEC_SRC
+    frames through the encoder, then their ENCDEC_PROMPT-token prompts, and
+    its decode step reads a self-attention cache of ENCDEC_PROMPT +
+    ENCDEC_NEW rows and the encoder's ENCDEC_SRC rows.  gemm shapes are (M,
+    K, N), batched_gemm (E, M, K, N), flash_decode (B, Hq, Hk, D, Dv, rows,
+    lengths), flash_attention (B, Sq, Skv, Hq, Hk, D, Dv, causal, window);
+    a sliding-window layer's decode reads its rolling cache of ``window``
+    rows, and its prefill attends within the window.  MLA's decode runs
+    its two absorbed products as batched_gemm (heads as experts) around
+    one wide flash_decode over the latent cache."""
     from repro_torch.layers.moe import _capacity
     dec = phase == "decode"
-    m, d = (n_slots if dec else LAYERSTACK_PREFILL), cfg.d_model
+    encdec = bool(cfg.n_encoder_layers)
+    pb = n_slots if encdec else 1                       # sequences a prefill call holds
+    sq = ENCDEC_PROMPT if encdec else LAYERSTACK_PREFILL
+    m, d = (n_slots if dec else pb * sq), cfg.d_model
+    if encdec:
+        cache_cap = ENCDEC_PROMPT + ENCDEC_NEW
+        lens_all = (ENCDEC_PROMPT + ENCDEC_NEW // 2,) * n_slots
+    else:
+        lens_all = DECODE_LENS[:n_slots]
+    hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     calls = {}
 
     def add(kernel, shape, n=1):
         calls[(kernel, shape)] = calls.get((kernel, shape), 0) + n
 
+    def attention(rows, window, causal=True, seq=sq):
+        """q/k/v/o projections of ``rows`` rows and the attention kernel
+        (at prefill over ``seq`` rows a sequence)."""
+        for kk, nn in ((d, hq * dh), (d, hk * dh), (d, hk * dh), (hq * dh, d)):
+            add("gemm", (rows, kk, nn))
+        if dec:
+            cap = min(window or cache_cap, cache_cap)
+            add("flash_decode", (n_slots, hq, hk, dh, dh, cap,
+                                 tuple(min(n, cap) for n in lens_all)))
+        else:
+            add("flash_attention", (pb, seq, seq, hq, hk, dh, dh, causal, window))
+
+    def ffn(kind, rows, width):
+        add("rmsnorm", (rows, d))
+        add("gemm", (rows, d, width), 2 if kind == "swiglu" else 1)
+        add("gemm", (rows, width, d))
+
     for blk in cfg.plan.all_blocks():
-        add("rmsnorm", (m, d))
+        if blk.mixer != "shared_attn":                  # a shared block norms inside
+            add("rmsnorm", (m, d))
         if blk.mixer == "mamba":
             s = cfg.ssm
             gn = s.n_groups * s.state
@@ -1276,17 +1347,37 @@ def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
             add("rmsnorm", (m, s.d_inner))
             if not dec:
                 add("ssd_scan", (1, m, s.n_heads, s.head_dim, s.n_groups, s.state, s.chunk))
-        else:
-            hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-            window = cfg.window if blk.mixer == "attn_local" else None
-            for kk, nn in ((d, hq * dh), (d, hk * dh), (d, hk * dh), (hq * dh, d)):
-                add("gemm", (m, kk, nn))
+        elif blk.mixer == "mla":
+            ml = cfg.mla
+            for nn in (hq * ml.qk_dim, ml.kv_lora_rank, ml.rope_dim):
+                add("gemm", (m, d, nn))
             if dec:
-                rows = min(window or cache_cap, cache_cap)
-                lens = tuple(min(n, rows) for n in DECODE_LENS[:n_slots])
-                add("flash_decode", (n_slots, hq, hk, dh, rows, lens))
+                add("batched_gemm", (hq, n_slots, ml.nope_dim, ml.kv_lora_rank))
+                add("flash_decode", (n_slots, hq, 1, ml.kv_lora_rank + ml.rope_dim,
+                                     ml.kv_lora_rank, cache_cap, lens_all))
+                add("batched_gemm", (hq, n_slots, ml.kv_lora_rank, ml.v_dim))
             else:
-                add("flash_attention", (1, m, hq, hk, dh, window))
+                add("gemm", (m, ml.kv_lora_rank, hq * ml.nope_dim))
+                add("gemm", (m, ml.kv_lora_rank, hq * ml.v_dim))
+                add("flash_attention", (pb, sq, sq, hq, hq, ml.qk_dim, ml.v_dim, True, None))
+            add("gemm", (m, hq * ml.v_dim, d))
+        elif blk.mixer == "shared_attn":                # fuse, norm, attention, norm, SwiGLU
+            add("gemm", (m, 2 * d, d))
+            add("rmsnorm", (m, d))
+            attention(m, None)
+            ffn("swiglu", m, cfg.d_ff)
+        else:
+            attention(m, cfg.window if blk.mixer == "attn_local" else None)
+        if blk.cross:                                   # decoder rows over the encoder's
+            add("rmsnorm", (m, d))
+            add("gemm", (m, d, hq * dh))
+            if dec:
+                add("flash_decode", (n_slots, hq, hk, dh, dh, ENCDEC_SRC,
+                                     (ENCDEC_SRC,) * n_slots))
+            else:
+                add("gemm", (pb * ENCDEC_SRC, d, hk * dh), 2)
+                add("flash_attention", (pb, sq, ENCDEC_SRC, hq, hk, dh, dh, False, None))
+            add("gemm", (m, hq * dh, d))
         if blk.ffn == "moe":
             mo = cfg.moe
             add("rmsnorm", (m, d))
@@ -1298,11 +1389,16 @@ def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
             add("batched_gemm", (mo.n_experts, rows, d, mo.d_expert), 2)
             add("batched_gemm", (mo.n_experts, rows, mo.d_expert, d))
         elif blk.ffn != "none":
-            add("rmsnorm", (m, d))
-            add("gemm", (m, d, cfg.d_ff), 2 if blk.ffn == "swiglu" else 1)
-            add("gemm", (m, cfg.d_ff, d))
+            ffn(blk.ffn, m, cfg.d_ff)
+    if encdec and not dec:                              # the encoder: non-causal attn + MLP
+        rows = pb * ENCDEC_SRC
+        for _ in range(cfg.n_encoder_layers):
+            add("rmsnorm", (rows, d))
+            attention(rows, None, causal=False, seq=ENCDEC_SRC)
+            ffn("mlp", rows, cfg.d_ff)
+        add("rmsnorm", (rows, d))                       # enc_norm
     add("rmsnorm", (m, d))
-    add("gemm", (n_slots if dec else 1, d, cfg.vocab_padded))
+    add("gemm", (n_slots if dec else pb, d, cfg.vocab_padded))
     return calls
 
 
@@ -1317,7 +1413,7 @@ def stack_launches(cfg, prefills, steps, names):
     return want
 
 
-def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
+def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
     """Every kernel call of ``cfg``'s batch-4 decode step and 1024-token
     prefill (stack_calls): each distinct shape checked against its plain
     version and timed with it and with one PyTorch library call (matmul,
@@ -1349,9 +1445,9 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
             lib = lambda x, w: F.rms_norm(x, (d,), w, eps)                  # noqa: E731
             flops, nbytes = 3.0 * rows * d, 4.0 * (2 * rows * d + d)
         elif kernel == "flash_decode":
-            b, hq, hk, dh, s_len, lens = shape
+            b, hq, hk, dh, dv, s_len, lens = shape
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            args = (rn(b, hq, dh), rn(b, s_len, hk, dh), rn(b, s_len, hk, dh))
+            args = (rn(b, hq, dh), rn(b, s_len, hk, dh), rn(b, s_len, hk, dv))
             mask = (torch.arange(s_len, device="cuda")[None, :]
                     < lengths[:, None])[:, None, None, :]
             fn = lambda q, k, v: K.flash_decode(q, k, v, lengths)           # noqa: E731
@@ -1361,22 +1457,24 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
                 q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
                 enable_gqa=True)
             live = sum(lens)
-            flops = 2.0 * live * hq * 2 * dh
-            nbytes = 4.0 * (live * hk * 2 * dh + 2 * b * hq * dh + b)
+            flops = 2.0 * live * hq * (dh + dv)
+            nbytes = 4.0 * (live * hk * (dh + dv) + b * hq * (dh + dv) + b)
         elif kernel == "flash_attention":
-            b, sl, hq, hk, dh, window = shape
-            args = (rn(b, sl, hq, dh), rn(b, sl, hk, dh), rn(b, sl, hk, dh))
-            row = torch.arange(sl, device="cuda")[:, None]
-            col = torch.arange(sl, device="cuda")[None, :]
-            mask = (col <= row) & ((col > row - window) if window is not None else True)
-            fn = lambda q, k, v: K.flash_attention(q, k, v, window=window)  # noqa: E731
+            b, sq, skv, hq, hk, dh, dv, causal, window = shape
+            args = (rn(b, sq, hq, dh), rn(b, skv, hk, dh), rn(b, skv, hk, dv))
+            row = torch.arange(skv - sq, skv, device="cuda")[:, None]
+            col = torch.arange(skv, device="cuda")[None, :]
+            mask = ((col <= row) if causal else torch.ones_like(col <= row)) & (
+                (col > row - window) if window is not None else True)
+            fn = lambda q, k, v: K.flash_attention(                         # noqa: E731
+                q, k, v, causal=causal, window=window)
             plain = lambda q, k, v: K.flash_attention_plain(                # noqa: E731
-                q, k, v, causal=True, window=window, scale=1.0 / math.sqrt(dh))
+                q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(dh))
             lib = lambda q, k, v: F.scaled_dot_product_attention(           # noqa: E731
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
                 enable_gqa=True)
-            flops = 2.0 * attention_pairs(sl, sl, True, window) * hq * 2 * dh
-            nbytes = 4.0 * (2 * sl * hq * dh + 2 * sl * hk * dh)
+            flops = 2.0 * b * attention_pairs(sq, skv, causal, window) * hq * (dh + dv)
+            nbytes = 4.0 * b * (sq * hq * (dh + dv) + skv * hk * (dh + dv))
         else:                                                               # ssd_scan
             b, sl, h, p, grp, nn, q = shape
             args = (rn(b, sl, h, p), F.softplus(rn(b, sl, h) - 3.0),   # dt ~ mamba2's 1e-3..0.1
@@ -1411,13 +1509,35 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol):
         out[phase] = (parts, bound_ms)
     if cfg.ssm is not None:
         ssd_path_shapes(torch, K, cfg, rn, timer, record, full_tol)
+    if cfg.mla is not None:
+        out["k_cat"] = mla_k_cat(torch, cfg, rn, timer, limit_line)
     return out
+
+
+def mla_k_cat(torch, cfg, rn, timer, limit_line, n_slots=4, cache_cap=2048):
+    """The copy MLA's absorbed decode makes every layer and step (not a
+    kernel): torch.cat of the latent and rope caches into the decode
+    kernel's K, at the batch-4 decode step's cache, beside its bound (read
+    both caches, write the copy once)."""
+    ml = cfg.mla
+    ckv, kpe = rn(n_slots, cache_cap, ml.kv_lora_rank), rn(n_slots, cache_cap, ml.rope_dim)
+    ms = timer.ms(lambda: torch.cat([ckv, kpe], dim=-1))
+    nbytes = 2 * 4.0 * (ckv.numel() + kpe.numel())
+    layers = sum(b.mixer == "mla" for b in cfg.plan.all_blocks())
+    rec = {"shape": f"B={n_slots} S={cache_cap} {ml.kv_lora_rank}+{ml.rope_dim}", "ms": ms,
+           "bound_ms": bound(0.0, nbytes)[0], "calls_per_step": layers,
+           "ms_per_step": ms * layers}
+    say(f"  {'MLA k_cat copy (torch.cat)':27s} {rec['shape']:44s} {ms:.4g} ms a call, "
+        f"{layers} calls a step ({rec['ms_per_step']:.4g} ms)  bound {rec['bound_ms']:.4g} ms "
+        f"(bytes)  [{limit_line}]")
+    del ckv, kpe
+    return rec
 
 
 def ssd_path_shapes(torch, K, cfg, rn, timer, record, full_tol):
     """ssd_scan as the mamba layer calls it (with D) at the
     LAYERSTACK_PREFILL-token prefill and at every chunk-padded prompt length
-    phase 10 prefills (layerstack_phase's requests), each against its plain
+    phases 10 and 19 prefill (layerstack_phase's requests), each against its plain
     version and timed with it (no PyTorch call computes the scan)."""
     import numpy as np
     F = torch.nn.functional
@@ -1430,7 +1550,7 @@ def ssd_path_shapes(torch, K, cfg, rn, timer, record, full_tol):
                 -torch.linspace(1.0, 16.0, h, device="cuda"), 0.3 * rn(1, sl, grp, nn),
                 0.3 * rn(1, sl, grp, nn), rn(h))
         got, want = K.ssd_scan(*args, chunk=q), K.ssd_scan_plain(*args, chunk=q)
-        label = f"{cfg.name} prefill ssd_scan with D, S={sl} (phase 10)"
+        label = f"{cfg.name} prefill ssd_scan with D, S={sl} (the batcher's prompts)"
         err = max(check_close(torch, label, a, b, **full_tol) for a, b in zip(got, want))
         ms = timer.ms(lambda: K.ssd_scan(*args, chunk=q))
         plain_ms = timer.ms(lambda: K.ssd_scan_plain(*args, chunk=q))
@@ -1541,7 +1661,8 @@ def model_phase(torch):
 
 def layerstack_model_phase(torch, arch):
     """A reduced layer-stack LM (gemma3-1b: local and global layers, MQA;
-    qwen2-moe-a2.7b: MoE FFNs; mamba2-370m: SSD mixers): prefill of two
+    qwen2-moe-a2.7b: MoE FFNs; mamba2-370m: SSD mixers; zamba2-7b: Mamba2
+    and shared attention blocks; deepseek-v2-lite-16b: MLA and MoE): prefill of two
     24-token prompts (past gemma3's window of 16, off mamba2's chunk of 16),
     its caches, and four decode steps on the card (the kernels) against the
     CPU (the plain path), from the same weights.  Returns the worst
@@ -1566,6 +1687,39 @@ def layerstack_model_phase(torch, arch):
             outs.append(lg)
         runs.append(outs + _leaves(caches))
     return max(check_close(torch, f"{arch} layer-stack LM card vs CPU", got.cpu(), want,
+                           atol=1e-4, rtol=1e-4) for got, want in zip(*runs))
+
+
+def encdec_model_phase(torch):
+    """The reduced seamless-m4t-medium encoder-decoder: two sources of 30
+    frames, prefill of two 12-token prompts, its self- and cross-attention
+    caches, and four decode steps on the card (the kernels) against the CPU
+    (the plain path), from the same weights.  Returns the worst |card -
+    CPU| (tolerance 1e-4)."""
+    import numpy as np
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.lm import params_from_numpy
+
+    card, cpu = (EncDec(serving_config("seamless-m4t-medium", device=d)) for d in ("cuda", "cpu"))
+    p_cpu = cpu.init_params(4, device="cpu")
+    p_card = params_from_numpy(p_cpu, "cuda")
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.standard_normal((2, 30, cpu.cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cpu.cfg.vocab, (2, 16)).astype(np.int32))
+    runs = []
+    for model, params, dev in ((card, p_card, "cuda"), (cpu, p_cpu, "cpu")):
+        t = toks.to(dev)
+        lg, caches, lengths = model.prefill(params, {"src_embeds": src.to(dev),
+                                                     "tokens": t[:, :12]}, cache_cap=20)
+        enc_lengths = torch.full((2,), 30, dtype=torch.int32, device=dev)
+        outs = [lg] + _leaves(caches)
+        for i in range(12, 16):
+            lg, caches = model.decode_step(params, t[:, i], caches, lengths, enc_lengths)
+            lengths = lengths + 1
+            outs.append(lg)
+        runs.append(outs + _leaves(caches))
+    return max(check_close(torch, "seamless-m4t-medium EncDec card vs CPU", got.cpu(), want,
                            atol=1e-4, rtol=1e-4) for got, want in zip(*runs))
 
 
@@ -3073,12 +3227,12 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
     t0 = time.perf_counter()
     params = model.init_params(0, device="cuda")
     torch.cuda.synchronize()
-    tied = params["embed_t"].numel() if "embed_t" in params else 0
-    n_params = sum(x.numel() for x in _leaves(params)) - tied
+    derived = _derived_numel(params)
+    n_params = sum(x.numel() for x in _leaves(params)) - derived
     say(f"  weights {n_params / 1e9:.4f} B params ({4 * n_params / 1e9:.2f} GB fp32, plus "
-        f"the {4 * tied / 1e9:.2f} GB transposed tied embedding), drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        "allocated")
+        f"{4 * derived / 1e9:.2f} GB of derived leaves: the transposed tied embedding, MLA's "
+        f"per-head up-projections), drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     rng = np.random.default_rng(0)
     lens = rng.integers(200, 1401, n_requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
@@ -3150,6 +3304,98 @@ def _leaves(tree):
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+DERIVED_LEAVES = ("embed_t", "wuk_h", "wuv_h")    # copies the port makes once from JAX's leaves
+
+
+def _derived_numel(tree):
+    if isinstance(tree, dict):
+        return sum(v.numel() if k in DERIVED_LEAVES else _derived_numel(v)
+                   for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(_derived_numel(v) for v in tree)
+    return 0
+
+
+# --------------------------------------------------------------------------- #
+# phase 21: the encoder-decoder at full width
+# --------------------------------------------------------------------------- #
+
+def encdec_phase(torch, K, cfg, card, *, n_src=4, tag="encdec"):
+    """seamless-m4t-medium at its published widths (fp32, from
+    ``serving_config``) through ``EncDec``: ``n_src`` sources of ENCDEC_SRC
+    frames (numpy-seeded normal embeddings, the audio frontend's stub) with
+    ENCDEC_PROMPT-token prompts prefilled in one call, then ENCDEC_NEW
+    greedy tokens by ``decode_step``.  Fails unless each source's tokens
+    equal a batch-1 run of it and every kernel launched exactly as the path
+    needs (stack_calls).  Returns the launches and the serving numbers."""
+    import numpy as np
+    from repro_torch.models.encdec import EncDec
+
+    model = EncDec(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    say(f"  weights {n_params / 1e9:.4f} B params ({4 * n_params / 1e9:.2f} GB fp32), drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.standard_normal((n_src, ENCDEC_SRC, cfg.d_model))
+                           .astype(np.float32)).cuda()
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (n_src, ENCDEC_PROMPT))
+                               .astype(np.int32)).cuda()
+    cache_cap = ENCDEC_PROMPT + ENCDEC_NEW
+
+    def greedy(s, t, clock=None):
+        t_pre = time.perf_counter()
+        lg, caches, lengths = model.prefill(params, {"src_embeds": s, "tokens": t},
+                                            cache_cap=cache_cap)
+        out = [lg.argmax(-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter()
+        enc_lengths = torch.full((s.shape[0],), s.shape[1], dtype=torch.int32, device="cuda")
+        while len(out) < ENCDEC_NEW:
+            lg, caches = model.decode_step(params, out[-1], caches, lengths, enc_lengths)
+            lengths = lengths + 1
+            out.append(lg.argmax(-1).to(torch.int32))
+        toks = torch.stack(out, 1).tolist()
+        if clock is not None:
+            clock.update(prefill_s=t_dec - t_pre, decode_s=time.perf_counter() - t_dec)
+        return toks
+
+    greedy(src[:1], prompts[:1])                # warm-up: first calls, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in K.KERNELS:
+        kern.launches = 0
+    clock = {}
+    got = greedy(src, prompts, clock)
+    launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  launches during the batch-{n_src} run: {launches}")
+    want = stack_launches(cfg, 1, ENCDEC_NEW - 1, launches)
+    if launches != want:
+        fail(f"{tag}: launches {launches} != expected {want}")
+    steps = ENCDEC_NEW - 1
+    stats = {
+        "prefill_ms": 1e3 * clock["prefill_s"],
+        "decode_ms_per_step": 1e3 * clock["decode_s"] / steps,
+        "tokens_per_s": n_src * ENCDEC_NEW / (clock["prefill_s"] + clock["decode_s"]),
+        "max_memory_allocated_gb": peak / 1e9,
+        "sources": n_src, "source_frames": ENCDEC_SRC, "prompt_tokens": ENCDEC_PROMPT,
+        "tokens_out": n_src * ENCDEC_NEW, "decode_steps": steps,
+    }
+    say(f"  serving ({tag}, batch {n_src}): {json.dumps(stats)} [{card}]")
+    t_ref = time.perf_counter()
+    for i in range(n_src):
+        one = greedy(src[i:i + 1], prompts[i:i + 1])[0]
+        if one != got[i]:
+            fail(f"{tag} source {i}: batch-{n_src} {got[i]} != batch-1 {one}")
+    say(f"  all {n_src} sources token-exact against batch-1 runs on the card "
+        f"({time.perf_counter() - t_ref:.2f} s)")
+    del params, src
+    return launches, stats
 
 
 # --------------------------------------------------------------------------- #
@@ -3734,9 +3980,24 @@ def main() -> int:
     # 10. mamba2-370m (src/repro/configs/mamba2_370m.py): d_model 1024, 48
     #    layers, d_inner 2048 in 32 heads of 64, state 128, 1 group, conv 4,
     #    chunk 128, tied vocab 50280
+    # 19. zamba2-7b (src/repro/configs/zamba2_7b.py): d_model 3584, 81 blocks (11
+    #    periods of 6 Mamba2 + 1 shared-attention application, then 4 Mamba2),
+    #    d_inner 7168 in 112 heads of 64, state 64, 1 group; two alternating
+    #    shared blocks (32 heads of 112, SwiGLU 14336) on concat(h, emb0);
+    #    untied vocab 32000;
+    # 20. deepseek-v2-lite-16b (src/repro/configs/deepseek_v2_lite_16b.py):
+    #    d_model 2048, 27 MLA + MoE layers (16 heads, latent 512, rope 64, nope
+    #    128, v 128; 64 routed experts of 1408, top-6, 2 shared as one 2816-wide
+    #    SwiGLU, local dispatch), untied vocab 102400
     stack_phases = [("layerstack", serving_config("gemma3-1b", full=True, device="cuda"), 32),
                     ("moe", serving_config("qwen2-moe-a2.7b", full=True, device="cuda"), 16),
-                    ("ssm", serving_config("mamba2-370m", full=True, device="cuda"), 32)]
+                    ("ssm", serving_config("mamba2-370m", full=True, device="cuda"), 32),
+                    ("hybrid", serving_config("zamba2-7b", full=True, device="cuda"), 32),
+                    ("mla", serving_config("deepseek-v2-lite-16b", full=True, device="cuda"), 32)]
+    # 21. seamless-m4t-medium (src/repro/configs/seamless_m4t_medium.py): 12
+    #    encoder + 12 decoder layers (self, cross, ReLU MLP 4096), d_model 1024, 16
+    #    heads of 64, untied vocab 256206 (padded to 256256)
+    encdec_cfg = serving_config("seamless-m4t-medium", full=True, device="cuda")
 
     # 3. kernels
     t = time.perf_counter()
@@ -3746,8 +4007,8 @@ def main() -> int:
     say(f"[kernels] full-width shapes (tolerance atol = rtol = 1e-4; median of 15 "
         f"cold-L2 launches; bound from 67 TFLOP/s fp32 and 3.35 TB/s):")
     results, by_tag, ops_ms, stack_est, extra = kernels_phase(
-        torch, K, cfg, [c for _, c, _ in stack_phases], n_slots, chunk, cache_cap, page, pools,
-        limit_line)
+        torch, K, cfg, [c for _, c, _ in stack_phases] + [encdec_cfg], n_slots, chunk,
+        cache_cap, page, pools, limit_line)
     phase_s["kernels"] = time.perf_counter() - t
 
     # 4. small model, card vs CPU
@@ -3756,10 +4017,14 @@ def main() -> int:
     say(f"[model] small model prefill + decode Programs, dense and paged fp32: card vs CPU "
         f"max |err| {worst:.2e} (atol = rtol = 1e-4); paged int8: max |logit err| "
         f"{worst_kv8:.2e} (bound 5e-2)")
-    for arch in ("gemma3-1b", "qwen2-moe-a2.7b", "mamba2-370m"):
+    for arch in ("gemma3-1b", "qwen2-moe-a2.7b", "mamba2-370m", "zamba2-7b",
+                 "deepseek-v2-lite-16b"):
         worst_ls = layerstack_model_phase(torch, arch)
         say(f"[model] reduced {arch} layer-stack LM, prefill + caches + 4 decode steps: card "
             f"vs CPU max |err| {worst_ls:.2e} (atol = rtol = 1e-4)")
+    worst_ed = encdec_model_phase(torch)
+    say(f"[model] reduced seamless-m4t-medium EncDec, encode + prefill + self and cross "
+        f"caches + 4 decode steps: card vs CPU max |err| {worst_ed:.2e} (atol = rtol = 1e-4)")
     phase_s["model"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -3901,14 +4166,23 @@ def main() -> int:
     runs.update(tp_runs)
     phase_s["tp"] = time.perf_counter() - t
 
-    # 8., 9. and 10. the layer-stack LMs under the continuous batcher
+    # 8., 9., 10., 19. and 20. the layer-stack LMs under the continuous batcher
     for phase, scfg, max_new in stack_phases:
         t = time.perf_counter()
         say(f"[{phase}] {scfg.name} widths, {scfg.n_layers} layers, fp32, 4 slots, cache "
             f"2048, {max_new} new tokens [{limit_line}]")
         runs[phase] = layerstack_phase(torch, K, scfg, limit_line, max_new=max_new, tag=phase)
-        torch.cuda.empty_cache()
+        release(torch)
         phase_s[phase] = time.perf_counter() - t
+
+    # 21. the encoder-decoder
+    t = time.perf_counter()
+    say(f"[encdec] {encdec_cfg.name} widths, {encdec_cfg.n_encoder_layers} encoder + "
+        f"{encdec_cfg.plan.n_layers} decoder layers, fp32, 4 sources of {ENCDEC_SRC} frames, "
+        f"{ENCDEC_PROMPT}-token prompts, {ENCDEC_NEW} new tokens [{limit_line}]")
+    runs["encdec"] = encdec_phase(torch, K, encdec_cfg, limit_line)
+    release(torch)
+    phase_s["encdec"] = time.perf_counter() - t
 
     # 12. the paper's five CNNs under six assignments
     t = time.perf_counter()
@@ -3947,15 +4221,17 @@ def main() -> int:
             say(f"[breakdown] {path} {phase} tick {tick_ms:.2f} ms: {parts}, remainder "
                 f"(other plain ops, logits to host, Python, less the overlap of parts "
                 f"timed alone) {rest:.2f} ms ({100 * rest / tick_ms:.0f}%) [{limit_line}]")
-    for phase, scfg, _ in stack_phases:
+    for phase, scfg, _ in stack_phases + [("encdec", encdec_cfg, ENCDEC_NEW)]:
         stats = runs[phase][1]
         serving[phase] = stats
         estimates[phase] = {}
-        for part, measured, what in (
-                ("decode", stats["decode_ms_per_step"], "step"),
-                ("prefill", stats["prefill_ms_per_token"] * LAYERSTACK_PREFILL,
-                 f"{LAYERSTACK_PREFILL}-token prefill (measured ms per prompt token x "
-                 f"{LAYERSTACK_PREFILL})")):
+        prefill = ((stats["prefill_ms"], f"batch-4 prefill ({ENCDEC_SRC} frames, "
+                    f"{ENCDEC_PROMPT}-token prompts)") if phase == "encdec" else
+                   (stats["prefill_ms_per_token"] * LAYERSTACK_PREFILL,
+                    f"{LAYERSTACK_PREFILL}-token prefill (measured ms per prompt token x "
+                    f"{LAYERSTACK_PREFILL})"))
+        for part, measured, what in (("decode", stats["decode_ms_per_step"], "step"),
+                                     ("prefill", *prefill)):
             parts_ms, bound_ms = stack_est[scfg.name][part]
             estimates[phase][part] = {**parts_ms, "bound": bound_ms}
             parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / measured:.0f}%)"
@@ -3999,6 +4275,7 @@ def main() -> int:
                              **{k: r["int8"][k] for k in keys},
                              "dense_kernel_ms": r["int8"]["dense_kernel_ms"]}
         kernels.append(entry)
+    serving["mla"]["k_cat"] = stack_est["deepseek-v2-lite-16b"]["k_cat"]
     say(json.dumps({"serving": serving, "tick_ms_by_part": estimates,
                     "kv8_agreement": agreement, "split": split_record, "cnn_ms": cnn_rows,
                     "cnn_int8": cnn_int8, "spec_verify_vs_decode": spec_record,

@@ -46,11 +46,20 @@
 //   dequantized into the fp32 slot as they are staged.  At D = Dv = 256 the
 //   block takes 104 KB of shared memory, so two blocks fit on an SM.
 // - Scores: the lanes split D, each holding float4 groups 4c..4c+3 for
-//   c = lane, lane + 32; a lane's products are one FMA chain in that order
-//   and warp_sum (a fixed xor butterfly) adds the lanes.  P.V: each lane
-//   owns the same float4 groups of Dv and adds the tile's rows in row order
-//   into its accumulator after the exp(m_old - m_new) rescale.  Widths are
-//   padded to a multiple of 4 with zeros in shared memory.
+//   c = lane, lane + 32, ... (NCK groups a lane); a lane's products are one
+//   FMA chain in that order and warp_sum (a fixed xor butterfly) adds the
+//   lanes.  P.V: each lane owns float4 groups of Dv the same way (NCV a
+//   lane) and adds the tile's rows in row order into its accumulator after
+//   the exp(m_old - m_new) rescale.  Widths are padded to a multiple of 4
+//   with zeros in shared memory.
+// - Widths: D, Dv <= 256 run with NCK = NCV = NCH = 2 and up to GMAX query
+//   heads a block.  The dense entries (flash_decode_f32,
+//   flash_decode_partial_f32) also take the wide layout, D <= 640 and Dv <=
+//   512 (NCK = 5, NCV = 4; MLA's absorbed decode is D 576 = latent 512 +
+//   rope 64, Dv 512): there a block takes at most WIDE_GMAX = 4 query heads,
+//   so the accumulators (WIDE_GMAX x NCV float4) stay in registers, and the
+//   block's shared memory (227,328 B at 576 / 512) leaves one block an SM.
+//   The layout is chosen from D and Dv alone, never from B.
 // - At the end of the shard the four warps' (acc, m, l) are merged in warp
 //   order, then the shards' in shard order (combine_kernel) — the merge of
 //   ref.combine_partials_ref: max of m, then l and acc summed with weights
@@ -74,6 +83,7 @@
 // caller's n_splits equal shards, partials out; the bound adds the
 // partials, n_splits * B * Hq * (Dv + 2) floats written once.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -88,6 +98,9 @@ constexpr int ROWS = 4;  // rows per warp tile
 constexpr int NST = 3;   // ring slots per warp
 constexpr int GMAX = 8;  // query heads per block
 constexpr int NCH = 2;   // float4 groups per lane: D, Dv <= 32 * 4 * NCH = 256
+// the wide layout of the dense entries: D <= 32 * 4 * WIDE_NCK = 640, Dv <=
+// 32 * 4 * WIDE_NCV = 512, at most WIDE_GMAX query heads a block
+constexpr int WIDE_NCK = 5, WIDE_NCV = 4, WIDE_GMAX = 4;
 
 // floats of dynamic shared memory: q [GMAX][D4], then each warp's ring of
 // NST slots of ROWS K rows [D4] and ROWS V rows [Dv4].  After the loop the
@@ -137,8 +150,9 @@ __device__ __forceinline__ void fma4(float p, const float4& v, float4& a) {
 // Block (x, i): rows [i * shard, (i + 1) * shard) of the sequence, the
 // query heads g0 .. g0 + gn - 1 of kv head h; writes rows (i, b, h * G + g0
 // + g) of the (shards, B, Hq) partials.  GM is a compile-time bound on gn
-// (1, 2, 4 or 8), so the accumulators stay in registers.
-template <class Rows, typename T, int GM>
+// (1, 2, 4 or 8), so the accumulators stay in registers; NCK and NCV are the
+// float4 groups a lane holds of a K row and of a V row.
+template <class Rows, typename T, int GM, int NCK, int NCV>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ k_scale,
@@ -200,13 +214,13 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
   };
 
   float m[GM], l[GM];
-  float4 acc[GM][NCH];
+  float4 acc[GM][NCV];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = repro_torch::kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) acc[g][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < NCV; ++c) acc[g][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const int nk = D4 / 4, nv = Dv4 / 4;  // float4 groups of a K row and a V row
 
@@ -227,9 +241,9 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
     float p[GM][ROWS];  // scores, then probabilities
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      float4 kr[NCH];
+      float4 kr[NCK];
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
+      for (int c = 0; c < NCK; ++c) {
         const int cc = lane + 32 * c;
         kr[c] = (r < n && cc < nk) ? *reinterpret_cast<const float4*>(ks + r * D4 + 4 * cc)
                                    : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -238,7 +252,7 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
       for (int g = 0; g < GM; ++g) {
         float part = 0.f;
 #pragma unroll
-        for (int c = 0; c < NCH; ++c) {
+        for (int c = 0; c < NCK; ++c) {
           const int cc = lane + 32 * c;
           if (cc < nk) {
             const float4 qv = *reinterpret_cast<const float4*>(qs + g * D4 + 4 * cc);
@@ -271,7 +285,7 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
       m[g] = m_new;
     }
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
+    for (int c = 0; c < NCV; ++c) {
       const int cc = lane + 32 * c;
       if (cc < nv) {
 #pragma unroll
@@ -310,7 +324,7 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
+    for (int c = 0; c < NCV; ++c) {
       const int cc = lane + 32 * c;
       if (cc < nv) *reinterpret_cast<float4*>(wacc + ((size_t)warp * GM + g) * Dv4 + 4 * cc) =
           acc[g][c];
@@ -374,13 +388,13 @@ int combine(const float* acc, const float* m, const float* l, float* out, int NS
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Rows, typename T, int GM>
+template <class Rows, typename T, int GM, int NCK, int NCV>
 int launch_shards_gm(const float* q, const T* k, const T* v, const float* k_scale,
                      const float* v_scale, const Rows& rows, const int* lengths, float* acc,
                      float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
                      float scale, bool vec, cudaStream_t stream) {
   const size_t smem = decode_smem_floats(D, Dv) * sizeof(float);
-  auto kernel = decode_shard_kernel<Rows, T, GM>;
+  auto kernel = decode_shard_kernel<Rows, T, GM, NCK, NCV>;
   static int smem_set[repro_torch::kMaxDevices];
   const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -392,14 +406,17 @@ int launch_shards_gm(const float* q, const T* k, const T* v, const float* k_scal
 }
 
 // The shard kernel over shards of `shard` rows; partials (ceil(S / shard), B,
-// Hq[, Dv]) into acc, m, l.
+// Hq[, Dv]) into acc, m, l.  D, Dv <= 256 take the narrow layout; wider
+// heads (dense fp32 rows only) the wide one.
 template <class Rows, typename T>
 int launch_shards(const float* q, const T* k, const T* v, const float* k_scale,
                   const float* v_scale, const Rows& rows, const int* lengths, float* acc,
                   float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
                   float scale, cudaStream_t stream) {
-  if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || D > 32 * 4 * NCH ||
-      Dv > 32 * 4 * NCH || S < 1 || shard < 1 ||
+  constexpr bool kWideOk = std::is_same<Rows, DenseRows>::value && std::is_same<T, float>::value;
+  const bool wide = D > 32 * 4 * NCH || Dv > 32 * 4 * NCH;
+  if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || (wide && !kWideOk) ||
+      D > 32 * 4 * WIDE_NCK || Dv > 32 * 4 * WIDE_NCV || S < 1 || shard < 1 ||
       decode_smem_floats(D, Dv) * sizeof(float) > (size_t)repro_torch::kMaxSmemBytes ||
       (S + shard - 1) / shard > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -408,13 +425,20 @@ int launch_shards(const float* q, const T* k, const T* v, const float* k_scale,
   const bool vec = D % 4 == 0 && Dv % 4 == 0 && reinterpret_cast<uintptr_t>(k) % al == 0 &&
                    reinterpret_cast<uintptr_t>(v) % al == 0;
   const int G = Hq / Hk;
-#define REPRO_SHARDS(GM)                                                                      \
-  launch_shards_gm<Rows, T, GM>(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, B, Hq, Hk, \
-                                S, D, Dv, shard, scale, vec, stream)
-  if (G == 1) return REPRO_SHARDS(1);
-  if (G == 2) return REPRO_SHARDS(2);
-  if (G <= 4) return REPRO_SHARDS(4);
-  return REPRO_SHARDS(8);
+#define REPRO_SHARDS(GM, NCK, NCV)                                                        \
+  launch_shards_gm<Rows, T, GM, NCK, NCV>(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, \
+                                          B, Hq, Hk, S, D, Dv, shard, scale, vec, stream)
+  if constexpr (kWideOk) {
+    if (wide) {
+      if (G == 1) return REPRO_SHARDS(1, WIDE_NCK, WIDE_NCV);
+      if (G == 2) return REPRO_SHARDS(2, WIDE_NCK, WIDE_NCV);
+      return REPRO_SHARDS(WIDE_GMAX, WIDE_NCK, WIDE_NCV);
+    }
+  }
+  if (G == 1) return REPRO_SHARDS(1, NCH, NCH);
+  if (G == 2) return REPRO_SHARDS(2, NCH, NCH);
+  if (G <= 4) return REPRO_SHARDS(4, NCH, NCH);
+  return REPRO_SHARDS(GMAX, NCH, NCH);
 #undef REPRO_SHARDS
 }
 

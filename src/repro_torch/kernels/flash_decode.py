@@ -50,6 +50,10 @@ GROUP_HEADS = 8        # query heads per block (GMAX)
 SHARD_ROWS = 64        # rows per shard of a cache of up to 64 * MAX_SHARDS rows
 MAX_SHARDS = 128
 MAX_COMBINE_SHARDS = 12288   # the combine kernel keeps one weight per shard in 48 KB
+# the dense kernel's wide layout (WIDE_NCK / WIDE_NCV float4 groups a lane):
+# D and Dv up to these, beside the narrow layout's _cuda.MAX_HEAD_DIM (256)
+MAX_WIDE_D = 32 * 4 * 5
+MAX_WIDE_DV = 32 * 4 * 4
 
 
 def decode_shard_rows(s_len: int) -> int:
@@ -74,12 +78,25 @@ def decode_smem_bytes(d: int, dv: int) -> int:
 
 
 def decode_fits(hq: int, hk: int, d: int, dv: int) -> bool:
-    """Whether the kernel takes these head counts and widths: whole GQA
-    groups (any size: a block takes up to GROUP_HEADS of them), D and Dv
-    <= 256, and the block's shared memory within the H100's 227 KB."""
-    if hk < 1 or hq % hk or not (0 < d <= _cuda.MAX_HEAD_DIM and 0 < dv <= _cuda.MAX_HEAD_DIM):
+    """Whether the dense kernel (:func:`flash_decode`,
+    :func:`flash_decode_partial`) takes these head counts and widths: whole
+    GQA groups (any size: a block takes up to GROUP_HEADS of them, 4 in the
+    wide layout), D <= MAX_WIDE_D and Dv <= MAX_WIDE_DV (the wide layout
+    past 256, chosen by the widths alone: MLA's absorbed decode is D 576,
+    Dv 512), and the block's shared memory within the H100's 227 KB (which
+    caps D at 596 when Dv is 512)."""
+    if hk < 1 or hq % hk or not (0 < d <= MAX_WIDE_D and 0 < dv <= MAX_WIDE_DV):
         return False
     return decode_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES
+
+
+def paged_decode_fits(hq: int, hk: int, d: int, dv: int) -> bool:
+    """Whether the paged kernel takes these head counts and widths: the
+    narrow layout only (D and Dv <= 256; no served path pages a wider
+    head).  It stages the same tiles as the dense one, so its shared memory
+    does not depend on the page size."""
+    return (decode_fits(hq, hk, d, dv) and d <= _cuda.MAX_HEAD_DIM
+            and dv <= _cuda.MAX_HEAD_DIM)
 
 
 def _workspace(n_shards: int, b: int, hq: int, dv: int, device):
@@ -265,11 +282,6 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_decode_partial.launches = 0
-
-
-# The paged kernel stages the same tiles as the dense one: its shared memory
-# does not depend on the page size.
-paged_decode_fits = decode_fits
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor,

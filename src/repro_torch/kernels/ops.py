@@ -19,7 +19,8 @@ plain version on CPU tensors.  The dispatchers ``attention``,
 calls.
 
 The ``cuda`` guards are only what the kernels need (whole GQA groups,
-head widths <= 256, fp32, a chunk of at most 128, ungrouped convolutions);
+head widths <= 256, or for the dense decode D <= 640 and Dv <= 512 within
+the shared memory, fp32, a chunk of at most 128, ungrouped convolutions);
 the TPU's block-divisibility guards are not carried over, because each
 kernel masks its own ragged edges.
 """

@@ -13,11 +13,15 @@ Program-backed engine over the graph LM — counterpart of
 Default mode submits a stream of random-prompt requests and runs the
 slot-based continuous batcher (prefill on admit, batched decode) over a
 :class:`repro_torch.models.lm.LM` with random weights from seed 0 (the
-attention configs, qwen2-moe-a2.7b's MoE and mamba2-370m's SSD blocks;
-``--arch qwen2-moe-a2.7b --full`` holds 60.6 GB of fp32 weights); it
+attention configs, the MoE, MLA, SSD and hybrid ones; ``--arch
+qwen2-moe-a2.7b --full`` holds 60.6 GB of fp32 weights, ``--arch
+deepseek-v2-lite-16b --full`` 64.8 GB); it
 serves the reduced config, or with ``--full`` the published one in fp32
 (every kernel of the port is fp32; that is the one change from the
-published config).  On the card every op runs on the port's hand-written
+published config).  Like JAX's entry point it serves token LMs only: the
+encoder-decoder (seamless-m4t-medium, :class:`repro_torch.models.encdec.EncDec`)
+and the ``embeds`` frontend (pixtral-12b) are refused.  On the card every
+op runs on the port's hand-written
 kernels (:data:`repro_torch.models.lm.CUDA_BACKENDS`); ``--device cpu``
 runs the plain ``ref`` backends.  Without ``--device`` it needs a
 card and raises without one.  ``--engine`` instead serves the graph LM
@@ -132,8 +136,8 @@ def serve_engine(args, tp: int = 1) -> None:
 def run_batcher(args) -> None:
     device = resolve_device(args.device)
     cfg = serving_config(args.arch, full=args.full, device=device)
-    if cfg.frontend == "embeds":
-        raise SystemExit("the batcher serves token-LM archs")
+    if cfg.n_encoder_layers or cfg.frontend == "embeds":
+        raise SystemExit("the batcher serves token-LM archs only")
     model = LM(cfg)
     params = model.init_params(0, device=device)
     batcher = ContinuousBatcher(model, params, n_slots=args.slots,

@@ -1,11 +1,12 @@
 """Decoder-only LM assembled from a LayerPlan: embed -> stack -> norm -> head
-— counterpart of :class:`repro.models.lm.LM`, for the configs whose blocks
-have ``attn``/``attn_local``/``mamba`` mixers and ``swiglu``/``mlp``/``moe``
-FFNs (gemma3-1b, phi3-mini-3.8b, stablelm-12b, minitron-4b, qwen2-moe-a2.7b,
-mamba2-370m, and pixtral-12b through its ``embeds`` frontend).  Any other
-config (deepseek-v2-lite's MLA, zamba2's shared attention blocks,
-seamless-m4t's encoder) raises on ``LM(cfg)`` with the ROADMAP item that
-brings it.
+— counterpart of :class:`repro.models.lm.LM`, for every decoder-only config:
+dense (phi3-mini-3.8b, stablelm-12b, minitron-4b), local:global
+(gemma3-1b), MoE (qwen2-moe-a2.7b; deepseek-v2-lite-16b with MLA), SSM
+(mamba2-370m), hybrid (zamba2-7b: Mamba2 blocks and two shared attention
+blocks, which re-read the initial embedding ``emb0``) and pixtral-12b
+through its ``embeds`` frontend.  The encoder-decoder config
+(seamless-m4t-medium) is served by :class:`repro_torch.models.encdec.EncDec`;
+``LM(cfg)`` refuses it.
 
 API (functions of params, a dict tree of tensors):
   init_params(seed, device)                -> params (drawn on the device)
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
-from repro_torch.layers.attention import CROSS_ITEM
+from repro_torch.layers.attention import is_mla, with_mla_heads
 from repro_torch.layers.common import dense, dense_init, embed_init, norm
 from repro_torch.models.stack import check_block, init_stack_caches, stack_apply, stack_init
 
@@ -60,21 +61,26 @@ def mask_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def _with_head(params: Params) -> Params:
     """Tied params (no ``lm_head``) get ``embed_t``: the embedding transposed
     to (d, V), contiguous, once."""
-    if "lm_head" not in params:
+    if "lm_head" not in params and "embed" in params:
         params["embed_t"] = params["embed"].t().contiguous()
     return params
 
 
 def params_from_numpy(tree: Any, device: DeviceLike = None) -> Params:
-    """The JAX package's ``LM.init_params`` tree (numpy leaves; nested dicts
-    and lists, period params stacked on axis 0) as the port's: the same
-    tree of tensors on ``device``, bit for bit, plus ``embed_t`` when the
-    embedding is tied."""
+    """The JAX package's ``LM.init_params`` or ``EncDec.init_params`` tree
+    (numpy leaves; nested dicts and lists, period params stacked on axis 0,
+    a zamba2 stack's ``shared`` slot, an encoder-decoder's ``encoder`` /
+    ``decoder`` / ``enc_norm``) as the port's: the same tree of tensors on
+    ``device``, bit for bit.  It adds only derived leaves: ``embed_t`` when
+    the embedding is tied, and ``wuk_h`` / ``wuv_h`` (the per-head
+    up-projections, :func:`repro_torch.layers.attention.with_mla_heads`) to
+    each MLA mixer."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            out = {k: conv(v) for k, v in x.items()}
+            return with_mla_heads(out) if is_mla(out) else out
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
         # np.array copies: JAX hands out read-only buffers
@@ -86,7 +92,8 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Params:
 class LM:
     def __init__(self, cfg: ArchConfig):
         if cfg.n_encoder_layers:
-            raise NotImplementedError(f"{cfg.name}: encoder-decoder models: {CROSS_ITEM}")
+            raise ValueError(f"{cfg.name} is an encoder-decoder config: serve it with "
+                             "repro_torch.models.encdec.EncDec, not LM")
         for blk in cfg.plan.all_blocks():
             check_block(blk)
         self.cfg = cfg
@@ -127,9 +134,11 @@ class LM:
                 mode: str, caches=None, lengths=None, cache_cap: Optional[int] = None):
         cfg = self.cfg
         h = self._embed(params, batch, _dtype(cfg.dtype))
+        # zamba2's shared blocks re-read the initial embedding (at decode,
+        # the current token's)
         h, new_caches, aux = stack_apply(
             params["stack"], h, cfg.plan, cfg=cfg, mode=mode, caches=caches,
-            lengths=lengths, cache_cap=cache_cap)
+            lengths=lengths, emb0=h, cache_cap=cache_cap)
         h = norm(h, params["final_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
         return h, new_caches, aux
 

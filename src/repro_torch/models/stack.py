@@ -5,10 +5,17 @@ Parameters for position i of the period are stacked along axis 0
 (n_periods, ...), as in the JAX package, and caches follow the same layout.
 JAX scans over that axis; here the period loop is a Python loop over it.
 
-Blocks with ``attn``/``attn_local``/``mamba`` mixers and ``swiglu``/
-``mlp``/``moe`` FFNs are ported.  ``mla`` and ``shared_attn`` mixers and
-cross-attention raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+Every block kind of the configs is ported: ``attn``/``attn_local``/``mla``/
+``mamba``/``shared_attn`` mixers, ``swiglu``/``mlp``/``moe``/``none`` FFNs
+and cross-attention (``Block.cross``, the encoder-decoder's decoder blocks,
+which read ``enc_out`` at train / prefill and their cross cache at decode).
+
+Zamba2's *shared* attention blocks live OUTSIDE the stacking: the stack's
+``"shared"`` slot holds two blocks stacked on axis 0, and an application
+uses block ``period_idx % 2`` (prefix blocks 0, suffix blocks
+``n_periods % 2``).  Their params are shared; their caches are one per
+application and therefore stacked like every other cache.  A shared block
+re-reads the initial embedding ``emb0`` and its output replaces ``h``.
 
 :func:`stack_init` copies each period's parameters into one preallocated
 ``(n_periods, ...)`` tensor per leaf as soon as they are drawn: at most one
@@ -22,8 +29,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, Block, LayerPlan
-from repro_torch.layers.attention import (CROSS_ITEM, MLA_ITEM, SHARED_ITEM, attn_apply,
-                                          attn_init)
+from repro_torch.layers.attention import (attn_apply, attn_init, mla_apply, mla_init,
+                                          shared_attn_apply, shared_attn_init)
 from repro_torch.layers.common import norm
 from repro_torch.layers.mlp import mlp_apply, mlp_init, swiglu_apply, swiglu_init
 from repro_torch.layers.moe import moe_apply, moe_init
@@ -31,20 +38,15 @@ from repro_torch.layers.ssm import mamba_apply, mamba_init
 
 Params = Dict[str, Any]
 
-_NOT_PORTED = {"mla": MLA_ITEM, "shared_attn": SHARED_ITEM}
+MIXERS = ("attn", "attn_local", "mla", "mamba", "shared_attn")
+FFNS = ("swiglu", "mlp", "moe", "none")
 
 
 def check_block(blk: Block) -> None:
-    """Raise ``NotImplementedError`` for a block the port cannot run yet,
-    ``ValueError`` for one no config describes."""
-    for kind in (blk.mixer, blk.ffn):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[kind])
-    if blk.cross:
-        raise NotImplementedError(CROSS_ITEM)
-    if blk.mixer not in ("attn", "attn_local", "mamba"):
+    """Raise ``ValueError`` for a block no config describes."""
+    if blk.mixer not in MIXERS:
         raise ValueError(f"unknown mixer {blk.mixer!r}")
-    if blk.ffn not in ("swiglu", "mlp", "moe", "none"):
+    if blk.ffn not in FFNS:
         raise ValueError(f"unknown ffn {blk.ffn!r}")
 
 
@@ -68,9 +70,14 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, blk: Block, *,
                dtype: torch.dtype = torch.float32) -> Params:
     check_block(blk)
     d = cfg.d_model
-    mixer = mamba_init if blk.mixer == "mamba" else attn_init
-    p: Params = {"norm1": torch.ones((d,), dtype=dtype, device=gen.device),
-                 "mixer": mixer(gen, cfg, dtype=dtype)}
+    p: Params = {}
+    if blk.mixer != "shared_attn":        # a shared block's params live in the "shared" slot
+        mixer = {"mamba": mamba_init, "mla": mla_init}.get(blk.mixer, attn_init)
+        p["norm1"] = torch.ones((d,), dtype=dtype, device=gen.device)
+        p["mixer"] = mixer(gen, cfg, dtype=dtype)
+    if blk.cross:
+        p["norm_x"] = torch.ones((d,), dtype=dtype, device=gen.device)
+        p["cross"] = attn_init(gen, cfg, cross=True, dtype=dtype)
     if blk.ffn != "none":
         p["norm2"] = torch.ones((d,), dtype=dtype, device=gen.device)
         if blk.ffn == "moe":
@@ -82,12 +89,13 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, blk: Block, *,
 
 
 def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
-                mode: str, cache: Any = None, lengths=None,
+                mode: str, cache: Any = None, lengths=None, emb0=None,
+                enc_out=None, enc_lengths=None, shared_params: Optional[Params] = None,
                 cache_cap: Optional[int] = None, causal: bool = True
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (h, new_cache, aux_loss). ``cache`` is a dict with optional
-    key 'mix' (block-level cache container).  aux_loss is a float32 scalar
-    tensor, 0 unless the FFN is MoE."""
+    keys 'mix' and 'cross' (block-level cache container).  aux_loss is a
+    float32 scalar tensor, 0 unless the FFN is MoE."""
     check_block(blk)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = cache or {}
@@ -95,18 +103,33 @@ def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
     nb = cfg.backend("rmsnorm")
     eps = cfg.norm_eps
 
-    x = norm(h, p["norm1"], eps=eps, backend=nb)
-    if blk.mixer == "mamba":
-        y, c = mamba_apply(p["mixer"], x, cfg=cfg, mode=mode, cache=cache.get("mix"),
-                           lengths=lengths)
+    if blk.mixer == "shared_attn":        # its output replaces h (no outer residual)
+        h, c = shared_attn_apply(shared_params, h, emb0, cfg=cfg, mode=mode,
+                                 cache=cache.get("mix"), lengths=lengths, cache_cap=cache_cap)
     else:
-        window = cfg.window if blk.mixer == "attn_local" else None
-        y, c = attn_apply(p["mixer"], x, cfg=cfg, mode=mode, window=window,
-                          cache=cache.get("mix"), lengths=lengths,
-                          cache_cap=cache_cap, causal=causal)
-    h = h + y
+        x = norm(h, p["norm1"], eps=eps, backend=nb)
+        if blk.mixer == "mamba":
+            y, c = mamba_apply(p["mixer"], x, cfg=cfg, mode=mode, cache=cache.get("mix"),
+                               lengths=lengths)
+        elif blk.mixer == "mla":
+            y, c = mla_apply(p["mixer"], x, cfg=cfg, mode=mode, cache=cache.get("mix"),
+                             lengths=lengths, cache_cap=cache_cap)
+        else:
+            window = cfg.window if blk.mixer == "attn_local" else None
+            y, c = attn_apply(p["mixer"], x, cfg=cfg, mode=mode, window=window,
+                              cache=cache.get("mix"), lengths=lengths,
+                              cache_cap=cache_cap, causal=causal)
+        h = h + y
     if c is not None:
         new_cache["mix"] = c
+
+    if blk.cross:
+        x = norm(h, p["norm_x"], eps=eps, backend=nb)
+        y, c = attn_apply(p["cross"], x, cfg=cfg, mode=mode, cross=True,
+                          cache=cache.get("cross"), enc_out=enc_out, enc_lengths=enc_lengths)
+        h = h + y
+        if c is not None:
+            new_cache["cross"] = c
 
     if blk.ffn != "none":
         x = norm(h, p["norm2"], eps=eps, backend=nb)
@@ -142,22 +165,35 @@ def stack_init(gen: torch.Generator, cfg: ArchConfig, plan: LayerPlan, *,
         p["period"].append(stacked)
     for blk in plan.suffix:
         p["suffix"].append(block_init(gen, cfg, blk, dtype=dtype))
+    if any(b.mixer == "shared_attn" for b in plan.all_blocks()):
+        # two alternating shared blocks (Zamba2), stacked on axis 0
+        sh = [shared_attn_init(gen, cfg, dtype=dtype) for _ in range(2)]
+        p["shared"] = _tree_map(lambda *xs: torch.stack(xs), *sh)
     return p
 
 
 def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
                 cfg: ArchConfig, mode: str, caches: Any = None,
-                lengths=None, cache_cap: Optional[int] = None, causal: bool = True):
+                lengths=None, emb0=None, enc_out=None, enc_lengths=None,
+                cache_cap: Optional[int] = None, causal: bool = True):
     """Returns (h, new_caches, aux_total); new_caches is None in train mode."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = caches or {"prefix": [None] * len(plan.prefix),
                         "period": [None] * len(plan.period),
                         "suffix": [None] * len(plan.suffix)}
     new_caches: Dict[str, Any] = {"prefix": [], "period": None, "suffix": []}
-    common = dict(cfg=cfg, mode=mode, lengths=lengths, cache_cap=cache_cap, causal=causal)
+    shared = params.get("shared")
+
+    def pick_shared(period_idx: int) -> Optional[Params]:
+        if shared is None:
+            return None
+        return _tree_map(lambda a: a[period_idx % 2], shared)
+
+    common = dict(cfg=cfg, mode=mode, lengths=lengths, emb0=emb0, enc_out=enc_out,
+                  enc_lengths=enc_lengths, cache_cap=cache_cap, causal=causal)
 
     for blk, bp, bc in zip(plan.prefix, params["prefix"], caches["prefix"]):
-        h, c, aux = block_apply(bp, h, blk, cache=bc, **common)
+        h, c, aux = block_apply(bp, h, blk, cache=bc, shared_params=pick_shared(0), **common)
         new_caches["prefix"].append(c)
         aux_total = aux_total + aux
 
@@ -171,7 +207,8 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
                 bp = _tree_map(lambda a: a[pidx], params["period"][j])
                 bc = caches["period"][j]
                 bc = None if bc is None else _tree_map(lambda a: a[pidx], bc)
-                h, c, aux = block_apply(bp, h, blk, cache=bc, **common)
+                h, c, aux = block_apply(bp, h, blk, cache=bc,
+                                        shared_params=pick_shared(pidx), **common)
                 aux_total = aux_total + aux
                 if mode == "train" or c is None:
                     continue
@@ -184,7 +221,8 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
             new_caches["period"] = stacked
 
     for blk, bp, bc in zip(plan.suffix, params["suffix"], caches["suffix"]):
-        h, c, aux = block_apply(bp, h, blk, cache=bc, **common)
+        h, c, aux = block_apply(bp, h, blk, cache=bc,
+                                shared_params=pick_shared(plan.n_periods), **common)
         new_caches["suffix"].append(c)
         aux_total = aux_total + aux
 
@@ -192,27 +230,38 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
 
 
 def init_stack_caches(cfg: ArchConfig, plan: LayerPlan, batch: int, cache_cap: int, *,
-                      dtype: torch.dtype = torch.float32,
+                      enc_len: int = 0, dtype: torch.dtype = torch.float32,
                       device: Optional[torch.device] = None) -> Any:
     """Zero caches for decode-from-scratch (period caches are real stacked
     tensors, not broadcast views: the batcher writes slots into them).  A
     mamba block's cache is its conv tails in ``dtype`` and its SSM state in
-    float32."""
+    float32; an MLA block's its latent and rope rows; a cross block adds
+    ``enc_len`` rows of encoder K/V."""
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     def one(blk: Block, lead=()):
         check_block(blk)
+        c: Dict[str, Any] = {}
         if blk.mixer == "mamba":
             s = cfg.ssm
             gn, tail = s.n_groups * s.state, lead + (batch, s.conv_kernel - 1)
-            return {"mix": {"conv_x": zeros(tail + (s.d_inner,)),
-                            "conv_B": zeros(tail + (gn,)), "conv_C": zeros(tail + (gn,)),
-                            "ssm": zeros(lead + (batch, s.n_heads, s.head_dim, s.state),
-                                         torch.float32)}}
-        cap = min(cfg.window, cache_cap) if blk.mixer == "attn_local" else cache_cap
-        shape = lead + (batch, cap, cfg.n_kv_heads, cfg.head_dim)
-        return {"mix": {"k": zeros(shape), "v": zeros(shape)}}
+            c["mix"] = {"conv_x": zeros(tail + (s.d_inner,)),
+                        "conv_B": zeros(tail + (gn,)), "conv_C": zeros(tail + (gn,)),
+                        "ssm": zeros(lead + (batch, s.n_heads, s.head_dim, s.state),
+                                     torch.float32)}
+        elif blk.mixer == "mla":
+            m = cfg.mla
+            c["mix"] = {"ckv": zeros(lead + (batch, cache_cap, m.kv_lora_rank)),
+                        "kpe": zeros(lead + (batch, cache_cap, m.rope_dim))}
+        else:
+            cap = min(cfg.window, cache_cap) if blk.mixer == "attn_local" else cache_cap
+            shape = lead + (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+            c["mix"] = {"k": zeros(shape), "v": zeros(shape)}
+        if blk.cross:
+            shape = lead + (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+            c["cross"] = {"k": zeros(shape), "v": zeros(shape)}
+        return c
 
     return {
         "prefix": [one(b) for b in plan.prefix],

@@ -1,7 +1,9 @@
-"""The port's ContinuousBatcher on the CPU, on three reduced configs:
+"""The port's ContinuousBatcher on the CPU, on five reduced configs:
 gemma3-1b (local and global layers, MQA, prompts on both sides of the
-window of 16), qwen2-moe-a2.7b (MoE FFNs) and mamba2-370m (SSD mixers,
-conv and SSM state caches).  Every request equals the port's unbatched
+window of 16), qwen2-moe-a2.7b (MoE FFNs), mamba2-370m (SSD mixers,
+conv and SSM state caches), deepseek-v2-lite-16b (MLA's latent caches and
+absorbed decode) and zamba2-7b (Mamba2 blocks and the shared attention
+blocks' per-application caches).  Every request equals the port's unbatched
 greedy prefill + decode, and equals the JAX package's ContinuousBatcher on
 the same weights and requests.  Also slot reuse, utilisation, the
 scheduler's conservation, the splice of attention and mamba caches, and
@@ -27,7 +29,7 @@ from repro_torch.models.lm import LM, params_from_numpy
 from repro_torch.runtime.batching import ContinuousBatcher, Request
 
 ARCH, SLOTS, CAP = "gemma3-1b", 3, 64
-ARCHS = [ARCH, "qwen2-moe-a2.7b", "mamba2-370m"]
+ARCHS = [ARCH, "qwen2-moe-a2.7b", "mamba2-370m", "deepseek-v2-lite-16b", "zamba2-7b"]
 # two prompt lengths (JAX compiles one prefill per length), one past the window
 LENGTHS, MAX_NEW = (6, 21, 21, 6, 21, 6, 6, 21), (5, 3, 7, 4, 6, 2, 8, 5)
 

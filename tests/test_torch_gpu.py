@@ -1452,3 +1452,201 @@ def test_ring_allgather_matmul_on_the_card_equals_the_whole_product(tp_card_run)
     for r in tp_card_run:
         device, launched, close, err = r["ring"]
         assert device == "cuda:0" and launched == 2 and close, r["ring"]
+
+
+# --------------------------------------------------------------------------- #
+# the three config families of the last serving slice: MLA's wide decode,
+# the encoder-decoder's attention shapes, zamba2's scan
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.gpu
+def test_wide_decode_matches_plain_and_rows_do_not_depend_on_the_batch():
+    """deepseek-v2-lite's absorbed decode: 16 query heads on 1 KV head, D 576
+    (latent + rope), Dv 512 (the latent, a view of the same cache rows in the
+    model; a copy here), S 2048, scale 1 / sqrt(192): the dense kernel's wide
+    layout within 1e-4 of the plain version, lengths on and off the shard
+    edges and 0, and each sequence of batch 4 bitwise the same alone; the
+    partial kernel at the same shape; the paged kernel refuses it."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (decode_shard_rows, flash_decode,
+                                                  flash_decode_partial,
+                                                  flash_decode_partial_plain,
+                                                  flash_decode_plain, flash_paged_decode)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    rn = _rn(gen, dev)
+    s, sc = 2048, 1 / math.sqrt(192)
+    sh = decode_shard_rows(s)
+    for lens in ([1400, 1000, 600, 250], [0, 1, sh + 1, s]):
+        b = len(lens)
+        q, ckv, kpe = rn(b, 16, 576), rn(b, s, 512), rn(b, s, 64)
+        k = torch.cat([ckv, kpe], -1)[:, :, None, :]
+        v = ckv[:, :, None, :]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        launches = flash_decode.launches
+        full = flash_decode(q, k, v, lengths, scale=sc)
+        assert flash_decode.launches == launches + 1
+        torch.testing.assert_close(full, flash_decode_plain(q, k, v, lengths, sc),
+                                   rtol=1e-4, atol=1e-4)
+        if 0 in lens:
+            assert float(full[lens.index(0)].abs().max()) == 0.0
+        for i in range(b):
+            sl = slice(i, i + 1)
+            one = flash_decode(q[sl].contiguous(), k[sl].contiguous(), v[sl].contiguous(),
+                               lengths[sl].contiguous(), scale=sc)
+            assert torch.equal(one, full[sl]), (lens, i)
+    acc, m, l = flash_decode_partial(q, k, v, lengths, scale=sc, n_splits=4)
+    for got, want in zip((acc, m, l), flash_decode_partial_plain(q, k, v, lengths, sc, 4)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    page = 16
+    pk = k.reshape(b * s // page, page, 1, 576)
+    pv = v.reshape(b * s // page, page, 1, 512)
+    tables = torch.arange(b * s // page, dtype=torch.int32, device=dev).reshape(b, s // page)
+    with pytest.raises(ValueError, match="unsupported"):
+        flash_paged_decode(q, pk, pv, tables, lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (2, 64, 1024, 16, 16, 64, 64, False),    # seamless cross: 64 decoder rows over 1024 frames
+    (1, 1024, 1024, 16, 16, 64, 64, False),  # seamless encoder
+    (1, 512, 512, 16, 16, 192, 128, True),   # deepseek MLA prefill (D != Dv)
+    (1, 512, 512, 32, 32, 112, 112, True),   # zamba2 shared attention
+], ids=["cross", "encoder", "mla-prefill", "zamba2"])
+def test_attention_shapes_of_the_new_families(shape):
+    """Non-causal with Sq != Skv and the MLA / zamba2 widths: within 1e-4 of
+    the plain version, and each sequence of a batch bitwise the same alone."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    b, sq, skv, hq, hk, d, dv, causal = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sum(shape))
+    rn = _rn(gen, dev)
+    q, k, v = rn(b, sq, hq, d), rn(b, skv, hk, d), rn(b, skv, hk, dv)
+    sc = 1 / math.sqrt(192) if d == 192 else None
+    got = flash_attention(q, k, v, causal=causal, scale=sc)
+    torch.testing.assert_close(got, flash_attention_plain(
+        q, k, v, causal=causal, window=None, scale=sc or 1 / math.sqrt(d)),
+        rtol=1e-4, atol=1e-4)
+    if b > 1:
+        one = flash_attention(q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous(),
+                              causal=causal, scale=sc)
+        assert torch.equal(one, got[:1])
+
+
+@pytest.mark.gpu
+def test_ssd_at_zamba2_width():
+    """zamba2-7b's scan (H 112, P 64, G 1, N 64, chunk 128) over 1024 rows:
+    within 1e-4 of the plain version, each sequence bitwise alone."""
+    dev = _card()
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(112)
+    x, dt, A, B, C, D = _ssd_inputs(_rn(gen, dev), dev, 2, 1024, 112, 64, 1, 64)
+    y, st = ssd_scan(x, dt, A, B, C, D)
+    yp, stp = ssd_scan_plain(x, dt, A, B, C, D)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, stp, rtol=1e-4, atol=1e-4)
+    y1, st1 = ssd_scan(x[:1], dt[:1], A, B[:1].contiguous(), C[:1].contiguous(), D)
+    assert torch.equal(y1, y[:1]) and torch.equal(st1, st[:1])
+
+
+@pytest.mark.gpu
+def test_mla_absorbed_products_through_batched_gemm():
+    """MLA decode's per-head products, heads as experts and the batch as
+    rows: E 16, M 4, 128 -> 512 (W_uk absorbed into q) and 512 -> 128
+    (W_uv): within 1e-4 of bmm's plain version, and M 1 bitwise a row of
+    M 4."""
+    dev = _card()
+    from repro_torch.kernels.gemm import batched_gemm, batched_gemm_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    rn = _rn(gen, dev)
+    for kk, nn in ((128, 512), (512, 128)):
+        x, w = rn(16, 4, kk), rn(16, kk, nn) / math.sqrt(kk)
+        got = batched_gemm(x, w)
+        torch.testing.assert_close(got, batched_gemm_plain(x, w), rtol=1e-4, atol=1e-4)
+        for i in range(4):
+            assert torch.equal(batched_gemm(x[:, i:i + 1].contiguous(), w), got[:, i:i + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b"])
+def test_mla_and_hybrid_batchers_on_the_card_match_batch_one(arch):
+    """Reduced deepseek-v2-lite (MLA + MoE) and zamba2 (Mamba2 + shared
+    attention) under the batcher on the card: every request equals batch-1
+    greedy on the card (card against CPU: chip_smoke.py phase 4)."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.batching import ContinuousBatcher, Request
+    model = LM(serving_config(arch, device=dev))
+    params = model.init_params(0, device=dev)
+    rng = np.random.default_rng(4)
+    reqs = [Request(uid=i, prompt=rng.integers(2, model.cfg.vocab, int(rng.integers(3, 40)))
+                    .astype(np.int32), max_new_tokens=int(rng.integers(2, 9))) for i in range(7)]
+    kern = flash_decode if arch.startswith("deepseek") else ssd_scan
+    launches = kern.launches
+    batcher = ContinuousBatcher(model, params, n_slots=3, cache_cap=64, eos_id=-1)
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    assert kern.launches > launches
+    for r in reqs:
+        lg, caches, lengths = model.prefill(
+            params, {"tokens": torch.as_tensor(r.prompt, device=dev)[None]}, cache_cap=64)
+        want = [int(lg[0].argmax())]
+        while len(want) < r.max_new_tokens:
+            lg, caches = model.decode_step(
+                params, torch.tensor([want[-1]], dtype=torch.int32, device=dev), caches,
+                lengths)
+            lengths = lengths + 1
+            want.append(int(lg[0].argmax()))
+        assert r.out_tokens == want, r.uid
+
+
+@pytest.mark.gpu
+def test_encdec_on_the_card_matches_batch_one_and_the_cpu():
+    """Reduced seamless-m4t: a batch of two sources decoded greedily on the
+    card equals each source alone, and the CPU's tokens (logits within
+    1e-4)."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.encdec import EncDec
+    gen = np.random.default_rng(5)
+    toks = torch.from_numpy(gen.integers(0, 500, (2, 7)).astype(np.int32))
+    runs = {}
+    for device in (dev, "cpu"):
+        model = EncDec(serving_config("seamless-m4t-medium", device=device))
+        params = model.init_params(0, device="cpu")
+        if device == dev:
+            params = _to(params, dev)
+        src = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            (2, 30, model.cfg.d_model)).astype(np.float32)).to(device)
+
+        def greedy(s, t, n=6):
+            lg, caches, lengths = model.prefill(params, {"src_embeds": s, "tokens": t},
+                                                cache_cap=16)
+            enc_lengths = torch.full((s.shape[0],), s.shape[1], dtype=torch.int32,
+                                     device=s.device)
+            logits, out = [lg], [lg.argmax(-1)]
+            for _ in range(n - 1):
+                lg, caches = model.decode_step(params, out[-1].to(torch.int32), caches,
+                                               lengths, enc_lengths)
+                lengths = lengths + 1
+                logits.append(lg)
+                out.append(lg.argmax(-1))
+            return torch.stack(out, 1), torch.stack(logits, 1)
+
+        launches = flash_attention.launches
+        runs[str(device)] = greedy(src, toks.to(device))
+        if device == dev:
+            assert flash_attention.launches > launches
+            for i in range(2):
+                one, _ = greedy(src[i:i + 1], toks[i:i + 1].to(dev))
+                assert torch.equal(one[0], runs[str(dev)][0][i])
+    assert torch.equal(runs[str(dev)][0].cpu(), runs["cpu"][0])
+    torch.testing.assert_close(runs[str(dev)][1].cpu(), runs["cpu"][1], rtol=1e-4, atol=1e-4)

@@ -118,9 +118,9 @@ def test_decode_attention_ref_matches_ref(hq, hk):
 
 
 def test_decode_cuda_rejects_what_the_kernel_does_not_take():
-    from repro_torch.kernels.flash_decode import decode_fits, flash_decode
+    from repro_torch.kernels.flash_decode import MAX_WIDE_D, decode_fits, flash_decode
     assert decode_fits(32, 32, 96, 96) and decode_fits(4, 2, 8, 16)
-    assert not decode_fits(3, 2, 8, 8) and not decode_fits(4, 4, 512, 8)
+    assert not decode_fits(3, 2, 8, 8) and not decode_fits(4, 4, MAX_WIDE_D + 4, 8)
     q, k = torch.zeros(1, 3, 8), torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError):
         flash_decode(q, k, k, torch.zeros(1, dtype=torch.int32))

@@ -5,11 +5,15 @@ caches, then eight decode steps, within 1e-4 (a whole fp32 forward, summed
 in other orders on the two sides).  Prompts of 24 tokens are longer than
 the reduced window of 16, so gemma3's local layers take the rolling-buffer
 branch; qwen2-moe-a2.7b runs its MoE FFNs (global dispatch, padded
-experts) and mamba2-370m its SSD mixers (prompts off the chunk of 16).
-Also the configs copied into the port, ``params_from_numpy`` and
-``init_params`` on the new leaves, the teacher-forcing check of
-``tests/test_arch_smoke.py`` inside the port, and the configs the port does
-not serve yet."""
+experts) and mamba2-370m its SSD mixers (prompts off the chunk of 16);
+deepseek-v2-lite-16b its MLA mixers (the latent cache, the absorbed decode
+over a D = rank + rope head) and MoE with a shared expert; zamba2-7b its
+Mamba2 blocks and the two alternating shared attention blocks (the stack's
+``shared`` slot, ``emb0``, per-application caches).  Also the configs
+copied into the port, ``params_from_numpy`` and ``init_params`` on the new
+leaves, the teacher-forcing check of ``tests/test_arch_smoke.py`` inside
+the port, and ``LM``'s refusal of the encoder-decoder config (served by
+``EncDec``, tests/test_torch_encdec.py)."""
 
 import dataclasses
 
@@ -31,8 +35,8 @@ from repro_torch.layers.common import rope_table
 from repro_torch.models.lm import CUDA_BACKENDS, LM, params_from_numpy
 
 SERVED = ["gemma3-1b", "phi3-mini-3.8b", "stablelm-12b", "minitron-4b", "qwen2-moe-a2.7b",
-          "mamba2-370m"]
-NOT_SERVED = {"deepseek-v2-lite-16b": "13d", "zamba2-7b": "13c", "seamless-m4t-medium": "13e"}
+          "mamba2-370m", "deepseek-v2-lite-16b", "zamba2-7b"]
+NOT_SERVED = ["seamless-m4t-medium"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S0, CAP, STEPS = 2, 24, 40, 8
 
@@ -67,9 +71,11 @@ def test_configs_are_copied_field_for_field():
             assert dataclasses.asdict(port(name)) == dataclasses.asdict(jax_(name)), name
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_SERVED))
+@pytest.mark.parametrize("arch", NOT_SERVED)
 def test_unported_configs_raise_naming_their_item(arch):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {NOT_SERVED[arch]}"):
+    """``LM`` refuses the encoder-decoder config and names the class that
+    serves it."""
+    with pytest.raises(ValueError, match="EncDec"):
         LM(get_reduced(arch))
 
 
