@@ -274,10 +274,29 @@ Phases, each printing its own lines; any failure exits non-zero:
              flash_attention launches a prefill, 24 flash_decode launches a
              step (12 self, 12 cross over the encoder rows).
              Phases 19-21 run after 8-10, each dropping its weights first.
+22. train  — (after 21, every engine dropped) gemma3-1b at its published
+             widths and depth (26 layers, d_model 1152, 4 heads on 1 kv
+             head of 256, d_ff 6912, tied vocab 262144; 1.00 B params),
+             fp32, trained through the port's path: strip_derived
+             (init_params(0)), AdamW (lr 1e-3, warmup_cosine(lr, 20,
+             TRAIN_STEPS)), make_train_step(donate=True) with remat, on
+             TRAIN_BATCH x TRAIN_SEQ (4 x 1024) SyntheticLM tokens, for
+             TRAIN_STEPS (8) steps; CheckpointManager saves params and
+             optimizer state (16 GB) under build/ at step TRAIN_SAVE_AT
+             (4), restores them into fresh tensors (a meta target) and
+             reruns steps 5-8.  Fails unless every loss and grad norm is
+             finite, every param leaf moved, the resumed losses and params
+             are bitwise the uninterrupted run's, and no kernel of the
+             port launched (training runs on the config's differentiable
+             plain backends, as the JAX package's does).  Prints ms a step
+             (median of steps 2-8, synchronised), tokens/s, peak GB, the
+             step's bound ((6 N T + 3x the forward attention) FLOP at 67
+             TFLOP/s), checkpoint bytes, save (device-to-host copy, then
+             write) and restore seconds.
 
 The last three lines of standard output are JSON: the serving numbers
 (phases 15, 16, 17 and 18 under "heal", "load", "deploy" and "tp"; 19-21 under
-"hybrid", "mla" (with the k_cat copy's time) and "encdec"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+"hybrid", "mla" (with the k_cat copy's time) and "encdec"; 22 under "train"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -3399,6 +3418,155 @@ def encdec_phase(torch, K, cfg, card, *, n_src=4, tag="encdec"):
 
 
 # --------------------------------------------------------------------------- #
+# phase 22: training at full width
+# --------------------------------------------------------------------------- #
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024     # SyntheticLM rows and tokens a row
+TRAIN_STEPS, TRAIN_SAVE_AT = 8, 4    # steps run; the checkpoint the resumed run starts from
+TRAIN_LR = 1e-3                      # launch/train.py's default, with its warmup_cosine(lr, 20, steps)
+
+
+def train_flops(cfg, n_params, batch, seq):
+    """Operations one train step needs: 6 N T for the N trainable params
+    over T tokens (forward 2 N T, backward 4 N T; the tied head is the
+    embedding's product) plus 3 times the forward attention's score and
+    value products over the pairs the causal or window mask allows.  The
+    recomputation of remat is not counted: it is not needed work."""
+    attn = 0.0
+    for blk in cfg.plan.all_blocks():
+        window = cfg.window if blk.mixer == "attn_local" else None
+        attn += 4.0 * batch * cfg.n_heads * attention_pairs(seq, seq, True, window) \
+            * cfg.head_dim
+    return 6.0 * n_params * batch * seq + 3.0 * attn
+
+
+def train_phase(torch, K, card):
+    """gemma3-1b at its published widths and depth, fp32, through the
+    port's training path: ``make_train_step(donate=True)`` (AdamW with
+    ``warmup_cosine``, remat on) on TRAIN_BATCH x TRAIN_SEQ SyntheticLM
+    tokens for TRAIN_STEPS steps, a CheckpointManager save at step
+    TRAIN_SAVE_AT under build/, then a restore into fresh tensors and steps
+    TRAIN_SAVE_AT + 1 .. TRAIN_STEPS again.  Fails unless the losses and
+    grad norms are finite, every param leaf moved, the resumed params are
+    bitwise the uninterrupted run's, and no kernel of the port launched
+    (training runs on the differentiable plain backends).  Returns the
+    numbers."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.lm import LM, strip_derived
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.runtime.train import make_train_step
+
+    cfg = get_config("gemma3-1b").with_overrides(dtype="float32", param_dtype="float32")
+    model = LM(cfg)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, schedule=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
+    before = kernel_counts(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = strip_derived(model.init_params(0, device="cuda"))
+    opt = adamw.init(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    say(f"  weights {n_params / 1e9:.4f} B params ({4 * n_params / 1e9:.2f} GB fp32; with "
+        f"grads, master, mu and nu {20 * n_params / 1e9:.2f} GB), drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; remat {cfg.remat}")
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    step_fn = make_train_step(model, cfg, opt_cfg, donate=True)
+    sums0 = [float(x.double().sum()) for x in tree_leaves(params)]
+
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="phase22_ckpt_", dir=ROOT / "build"))
+    free = shutil.disk_usage(ckpt_dir).free
+    if free < 17 * n_params:
+        fail(f"train: {free / 1e9:.1f} GB free under build/, the checkpoint needs "
+             f"{16 * n_params / 1e9:.1f} GB")
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+
+    def run(p, o, first):
+        ms, losses, gnorms = [], [], []
+        for i in range(first, TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, o, m = step_fn(p, o, batches[i])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            if i + 1 == TRAIN_SAVE_AT and first == 0:
+                t = time.perf_counter()
+                mgr.save(i + 1, {"params": p, "opt": o}, {"loss": losses[-1]})
+                copy_s = time.perf_counter() - t
+                mgr.wait()
+                clock.update(save_copy_s=copy_s, save_s=time.perf_counter() - t)
+        return p, o, ms, losses, gnorms
+
+    clock = {}
+    try:
+        params, opt, ms, losses, gnorms = run(params, opt, 0)
+        peak = torch.cuda.max_memory_allocated()
+        say(f"  losses {losses}; grad norms {gnorms}; ms a step {[round(x, 1) for x in ms]}")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            fail(f"train: a loss or grad norm is not finite: {losses}, {gnorms}")
+        sums = [float(x.double().sum()) for x in tree_leaves(params)]
+        still = sum(a == b for a, b in zip(sums0, sums))
+        if still:
+            fail(f"train: {still} of {len(sums)} param leaves did not move in {TRAIN_STEPS} "
+                 f"steps")
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+        target = tree_map(lambda t: torch.empty_like(t, device="meta"),
+                          {"params": params, "opt": opt})
+        del opt
+        release(torch)
+        t = time.perf_counter()
+        restored = mgr.restore(target, device="cuda", step=TRAIN_SAVE_AT)
+        torch.cuda.synchronize()
+        clock["restore_s"] = time.perf_counter() - t
+        p_r, o_r, ms_r, losses_r, _ = run(restored["params"], restored["opt"], TRAIN_SAVE_AT)
+        del restored
+    finally:
+        mgr.wait()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if losses_r != losses[TRAIN_SAVE_AT:]:
+        fail(f"train: resumed losses {losses_r} != uninterrupted {losses[TRAIN_SAVE_AT:]}")
+    differ = [i for i, (a, b) in enumerate(zip(tree_leaves(params), tree_leaves(p_r)))
+              if not torch.equal(a, b)]
+    if differ:
+        fail(f"train: {len(differ)} resumed param leaves differ from the uninterrupted run's")
+    if int(o_r["step"]) != TRAIN_STEPS:
+        fail(f"train: the resumed optimizer counts {int(o_r['step'])} steps, not {TRAIN_STEPS}")
+    after = kernel_counts(K)
+    if after != before:
+        fail(f"train: kernels launched during training: "
+             f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }")
+    step_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    stats = {
+        "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "resumed_steps": TRAIN_STEPS - TRAIN_SAVE_AT,
+        "ms_per_step_median_2_to_8": step_ms, "ms_per_step": ms, "resumed_ms_per_step": ms_r,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "max_memory_allocated_gb": peak / 1e9,
+        "step_flops": flops, "bound_ms": flops / PEAK_FP32_FLOPS * 1e3, "bound_by": "operations",
+        "checkpoint_bytes": ckpt_bytes, "save_copy_s": clock["save_copy_s"],
+        "save_s": clock["save_s"], "restore_s": clock["restore_s"],
+        "losses": losses, "grad_norms": gnorms, "resumed_bitwise": True, "launches": 0,
+    }
+    say(f"  resumed at step {TRAIN_SAVE_AT}: steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} give the "
+        f"uninterrupted run's losses and params bit for bit; no kernel launched")
+    say(f"  training ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens a step): {json.dumps(stats)} "
+        f"[{card}]")
+    del params, p_r, o_r, batches
+    return stats
+
+
+# --------------------------------------------------------------------------- #
 # phase 18: tensor-parallel serving, two ranks on one card over gloo
 # --------------------------------------------------------------------------- #
 
@@ -4184,6 +4352,16 @@ def main() -> int:
     release(torch)
     phase_s["encdec"] = time.perf_counter() - t
 
+    # 22. training gemma3-1b at full width, with a checkpoint and a resume
+    t = time.perf_counter()
+    say(f"[train] gemma3-1b widths, 26 layers, fp32, {TRAIN_BATCH}x{TRAIN_SEQ} SyntheticLM "
+        f"tokens a step, make_train_step(donate=True), AdamW + warmup_cosine, remat, "
+        f"{TRAIN_STEPS} steps, a checkpoint at step {TRAIN_SAVE_AT} and a resume "
+        f"[{limit_line}]")
+    train_record = train_phase(torch, K, limit_line)
+    release(torch)
+    phase_s["train"] = time.perf_counter() - t
+
     # 12. the paper's five CNNs under six assignments
     t = time.perf_counter()
     say(f"[cnn] five CNNs, batch 1, six assignments [{limit_line}]")
@@ -4208,6 +4386,7 @@ def main() -> int:
     serving["load"] = load_record
     serving["deploy"] = deploy_record
     serving["tp"] = tp_record
+    serving["train"] = train_record
     for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)

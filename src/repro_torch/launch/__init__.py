@@ -1,2 +1,3 @@
-"""Launchers of the port: the serving entry point (:mod:`.serve`) and the
-paper's Fig. 2 CNN evaluation (:mod:`.cnn_eval`)."""
+"""Launchers of the port: the serving entry point (:mod:`.serve`), the
+training driver (:mod:`.train`) and the paper's Fig. 2 CNN evaluation
+(:mod:`.cnn_eval`)."""

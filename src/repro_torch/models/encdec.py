@@ -10,6 +10,7 @@ cached read-only.
 API (functions of params, a dict tree of tensors):
   init_params(seed, device)                         -> params
   encode(params, src_embeds)                        -> enc_out (B, S_src, d)
+  train_loss(params, batch)                         -> (loss, metrics)
   prefill(params, batch, cache_cap)                 -> (last_logits, caches, lengths)
   decode_step(params, tokens, caches, lengths, enc_lengths) -> (logits, new_caches)
   init_caches(batch, cache_cap, enc_len)            -> zero caches
@@ -17,8 +18,11 @@ API (functions of params, a dict tree of tensors):
 As in :class:`repro_torch.models.lm.LM`, the head goes through ``dense``
 with ``cfg.backend("dense")`` (the JAX package uses a bare einsum): on the
 card the batch-invariant GEMM kernel, so a batch's tokens equal batch-1
-runs'.  ``train_loss`` comes with the training slice (ROADMAP Queue 1 item
-13f).
+runs'.  ``train_loss`` is JAX's: the encoder and decoder stacks with
+``remat`` (each period recomputed in the backward pass), teacher-forced
+CE on ``batch["labels"]`` and no auxiliary term in the loss; it refuses a
+config with an op on a backend that has no backward pass
+(:func:`repro_torch.models.lm.check_trainable`).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, Block, LayerPlan
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.layers.common import dense, dense_init, embed_init, norm
-from repro_torch.models.lm import _dtype, mask_vocab
+from repro_torch.models.lm import _dtype, check_trainable, cross_entropy, mask_vocab
 from repro_torch.models.stack import init_stack_caches, stack_apply, stack_init
 
 __all__ = ["EncDec"]
@@ -68,22 +72,46 @@ class EncDec:
         }
 
     # ------------------------------------------------------------------ #
-    def encode(self, params: Params, src_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: Params, src_embeds: torch.Tensor,
+               remat: bool = True) -> torch.Tensor:
         """(B, S_src, d) frame embeddings -> the normed encoder output."""
         cfg = self.cfg
         h = src_embeds.to(_dtype(cfg.dtype))
         h, _, _ = stack_apply(params["encoder"], h, self.enc_plan, cfg=cfg, mode="train",
-                              causal=False)
+                              causal=False, remat=remat)
         return norm(h, params["enc_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
 
-    def _decode_trunk(self, params: Params, h: torch.Tensor, *, mode: str, caches,
-                      lengths, enc_out, enc_lengths, cache_cap):
+    def _decoder(self, params: Params, h: torch.Tensor, *, mode: str, caches,
+                 lengths, enc_out, enc_lengths, cache_cap, remat: bool = False):
+        """-> (h, new_caches, aux)"""
         cfg = self.cfg
-        h, new_caches, _ = stack_apply(
+        h, new_caches, aux = stack_apply(
             params["decoder"], h, self.dec_plan, cfg=cfg, mode=mode, caches=caches,
-            lengths=lengths, enc_out=enc_out, enc_lengths=enc_lengths, cache_cap=cache_cap)
+            lengths=lengths, enc_out=enc_out, enc_lengths=enc_lengths, cache_cap=cache_cap,
+            remat=remat)
         h = norm(h, params["final_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
-        return h, new_caches
+        return h, new_caches, aux
+
+    def _decode_trunk(self, params: Params, h: torch.Tensor, **kw):
+        """-> (h, new_caches)"""
+        return self._decoder(params, h, **kw)[:2]
+
+    # ------------------------------------------------------------------ #
+    def train_loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                   remat: bool = True):
+        """(ce, {"ce", "aux"}) of the decoder's next-token ``batch["labels"]``
+        given ``batch["src_embeds"]`` and the teacher-forced
+        ``batch["tokens"]``."""
+        cfg = self.cfg
+        check_trainable(cfg)
+        enc_out = self.encode(params, batch["src_embeds"], remat=remat)
+        h = params["embed"][batch["tokens"].long()].to(_dtype(cfg.dtype))
+        h, _, aux = self._decoder(params, h, mode="train", caches=None, lengths=None,
+                                  enc_out=enc_out, enc_lengths=None, cache_cap=None,
+                                  remat=remat)
+        logits = dense(h, params["lm_head"], backend=cfg.backend("dense"))
+        ce = cross_entropy(logits, batch["labels"], cfg)
+        return ce, {"ce": ce, "aux": aux}
 
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         return mask_vocab(dense(h, params["lm_head"], backend=self.cfg.backend("dense")),
@@ -95,7 +123,7 @@ class EncDec:
         ``batch["tokens"]``; returns (last-position logits (B, V), caches,
         lengths (B,) int32)."""
         cfg = self.cfg
-        enc_out = self.encode(params, batch["src_embeds"])
+        enc_out = self.encode(params, batch["src_embeds"], remat=False)
         b, s_src = enc_out.shape[0], enc_out.shape[1]
         tokens = batch["tokens"]
         h = params["embed"][tokens.long()].to(_dtype(cfg.dtype))

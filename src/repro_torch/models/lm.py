@@ -10,6 +10,7 @@ through its ``embeds`` frontend.  The encoder-decoder config
 
 API (functions of params, a dict tree of tensors):
   init_params(seed, device)                -> params (drawn on the device)
+  train_loss(params, batch)                -> (loss, metrics)
   prefill(params, batch, cache_cap)        -> (last_logits, caches, lengths)
   decode_step(params, tokens, caches, lengths) -> (logits, new_caches)
 
@@ -19,8 +20,20 @@ GEMM kernel, so the batched decode step's logits equal the unbatched
 ones bit for bit.  The kernel wants a contiguous (d, V) weight, so tied
 params carry ``embed_t``, one contiguous transposed copy of the embedding
 made when the params are built (init_params, params_from_numpy) and never
-per step.  ``train_loss`` and ``cross_entropy`` come with the training
-slice (ROADMAP Queue 1 item 13f).
+per step.
+
+Training (``train_loss``, as JAX's) differentiates with ``torch.autograd``
+through the config's own backends, which are plain PyTorch (``ref``, and
+mamba2's and zamba2's ``chunked`` ssd): the JAX package trains through
+its ``ref`` backends too, and none of its kernels has a backward pass.  A
+``cuda`` kernel's output has no ``grad_fn``, so :func:`check_trainable`
+refuses a config that puts any op on a backend outside
+:data:`DIFFERENTIABLE_BACKENDS`, naming the op.  The trainable tree is
+exactly JAX's: :func:`strip_derived` takes the derived serving leaves
+(``embed_t``, MLA's ``wuk_h`` / ``wuv_h``) out, and ``train_loss`` refuses
+params that carry them (a gradient into ``embed_t`` would train a stale
+copy of the tied embedding); :func:`with_derived` adds them back for
+serving.  The tied head is ``h @ params["embed"].T``, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,7 +49,9 @@ from repro_torch.layers.attention import is_mla, with_mla_heads
 from repro_torch.layers.common import dense, dense_init, embed_init, norm
 from repro_torch.models.stack import check_block, init_stack_caches, stack_apply, stack_init
 
-__all__ = ["LM", "CUDA_BACKENDS", "mask_vocab", "params_from_numpy"]
+__all__ = ["LM", "CUDA_BACKENDS", "DIFFERENTIABLE_BACKENDS", "DERIVED_LEAVES", "mask_vocab",
+           "cross_entropy", "check_trainable", "params_from_numpy", "strip_derived",
+           "with_derived"]
 
 Params = Dict[str, Any]
 
@@ -44,6 +59,15 @@ Params = Dict[str, Any]
 # (they override a config's own choice, such as mamba2's ``ssd: chunked``).
 CUDA_BACKENDS = {"attention": "cuda", "decode_attention": "cuda", "rmsnorm": "cuda",
                  "dense": "cuda", "moe_gemm": "cuda", "ssd": "cuda"}
+
+# The backends training may run on: plain PyTorch, which autograd
+# differentiates (a ``cuda`` backend runs its plain version on CPU tensors
+# but launches a kernel without a backward pass on the card).
+DIFFERENTIABLE_BACKENDS = frozenset({"ref", "chunked"})
+
+# Leaves derived from others when params are built for serving: the tied
+# head's transposed embedding and MLA's per-head up-projections.
+DERIVED_LEAVES = ("embed_t", "wuk_h", "wuv_h")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -56,6 +80,67 @@ def mask_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return logits
     mask = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
     return torch.where(mask, logits, torch.full_like(logits, -1e30))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """Token-mean CE in f32; every label < 0 is ignored (the padding vocab
+    rows masked to -1e30 first)."""
+    logits = mask_vocab(logits, cfg).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(labels.long(), min=0)[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    nll = (lse - ll) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` naming the first op ``cfg`` puts on a backend
+    with no backward pass."""
+    for op, backend in sorted(cfg.backends.items()):
+        if backend not in DIFFERENTIABLE_BACKENDS:
+            raise ValueError(
+                f"{cfg.name}: op {op!r} runs on backend {backend!r}, which has no backward "
+                f"pass; train on {sorted(DIFFERENTIABLE_BACKENDS)} (the config's own "
+                f"backends), as the JAX package trains on its ref backends")
+
+
+def _derived_paths(tree: Any, prefix: str = "") -> list:
+    """Paths of the derived serving leaves in ``tree``."""
+    if isinstance(tree, dict):
+        out = []
+        for k, v in tree.items():
+            path = f"{prefix}/{k}"
+            out += [path] if k in DERIVED_LEAVES else _derived_paths(v, path)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _derived_paths(v, f"{prefix}/{i}")]
+    return []
+
+
+def strip_derived(params: Params) -> Params:
+    """The trainable tree (JAX's): ``params`` without the derived serving
+    leaves; the other leaves are shared, not copied."""
+    if isinstance(params, dict):
+        return {k: strip_derived(v) for k, v in params.items() if k not in DERIVED_LEAVES}
+    if isinstance(params, (list, tuple)):
+        return [strip_derived(v) for v in params]
+    return params
+
+
+def with_derived(params: Params) -> Params:
+    """A trained tree ready to serve: the derived leaves computed anew from
+    the trained ones (``embed_t`` when the embedding is tied, ``wuk_h`` /
+    ``wuv_h`` in each MLA mixer)."""
+    def conv(x):
+        if isinstance(x, dict):
+            out = {k: conv(v) for k, v in x.items() if k not in DERIVED_LEAVES}
+            return with_mla_heads(out) if is_mla(out) else out
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return x
+
+    return _with_head(conv(params))
 
 
 def _with_head(params: Params) -> Params:
@@ -131,16 +216,36 @@ class LM:
 
     # ------------------------------------------------------------------ #
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,
-                mode: str, caches=None, lengths=None, cache_cap: Optional[int] = None):
+                mode: str, caches=None, lengths=None, cache_cap: Optional[int] = None,
+                remat: Optional[bool] = None):
         cfg = self.cfg
+        remat = cfg.remat if remat is None else remat
         h = self._embed(params, batch, _dtype(cfg.dtype))
         # zamba2's shared blocks re-read the initial embedding (at decode,
         # the current token's)
         h, new_caches, aux = stack_apply(
             params["stack"], h, cfg.plan, cfg=cfg, mode=mode, caches=caches,
-            lengths=lengths, emb0=h, cache_cap=cache_cap)
+            lengths=lengths, emb0=h, cache_cap=cache_cap, remat=remat)
         h = norm(h, params["final_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
         return h, new_caches, aux
+
+    # ------------------------------------------------------------------ #
+    def train_loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                   aux_weight: float = 0.01, remat: Optional[bool] = None):
+        """(loss, {"ce", "aux"}): the token-mean CE of the next-token
+        ``batch["labels"]`` plus ``aux_weight`` times the MoE balance loss.
+        ``params`` is the trainable tree (:func:`strip_derived`)."""
+        check_trainable(self.cfg)
+        derived = _derived_paths(params)
+        if derived:
+            raise ValueError(f"train_loss takes the trainable tree; params carry the derived "
+                             f"serving leaves {derived[:3]}: pass strip_derived(params)")
+        h, _, aux = self.forward(params, batch, mode="train", remat=remat)
+        w = params["embed"].t() if self.cfg.tie_embeddings else params["lm_head"]
+        logits = dense(h, w, backend=self.cfg.backend("dense"))
+        ce = cross_entropy(logits, batch["labels"], self.cfg)
+        loss = ce + aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------ #
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,

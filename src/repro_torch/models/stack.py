@@ -10,6 +10,16 @@ Every block kind of the configs is ported: ``attn``/``attn_local``/``mla``/
 and cross-attention (``Block.cross``, the encoder-decoder's decoder blocks,
 which read ``enc_out`` at train / prefill and their cross cache at decode).
 
+Train mode with ``remat`` runs each period under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as JAX
+wraps the period body in ``jax.checkpoint``: the backward pass recomputes
+the period's activations instead of keeping them, so the live set is
+O(period).  The numbers are the same with and without it; only memory
+changes.  (JAX's policy keeps the matmul outputs; here nothing inside a
+period is kept.)  A period's parameters are views of the stacked tensors
+(``unbind`` once per call), so the backward pass stacks their gradients in
+one op.
+
 Zamba2's *shared* attention blocks live OUTSIDE the stacking: the stack's
 ``"shared"`` slot holds two blocks stacked on axis 0, and an application
 uses block ``period_idx % 2`` (prefix blocks 0, suffix blocks
@@ -27,8 +37,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Block, LayerPlan
+from repro_torch.core.tree import tree_map
 from repro_torch.layers.attention import (attn_apply, attn_init, mla_apply, mla_init,
                                           shared_attn_apply, shared_attn_init)
 from repro_torch.layers.common import norm
@@ -50,16 +62,17 @@ def check_block(blk: Block) -> None:
         raise ValueError(f"unknown ffn {blk.ffn!r}")
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the tensors of dict/list trees of one structure."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return [_tree_map(fn, *xs) for xs in zip(*trees)]
-    if t0 is None:
-        return None
-    return fn(*trees)
+def _unbind(tree: Any, n: int) -> List[Any]:
+    """A tree of stacked (n, ...) tensors -> n trees of their slices."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        per = [_unbind(v, n) for v in tree]
+        return [[p[i] for p in per] for i in range(n)]
+    if tree is None:
+        return [None] * n
+    return list(tree.unbind(0))
 
 
 # --------------------------------------------------------------------------- #
@@ -159,24 +172,27 @@ def stack_init(gen: torch.Generator, cfg: ArchConfig, plan: LayerPlan, *,
         for i in range(plan.n_periods):
             one = block_init(gen, cfg, blk, dtype=dtype)
             if i == 0:
-                stacked = _tree_map(lambda a: torch.empty((plan.n_periods, *a.shape),
+                stacked = tree_map(lambda a: torch.empty((plan.n_periods, *a.shape),
                                                           dtype=a.dtype, device=a.device), one)
-            _tree_map(lambda out, a: out[i].copy_(a), stacked, one)
+            tree_map(lambda out, a: out[i].copy_(a), stacked, one)
         p["period"].append(stacked)
     for blk in plan.suffix:
         p["suffix"].append(block_init(gen, cfg, blk, dtype=dtype))
     if any(b.mixer == "shared_attn" for b in plan.all_blocks()):
         # two alternating shared blocks (Zamba2), stacked on axis 0
         sh = [shared_attn_init(gen, cfg, dtype=dtype) for _ in range(2)]
-        p["shared"] = _tree_map(lambda *xs: torch.stack(xs), *sh)
+        p["shared"] = tree_map(lambda *xs: torch.stack(xs), *sh)
     return p
 
 
 def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
                 cfg: ArchConfig, mode: str, caches: Any = None,
                 lengths=None, emb0=None, enc_out=None, enc_lengths=None,
-                cache_cap: Optional[int] = None, causal: bool = True):
-    """Returns (h, new_caches, aux_total); new_caches is None in train mode."""
+                cache_cap: Optional[int] = None, causal: bool = True,
+                remat: bool = True):
+    """Returns (h, new_caches, aux_total); new_caches is None in train mode.
+    ``remat`` recomputes each period in the backward pass (train mode with
+    gradients on only)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = caches or {"prefix": [None] * len(plan.prefix),
                         "period": [None] * len(plan.period),
@@ -187,7 +203,7 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
     def pick_shared(period_idx: int) -> Optional[Params]:
         if shared is None:
             return None
-        return _tree_map(lambda a: a[period_idx % 2], shared)
+        return tree_map(lambda a: a[period_idx % 2], shared)
 
     common = dict(cfg=cfg, mode=mode, lengths=lengths, emb0=emb0, enc_out=enc_out,
                   enc_lengths=enc_lengths, cache_cap=cache_cap, causal=causal)
@@ -198,25 +214,40 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
         aux_total = aux_total + aux
 
     if plan.n_periods > 0:
+        per_params = [_unbind(p, plan.n_periods) for p in params["period"]]
+
+        def period(h, aux_total, pidx):
+            """One period's blocks -> (h, aux_total, their new caches)."""
+            cs = []
+            for j, blk in enumerate(plan.period):
+                bc = caches["period"][j]
+                bc = None if bc is None else tree_map(lambda a: a[pidx], bc)
+                h, c, aux = block_apply(per_params[j][pidx], h, blk, cache=bc,
+                                        shared_params=pick_shared(pidx), **common)
+                aux_total = aux_total + aux
+                cs.append(c)
+            return h, aux_total, cs
+
         # each period's new cache is copied into one (n_periods, ...) tensor
         # per leaf as soon as it exists, so at most one period's worth of
         # new caches lives beside the stacked input and output
         stacked: List[Any] = [None] * len(plan.period)
+        recompute = remat and mode == "train" and torch.is_grad_enabled()
         for pidx in range(plan.n_periods):
-            for j, blk in enumerate(plan.period):
-                bp = _tree_map(lambda a: a[pidx], params["period"][j])
-                bc = caches["period"][j]
-                bc = None if bc is None else _tree_map(lambda a: a[pidx], bc)
-                h, c, aux = block_apply(bp, h, blk, cache=bc,
-                                        shared_params=pick_shared(pidx), **common)
-                aux_total = aux_total + aux
-                if mode == "train" or c is None:
+            if recompute:
+                h, aux_total, _ = checkpoint(period, h, aux_total, pidx, use_reentrant=False)
+                continue
+            h, aux_total, cs = period(h, aux_total, pidx)
+            if mode == "train":
+                continue
+            for j, c in enumerate(cs):
+                if c is None:
                     continue
                 if stacked[j] is None:
-                    stacked[j] = _tree_map(
+                    stacked[j] = tree_map(
                         lambda a: torch.empty((plan.n_periods, *a.shape), dtype=a.dtype,
                                               device=a.device), c)
-                _tree_map(lambda out, a: out[pidx].copy_(a), stacked[j], c)
+                tree_map(lambda out, a: out[pidx].copy_(a), stacked[j], c)
         if mode != "train":
             new_caches["period"] = stacked
 

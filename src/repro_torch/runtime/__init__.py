@@ -1,8 +1,8 @@
-"""Serving runtime of the port: slot scheduling and the continuous batcher
+"""Runtime of the port: slot scheduling and the continuous batcher
 over layer-stack models (:mod:`.batching`), the Program-backed dense and
 paged engine with self-healing, tier-aware overload control and its
-asyncio front end (:mod:`.engine`), and the trace-driven load harness
-(:mod:`.loadgen`)."""
+asyncio front end (:mod:`.engine`), the trace-driven load harness
+(:mod:`.loadgen`) and the single-device train step (:mod:`.train`)."""
 
 from repro_torch.runtime.batching import ContinuousBatcher, Request, SlotScheduler
 from repro_torch.runtime.engine import (AsyncEngine, CheckpointSlot, Engine, EngineCheckpoint,
@@ -12,6 +12,7 @@ from repro_torch.runtime.engine import (AsyncEngine, CheckpointSlot, Engine, Eng
 from repro_torch.runtime.kv_cache import BlockPool
 from repro_torch.runtime.loadgen import (SLO, PrefixPopulation, TierSpec, Trace, TraceConfig,
                                          TraceRequest, generate_trace, run_load)
+from repro_torch.runtime.train import make_train_step
 
 __all__ = ["ContinuousBatcher", "Request", "SlotScheduler",
            "AsyncEngine", "Engine", "EngineMetrics", "EngineRequest",
@@ -19,4 +20,4 @@ __all__ = ["ContinuousBatcher", "Request", "SlotScheduler",
            "BlockPool", "build_lm_serving",
            "EngineCheckpoint", "CheckpointSlot", "TickFailure",
            "SLO", "TierSpec", "PrefixPopulation", "Trace", "TraceConfig",
-           "TraceRequest", "generate_trace", "run_load"]
+           "TraceRequest", "generate_trace", "run_load", "make_train_step"]

@@ -37,8 +37,8 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_heads", "tree_decode_attention", "ring_allgather_matmul",
-           "allgather_bytes", "agree_status"]
+__all__ = ["all_gather_heads", "all_reduce", "tree_decode_attention",
+           "ring_allgather_matmul", "allgather_bytes", "agree_status"]
 
 
 def allgather_bytes(nbytes: float, degree: int) -> float:
@@ -60,7 +60,9 @@ def all_gather_heads(x: torch.Tensor, mesh: Any, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+    """``op`` of every rank's ``x`` over the default process group, in a
+    new tensor (``x`` is left as it is)."""
     buf = x.clone()
     dist.all_reduce(buf, op=op)
     return buf
@@ -98,12 +100,12 @@ def tree_decode_attention(mesh: Any, q: torch.Tensor, k: torch.Tensor, v: torch.
     if n == 1:
         m_glob = m
     else:
-        m_glob = _all_reduce(m, dist.ReduceOp.MAX)
+        m_glob = all_reduce(m, dist.ReduceOp.MAX)
     alpha = torch.exp(m - m_glob)
     l_part, acc_part = l * alpha, acc.float() * alpha[..., None]
     if n > 1:
-        l_part = _all_reduce(l_part, dist.ReduceOp.SUM)
-        acc_part = _all_reduce(acc_part, dist.ReduceOp.SUM)
+        l_part = all_reduce(l_part, dist.ReduceOp.SUM)
+        acc_part = all_reduce(acc_part, dist.ReduceOp.SUM)
     return (acc_part / torch.clamp(l_part, min=1e-30)[..., None]).to(q.dtype)
 
 

@@ -1650,3 +1650,80 @@ def test_encdec_on_the_card_matches_batch_one_and_the_cpu():
                 assert torch.equal(one[0], runs[str(dev)][0][i])
     assert torch.equal(runs[str(dev)][0].cpu(), runs["cpu"][0])
     torch.testing.assert_close(runs[str(dev)][1].cpu(), runs["cpu"][1], rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# training (the config's differentiable backends on the card)
+# --------------------------------------------------------------------------- #
+
+def _train_case(arch, dev):
+    """A reduced config's model, its trainable params drawn on the CPU and
+    moved to ``dev`` (the same values on both sides), and a SyntheticLM
+    batch as launch/train.py builds it."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.lm import LM, strip_derived
+    cfg = get_reduced(arch)
+    model = EncDec(cfg) if cfg.n_encoder_layers else LM(cfg)
+    params = strip_derived(model.init_params(0, device="cpu"))
+    batch = dict(SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=2, seed=0).batch_at(0))
+    rng = np.random.default_rng(0)
+    if cfg.n_encoder_layers:
+        batch["src_embeds"] = rng.standard_normal((2, 16, cfg.d_model), np.float32)
+        batch["tokens"], batch["labels"] = batch["tokens"][:, :16], batch["labels"][:, :16]
+    elif cfg.frontend == "embeds":
+        batch["embeds"] = rng.standard_normal((2, 32, cfg.d_model), np.float32)
+    return cfg, model, params, tree_map(lambda t: t.to(dev), params), batch
+
+
+TRAIN_ARCHS = ["gemma3-1b", "phi3-mini-3.8b", "stablelm-12b", "minitron-4b", "pixtral-12b",
+               "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "mamba2-370m", "zamba2-7b",
+               "seamless-m4t-medium"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    """Loss and every gradient leaf on the card within 1e-4 of the CPU's
+    (relative to the leaf's largest magnitude), then one make_train_step
+    step's loss and grad norm; no kernel launches."""
+    dev = _card()
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train import make_train_step, value_and_grad
+    cfg, model, p_cpu, p_dev, batch = _train_case(arch, dev)
+    before = (gemm.launches, flash_attention.launches)
+    loss_c, _, g_cpu = value_and_grad(model, p_cpu, batch)
+    loss_d, _, g_dev = value_and_grad(model, p_dev, batch)
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for a, b in zip(tree_leaves(g_dev), tree_leaves(g_cpu)):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+    opt_cfg = AdamWConfig(lr=1e-3)
+    _, _, m_c = make_train_step(model, cfg, opt_cfg, donate=False)(
+        p_cpu, adamw.init(p_cpu, opt_cfg), batch)
+    _, _, m_d = make_train_step(model, cfg, opt_cfg)(p_dev, adamw.init(p_dev, opt_cfg), batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_d[k]) - float(m_c[k])) <= 1e-4 * abs(float(m_c[k])), k
+    assert (gemm.launches, flash_attention.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_is_deterministic_and_remat_free(arch):
+    """The same step twice gives bitwise-equal gradients on the card, and
+    remat on and off give the same bits."""
+    dev = _card()
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.runtime.train import value_and_grad
+    cfg, model, _, p_dev, batch = _train_case(arch, dev)
+    runs = [value_and_grad(model, p_dev, batch, remat=r) for r in (True, True, False)]
+    for _, _, g in runs[1:]:
+        for a, b in zip(tree_leaves(runs[0][2]), tree_leaves(g)):
+            assert torch.equal(a, b)
+    assert len({float(r[0]) for r in runs}) == 1
