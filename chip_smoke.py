@@ -217,10 +217,13 @@ Phases, each printing its own lines; any failure exits non-zero:
              launch.serve --engine --int8 at its defaults, in-process.
              Prints bundle bytes, save, load and first-call seconds and the
              async tokens/s beside phase 5's.
-18. tp     — tensor-parallel serving (right after phase 16, on phase 5's
-             weights): the parent serves phase 5's 8 requests (32 new) on
-             single-rank dense, paged fp32 and paged int8 engines (phases
-             5-7's settings), then drops them and the weights; gloo's
+18. tp     — tensor-parallel serving (right after phase 16), at phi3-mini's
+             widths with depth cut to TP_LAYERS = 8 of 32 (for the
+             script's time limit; phase 5's weights are dropped and the
+             seed-0 weights drawn at that depth): the parent serves phase
+             5's 8 requests (32 new) on single-rank dense, paged fp32 and
+             paged int8 engines (phases 5-7's settings), then drops them
+             and the weights; gloo's
              batch_isend_irecv is tried directly on CUDA tensors by a
              pair of ranks (a refusal may abort the pair: why the ring
              matmul stages through host memory); then two ranks on cuda:0
@@ -232,7 +235,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              engine's on both ranks, launches a rank exactly the tick
              counts' (flash_decode + combine_partials or flash_paged_decode
              + combine_partials a decode tick, flash_chunk_attention or
-             flash_paged_chunk_attention a prefill tick, 32 each, at 16 of
+             flash_paged_chunk_attention a prefill tick, 8 each, at 16 of
              32 query heads; gemm and rmsnorm replicated); a self_heal
              paged fp32 engine with crashes at stepper calls TP_HEAL_CALLS
              on both ranks, two recoveries, the clean run's tokens; each
@@ -293,10 +296,41 @@ Phases, each printing its own lines; any failure exits non-zero:
              step's bound ((6 N T + 3x the forward attention) FLOP at 67
              TFLOP/s), checkpoint bytes, save (device-to-host copy, then
              write) and restore seconds.
+23. mesh_train — (after 22) gemma3-1b at its published widths cut to
+             MESH_TRAIN_PERIODS (1) period, 6 layers (5 sliding-window + 1
+             global; 0.46 B params, the 1.21 GB tied vocab included), fp32:
+             23a one process, init_params(0), phase 22's AdamW and schedule,
+             TRAIN_BATCH x TRAIN_SEQ SyntheticLM tokens, remat: step 1's
+             value_and_grad, then MESH_TRAIN_STEPS (2) make_train_step
+             (donate=False) steps, gradients, losses, grad norms and params
+             kept on the host; 23b four ranks on the card over gloo
+             (spawn_ranks, make_mesh((2, 2), ("data", "model"))), each
+             sharding the same init by train_state_shardings: step 1's
+             value_and_grad(mesh=...) and two donated
+             make_train_step(mesh=...) steps, rank 0 saving the state
+             through CheckpointManager(specs=, mesh=); 23c pipeline_apply on
+             a ("pod",) mesh of the same ranks: blocks 0-3 of the init as
+             four stages of one sliding-window block's train-mode forward
+             on PIPE_MICRO (8) seeded (1, 1024, 1152) microbatches.  Fails
+             unless step 1's gathered gradients lie within 1e-4 of each
+             leaf's largest |value| of 23a's, the losses and grad norms
+             within 1e-5 relative on every rank, the gathered params after
+             step 2 within 1e-4, every rank's mu holds the elements its
+             specs give it (fewer than the params'), the checkpoint
+             restored in this process on one device has the sha256 of every
+             leaf rank 0 gathered, the pipeline equals the sequential
+             blocks within 1e-5 of its largest |value| on every rank, each
+             stage running once a microbatch (8 times in the schedule's
+             11 ticks), and no kernel launched.  Prints ms a step of 23a and of
+             23b by rank (functional: gloo through the host on one card, no
+             DP or TP speed), peak GB a rank and their sum, rank 0's bytes
+             gathered and all-reduced in a step, checkpoint save and restore
+             seconds, the pipeline's ticks and bubble (3/11).
 
 The last three lines of standard output are JSON: the serving numbers
 (phases 15, 16, 17 and 18 under "heal", "load", "deploy" and "tp"; 19-21 under
-"hybrid", "mla" (with the k_cat copy's time) and "encdec"; 22 under "train"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+"hybrid", "mla" (with the k_cat copy's time) and "encdec"; 22 under "train",
+23 under "mesh_train"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -3567,10 +3601,330 @@ def train_phase(torch, K, card):
 
 
 # --------------------------------------------------------------------------- #
+# phase 23: sharded training on a (data 2, model 2) process mesh, and the
+# pipeline over "pod", four ranks on one card over gloo
+# --------------------------------------------------------------------------- #
+
+MESH_TRAIN_PERIODS = 1            # depth cut: 6 of 26 layers, one period of 5 local + 1 global
+MESH_TRAIN_STEPS = 2
+MESH_SHAPE = (2, 2)               # (data, model)
+PIPE_STAGES, PIPE_MICRO, PIPE_SEED = 4, 8, 23
+
+
+def mesh_train_setup(torch, device):
+    """(cfg, model, AdamW config, batches) of phase 23: gemma3-1b's widths at
+    MESH_TRAIN_PERIODS periods, fp32, phase 22's AdamW and schedule, its
+    first MESH_TRAIN_STEPS SyntheticLM batches on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerPlan
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    cfg = get_config("gemma3-1b")
+    cfg = cfg.with_overrides(dtype="float32", param_dtype="float32",
+                             plan=LayerPlan(period=cfg.plan.period, n_periods=MESH_TRAIN_PERIODS))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, schedule=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in ds.batch_at(i).items()}
+               for i in range(MESH_TRAIN_STEPS)]
+    return cfg, LM(cfg), opt_cfg, batches
+
+
+def pipe_parts(torch, cfg, params, device):
+    """23c's stage weights (blocks 0-3 of the period, stacked on a stage
+    axis, copies), its seeded (PIPE_MICRO, 1, TRAIN_SEQ, d) input and its
+    stage function: one sliding-window block's train-mode forward."""
+    import numpy as np
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.stack import block_apply
+    per = params["stack"]["period"]
+    blocks = tree_map(lambda *xs: torch.stack(xs),
+                      *[tree_map(lambda a: a[0], per[j]) for j in range(PIPE_STAGES)])
+    x = np.random.default_rng(PIPE_SEED).standard_normal(
+        (PIPE_MICRO, 1, TRAIN_SEQ, cfg.d_model)).astype(np.float32)
+    blk = cfg.plan.period[0]
+    return blocks, torch.from_numpy(x).to(device), \
+        lambda p, h: block_apply(p, h, blk, cfg=cfg, mode="train")[0]
+
+
+def sha256_all(arrays):
+    """The sha256 of each host array's bytes, hashed on threads (hashlib
+    releases the interpreter lock on large buffers)."""
+    import concurrent.futures
+    import hashlib
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda a: hashlib.sha256(a.data).hexdigest(), arrays))
+
+
+def shard_numel(shape, spec, sizes):
+    """Elements of one rank's slice of ``shape`` under ``spec``."""
+    from repro_torch.sharding.specs import spec_axes
+    n = math.prod(shape)
+    for entry in spec:
+        for a in spec_axes(entry):
+            n //= sizes[a]
+    return n
+
+
+def mesh_train_rank(ckpt_dir, device):
+    """One rank of phase 23 (run by spawn_ranks): the same init sharded by
+    train_state_shardings, step 1's value_and_grad and MESH_TRAIN_STEPS
+    donated make_train_step(mesh=...) steps, the CheckpointManager save,
+    the sha256 of every state leaf gathered to rank 0, then 23c's pipeline on
+    a ("pod",) mesh of the same ranks.  Returns what the parent checks."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.io import gather_to_host
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import strip_derived
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.pipeline import pipeline_apply
+    from repro_torch.runtime.train import make_train_step, train_state_shardings, value_and_grad
+    from repro_torch.sharding.specs import shard_tree
+    K = Kernels()
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device=device)
+    dev, rank0 = mesh.device, mesh.rank == 0
+    cfg, model, opt_cfg, batches = mesh_train_setup(torch, dev)
+    full = strip_derived(model.init_params(0, device=dev))
+    blocks, x, stage = pipe_parts(torch, cfg, full, dev)
+    p_spec, o_spec, _ = train_state_shardings(model, cfg, mesh, batches[0], opt_cfg)
+    params = shard_tree(full, p_spec, mesh)
+    opt = shard_tree(adamw.init(full, opt_cfg), o_spec, mesh)
+    del full
+    release(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_counts(K)
+
+    t = time.perf_counter()
+    _, _, grads = value_and_grad(model, params, batches[0], mesh=mesh, specs=p_spec)
+    grads_host = gather_to_host(grads, p_spec, mesh)
+    grads_host = list(grads_host.values()) if rank0 else None
+    del grads
+    clock = {"setup_s": t - t_start, "value_and_grad_s": time.perf_counter() - t}
+    step_fn = make_train_step(model, cfg, opt_cfg, mesh=mesh, batch_example=batches[0],
+                              donate=True)
+    ms, losses, gnorms, traffic = [], [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        mesh.traffic.update(gathered=0, reduced=0)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[i])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        traffic.append(dict(mesh.traffic))
+    peak = torch.cuda.max_memory_allocated()
+    state, specs = {"params": params, "opt": opt}, {"params": p_spec, "opt": o_spec}
+    t = time.perf_counter()
+    CheckpointManager(ckpt_dir, keep=1).save(MESH_TRAIN_STEPS, state, specs=specs, mesh=mesh)
+    clock["save_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    whole = gather_to_host(state, specs, mesh)
+    digests = sha256_all(whole.values()) if rank0 else None
+    del whole
+    clock["digest_s"] = time.perf_counter() - t
+    mu_numel = sum(v.numel() for v in tree_leaves(opt["mu"]))
+    del state, params, opt
+    release(torch)
+
+    pod = make_mesh((PIPE_STAGES,), ("pod",), device=device)
+    calls = []
+
+    def counted(p, h):
+        calls.append(1)
+        return stage(p, h)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = pipeline_apply(pod, counted, blocks, x, axis="pod")
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t
+    after = kernel_counts(K)
+    return {"coords": dict(mesh.coords), "backend": mesh.backend, "ms": ms, "losses": losses,
+            "grad_norms": gnorms, "traffic": traffic, "peak": peak, "mu_numel": mu_numel,
+            "clock": clock, "grads": grads_host, "digests": digests,
+            "pipe": y.cpu().numpy() if rank0 else None, "pipe_calls": len(calls), "pipe_s": pipe_s,
+            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+
+
+def mesh_train_phase(torch, K, card, device="cuda:0"):
+    """Phase 23 (see the module docstring): the main process and the four
+    ranks on ``device``.  Returns its record."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_test_mesh, spawn_ranks
+    from repro_torch.models.lm import strip_derived
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import make_train_step, train_state_shardings, value_and_grad
+    from repro_torch.sharding.specs import spec_leaves
+
+    # 23a: one process
+    t0 = time.perf_counter()
+    cfg, model, opt_cfg, batches = mesh_train_setup(torch, device)
+    before = kernel_counts(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = strip_derived(model.init_params(0, device=device))
+    blocks, x, stage = pipe_parts(torch, cfg, params, device)
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    opt = adamw.init(params, opt_cfg)
+    say(f"  {cfg.plan.n_layers} layers ({n_params / 1e6:.2f} M params, "
+        f"{4 * n_params / 1e9:.2f} GB fp32), {TRAIN_BATCH}x{TRAIN_SEQ} tokens a step")
+    _, _, grads = value_and_grad(model, params, batches[0])
+    ref_grads = [g.cpu() for g in tree_leaves(grads)]
+    del grads
+    step_fn = make_train_step(model, cfg, opt_cfg, donate=False)
+    ms_a, losses, gnorms = [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[i])
+        torch.cuda.synchronize()
+        ms_a.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    ref_params = [v.cpu() for v in tree_leaves(params)]
+    peak_a = torch.cuda.max_memory_allocated()
+    target = tree_map(lambda v: torch.empty_like(v, device="meta"), {"params": params, "opt": opt})
+    del params, opt
+    release(torch)
+    one_s = time.perf_counter() - t0
+    say(f"  23a one process: losses {losses}, grad norms {gnorms}, ms a step "
+        f"{[round(v, 2) for v in ms_a]}, peak {peak_a / 1e9:.2f} GB [{card}]")
+
+    # 23b and 23c: four ranks on one card
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="phase23_ckpt_", dir=ROOT / "build"))
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        if free < 20 * n_params:
+            fail(f"mesh_train: {free / 1e9:.1f} GB free under build/, the checkpoint needs "
+                 f"{16 * n_params / 1e9:.1f} GB")
+        t = time.perf_counter()
+        ranks = spawn_ranks(mesh_train_rank, math.prod(MESH_SHAPE), str(ckpt_dir), device,
+                            timeout=600)
+        spawn_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored = CheckpointManager(str(ckpt_dir)).restore(target, device=device,
+                                                            step=MESH_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host = [v.cpu() for v in tree_leaves(restored)]
+        digests = sha256_all([v.numpy() for v in host])
+        digest_s = time.perf_counter() - t
+        got_params = host[:len(tree_leaves(restored["params"]))]
+        del restored, host
+        release(torch)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    r0 = ranks[0]
+
+    # gates
+    grad_err = max(float((a - torch.from_numpy(b)).abs().max() / max(float(a.abs().max()), 1e-30))
+                   for a, b in zip(ref_grads, r0["grads"]))
+    if not grad_err <= 1e-4:
+        fail(f"mesh_train: step 1's gathered gradients differ from one process's by {grad_err:.3e} "
+             f"of a leaf's largest")
+    for r in ranks:
+        for name, got, want in (("loss", r["losses"], losses), ("grad norm", r["grad_norms"], gnorms)):
+            if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(got, want)):
+                fail(f"mesh_train: rank at {r['coords']}: {name}es {got} != one process's {want}")
+        if r["launches"]:
+            fail(f"mesh_train: kernels launched on rank {r['coords']}: {r['launches']}")
+    if digests != r0["digests"]:
+        bad = sum(a != b for a, b in zip(digests, r0["digests"]))
+        fail(f"mesh_train: {bad} restored leaves are not bitwise the gathered shards")
+    param_err = max(float((a - b).abs().max()) for a, b in zip(ref_params, got_params))
+    if not param_err < 1e-4:
+        fail(f"mesh_train: params after step {MESH_TRAIN_STEPS} differ from one process's by "
+             f"{param_err:.3e}")
+    _, o_spec, _ = train_state_shardings(model, cfg, make_test_mesh(*MESH_SHAPE), batches[0],
+                                         opt_cfg)
+    sizes = dict(zip(("data", "model"), MESH_SHAPE))
+    mu_leaves = target["opt"]["mu"]
+    for r in ranks:
+        want = sum(shard_numel(v.shape, sp, sizes) for v, sp in
+                   zip(tree_leaves(mu_leaves), spec_leaves(mu_leaves, o_spec["mu"])))
+        if r["mu_numel"] != want or not want < n_params:
+            fail(f"mesh_train: rank at {r['coords']} holds {r['mu_numel']} mu elements; the "
+                 f"specs give {want} of {n_params}")
+    with torch.no_grad():
+        seq = []
+        for mb in range(PIPE_MICRO):
+            h = x[mb]
+            for s in range(PIPE_STAGES):
+                h = stage(tree_map(lambda a: a[s], blocks), h)
+            seq.append(h)
+        seq = torch.stack(seq).cpu()
+    scale = float(seq.abs().max())
+    pipe_err = float((torch.from_numpy(r0["pipe"]) - seq).abs().max()) / scale
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    if not pipe_err <= 1e-5:
+        fail(f"mesh_train: the pipeline differs from the sequential blocks by {pipe_err:.3e} of "
+             f"the largest |value|")
+    for r in ranks:
+        if r["pipe_calls"] != PIPE_MICRO:
+            fail(f"mesh_train: the stage at {r['coords']} ran {r['pipe_calls']} times, not once "
+                 f"a microbatch ({PIPE_MICRO})")
+    after = kernel_counts(K)
+    if after != before:
+        fail(f"mesh_train: kernels launched: "
+             f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }")
+    del blocks, x, seq
+
+    ms_b = [r["ms"] for r in ranks]
+    peaks = [r["peak"] / 1e9 for r in ranks]
+    stats = {
+        "arch": cfg.name, "layers": cfg.plan.n_layers, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "mesh": dict(zip(("data", "model"), MESH_SHAPE)),
+        "backend": r0["backend"], "steps": MESH_TRAIN_STEPS,
+        "one_process_ms_per_step": ms_a, "one_process_peak_gb": peak_a / 1e9,
+        "mesh_ms_per_step_by_rank": ms_b, "mesh_peak_gb_by_rank": peaks,
+        "mesh_peak_gb_sum": sum(peaks), "bytes_a_step_rank0": r0["traffic"][-1],
+        "losses": losses, "grad_norms": gnorms, "grad_err": grad_err, "param_err": param_err,
+        "mu_numel_by_rank": [r["mu_numel"] for r in ranks],
+        "rank0_clock_s": r0["clock"], "restore_s": restore_s, "main_digest_s": digest_s,
+        "one_process_s": one_s, "spawn_s": spawn_s,
+        "pipeline": {"stages": PIPE_STAGES, "micro": PIPE_MICRO, "ticks": ticks,
+                     "bubble": (PIPE_STAGES - 1) / ticks, "err": pipe_err,
+                     "s": r0["pipe_s"]},
+        "launches": 0,
+    }
+    say(f"  23b mesh {stats['mesh']} ({r0['backend']}, four ranks on one card: functional; "
+        f"gloo through the host, no DP or TP speed): ms a step by rank "
+        f"{[[round(v, 1) for v in ms] for ms in ms_b]}; peak GB a rank "
+        f"{[round(p, 2) for p in peaks]}, sum {sum(peaks):.2f}; bytes a step (rank 0) gathered "
+        f"{r0['traffic'][-1]['gathered'] / 1e9:.3f} GB, all-reduced "
+        f"{r0['traffic'][-1]['reduced'] / 1e9:.3f} GB; step-1 gradients within {grad_err:.2e} of "
+        f"a leaf's largest, params within {param_err:.2e}, losses and grad norms within 1e-5; "
+        f"mu a rank {stats['mu_numel_by_rank']} of {n_params}; checkpoint save "
+        f"{r0['clock']['save_s']:.1f} s, restored on one device bitwise the gathered shards "
+        f"(sha256 a leaf) in {restore_s:.1f} s; seconds: 23a {one_s:.1f}, ranks {spawn_s:.1f} "
+        f"(rank 0: {json.dumps({k: round(v, 1) for k, v in r0['clock'].items()})}), "
+        f"digests here {digest_s:.1f} [{card}]")
+    say(f"  23c pipeline: {PIPE_STAGES} stages x {PIPE_MICRO} microbatches of "
+        f"(1, {TRAIN_SEQ}, {cfg.d_model}) in {ticks} ticks, bubble {PIPE_STAGES - 1}/{ticks} = "
+        f"{(PIPE_STAGES - 1) / ticks:.4f}, within {pipe_err:.2e} of the sequential blocks, "
+        f"{r0['pipe_s']:.2f} s; no kernel launched [{card}]")
+    return stats
+
+
+# --------------------------------------------------------------------------- #
 # phase 18: tensor-parallel serving, two ranks on one card over gloo
 # --------------------------------------------------------------------------- #
 
 TP_DEGREE = 2
+TP_LAYERS = 8                    # phi3-mini's depth here (of 32): the script's time limit
 TP_HEAL_CALLS = (9, 40)          # stepper calls that raise on every rank (a prefill, a decode)
 # tree decode shapes: (tag, B, Hq, Hk, D, S, lengths) — phase 3's engine decode and
 # gemma3-1b's global decode
@@ -3860,15 +4214,19 @@ def tp_rank(cfg_kw, n_slots, chunk, cache_cap, page, pools, max_new, prompts, de
     return out
 
 
-def tp_phase(torch, K, cfg, weights, *, n_slots, chunk, cache_cap, page, pools, max_new,
+def tp_phase(torch, K, cfg, *, n_slots, chunk, cache_cap, page, pools, max_new,
              card, device="cuda:0"):
-    """Phase 18 (see the module docstring).  The parent serves the three
-    single-rank engines on ``weights["params"]`` first, then drops them and
-    the weights (the caller holds no other reference) before the ranks
-    start.  Returns ({path: (launches, stats)}, the serving record)."""
+    """Phase 18 (see the module docstring), at TP_LAYERS of ``cfg``'s depth.
+    The parent draws the seed-0 weights at that depth, as the ranks draw
+    theirs, serves the three single-rank engines on them, then drops the
+    engines and the weights before the ranks start.  Returns ({path:
+    (launches, stats)}, the serving record)."""
+    import dataclasses
     from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.graph_lm import init_lm_params_torch
     from repro_torch.runtime.engine import build_lm_serving
-    params = weights.pop("params")
+    cfg = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    params = init_lm_params_torch(cfg, seed=0, device=device)
     prompts = tp_requests(cfg)
     single = {}
     for mode, _ in TP_MODES:
@@ -4319,15 +4677,16 @@ def main() -> int:
     runs.update(load_runs)
     phase_s["load"] = time.perf_counter() - t
 
-    # 18. tensor-parallel serving: single-rank engines here on phase 5's
-    # weights, then (the weights dropped) two ranks on this card over gloo
+    # 18. tensor-parallel serving at TP_LAYERS (phase 5's weights dropped):
+    # single-rank engines here, then two ranks on this card over gloo
     t = time.perf_counter()
-    say(f"[tp] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
+    say(f"[tp] phi3-mini widths, {TP_LAYERS} layers (depth cut from {cfg.n_layers}), "
+        f"{n_slots} slots, chunk {chunk}, "
         f"cache {cache_cap}; build_lm_serving(tp={TP_DEGREE}) dense, paged fp32 and paged "
         f"int8, two ranks on cuda:0 over gloo, against single-rank engines [{limit_line}]")
-    weights = {"params": params}
-    del params                      # tp_phase drops the last reference before the ranks start
-    tp_runs, tp_record = tp_phase(torch, K, cfg, weights, n_slots=n_slots, chunk=chunk,
+    del params
+    release(torch)
+    tp_runs, tp_record = tp_phase(torch, K, cfg, n_slots=n_slots, chunk=chunk,
                                   cache_cap=cache_cap, page=page, pools=pools, max_new=max_new,
                                   card=limit_line)
     release(torch)
@@ -4362,6 +4721,17 @@ def main() -> int:
     release(torch)
     phase_s["train"] = time.perf_counter() - t
 
+    # 23. sharded training on a (data 2, model 2) mesh and the pipeline over "pod"
+    t = time.perf_counter()
+    say(f"[mesh_train] gemma3-1b widths, {6 * MESH_TRAIN_PERIODS} layers (depth cut), fp32, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens a step: 23a one process, 23b make_train_step(mesh=...) "
+        f"on (data {MESH_SHAPE[0]}, model {MESH_SHAPE[1]}), four ranks on one card over gloo, "
+        f"23c pipeline_apply over 'pod' ({PIPE_STAGES} stages, {PIPE_MICRO} microbatches) "
+        f"[{limit_line}]")
+    mesh_train_record = mesh_train_phase(torch, K, limit_line)
+    release(torch)
+    phase_s["mesh_train"] = time.perf_counter() - t
+
     # 12. the paper's five CNNs under six assignments
     t = time.perf_counter()
     say(f"[cnn] five CNNs, batch 1, six assignments [{limit_line}]")
@@ -4387,6 +4757,7 @@ def main() -> int:
     serving["deploy"] = deploy_record
     serving["tp"] = tp_record
     serving["train"] = train_record
+    serving["mesh_train"] = mesh_train_record
     for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)

@@ -45,9 +45,19 @@ class CheckpointManager:
         for s in steps[:-self.keep] if self.keep else []:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"), ignore_errors=True)
 
-    def save(self, step: int, state: Any, metadata: Optional[Dict[str, Any]] = None) -> None:
-        """Blocking device->host copy; file write possibly async."""
+    def save(self, step: int, state: Any, metadata: Optional[Dict[str, Any]] = None, *,
+             specs: Any = None, mesh: Any = None) -> None:
+        """Blocking device->host copy; file write possibly async.  With
+        ``specs`` and ``mesh`` ``state`` is this rank's slices and every rank
+        calls it: the whole leaves are gathered to rank 0, which writes them
+        before every rank passes a barrier (no write thread)."""
         self.wait()
+        if mesh is not None:
+            io.save(self.dir, step, state, metadata, specs=specs, mesh=mesh)
+            if mesh.rank == 0:
+                self._rotate()
+            self._last_saved = step
+            return
         host_state = tree_map(io.to_host, state)
 
         def work():
@@ -74,8 +84,8 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, target: Any, device: DeviceLike = None,
-                step: Optional[int] = None) -> Any:
-        return io.restore(self.dir, target, step=step, device=device)
+                step: Optional[int] = None, *, specs: Any = None, mesh: Any = None) -> Any:
+        return io.restore(self.dir, target, step=step, device=device, specs=specs, mesh=mesh)
 
     # ------------------------------------------------------------------ #
     def save_on_signal(self, get_state: Callable[[], tuple],

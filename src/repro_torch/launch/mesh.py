@@ -3,8 +3,11 @@
 A tensor-parallel engine is one process a rank, in PyTorch's idiom: every
 rank runs the same engine on the same requests and holds its slice of the
 KV heads.  :func:`make_serving_mesh` joins (or initialises) the process
-group of those ranks and returns a 1-D ``("model",)`` :class:`ServingMesh`;
-:func:`make_test_mesh` is JAX's 2-D ``(data, model)`` layout for the
+group of those ranks and returns it as a 1-D ``("model",)``
+:class:`ProcessMesh`; :func:`make_mesh` returns a :class:`ProcessMesh` of
+any number of axes over the whole group (sharded training:
+``("data", "model")``, the pipeline's ``("pod", ...)``), with one process
+group an axis or set of axes; :func:`make_test_mesh` is JAX's 2-D ``(data, model)`` layout for the
 partition rules and bundles, with no process group behind it.
 
 The process group comes from the usual ``RANK`` / ``WORLD_SIZE`` /
@@ -28,19 +31,22 @@ compute fallback.
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import socket
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.device import DeviceLike, resolve_device
 
-__all__ = ["Mesh", "ServingMesh", "make_serving_mesh", "make_test_mesh", "spawn_ranks"]
+__all__ = ["Mesh", "ProcessMesh", "make_mesh", "make_serving_mesh",
+           "make_test_mesh", "spawn_ranks"]
 
 
 @dataclass(frozen=True)
@@ -54,22 +60,14 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
 
-
-class ServingMesh(Mesh):
-    """This process's place in a 1-D ``("model",)`` serving mesh of ``tp``
-    ranks over the default process group (none when ``tp == 1``): its rank,
-    its device and the group's backend."""
-
-    def __init__(self, tp: int, rank: int, device: torch.device, backend: Optional[str]):
-        super().__init__(("model",), (tp,))
-        object.__setattr__(self, "tp", tp)
-        object.__setattr__(self, "rank", rank)
-        object.__setattr__(self, "device", device)
-        object.__setattr__(self, "backend", backend)
-
-    def __repr__(self) -> str:
-        return (f"ServingMesh(tp={self.tp}, rank={self.rank}, device={self.device}, "
-                f"backend={self.backend})")
+    def block(self, axes: Sequence[str], coords: Dict[str, int]) -> Tuple[int, int]:
+        """(n, i): a dim split over ``axes`` splits into n blocks, the product
+        of their sizes, and the mesh coordinates ``coords`` hold block i,
+        row-major over them (as GSPMD splits a dim named by several axes)."""
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * self.shape[a], i * self.shape[a] + coords[a]
+        return n, i
 
 
 def make_test_mesh(data: int = 2, model: int = 2) -> Mesh:
@@ -102,24 +100,11 @@ def _rank_device(device: DeviceLike, tp: int) -> Tuple[torch.device, bool]:
     return resolve_device(torch.device("cuda", local)), False
 
 
-def make_serving_mesh(tp: int = 1, *, backend: Optional[str] = None,
-                      device: DeviceLike = None) -> ServingMesh:
-    """The 1-D ``("model",)`` serving mesh of ``tp`` ranks, for
-    ``build_lm_serving(mesh=...)`` and ``launch.serve --tp``.
-
-    ``tp`` must be 1 (no group) or the size of the process group: the group
-    already initialised, else the one the environment describes, which is
-    initialised here.  ``device`` is the rank's (``None`` means ``"cuda"``:
-    one card a rank); ``backend`` defaults as the module docstring says."""
-    world, rank, initialised = _world()
-    if tp < 1 or tp > world:
-        raise ValueError(f"tp={tp} needs 1..{world} devices")
-    if 1 < tp < world:
-        raise ValueError(f"tp={tp} on a group of {world} ranks: a serving mesh spans the "
-                         f"whole group")
-    dev, shared = _rank_device(device, tp)
-    if tp == 1:
-        return ServingMesh(1, 0, dev, None)
+def _join(dev: torch.device, shared: bool, backend: Optional[str], initialised: bool,
+          rank: int, world: int) -> Tuple[str, str]:
+    """Pick the backend of the ``world``-rank group (the module docstring's rule),
+    initialise the group from the environment unless it is already, and
+    return (backend, why)."""
     if backend is not None:
         chosen, why = backend, "asked for"
     elif initialised:
@@ -129,7 +114,7 @@ def make_serving_mesh(tp: int = 1, *, backend: Optional[str] = None,
     else:
         chosen, why = "gloo", "ranks share one card" if dev.type == "cuda" else "CPU"
     if chosen == "nccl" and (dev.type != "cuda" or shared):
-        raise ValueError(f"backend nccl needs one card a rank; the {tp} ranks are on "
+        raise ValueError(f"backend nccl needs one card a rank; the {world} ranks are on "
                          f"{dev if dev.type == 'cuda' else 'the CPU'} (use gloo)")
     if initialised and dist.get_backend() != chosen:
         raise ValueError(f"backend {chosen} asked for; the initialised group runs "
@@ -140,8 +125,136 @@ def make_serving_mesh(tp: int = 1, *, backend: Optional[str] = None,
         if os.environ.get("MASTER_ADDR") in ("127.0.0.1", "localhost"):
             os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         dist.init_process_group(chosen, init_method="env://", rank=rank, world_size=world)
-    mesh = ServingMesh(tp, rank, dev, chosen)
+    return chosen, why
+
+
+def make_serving_mesh(tp: int = 1, *, backend: Optional[str] = None,
+                      device: DeviceLike = None) -> "ProcessMesh":
+    """The 1-D ``("model",)`` serving mesh of ``tp`` ranks, for
+    ``build_lm_serving(mesh=...)`` and ``launch.serve --tp``.
+
+    ``tp`` must be 1 (no group) or the size of the process group: the group
+    already initialised, else the one the environment describes, which is
+    initialised here.  ``device`` is the rank's (``None`` means ``"cuda"``:
+    one card a rank); ``backend`` defaults as the module docstring says.
+    With ``tp == 1`` no group is joined and the mesh has none (its one-rank
+    axis runs no collective)."""
+    world, rank, initialised = _world()
+    if tp < 1 or tp > world:
+        raise ValueError(f"tp={tp} needs 1..{world} devices")
+    if 1 < tp < world:
+        raise ValueError(f"tp={tp} on a group of {world} ranks: a serving mesh spans the "
+                         f"whole group")
+    dev, shared = _rank_device(device, tp)
+    if tp == 1:
+        return ProcessMesh(("model",), (1,), 0, dev, None, {("model",): None})
+    chosen, why = _join(dev, shared, backend, initialised, rank, world)
+    mesh = ProcessMesh(("model",), (tp,), rank, dev, chosen, {("model",): dist.group.WORLD})
     print(f"[mesh] tp={tp} rank {rank}: device {dev}, backend {chosen} ({why})", flush=True)
+    return mesh
+
+
+# --------------------------------------------------------------------------- #
+# process meshes of several axes (sharded training, the pipeline)
+# --------------------------------------------------------------------------- #
+
+Axes = Union[str, Sequence[str]]
+
+
+class ProcessMesh(Mesh):
+    """This process's place in a mesh of ``shape`` over the whole process
+    group: rank r sits at the row-major coordinates of r (the order in
+    which ``jax.make_mesh`` lays out CPU devices).  ``group(axes)`` is the
+    process group of the ranks that differ from this one only along
+    ``axes`` (one axis name or several, in the mesh's order), their group
+    ranks row-major over those axes; :func:`axis_index` is this rank's
+    place in it.  ``traffic`` counts the bytes of the results of the
+    collectives run on it: each all-gather's whole output under
+    ``"gathered"``, each all-reduced tensor under ``"reduced"``."""
+
+    def __init__(self, axis_names: Tuple[str, ...], sizes: Tuple[int, ...], rank: int,
+                 device: torch.device, backend: str, groups: Dict[Tuple[str, ...], Any]):
+        super().__init__(tuple(axis_names), tuple(sizes))
+        object.__setattr__(self, "rank", rank)
+        object.__setattr__(self, "coords", self.coords_of(rank))
+        object.__setattr__(self, "device", device)
+        object.__setattr__(self, "backend", backend)
+        object.__setattr__(self, "_groups", groups)
+        # bytes of the collectives' results on this rank (sharding.collectives)
+        object.__setattr__(self, "traffic", {"gathered": 0, "reduced": 0})
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of global rank ``rank`` (row-major)."""
+        out = {}
+        for a, n in reversed(list(zip(self.axis_names, self.sizes))):
+            rank, out[a] = divmod(rank, n)
+        return {a: out[a] for a in self.axis_names}
+
+    def _key(self, axes: Axes) -> Tuple[str, ...]:
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not key or any(a not in self.axis_names for a in key) or \
+                list(key) != sorted(key, key=self.axis_names.index):
+            raise ValueError(f"axes {axes!r}: name axes of {self.axis_names} in its order")
+        return key
+
+    def group(self, axes: Axes):
+        """The process group along ``axes``."""
+        return self._groups[self._key(axes)]
+
+    def axis_size(self, axes: Axes) -> int:
+        return self.block(self._key(axes), self.coords)[0]
+
+    def axis_index(self, axes: Axes) -> int:
+        """This rank's group rank along ``axes`` (row-major coordinates)."""
+        return self.block(self._key(axes), self.coords)[1]
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({dict(self.shape)}, rank={self.rank}, coords={self.coords}, "
+                f"device={self.device}, backend={self.backend})")
+
+
+def _axis_groups(axis_names: Tuple[str, ...], sizes: Tuple[int, ...]
+                 ) -> Dict[Tuple[str, ...], Any]:
+    """One process group for every non-empty set of axes (``WORLD`` for all
+    of them), created on every rank in the same order: ``new_group`` is
+    collective over the whole group."""
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    groups: Dict[Tuple[str, ...], Any] = {}
+    for k in range(1, len(axis_names) + 1):
+        for key in itertools.combinations(range(len(axis_names)), k):
+            names = tuple(axis_names[i] for i in key)
+            if k == len(axis_names):
+                groups[names] = dist.group.WORLD
+                continue
+            fixed = [i for i in range(len(axis_names)) if i not in key]
+            lists = []
+            for outer in itertools.product(*(range(sizes[i]) for i in fixed)):
+                base = sum(c * strides[i] for c, i in zip(outer, fixed))
+                lists.append([base + sum(c * strides[i] for c, i in zip(inner, key))
+                              for inner in itertools.product(*(range(sizes[i]) for i in key))])
+            groups[names] = dist.new_subgroups_by_enumeration(lists)[0]
+    return groups
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+              device: DeviceLike = None, backend: Optional[str] = None) -> ProcessMesh:
+    """A :class:`ProcessMesh` of ``shape`` over the whole process group
+    (initialised here from the environment unless it is already), whose
+    size it must equal.  ``device`` and ``backend`` as in
+    :func:`make_serving_mesh`."""
+    shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axes {axis_names} do not match")
+    world, rank, initialised = _world()
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} needs {math.prod(shape)} ranks; the "
+                         f"process group has {world}")
+    dev, shared = _rank_device(device, world)
+    chosen, why = _join(dev, shared, backend, initialised, rank, world)
+    mesh = ProcessMesh(axis_names, shape, rank, dev, chosen,
+                       _axis_groups(axis_names, shape))
+    print(f"[mesh] {dict(mesh.shape)} rank {rank} at {mesh.coords}: device {dev}, backend "
+          f"{chosen} ({why})", flush=True)
     return mesh
 
 
@@ -176,7 +289,7 @@ def spawn_ranks(fn: Callable, tp: int, *args: Any, timeout: float = 600.0,
     """Run ``fn(*args)`` in ``tp`` fresh processes, ranks 0..tp-1 of one
     group on a free loopback port (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR``, ``MASTER_PORT`` set, plus ``env``); ``fn`` builds its
-    mesh with :func:`make_serving_mesh`.  Returns each rank's return value,
+    mesh with :func:`make_serving_mesh` or :func:`make_mesh`.  Returns each rank's return value,
     in rank order.  A rank that raises, or a run past ``timeout`` seconds,
     stops every rank and raises here (a rank left waiting in a collective
     never holds the caller).  ``fn`` must be importable by the children

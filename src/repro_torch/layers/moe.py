@@ -23,12 +23,24 @@ written with a plain (non-accumulating) index assignment — their (expert,
 slot) pairs are distinct, and dropped tokens are never written — and each
 token's top-k contributions are added in k order, as JAX's scatter-add
 does on the CPU (an accumulating scatter may reorder the adds on the card).
+
+Data-parallel training passes ``dp`` (a
+:class:`~repro_torch.sharding.collectives.GlobalBatch`): the rank holds its
+rows of the global batch, and the routing terms are the global batch's.
+The balance loss takes ``f`` from the expert counts summed over the ranks
+and returns the rank's share ``E * sum_e f_e * probsum_e / T_global`` (the
+shares add up to the single-device loss).  Under ``"global"`` dispatch the
+capacity comes from the global token count, and a token's position within
+its expert is offset by the counts of the lower data ranks (whose rows come
+first in the global batch), so the same tokens drop as on one device; the
+rank's dispatch buffer holds its own tokens at their local positions.
+``"local"`` dispatch pools per row and needs only the global balance loss.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -36,6 +48,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.layers.common import dense, dense_init
 from repro_torch.layers.mlp import swiglu_apply, swiglu_init
+from repro_torch.sharding.collectives import GlobalBatch
 
 Params = Dict[str, Any]
 
@@ -84,11 +97,18 @@ def route(logits: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Te
     return topw, topi
 
 
-def _aux_loss(logits: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Tensor:
-    """Switch load-balance loss E * sum_e f_e p_e, from the unmasked logits."""
+def _aux_loss(logits: torch.Tensor, topi: torch.Tensor, e: int,
+              total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Switch load-balance loss E * sum_e f_e p_e, from the unmasked logits.
+    ``total`` (the global batch's expert counts, summed over the data
+    ranks) makes it this rank's share of the global batch's loss."""
     probs = torch.softmax(logits.float(), dim=-1)
-    frac_tokens = torch.bincount(topi.reshape(-1), minlength=e).float() / topi.numel()
-    return e * torch.sum(frac_tokens * probs.mean(0))
+    if total is None:
+        frac_tokens = torch.bincount(topi.reshape(-1), minlength=e).float() / topi.numel()
+        return e * torch.sum(frac_tokens * probs.mean(0))
+    n = total.sum().float()                                      # global T * k
+    t_global = n / topi.shape[-1]
+    return e * torch.sum(total.float() / n * (probs.sum(0) / t_global))
 
 
 def _positions(fi: torch.Tensor, e: int) -> torch.Tensor:
@@ -120,50 +140,58 @@ def _combine(gathered: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _route_and_aux(p: Params, xt: torch.Tensor, cfg: ArchConfig):
+def _route(p: Params, xt: torch.Tensor, cfg: ArchConfig):
+    """(router logits, top-k weights, top-k ids) of (T, d) tokens."""
     logits = dense(xt.float(), p["router"].float(), backend=cfg.backend("dense"))
-    topw, topi = route(logits, cfg)
-    return topw, topi, _aux_loss(logits, topi, cfg.moe.n_experts)
+    return (logits, *route(logits, cfg))
 
 
-def moe_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
+              dp: Optional[GlobalBatch] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar tensor)."""
     if cfg.moe.dispatch == "local":
-        return moe_apply_local(p, x, cfg=cfg)
+        return moe_apply_local(p, x, cfg=cfg, dp=dp)
     mo = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, mo.top_k, mo.n_experts
     xt = x.reshape(t, d)
-    topw, topi, aux = _route_and_aux(p, xt, cfg)
+    logits, topw, topi = _route(p, xt, cfg)
 
-    cap = _capacity(t, cfg)
     fi = topi.reshape(-1)                                        # (T*k,)
-    pos = _positions(fi[None], e)[0]
+    slot = _positions(fi[None], e)[0]                            # within this call's tokens
+    if dp is None:
+        pos, total, t_all = slot, None, t
+    else:                                                        # within the global batch
+        before, total = dp.before(torch.bincount(fi, minlength=e))
+        pos, t_all = slot + before[fi], int(total.sum()) // k
+    aux = _aux_loss(logits, topi, e, total)
+    cap = _capacity(t_all, cfg)
     keep = pos < cap
-    pos_c = torch.clamp(pos, max=cap - 1)
+    slot_c = torch.clamp(slot, max=cap - 1)
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
 
     xe = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    xe[fi[keep], pos[keep]] = xt[tok[keep]]
+    xe[fi[keep], slot[keep]] = xt[tok[keep]]
     ye = _experts(p, xe, cfg)                                    # (E, cap, d)
 
     weight = (keep * topw.reshape(-1)).to(x.dtype)
-    y = _combine((ye[fi, pos_c] * weight[:, None]).reshape(t, k, d))
+    y = _combine((ye[fi, slot_c] * weight[:, None]).reshape(t, k, d))
     if mo.n_shared:
         y = y + swiglu_apply(p["shared"], xt, cfg=cfg)
     return y.reshape(b, s, d), aux
 
 
-def moe_apply_local(p: Params, x: torch.Tensor, *, cfg: ArchConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply_local(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
+                    dp: Optional[GlobalBatch] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch-local dispatch: capacity pools and ranks per batch row (per-row
     drops instead of global drops), the rows folded into one GEMM row axis."""
     mo = cfg.moe
     b, s, d = x.shape
     k, e = mo.top_k, mo.n_experts
     cap = _capacity(s, cfg)
-    topw, topi, aux = _route_and_aux(p, x.reshape(b * s, d), cfg)
+    logits, topw, topi = _route(p, x.reshape(b * s, d), cfg)
+    total = None if dp is None else dp.sum(torch.bincount(topi.reshape(-1), minlength=e))
+    aux = _aux_loss(logits, topi, e, total)
 
     fi = topi.reshape(b, s * k)
     pos = _positions(fi, e)

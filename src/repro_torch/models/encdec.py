@@ -34,7 +34,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, Block, LayerPlan
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.layers.common import dense, dense_init, embed_init, norm
-from repro_torch.models.lm import _dtype, check_trainable, cross_entropy, mask_vocab
+from repro_torch.models.lm import (_dtype, batch_metrics, check_trainable, cross_entropy,
+                                  mask_vocab)
 from repro_torch.models.stack import init_stack_caches, stack_apply, stack_init
 
 __all__ = ["EncDec"]
@@ -82,13 +83,13 @@ class EncDec:
         return norm(h, params["enc_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
 
     def _decoder(self, params: Params, h: torch.Tensor, *, mode: str, caches,
-                 lengths, enc_out, enc_lengths, cache_cap, remat: bool = False):
+                 lengths, enc_out, enc_lengths, cache_cap, remat: bool = False, dp=None):
         """-> (h, new_caches, aux)"""
         cfg = self.cfg
         h, new_caches, aux = stack_apply(
             params["decoder"], h, self.dec_plan, cfg=cfg, mode=mode, caches=caches,
             lengths=lengths, enc_out=enc_out, enc_lengths=enc_lengths, cache_cap=cache_cap,
-            remat=remat)
+            remat=remat, dp=dp)
         h = norm(h, params["final_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
         return h, new_caches, aux
 
@@ -98,20 +99,20 @@ class EncDec:
 
     # ------------------------------------------------------------------ #
     def train_loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
-                   remat: bool = True):
+                   remat: bool = True, dp=None):
         """(ce, {"ce", "aux"}) of the decoder's next-token ``batch["labels"]``
         given ``batch["src_embeds"]`` and the teacher-forced
-        ``batch["tokens"]``."""
+        ``batch["tokens"]``; ``dp`` as in :meth:`LM.train_loss`."""
         cfg = self.cfg
         check_trainable(cfg)
         enc_out = self.encode(params, batch["src_embeds"], remat=remat)
         h = params["embed"][batch["tokens"].long()].to(_dtype(cfg.dtype))
         h, _, aux = self._decoder(params, h, mode="train", caches=None, lengths=None,
                                   enc_out=enc_out, enc_lengths=None, cache_cap=None,
-                                  remat=remat)
+                                  remat=remat, dp=dp)
         logits = dense(h, params["lm_head"], backend=cfg.backend("dense"))
-        ce = cross_entropy(logits, batch["labels"], cfg)
-        return ce, {"ce": ce, "aux": aux}
+        ce = cross_entropy(logits, batch["labels"], cfg, dp)
+        return ce, batch_metrics(ce, aux, dp)
 
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         return mask_vocab(dense(h, params["lm_head"], backend=self.cfg.backend("dense")),

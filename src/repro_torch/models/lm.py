@@ -48,9 +48,10 @@ from repro_torch.core.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.layers.attention import is_mla, with_mla_heads
 from repro_torch.layers.common import dense, dense_init, embed_init, norm
 from repro_torch.models.stack import check_block, init_stack_caches, stack_apply, stack_init
+from repro_torch.sharding.collectives import GlobalBatch
 
 __all__ = ["LM", "CUDA_BACKENDS", "DIFFERENTIABLE_BACKENDS", "DERIVED_LEAVES", "mask_vocab",
-           "cross_entropy", "check_trainable", "params_from_numpy", "strip_derived",
+           "cross_entropy", "batch_metrics", "check_trainable", "params_from_numpy", "strip_derived",
            "with_derived"]
 
 Params = Dict[str, Any]
@@ -83,15 +84,28 @@ def mask_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  cfg: ArchConfig) -> torch.Tensor:
+                  cfg: ArchConfig, dp: Optional[GlobalBatch] = None) -> torch.Tensor:
     """Token-mean CE in f32; every label < 0 is ignored (the padding vocab
-    rows masked to -1e30 first)."""
+    rows masked to -1e30 first).  With ``dp`` the rank's share of the
+    global batch's: its CE sum over the valid labels of every data rank
+    (the shares add up to the global token mean, not a mean of means)."""
     logits = mask_vocab(logits, cfg).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, torch.clamp(labels.long(), min=0)[..., None])[..., 0]
     valid = (labels >= 0).to(torch.float32)
     nll = (lse - ll) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1.0)
+    count = valid.sum() if dp is None else dp.sum(valid.sum())
+    return nll.sum() / torch.clamp(count, min=1.0)
+
+
+def batch_metrics(ce: torch.Tensor, aux: torch.Tensor,
+                  dp: Optional[GlobalBatch]) -> Dict[str, torch.Tensor]:
+    """``{"ce", "aux"}`` of the global batch: the ranks' shares summed (one
+    all-reduce) under ``dp``."""
+    if dp is None:
+        return {"ce": ce, "aux": aux}
+    ce_g, aux_g = dp.sum(torch.stack([ce, aux.to(ce.dtype)]))
+    return {"ce": ce_g, "aux": aux_g}
 
 
 def check_trainable(cfg: ArchConfig) -> None:
@@ -217,7 +231,7 @@ class LM:
     # ------------------------------------------------------------------ #
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 mode: str, caches=None, lengths=None, cache_cap: Optional[int] = None,
-                remat: Optional[bool] = None):
+                remat: Optional[bool] = None, dp: Optional[GlobalBatch] = None):
         cfg = self.cfg
         remat = cfg.remat if remat is None else remat
         h = self._embed(params, batch, _dtype(cfg.dtype))
@@ -225,27 +239,32 @@ class LM:
         # the current token's)
         h, new_caches, aux = stack_apply(
             params["stack"], h, cfg.plan, cfg=cfg, mode=mode, caches=caches,
-            lengths=lengths, emb0=h, cache_cap=cache_cap, remat=remat)
+            lengths=lengths, emb0=h, cache_cap=cache_cap, remat=remat, dp=dp)
         h = norm(h, params["final_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
         return h, new_caches, aux
 
     # ------------------------------------------------------------------ #
     def train_loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
-                   aux_weight: float = 0.01, remat: Optional[bool] = None):
+                   aux_weight: float = 0.01, remat: Optional[bool] = None,
+                   dp: Optional[GlobalBatch] = None):
         """(loss, {"ce", "aux"}): the token-mean CE of the next-token
         ``batch["labels"]`` plus ``aux_weight`` times the MoE balance loss.
-        ``params`` is the trainable tree (:func:`strip_derived`)."""
+        ``params`` is the trainable tree (:func:`strip_derived`).  With
+        ``dp`` (data-parallel training: ``batch`` is this rank's rows) the
+        loss is the rank's share of the global batch's, whose gradients
+        summed over the data ranks are the single-device gradients, and the
+        metrics are the global batch's."""
         check_trainable(self.cfg)
         derived = _derived_paths(params)
         if derived:
             raise ValueError(f"train_loss takes the trainable tree; params carry the derived "
                              f"serving leaves {derived[:3]}: pass strip_derived(params)")
-        h, _, aux = self.forward(params, batch, mode="train", remat=remat)
+        h, _, aux = self.forward(params, batch, mode="train", remat=remat, dp=dp)
         w = params["embed"].t() if self.cfg.tie_embeddings else params["lm_head"]
         logits = dense(h, w, backend=self.cfg.backend("dense"))
-        ce = cross_entropy(logits, batch["labels"], self.cfg)
+        ce = cross_entropy(logits, batch["labels"], self.cfg, dp)
         loss = ce + aux_weight * aux
-        return loss, {"ce": ce, "aux": aux}
+        return loss, batch_metrics(ce, aux, dp)
 
     # ------------------------------------------------------------------ #
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,

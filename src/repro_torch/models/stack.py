@@ -104,11 +104,12 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, blk: Block, *,
 def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
                 mode: str, cache: Any = None, lengths=None, emb0=None,
                 enc_out=None, enc_lengths=None, shared_params: Optional[Params] = None,
-                cache_cap: Optional[int] = None, causal: bool = True
+                cache_cap: Optional[int] = None, causal: bool = True, dp: Any = None
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (h, new_cache, aux_loss). ``cache`` is a dict with optional
     keys 'mix' and 'cross' (block-level cache container).  aux_loss is a
-    float32 scalar tensor, 0 unless the FFN is MoE."""
+    float32 scalar tensor, 0 unless the FFN is MoE; ``dp`` (data-parallel
+    training's GlobalBatch) goes to the MoE layer."""
     check_block(blk)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = cache or {}
@@ -147,7 +148,7 @@ def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
     if blk.ffn != "none":
         x = norm(h, p["norm2"], eps=eps, backend=nb)
         if blk.ffn == "moe":
-            y, aux = moe_apply(p["ffn"], x, cfg=cfg)
+            y, aux = moe_apply(p["ffn"], x, cfg=cfg, dp=dp)
         else:
             y = (swiglu_apply if blk.ffn == "swiglu" else mlp_apply)(p["ffn"], x, cfg=cfg)
         h = h + y
@@ -189,10 +190,10 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
                 cfg: ArchConfig, mode: str, caches: Any = None,
                 lengths=None, emb0=None, enc_out=None, enc_lengths=None,
                 cache_cap: Optional[int] = None, causal: bool = True,
-                remat: bool = True):
+                remat: bool = True, dp: Any = None):
     """Returns (h, new_caches, aux_total); new_caches is None in train mode.
     ``remat`` recomputes each period in the backward pass (train mode with
-    gradients on only)."""
+    gradients on only); ``dp`` as in :func:`block_apply`."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = caches or {"prefix": [None] * len(plan.prefix),
                         "period": [None] * len(plan.period),
@@ -206,7 +207,7 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
         return tree_map(lambda a: a[period_idx % 2], shared)
 
     common = dict(cfg=cfg, mode=mode, lengths=lengths, emb0=emb0, enc_out=enc_out,
-                  enc_lengths=enc_lengths, cache_cap=cache_cap, causal=causal)
+                  enc_lengths=enc_lengths, cache_cap=cache_cap, causal=causal, dp=dp)
 
     for blk, bp, bc in zip(plan.prefix, params["prefix"], caches["prefix"]):
         h, c, aux = block_apply(bp, h, blk, cache=bc, shared_params=pick_shared(0), **common)

@@ -15,10 +15,9 @@ from __future__ import annotations
 from typing import Any, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.tree import tree_leaves, tree_unflatten
-from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.collectives import all_reduce_axis
 
 __all__ = ["quantize", "dequantize", "compress_decompress", "compressed_psum_mean"]
 
@@ -51,24 +50,20 @@ def compress_decompress(g: torch.Tensor, err: torch.Tensor
 def compressed_psum_mean(mesh: Any, axis: str = "data"):
     """Returns ``f(local_grads, err_state) -> (mean_grads, new_errs)``.
 
-    Each rank's dequantised tensors are summed over ``axis`` (an
-    ``all_reduce(SUM)`` over the process group, which the axis must span:
-    the ranks of :func:`repro_torch.launch.mesh.spawn_ranks` or
-    ``torchrun``) and divided by its size; the psum of per-rank
-    dequantisations equals the sum of the quantised rank gradients exactly.
-    With one rank on the axis no collective runs."""
+    Each rank's dequantised tensors are summed over ``axis`` of ``mesh``
+    (a :class:`~repro_torch.launch.mesh.ProcessMesh`), in the axis's group,
+    and divided by its size.  The psum of per-rank dequantisations equals
+    the sum of the quantised rank gradients exactly.  With one rank on the
+    axis no collective runs."""
     n = mesh.shape[axis]
 
     def one(g, err):
         deq, new_err = compress_decompress(g, err)
         if n > 1:
-            deq = all_reduce(deq, dist.ReduceOp.SUM)
+            deq = all_reduce_axis(deq, mesh, axis)
         return deq / _f32(n, deq), new_err
 
     def wrapped(grads, errs):
-        if n > 1 and dist.get_world_size() != n:
-            raise ValueError(f"compressed_psum_mean: axis {axis!r} has {n} ranks but the "
-                             f"process group {dist.get_world_size()}; the axis must span it")
         out = [one(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(errs))]
         return (tree_unflatten(grads, [o[0] for o in out]),
                 tree_unflatten(grads, [o[1] for o in out]))

@@ -340,7 +340,8 @@ class ProgramStepper:
     fast-call path.  ``quantize``/``calib_ranges`` compile every Program
     with int8 weights and the given shared activation ranges; ``spec_k``
     adds the speculative Programs (:meth:`_init_spec`).  ``mesh`` (a
-    :class:`~repro_torch.launch.mesh.ServingMesh`) makes this one rank of
+    :class:`~repro_torch.launch.mesh.ProcessMesh` of
+    :func:`~repro_torch.launch.mesh.make_serving_mesh`) makes this one rank of
     a tensor-parallel engine (the module docstring)."""
 
     paged = False
@@ -1850,7 +1851,7 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
     highest-priority queued request would otherwise miss its TTFT budget
     (``slo_ttft_ticks`` and/or its deadline).
 
-    ``mesh`` (a :class:`~repro_torch.launch.mesh.ServingMesh`) or ``tp``
+    ``mesh`` (of :func:`~repro_torch.launch.mesh.make_serving_mesh`) or ``tp``
     (a tensor-parallel degree: the process group of ``tp`` ranks already
     initialised, or made by :func:`~repro_torch.launch.mesh.make_serving_mesh`
     from the environment, on ``device``) makes this process one rank of a
@@ -1865,7 +1866,7 @@ def build_lm_serving(cfg: Optional[GraphLMConfig] = None, *,
         mesh = make_serving_mesh(tp, device=device)
     if mesh is not None and mesh.shape["model"] > 1:
         if not hasattr(mesh, "rank"):
-            raise TypeError(f"mesh {mesh!r} is not a ServingMesh (make_serving_mesh)")
+            raise TypeError(f"mesh {mesh!r} has no process group (make_serving_mesh)")
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device!r} is not the rank's {mesh.device}")
         device = mesh.device

@@ -1,9 +1,21 @@
-"""Collectives of tensor-parallel serving — counterpart of
-:mod:`repro.sharding.collectives`, on ``torch.distributed``.
+"""Collectives of tensor-parallel serving and sharded training —
+counterpart of :mod:`repro.sharding.collectives`, on ``torch.distributed``.
 
-Every function takes the rank's own tensors and a mesh from
-:func:`repro_torch.launch.mesh.make_serving_mesh` (one process a rank):
+Every function takes the rank's own tensors and a
+:class:`~repro_torch.launch.mesh.ProcessMesh` (of
+:func:`~repro_torch.launch.mesh.make_mesh`, or the 1-D serving mesh of
+:func:`~repro_torch.launch.mesh.make_serving_mesh`, whose axis is the whole
+process group), on which a collective over an axis runs in that axis's
+group (``mesh.group(axis)``; a point-to-point peer is turned into its
+global rank).  Over an axis of one rank none runs, so a layout-only mesh
+of such an axis needs no group:
 
+* :func:`all_gather_axis` / :func:`all_reduce_axis` — the gather of every
+  rank's slice along one dim, and the all-reduce, over an axis (or a tuple
+  of axes: the data axes ``("pod", "data")``);
+* :class:`GlobalBatch` — the data-parallel ranks over which a training
+  loss sums its global-batch terms (the CE's valid-label count, the MoE
+  router's expert counts and token count);
 * :func:`all_gather_heads` — the exact all-gather that hands a head-sharded
   attention output back to the replicated rest of a Program: each rank's
   slice, gathered into a list (``dist.all_gather``) and concatenated in
@@ -32,13 +44,15 @@ point.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import math
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_heads", "all_reduce", "tree_decode_attention",
-           "ring_allgather_matmul", "allgather_bytes", "agree_status"]
+__all__ = ["all_gather_heads", "all_gather_axis", "all_reduce_axis",
+           "GlobalBatch", "tree_decode_attention", "ring_allgather_matmul",
+           "allgather_bytes", "agree_status"]
 
 
 def allgather_bytes(nbytes: float, degree: int) -> float:
@@ -48,24 +62,87 @@ def allgather_bytes(nbytes: float, degree: int) -> float:
     return float(nbytes) * (degree - 1) / max(degree, 1)
 
 
-def all_gather_heads(x: torch.Tensor, mesh: Any, dim: int) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along ``dim`` in rank order (the
-    whole tensor on every rank; ``x`` itself when the mesh has one rank)."""
-    tp = mesh.shape["model"]
-    if tp == 1:
+def _on_axis(mesh: Any, axis: Any) -> Tuple[Any, int, int]:
+    """(process group, size, this rank's index) of ``axis`` (one axis name
+    or several); ``(None, 1, 0)`` for an axis of one rank."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    if math.prod(mesh.shape[a] for a in axes) == 1:
+        return None, 1, 0
+    return mesh.group(axis), mesh.axis_size(axis), mesh.axis_index(axis)
+
+
+def _peer(group: Any, index: int) -> int:
+    """The global rank of group rank ``index`` (point-to-point ops take it)."""
+    return index if group is None else dist.get_global_rank(group, index)
+
+
+def _count(mesh: Any, kind: str, t: torch.Tensor) -> None:
+    traffic = getattr(mesh, "traffic", None)
+    if traffic is not None:
+        traffic[kind] += t.numel() * t.element_size()
+
+
+def all_gather_axis(x: torch.Tensor, mesh: Any, axis: Any, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` concatenated along ``dim`` in the
+    axis's rank order (``x`` itself when the axis has one rank)."""
+    group, n, _ = _on_axis(mesh, axis)
+    if n == 1:
         return x
     src = x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(tp)]
-    dist.all_gather(parts, src)
-    return torch.cat(parts, dim=dim)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    _count(mesh, "gathered", out)
+    return out
 
 
-def all_reduce(x: torch.Tensor, op) -> torch.Tensor:
-    """``op`` of every rank's ``x`` over the default process group, in a
-    new tensor (``x`` is left as it is)."""
+def all_reduce_axis(x: torch.Tensor, mesh: Any, axis: Any,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``op`` of every rank's ``x`` along ``axis``, in a new tensor (``x``
+    itself when the axis has one rank)."""
+    group, n, _ = _on_axis(mesh, axis)
+    if n == 1:
+        return x
     buf = x.clone()
-    dist.all_reduce(buf, op=op)
+    dist.all_reduce(buf, op=op, group=group)
+    _count(mesh, "reduced", buf)
     return buf
+
+
+def all_gather_heads(x: torch.Tensor, mesh: Any, dim: int) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim`` in rank order over the
+    "model" axis (the whole tensor on every rank; ``x`` itself when the
+    axis has one rank)."""
+    return all_gather_axis(x, mesh, "model", dim)
+
+
+class GlobalBatch:
+    """The data-parallel ranks of a ProcessMesh (its axes "pod" and "data";
+    the ranks that share them hold the same rows), over which a training
+    loss sums the terms of the global batch, so that a rank's loss share
+    differentiates to its part of the single-device gradient.  Values only:
+    nothing here carries a gradient."""
+
+    def __init__(self, mesh: Any):
+        from repro_torch.sharding.specs import data_axes
+        self.mesh, self.axes = mesh, data_axes(mesh)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data-parallel ranks."""
+        if not self.axes:
+            return x.detach()
+        return all_reduce_axis(x.detach(), self.mesh, self.axes)
+
+    def before(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the sum of ``x`` over the lower data-parallel ranks, its sum over
+        all of them), from one all-gather: the global rows of the batch are
+        the ranks' rows in rank order."""
+        x = x.detach()
+        if not self.axes:
+            return torch.zeros_like(x), x
+        parts = all_gather_axis(x[None], self.mesh, self.axes, 0)
+        idx = self.mesh.axis_index(self.axes)
+        return parts[:idx].sum(0), parts.sum(0)
 
 
 def agree_status(mesh: Any, code: int) -> int:
@@ -91,21 +168,15 @@ def tree_decode_attention(mesh: Any, q: torch.Tensor, k: torch.Tensor, v: torch.
     gives l = S there; the merged result agrees wherever a rank holds a
     valid row.)"""
     from repro_torch.kernels.ops import decode_attention_partial
-    n = mesh.shape[axis]
+    _, n, index = _on_axis(mesh, axis)
     s_loc = k.shape[1]
-    offset = mesh.rank * s_loc if n > 1 else 0
-    local_len = (lengths.to(torch.int64) - offset).clamp(0, s_loc).to(torch.int32)
+    local_len = (lengths.to(torch.int64) - index * s_loc).clamp(0, s_loc).to(torch.int32)
     acc, m, l = decode_attention_partial(q, k, v, local_len.to(q.device), scale=scale,
                                          backend=backend)
-    if n == 1:
-        m_glob = m
-    else:
-        m_glob = all_reduce(m, dist.ReduceOp.MAX)
+    m_glob = all_reduce_axis(m, mesh, axis, dist.ReduceOp.MAX)
     alpha = torch.exp(m - m_glob)
-    l_part, acc_part = l * alpha, acc.float() * alpha[..., None]
-    if n > 1:
-        l_part = all_reduce(l_part, dist.ReduceOp.SUM)
-        acc_part = all_reduce(acc_part, dist.ReduceOp.SUM)
+    l_part = all_reduce_axis(l * alpha, mesh, axis)
+    acc_part = all_reduce_axis(acc.float() * alpha[..., None], mesh, axis)
     return (acc_part / torch.clamp(l_part, min=1e-30)[..., None]).to(q.dtype)
 
 
@@ -116,8 +187,7 @@ def ring_allgather_matmul(mesh: Any, x: torch.Tensor, w: torch.Tensor, *,
     rank ``(rank - t) mod n``'s rows — while the chunk travels on to rank
     ``rank + 1`` (posted before the product, waited for after it)."""
     from repro_torch.kernels.gemm import gemm
-    n = mesh.shape[axis]
-    rank = mesh.rank if n > 1 else 0
+    group, n, rank = _on_axis(mesh, axis)
     m_loc = x.shape[0]
     out = torch.empty((n, m_loc, w.shape[1]), dtype=torch.float32, device=x.device)
     # gloo takes no point-to-point op on CUDA tensors: send through the host
@@ -129,8 +199,8 @@ def ring_allgather_matmul(mesh: Any, x: torch.Tensor, w: torch.Tensor, *,
             send = chunk.cpu() if staged else chunk
             nxt = torch.empty_like(send)
             works = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, send, (rank + 1) % n),
-                dist.P2POp(dist.irecv, nxt, (rank - 1) % n)])
+                dist.P2POp(dist.isend, send, _peer(group, (rank + 1) % n), group),
+                dist.P2POp(dist.irecv, nxt, _peer(group, (rank - 1) % n), group)])
         out[(rank - t) % n] = gemm(chunk.float(), w.float())
         for work in works:
             work.wait()

@@ -29,7 +29,13 @@ long-context decode the KV-cache sequence dim is sharded over "data"
 instead (sequence parallelism — the tree-decode path).
 
 ``ambient_mesh``, ``constrain`` and ``named_shardings`` bind specs to GSPMD
-under ``jit`` and have no eager counterpart: they are not ported.
+under ``jit`` and have no eager counterpart: they are not ported.  In their
+place, :func:`shard` / :func:`shard_tree` give a rank of a
+:class:`~repro_torch.launch.mesh.ProcessMesh` its slice of a tensor or of
+every leaf (what ``device_put`` onto a ``NamedSharding`` leaves on its
+device) and :func:`gather` / :func:`gather_tree` put the whole tensors back
+together on every rank.  A
+dim named by several axes splits row-major over them, as GSPMD splits it.
 """
 
 from __future__ import annotations
@@ -37,11 +43,13 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["P", "param_specs", "batch_specs", "cache_specs", "data_axes",
            "opt_state_specs", "serving_value_role", "graph_partition_specs",
            "mesh_axes", "check_mesh_compat", "partition_spec_to_json",
-           "partition_spec_from_json", "SERVING_REPLICATED"]
+           "partition_spec_from_json", "SERVING_REPLICATED", "shard", "gather", "shard_tree",
+           "gather_tree", "spec_leaves", "spec_axes"]
 
 
 def _entry(e: Any) -> Any:
@@ -278,6 +286,75 @@ def _map_specs(fn, tree: Any, path: Tuple[str, ...] = ()) -> Any:
     if isinstance(tree, dict):
         return {k: _map_specs(fn, v, path + (str(k),)) for k, v in tree.items()}
     return type(tree)(_map_specs(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+
+
+def spec_axes(entry: Any) -> Tuple[str, ...]:
+    """The axes one entry of a spec names (``()`` for ``None``)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _zip_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a tree and its spec tree (the same structure,
+    :class:`P` leaves)."""
+    if isinstance(specs, P):
+        return fn(tree, specs)
+    if isinstance(specs, dict):
+        return {k: _zip_specs(fn, tree[k], specs[k]) for k in tree}
+    return [_zip_specs(fn, t, sp) for t, sp in zip(tree, specs)]
+
+
+def spec_leaves(tree: Any, specs: Any) -> List[P]:
+    """The spec of each leaf of ``tree``, in its leaf order (JAX's)."""
+    from repro_torch.core.tree import leaves_with_paths
+    out = []
+    for path, _ in leaves_with_paths(tree):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        out.append(spec)
+    return out
+
+
+def shard(x: Any, spec: Sequence[Any], mesh: Any) -> Any:
+    """This rank's slice of ``x`` (at ``mesh.coords``) that ``spec`` gives:
+    along every dim it names, block ``i`` of ``n`` by ``mesh.block`` of the
+    named axes.  A copy (of a replicated tensor too), so the state it holds
+    is the rank's own."""
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if not axes:
+            continue
+        n, idx = mesh.block(axes, mesh.coords)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways ({spec})")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, idx * size, size)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def gather(x: Any, spec: Sequence[Any], mesh: Any) -> Any:
+    """The whole tensor of this rank's slice ``x``, on every rank of
+    ``mesh`` (a ProcessMesh; collective: every rank calls it): each dim
+    ``spec`` names all-gathered over its axes' group, in :func:`shard`'s
+    order.  Pure data movement, so bitwise the tensor that was sharded."""
+    from repro_torch.sharding.collectives import all_gather_axis
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes:
+            x = all_gather_axis(x, mesh, axes, dim)
+    return x
+
+
+def shard_tree(tree: Any, specs: Any, mesh: Any) -> Any:
+    """:func:`shard` of every leaf by its spec."""
+    return _zip_specs(lambda x, spec: shard(x, spec, mesh), tree, specs)
+
+
+def gather_tree(shards: Any, specs: Any, mesh: Any) -> Any:
+    """:func:`gather` of every leaf by its spec (collective)."""
+    return _zip_specs(lambda x, spec: gather(x, spec, mesh), shards, specs)
 
 
 # --------------------------------------------------------------------------- #

@@ -172,7 +172,8 @@ def test_entry_points_need_a_card(monkeypatch):
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.runtime.engine, "
             "repro_torch.kernels._cuda, repro_torch.optim, repro_torch.data, "
-            "repro_torch.checkpoint, repro_torch.runtime.train, repro_torch.launch.train; "
+            "repro_torch.checkpoint, repro_torch.runtime.train, repro_torch.launch.train, "
+            "repro_torch.runtime.pipeline, repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad; print('clean')")

@@ -1727,3 +1727,124 @@ def test_train_step_on_the_card_is_deterministic_and_remat_free(arch):
         for a, b in zip(tree_leaves(runs[0][2]), tree_leaves(g)):
             assert torch.equal(a, b)
     assert len({float(r[0]) for r in runs}) == 1
+
+
+# --------------------------------------------------------------------------- #
+# sharded training and the pipeline: four ranks on cuda:0 over gloo
+# --------------------------------------------------------------------------- #
+
+MESH_ARCHS = (("gemma3-1b", None), ("qwen2-moe-a2.7b", 1.0))
+
+
+def _mesh_case(arch, capacity_factor):
+    """A reduced config (the MoE one with global dispatch at
+    ``capacity_factor``: tokens drop), its model, its trainable params drawn
+    on the CPU and a SyntheticLM batch of 4 rows."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.lm import LM, strip_derived
+    cfg = get_reduced(arch)
+    if capacity_factor is not None:
+        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, dispatch="global",
+                                                         capacity_factor=capacity_factor))
+    model = LM(cfg)
+    params = strip_derived(model.init_params(0, device="cpu"))
+    return cfg, model, params, SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=4,
+                                           seed=0).batch_at(0)
+
+
+def _mesh_card_rank():
+    """A rank of the card's mesh checks: each case's (data 2, model 2) step
+    twice from the same shards (gathered params and metrics), then
+    pipeline_apply over a ("pod",) mesh of the four ranks."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.pipeline import pipeline_apply
+    from repro_torch.runtime.train import make_train_step, train_state_shardings
+    from repro_torch.sharding.specs import gather_tree, shard_tree
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda:0")
+    dev = mesh.device
+    out = {"backend": mesh.backend, "device": str(dev), "cases": []}
+    for arch, cf in MESH_ARCHS:
+        cfg, model, params, batch = _mesh_case(arch, cf)
+        params = tree_map(lambda t: t.to(dev), params)
+        opt_cfg = AdamWConfig(lr=1e-3)
+        p_spec, o_spec, _ = train_state_shardings(model, cfg, mesh, batch, opt_cfg)
+        step = make_train_step(model, cfg, opt_cfg, mesh=mesh, batch_example=batch,
+                               donate=False)
+        p, s = shard_tree(params, p_spec, mesh), shard_tree(adamw.init(params, opt_cfg),
+                                                            o_spec, mesh)
+        runs = [step(p, s, batch) for _ in range(2)]
+        twice = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(runs[0][:2]), tree_leaves(runs[1][:2])))
+        out["cases"].append((
+            [x.cpu().numpy() for x in tree_leaves(gather_tree(runs[0][0], p_spec, mesh))],
+            {k: float(v) for k, v in runs[0][2].items()}, twice,
+            all(x.is_cuda for x in tree_leaves(runs[0][:2]))))
+    pod = make_mesh((4,), ("pod",), device="cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    w = torch.randn(4, 64, 64, generator=gen, device=dev) * 0.3
+    x = torch.randn(6, 8, 64, generator=gen, device=dev)
+    calls = []
+
+    def stage(w_, h):
+        calls.append(1)
+        return torch.tanh(h @ w_)
+
+    y = pipeline_apply(pod, stage, w, x)
+    n_calls = len(calls)
+    ref = x
+    for i in range(4):
+        ref = stage(w[i], ref)
+    out["pipe"] = (str(y.device), float((y - ref).abs().max()), n_calls)
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_card_run():
+    _card()
+    from repro_torch.launch.mesh import spawn_ranks
+    return spawn_ranks(_mesh_card_rank, 4, timeout=300)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(MESH_ARCHS)), ids=[a for a, _ in MESH_ARCHS])
+def test_mesh_train_step_on_the_card_matches_the_cpu(case, mesh_card_run):
+    """Four ranks on cuda:0 over gloo: the (data 2, model 2) step's gathered
+    params and its loss and grad norm within 1e-4 of the single-device step
+    on the CPU."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train import make_train_step
+    cfg, model, params, batch = _mesh_case(*MESH_ARCHS[case])
+    opt_cfg = AdamWConfig(lr=1e-3)
+    p_c, _, m_c = make_train_step(model, cfg, opt_cfg, donate=False)(
+        params, adamw.init(params, opt_cfg), batch)
+    for r in mesh_card_run:
+        assert (r["backend"], r["device"]) == ("gloo", "cuda:0")
+        got, metrics, _, on_card = r["cases"][case]
+        assert on_card
+        for k in ("loss", "grad_norm"):
+            assert abs(metrics[k] - float(m_c[k])) <= 1e-4 * abs(float(m_c[k])), k
+        for a, b in zip(got, tree_leaves(p_c)):
+            assert float(np.abs(a - b.numpy()).max()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(MESH_ARCHS)), ids=[a for a, _ in MESH_ARCHS])
+def test_mesh_train_step_on_the_card_is_bitwise_twice(case, mesh_card_run):
+    for r in mesh_card_run:
+        assert r["cases"][case][2]
+
+
+@pytest.mark.gpu
+def test_pipeline_on_the_card_matches_the_sequential_run(mesh_card_run):
+    for r in mesh_card_run:
+        device, err, calls = r["pipe"]
+        assert device == "cuda:0" and err <= 1e-5, (device, err)
+        assert calls == 6

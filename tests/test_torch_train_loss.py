@@ -157,8 +157,11 @@ def test_the_configs_own_backends_train():
 
 
 def test_make_train_step_with_a_mesh_names_the_roadmap_item():
+    """Sharded training (ROADMAP item 13f-ii) needs a process mesh: a mesh
+    with no process group behind it raises, naming the mesh to build
+    (tests/test_torch_sharded_train.py runs the sharded step)."""
     cfg = get_reduced("phi3-mini-3.8b")
-    with pytest.raises(NotImplementedError, match="13f-ii"):
+    with pytest.raises(ValueError, match="make_mesh"):
         make_train_step(LM(cfg), cfg, AdamWConfig(), mesh=object())
 
 
