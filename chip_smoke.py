@@ -321,16 +321,53 @@ Phases, each printing its own lines; any failure exits non-zero:
              leaf rank 0 gathered, the pipeline equals the sequential
              blocks within 1e-5 of its largest |value| on every rank, each
              stage running once a microbatch (8 times in the schedule's
-             11 ticks), and no kernel launched.  Prints ms a step of 23a and of
+             11 ticks), and no kernel launched.  23c's backward pass: every
+             rank backpropagates the same seeded loss sum(y * G) through
+             pipeline_apply, and each stage's gradient of its block's params
+             and every rank's gradient of the input must lie within 1e-4 of
+             the largest |value| of the sequential blocks' gradient, which
+             the rank computes in its own process.  Prints ms a step of 23a and of
              23b by rank (functional: gloo through the host on one card, no
              DP or TP speed), peak GB a rank and their sum, rank 0's bytes
              gathered and all-reduced in a step, checkpoint save and restore
              seconds, the pipeline's ticks and bubble (3/11).
+24. mesh_serve — (in phase 23's four ranks, after 23c dropped the training
+             state) gemma3-1b at its published widths and depth (26 layers,
+             4 heads on 1 KV head of 256), fp32, init_params(0) whole on
+             every rank, decode attention on the ``cuda`` backend, on the
+             (data 2, model 2) mesh: runtime/serve.py's make_prefill_step
+             (SERVE_BATCH (4) seeded prompts of SERVE_PROMPT (1000) tokens
+             into a cache of SERVE_CAP (2048)) then SERVE_STEPS (16) greedy
+             make_decode_step steps on three paths: seq_shard_fallback on
+             (1 KV head: every k / v length over "model", the tree decode
+             on the partial kernel), off (the caches replicated over
+             "model", flash_decode), and batch 1 for SERVE_STEPS_B1 (8)
+             steps (the length over "data").  Rank 0 runs the one-process
+             reference (LM.prefill, LM.decode_step on the whole cache,
+             greedy) and broadcasts it.  Fails unless on every rank each
+             path's greedy tokens equal the reference's, its logits lie
+             within 1e-4 of the reference's largest |logit|, and the path's
+             kernel launched (flash_decode_partial on the sequence-sharded
+             paths, flash_decode on the replicated one).  Prints ms a
+             decode step by rank (functional: gloo through the host on one
+             card) and rank 0's bytes gathered and all-reduced a step.  The
+             kernels line's "mesh_serve" launches are the three paths' on
+             every rank; the reference's stay in the phase record.
+25. dryrun — (on the host) build_cell of phase 22's step (gemma3-1b, 26
+             layers, fp32, TRAIN_BATCH x TRAIN_SEQ, one device) lowered on
+             fake tensors: its FLOPs (FlopCounterMode) against train_flops
+             (a ratio, not gated) and its H100 roofline (datasheet
+             constants: derived, not measured) beside phase 22's measured
+             median step; then ``python -m repro_torch.launch.dryrun --arch
+             gemma3-1b --shape decode_32k --mesh single`` in a subprocess
+             (one rank of a fake 256-rank group).  Fails unless the step
+             counts FLOPs and bytes and the cell's record has status "ok",
+             FLOPs > 0 and wire bytes > 0.
 
 The last three lines of standard output are JSON: the serving numbers
 (phases 15, 16, 17 and 18 under "heal", "load", "deploy" and "tp"; 19-21 under
 "hybrid", "mla" (with the k_cat copy's time) and "encdec"; 22 under "train",
-23 under "mesh_train"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+23 under "mesh_train", 24 under "mesh_serve", 25 under "dryrun"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -3748,12 +3785,205 @@ def mesh_train_rank(ckpt_dir, device):
         y = pipeline_apply(pod, counted, blocks, x, axis="pod")
         torch.cuda.synchronize()
         pipe_s = time.perf_counter() - t
+    pipe_grads = pipe_grad_check(torch, pod, stage, blocks, x)
     after = kernel_counts(K)
-    return {"coords": dict(mesh.coords), "backend": mesh.backend, "ms": ms, "losses": losses,
-            "grad_norms": gnorms, "traffic": traffic, "peak": peak, "mu_numel": mu_numel,
-            "clock": clock, "grads": grads_host, "digests": digests,
-            "pipe": y.cpu().numpy() if rank0 else None, "pipe_calls": len(calls), "pipe_s": pipe_s,
-            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+    out = {"coords": dict(mesh.coords), "backend": mesh.backend, "ms": ms, "losses": losses,
+           "grad_norms": gnorms, "traffic": traffic, "peak": peak, "mu_numel": mu_numel,
+           "clock": clock, "grads": grads_host, "digests": digests,
+           "pipe": y.cpu().numpy() if rank0 else None, "pipe_calls": len(calls), "pipe_s": pipe_s,
+           "pipe_grads": pipe_grads,
+           "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+    del blocks, x, y
+    release(torch)
+    out["serve"] = mesh_serve_rank(torch, K, mesh)
+    return out
+
+
+def pipe_grad_check(torch, pod, stage, blocks, x):
+    """23c's backward pass on this rank: every rank backpropagates the same
+    seeded loss sum(y * G) through pipeline_apply; this process also runs
+    the sequential blocks and backpropagates it there.  Returns the stage's
+    largest |difference| a leaf over that leaf's largest |value| in the
+    sequential gradient, the same for x, and the seconds."""
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.runtime.pipeline import pipeline_apply
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(PIPE_SEED + 1)
+    g = torch.randn(x.shape, generator=gen, device=x.device)
+
+    def fresh():
+        leaves = [a.detach().clone().requires_grad_() for a in tree_leaves(blocks)]
+        return leaves, tree_unflatten(blocks, leaves), x.detach().clone().requires_grad_()
+
+    leaves_p, bp, xp = fresh()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (pipeline_apply(pod, stage, bp, xp, axis="pod") * g).sum().backward()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t
+    leaves_s, bs, xs = fresh()
+    seq = []
+    for mb in range(PIPE_MICRO):
+        h = xs[mb]
+        for s in range(PIPE_STAGES):
+            h = stage(tree_map(lambda a: a[s], bs), h)
+        seq.append(h)
+    (torch.stack(seq) * g).sum().backward()
+    s = pod.axis_index("pod")
+    w_err = max(float((a.grad[s] - b.grad[s]).abs().max() / b.grad[s].abs().max().clamp(min=1e-30))
+                for a, b in zip(leaves_p, leaves_s))
+    x_err = float((xp.grad - xs.grad).abs().max() / xs.grad.abs().max())
+    return {"stage": s, "w_err": w_err, "x_err": x_err, "s": pipe_s}
+
+
+# --------------------------------------------------------------------------- #
+# phase 24: serving on the (data 2, model 2) mesh of phase 23's ranks
+# --------------------------------------------------------------------------- #
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_CAP = 4, 1000, 2048
+SERVE_STEPS, SERVE_STEPS_B1, SERVE_SEED = 16, 8, 24
+# (path, seq_shard_fallback, batch, decode steps)
+SERVE_PATHS = (("seqshard", True, SERVE_BATCH, SERVE_STEPS),
+               ("replicated", False, SERVE_BATCH, SERVE_STEPS),
+               ("batch1", True, 1, SERVE_STEPS_B1))
+
+
+def serve_config():
+    """Phase 24's config: gemma3-1b at its published widths and depth, fp32,
+    decode attention on the ``cuda`` backend."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-1b")
+    return cfg.with_overrides(dtype="float32", param_dtype="float32",
+                              backends={**cfg.backends, "decode_attention": "cuda"})
+
+
+def greedy_run(torch, prefill, decode, params, prompts, steps, mesh=None):
+    """Greedy decode after the prefill: (logits a step (steps, B, V), tokens
+    (steps, B), ms a decode step (synchronised; after a barrier on a mesh),
+    the mesh's bytes gathered and all-reduced a decode step)."""
+    import torch.distributed as dist
+    logits, caches, lengths = prefill(params, {"tokens": prompts})
+    all_logits, tokens, ms, traffic = [], [], [], []
+    for _ in range(steps):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)   # ties: the lowest id
+        all_logits.append(logits)
+        tokens.append(tok)
+        torch.cuda.synchronize()
+        if mesh is not None:
+            dist.barrier()
+            mesh.traffic.update(gathered=0, reduced=0)
+        t = time.perf_counter()
+        logits, caches = decode(params, tok, caches, lengths)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        if mesh is not None:
+            traffic.append(dict(mesh.traffic))
+        lengths = lengths + 1
+    return torch.stack(all_logits), torch.stack(tokens), ms, traffic
+
+
+def mesh_serve_rank(torch, K, mesh):
+    """Phase 24 on one rank of phase 23's (data 2, model 2) mesh: the whole
+    params on every rank (init_params(0)); rank 0's one-process reference
+    (``LM.prefill`` and ``LM.decode_step`` on the whole cache, greedy)
+    broadcast to every rank; then each of SERVE_PATHS through
+    make_prefill_step / make_decode_step, greedy, held against it here.
+    Returns what the parent gates and prints."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+    t0 = time.perf_counter()
+    dev, rank0 = mesh.device, mesh.rank == 0
+    cfg = serve_config()
+    model = LM(cfg)
+    params = model.init_params(0, device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)).to(dev)
+    out = {"paths": {}, "ref": {}, "setup_s": time.perf_counter() - t0}
+    refs = {}
+    with torch.no_grad():
+        for b, steps in ((SERVE_BATCH, SERVE_STEPS), (1, SERVE_STEPS_B1)):
+            t = time.perf_counter()
+            before = kernel_counts(K)
+            if rank0:
+                logits, tokens, _, _ = greedy_run(
+                    torch, lambda p, i: model.prefill(p, i, cache_cap=SERVE_CAP),
+                    model.decode_step, params, prompts[:b], steps)
+            else:
+                logits = torch.empty((steps, b, cfg.vocab_padded), dtype=torch.float32,
+                                     device=dev)
+                tokens = torch.empty((steps, b), dtype=torch.int32, device=dev)
+            after = kernel_counts(K)
+            dist.broadcast(logits, src=0)
+            dist.broadcast(tokens, src=0)
+            refs[b] = (logits, tokens)
+            out["ref"][b] = {"s": time.perf_counter() - t, "launches": {
+                k: after[k] - before[k] for k in after if after[k] != before[k]}}
+        for path, fallback, b, steps in SERVE_PATHS:
+            kw = dict(batch=b, cache_cap=SERVE_CAP, seq_shard_fallback=fallback)
+            prefill = make_prefill_step(model, cfg, mesh, seq=SERVE_PROMPT, **kw)
+            decode = make_decode_step(model, cfg, mesh, **kw)
+            before = kernel_counts(K)
+            t = time.perf_counter()
+            logits, tokens, ms, traffic = greedy_run(torch, prefill, decode, params,
+                                                     prompts[:b], steps, mesh)
+            seconds = time.perf_counter() - t
+            after = kernel_counts(K)
+            ref_logits, ref_tokens = refs[b]
+            out["paths"][path] = {
+                "ms": ms, "s": seconds, "traffic": traffic[-1],
+                "err": float((logits - ref_logits).abs().max() / ref_logits.abs().max()),
+                "tokens_equal": bool(torch.equal(tokens, ref_tokens)),
+                "tokens": tokens.cpu().tolist(),
+                "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+            del logits, tokens
+        del refs, params
+    release(torch)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_serve_gates(ranks, card):
+    """Phase 24's gates on the ranks' results, and its record."""
+    paths = {}
+    for path, fallback, b, steps in SERVE_PATHS:
+        per = [r["serve"]["paths"][path] for r in ranks]
+        for r, p in zip(ranks, per):
+            if not p["tokens_equal"]:
+                fail(f"mesh_serve: {path} on the rank at {r['coords']}: greedy tokens "
+                     f"{p['tokens']} differ from rank 0's one-process reference")
+            if not p["err"] <= 1e-4:
+                fail(f"mesh_serve: {path} on the rank at {r['coords']}: logits within "
+                     f"{p['err']:.3e} of the reference's largest |logit|, not 1e-4")
+            kernel = "flash_decode" if path == "replicated" else "flash_decode_partial"
+            if not p["launches"].get(kernel, 0) > 0:
+                fail(f"mesh_serve: {path} on the rank at {r['coords']} launched no "
+                     f"{kernel}: {p['launches']}")
+        paths[path] = {
+            "seq_shard_fallback": fallback, "batch": b, "steps": steps,
+            "ms_per_step_by_rank": [p["ms"] for p in per],
+            "median_ms_by_rank": [sorted(p["ms"])[len(p["ms"]) // 2] for p in per],
+            "err_by_rank": [p["err"] for p in per], "s_by_rank": [p["s"] for p in per],
+            "launches_by_rank": [p["launches"] for p in per],
+            "bytes_a_step_rank0": per[0]["traffic"]}
+    r0 = ranks[0]["serve"]
+    stats = {"arch": "gemma3-1b", "layers": 26, "dtype": "float32", "mesh": {"data": 2, "model": 2},
+             "prompt": SERVE_PROMPT, "cache": SERVE_CAP, "paths": paths,
+             "reference": {str(b): v for b, v in r0["ref"].items()},
+             "rank_s": [r["serve"]["s"] for r in ranks], "setup_s": r0["setup_s"]}
+    for path, rec in paths.items():
+        say(f"  24 {path} (seq_shard_fallback={rec['seq_shard_fallback']}, batch {rec['batch']}, "
+            f"{rec['steps']} greedy steps): tokens equal rank 0's one-process reference on every "
+            f"rank, logits within {max(rec['err_by_rank']):.2e} of its largest |logit|; median ms "
+            f"a decode step by rank {[round(v, 2) for v in rec['median_ms_by_rank']]} "
+            f"(functional: four gloo ranks on one card); rank 0 a step: gathered "
+            f"{rec['bytes_a_step_rank0']['gathered'] / 1e6:.3f} MB, all-reduced "
+            f"{rec['bytes_a_step_rank0']['reduced'] / 1e6:.3f} MB; launches by rank "
+            f"{rec['launches_by_rank']} [{card}]")
+    say(f"  24 reference (rank 0, one process): {json.dumps(stats['reference'])}; phase seconds "
+        f"by rank {[round(v, 1) for v in stats['rank_s']]} [{card}]")
+    return stats
 
 
 def mesh_train_phase(torch, K, card, device="cuda:0"):
@@ -3876,6 +4106,15 @@ def mesh_train_phase(torch, K, card, device="cuda:0"):
         if r["pipe_calls"] != PIPE_MICRO:
             fail(f"mesh_train: the stage at {r['coords']} ran {r['pipe_calls']} times, not once "
                  f"a microbatch ({PIPE_MICRO})")
+        pg = r["pipe_grads"]
+        if not (pg["w_err"] <= 1e-4 and pg["x_err"] <= 1e-4):
+            fail(f"mesh_train: the pipeline's gradients at stage {pg['stage']} differ from the "
+                 f"sequential blocks' by {pg['w_err']:.3e} (weights) and {pg['x_err']:.3e} (x) "
+                 f"of the largest |value|")
+    if sorted(r["pipe_grads"]["stage"] for r in ranks) != list(range(PIPE_STAGES)):
+        fail(f"mesh_train: the pipeline's stages {[r['pipe_grads']['stage'] for r in ranks]}")
+    grad_w = max(r["pipe_grads"]["w_err"] for r in ranks)
+    grad_x = max(r["pipe_grads"]["x_err"] for r in ranks)
     after = kernel_counts(K)
     if after != before:
         fail(f"mesh_train: kernels launched: "
@@ -3897,7 +4136,8 @@ def mesh_train_phase(torch, K, card, device="cuda:0"):
         "one_process_s": one_s, "spawn_s": spawn_s,
         "pipeline": {"stages": PIPE_STAGES, "micro": PIPE_MICRO, "ticks": ticks,
                      "bubble": (PIPE_STAGES - 1) / ticks, "err": pipe_err,
-                     "s": r0["pipe_s"]},
+                     "s": r0["pipe_s"], "grad_w_err": grad_w, "grad_x_err": grad_x,
+                     "grad_s": r0["pipe_grads"]["s"]},
         "launches": 0,
     }
     say(f"  23b mesh {stats['mesh']} ({r0['backend']}, four ranks on one card: functional; "
@@ -3915,8 +4155,88 @@ def mesh_train_phase(torch, K, card, device="cuda:0"):
     say(f"  23c pipeline: {PIPE_STAGES} stages x {PIPE_MICRO} microbatches of "
         f"(1, {TRAIN_SEQ}, {cfg.d_model}) in {ticks} ticks, bubble {PIPE_STAGES - 1}/{ticks} = "
         f"{(PIPE_STAGES - 1) / ticks:.4f}, within {pipe_err:.2e} of the sequential blocks, "
-        f"{r0['pipe_s']:.2f} s; no kernel launched [{card}]")
-    return stats
+        f"{r0['pipe_s']:.2f} s; backward (the same loss on every rank): each stage's weight "
+        f"gradients within {grad_w:.2e} and x's within {grad_x:.2e} of the sequential blocks' "
+        f"largest |value| (one process), {r0['pipe_grads']['s']:.2f} s; no kernel launched "
+        f"[{card}]")
+    serve = mesh_serve_gates(ranks, card)
+    # The paths' own launches only: rank 0's one-process reference is not the
+    # path, and its launches stay in the phase record ("reference").
+    launches = {k: 0 for k in kernel_counts(K)}
+    for r in ranks:
+        for rec in r["serve"]["paths"].values():
+            for k, v in rec["launches"].items():
+                launches[k] += v
+    return stats, serve, launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 25: the dry run on the host
+# --------------------------------------------------------------------------- #
+
+def dryrun_phase(train_record, card):
+    """Phase 25 (see the module docstring).  Returns its record."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.tools.roofline import H100, analyze, model_flops_for
+    cfg = get_config("gemma3-1b").with_overrides(dtype="float32", param_dtype="float32")
+    shape = ShapeCfg("phase22", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t = time.perf_counter()
+    cell = build_cell("gemma3-1b", shape, None, cfg=cfg)
+    low = cell.lower()
+    lower_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in tree_leaves(cell.args["params"]))
+    want = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    rep = analyze(cell.name, "one device", 1, low.cost(), "",
+                  model_flops=model_flops_for(cfg, "train", TRAIN_SEQ, TRAIN_BATCH),
+                  bytes_per_device=low.bytes_per_device, collectives=low.collectives)
+    measured = train_record["ms_per_step_median_2_to_8"]
+    if not (rep.hlo_flops > 0 and low.bytes_accessed > 0):
+        fail(f"dryrun: phase 22's step lowered to {rep.hlo_flops} FLOPs and "
+             f"{low.bytes_accessed} bytes")
+    say(f"  25 phase 22's step on fake tensors in {lower_s:.1f} s: {rep.hlo_flops / 1e12:.3f} "
+        f"TFLOP counted (FlopCounterMode, remat's recompute included) against train_flops' "
+        f"{want / 1e12:.3f} (ratio {rep.hlo_flops / want:.4f}, not gated); bytes accessed "
+        f"{low.bytes_accessed / 1e9:.2f} GB (unfused), arguments {low.bytes_per_device / 1e9:.2f} "
+        f"GB; roofline on H100 datasheet constants ({H100.peak_flops / 1e12:.0f} TFLOP/s, "
+        f"{H100.hbm_bw / 1e12:.2f} TB/s; derived, not measured): compute "
+        f"{rep.compute_s * 1e3:.2f} ms, memory {rep.memory_s * 1e3:.2f} ms, bottleneck "
+        f"{rep.bottleneck}, against phase 22's measured median step {measured:.2f} ms [{card}]")
+    out_dir = tempfile.mkdtemp(prefix="phase25_dryrun_", dir=ROOT / "build")
+    t = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "gemma3-1b", "--shape",
+             "decode_32k", "--mesh", "single", "--out", out_dir], capture_output=True, text=True,
+            timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        cell_s = time.perf_counter() - t
+        if res.returncode != 0:
+            fail(f"dryrun: launch.dryrun exited {res.returncode}:\n{res.stdout[-2000:]}\n"
+                 f"{res.stderr[-2000:]}")
+        rec = json.loads((Path(out_dir) / "gemma3-1b__decode_32k__single.json").read_text())
+    finally:
+        import shutil
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if not (rec["status"] == "ok" and rec["hlo_flops"] > 0 and rec["wire_bytes_per_chip"] > 0):
+        fail(f"dryrun: the production cell's record: status {rec['status']}, flops "
+             f"{rec.get('hlo_flops')}, wire {rec.get('wire_bytes_per_chip')}: "
+             f"{rec.get('error', '')}")
+    keys = ("hlo_flops", "hlo_bytes", "wire_bytes_per_chip", "per_type", "counts",
+            "bytes_per_device", "compute_s", "memory_s", "collective_s", "bottleneck",
+            "useful_ratio", "chips", "lower_s", "compile_s")
+    cell_rec = {k: rec[k] for k in keys}
+    say(f"  25 production cell gemma3-1b/decode_32k on one rank of (data 16, model 16) "
+        f"(subprocess {cell_s:.1f} s): {json.dumps(cell_rec)} (H100 datasheet roofline, "
+        f"derived) [{card}]")
+    return {"phase22_step": {"flops": rep.hlo_flops, "train_flops": want,
+                             "ratio": rep.hlo_flops / want, "bytes_accessed": low.bytes_accessed,
+                             "arg_bytes": low.bytes_per_device, "roofline_s": rep.roofline_s,
+                             "compute_s": rep.compute_s, "memory_s": rep.memory_s,
+                             "bottleneck": rep.bottleneck, "measured_ms": measured,
+                             "lower_s": lower_s},
+            "decode_32k_single": cell_rec, "subprocess_s": cell_s}
 
 
 # --------------------------------------------------------------------------- #
@@ -4728,9 +5048,20 @@ def main() -> int:
         f"on (data {MESH_SHAPE[0]}, model {MESH_SHAPE[1]}), four ranks on one card over gloo, "
         f"23c pipeline_apply over 'pod' ({PIPE_STAGES} stages, {PIPE_MICRO} microbatches) "
         f"[{limit_line}]")
-    mesh_train_record = mesh_train_phase(torch, K, limit_line)
+    mesh_train_record, mesh_serve_record, mesh_serve_launches = mesh_train_phase(
+        torch, K, limit_line)
+    runs["mesh_serve"] = (mesh_serve_launches, mesh_serve_record)
     release(torch)
     phase_s["mesh_train"] = time.perf_counter() - t
+    phase_s["mesh_serve (in the ranks, rank 0)"] = mesh_serve_record["rank_s"][0]
+
+    # 25. the dry run: phase 22's step lowered on fake tensors, one production cell
+    t = time.perf_counter()
+    say(f"[dryrun] build_cell of phase 22's step (gemma3-1b, {TRAIN_BATCH}x{TRAIN_SEQ}, one "
+        f"device) on fake tensors; launch.dryrun --arch gemma3-1b --shape decode_32k --mesh "
+        f"single in a subprocess [{limit_line}]")
+    dryrun_record = dryrun_phase(train_record, limit_line)
+    phase_s["dryrun"] = time.perf_counter() - t
 
     # 12. the paper's five CNNs under six assignments
     t = time.perf_counter()
@@ -4758,6 +5089,8 @@ def main() -> int:
     serving["tp"] = tp_record
     serving["train"] = train_record
     serving["mesh_train"] = mesh_train_record
+    serving["mesh_serve"] = mesh_serve_record
+    serving["dryrun"] = dryrun_record
     for path in ("dense", "paged fp32", "paged int8", "split"):
         stats = runs[path][1]
         estimates[path] = tick_estimate(by_tag, ops_ms, cfg.n_layers, path, split_ms)

@@ -15,6 +15,7 @@ pass (:mod:`repro_torch.core.quant`) and the passes
 
 from repro_torch.core import nnops as _nnops  # noqa: F401  (registers standard ops)
 from repro_torch.core.device import resolve_device, to_tensor
+from repro_torch.core.executor import Executor
 from repro_torch.core.importer import load_graph, load_program, save_graph
 from repro_torch.core.ir import Graph, GraphError, Node, TensorSpec, topological_order
 from repro_torch.core.passes import (eliminate_common_subexpr, eliminate_dead,
@@ -33,7 +34,7 @@ from repro_torch.core.selector import (H100_SXM, HOST_CPU, AutotunePolicy, Backe
                                        default_cache_path, hardware_fingerprint)
 
 __all__ = [
-    "compile", "Program", "NodeReport",
+    "compile", "Program", "NodeReport", "Executor",
     "load_graph", "load_program", "save_graph",
     "calibrate", "quantize_graph", "quantize_weight", "is_quantized", "ValueRange",
     "Graph", "GraphError", "Node", "TensorSpec", "topological_order",

@@ -265,6 +265,42 @@ class Program:
 
         return fast
 
+    def lower(self, **input_specs: Any):
+        """One call's cost on fake tensors, for dry-run / cost analysis (JAX:
+        ``jax.jit(...).lower(...)``): a
+        :class:`~repro_torch.core.lowering.Lowered` record, with nothing
+        allocated.  ``input_specs`` maps input names to anything with a
+        shape and a dtype (a TensorSpec, a tensor); by default the graph's
+        own.  A node on a kernel route (``cuda``, ``cuda_split``, ``tp``)
+        runs its plain path on fake CPU tensors, launching nothing, and its
+        FLOPs and bytes are the cost table's (``extra_cost``)."""
+        from repro_torch.core.lowering import (KERNEL_ROUTES, Counters, fake_mode,
+                                               fake_tensor, lower_call)
+        if self._tp_rows()[1] is not None:
+            raise ValueError("lower: a Program that writes head-sharded caches on a serving "
+                             "mesh is lowered outside the mesh")
+        mode, counters = fake_mode(), Counters()
+        specs = {**self._graph.inputs, **input_specs}
+        inputs = {k: fake_tensor(mode, s.shape, _torch_dtype(s.dtype)) for k, s in specs.items()}
+        params = {k: fake_tensor(mode, tuple(v.shape), _torch_dtype(v.dtype))
+                  for k, v in self._graph.params.items()}
+
+        def run(params, inputs):
+            env = {**params, **inputs}
+            for node, fn in self._impls:
+                args = [env[v] for v in node.inputs]
+                backend, cost = self._cost_table[node.name]
+                if backend in KERNEL_ROUTES:
+                    outs = counters.replace(lambda: fn(args, node.attrs), cost.flops, cost.bytes)
+                else:
+                    outs = fn(args, node.attrs)
+                env.update(zip(node.outputs, outs))
+            return tuple(env[v] for v in self._graph.outputs)
+
+        with torch.no_grad():
+            return lower_call(run, {"params": params, "inputs": inputs}, mode=mode,
+                              counters=counters)
+
     # ------------------------------------------------------------------ #
     # Persistence (OXF bundle: model.json + weights.npz + program.json)
     # ------------------------------------------------------------------ #
@@ -346,6 +382,13 @@ class Program:
         prog._bundle_names = MappingProxyType(
             {nd["name"]: nd["backend"] for nd in d["nodes"] if nd.get("backend")})
         return prog
+
+
+def _torch_dtype(dtype: Any) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(getattr(dtype, "name", dtype)))
 
 
 def compile(graph: Graph, policy: Optional[BackendPolicy] = None,

@@ -45,8 +45,8 @@ import torch.distributed as dist
 
 from repro_torch.core.device import DeviceLike, resolve_device
 
-__all__ = ["Mesh", "ProcessMesh", "make_mesh", "make_serving_mesh",
-           "make_test_mesh", "spawn_ranks"]
+__all__ = ["Mesh", "ProcessMesh", "make_mesh", "make_serving_mesh", "make_test_mesh",
+           "make_fake_mesh", "make_production_mesh", "spawn_ranks"]
 
 
 @dataclass(frozen=True)
@@ -170,7 +170,9 @@ class ProcessMesh(Mesh):
     ranks row-major over those axes; :func:`axis_index` is this rank's
     place in it.  ``traffic`` counts the bytes of the results of the
     collectives run on it: each all-gather's whole output under
-    ``"gathered"``, each all-reduced tensor under ``"reduced"``."""
+    ``"gathered"``, each all-reduced tensor under ``"reduced"``;
+    ``collectives`` maps (HLO op name, group size) to [calls, result
+    bytes] for the same collectives, what the roofline's ring costs read."""
 
     def __init__(self, axis_names: Tuple[str, ...], sizes: Tuple[int, ...], rank: int,
                  device: torch.device, backend: str, groups: Dict[Tuple[str, ...], Any]):
@@ -182,6 +184,7 @@ class ProcessMesh(Mesh):
         object.__setattr__(self, "_groups", groups)
         # bytes of the collectives' results on this rank (sharding.collectives)
         object.__setattr__(self, "traffic", {"gathered": 0, "reduced": 0})
+        object.__setattr__(self, "collectives", {})
 
     def coords_of(self, rank: int) -> Dict[str, int]:
         """The coordinates of global rank ``rank`` (row-major)."""
@@ -256,6 +259,38 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
     print(f"[mesh] {dict(mesh.shape)} rank {rank} at {mesh.coords}: device {dev}, backend "
           f"{chosen} ({why})", flush=True)
     return mesh
+
+
+def make_fake_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+                   rank: int = 0) -> ProcessMesh:
+    """A :class:`ProcessMesh` of ``shape`` in which this one process is rank
+    ``rank`` of a ``fake`` process group of ``prod(shape)`` ranks
+    (``torch.testing._internal.distributed.fake_pg``): its collectives run
+    on fake tensors, move nothing and return at once, so a step can be
+    lowered for one rank of a large mesh (:mod:`repro_torch.launch.dryrun`).
+    The process's default group becomes that fake group (an earlier fake
+    group of another size or rank is replaced; a real one raises), so run
+    it in a process of its own."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = math.prod(int(n) for n in shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError(f"make_fake_mesh: this process is in a {dist.get_backend()} group")
+        if (dist.get_world_size(), dist.get_rank()) != (world, rank):
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    return make_mesh(shape, axis_names, device="cpu")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProcessMesh:
+    """The dry-run meshes, as JAX's: single pod (data=16, model=16) = 256
+    ranks; multi-pod (pod=2, data=16, model=16) = 512, "pod" data-parallel
+    by default and the pipeline axis when pipelining.  This process is rank
+    0 of a fake group of that size (:func:`make_fake_mesh`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_fake_mesh(shape, axes)
 
 
 # --------------------------------------------------------------------------- #

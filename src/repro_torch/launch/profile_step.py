@@ -16,7 +16,10 @@ device's busy time per step (the union of the kernels' intervals inside
 the step), its idle share, the launches per step, and the kernels by
 device time and the host ops by self time per step.  Where the profile
 holds no device event (``--device cpu``) the device columns are 0 and the
-idle share is null.
+idle share is null.  The batcher's prefills (one a request admitted, none
+profiled) are timed the same way: ``prefill_ms_per_token`` is their summed
+time over their summed prompt tokens, as ``chip_smoke.py``'s batcher
+phases give it.
 
 ``--engine dense paged`` profiles the decode ticks of
 :func:`~repro_torch.runtime.engine.build_lm_serving`'s engines instead, one
@@ -178,9 +181,18 @@ class _ProfiledLM(LM):
     def __init__(self, cfg, timer: _StepTimer):
         super().__init__(cfg)
         self.timer = timer
+        self.prefills: List[Tuple[float, int]] = []      # (seconds, prompt tokens)
 
     def decode_step(self, *args, **kw):
         return self.timer(super().decode_step, *args, **kw)
+
+    def prefill(self, params, batch, **kw):
+        self.timer._sync()
+        t = time.perf_counter()
+        out = super().prefill(params, batch, **kw)
+        self.timer._sync()
+        self.prefills.append((time.perf_counter() - t, int(batch["tokens"].shape[1])))
+        return out
 
 
 def engine_profiles(modes: Sequence[str], device, warmup: int, n_prof: int,
@@ -244,7 +256,9 @@ def main(argv=None) -> Dict:
         batcher.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
                                max_new_tokens=32))
     batcher.run(max_steps=args.warmup + args.steps)
-    out = timer.report(arch=cfg.name, device=str(device))
+    seconds, tokens = (sum(x) for x in zip(*model.prefills))
+    out = timer.report(arch=cfg.name, device=str(device), prefills=len(model.prefills),
+                       prefill_tokens=tokens, prefill_ms_per_token=1e3 * seconds / tokens)
     print(json.dumps(out))
     return out
 

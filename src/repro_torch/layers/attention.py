@@ -37,11 +37,18 @@ kernel, heads as experts, the batch as rows) on per-head weights ``wuk_h``
 ``wuv`` once, when the params are built (:func:`with_mla_heads`).  On the
 CPU both are the same fp32 products.  Cache updates are functional (a new
 tensor), as in JAX.
+
+On a process mesh, decode takes ``shard``
+(:class:`repro_torch.runtime.serve.ServeShard`): the cache is the rank's
+slice, its KV heads split over "model" (the rank projects and attends
+over its heads, then all-gathers them) or its length split (a write lands
+only on the rank that owns the row; attention is the tree decode).
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -135,11 +142,13 @@ def attn_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
                enc_out: Optional[torch.Tensor] = None,
                enc_lengths: Optional[torch.Tensor] = None,
                cross: bool = False, causal: bool = True,
-               cache_cap: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    """Returns (output, new_cache). x: (B,S,d) train/prefill, (B,1,d) decode."""
+               cache_cap: Optional[int] = None, shard: Any = None) -> Tuple[torch.Tensor, Cache]:
+    """Returns (output, new_cache). x: (B,S,d) train/prefill, (B,1,d) decode.
+    ``shard`` (decode on a mesh: :class:`repro_torch.runtime.serve.ServeShard`)
+    says which slice of the cache this rank holds."""
     if cross:
         return _cross_attn(p, x, cfg=cfg, mode=mode, cache=cache, enc_out=enc_out,
-                           enc_lengths=enc_lengths)
+                           enc_lengths=enc_lengths, shard=shard)
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ab = cfg.backend("attention")
     db = cfg.backend("decode_attention")
@@ -180,25 +189,46 @@ def attn_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     if cache is None or lengths is None:
         raise ValueError("decode needs a cache and lengths")
     b = x.shape[0]
-    cap = cache["k"].shape[1]
+    cap = cache["k"].shape[1]             # this rank's rows: cap * n_len in all
     x0 = x[:, 0]
-    q = dense(x0, p["wq"], backend=mb).reshape(b, hq, dh)
-    k_new = dense(x0, p["wk"], backend=mb).reshape(b, hkv, dh)
-    v_new = dense(x0, p["wv"], backend=mb).reshape(b, hkv, dh)
+    wq, wk, wv = _head_cols(p, shard, "k", hq, hkv, dh)
+    q = dense(x0, wq, backend=mb).reshape(b, -1, dh)
+    k_new = dense(x0, wk, backend=mb).reshape(b, -1, dh)
+    v_new = dense(x0, wv, backend=mb).reshape(b, -1, dh)
     cos, sin = rope_table(lengths, dh, cfg.rope_theta)              # (B, rd/2)
     cos, sin = cos[:, None, :], sin[:, None, :]
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
-    slot = lengths % cap if window is not None else lengths
+    n_len = 1 if shard is None else shard.split("k", 1)[0]
+    slot = lengths % (cap * n_len) if window is not None else lengths
+    if shard is not None:
+        slot = shard.local_slot("k", slot, cap)
     ck = _write_rows(cache["k"], slot, k_new)
     cv = _write_rows(cache["v"], slot, v_new)
-    eff_len = torch.clamp(lengths + 1, max=cap)
-    o = kops.decode_attention(q, ck, cv, eff_len, backend=db)
+    eff_len = torch.clamp(lengths + 1, max=cap * n_len)
+    if shard is None:
+        o = kops.decode_attention(q, ck, cv, eff_len, backend=db)
+    else:
+        o = shard.gather(shard.attend(q, ck, cv, eff_len, "k", backend=db), "k", 2, 1)
     y = dense(o.reshape(b, 1, hq * dh), p["wo"], backend=mb)
     return y, {"k": ck, "v": cv}
 
 
-def _cross_attn(p, x, *, cfg, mode, cache, enc_out, enc_lengths):
+def _head_cols(p: Params, shard: Any, name: str, hq: int, hkv: int, dh: int):
+    """(wq, wk, wv): the whole projections, or their columns of this rank's
+    query and KV heads when ``shard`` splits leaf ``name``'s heads."""
+    heads = None if shard is None else shard.heads(name, hq, hkv)
+    if heads is None:
+        return p["wq"], p["wk"], p["wv"]
+    qs, ks = heads
+
+    def cols(w, sl):
+        return w[:, sl.start * dh:sl.stop * dh].contiguous()
+
+    return cols(p["wq"], qs), cols(p["wk"], ks), cols(p["wv"], ks)
+
+
+def _cross_attn(p, x, *, cfg, mode, cache, enc_out, enc_lengths, shard=None):
     """Decoder rows over the encoder's: non-causal and without RoPE.  At
     train / prefill K/V come from ``enc_out`` (and prefill returns them as
     the cache); at decode from the read-only cache, ``enc_lengths`` rows of
@@ -217,6 +247,13 @@ def _cross_attn(p, x, *, cfg, mode, cache, enc_out, enc_lengths):
         k, v = cache["k"], cache["v"]
     else:
         raise ValueError(f"unknown mode {mode!r}")
+    if mode == "decode" and shard is not None:
+        wq = _head_cols(p, shard, "k", hq, hkv, dh)[0]
+        q = dense(x[:, 0], wq, backend=mb).reshape(b, -1, dh)
+        o = shard.attend(q, k, v, enc_lengths, "k", backend=cfg.backend("decode_attention"))
+        o = shard.gather(o, "k", 2, 1)[:, None]
+        y = dense(o.reshape(b, s, hq * dh), p["wo"], backend=mb)
+        return y, cache
     q = _split_heads(dense(x, p["wq"], backend=mb), hq)
     if mode == "decode":
         o = kops.decode_attention(q[:, 0].contiguous(), k, v, enc_lengths,
@@ -234,7 +271,7 @@ def _cross_attn(p, x, *, cfg, mode, cache, enc_out, enc_lengths):
 
 def mla_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
               cache: Cache = None, lengths: Optional[torch.Tensor] = None,
-              cache_cap: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+              cache_cap: Optional[int] = None, shard: Any = None) -> Tuple[torch.Tensor, Cache]:
     """Returns (output, new_cache).  Train / prefill attend with the
     up-projected K (nope + the shared rope key, D = qk) and V; decode
     attends over the latent cache (the absorbed form).  Both use the scale
@@ -285,14 +322,16 @@ def mla_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     q_pe = apply_rope(q_pe, cos, sin)
     ckv_new = dense(x0, p["wdkv"], backend=mb)                     # (B,rank)
     kpe_new = apply_rope(dense(x0, p["wkpe"], backend=mb)[:, None, :], cos, sin)[:, 0]
-    ckv = _write_rows(cache["ckv"], lengths, ckv_new)
-    kpe = _write_rows(cache["kpe"], lengths, kpe_new)
+    slot = lengths if shard is None else shard.local_slot("ckv", lengths, cache["ckv"].shape[1])
+    ckv = _write_rows(cache["ckv"], slot, ckv_new)
+    kpe = _write_rows(cache["kpe"], slot, kpe_new)
     # q_lat[b, h] = q_nope[b, h] @ Wuk[h]: heads as experts, the batch as rows
     q_lat = kops.moe_gemm(q_nope.transpose(0, 1).contiguous(), p["wuk_h"], backend=gb)
     q_cat = torch.cat([q_lat.transpose(0, 1), q_pe], dim=-1)       # (B,H,rank+rd)
     k_cat = torch.cat([ckv, kpe], dim=-1)[:, :, None, :]           # (B,S,1,rank+rd)
-    o_lat = kops.decode_attention(q_cat, k_cat, ckv[:, :, None, :], lengths + 1, scale=scale,
-                                  backend=cfg.backend("decode_attention"))   # (B,H,rank)
+    attend = kops.decode_attention if shard is None else partial(shard.attend, name="ckv")
+    o_lat = attend(q_cat, k_cat, ckv[:, :, None, :], lengths + 1, scale=scale,
+                   backend=cfg.backend("decode_attention"))                 # (B,H,rank)
     # out[b, h] = o_lat[b, h] @ Wuv[h]
     o = kops.moe_gemm(o_lat.transpose(0, 1).contiguous(), p["wuv_h"], backend=gb)
     y = dense(o.transpose(0, 1).reshape(b, 1, hq * m.v_dim), p["wo"], backend=mb)
@@ -319,7 +358,8 @@ def shared_attn_init(gen: torch.Generator, cfg: ArchConfig, *,
 def shared_attn_apply(p: Params, x: torch.Tensor, emb0: torch.Tensor, *,
                       cfg: ArchConfig, mode: str, cache: Cache = None,
                       lengths: Optional[torch.Tensor] = None,
-                      cache_cap: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+                      cache_cap: Optional[int] = None, shard: Any = None
+                      ) -> Tuple[torch.Tensor, Cache]:
     """Zamba2 shared block: fuse(concat(h, initial embedding)) -> attention
     and SwiGLU halves, each with its own norm and residual around it.  The
     result replaces the caller's hidden state: no residual is added outside
@@ -329,7 +369,8 @@ def shared_attn_apply(p: Params, x: torch.Tensor, emb0: torch.Tensor, *,
     h_in = dense(torch.cat([x, emb0], dim=-1), p["fuse"],
                  backend=cfg.backend("dense"))
     a, new_cache = attn_apply(p["attn"], norm(h_in, p["norm1"], eps=eps, backend=nb), cfg=cfg,
-                              mode=mode, cache=cache, lengths=lengths, cache_cap=cache_cap)
+                              mode=mode, cache=cache, lengths=lengths, cache_cap=cache_cap,
+                              shard=shard)
     h = h_in + a
     h = h + swiglu_apply(p["mlp"], norm(h, p["norm2"], eps=eps, backend=nb), cfg=cfg)
     return h, new_cache

@@ -18,11 +18,14 @@ weights are read once per call instead of once per row.  JAX's mesh
 constraints on the dispatched buffer (``constrain`` under ``jit``) bind
 specs to GSPMD and have no eager counterpart; they are not carried over.
 
-The writes and sums have a fixed order on any device: kept tokens are
-written with a plain (non-accumulating) index assignment — their (expert,
-slot) pairs are distinct, and dropped tokens are never written — and each
+The writes and sums give the same bits on any device: each kept token's
+row is written (not added) into its own (expert, slot) — the pairs are
+distinct — and a dropped token's row goes to a spare expert buffer that
+the experts never read (one plain ``index_put_``; no boolean-mask
+indexing, so the shapes do not depend on the data, nothing waits on the
+device, and a step lowers on fake tensors); and each
 token's top-k contributions are added in k order, as JAX's scatter-add
-does on the CPU (an accumulating scatter may reorder the adds on the card).
+does on the CPU.
 
 Data-parallel training passes ``dp`` (a
 :class:`~repro_torch.sharding.collectives.GlobalBatch`): the rank holds its
@@ -104,11 +107,30 @@ def _aux_loss(logits: torch.Tensor, topi: torch.Tensor, e: int,
     ranks) makes it this rank's share of the global batch's loss."""
     probs = torch.softmax(logits.float(), dim=-1)
     if total is None:
-        frac_tokens = torch.bincount(topi.reshape(-1), minlength=e).float() / topi.numel()
+        frac_tokens = _expert_counts(topi, e).float() / topi.numel()
         return e * torch.sum(frac_tokens * probs.mean(0))
     n = total.sum().float()                                      # global T * k
     t_global = n / topi.shape[-1]
     return e * torch.sum(total.float() / n * (probs.sum(0) / t_global))
+
+
+def _expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """How many entries of ``ids`` pick each of the ``e`` experts (int64):
+    ``bincount(minlength=e)``'s counts, as a fixed-shape comparison, so a
+    step also runs on fake tensors (launch/cells.py)."""
+    return (ids.reshape(-1, 1) == torch.arange(e, device=ids.device)).sum(0)
+
+
+def _dispatch(expert: torch.Tensor, slot_c: torch.Tensor, keep: torch.Tensor,
+              rows: torch.Tensor, e: int, m: int) -> torch.Tensor:
+    """(E, m, d) buffer holding each kept entry's row at ``[expert,
+    slot_c]`` and zeros elsewhere.  The kept slots are distinct, so each
+    holds its one row bit for bit; a dropped entry's row goes to a spare
+    expert ``e``, which is sliced off unread, whatever the row holds.  No
+    boolean-mask indexing: the shapes do not depend on the data."""
+    xe = torch.zeros((e + 1, m, rows.shape[-1]), dtype=rows.dtype, device=rows.device)
+    xe.index_put_((torch.where(keep, expert, e), slot_c), rows)
+    return xe[:e]
 
 
 def _positions(fi: torch.Tensor, e: int) -> torch.Tensor:
@@ -162,16 +184,15 @@ def moe_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
     if dp is None:
         pos, total, t_all = slot, None, t
     else:                                                        # within the global batch
-        before, total = dp.before(torch.bincount(fi, minlength=e))
-        pos, t_all = slot + before[fi], int(total.sum()) // k
+        before, total = dp.before(_expert_counts(fi, e))
+        pos, t_all = slot + before[fi], dp.total_rows(t)
     aux = _aux_loss(logits, topi, e, total)
     cap = _capacity(t_all, cfg)
     keep = pos < cap
     slot_c = torch.clamp(slot, max=cap - 1)
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
 
-    xe = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    xe[fi[keep], slot[keep]] = xt[tok[keep]]
+    xe = _dispatch(fi, slot_c, keep, xt[tok], e, cap)
     ye = _experts(p, xe, cfg)                                    # (E, cap, d)
 
     weight = (keep * topw.reshape(-1)).to(x.dtype)
@@ -190,19 +211,19 @@ def moe_apply_local(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
     k, e = mo.top_k, mo.n_experts
     cap = _capacity(s, cfg)
     logits, topw, topi = _route(p, x.reshape(b * s, d), cfg)
-    total = None if dp is None else dp.sum(torch.bincount(topi.reshape(-1), minlength=e))
+    total = None if dp is None else dp.sum(_expert_counts(topi, e))
     aux = _aux_loss(logits, topi, e, total)
 
     fi = topi.reshape(b, s * k)
     pos = _positions(fi, e)
     keep = pos < cap
     rows = torch.arange(b, device=x.device)[:, None] * cap
-    slot, slot_c = rows + pos, rows + torch.clamp(pos, max=cap - 1)
+    slot_c = rows + torch.clamp(pos, max=cap - 1)
     tok = torch.arange(s, device=x.device).repeat_interleave(k)
-    src = (torch.arange(b, device=x.device)[:, None] * s + tok[None, :])[keep]
+    src = (torch.arange(b, device=x.device)[:, None] * s + tok[None, :]).reshape(-1)
 
-    xe = torch.zeros((e, b * cap, d), dtype=x.dtype, device=x.device)
-    xe[fi[keep], slot[keep]] = x.reshape(b * s, d)[src]
+    xe = _dispatch(fi.reshape(-1), slot_c.reshape(-1), keep.reshape(-1),
+                   x.reshape(b * s, d)[src], e, b * cap)
     ye = _experts(p, xe, cfg)                                    # (E, B*cap, d)
 
     weight = (keep * topw.reshape(b, s * k)).to(x.dtype)

@@ -87,8 +87,12 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def mamba_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
-                cache: Cache = None, lengths: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+                cache: Cache = None, lengths: Optional[torch.Tensor] = None,
+                shard: Any = None) -> Tuple[torch.Tensor, Cache]:
+    """Returns (output, new_cache).  At decode on a mesh, ``shard``
+    (:class:`repro_torch.runtime.serve.ServeShard`) may split the SSM state's
+    heads and ``conv_x``'s channels over "model": the rank then steps its
+    own heads and all-gathers the gated output before the norm."""
     s = cfg.ssm
     h, pd, g, n = s.n_heads, s.head_dim, s.n_groups, s.state
     b = x.shape[0]
@@ -128,6 +132,11 @@ def mamba_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
     # ---- decode: one step, O(1) state update ----
     if cache is None:
         raise ValueError("mamba decode needs the cache of a prefill")
+    heads = _local_heads(shard, h)
+    if heads is not None:
+        p = _head_params(p, heads, pd)
+        A = A[heads]
+        h = heads.stop - heads.start
     xt = x[:, 0]
     z = dense(xt, p["wz"], backend=bd)
     new = {name: dense(xt, p[f"w{name}"], backend=bd)[:, None] for name in ("x", "B", "C")}
@@ -138,10 +147,42 @@ def mamba_apply(p: Params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
         streams[name] = conv(val, name, tail=tail)[:, 0]
         tails[f"conv_{name}"] = torch.cat([tail[:, 1:], val], dim=1)
     dtv = F.softplus(dt_raw.float() + p["dt_bias"][None, :])
-    y, ssm_state = kops.ssd_step(streams["x"].reshape(b, h, pd), dtv, A,
-                                 streams["B"].reshape(b, g, n), streams["C"].reshape(b, g, n),
+    Bs, Cs = streams["B"].reshape(b, g, n), streams["C"].reshape(b, g, n)
+    if heads is not None:          # each local head's group, as a group of its own
+        group = torch.arange(heads.start, heads.stop, device=x.device) // (s.n_heads // g)
+        Bs, Cs = Bs[:, group], Cs[:, group]
+    y, ssm_state = kops.ssd_step(streams["x"].reshape(b, h, pd), dtv, A, Bs, Cs,
                                  p["D"], cache["ssm"])
-    y = norm(y.reshape(b, 1, s.d_inner) * F.silu(z[:, None].float()).to(y.dtype),
-             p["norm_w"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
+    gated = y.reshape(b, 1, h * pd) * F.silu(z[:, None].float()).to(y.dtype)
+    if heads is not None:
+        gated = shard.gather(gated, "ssm", 1, 2)
+    y = norm(gated, p["norm_w"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
     out = dense(y, p["out_proj"], backend=bd)
     return out, {**tails, "ssm": ssm_state}
+
+
+def _local_heads(shard: Any, n_heads: int) -> Optional[slice]:
+    """This rank's SSM heads when ``shard`` splits the state's heads, else
+    None; ``conv_x`` must split its channels with them."""
+    if shard is None:
+        return None
+    n, i = shard.split("ssm", 1)
+    if shard.split("conv_x", 2)[0] != n:
+        raise ValueError(f"mamba decode: the SSM state splits its heads {n} ways and conv_x "
+                         f"its channels {shard.split('conv_x', 2)[0]} ways")
+    return None if n == 1 else slice(i * n_heads // n, (i + 1) * n_heads // n)
+
+
+def _head_params(p: Params, heads: slice, pd: int) -> Params:
+    """The params of the heads ``heads``: their columns of the x / z
+    streams and the conv over x, their dt, A and D entries; B, C, the norm
+    and the output projection whole."""
+    c = slice(heads.start * pd, heads.stop * pd)
+    out = dict(p)
+    for name in ("wz", "wx", "conv_x"):
+        out[name] = p[name][:, c].contiguous()
+    out["conv_bx"] = p["conv_bx"][c]
+    out["wdt"] = p["wdt"][:, heads].contiguous()
+    for name in ("dt_bias", "D"):
+        out[name] = p[name][heads]
+    return out

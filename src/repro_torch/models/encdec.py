@@ -83,13 +83,14 @@ class EncDec:
         return norm(h, params["enc_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
 
     def _decoder(self, params: Params, h: torch.Tensor, *, mode: str, caches,
-                 lengths, enc_out, enc_lengths, cache_cap, remat: bool = False, dp=None):
+                 lengths, enc_out, enc_lengths, cache_cap, remat: bool = False, dp=None,
+                 shard=None):
         """-> (h, new_caches, aux)"""
         cfg = self.cfg
         h, new_caches, aux = stack_apply(
             params["decoder"], h, self.dec_plan, cfg=cfg, mode=mode, caches=caches,
             lengths=lengths, enc_out=enc_out, enc_lengths=enc_lengths, cache_cap=cache_cap,
-            remat=remat, dp=dp)
+            remat=remat, dp=dp, shard=shard)
         h = norm(h, params["final_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
         return h, new_caches, aux
 
@@ -119,10 +120,12 @@ class EncDec:
                           self.cfg)
 
     # ------------------------------------------------------------------ #
-    def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *, cache_cap: int):
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *, cache_cap: int,
+                dp=None):
         """Encode ``batch["src_embeds"]``, prefill the decoder over
         ``batch["tokens"]``; returns (last-position logits (B, V), caches,
-        lengths (B,) int32)."""
+        lengths (B,) int32).  ``dp`` (the decoder's MoE layers) as in
+        :meth:`repro_torch.models.lm.LM.prefill`."""
         cfg = self.cfg
         enc_out = self.encode(params, batch["src_embeds"], remat=False)
         b, s_src = enc_out.shape[0], enc_out.shape[1]
@@ -131,19 +134,21 @@ class EncDec:
         enc_lengths = torch.full((b,), s_src, dtype=torch.int32, device=h.device)
         h, caches = self._decode_trunk(params, h, mode="prefill", caches=None, lengths=None,
                                        enc_out=enc_out, enc_lengths=enc_lengths,
-                                       cache_cap=cache_cap)
+                                       cache_cap=cache_cap, dp=dp)
         lengths = torch.full((b,), tokens.shape[1], dtype=torch.int32, device=h.device)
         return self._head(params, h[:, -1]), caches, lengths
 
     def decode_step(self, params: Params, tokens: torch.Tensor, caches,
-                    lengths: torch.Tensor, enc_lengths: torch.Tensor):
+                    lengths: torch.Tensor, enc_lengths: torch.Tensor, shard=None, dp=None):
         """tokens (B,) -> (logits (B, V), new_caches); the cross-attention
         reads ``enc_lengths`` rows of each encoder cache.  The caller
-        increments lengths afterwards."""
+        increments lengths afterwards.  ``shard`` and ``dp`` as in
+        :meth:`repro_torch.models.lm.LM.decode_step`."""
         h = params["embed"][tokens.long()[:, None]].to(_dtype(self.cfg.dtype))
         h, new_caches = self._decode_trunk(params, h, mode="decode", caches=caches,
                                            lengths=lengths, enc_out=None,
-                                           enc_lengths=enc_lengths, cache_cap=None)
+                                           enc_lengths=enc_lengths, cache_cap=None,
+                                           shard=shard, dp=dp)
         return self._head(params, h[:, 0]), new_caches
 
     # ------------------------------------------------------------------ #

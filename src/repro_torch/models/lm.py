@@ -231,7 +231,7 @@ class LM:
     # ------------------------------------------------------------------ #
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 mode: str, caches=None, lengths=None, cache_cap: Optional[int] = None,
-                remat: Optional[bool] = None, dp: Optional[GlobalBatch] = None):
+                remat: Optional[bool] = None, dp: Optional[GlobalBatch] = None, shard=None):
         cfg = self.cfg
         remat = cfg.remat if remat is None else remat
         h = self._embed(params, batch, _dtype(cfg.dtype))
@@ -239,7 +239,7 @@ class LM:
         # the current token's)
         h, new_caches, aux = stack_apply(
             params["stack"], h, cfg.plan, cfg=cfg, mode=mode, caches=caches,
-            lengths=lengths, emb0=h, cache_cap=cache_cap, remat=remat, dp=dp)
+            lengths=lengths, emb0=h, cache_cap=cache_cap, remat=remat, dp=dp, shard=shard)
         h = norm(h, params["final_norm"], eps=cfg.norm_eps, backend=cfg.backend("rmsnorm"))
         return h, new_caches, aux
 
@@ -268,21 +268,27 @@ class LM:
 
     # ------------------------------------------------------------------ #
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
-                cache_cap: Optional[int] = None):
-        """Returns (last-position logits (B, V), caches, lengths (B,) int32)."""
+                cache_cap: Optional[int] = None, dp: Optional[GlobalBatch] = None):
+        """Returns (last-position logits (B, V), caches, lengths (B,) int32).
+        ``dp``: ``batch`` is this rank's rows of a global batch, which a
+        global-dispatch MoE layer routes as one
+        (:func:`repro_torch.runtime.serve.make_prefill_step`)."""
         x = batch["tokens"] if "tokens" in batch else batch["embeds"]
         bsz, seq = x.shape[0], x.shape[1]
-        h, caches, _ = self.forward(params, batch, mode="prefill", cache_cap=cache_cap or seq)
+        h, caches, _ = self.forward(params, batch, mode="prefill", cache_cap=cache_cap or seq,
+                                    dp=dp)
         logits = self._head(params, h[:, -1])
         lengths = torch.full((bsz,), seq, dtype=torch.int32, device=h.device)
         return mask_vocab(logits, self.cfg), caches, lengths
 
     def decode_step(self, params: Params, tokens: torch.Tensor, caches,
-                    lengths: torch.Tensor):
+                    lengths: torch.Tensor, shard=None, dp: Optional[GlobalBatch] = None):
         """tokens (B,) -> (logits (B, V), new_caches). The caller increments
-        lengths afterwards."""
+        lengths afterwards.  ``shard``: the caches are this rank's slices on
+        a mesh (:func:`repro_torch.runtime.serve.make_decode_step`); ``dp``
+        as in :meth:`prefill`."""
         h, new_caches, _ = self.forward(params, {"tokens": tokens[:, None]}, mode="decode",
-                                        caches=caches, lengths=lengths)
+                                        caches=caches, lengths=lengths, shard=shard, dp=dp)
         logits = self._head(params, h[:, 0])
         return mask_vocab(logits, self.cfg), new_caches
 

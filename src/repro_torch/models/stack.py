@@ -104,12 +104,14 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, blk: Block, *,
 def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
                 mode: str, cache: Any = None, lengths=None, emb0=None,
                 enc_out=None, enc_lengths=None, shared_params: Optional[Params] = None,
-                cache_cap: Optional[int] = None, causal: bool = True, dp: Any = None
-                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+                cache_cap: Optional[int] = None, causal: bool = True, dp: Any = None,
+                shard: Any = None) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (h, new_cache, aux_loss). ``cache`` is a dict with optional
     keys 'mix' and 'cross' (block-level cache container).  aux_loss is a
     float32 scalar tensor, 0 unless the FFN is MoE; ``dp`` (data-parallel
-    training's GlobalBatch) goes to the MoE layer."""
+    training's GlobalBatch) goes to the MoE layer; ``shard`` (decode on a
+    mesh: the block's :class:`repro_torch.runtime.serve.ServeShard`) to the
+    mixer and the cross-attention."""
     check_block(blk)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = cache or {}
@@ -119,20 +121,21 @@ def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
 
     if blk.mixer == "shared_attn":        # its output replaces h (no outer residual)
         h, c = shared_attn_apply(shared_params, h, emb0, cfg=cfg, mode=mode,
-                                 cache=cache.get("mix"), lengths=lengths, cache_cap=cache_cap)
+                                 cache=cache.get("mix"), lengths=lengths, cache_cap=cache_cap,
+                                 shard=_sub(shard, "mix"))
     else:
         x = norm(h, p["norm1"], eps=eps, backend=nb)
         if blk.mixer == "mamba":
             y, c = mamba_apply(p["mixer"], x, cfg=cfg, mode=mode, cache=cache.get("mix"),
-                               lengths=lengths)
+                               lengths=lengths, shard=_sub(shard, "mix"))
         elif blk.mixer == "mla":
             y, c = mla_apply(p["mixer"], x, cfg=cfg, mode=mode, cache=cache.get("mix"),
-                             lengths=lengths, cache_cap=cache_cap)
+                             lengths=lengths, cache_cap=cache_cap, shard=_sub(shard, "mix"))
         else:
             window = cfg.window if blk.mixer == "attn_local" else None
             y, c = attn_apply(p["mixer"], x, cfg=cfg, mode=mode, window=window,
                               cache=cache.get("mix"), lengths=lengths,
-                              cache_cap=cache_cap, causal=causal)
+                              cache_cap=cache_cap, causal=causal, shard=_sub(shard, "mix"))
         h = h + y
     if c is not None:
         new_cache["mix"] = c
@@ -140,7 +143,8 @@ def block_apply(p: Params, h: torch.Tensor, blk: Block, *, cfg: ArchConfig,
     if blk.cross:
         x = norm(h, p["norm_x"], eps=eps, backend=nb)
         y, c = attn_apply(p["cross"], x, cfg=cfg, mode=mode, cross=True,
-                          cache=cache.get("cross"), enc_out=enc_out, enc_lengths=enc_lengths)
+                          cache=cache.get("cross"), enc_out=enc_out, enc_lengths=enc_lengths,
+                          shard=_sub(shard, "cross"))
         h = h + y
         if c is not None:
             new_cache["cross"] = c
@@ -186,14 +190,20 @@ def stack_init(gen: torch.Generator, cfg: ArchConfig, plan: LayerPlan, *,
     return p
 
 
+def _sub(shard: Any, *keys: Any) -> Any:
+    """The ServeShard of a part of the cache tree (None stays None)."""
+    return None if shard is None else shard.child(*keys)
+
+
 def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
                 cfg: ArchConfig, mode: str, caches: Any = None,
                 lengths=None, emb0=None, enc_out=None, enc_lengths=None,
                 cache_cap: Optional[int] = None, causal: bool = True,
-                remat: bool = True, dp: Any = None):
+                remat: bool = True, dp: Any = None, shard: Any = None):
     """Returns (h, new_caches, aux_total); new_caches is None in train mode.
     ``remat`` recomputes each period in the backward pass (train mode with
-    gradients on only); ``dp`` as in :func:`block_apply`."""
+    gradients on only); ``dp`` as in :func:`block_apply`; ``shard`` is the
+    ServeShard of the whole cache tree (decode on a mesh)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = caches or {"prefix": [None] * len(plan.prefix),
                         "period": [None] * len(plan.period),
@@ -209,8 +219,9 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
     common = dict(cfg=cfg, mode=mode, lengths=lengths, emb0=emb0, enc_out=enc_out,
                   enc_lengths=enc_lengths, cache_cap=cache_cap, causal=causal, dp=dp)
 
-    for blk, bp, bc in zip(plan.prefix, params["prefix"], caches["prefix"]):
-        h, c, aux = block_apply(bp, h, blk, cache=bc, shared_params=pick_shared(0), **common)
+    for i, (blk, bp, bc) in enumerate(zip(plan.prefix, params["prefix"], caches["prefix"])):
+        h, c, aux = block_apply(bp, h, blk, cache=bc, shared_params=pick_shared(0),
+                                shard=_sub(shard, "prefix", i), **common)
         new_caches["prefix"].append(c)
         aux_total = aux_total + aux
 
@@ -224,7 +235,8 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
                 bc = caches["period"][j]
                 bc = None if bc is None else tree_map(lambda a: a[pidx], bc)
                 h, c, aux = block_apply(per_params[j][pidx], h, blk, cache=bc,
-                                        shared_params=pick_shared(pidx), **common)
+                                        shared_params=pick_shared(pidx),
+                                        shard=_sub(shard, "period", j), **common)
                 aux_total = aux_total + aux
                 cs.append(c)
             return h, aux_total, cs
@@ -252,9 +264,10 @@ def stack_apply(params: Params, h: torch.Tensor, plan: LayerPlan, *,
         if mode != "train":
             new_caches["period"] = stacked
 
-    for blk, bp, bc in zip(plan.suffix, params["suffix"], caches["suffix"]):
+    for i, (blk, bp, bc) in enumerate(zip(plan.suffix, params["suffix"], caches["suffix"])):
         h, c, aux = block_apply(bp, h, blk, cache=bc,
-                                shared_params=pick_shared(plan.n_periods), **common)
+                                shared_params=pick_shared(plan.n_periods),
+                                shard=_sub(shard, "suffix", i), **common)
         new_caches["suffix"].append(c)
         aux_total = aux_total + aux
 

@@ -76,10 +76,25 @@ def _peer(group: Any, index: int) -> int:
     return index if group is None else dist.get_global_rank(group, index)
 
 
-def _count(mesh: Any, kind: str, t: torch.Tensor) -> None:
+# the HLO op name of each counted kind (tools/roofline.py prices them)
+_OP = {"gathered": "all-gather", "reduced": "all-reduce"}
+
+
+def _count(mesh: Any, kind: str, t: torch.Tensor, n: int) -> None:
+    """Add a collective's result ``t`` over a group of ``n`` ranks to the
+    mesh's counters: its bytes to ``mesh.traffic[kind]``, and one call and
+    its bytes to ``mesh.collectives[(op, n)]`` (``op`` the HLO name,
+    ``"all-gather"`` or ``"all-reduce"``), which the roofline's ring costs
+    read (:func:`repro_torch.tools.roofline.collective_bytes_from_records`)."""
+    nbytes = t.numel() * t.element_size()
     traffic = getattr(mesh, "traffic", None)
     if traffic is not None:
-        traffic[kind] += t.numel() * t.element_size()
+        traffic[kind] += nbytes
+    records = getattr(mesh, "collectives", None)
+    if records is not None:
+        rec = records.setdefault((_OP[kind], n), [0, 0])
+        rec[0] += 1
+        rec[1] += nbytes
 
 
 def all_gather_axis(x: torch.Tensor, mesh: Any, axis: Any, dim: int) -> torch.Tensor:
@@ -92,7 +107,7 @@ def all_gather_axis(x: torch.Tensor, mesh: Any, axis: Any, dim: int) -> torch.Te
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
-    _count(mesh, "gathered", out)
+    _count(mesh, "gathered", out, n)
     return out
 
 
@@ -105,7 +120,7 @@ def all_reduce_axis(x: torch.Tensor, mesh: Any, axis: Any,
         return x
     buf = x.clone()
     dist.all_reduce(buf, op=op, group=group)
-    _count(mesh, "reduced", buf)
+    _count(mesh, "reduced", buf, n)
     return buf
 
 
@@ -133,6 +148,11 @@ class GlobalBatch:
             return x.detach()
         return all_reduce_axis(x.detach(), self.mesh, self.axes)
 
+    def total_rows(self, n: int) -> int:
+        """The global count of a per-rank count ``n`` that every data rank
+        has the same of (its rows of an evenly split batch)."""
+        return n * (self.mesh.axis_size(self.axes) if self.axes else 1)
+
     def before(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the sum of ``x`` over the lower data-parallel ranks, its sum over
         all of them), from one all-gather: the global rows of the batch are
@@ -156,10 +176,11 @@ def agree_status(mesh: Any, code: int) -> int:
 
 def tree_decode_attention(mesh: Any, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, *, scale: Optional[float] = None,
-                          axis: str = "model", backend: str = "cuda") -> torch.Tensor:
+                          axis: Any = "model", backend: str = "cuda") -> torch.Tensor:
     """q (B, Hq, D) whole on every rank; k / v (B, S / n, Hk, D) this rank's
-    rows ``[rank * S / n, (rank + 1) * S / n)`` of the cache; lengths (B,)
-    the global valid counts.  Returns (B, Hq, Dv) on every rank.
+    rows ``[rank * S / n, (rank + 1) * S / n)`` of the cache along ``axis``
+    (one axis name or several); lengths (B,) the global valid counts.
+    Returns (B, Hq, Dv) on every rank.
 
     A rank whose rows lie past a sequence's length has ``local_len`` 0: the
     port's partial (kernel and plain version) gives it acc 0, m -1e30 and

@@ -10,8 +10,11 @@ for character.  The footprint helpers (:func:`weight_bytes`,
 :func:`activation_bytes`, :func:`footprint_table`) are how quantization
 wins show up: an int8 Program stores 1-byte weight params, so its
 weight-bytes column is ~4x smaller than the fp32 build of the same graph.
-The roofline and dry-run tables read XLA dry-run records and are not
-ported (ROADMAP item 13g).
+The roofline and dry-run tables (:func:`roofline_table`,
+:func:`dryrun_table`, :func:`summary_stats`) read dry-run records in JAX's
+schema, written by either package's ``launch.dryrun``.
+
+    PYTHONPATH=src python -m repro_torch.tools.report --dir experiments/dryrun_torch
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 
 __all__ = ["load_records", "weight_bytes", "activation_bytes", "footprint_table",
            "serving_table", "backend_table", "paged_table", "load_table",
-           "spec_table", "sharded_table", "overload_table"]
+           "spec_table", "sharded_table", "overload_table", "roofline_table", "dryrun_table",
+           "summary_stats"]
 
 
 def weight_bytes(obj) -> int:
@@ -341,8 +345,68 @@ def overload_table(records: Sequence[Tuple[str, Dict]]) -> str:
     return "\n".join(out)
 
 
+def roofline_table(recs: List[Dict], mesh: str = "single") -> str:
+    rows = [r for r in recs if r["mesh"] == mesh]
+    out = ["| arch | shape | compute | memory | collective | bottleneck | "
+           "useful ratio | GB/dev | note |",
+           "|---|---|---|---|---|---|---|---|---|"]
+    for r in sorted(rows, key=lambda r: (r["arch"], r["shape"])):
+        if r["status"] == "skipped":
+            out.append(f"| {r['arch']} | {r['shape']} | - | - | - | - | - | - "
+                       f"| skipped: {r['reason'][:40]} |")
+            continue
+        if r["status"] != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | - | - | - | - | - | - "
+                       f"| ERROR {r.get('error','')[:40]} |")
+            continue
+        note = ""
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {_fmt_s(r['compute_s'])} | "
+            f"{_fmt_s(r['memory_s'])} | {_fmt_s(r['collective_s'])} | "
+            f"**{r['bottleneck']}** | {r['useful_ratio']:.2f} | "
+            f"{r['bytes_per_device']/1e9:.1f} | {note} |")
+    return "\n".join(out)
+
+
+def dryrun_table(recs: List[Dict]) -> str:
+    out = ["| arch | shape | mesh | status | HLO FLOPs/dev | bytes/dev | "
+           "wire B/dev | collectives | compile s |",
+           "|---|---|---|---|---|---|---|---|---|"]
+    for r in sorted(recs, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
+        if r["status"] != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                       f"{r['status']} | - | - | - | - | - |")
+            continue
+        cols = ", ".join(f"{k}x{v}" for k, v in sorted(
+            r.get("counts", {}).items()))
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
+            f"{r['hlo_flops']:.2e} | {r['bytes_per_device']/1e9:.1f}G | "
+            f"{r['wire_bytes_per_chip']:.2e} | {cols} | "
+            f"{r.get('compile_s','-')} |")
+    return "\n".join(out)
+
+
+def summary_stats(recs: List[Dict]) -> str:
+    ok = [r for r in recs if r["status"] == "ok"]
+    skipped = [r for r in recs if r["status"] == "skipped"]
+    err = [r for r in recs if r["status"] == "error"]
+    lines = [f"- cells: {len(recs)} ({len(ok)} compiled ok, "
+             f"{len(skipped)} documented skips, {len(err)} errors)"]
+    for mesh in ("single", "multipod"):
+        ms = [r for r in ok if r["mesh"] == mesh]
+        if ms:
+            bn: Dict[str, int] = {}
+            for r in ms:
+                bn[r["bottleneck"]] = bn.get(r["bottleneck"], 0) + 1
+            lines.append(f"- {mesh}: bottleneck distribution {bn}")
+    return "\n".join(lines)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default="experiments/dryrun_torch",
+                    help="directory of dry-run JSON records")
     ap.add_argument("--serve-dir", default="experiments/serve",
                     help="directory of serve_bench JSON records")
     args = ap.parse_args()
@@ -379,8 +443,15 @@ def main() -> None:
                   "section)\n")
             print(sharded_table(serve))
             print()
-    print("## Dry-run and roofline tables\n")
-    print("Not ported: they read XLA dry-run records (ROADMAP item 13g).")
+    recs = load_records(args.dir)
+    print("## Summary\n")
+    print(summary_stats(recs))
+    print("\n## Roofline (single-pod 16x16, per-chip seconds)\n")
+    print(roofline_table(recs, "single"))
+    print("\n## Roofline (multi-pod 2x16x16)\n")
+    print(roofline_table(recs, "multipod"))
+    print("\n## Dry-run raw\n")
+    print(dryrun_table(recs))
 
 
 if __name__ == "__main__":

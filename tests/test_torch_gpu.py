@@ -1402,10 +1402,12 @@ def _tp_card_rank():
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         rows = slice(mesh.rank * s // 2, (mesh.rank + 1) * s // 2)
         before = flash_decode_partial.launches
-        got = tree_decode_attention(mesh, q, k[:, rows].contiguous(), v[:, rows].contiguous(),
-                                    lengths)
+        k_loc, v_loc = k[:, rows].contiguous(), v[:, rows].contiguous()
+        got = tree_decode_attention(mesh, q, k_loc, v_loc, lengths)
         out["tree"].append((float((got - flash_decode(q, k, v, lengths)).abs().max()),
                             flash_decode_partial.launches - before))
+        plain = tree_decode_attention(mesh, q, k_loc, v_loc, lengths, backend="ref")
+        out.setdefault("tree_vs_ref", []).append((hk, float((got - plain).abs().max())))
     # phi3-mini's decode gate/up product, 4 rows a rank
     gen.manual_seed(7)
     rn = _rn(gen, dev)
@@ -1442,6 +1444,17 @@ def test_tree_decode_on_the_card_is_within_1e4_of_flash_decode(tp_card_run):
     for r in tp_card_run:
         for err, launched in r["tree"]:
             assert err <= 1e-4 and launched == 1, (err, launched)
+
+
+@pytest.mark.gpu
+def test_tree_decode_cuda_is_within_1e5_of_ref_at_gemma3_global(tp_card_run):
+    """Two ranks, each on its half of gemma3-1b's global-layer cache (Hq 4,
+    Hk 1, D 256, S 2048, lengths 1400 / 1000 / 600 / 250): the merge of the
+    partial kernel's shards against the merge of their plain versions —
+    the sharded decode of the mesh serve step."""
+    for r in tp_card_run:
+        errs = dict(r["tree_vs_ref"])
+        assert errs[1] <= 1e-5, errs
 
 
 @pytest.mark.gpu
@@ -1801,6 +1814,20 @@ def _mesh_card_rank():
     for i in range(4):
         ref = stage(w[i], ref)
     out["pipe"] = (str(y.device), float((y - ref).abs().max()), n_calls)
+    # the backward pass: every rank the same replicated loss, against
+    # autograd through the sequential blocks in this process
+    g = torch.randn(y.shape, generator=gen, device=dev)
+    wg, xg = w.clone().requires_grad_(), x.clone().requires_grad_()
+    (pipeline_apply(pod, stage, wg, xg) * g).sum().backward()
+    ws, xs = w.clone().requires_grad_(), x.clone().requires_grad_()
+    h = xs
+    for i in range(4):
+        h = stage(ws[i], h)
+    (h * g).sum().backward()
+    s_ = pod.axis_index("pod")
+    out["pipe_grads"] = (str(wg.grad.device), float((wg.grad[s_] - ws.grad[s_]).abs().max()),
+                         float(ws.grad[s_].abs().max()), float((xg.grad - xs.grad).abs().max()),
+                         float(xs.grad.abs().max()))
     return out
 
 
@@ -1848,3 +1875,13 @@ def test_pipeline_on_the_card_matches_the_sequential_run(mesh_card_run):
         device, err, calls = r["pipe"]
         assert device == "cuda:0" and err <= 1e-5, (device, err)
         assert calls == 6
+
+
+@pytest.mark.gpu
+def test_pipeline_grads_on_the_card_match_the_sequential_run(mesh_card_run):
+    """Each stage's gradient of its weights and every rank's gradient of the
+    input within 1e-5 of their largest |value| in the sequential run."""
+    for r in mesh_card_run:
+        device, w_err, w_max, x_err, x_max = r["pipe_grads"]
+        assert device == "cuda:0"
+        assert w_err <= 1e-5 * w_max and x_err <= 1e-5 * x_max, r["pipe_grads"]

@@ -7,7 +7,12 @@ JAX's data (seed 0, 4 stages, 6 microbatches of 2 rows, d 16, ``W * 0.3``,
 1e-5 of the sequential composition and of JAX's ``pipeline_apply`` on its
 (4, 2) mesh (run through ``conftest.run_sub``, 8 forced host devices),
 each stage calling its function once a microbatch (6 times) over the
-M + S - 1 = 9 ticks of the schedule.  A ``(pod 2, model
+M + S - 1 = 9 ticks of the schedule.  The backward pass: every rank
+backpropagates the same replicated loss ``sum(y * G)`` (``G`` seeded), and
+each stage's gradient of ``W[s]`` and every rank's gradient of ``x`` must
+lie within 1e-5 of ``jax.grad`` of the same loss through JAX's
+``pipeline_apply`` (the same subprocess), and of autograd through the
+sequential composition in one process.  A ``(pod 2, model
 2)`` mesh of the same ranks runs two 2-stage pipelines, one a "model"
 coordinate, each in its own "pod" group: each must give the 2-stage
 composition of the stage weights its model coordinate picks.
@@ -33,6 +38,10 @@ def _data():
     return w, x
 
 
+def _cotangent():
+    return np.random.default_rng(1).standard_normal((N_MICRO, MB, D)).astype(np.float32)
+
+
 def _stage(w, h):
     return torch.tanh(h @ w)
 
@@ -50,6 +59,12 @@ def _rank():
 
     mesh = make_mesh((N_STAGES,), ("pod",), device="cpu")
     out["pod4"] = (pipeline_apply(mesh, counted, w, x, axis="pod").numpy(), len(calls))
+    wg, xg = w.clone().requires_grad_(), x.clone().requires_grad_()
+    y = pipeline_apply(mesh, _stage, wg, xg, axis="pod")
+    (y * torch.from_numpy(_cotangent())).sum().backward()
+    s = mesh.axis_index("pod")
+    others = torch.cat([wg.grad[:s], wg.grad[s + 1:]])
+    out["grad"] = (s, wg.grad[s].numpy(), xg.grad.numpy(), float(others.abs().max()))
     mesh2 = make_mesh((2, 2), ("pod", "model"), device="cpu")
     # model coordinate c runs stages w[2c], w[2c + 1]
     c = mesh2.coords["model"]
@@ -76,11 +91,15 @@ mesh = jax.make_mesh((4, 2), ("pod", "model"),
 rng = np.random.default_rng(0)
 W = jnp.asarray(rng.standard_normal(({N_STAGES}, {D}, {D})) * 0.3, jnp.float32)
 x = jnp.asarray(rng.standard_normal(({N_MICRO}, {MB}, {D})), jnp.float32)
+G = jnp.asarray(np.random.default_rng(1).standard_normal(({N_MICRO}, {MB}, {D})), jnp.float32)
+stage = lambda w, h: jnp.tanh(h @ w)
 with mesh:
-    y = pipeline_apply(mesh, lambda w, h: jnp.tanh(h @ w), W, x, axis="pod")
-np.save({str(out_file)!r}, np.asarray(y))
+    y = pipeline_apply(mesh, stage, W, x, axis="pod")
+    gw, gx = jax.grad(lambda W, x: jnp.sum(pipeline_apply(mesh, stage, W, x, axis="pod") * G),
+                      argnums=(0, 1))(W, x)
+np.savez({str(out_file)!r}, y=np.asarray(y), gw=np.asarray(gw), gx=np.asarray(gx))
 """)
-    return np.load(out_file)
+    return dict(np.load(out_file))
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +109,7 @@ def runs(tmp_path_factory):
     pool = concurrent.futures.ThreadPoolExecutor(2)
     try:
         ranks = pool.submit(spawn_ranks, _rank, N_STAGES, timeout=SPAWN_TIMEOUT)
-        jax_y = pool.submit(_jax_pipeline, tmp_path_factory.mktemp("pipe") / "y.npy")
+        jax_y = pool.submit(_jax_pipeline, tmp_path_factory.mktemp("pipe") / "y.npz")
         yield {"ranks": ranks.result(), "jax": jax_y}
     finally:
         pool.shutdown(wait=True)
@@ -110,9 +129,42 @@ def test_pipeline_matches_jax(runs):
     import jax
     if not hasattr(jax.sharding, "AxisType"):
         pytest.skip("JAX's pipeline test needs jax.sharding.AxisType (conftest.multidev)")
-    jax_y = runs["jax"].result()
+    jax_y = runs["jax"].result()["y"]
     for r in runs["ranks"]:
         assert float(np.abs(r["pod4"][0] - jax_y).max()) < 1e-5
+
+
+def _sequential_grads():
+    """Autograd through the sequential composition, in one process."""
+    w, x = (torch.from_numpy(a).requires_grad_() for a in _data())
+    h = x
+    for s in range(N_STAGES):
+        h = _stage(w[s], h)
+    (h * torch.from_numpy(_cotangent())).sum().backward()
+    return w.grad.numpy(), x.grad.numpy()
+
+
+def test_pipeline_grads_match_sequential(runs):
+    gw, gx = _sequential_grads()
+    stages = sorted(r["grad"][0] for r in runs["ranks"])
+    assert stages == list(range(N_STAGES))
+    for r in runs["ranks"]:
+        s, gw_s, gx_r, others = r["grad"]
+        assert float(np.abs(gw_s - gw[s]).max()) < 1e-5
+        assert float(np.abs(gx_r - gx).max()) < 1e-5
+        assert others == 0.0          # a stage's gradient reaches only its own slice
+        assert float(np.abs(gw_s).max()) > 1e-3
+
+
+def test_pipeline_grads_match_jax(runs):
+    import jax
+    if not hasattr(jax.sharding, "AxisType"):
+        pytest.skip("JAX's pipeline test needs jax.sharding.AxisType (conftest.multidev)")
+    jax_out = runs["jax"].result()
+    for r in runs["ranks"]:
+        s, gw_s, gx_r, _ = r["grad"]
+        assert float(np.abs(gw_s - jax_out["gw"][s]).max()) < 1e-5
+        assert float(np.abs(gx_r - jax_out["gx"]).max()) < 1e-5
 
 
 def test_pipeline_stage_groups_are_the_axis(runs):

@@ -51,6 +51,9 @@ def test_profile_step_runs_on_the_cpu(capsys):
     assert out["wall_ms"] > 0 and out["step_ms_unprofiled"] > 0
     assert out["launches_per_step"] == 0 and out["device_idle_share"] is None
     assert any(op["name"].startswith("aten::") for op in out["host_ops"])
+    # the batcher's prefills, one a request admitted, each of 200-1400 tokens
+    assert out["prefills"] >= 4 and out["prefill_tokens"] >= 200 * out["prefills"]
+    assert out["prefill_ms_per_token"] > 0
     assert '"arch": "gemma3-1b' in capsys.readouterr().out
 
 

@@ -79,22 +79,21 @@ def test_record_table_equals_jax(table, records):
 
 
 def test_load_records_and_main_serving_sections(tmp_path, capsys, monkeypatch):
-    """``main`` prints the serving sections as JAX's does, then says the
-    dry-run sections are not ported."""
+    """``main`` prints the serving sections and then the dry-run sections
+    (summary, roofline, raw) as JAX's does, character for character."""
     for name, make in RECORDS.items():
         (tmp_path / f"{name}.json").write_text(json.dumps(make()))
     assert trep.load_records(str(tmp_path)) == jrep.load_records(str(tmp_path))
-    monkeypatch.setattr(sys, "argv", ["report", "--serve-dir", str(tmp_path)])
+    argv = ["report", "--serve-dir", str(tmp_path), "--dir", str(tmp_path / "none")]
+    monkeypatch.setattr(sys, "argv", argv)
     trep.main()
     got = capsys.readouterr().out
-    monkeypatch.setattr(sys, "argv", ["report", "--serve-dir", str(tmp_path),
-                                      "--dir", str(tmp_path / "none")])
     jrep.main()
     want = capsys.readouterr().out
     head = want[:want.index("## Summary")]
-    assert got.startswith(head)
     assert "## Tier-aware overload" in head and "## Tensor-parallel serving" in head
-    assert "Not ported" in got[len(head):]
+    assert "## Dry-run raw" in want
+    assert got == want
 
 
 @pytest.fixture(scope="module")
