@@ -61,6 +61,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              dense_q is timed at phi3-mini's engine decode and prefill
              shapes as ref (float64), torch (dequantize + matmul) and the
              fp32 gemm.cu on fp32 weights (numbers only: no int8 kernel).
+             The bf16 entries (gemm, rmsnorm, flash_attention, flash_decode
+             and the combine) run at every call shape of the two bfloat16
+             configs (gemma3-1b's decode step and prefill, seamless-m4t's):
+             each must equal the fp32 entry's output on the upcast inputs
+             rounded once, bit for bit, and lie within one bf16 ulp (+1e-4)
+             of its plain version; timed beside the fp32 entry, the plain
+             version and the library call on bf16 inputs, the bound at 2
+             bytes a value and 989 TFLOP/s.
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
@@ -86,13 +94,17 @@ Phases, each printing its own lines; any failure exits non-zero:
              equal bytes; completion, launches, hits and copies are checked,
              and agreement with the fp32 reference is reported, not
              asserted (int8 KV is lossy).
-8. layerstack — gemma3-1b at its published widths, all 26 layers, fp32,
-             random weights from seed 0 drawn on the card: the continuous
+8. layerstack — gemma3-1b at its published widths, all 26 layers, at its
+             published bfloat16 (serving_config: every kernel op it runs
+             has a bf16 body; 2.6 GB of weights with the transposed tied
+             embedding), random weights from seed 0 drawn on the card: the continuous
              batcher (4 slots, cache 2048) serves 8 requests of 200-1400
              prompt tokens (both sides of the 512 window) and 32 new tokens
              each; every request must equal the unbatched greedy prefill +
              decode on the card token for token, and flash_attention,
-             flash_decode, rmsnorm and gemm must launch as the path needs.
+             flash_decode, rmsnorm and gemm must launch as the path needs,
+             every launch on their bf16 entries, with every weight and
+             cache bf16 and every kernel op on cuda.
 9. moe     — qwen2-moe-a2.7b at its published widths, all 24 layers, fp32
              (60.6 GB of weights drawn on the card from seed 0; 64 experts
              of which 60 routed, top-4, local dispatch): the same batcher
@@ -269,7 +281,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              512, 16 query heads on 1 KV head) 27 times a step and
              batched_gemm 2 x 27 times for its per-head products.
 21. encdec — seamless-m4t-medium at its published widths (12 encoder + 12
-             decoder layers, fp32, 3.3 GB): EncDec.prefill of 4 sources of
+             decoder layers, bfloat16 as serving_config picks it, 1.6 GB;
+             the launches on the bf16 entries): EncDec.prefill of 4 sources of
              ENCDEC_SRC (1024) numpy-seeded frame embeddings with
              ENCDEC_PROMPT (64)-token prompts, then ENCDEC_NEW (32) greedy
              tokens by decode_step; every source's tokens equal a batch-1
@@ -385,7 +398,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
+# a bf16 entry against its plain version: one bf16 ulp (at most 2^-7 of the
+# value; both round one fp32 result once) plus the fp32 full-width atol
+BF16_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
+BF16_KERNELS = ("gemm", "rmsnorm", "flash_decode", "flash_attention", "combine_partials")
 
 # Max |int8 - fp32| of each CNN's output as the JAX package reports it:
 # benchmarks/fig2_inference_time.py::run_quant([model]) for each model alone
@@ -475,8 +493,10 @@ def device_ms(torch, timer, fn, reps=15):
     return out
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """(least ms, what bounds it): the operations over ``peak`` (fp32 FFMA,
+    or the bf16 tensor-core rate for a bf16 row) or the bytes over HBM."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
@@ -850,11 +870,13 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
     full_tol = dict(atol=1e-4, rtol=1e-4)
 
     def record(name, tag, shape_tag, err, ms, plain_ms, lib_ms, flops, nbytes,
-               mode=None, dense_ms=None):
+               mode=None, dense_ms=None, peak=PEAK_FP32_FLOPS, fp32_ms=None):
         by_tag[(name, tag)] = ms
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, peak)
         other = (f"dense kernel {dense_ms:.4g} ms" if dense_ms is not None
                  else "no library call" if lib_ms is None else f"library {lib_ms:.4g} ms")
+        if fp32_ms is not None:
+            other += f"  fp32 kernel {fp32_ms:.4g} ms"
         say(f"  {name:27s} {shape_tag:44s} err {err:.2e}  kernel {ms:.4g} ms  "
             f"plain {plain_ms:.4g} ms  {other}  bound {b_ms:.4g} ms ({b_by})  "
             f"[{limit_line}]")
@@ -862,6 +884,8 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if dense_ms is not None:
             entry["dense_kernel_ms"] = dense_ms
+        if fp32_ms is not None:
+            entry["fp32_kernel_ms"] = fp32_ms
         shapes.setdefault(name, []).append(entry)
         if name not in results:
             results[name] = entry
@@ -1189,10 +1213,12 @@ def dense_q_times(torch, K, rn, timer, cfg, n_slots, chunk, limit_line):
 
 def device_times(torch, K, limit_line):
     """Device time (torch.profiler) of the empty launch, of rmsnorm beside
-    F.rms_norm at the row counts and widths the paths run, and of ssd_scan's
-    three kernels at mamba2-370m's 1024-token prefill (with D).  Run after
-    the serving phases: the profiler's hooks stay in the process and slow
-    every later launch on the host."""
+    F.rms_norm at the row counts and widths the paths run, of ssd_scan's
+    three kernels at mamba2-370m's 1024-token prefill (with D), and of the
+    fp32 and bf16 entries of rmsnorm, the gemm head and flash_decode at
+    gemma3-1b's batch-4 decode step (their event times hold the launch
+    path).  Run after the serving phases: the profiler's hooks stay in the
+    process and slow every later launch on the host."""
     F = torch.nn.functional
     timer = Timer(torch)
     g = torch.Generator(device="cuda")
@@ -1214,6 +1240,19 @@ def device_times(torch, K, limit_line):
             -torch.linspace(1.0, 16.0, h, device="cuda"), 0.3 * rn(1, sl, 1, n),
             0.3 * rn(1, sl, 1, n), rn(h))
     out[f"ssd_scan mamba2 S={sl} with D"] = device_ms(torch, timer, lambda: K.ssd_scan(*args))
+    del args
+    lengths = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        x, w = rn(4, 1152).to(dt), (rn(1152, 262144) * 1152 ** -0.5).to(dt)
+        out[f"gemm {tag} gemma3 head 4x1152->262144"] = device_ms(
+            torch, timer, lambda: K.gemm(x, w))
+        nw = (1.0 + 0.1 * rn(1152)).to(dt)
+        out[f"rmsnorm {tag} gemma3 step 4x1152"] = device_ms(
+            torch, timer, lambda: K.rmsnorm(x, nw))
+        q, k, v = rn(4, 4, 256).to(dt), rn(4, 2048, 1, 256).to(dt), rn(4, 2048, 1, 256).to(dt)
+        out[f"flash_decode {tag} gemma3 global S=2048"] = device_ms(
+            torch, timer, lambda: K.flash_decode(q, k, v, lengths))
+        del x, w, q, k, v
     for what, kernels in out.items():
         parts = ", ".join(f"{k} {v:.4g} ms" for k, v in kernels.items()) or "not measured"
         say(f"  device time (torch.profiler) {what:34s} {parts}  [{limit_line}]")
@@ -1304,6 +1343,19 @@ def combine_kernels(torch, K, rn, timer, record, full_tol):
             record("combine_partials", f"{tag} {what}", label, err, ms, plain, None,
                    3.0 * ns * b * hq * dh, 4.0 * (ns * b * hq * (dh + 2) + b * hq * dh))
             rows.append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain))
+            if what == "flash_decode" and tag.startswith("gemma3"):
+                # the bf16 merge flash_decode_bf16 ends with (gemma3-1b at bf16)
+                bf16 = torch.bfloat16
+                got = K.combine_partials(*parts, dtype=bf16)
+                if not torch.equal(got, K.combine_partials(*parts).to(bf16)):
+                    fail(f"combine_partials_bf16 {tag}: not the fp32 merge rounded once")
+                err = check_close(torch, f"combine_partials_bf16 {tag}", got.float(),
+                                  K.combine_partials_ref(*parts), **BF16_TOL)
+                ms = timer.ms(lambda: K.combine_partials(*parts, dtype=bf16))
+                plain = timer.ms(lambda: K.combine_partials_ref(*parts).to(bf16))
+                record("combine_partials_bf16", f"{tag} {what}", label + " bf16 out", err, ms,
+                       plain, None, 3.0 * ns * b * hq * dh,
+                       4.0 * ns * b * hq * (dh + 2) + 2.0 * b * hq * dh, peak=PEAK_BF16_FLOPS)
             del parts
         del q, k, v
     return rows
@@ -1494,12 +1546,15 @@ def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
 
 def stack_launches(cfg, prefills, steps, names):
     """Each kernel's launches over ``prefills`` prefills and ``steps``
-    decode steps of a layer-stack config (every name in ``names`` a key)."""
+    decode steps of a layer-stack config (every name in ``names`` a key):
+    a bfloat16 config's on the bf16 entries (``<kernel>_bf16``), none on
+    the fp32 ones."""
     want = dict.fromkeys(names, 0)
+    sfx = "_bf16" if cfg.dtype == "bfloat16" else ""
     for phase, n in (("prefill", prefills), ("decode", steps)):
         for (kernel, _), calls in stack_calls(cfg, phase).items():
-            want[kernel] += calls * n
-    want["combine_partials"] = want["flash_decode"]   # one merge per flash_decode call
+            want[kernel + sfx] += calls * n
+    want["combine_partials" + sfx] = want["flash_decode" + sfx]   # a merge per flash_decode
     return want
 
 
@@ -1508,10 +1563,17 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
     prefill (stack_calls): each distinct shape checked against its plain
     version and timed with it and with one PyTorch library call (matmul,
     rms_norm, SDPA with the same boolean mask and GQA, bmm; the SSD scan
-    has none).  Returns {phase: ({kernel: ms per phase}, sum of the calls'
-    bounds in ms)}."""
+    has none).  A bfloat16 config's calls run the bf16 entries on bf16
+    inputs (recorded as ``<kernel>_bf16``): each held within BF16_TOL of
+    its plain version and bitwise to the fp32 entry's output on the upcast
+    inputs rounded once, timed beside that fp32 entry and the library call
+    on bf16 inputs; the bound counts 2 bytes a value and the bf16
+    tensor-core rate.  Returns {phase: ({kernel: ms per phase}, sum of the
+    calls' bounds in ms)}."""
     F = torch.nn.functional
     times = {}
+    bf16 = cfg.dtype == "bfloat16"
+    es = 2.0 if bf16 else 4.0                 # bytes a value of the bf16-bodied kernels
 
     def measure(kernel, shape, phase):
         label = f"{cfg.name} {phase} {kernel} {shape}"
@@ -1520,7 +1582,7 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
             m, kk, nn = shape
             args = (rn(m, kk), rn(kk, nn, scale=1.0 / math.sqrt(kk)))
             fn, plain, lib = K.gemm, K.gemm_plain, torch.matmul
-            flops, nbytes = 2.0 * m * kk * nn, 4.0 * (m * kk + kk * nn + m * nn)
+            flops, nbytes = 2.0 * m * kk * nn, es * (m * kk + kk * nn + m * nn)
         elif kernel == "batched_gemm":
             e, m, kk, nn = shape
             args = (rn(e, m, kk), rn(e, kk, nn, scale=1.0 / math.sqrt(kk)))
@@ -1533,7 +1595,7 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
             fn = lambda x, w: K.rmsnorm(x, w, eps=eps)                      # noqa: E731
             plain = lambda x, w: K.rmsnorm_plain(x, w, eps=eps)             # noqa: E731
             lib = lambda x, w: F.rms_norm(x, (d,), w, eps)                  # noqa: E731
-            flops, nbytes = 3.0 * rows * d, 4.0 * (2 * rows * d + d)
+            flops, nbytes = 3.0 * rows * d, es * (2 * rows * d + d)
         elif kernel == "flash_decode":
             b, hq, hk, dh, dv, s_len, lens = shape
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -1548,7 +1610,7 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
                 enable_gqa=True)
             live = sum(lens)
             flops = 2.0 * live * hq * (dh + dv)
-            nbytes = 4.0 * (live * hk * (dh + dv) + b * hq * (dh + dv) + b)
+            nbytes = es * (live * hk * (dh + dv) + b * hq * (dh + dv)) + 4.0 * b
         elif kernel == "flash_attention":
             b, sq, skv, hq, hk, dh, dv, causal, window = shape
             args = (rn(b, sq, hq, dh), rn(b, skv, hk, dh), rn(b, skv, hk, dv))
@@ -1564,7 +1626,7 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
                 enable_gqa=True)
             flops = 2.0 * b * attention_pairs(sq, skv, causal, window) * hq * (dh + dv)
-            nbytes = 4.0 * b * (sq * hq * (dh + dv) + skv * hk * (dh + dv))
+            nbytes = es * b * (sq * hq * (dh + dv) + skv * hk * (dh + dv))
         else:                                                               # ssd_scan
             b, sl, h, p, grp, nn, q = shape
             args = (rn(b, sl, h, p), F.softplus(rn(b, sl, h) - 3.0),   # dt ~ mamba2's 1e-3..0.1
@@ -1577,15 +1639,29 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
                 f"per group, {ssd_flops(b, sl, h, p, grp, nn, q, True) / 1e9:.4g} GFLOP "
                 "counted once per head (PRs 14-17)")
             nbytes = 4.0 * (sum(a.numel() for a in args) + b * sl * h * p + b * h * p * nn)
+        name, peak, fp32_ms = kernel, PEAK_FP32_FLOPS, None
+        if bf16:
+            if kernel not in BF16_KERNELS:
+                fail(f"{cfg.name} is bfloat16 but runs {kernel}, which has no bf16 entry")
+            args32, args = args, tuple(a.to(torch.bfloat16) for a in args)
+            name, peak, label = f"{kernel}_bf16", PEAK_BF16_FLOPS, label + " bf16"
         got, want = fn(*args), plain(*args)
-        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        err = max(check_close(torch, label, a, b_, **full_tol) for a, b_ in pairs)
+        if bf16:
+            if got.dtype != torch.bfloat16 or not torch.equal(
+                    got, fn(*(a.float() for a in args)).to(torch.bfloat16)):
+                fail(f"{label}: not the fp32 entry's output on the upcast inputs rounded once")
+            err = check_close(torch, label, got.float(), want.float(), **BF16_TOL)
+            fp32_ms = timer.ms(lambda: fn(*args32))
+        else:
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            err = max(check_close(torch, label, a, b_, **full_tol) for a, b_ in pairs)
         ms = timer.ms(lambda: fn(*args))
         plain_ms = timer.ms(lambda: plain(*args))
         lib_ms = None if lib is None else timer.ms(lambda: lib(*args))
-        record(kernel, f"{cfg.name} {phase}", label, err, ms, plain_ms, lib_ms, flops, nbytes)
+        record(name, f"{cfg.name} {phase}", label, err, ms, plain_ms, lib_ms, flops, nbytes,
+               peak=peak, fp32_ms=fp32_ms)
         del args, got, want
-        return ms, bound(flops, nbytes)[0]
+        return ms, bound(flops, nbytes, peak)[0]
 
     out = {}
     for phase in ("decode", "prefill"):
@@ -3280,13 +3356,14 @@ def cnn_phase(torch, K, card):
 
 def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_requests=8,
                      max_new=32, tag="layerstack"):
-    """``cfg`` (a config at its published widths, fp32, from
-    ``serving_config``: gemma3-1b in phase 8, qwen2-moe-a2.7b in 9,
-    mamba2-370m in 10) served by the continuous batcher through the entry
+    """``cfg`` (a config at its published widths from ``serving_config``:
+    gemma3-1b at bfloat16 in phase 8, qwen2-moe-a2.7b in 9 and mamba2-370m
+    in 10 at fp32) served by the continuous batcher through the entry
     points a user calls (``LM``, ``ContinuousBatcher``).  Returns the
     launches and the serving numbers; fails unless every request equals
-    the unbatched greedy prefill + decode on the card and each kernel
-    launched exactly as the path needs."""
+    the unbatched greedy prefill + decode on the card, each kernel
+    launched exactly as the path needs (a bfloat16 config's on the bf16
+    entries) and the weights and caches are in the config's dtypes."""
     import numpy as np
     from repro_torch.models.lm import LM
     from repro_torch.runtime.batching import ContinuousBatcher, Request
@@ -3317,12 +3394,15 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
     t0 = time.perf_counter()
     params = model.init_params(0, device="cuda")
     torch.cuda.synchronize()
+    check_served_dtype(torch, cfg, params, tag)
     derived = _derived_numel(params)
     n_params = sum(x.numel() for x in _leaves(params)) - derived
-    say(f"  weights {n_params / 1e9:.4f} B params ({4 * n_params / 1e9:.2f} GB fp32, plus "
-        f"{4 * derived / 1e9:.2f} GB of derived leaves: the transposed tied embedding, MLA's "
-        f"per-head up-projections), drawn on the card in {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    esize = _leaves(params)[0].element_size()
+    say(f"  weights {n_params / 1e9:.4f} B params ({esize * n_params / 1e9:.2f} GB "
+        f"{cfg.param_dtype}, plus {esize * derived / 1e9:.2f} GB of derived leaves: the "
+        f"transposed tied embedding, MLA's per-head up-projections), drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
     rng = np.random.default_rng(0)
     lens = rng.integers(200, 1401, n_requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
@@ -3342,8 +3422,11 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
     t_run = time.perf_counter() - t_run
     launches = {kern.__name__: kern.launches for kern in K.KERNELS}
     peak = torch.cuda.max_memory_allocated()
+    cache_dtypes = sorted({str(x.dtype) for x in _leaves(batcher.caches)})
+    if cache_dtypes != [f"torch.{cfg.dtype}"]:
+        fail(f"{tag}: caches {cache_dtypes}, the config's dtype is {cfg.dtype}")
     say(f"  batcher: {len(reqs)} requests, prompts {lens.tolist()}, {batcher.steps} decode "
-        f"steps in {t_run:.2f} s")
+        f"steps in {t_run:.2f} s; caches {cfg.dtype}")
     say(f"  launches during the batcher run: {launches}")
     if len(finished) != len(reqs) or any(len(r.out_tokens) != max_new for r in reqs):
         fail(f"{tag}: not every request finished with its tokens")
@@ -3362,6 +3445,8 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
         "decode_steps": batcher.steps,
         "prompt_tokens": int(lens.sum()),
         "tokens_out": n_out,
+        "dtype": cfg.dtype,
+        "weights_gb": esize * n_params / 1e9,
     }
     say(f"  serving ({tag} batcher): {json.dumps(stats)} [{card}]")
     del batcher                    # its caches; the reference makes its own
@@ -3386,6 +3471,18 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
         f"decode on the card ({time.perf_counter() - t_ref:.2f} s)")
     del params
     return launches, stats
+
+
+def check_served_dtype(torch, cfg, params, tag):
+    """The config's kernel ops all on ``cuda`` (no ``ref`` on the path) and
+    every weight in the config's param dtype."""
+    bad = {op: cfg.backend(op) for op in ("attention", "decode_attention", "rmsnorm", "dense")
+           if cfg.backend(op) != "cuda"}
+    if bad:
+        fail(f"{tag}: ops off the kernels: {bad}")
+    want = getattr(torch, cfg.param_dtype)
+    if any(x.dtype != want for x in _leaves(params)):
+        fail(f"{tag}: weights not all {cfg.param_dtype}")
 
 
 def _leaves(tree):
@@ -3413,7 +3510,7 @@ def _derived_numel(tree):
 # --------------------------------------------------------------------------- #
 
 def encdec_phase(torch, K, cfg, card, *, n_src=4, tag="encdec"):
-    """seamless-m4t-medium at its published widths (fp32, from
+    """seamless-m4t-medium at its published widths (bfloat16, from
     ``serving_config``) through ``EncDec``: ``n_src`` sources of ENCDEC_SRC
     frames (numpy-seeded normal embeddings, the audio frontend's stub) with
     ENCDEC_PROMPT-token prompts prefilled in one call, then ENCDEC_NEW
@@ -3427,9 +3524,11 @@ def encdec_phase(torch, K, cfg, card, *, n_src=4, tag="encdec"):
     t0 = time.perf_counter()
     params = model.init_params(0, device="cuda")
     torch.cuda.synchronize()
+    check_served_dtype(torch, cfg, params, tag)
     n_params = sum(x.numel() for x in _leaves(params))
-    say(f"  weights {n_params / 1e9:.4f} B params ({4 * n_params / 1e9:.2f} GB fp32), drawn "
-        f"on the card in {time.perf_counter() - t0:.1f} s")
+    esize = _leaves(params)[0].element_size()
+    say(f"  weights {n_params / 1e9:.4f} B params ({esize * n_params / 1e9:.2f} GB "
+        f"{cfg.param_dtype}), drawn on the card in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     src = torch.from_numpy(rng.standard_normal((n_src, ENCDEC_SRC, cfg.d_model))
                            .astype(np.float32)).cuda()
@@ -3474,7 +3573,8 @@ def encdec_phase(torch, K, cfg, card, *, n_src=4, tag="encdec"):
         "tokens_per_s": n_src * ENCDEC_NEW / (clock["prefill_s"] + clock["decode_s"]),
         "max_memory_allocated_gb": peak / 1e9,
         "sources": n_src, "source_frames": ENCDEC_SRC, "prompt_tokens": ENCDEC_PROMPT,
-        "tokens_out": n_src * ENCDEC_NEW, "decode_steps": steps,
+        "tokens_out": n_src * ENCDEC_NEW, "decode_steps": steps, "dtype": cfg.dtype,
+        "weights_gb": esize * n_params / 1e9,
     }
     say(f"  serving ({tag}, batch {n_src}): {json.dumps(stats)} [{card}]")
     t_ref = time.perf_counter()
@@ -4728,10 +4828,13 @@ class Kernels:
         self.empty_launch = empty_launch
         from repro_torch.kernels.ops import decode_attention
         self.decode_attention = decode_attention
+        # each wrapper's fp32 count, then the bf16 entries' (wrapper.bf16)
         self.KERNELS = (gemm, rmsnorm, fd.flash_decode, fa.flash_chunk_attention,
                         fd.flash_paged_decode, fa.flash_paged_chunk_attention,
                         fa.flash_attention, batched_gemm, ssd.ssd_scan,
-                        fd.flash_decode_partial, fd.combine_partials)
+                        fd.flash_decode_partial, fd.combine_partials,
+                        gemm.bf16, rmsnorm.bf16, fd.flash_decode.bf16, fa.flash_attention.bf16,
+                        fd.combine_partials.bf16)
 
 
 SOURCES = {
@@ -4755,6 +4858,15 @@ SOURCES = {
     # pallas_split backend): no Pallas kernel, the port's merge is a kernel
     "combine_partials": ("src/repro_torch/csrc/flash_decode.cu",
                          "src/repro/kernels/ops.py:201"),
+    # the bf16 entries: the same TPU kernels at bf16 inputs
+    "gemm_bf16": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:64"),
+    "rmsnorm_bf16": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:39"),
+    "flash_decode_bf16": ("src/repro_torch/csrc/flash_decode.cu",
+                          "src/repro/kernels/flash_decode.py:148"),
+    "flash_attention_bf16": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:94"),
+    "combine_partials_bf16": ("src/repro_torch/csrc/flash_decode.cu",
+                              "src/repro/kernels/ops.py:201"),
 }
 
 
@@ -5016,8 +5128,8 @@ def main() -> int:
     # 8., 9., 10., 19. and 20. the layer-stack LMs under the continuous batcher
     for phase, scfg, max_new in stack_phases:
         t = time.perf_counter()
-        say(f"[{phase}] {scfg.name} widths, {scfg.n_layers} layers, fp32, 4 slots, cache "
-            f"2048, {max_new} new tokens [{limit_line}]")
+        say(f"[{phase}] {scfg.name} widths, {scfg.n_layers} layers, {scfg.dtype}, 4 slots, "
+            f"cache 2048, {max_new} new tokens [{limit_line}]")
         runs[phase] = layerstack_phase(torch, K, scfg, limit_line, max_new=max_new, tag=phase)
         release(torch)
         phase_s[phase] = time.perf_counter() - t
@@ -5025,7 +5137,8 @@ def main() -> int:
     # 21. the encoder-decoder
     t = time.perf_counter()
     say(f"[encdec] {encdec_cfg.name} widths, {encdec_cfg.n_encoder_layers} encoder + "
-        f"{encdec_cfg.plan.n_layers} decoder layers, fp32, 4 sources of {ENCDEC_SRC} frames, "
+        f"{encdec_cfg.plan.n_layers} decoder layers, {encdec_cfg.dtype}, 4 sources of "
+        f"{ENCDEC_SRC} frames, "
         f"{ENCDEC_PROMPT}-token prompts, {ENCDEC_NEW} new tokens [{limit_line}]")
     runs["encdec"] = encdec_phase(torch, K, encdec_cfg, limit_line)
     release(torch)
@@ -5131,7 +5244,7 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
-        by_path = {path: run[0][name] for path, run in runs.items()}
+        by_path = {path: run[0].get(name, 0) for path, run in runs.items()}
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
                  **{k: r[k] for k in keys}}
@@ -5141,6 +5254,11 @@ def main() -> int:
             entry["shapes"] = extra["combine"]
         if name == "gemm":
             entry["conv2d"] = extra["conv2d"]
+        if name.endswith("_bf16"):
+            base = name[:-len("_bf16")]
+            entry["all_shapes"] = extra["shapes"][name]
+            entry["device_ms"] = {k: v for k, v in extra["device_ms"].items()
+                                  if k.split()[0] == base}
         if name in ("rmsnorm", "ssd_scan"):
             entry["all_shapes"] = extra["shapes"][name]
             entry["empty_launch_ms"] = extra["empty_launch_ms"]

@@ -37,8 +37,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def to_tensor(x: Any, device: Optional[torch.device] = None) -> torch.Tensor:
     """numpy array, scalar or tensor -> tensor on ``device`` (default: where
     it already is, the CPU for host data).  A tensor already on ``device``
-    is returned as is — shared, never copied."""
+    is returned as is — shared, never copied.  A bfloat16 array (the
+    ``ml_dtypes`` type JAX's arrays convert to, which ``torch.from_numpy``
+    refuses; recognised by its dtype's name) becomes a bfloat16 tensor bit
+    for bit, through a 16-bit integer view."""
     if isinstance(x, torch.Tensor):
         return x if device is None or x.device == device else x.to(device)
-    t = torch.from_numpy(np.ascontiguousarray(x))
+    a = np.ascontiguousarray(x)
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     return t if device is None else t.to(device)

@@ -1,15 +1,64 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
-// Every kernel here is fp32 with FFMA arithmetic (no TF32 tensor cores): the
-// JAX reference computes in fp32 throughout, and the serving engine must stay
-// token-exact against it.  Every reduction has a fixed order that depends on
-// nothing but the row it reduces (no atomics, no split chosen from the batch
-// size), so a sequence's numbers are the same at batch 4 as at batch 1.
+// Every kernel here computes in fp32 with FFMA arithmetic (no TF32 tensor
+// cores): the JAX reference computes in fp32 throughout, and the serving
+// engine must stay token-exact against it.  The bf16 entries of gemm,
+// rmsnorm, flash_attention and flash_decode follow the Pallas kernels'
+// contract for bf16 inputs: upcast on load (exact), every sum and the
+// softmax state in fp32, one rounding to bf16 (to nearest even) on store.
+// Their fp32 arithmetic is the fp32 entries' on the upcast values, so a
+// bf16 result is the fp32 kernel's result on x.float() rounded once.
+// Every reduction has a fixed order that depends on nothing but the row it
+// reduces (no atomics, no split chosen from the batch size), so a
+// sequence's numbers are the same at batch 4 as at batch 1.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Four bf16 values packed little-endian in 8 bytes -> fp32 (exact: the 16
+// bits are the top half of the float).
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Four consecutive values as fp32: p 16-byte (fp32) or 8-byte (bf16) aligned.
+__device__ __forceinline__ float4 load4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4f(const bf16* p) {
+  return bf16x4_to_float4(*reinterpret_cast<const uint2*>(p));
+}
+
+// Store four fp32 values at p (aligned as for load4f), rounding to bf16.
+__device__ __forceinline__ void store4f(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4f(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
 
 // Large-negative instead of -inf, as in the Pallas kernels: masked softmax
 // entries stay finite and an empty row finishes as 0 / max(l, 1e-30) = 0.
@@ -57,6 +106,18 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One element global -> shared, 0 when !valid: an fp32 element by cp.async
+// (4 bytes), a bf16 one by a plain load and store (cp.async copies 4, 8 or
+// 16 bytes).  Other threads see either after the barrier that follows the
+// cp_async_wait.
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src, bool valid) {
+  *reinterpret_cast<unsigned short*>(dst) =
+      valid ? *reinterpret_cast<const unsigned short*>(src) : static_cast<unsigned short>(0);
 }
 
 // The paged cache's layout, for every paged kernel: logical column col of

@@ -13,7 +13,8 @@
 //                                    sits at the static position Skv - T + i;
 //                                    causal (columns <= row) or not, and an
 //                                    optional sliding window (columns
-//                                    > row - window).
+//                                    > row - window);
+//   flash_attention_bf16             the same on bf16 q, k, v and o.
 //   Each cuts the S columns into shards of `shard` columns (the wrapper's
 //   attention_shard_cols(S), never a function of B or T).  A row whose
 //   visible columns lie in one shard is written by the block of that
@@ -76,7 +77,18 @@
 // (junk) are never read.  fp32 pages run the dense rows' arithmetic, so an
 // fp32 paged row is bitwise equal to the dense kernel's row on the gathered
 // cache.
+//
+// bf16 (flash_attention_bf16): the K/V tiles hold bf16, copied by cp.async
+// at the fp32 tiles' points (16-byte pieces of 8 values where D and Dv are
+// multiples of 8 and K, V 16-byte aligned, else 2-byte loads and stores),
+// K rows padded to pad8(D) + 8 values, and upcast as the products read them
+// (8 bytes a group of 4); Q is upcast and scaled as it is staged.  The
+// tiles' bytes halve (145 KB a block at D = 256, against 209); the tiles,
+// shards and every FMA chain are the fp32 kernel's, on the upcast values.
+// The output, written directly or by the combine, is rounded once to bf16;
+// the shards' partials stay fp32.  The bound counts 2 bytes a value.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -100,6 +112,18 @@ constexpr int MAX_SHARDS = 8; // the wrapper's attention_shard_cols keeps NS <= 
 __host__ __device__ inline size_t attn_smem_floats(int D, int Dv) {
   return (size_t)BR * pad4(D) + (size_t)BKV * (pad4(D) + 4) + (size_t)BKV * pad4(Dv) +
          (size_t)BR * BKV;
+}
+
+__host__ __device__ inline int pad8(int x) { return (x + 7) & ~7; }
+
+// Bytes of dynamic shared memory for a source: attn_smem_floats for fp32
+// tiles; for bf16 ones Q [BR][D4] and P [BR][BKV] fp32 and the K
+// [BKV][kst(D)] and V [BKV][vst(Dv)] tiles at 2 bytes.
+template <class Src>
+__host__ __device__ inline size_t attn_smem_bytes(int D, int Dv) {
+  if (sizeof(typename Src::Tile) == sizeof(float)) return attn_smem_floats(D, Dv) * sizeof(float);
+  return sizeof(float) * ((size_t)BR * pad4(D) + (size_t)BR * BKV) +
+         sizeof(typename Src::Tile) * BKV * ((size_t)Src::kst(D) + Src::vst(Dv));
 }
 
 // Mask policies: pos0(b, t) is the position of query row t of sequence b;
@@ -131,13 +155,17 @@ struct StaticWindow {
 // (width W, W4 = pad4(W)) into dst (row stride ST), rows j >= n and
 // columns >= W zero; land() completes it before the barrier that publishes
 // the tile (with cp_async_wait).  Regs<NP> carries a thread's loads (NP
-// pieces) from one to the other.
+// pieces) from one to the other.  Tile is the tiles' element type; kst(D)
+// and vst(Dv) their row strides.
 
 // fp32 rows (dense or paged): cp.async straight into the tile, 16-byte
 // pieces when `vec` (W % 4 == 0 and 16-byte aligned bases), else 4-byte ones.
 template <class Rows>
 struct F32Source {
   using Elem = float;
+  using Tile = float;
+  __host__ __device__ static int kst(int D) { return pad4(D) + 4; }  // the pad spreads banks
+  __host__ __device__ static int vst(int Dv) { return pad4(Dv); }
   template <int NP>
   struct Regs {};
   Rows rows;
@@ -175,6 +203,9 @@ struct F32Source {
 // base) issue() loads and stores element by element.
 struct I8Source {
   using Elem = int8_t;
+  using Tile = float;
+  __host__ __device__ static int kst(int D) { return pad4(D) + 4; }
+  __host__ __device__ static int vst(int Dv) { return pad4(Dv); }
   template <int NP>  // pieces per thread: BKV * W4 / 4 / THREADS <= NP
   struct Regs {
     char4 x[NP];
@@ -234,6 +265,47 @@ struct I8Source {
   }
 };
 
+// bf16 rows (dense): cp.async straight into bf16 tiles, 16-byte pieces (8
+// values) when `vec` (W % 8 == 0 and 16-byte aligned bases), else 2-byte
+// loads and stores.  K rows are pad8(D) + 8 values apart, so a row starts
+// on 16 bytes and 16 rows' groups spread over the banks.
+template <class Rows>
+struct Bf16Source {
+  using Elem = repro_torch::bf16;
+  using Tile = repro_torch::bf16;
+  __host__ __device__ static int kst(int D) { return pad8(D) + 8; }
+  __host__ __device__ static int vst(int Dv) { return pad8(Dv); }
+  template <int NP>
+  struct Regs {};
+  Rows rows;
+  template <class R>
+  __device__ __forceinline__ void issue(const Elem* __restrict__ src, const float*, Tile* dst,
+                                        int ST, int W, int b, int h, int j0, int n, bool vec,
+                                        R&) const {
+    if (vec) {
+      const int nc = W / 8;
+      for (int e = threadIdx.x; e < BKV * nc; e += THREADS) {
+        const int j = e / nc, c = e % nc;
+        const bool ok = j < n;
+        int blk;
+        repro_torch::cp_async16(dst + j * ST + 8 * c,
+                                ok ? src + rows.row(b, h, j0 + j, blk) * W + 8 * c : src, ok);
+      }
+    } else {
+      const int W4 = pad4(W);
+      for (int e = threadIdx.x; e < BKV * W4; e += THREADS) {
+        const int j = e / W4, d = e % W4;
+        const bool ok = j < n && d < W;
+        int blk;
+        repro_torch::copy1(dst + j * ST + d, ok ? src + rows.row(b, h, j0 + j, blk) * W + d : src,
+                           ok);
+      }
+    }
+  }
+  template <class R>
+  __device__ __forceinline__ void land(Tile*, int, int, bool, R&) const {}
+};
+
 __device__ __forceinline__ float group_max(float v) {  // over the 16 lanes of a row
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -249,18 +321,20 @@ __device__ __forceinline__ float group_sum(float v) {
 // Block (x, y): query tile n_qt - 1 - x / NS, shard x % NS, sequence y / Hk,
 // kv head y % Hk.  Row r of the tile is query head h * G + r / BQ at
 // position t0 + r % BQ.  acc_ws (NS, R, Dv), m_ws and l_ws (NS, R) with R =
-// B * T * Hq rows (b, t, hq); unused (null) when NS = 1.
-template <class Src, class Mask, int NV>
+// B * T * Hq rows (b, t, hq); unused (null) when NS = 1.  TQ: the type of
+// q and o (fp32, or bf16 with bf16 K/V).
+template <class Src, class Mask, int NV, typename TQ>
 __global__ void __launch_bounds__(THREADS, NV == 2 ? 2 : 1)
-attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restrict__ k,
+attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict__ k,
                  const typename Src::Elem* __restrict__ v, const float* __restrict__ k_scale,
                  const float* __restrict__ v_scale, const Src src, const Mask mask,
-                 float* __restrict__ o, float* __restrict__ acc_ws, float* __restrict__ m_ws,
+                 TQ* __restrict__ o, float* __restrict__ acc_ws, float* __restrict__ m_ws,
                  float* __restrict__ l_ws, int B, int T, int Hq, int Hk, int S, int D, int Dv,
                  int BQ, int shard, int NS, float scale, bool vec) {
   constexpr int NC = BKV / 16;  // score columns per thread; NV float4 groups of Dv: Dv4 <= 64 NV
   extern __shared__ __align__(16) float smem[];
-  const int D4 = pad4(D), Dv4 = pad4(Dv), KST = D4 + 4, G = Hq / Hk;
+  using TS = typename Src::Tile;
+  const int D4 = pad4(D), Dv4 = pad4(Dv), KST = Src::kst(D), VST = Src::vst(Dv), G = Hq / Hk;
   const int n_qt = (T + BQ - 1) / BQ;
   const int qt = n_qt - 1 - blockIdx.x / NS, s = blockIdx.x % NS;
   const int b = blockIdx.y / Hk, h = blockIdx.y % Hk;
@@ -273,9 +347,9 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
   if (s > 0 && c_begin >= c_end) return;  // block-uniform; shard 0 writes the empty rows
 
   float* qs = smem;
-  float* ks = qs + BR * D4;
-  float* vs = ks + BKV * KST;
-  float* ps = vs + BKV * Dv4;
+  TS* ks = reinterpret_cast<TS*>(qs + BR * D4);
+  TS* vs = ks + BKV * KST;
+  float* ps = reinterpret_cast<float*>(vs + BKV * VST);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
   int lo[RPT], hi[RPT];
@@ -287,10 +361,29 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
     hi[i] = valid ? mask.hi(pos0 + tq, S) : 0;
   }
   // Q by cp.async with the first K tile, then each thread scales the
-  // pieces it copied (its own copies are visible to it after the wait)
+  // pieces it copied (its own copies are visible to it after the wait); a
+  // bf16 Q is upcast and scaled as it is stored (the same products)
+  constexpr bool kF32Q = std::is_same<TQ, float>::value;
   const size_t q_row0 = ((size_t)b * T + t0) * Hq + (size_t)h * G;  // row (t0, head 0)
   auto q_src = [&](int r) { return q + (q_row0 + (size_t)(r % BQ) * Hq + r / BQ) * D; };
-  if (vec) {
+  if constexpr (!kF32Q) {
+    for (int e = tid; e < BR * D4 / 4; e += THREADS) {  // groups of 4 (8 bytes)
+      const int r = e / (D4 / 4), c = 4 * (e % (D4 / 4));
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r / BQ < G && r % BQ < nq) {
+        if (vec) {
+          x = repro_torch::load4f(q_src(r) + c);
+        } else {
+          using repro_torch::to_f32;
+          const TQ* p = q_src(r) + c;
+          x = make_float4(to_f32(p[0]), c + 1 < D ? to_f32(p[1]) : 0.f,
+                          c + 2 < D ? to_f32(p[2]) : 0.f, c + 3 < D ? to_f32(p[3]) : 0.f);
+        }
+      }
+      *reinterpret_cast<float4*>(qs + r * D4 + c) =
+          make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    }
+  } else if (vec) {
     for (int e = tid; e < BR * D4 / 4; e += THREADS) {
       const int r = e / (D4 / 4), c = 4 * (e % (D4 / 4));
       const bool ok = r / BQ < G && r % BQ < nq;
@@ -321,20 +414,22 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
                             vec, regs);
   repro_torch::cp_async_commit();
   repro_torch::cp_async_wait<0>();
-  if (vec) {  // the pieces this thread copied
-    for (int e = tid; e < BR * D4 / 4; e += THREADS) {
-      float4* x = reinterpret_cast<float4*>(qs) + e;
-      x->x *= scale, x->y *= scale, x->z *= scale, x->w *= scale;
+  if constexpr (kF32Q) {
+    if (vec) {  // the pieces this thread copied
+      for (int e = tid; e < BR * D4 / 4; e += THREADS) {
+        float4* x = reinterpret_cast<float4*>(qs) + e;
+        x->x *= scale, x->y *= scale, x->z *= scale, x->w *= scale;
+      }
+    } else {
+      for (int e = tid; e < BR * D4; e += THREADS) qs[e] *= scale;
     }
-  } else {
-    for (int e = tid; e < BR * D4; e += THREADS) qs[e] *= scale;
   }
   for (int it = 0; it < n_tiles; ++it) {
     const int j0 = c_begin + it * BKV, n = min(BKV, c_end - j0);
     src.land(ks, KST, D, vec, regs);
     repro_torch::cp_async_wait<0>();
     __syncthreads();  // K of this tile (and Q) visible; P.V of the last tile done: V, P free
-    src.issue(v, v_scale, vs, Dv4, Dv, b, h, j0, n, vec, regs);
+    src.issue(v, v_scale, vs, VST, Dv, b, h, j0, n, vec, regs);
     repro_torch::cp_async_commit();
 
     float sc[RPT][NC];
@@ -349,7 +444,7 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
         qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * D4 + d);
 #pragma unroll
       for (int j = 0; j < NC; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * KST + d);
+        kv[j] = repro_torch::load4f(ks + (tx + 16 * j) * KST + d);
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -391,7 +486,7 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
         acc[i][w].w *= alpha;
       }
     }
-    src.land(vs, Dv4, Dv, vec, regs);
+    src.land(vs, VST, Dv, vec, regs);
     repro_torch::cp_async_wait<0>();
     __syncthreads();  // P and V visible; Q.K^T done: K free
     if (it + 1 < n_tiles)
@@ -413,7 +508,7 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
         for (int w = 0; w < NV; ++w) {
           const int gi = tx + 16 * w;
           if (4 * gi < Dv4) {
-            const float4 x = *reinterpret_cast<const float4*>(vs + (c4 + cc) * Dv4 + 4 * gi);
+            const float4 x = repro_torch::load4f(vs + (c4 + cc) * VST + 4 * gi);
 #pragma unroll
             for (int i = 0; i < RPT; ++i) {
               acc[i][w].x = fmaf(p[i][cc], x.x, acc[i][w].x);
@@ -440,15 +535,21 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
     if (s < s_lo || s > s_hi) continue;
     const size_t row = ((size_t)b * T + t0 + tq) * Hq + (size_t)h * G + g;
     const bool direct = s_lo == s_hi;
-    float* dst = direct ? o + row * Dv : acc_ws + ((size_t)s * R + row) * Dv;
+    TQ* out = o + row * Dv;
+    float* part = direct ? nullptr : acc_ws + ((size_t)s * R + row) * Dv;
     const float lsum = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int w = 0; w < NV; ++w) {
       const int d = 4 * (tx + 16 * w);
       const float x[4] = {acc[i][w].x, acc[i][w].y, acc[i][w].z, acc[i][w].w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (d + e < Dv) dst[d + e] = direct ? x[e] / lsum : x[e];
+      for (int e = 0; e < 4; ++e) {
+        if (d + e >= Dv) continue;
+        if (direct)
+          out[d + e] = repro_torch::from_f32<TQ>(x[e] / lsum);
+        else
+          part[d + e] = x[e];
+      }
     }
     if (!direct && tx == 0) {
       m_ws[(size_t)s * R + row] = m[i];
@@ -462,11 +563,11 @@ attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restri
 // as combine_partials_f32 (flash_decode.cu) merges all of them — max of m,
 // then l and acc summed with weights exp(m_i - m), out = acc / max(l,
 // 1e-30).  The shards outside s_lo .. s_hi hold nothing of the row (acc 0,
-// m -1e30, l 0: weight 0) and are not read.
-template <class Mask>
+// m -1e30, l 0: weight 0) and are not read.  TO: o's type.
+template <class Mask, typename TO>
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ acc_ws, const float* __restrict__ m_ws,
-               const float* __restrict__ l_ws, const Mask mask, float* __restrict__ o, int R,
+               const float* __restrict__ l_ws, const Mask mask, TO* __restrict__ o, int R,
                int T, int Hq, int S, int Dv, int shard) {
   const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= R) return;
@@ -492,17 +593,17 @@ combine_kernel(const float* __restrict__ acc_ws, const float* __restrict__ m_ws,
 #pragma unroll
     for (int s = 0; s < MAX_SHARDS; ++s)
       if (s >= s_lo && s <= s_hi) x = x + acc_ws[((size_t)s * R + row) * Dv + d] * w[s];
-    o[(size_t)row * Dv + d] = x / ls;
+    o[(size_t)row * Dv + d] = repro_torch::from_f32<TO>(x / ls);
   }
 }
 
-template <class Src, class Mask, int NV>
-int run(const float* q, const typename Src::Elem* k, const typename Src::Elem* v,
-        const float* k_scale, const float* v_scale, const Src& src, const Mask& mask, float* o,
+template <class Src, class Mask, int NV, typename TQ>
+int run(const TQ* q, const typename Src::Elem* k, const typename Src::Elem* v,
+        const float* k_scale, const float* v_scale, const Src& src, const Mask& mask, TQ* o,
         float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D, int Dv,
         int BQ, int shard, int NS, float scale, bool vec, cudaStream_t stream) {
-  const size_t smem = attn_smem_floats(D, Dv) * sizeof(float);
-  auto kernel = attention_kernel<Src, Mask, NV>;
+  const size_t smem = attn_smem_bytes<Src>(D, Dv);
+  auto kernel = attention_kernel<Src, Mask, NV, TQ>;
   static int smem_set[repro_torch::kMaxDevices];
   cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -512,7 +613,7 @@ int run(const float* q, const typename Src::Elem* k, const typename Src::Elem* v
   err = cudaGetLastError();
   if (err != cudaSuccess || NS == 1) return static_cast<int>(err);
   const int R = B * T * Hq, rows_per_block = THREADS / 32;
-  combine_kernel<Mask><<<(R + rows_per_block - 1) / rows_per_block, THREADS, 0, stream>>>(
+  combine_kernel<Mask, TQ><<<(R + rows_per_block - 1) / rows_per_block, THREADS, 0, stream>>>(
       acc, m, l, mask, o, R, T, Hq, S, Dv, shard);
   return static_cast<int>(cudaGetLastError());
 }
@@ -520,10 +621,10 @@ int run(const float* q, const typename Src::Elem* k, const typename Src::Elem* v
 // Checks the shapes, then runs the instance for the widths.  acc, m and l:
 // the workspace of the shards' partials (see attention_kernel), null when
 // S <= shard.
-template <class Src, class Mask>
-int launch(const float* q, const typename Src::Elem* k, const typename Src::Elem* v,
+template <class Src, class Mask, typename TQ>
+int launch(const TQ* q, const typename Src::Elem* k, const typename Src::Elem* v,
            const float* k_scale, const float* v_scale, const Src& src, const Mask& mask,
-           float* o, float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D,
+           TQ* o, float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D,
            int Dv, int shard, float scale, void* stream) {
   if (B < 1 || T < 1 || Hk < 1 || Hq % Hk || Hq / Hk > BR || D < 1 || Dv < 1 || D > 256 ||
       Dv > 256 || S < 1 || shard < 64 || shard % 64 || B * Hk > 65535)
@@ -534,16 +635,21 @@ int launch(const float* q, const typename Src::Elem* k, const typename Src::Elem
   int gp = 1;
   while (gp < Hq / Hk) gp *= 2;
   const int BQ = BR / gp;
-  const size_t al = sizeof(typename Src::Elem) == 1 ? 4 : 16;
-  const bool vec = D % 4 == 0 && Dv % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+  // 16-byte copies of 4 fp32 or 8 bf16 values, or 4-byte int8 loads, where
+  // the widths allow them and every row starts aligned
+  constexpr size_t es = sizeof(typename Src::Elem);
+  constexpr int vw = es == 2 ? 8 : 4;
+  constexpr size_t al = es == 1 ? 4 : 16;
+  const bool vec = D % vw == 0 && Dv % vw == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % (4 * sizeof(TQ)) == 0 &&
                    reinterpret_cast<uintptr_t>(k) % al == 0 &&
                    reinterpret_cast<uintptr_t>(v) % al == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pad4(D) <= WIDE && pad4(Dv) <= WIDE)
-    return run<Src, Mask, 2>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq, Hk, S,
-                             D, Dv, BQ, shard, NS, scale, vec, st);
-  return run<Src, Mask, 4>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq, Hk, S,
-                           D, Dv, BQ, shard, NS, scale, vec, st);
+    return run<Src, Mask, 2, TQ>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq,
+                                 Hk, S, D, Dv, BQ, shard, NS, scale, vec, st);
+  return run<Src, Mask, 4, TQ>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq, Hk,
+                               S, D, Dv, BQ, shard, NS, scale, vec, st);
 }
 
 }  // namespace
@@ -586,6 +692,16 @@ extern "C" int flash_attention_f32(const float* q, const float* k, const float* 
                                    int Skv, int D, int Dv, int causal, int window, int shard,
                                    float scale, void* stream) {
   return launch(q, k, v, nullptr, nullptr, F32Source<DenseRows>{DenseRows{Skv, Hk}},
+                StaticWindow{Skv - T, causal, window}, o, acc, m, l, B, T, Hq, Hk, Skv, D, Dv,
+                shard, scale, stream);
+}
+
+extern "C" int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                    const __nv_bfloat16* v, float* acc, float* m, float* l,
+                                    __nv_bfloat16* o, int B, int T, int Hq, int Hk, int Skv,
+                                    int D, int Dv, int causal, int window, int shard,
+                                    float scale, void* stream) {
+  return launch(q, k, v, nullptr, nullptr, Bf16Source<DenseRows>{DenseRows{Skv, Hk}},
                 StaticWindow{Skv - T, causal, window}, o, acc, m, l, B, T, Hq, Hk, Skv, D, Dv,
                 shard, scale, stream);
 }

@@ -16,7 +16,13 @@
 //                           acc (n_splits, B, Hq, Dv), m and l (n_splits,
 //                           B, Hq);
 //   combine_partials_f32    (acc, m, l) over NS shards -> out, in shard
-//                           index order (ref.combine_partials_ref).
+//                           index order (ref.combine_partials_ref);
+//   flash_decode_bf16       flash_decode_f32 on bf16 q, k, v and o (the
+//                           narrow layout, D, Dv <= 256): q and each staged
+//                           K/V row upcast as they are loaded, the partials
+//                           fp32, the combine writing o rounded once to bf16
+//                           (combine_partials_bf16 alone: the same merge
+//                           with a bf16 out).
 //
 // Replaces: src/repro/kernels/flash_decode.py::flash_decode (_flash_decode,
 // body _decode_kernel with emit_stats=False), behind `decode_attention`
@@ -82,6 +88,15 @@
 // Partial (split-KV, flash_decode_partial_f32): shard = S / n_splits, the
 // caller's n_splits equal shards, partials out; the bound adds the
 // partials, n_splits * B * Hq * (Dv + 2) floats written once.
+//
+// bf16 (flash_decode_bf16): the ring's slots hold bf16 rows, copied by
+// cp.async (16-byte pieces of 8 values where D and Dv are multiples of 8
+// and K, V 16-byte aligned, else 2-byte loads and stores) and upcast as a
+// lane reads its groups (8 bytes a group of 4); q is upcast as it is
+// staged.  The ring takes half the fp32 one's bytes (56 KB a block at D =
+// Dv = 256, against 104); the tiles, groups and every sum are the fp32
+// kernel's, so the output is the fp32 kernel's on the upcast inputs,
+// rounded once.  Its bound is the live rows at 2 bytes a value.
 #include <cstdint>
 #include <type_traits>
 
@@ -109,6 +124,15 @@ __host__ __device__ inline size_t decode_smem_floats(int D, int Dv) {
   return (size_t)GMAX * pad4(D) + (size_t)NWARPS * NST * ROWS * (pad4(D) + pad4(Dv));
 }
 
+// Bytes of the same for bf16 rings: q [GMAX][D4] fp32, the rings in bf16,
+// or the warps' partials of the merge (fp32, [NWARPS][GMAX] m and l and
+// [NWARPS][GMAX][Dv4] acc) where those take more.
+__host__ __device__ inline size_t decode_smem_bytes_bf16(int D, int Dv) {
+  const size_t ring = 2 * (size_t)NWARPS * NST * ROWS * (pad4(D) + pad4(Dv));
+  const size_t merge = 4 * (size_t)NWARPS * GMAX * (2 + pad4(Dv));
+  return 4 * (size_t)GMAX * pad4(D) + (ring > merge ? ring : merge);
+}
+
 // One row of width W (padded to W4) from src (its first element) into dst,
 // by the warp's lanes: fp32 with cp.async (16-byte pieces when `vec`),
 // int8 with 4-byte loads dequantized as float(x) * s.  Pad columns get 0.
@@ -123,6 +147,15 @@ __device__ __forceinline__ void stage_row(float* dst, const float* src, float, i
       else
         dst[d] = 0.f;
     }
+  }
+}
+
+__device__ __forceinline__ void stage_row(repro_torch::bf16* dst, const repro_torch::bf16* src,
+                                          float, int W, int W4, bool vec, int lane) {
+  if (vec) {
+    for (int c = lane; c < W / 8; c += 32) repro_torch::cp_async16(dst + 8 * c, src + 8 * c);
+  } else {
+    for (int d = lane; d < W4; d += 32) repro_torch::copy1(dst + d, src + d, d < W);
   }
 }
 
@@ -151,10 +184,12 @@ __device__ __forceinline__ void fma4(float p, const float4& v, float4& a) {
 // query heads g0 .. g0 + gn - 1 of kv head h; writes rows (i, b, h * G + g0
 // + g) of the (shards, B, Hq) partials.  GM is a compile-time bound on gn
 // (1, 2, 4 or 8), so the accumulators stay in registers; NCK and NCV are the
-// float4 groups a lane holds of a K row and of a V row.
-template <class Rows, typename T, int GM, int NCK, int NCV>
+// float4 groups a lane holds of a K row and of a V row.  TQ: q's type
+// (fp32, or bf16 with bf16 K/V); T: K/V's (fp32, bf16 or int8); the ring
+// holds T's rows as fp32 (fp32, int8 dequantized) or bf16.
+template <class Rows, typename TQ, typename T, int GM, int NCK, int NCV>
 __global__ void __launch_bounds__(THREADS, 2)
-decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
+decode_shard_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const Rows rows,
                     const int* __restrict__ lengths, float* __restrict__ acc_out,
@@ -183,20 +218,23 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const size_t q_base = ((size_t)b * Hq + (size_t)h * G + g0) * D;
   for (int i = tid; i < GM * D4; i += THREADS) {
     const int g = i / D4, d = i % D4;
-    qs[i] = (g < gn && d < D) ? q[q_base + (size_t)g * D + d] * scale : 0.f;
+    qs[i] = (g < gn && d < D) ? repro_torch::to_f32(q[q_base + (size_t)g * D + d]) * scale
+                              : 0.f;
   }
   __syncthreads();
 
-  const int slot_floats = ROWS * (D4 + Dv4);
-  float* ring = smem + GMAX * D4 + (size_t)warp * NST * slot_floats;
+  using TS = typename std::conditional<std::is_same<T, repro_torch::bf16>::value,
+                                       repro_torch::bf16, float>::type;
+  const int slot_elems = ROWS * (D4 + Dv4);
+  TS* ring = reinterpret_cast<TS*>(smem + GMAX * D4) + (size_t)warp * NST * slot_elems;
   const int n_tiles = (len + ROWS - 1) / ROWS;
   const int my_tiles = n_tiles > warp ? (n_tiles - warp + NWARPS - 1) / NWARPS : 0;
 
   // stage this warp's i-th tile (tile warp + NWARPS * i) into slot i % NST
   auto stage = [&](int i) {
     const int j0 = (warp + NWARPS * i) * ROWS, n = min(ROWS, len - j0);
-    float* ks = ring + (i % NST) * slot_floats;
-    float* vs = ks + ROWS * D4;
+    TS* ks = ring + (i % NST) * slot_elems;
+    TS* vs = ks + ROWS * D4;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       if (r < n) {
@@ -236,8 +274,8 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
 
     const int n = min(ROWS, len - (warp + NWARPS * i) * ROWS);
-    const float* ks = ring + (i % NST) * slot_floats;
-    const float* vs = ks + ROWS * D4;
+    const TS* ks = ring + (i % NST) * slot_elems;
+    const TS* vs = ks + ROWS * D4;
     float p[GM][ROWS];  // scores, then probabilities
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -245,7 +283,7 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NCK; ++c) {
         const int cc = lane + 32 * c;
-        kr[c] = (r < n && cc < nk) ? *reinterpret_cast<const float4*>(ks + r * D4 + 4 * cc)
+        kr[c] = (r < n && cc < nk) ? repro_torch::load4f(ks + r * D4 + 4 * cc)
                                    : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -298,7 +336,7 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           if (r < n) {
-            const float4 vv = *reinterpret_cast<const float4*>(vs + r * Dv4 + 4 * cc);
+            const float4 vv = repro_torch::load4f(vs + r * Dv4 + 4 * cc);
 #pragma unroll
             for (int g = 0; g < GM; ++g) fma4(p[g][r], vv, acc[g][c]);
           }
@@ -353,10 +391,12 @@ decode_shard_kernel(const float* __restrict__ q, const T* __restrict__ k,
 
 // Block `row` of the R = B * Hq rows: the NS shards' weights exp(m_i - m)
 // once into shared memory, then out[row, d] = sum_i acc_i[d] * w_i /
-// max(sum_i l_i * w_i, 1e-30), every sum in shard order.
+// max(sum_i l_i * w_i, 1e-30), every sum in shard order; TO: out's type
+// (fp32, or bf16 rounded once).
+template <typename TO>
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
-               const float* __restrict__ l, float* __restrict__ out, int NS, int R, int Dv) {
+               const float* __restrict__ l, TO* __restrict__ out, int NS, int R, int Dv) {
   extern __shared__ float w[];  // [NS] weights
   __shared__ float l_sum;
   const int row = blockIdx.x, tid = threadIdx.x;
@@ -376,25 +416,28 @@ combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
     float o = 0.f;
 #pragma unroll 8
     for (int i = 0; i < NS; ++i) o = o + acc[((size_t)i * R + row) * Dv + d] * w[i];
-    out[(size_t)row * Dv + d] = o / l_sum;
+    out[(size_t)row * Dv + d] = repro_torch::from_f32<TO>(o / l_sum);
   }
 }
 
-int combine(const float* acc, const float* m, const float* l, float* out, int NS, int R,
-            int Dv, cudaStream_t stream) {
+template <typename TO>
+int combine(const float* acc, const float* m, const float* l, TO* out, int NS, int R, int Dv,
+            cudaStream_t stream) {
   const size_t smem = (size_t)NS * sizeof(float);
   if (NS < 1 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  combine_kernel<<<R, THREADS, smem, stream>>>(acc, m, l, out, NS, R, Dv);
+  combine_kernel<TO><<<R, THREADS, smem, stream>>>(acc, m, l, out, NS, R, Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Rows, typename T, int GM, int NCK, int NCV>
-int launch_shards_gm(const float* q, const T* k, const T* v, const float* k_scale,
+template <class Rows, typename TQ, typename T, int GM, int NCK, int NCV>
+int launch_shards_gm(const TQ* q, const T* k, const T* v, const float* k_scale,
                      const float* v_scale, const Rows& rows, const int* lengths, float* acc,
                      float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
                      float scale, bool vec, cudaStream_t stream) {
-  const size_t smem = decode_smem_floats(D, Dv) * sizeof(float);
-  auto kernel = decode_shard_kernel<Rows, T, GM, NCK, NCV>;
+  const size_t smem = std::is_same<T, repro_torch::bf16>::value
+                          ? decode_smem_bytes_bf16(D, Dv)
+                          : decode_smem_floats(D, Dv) * sizeof(float);
+  auto kernel = decode_shard_kernel<Rows, TQ, T, GM, NCK, NCV>;
   static int smem_set[repro_torch::kMaxDevices];
   const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -408,8 +451,8 @@ int launch_shards_gm(const float* q, const T* k, const T* v, const float* k_scal
 // The shard kernel over shards of `shard` rows; partials (ceil(S / shard), B,
 // Hq[, Dv]) into acc, m, l.  D, Dv <= 256 take the narrow layout; wider
 // heads (dense fp32 rows only) the wide one.
-template <class Rows, typename T>
-int launch_shards(const float* q, const T* k, const T* v, const float* k_scale,
+template <class Rows, typename TQ, typename T>
+int launch_shards(const TQ* q, const T* k, const T* v, const float* k_scale,
                   const float* v_scale, const Rows& rows, const int* lengths, float* acc,
                   float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
                   float scale, cudaStream_t stream) {
@@ -420,13 +463,15 @@ int launch_shards(const float* q, const T* k, const T* v, const float* k_scale,
       decode_smem_floats(D, Dv) * sizeof(float) > (size_t)repro_torch::kMaxSmemBytes ||
       (S + shard - 1) / shard > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte copies (fp32) or 4-byte loads (int8) where every row starts aligned
-  const size_t al = sizeof(T) == 1 ? 4 : 16;
-  const bool vec = D % 4 == 0 && Dv % 4 == 0 && reinterpret_cast<uintptr_t>(k) % al == 0 &&
+  // 16-byte copies of 4 fp32 or 8 bf16 values, or 4-byte int8 loads, where
+  // every row starts aligned
+  constexpr int vw = sizeof(T) == 2 ? 8 : 4;
+  constexpr size_t al = sizeof(T) == 1 ? 4 : 16;
+  const bool vec = D % vw == 0 && Dv % vw == 0 && reinterpret_cast<uintptr_t>(k) % al == 0 &&
                    reinterpret_cast<uintptr_t>(v) % al == 0;
   const int G = Hq / Hk;
 #define REPRO_SHARDS(GM, NCK, NCV)                                                        \
-  launch_shards_gm<Rows, T, GM, NCK, NCV>(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, \
+  launch_shards_gm<Rows, TQ, T, GM, NCK, NCV>(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, \
                                           B, Hq, Hk, S, D, Dv, shard, scale, vec, stream)
   if constexpr (kWideOk) {
     if (wide) {
@@ -442,10 +487,10 @@ int launch_shards(const float* q, const T* k, const T* v, const float* k_scale,
 #undef REPRO_SHARDS
 }
 
-// Shards, then their combine into o.
-template <class Rows, typename T>
-int decode(const float* q, const T* k, const T* v, const float* k_scale, const float* v_scale,
-           const Rows& rows, const int* lengths, float* acc, float* m, float* l, float* o,
+// Shards, then their combine into o (q's type).
+template <class Rows, typename TQ, typename T>
+int decode(const TQ* q, const T* k, const T* v, const float* k_scale, const float* v_scale,
+           const Rows& rows, const int* lengths, float* acc, float* m, float* l, TQ* o,
            int B, int Hq, int Hk, int S, int D, int Dv, int shard, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = launch_shards(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, B, Hq, Hk, S, D,
@@ -498,4 +543,18 @@ extern "C" int flash_decode_partial_f32(const float* q, const float* k, const fl
 extern "C" int combine_partials_f32(const float* acc, const float* m, const float* l,
                                     float* out, int NS, int R, int Dv, void* stream) {
   return combine(acc, m, l, out, NS, R, Dv, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int combine_partials_bf16(const float* acc, const float* m, const float* l,
+                                     __nv_bfloat16* out, int NS, int R, int Dv, void* stream) {
+  return combine(acc, m, l, out, NS, R, Dv, static_cast<cudaStream_t>(stream));
+}
+
+// flash_decode_f32's arguments with q, k, v and o bf16 (D, Dv <= 256).
+extern "C" int flash_decode_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                 const __nv_bfloat16* v, const int* lengths, float* acc,
+                                 float* m, float* l, __nv_bfloat16* o, int B, int Hq, int Hk,
+                                 int S, int D, int Dv, int shard, float scale, void* stream) {
+  return decode(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, o, B, Hq, Hk,
+                S, D, Dv, shard, scale, stream);
 }

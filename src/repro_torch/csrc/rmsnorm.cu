@@ -1,5 +1,6 @@
 // rmsnorm: y = (x [+ residual]) * rsqrt(mean((x [+ residual])^2) + eps) * w,
-// row-wise over the last dim, fp32.
+// row-wise over the last dim; x, residual, w and y all fp32 (rmsnorm_f32) or
+// all bf16 (rmsnorm_bf16), every sum in fp32.
 //
 // Replaces: src/repro/kernels/rmsnorm.py::rmsnorm (bodies _rmsnorm_kernel and
 // _rmsnorm_res_kernel), behind `rmsnorm` pallas (ops.py:261).
@@ -23,6 +24,11 @@
 // it) sums the same groups in the same order and reads the row again to
 // write it.  The layout depends on D alone, never on the row count, so a
 // row's result is the same in a 1-row and a 1024-row call.
+//
+// bf16 (rmsnorm_bf16): the same kernel on 2-byte elements, as the Pallas
+// kernel takes them: x, the residual and w are upcast as they are loaded (a
+// group of 4 is 8 bytes), x + residual is added in fp32 and never rounded,
+// and only y is rounded to bf16, once.  The bytes, and so the bound, halve.
 #include <cstdint>
 
 #include "common.cuh"
@@ -40,25 +46,27 @@ int row_threads(int D) {
   return t;
 }
 
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* p, int g, int D) {
-  if (VEC) return *reinterpret_cast<const float4*>(p + 4 * g);
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 load4(const T* p, int g, int D) {
+  using repro_torch::to_f32;
+  if (VEC) return repro_torch::load4f(p + 4 * g);
   const int d = 4 * g;
-  return make_float4(d < D ? p[d] : 0.f, d + 1 < D ? p[d + 1] : 0.f,
-                     d + 2 < D ? p[d + 2] : 0.f, d + 3 < D ? p[d + 3] : 0.f);
+  return make_float4(d < D ? to_f32(p[d]) : 0.f, d + 1 < D ? to_f32(p[d + 1]) : 0.f,
+                     d + 2 < D ? to_f32(p[d + 2]) : 0.f, d + 3 < D ? to_f32(p[d + 3]) : 0.f);
 }
 
-template <bool VEC>
-__device__ __forceinline__ void store4(float* p, int g, int D, float4 v) {
+template <bool VEC, typename T>
+__device__ __forceinline__ void store4(T* p, int g, int D, float4 v) {
   if (VEC) {
-    *reinterpret_cast<float4*>(p + 4 * g) = v;
+    repro_torch::store4f(p + 4 * g, v);
     return;
   }
+  using repro_torch::from_f32;
   const int d = 4 * g;
-  if (d < D) p[d] = v.x;
-  if (d + 1 < D) p[d + 1] = v.y;
-  if (d + 2 < D) p[d + 2] = v.z;
-  if (d + 3 < D) p[d + 3] = v.w;
+  if (d < D) p[d] = from_f32<T>(v.x);
+  if (d + 1 < D) p[d + 1] = from_f32<T>(v.y);
+  if (d + 2 < D) p[d + 2] = from_f32<T>(v.z);
+  if (d + 3 < D) p[d + 3] = from_f32<T>(v.w);
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -90,20 +98,19 @@ __device__ __forceinline__ float row_sum(float ss, int tpr, float* part) {
 }
 
 // VPT > 0: up to VPT groups a thread, in registers; VPT == 0: any number,
-// the row read twice.
-template <int VPT, bool VEC>
+// the row read twice.  T: the element type of x, res, w and y.
+template <int VPT, bool VEC, typename T>
 __global__ void __launch_bounds__(THREADS)
-rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ res,
-               const float* __restrict__ w, float* __restrict__ y, int rows, int D, float eps,
-               int tpr) {
+rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ w,
+               T* __restrict__ y, int rows, int D, float eps, int tpr) {
   __shared__ float part[THREADS / 32];
   const int t = threadIdx.x % tpr, g4 = (D + 3) / 4;
   const int row = blockIdx.x * (THREADS / tpr) + threadIdx.x / tpr;
   const bool live = row < rows;     // a dead row's threads still reach the barrier
   const size_t base = static_cast<size_t>(live ? row : 0) * D;
-  const float* xr = x + base;
-  const float* rr = res == nullptr ? nullptr : res + base;
-  float* yr = y + base;
+  const T* xr = x + base;
+  const T* rr = res == nullptr ? nullptr : res + base;
+  T* yr = y + base;
 
   if constexpr (VPT > 0) {
     float4 wv[VPT], v[VPT];
@@ -148,22 +155,36 @@ rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ res,
   }
 }
 
-template <bool VEC>
-cudaError_t launch(const float* x, const float* res, const float* w, float* y, int rows, int D,
-                   float eps, cudaStream_t s) {
+template <bool VEC, typename T>
+cudaError_t launch(const T* x, const T* res, const T* w, T* y, int rows, int D, float eps,
+                   cudaStream_t s) {
   const int tpr = row_threads(D), vpt = ((D + 3) / 4 + tpr - 1) / tpr;
   const int grid = (rows + THREADS / tpr - 1) / (THREADS / tpr);
   if (vpt <= 1)
-    rmsnorm_kernel<1, VEC><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
+    rmsnorm_kernel<1, VEC, T><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
   else if (vpt <= 2)
-    rmsnorm_kernel<2, VEC><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
+    rmsnorm_kernel<2, VEC, T><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
   else if (vpt <= 4)
-    rmsnorm_kernel<4, VEC><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
+    rmsnorm_kernel<4, VEC, T><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
   else if (vpt <= MAX_VPT)
-    rmsnorm_kernel<MAX_VPT, VEC><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
+    rmsnorm_kernel<MAX_VPT, VEC, T><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
   else
-    rmsnorm_kernel<0, VEC><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
+    rmsnorm_kernel<0, VEC, T><<<grid, THREADS, 0, s>>>(x, res, w, y, rows, D, eps, tpr);
   return cudaGetLastError();
+}
+
+// Groups of 4 as one load or store where D % 4 == 0 and every pointer is
+// aligned to a group (16 bytes fp32, 8 bf16).
+template <typename T>
+int run(const T* x, const T* residual, const T* w, T* y, int rows, int D, float eps,
+        void* stream) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(residual);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = D % 4 == 0 && bits % (4 * sizeof(T)) == 0
+                              ? launch<true>(x, residual, w, y, rows, D, eps, s)
+                              : launch<false>(x, residual, w, y, rows, D, eps, s);
+  return static_cast<int>(err);
 }
 
 __global__ void empty_kernel() {}
@@ -173,13 +194,13 @@ __global__ void empty_kernel() {}
 // residual may be null (the plain form).  rows > 0, D > 0.
 extern "C" int rmsnorm_f32(const float* x, const float* residual, const float* w,
                            float* y, int rows, int D, float eps, void* stream) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                         reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(residual);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = D % 4 == 0 && bits % 16 == 0
-                              ? launch<true>(x, residual, w, y, rows, D, eps, s)
-                              : launch<false>(x, residual, w, y, rows, D, eps, s);
-  return static_cast<int>(err);
+  return run(x, residual, w, y, rows, D, eps, stream);
+}
+
+extern "C" int rmsnorm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* residual,
+                            const __nv_bfloat16* w, __nv_bfloat16* y, int rows, int D,
+                            float eps, void* stream) {
+  return run(x, residual, w, y, rows, D, eps, stream);
 }
 
 // One launch of an empty kernel on `stream`: the floor under every wrapper's

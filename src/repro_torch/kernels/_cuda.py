@@ -9,7 +9,13 @@ whose hash matches is reused; nothing is built when the module is imported.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception.  There is no fallback: a build or launch that fails raises
-(a build or load failure as :class:`KernelBuildError`).
+(a build or load failure as :class:`KernelBuildError`).  A bf16 pointer
+goes to a ``const __nv_bfloat16*`` parameter, as a ``c_void_p`` like every
+other pointer.
+
+Each wrapper counts its launches in its ``launches`` attribute; a wrapper
+with bf16 entries counts those apart, in ``wrapper.bf16``
+(:class:`LaunchCount`).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 __all__ = ["library", "build", "check", "stream_of", "empty_launch", "BUILD_DIR", "SOURCES",
-           "KernelBuildError"]
+           "KernelBuildError", "LaunchCount"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES: Tuple[str, ...] = ("gemm.cu", "rmsnorm.cu", "flash_decode.cu",
@@ -46,16 +52,23 @@ _SIGNATURES: Dict[str, tuple] = {
     "gemm_f32_skinny": (_P, _P, _P, _I, _I, _I, _P),
     # a, b, c; M, N, K, bm, bn
     "gemm_f32_tiled": (_P, _P, _P, *[_I] * 5, _P),
+    # the same with bf16 a, b, c
+    "gemm_bf16_skinny": (_P, _P, _P, _I, _I, _I, _P),
+    "gemm_bf16_tiled": (_P, _P, _P, *[_I] * 5, _P),
     # a, b, c; E, M, N, K, bm, bn
     "batched_gemm_f32": (_P, _P, _P, *[_I] * 6, _P),
     "rmsnorm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "rmsnorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
     # q, k, v, lengths, acc, m, l (the shards' partials), o; B, Hq, Hk, S,
     # D, Dv, shard
     "flash_decode_f32": (*[_P] * 8, *[_I] * 7, _F, _P),
+    # the same with bf16 q, k, v, o (fp32 partials)
+    "flash_decode_bf16": (*[_P] * 8, *[_I] * 7, _F, _P),
     # q, k, v, lengths, acc, m, l; B, Hq, Hk, S, D, Dv, n_splits
     "flash_decode_partial_f32": (*[_P] * 7, *[_I] * 7, _F, _P),
     # acc, m, l, out; NS, R, Dv
     "combine_partials_f32": (*[_P] * 4, *[_I] * 3, _P),
+    "combine_partials_bf16": (*[_P] * 4, *[_I] * 3, _P),
     # q, k, v, start, acc, m, l (the shards' partials), o; B, T, Hq, Hk, S,
     # D, Dv, shard
     "flash_chunk_attention_f32": (*[_P] * 8, *[_I] * 8, _F, _P),
@@ -73,6 +86,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_paged_chunk_attention_i8": (*[_P] * 11, *[_I] * 10, _F, _P),
     # q, k, v, acc, m, l, o; B, T, Hq, Hk, Skv, D, Dv, causal, window, shard
     "flash_attention_f32": (*[_P] * 7, *[_I] * 10, _F, _P),
+    # the same with bf16 q, k, v, o (fp32 partials)
+    "flash_attention_bf16": (*[_P] * 7, *[_I] * 10, _F, _P),
     # x, dt, A, D, B, C, y, state, st, sc, cs (the scratch); B, S, H, P, G,
     # N, Q
     "ssd_scan_f32": (*[_P] * 11, *[_I] * 7, _P),
@@ -85,6 +100,16 @@ _lib: Optional[ctypes.CDLL] = None
 
 class KernelBuildError(RuntimeError):
     """The kernel library could not be built or loaded."""
+
+
+class LaunchCount:
+    """The launches of a wrapper's bf16 entries, counted apart from its
+    fp32 ones (``wrapper.launches``): ``wrapper.bf16.launches``, named
+    ``<wrapper>_bf16`` in launch records."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 def _nvcc() -> str:

@@ -17,6 +17,14 @@ shards in shard order with a combine kernel in the same call.  For the
 chunk wrappers query row t of sequence b sits at ``start[b] + t`` and
 attends cache columns ``<= start[b] + t``.  Each wrapper's ``launches``
 attribute counts its calls that launched the kernel.
+
+:func:`flash_attention` also takes bf16 q, k and v, as the Pallas kernel
+does: ``flash_attention_bf16`` stages bf16 K/V tiles (at most the fp32
+kernel's shared memory, so :func:`attention_fits` holds for it too) and
+upcasts each value as it reads it, keeps the scores, softmax state and
+shard partials in fp32 and rounds the output once to bf16: the fp32
+kernel's result on the upcast inputs, rounded.  Those calls
+count in ``flash_attention.bf16.launches``.
 """
 
 from __future__ import annotations
@@ -59,11 +67,17 @@ def _pad4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def attention_smem_bytes(d: int, dv: int) -> int:
+def attention_smem_bytes(d: int, dv: int, *, bf16: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/flash_attention.cu
-    attn_smem_floats): pre-scaled Q [BLOCK_ROWS][D4], K [BLOCK_KV][D4 + 4],
-    V [BLOCK_KV][Dv4] and P [BLOCK_ROWS][BLOCK_KV], widths padded to 4."""
+    attn_smem_bytes): pre-scaled Q [BLOCK_ROWS][D4] and P
+    [BLOCK_ROWS][BLOCK_KV] fp32, K [BLOCK_KV][D4 + 4] and V [BLOCK_KV][Dv4]
+    fp32, widths padded to 4; ``bf16``: the bf16 entry's K
+    [BLOCK_KV][pad8(D) + 8] and V [BLOCK_KV][pad8(Dv)] at 2 bytes, never
+    more than the fp32 tiles."""
     d4, dv4 = _pad4(d), _pad4(dv)
+    if bf16:
+        d8, dv8 = -(-d // 8) * 8, -(-dv // 8) * 8
+        return 4 * (BLOCK_ROWS * d4 + BLOCK_ROWS * BLOCK_KV) + 2 * BLOCK_KV * (d8 + 8 + dv8)
     return 4 * (BLOCK_ROWS * d4 + BLOCK_KV * (d4 + 4) + BLOCK_KV * dv4
                 + BLOCK_ROWS * BLOCK_KV)
 
@@ -95,9 +109,12 @@ def _pointers(ws) -> tuple:
 
 def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       allowed: torch.Tensor, scale: float) -> torch.Tensor:
-    """GQA softmax attention in fp32 under ``allowed`` ((B or 1, T, S)
-    bool): masked entries weigh exactly 0 and each row finishes as
-    acc / max(l, 1e-30), so a row that sees nothing gives 0."""
+    """GQA softmax attention in fp32 (on the upcast inputs, rounded to q's
+    dtype) under ``allowed`` ((B or 1, T, S) bool): masked entries weigh
+    exactly 0 and each row finishes as acc / max(l, 1e-30), so a row that
+    sees nothing gives 0."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     b, t, hq, d = q.shape
     hk = k.shape[2]
     g = hq // hk
@@ -109,7 +126,7 @@ def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(allowed, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgts,bskd->bkgtd", p, v) / torch.clamp(l, min=1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, t, hq, v.shape[3])
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, hq, v.shape[3]).to(dtype)
 
 
 def flash_chunk_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -179,11 +196,12 @@ paged_chunk_fits = chunk_fits
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool, window: Optional[int], scale: float) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (fp32): query row i sits at
-    position ``Skv - Sq + i``; it sees columns ``<= row`` when ``causal``
-    and columns ``> row - window`` with a window.  Masked entries weigh
-    exactly 0 and a row that sees nothing gives 0 (``ref.attention_ref``
-    gives the mean of V there)."""
+    """The kernel's function in plain PyTorch (fp32 on the upcast inputs,
+    rounded to q's dtype): query row i sits at position ``Skv - Sq + i``;
+    it sees columns ``<= row`` when ``causal`` and columns ``> row -
+    window`` with a window.  Masked entries weigh exactly 0 and a row that
+    sees nothing gives 0 (``ref.attention_ref`` gives the mean of V
+    there)."""
     sq, skv = q.shape[1], k.shape[1]
     allowed = attention_mask(sq, skv, causal=causal, window=window, offset=skv - sq,
                              device=q.device)
@@ -193,7 +211,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, Sq, Hq, D), k (B, Skv, Hk, D), v (B, Skv, Hk, Dv) -> (B, Sq, Hq, Dv).
+    """q (B, Sq, Hq, D), k (B, Skv, Hk, D), v (B, Skv, Hk, Dv) -> (B, Sq, Hq, Dv),
+    all float32 or all bfloat16 (the output in q's dtype).
 
     Query row i sits at absolute position ``Skv - Sq + i``, as in
     ``ref.attention_ref``; ``window`` (None or >= 1) keeps columns
@@ -208,8 +227,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (b, skv, hk, d) or v.shape[:3] != (b, skv, hk):
         raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be float32, got {x.dtype}")
+        if x.dtype not in (torch.float32, torch.bfloat16) or x.dtype != q.dtype:
+            raise TypeError(f"{fn}: {name} must be float32 or bfloat16 (q, k and v alike), "
+                            f"got {x.dtype}")
     if not attention_fits(hq, hk, d, dv):
         raise ValueError(f"{fn}: unsupported heads/widths Hq={hq} Hk={hk} D={d} Dv={dv}")
     if window is not None and int(window) < 1:
@@ -222,22 +242,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{fn}: all inputs must be on one CUDA device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{fn}: inputs must be contiguous")
-    out = torch.empty((b, sq, hq, dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out
     if skv == 0:
         return out.zero_()
+    bf16 = q.dtype == torch.bfloat16
     shard, ws = _partials(skv, b, sq, hq, dv, q.device)
-    err = _cuda.library().flash_attention_f32(
+    lib = _cuda.library()
+    err = (lib.flash_attention_bf16 if bf16 else lib.flash_attention_f32)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *_pointers(ws), out.data_ptr(), b, sq, hq,
         hk, skv, d, dv, int(bool(causal)), 0 if window is None else int(window), shard, scale,
         _cuda.stream_of(q))
     _cuda.check(err, fn)
-    flash_attention.launches += 1
+    if bf16:
+        flash_attention.bf16.launches += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.bf16 = _cuda.LaunchCount("flash_attention_bf16")
 
 
 def flash_paged_chunk_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,

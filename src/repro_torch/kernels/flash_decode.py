@@ -24,6 +24,15 @@ with a finite -1e30 mask), where ``ref`` gives the mean of V.  Each
 wrapper's ``launches`` attribute counts its kernel launches; the combine
 kernel's count rises with every :func:`flash_decode`,
 :func:`flash_paged_decode` and :func:`combine_partials` call on the card.
+
+:func:`flash_decode` also takes bf16 q, k and v (narrow widths only, D and
+Dv <= 256), as the Pallas kernel does: ``flash_decode_bf16`` stages bf16
+rows (half the ring's bytes) and upcasts each value as it reads it, keeps
+the scores, softmax state and partials in fp32 and its merge rounds the
+output once to bf16 (so the result is the fp32 kernel's on the upcast
+inputs, rounded).  Those calls count in
+``flash_decode.bf16.launches`` and ``combine_partials.bf16.launches``;
+:func:`combine_partials` writes bf16 with ``dtype=torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -68,26 +77,35 @@ def decode_shard_rows(s_len: int) -> int:
     return shard
 
 
-def decode_smem_bytes(d: int, dv: int) -> int:
+def decode_smem_bytes(d: int, dv: int, *, bf16: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/flash_decode.cu
     decode_smem_floats): the pre-scaled queries of GROUP_HEADS heads, then
     each warp's ring of RING tiles of BLOCK_KV K and V rows, widths padded
-    to a multiple of 4.  It does not depend on the group size or the batch."""
+    to a multiple of 4.  It does not depend on the group size or the batch.
+    ``bf16`` (decode_smem_bytes_bf16): the rings at 2 bytes a value, or the
+    warps' fp32 partials of the merge where those take more."""
     d4, dv4 = -(-d // 4) * 4, -(-dv // 4) * 4
+    if bf16:
+        ring = 2 * WARPS * RING * BLOCK_KV * (d4 + dv4)
+        return 4 * GROUP_HEADS * d4 + max(ring, 4 * WARPS * GROUP_HEADS * (2 + dv4))
     return 4 * (GROUP_HEADS * d4 + WARPS * RING * BLOCK_KV * (d4 + dv4))
 
 
-def decode_fits(hq: int, hk: int, d: int, dv: int) -> bool:
+def decode_fits(hq: int, hk: int, d: int, dv: int, *, bf16: bool = False) -> bool:
     """Whether the dense kernel (:func:`flash_decode`,
     :func:`flash_decode_partial`) takes these head counts and widths: whole
     GQA groups (any size: a block takes up to GROUP_HEADS of them, 4 in the
     wide layout), D <= MAX_WIDE_D and Dv <= MAX_WIDE_DV (the wide layout
     past 256, chosen by the widths alone: MLA's absorbed decode is D 576,
     Dv 512), and the block's shared memory within the H100's 227 KB (which
-    caps D at 596 when Dv is 512)."""
+    caps D at 596 when Dv is 512).  ``bf16``: the bf16 entry, the narrow
+    layout only (D and Dv <= 256); its bf16 rings take at most the fp32
+    kernel's shared memory."""
     if hk < 1 or hq % hk or not (0 < d <= MAX_WIDE_D and 0 < dv <= MAX_WIDE_DV):
         return False
-    return decode_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES
+    if bf16 and (d > _cuda.MAX_HEAD_DIM or dv > _cuda.MAX_HEAD_DIM):
+        return False
+    return decode_smem_bytes(d, dv, bf16=bf16) <= _cuda.MAX_SMEM_BYTES
 
 
 def paged_decode_fits(hq: int, hk: int, d: int, dv: int) -> bool:
@@ -112,8 +130,11 @@ def _workspace(n_shards: int, b: int, hq: int, dv: int, device):
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        lengths: torch.Tensor, scale: float) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (fp32): masked softmax whose
-    masked entries weigh exactly 0, finished as acc / max(l, 1e-30)."""
+    """The kernel's function in plain PyTorch (fp32 on the upcast inputs,
+    rounded to q's dtype): masked softmax whose masked entries weigh
+    exactly 0, finished as acc / max(l, 1e-30)."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     b, hq, d = q.shape
     s_len, hk = k.shape[1], k.shape[2]
     g = hq // hk
@@ -126,12 +147,13 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgs,bshd->bhgd", p, v) / torch.clamp(l, min=1e-30)
-    return o.reshape(b, hq, v.shape[3])
+    return o.reshape(b, hq, v.shape[3]).to(dtype)
 
 
 def _check_dense(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, scale: Optional[float]) -> float:
-    """Validate a dense-cache decode call; returns the resolved scale."""
+                 lengths: torch.Tensor, scale: Optional[float], bf16_ok: bool = False) -> float:
+    """Validate a dense-cache decode call (q, k, v all float32, or with
+    ``bf16_ok`` all bfloat16); returns the resolved scale."""
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     b, hq, d = q.shape
@@ -139,11 +161,14 @@ def _check_dense(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[3]
     if k.shape != (b, s_len, hk, d) or v.shape[:3] != (b, s_len, hk):
         raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    ok = (torch.float32, torch.bfloat16) if bf16_ok else (torch.float32,)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
-    if not decode_fits(hq, hk, d, dv):
-        raise ValueError(f"{fn}: unsupported heads/widths Hq={hq} Hk={hk} D={d} Dv={dv}")
+        if t.dtype not in ok or t.dtype != q.dtype:
+            raise TypeError(f"{fn}: {name} must be {' or '.join(str(x)[6:] for x in ok)} "
+                            f"(q, k and v alike), got {t.dtype}")
+    if not decode_fits(hq, hk, d, dv, bf16=q.dtype == torch.bfloat16):
+        raise ValueError(f"{fn}: unsupported heads/widths Hq={hq} Hk={hk} D={d} Dv={dv} "
+                         f"for {q.dtype}")
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise ValueError(f"{fn}: lengths must be ({b},) int32, got "
                          f"{tuple(lengths.shape)} {lengths.dtype}")
@@ -167,60 +192,78 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *,
                  scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, D), k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32
-    -> (B, Hq, Dv), softmax-normalised over positions < lengths[b]."""
-    scale = _check_dense("flash_decode", q, k, v, lengths, scale)
+    -> (B, Hq, Dv) in q's dtype, softmax-normalised over positions <
+    lengths[b]; q, k and v all float32 or all bfloat16."""
+    scale = _check_dense("flash_decode", q, k, v, lengths, scale, bf16_ok=True)
     if not _on_card("flash_decode", (q, k, v, lengths)):
         return flash_decode_plain(q, k, v, lengths, scale)
     b, hq, d = q.shape
     s_len, hk, dv = k.shape[1], k.shape[2], v.shape[3]
-    out = torch.empty((b, hq, dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
     if b == 0 or s_len == 0:
         return out.zero_()
+    bf16 = q.dtype == torch.bfloat16
     shard = decode_shard_rows(s_len)
     acc, m, l = _workspace(-(-s_len // shard), b, hq, dv, q.device)
-    err = _cuda.library().flash_decode_f32(
+    lib = _cuda.library()
+    err = (lib.flash_decode_bf16 if bf16 else lib.flash_decode_f32)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
         m.data_ptr(), l.data_ptr(), out.data_ptr(), b, hq, hk, s_len, d, dv, shard, scale,
         _cuda.stream_of(q))
     _cuda.check(err, "flash_decode")
-    flash_decode.launches += 1
-    combine_partials.launches += 1
+    if bf16:
+        flash_decode.bf16.launches += 1
+        combine_partials.bf16.launches += 1
+    else:
+        flash_decode.launches += 1
+        combine_partials.launches += 1
     return out
 
 
 flash_decode.launches = 0
+flash_decode.bf16 = _cuda.LaunchCount("flash_decode_bf16")
 
 
-def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, *,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Merge flash partials over their leading shard axis: acc (NS, ..., Dv),
-    m and l (NS, ...) -> (..., Dv), the shards in index order (the combine
-    kernel of csrc/flash_decode.cu on CUDA tensors,
-    ``ref.combine_partials_ref`` on CPU tensors).  An empty shard (acc 0,
-    m -1e30, l 0) weighs 0; a row whose shards are all empty gives 0."""
+    m and l (NS, ...) fp32 -> (..., Dv) in ``dtype`` (float32, or bfloat16
+    rounded once), the shards in index order (the combine kernel of
+    csrc/flash_decode.cu on CUDA tensors, ``ref.combine_partials_ref`` on
+    CPU tensors).  An empty shard (acc 0, m -1e30, l 0) weighs 0; a row
+    whose shards are all empty gives 0."""
     fn = "combine_partials"
     if acc.dim() < 2 or m.shape != acc.shape[:-1] or l.shape != m.shape:
         raise ValueError(f"{fn}: acc {tuple(acc.shape)}, m {tuple(m.shape)}, l {tuple(l.shape)}")
     for name, t in (("acc", acc), ("m", m), ("l", l)):
         if t.dtype != torch.float32:
             raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{fn}: the output must be float32 or bfloat16, got {dtype}")
     if not _on_card(fn, (acc, m, l)):
-        return combine_partials_ref(acc, m, l)
+        return combine_partials_ref(acc, m, l).to(dtype)
     ns, dv = acc.shape[0], acc.shape[-1]
     if not 1 <= ns <= MAX_COMBINE_SHARDS:
         raise ValueError(f"{fn}: {ns} shards, the kernel takes 1 to {MAX_COMBINE_SHARDS}")
-    out = torch.empty(acc.shape[1:], dtype=torch.float32, device=acc.device)
+    out = torch.empty(acc.shape[1:], dtype=dtype, device=acc.device)
     rows = m[0].numel()
     if rows == 0 or dv == 0:
         return out
-    err = _cuda.library().combine_partials_f32(
+    bf16 = dtype == torch.bfloat16
+    lib = _cuda.library()
+    err = (lib.combine_partials_bf16 if bf16 else lib.combine_partials_f32)(
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), ns, rows, dv,
         _cuda.stream_of(acc))
     _cuda.check(err, fn)
-    combine_partials.launches += 1
+    if bf16:
+        combine_partials.bf16.launches += 1
+    else:
+        combine_partials.launches += 1
     return out
 
 
 combine_partials.launches = 0
+combine_partials.bf16 = _cuda.LaunchCount("combine_partials_bf16")
 
 
 def flash_decode_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

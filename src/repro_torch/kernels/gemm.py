@@ -1,4 +1,4 @@
-"""fp32 GEMM, plain and batched — counterpart of
+"""GEMM, plain (fp32 or bf16) and batched (fp32) — counterpart of
 :func:`repro.kernels.gemm.gemm` and :func:`repro.kernels.gemm.batched_gemm`.
 
 :func:`gemm` launches one of two hand-written CUDA kernels of
@@ -16,6 +16,13 @@ row of expert e has the bits of :func:`gemm`'s row of ``x[e] @ w[e]``
 whatever M is.  On CPU tensors they run
 :func:`gemm_plain` / :func:`batched_gemm_plain`.  Each wrapper's
 ``launches`` attribute counts its kernel launches.
+
+:func:`gemm` also takes bf16 operands (both bf16), as the Pallas kernel
+does: the same two kernels on bf16 (``gemm_bf16_skinny`` /
+``gemm_bf16_tiled``) upcast each value as it reads it, accumulate in fp32
+and round each output once to bf16, so the result is the fp32 product of
+the upcast operands rounded once, with the same batch invariance.  Those
+launches count in ``gemm.bf16.launches``.
 """
 
 from __future__ import annotations
@@ -57,8 +64,9 @@ def gemm_tile(m: int, n: int, count: int = 1) -> tuple:
 
 
 def gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: (M, K) @ (K, N) in fp32."""
-    return torch.matmul(x, w)
+    """The kernel's function in plain PyTorch: (M, K) @ (K, N) in fp32 on
+    the upcast operands, rounded to x's dtype (nothing to round for fp32)."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
 def batched_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -67,10 +75,15 @@ def batched_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x, w)
 
 
-def _check_dtypes(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
+def _check_dtypes(x: torch.Tensor, w: torch.Tensor, name: str,
+                  dtypes=(torch.float32,)) -> None:
+    """x and w of one of ``dtypes``, the same one."""
     for arg, t in (("x", x), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {arg} must be "
+                            f"{' or '.join(str(d).split('.')[1] for d in dtypes)}, got {t.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"{name}: x is {x.dtype}, w {w.dtype}; need one dtype")
 
 
 def _check_card(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
@@ -81,32 +94,39 @@ def _check_card(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N), fp32."""
+    """(M, K) @ (K, N) -> (M, N) in x's dtype, fp32 or bf16 (w the same)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"gemm needs (M, K) @ (K, N), got {tuple(x.shape)} @ {tuple(w.shape)}")
-    _check_dtypes(x, w, "gemm")
+    _check_dtypes(x, w, "gemm", (torch.float32, torch.bfloat16))
     if x.device.type == "cpu" and w.device.type == "cpu":
         return gemm_plain(x, w)
     _check_card(x, w, "gemm")
     m, k = x.shape
     n = w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     if k == 0:
         return out.zero_()
+    bf16 = x.dtype == torch.bfloat16
     lib = _cuda.library()
     args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k)
     if gemm_variant(m) == "skinny":
-        err = lib.gemm_f32_skinny(*args, _cuda.stream_of(x))
+        fn = lib.gemm_bf16_skinny if bf16 else lib.gemm_f32_skinny
+        err = fn(*args, _cuda.stream_of(x))
     else:
-        err = lib.gemm_f32_tiled(*args, *gemm_tile(m, n), _cuda.stream_of(x))
+        fn = lib.gemm_bf16_tiled if bf16 else lib.gemm_f32_tiled
+        err = fn(*args, *gemm_tile(m, n), _cuda.stream_of(x))
     _cuda.check(err, "gemm")
-    gemm.launches += 1
+    if bf16:
+        gemm.bf16.launches += 1
+    else:
+        gemm.launches += 1
     return out
 
 
 gemm.launches = 0
+gemm.bf16 = _cuda.LaunchCount("gemm_bf16")
 
 
 MAX_EXPERTS = 65535      # gridDim.z

@@ -19,10 +19,16 @@ plain version on CPU tensors.  The dispatchers ``attention``,
 calls.
 
 The ``cuda`` guards are only what the kernels need (whole GQA groups,
-head widths <= 256, or for the dense decode D <= 640 and Dv <= 512 within
-the shared memory, fp32, a chunk of at most 128, ungrouped convolutions);
-the TPU's block-divisibility guards are not carried over, because each
-kernel masks its own ragged edges.
+head widths <= 256, or for the dense fp32 decode D <= 640 and Dv <= 512
+within the shared memory, a chunk of at most 128, ungrouped convolutions,
+and the kernels' types); the TPU's block-divisibility guards are not
+carried over, because each kernel masks its own ragged edges.  The ops of
+:data:`BF16_OPS` (``attention``, ``decode_attention``, ``rmsnorm`` and
+``dense``) take inputs all float32 or all bfloat16 on ``cuda``, as JAX's
+Pallas backends take either; every other ``cuda`` backend (``ssd``,
+``moe_gemm``, the convolutions, ``cuda_split``) takes float32 only, and a
+call with bf16 inputs raises ``TypeError`` from the kernel's wrapper: no
+op moves to another backend by itself.
 """
 
 from __future__ import annotations
@@ -48,7 +54,10 @@ from repro_torch.kernels.ssd import scan_fits, ssd_scan_plain
 from repro_torch.kernels.ssd import ssd_scan as _ssd_kernel
 
 __all__ = ["attention", "decode_attention", "decode_attention_partial", "rmsnorm", "ssd",
-           "ssd_step", "moe_gemm", "swiglu"]
+           "ssd_step", "moe_gemm", "swiglu", "BF16_OPS"]
+
+# The ops whose ``cuda`` backend has a bf16 body (the kernels' bf16 entries).
+BF16_OPS = frozenset({"attention", "decode_attention", "rmsnorm", "dense"})
 
 
 def _bytes(specs: Sequence[TensorSpec]) -> float:
@@ -57,6 +66,11 @@ def _bytes(specs: Sequence[TensorSpec]) -> float:
 
 def _all_f32(specs: Sequence[TensorSpec]) -> bool:
     return all(s.dtype == "float32" for s in specs)
+
+
+def _f32_or_bf16(specs: Sequence[TensorSpec]) -> bool:
+    """All float32, or all bfloat16: the types of the BF16_OPS kernels."""
+    return _all_f32(specs) or all(s.dtype == "bfloat16" for s in specs)
 
 
 # --------------------------------------------------------------------------- #
@@ -94,7 +108,7 @@ def _attention_ref_impl(inputs, attrs):
 
 def _attn_cuda_supports(specs, attrs):
     q, k, v = specs[0], specs[1], specs[2]
-    return (_all_f32((q, k, v))
+    return (_f32_or_bf16((q, k, v))
             and attention_fits(q.shape[2], k.shape[2], q.shape[3], v.shape[3]))
 
 
@@ -142,8 +156,9 @@ def _decode_ref_impl(inputs, attrs):
 
 def _dec_cuda_supports(specs, attrs):
     q, k, v = specs[0], specs[1], specs[2]
-    return (_all_f32((q, k, v))
-            and decode_fits(q.shape[1], k.shape[2], q.shape[2], v.shape[3]))
+    return (_f32_or_bf16((q, k, v))
+            and decode_fits(q.shape[1], k.shape[2], q.shape[2], v.shape[3],
+                            bf16=q.dtype == "bfloat16"))
 
 
 @impl("decode_attention", "cuda", supports=_dec_cuda_supports,
@@ -161,15 +176,16 @@ def _full_lengths(lengths, q, k):
 
 
 def _dec_split_supports(specs, attrs):
-    """What the partial kernel needs (re-derived, not JAX's guard): the
-    cuda backend's fp32 and shared-memory guard, n_splits >= 2, and S a
-    multiple of n_splits (equal shards, one launch).  JAX's "shards of >= 8
-    rows" and "each shard a multiple of its block_kv" are TPU sublane and
-    BlockSpec rules: the kernel walks 4-row tiles from each shard's first
-    row and masks the ragged end, so a shard of any length >= 1 works."""
+    """What the partial kernel needs (re-derived, not JAX's guard): fp32
+    (the partial kernel has no bf16 body), the cuda backend's
+    shared-memory guard, n_splits >= 2, and S a multiple of n_splits (equal
+    shards, one launch).  JAX's "shards of >= 8 rows" and "each shard a
+    multiple of its block_kv" are TPU sublane and BlockSpec rules: the
+    kernel walks 4-row tiles from each shard's first row and masks the
+    ragged end, so a shard of any length >= 1 works."""
     k = specs[1]
     n_splits = int(attrs.get("n_splits", 2))
-    return (_dec_cuda_supports(specs, attrs) and n_splits >= 2
+    return (_all_f32(specs[:3]) and _dec_cuda_supports(specs, attrs) and n_splits >= 2
             and k.shape[1] % n_splits == 0)
 
 
@@ -240,7 +256,7 @@ def _rms_ref_impl(inputs, attrs):
     return [R.rmsnorm_ref(x, w, eps=float(attrs.get("eps", 1e-6)), residual=res)]
 
 
-@impl("rmsnorm", "cuda", supports=lambda specs, attrs: _all_f32(specs),
+@impl("rmsnorm", "cuda", supports=lambda specs, attrs: _f32_or_bf16(specs),
       note="rows in registers over a D-sized thread group: fused residual + fixed-order "
            "reduction + scale")
 def _rms_cuda_impl(inputs, attrs):
@@ -447,9 +463,9 @@ impl("conv2d_fused", "cuda",
 
 
 @impl("dense", "cuda",
-      supports=lambda specs, attrs: _all_f32(specs[:2]) and len(specs[1].shape) == 2,
-      note="fp32 FFMA GEMM, skinny (M <= 16) or tiled kernel (row results "
-           "independent of M)")
+      supports=lambda specs, attrs: _f32_or_bf16(specs[:2]) and len(specs[1].shape) == 2,
+      note="FFMA GEMM (fp32, or bf16 with an fp32 accumulator), skinny (M <= 16) or "
+           "tiled kernel (row results independent of M)")
 def _dense_cuda_impl(inputs, attrs):
     x, w = inputs
     lead = x.shape[:-1]

@@ -6,7 +6,10 @@ CUDA tensors and runs :func:`rmsnorm_plain` on CPU tensors.  The kernel
 holds each row in registers (read from device memory once), spread over
 :func:`row_layout`'s threads, a function of the row width alone, and reduces
 in a fixed order, so a row's result does not depend on the row count.
-``rmsnorm.launches`` counts kernel launches.
+Its inputs are all fp32 or all bf16 (``rmsnorm_bf16``: upcast on load, the
+residual added and every sum taken in fp32, y rounded once, as the Pallas
+kernel does).  ``rmsnorm.launches`` counts the fp32 kernel's launches,
+``rmsnorm.bf16.launches`` the bf16 one's.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ __all__ = ["rmsnorm", "rmsnorm_plain", "row_layout"]
 THREADS = 256      # threads per block
 MAX_VPT = 8        # float4 groups a thread holds in registers
 
-_F32 = torch.float32
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def row_layout(d: int) -> Tuple[int, int]:
@@ -41,20 +44,22 @@ def row_layout(d: int) -> Tuple[int, int]:
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: normalise ``x`` (or
-    ``x + residual``) over the last dim in fp32, then scale by ``w``."""
-    xf = x if residual is None else x + residual
+    ``x + residual``) over the last dim in fp32, then scale by ``w``; the
+    inputs upcast, the result rounded to x's dtype."""
+    xf = x.float() if residual is None else x.float() + residual.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return xf * torch.rsqrt(var + eps) * w
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (..., D), w (D,) -> (..., D); optionally normalises x + residual."""
+    """x (..., D), w (D,) -> (..., D); optionally normalises x + residual.
+    x, w and the residual all float32 or all bfloat16."""
     res = residual
-    if x.dtype != _F32 or w.dtype != _F32 or (res is not None and res.dtype != _F32):
-        bad = [f"{n} {t.dtype}" for n, t in (("x", x), ("w", w), ("residual", res))
-               if t is not None and t.dtype != _F32]
-        raise TypeError(f"rmsnorm: inputs must be float32, got {', '.join(bad)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype or (res is not None and res.dtype != x.dtype):
+        got = ", ".join(f"{n} {t.dtype}" for n, t in (("x", x), ("w", w), ("residual", res))
+                        if t is not None)
+        raise TypeError(f"rmsnorm: inputs must be all float32 or all bfloat16, got {got}")
     d = x.shape[-1]
     if w.shape != (d,) or (res is not None and res.shape != x.shape):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)}, w {tuple(w.shape)}, residual "
@@ -70,12 +75,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return out
-    err = _cuda.library().rmsnorm_f32(
+    bf16 = x.dtype == torch.bfloat16
+    lib = _cuda.library()
+    err = (lib.rmsnorm_bf16 if bf16 else lib.rmsnorm_f32)(
         x.data_ptr(), None if res is None else res.data_ptr(), w.data_ptr(), out.data_ptr(),
         rows, d, eps, _cuda.stream_of(x))
     _cuda.check(err, "rmsnorm")
-    rmsnorm.launches += 1
+    if bf16:
+        rmsnorm.bf16.launches += 1
+    else:
+        rmsnorm.launches += 1
     return out
 
 
 rmsnorm.launches = 0
+rmsnorm.bf16 = _cuda.LaunchCount("rmsnorm_bf16")

@@ -82,15 +82,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     (B,H,P,N) fp32)."""
     _check(x, dt, A, B, C, D)
     tensors = (x, dt, A, B, C) + (() if D is None else (D,))
+    for name, t in zip("x dt A B C D".split(), tensors):     # the kernel has no bf16 body
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: {name} must be float32, got {t.dtype}")
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"ssd_scan: inputs on {sorted({str(t.device) for t in tensors})}; "
                          "need one CUDA device")
-    for name, t in zip("x dt A B C D".split(), tensors):
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_scan: {name} must be float32, got {t.dtype}")
     if not (B.is_contiguous() and C.is_contiguous()):
         raise ValueError("ssd_scan: B and C must be contiguous")
     b, s, h, p = x.shape

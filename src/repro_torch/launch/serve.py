@@ -15,11 +15,15 @@ slot-based continuous batcher (prefill on admit, batched decode) over a
 :class:`repro_torch.models.lm.LM` with random weights from seed 0 (the
 attention configs, the MoE, MLA, SSD and hybrid ones; ``--arch
 qwen2-moe-a2.7b --full`` holds 60.6 GB of fp32 weights, ``--arch
-deepseek-v2-lite-16b --full`` 64.8 GB); it
-serves the reduced config, or with ``--full`` the published one in fp32
-(every kernel of the port is fp32; that is the one change from the
-published config).  Like JAX's entry point it serves token LMs only: the
-encoder-decoder (seamless-m4t-medium, :class:`repro_torch.models.encdec.EncDec`)
+deepseek-v2-lite-16b --full`` 64.8 GB); it serves the reduced config
+(fp32), or with ``--full`` the published one at its published bfloat16
+where every kernel op the config runs on the card has a bf16 body (the
+dense-attention configs: gemma3-1b, phi3-mini-3.8b, stablelm-12b,
+minitron-4b, pixtral-12b, seamless-m4t-medium), else in fp32
+(qwen2-moe-a2.7b and deepseek-v2-lite-16b run ``moe_gemm``, mamba2-370m and
+zamba2-7b ``ssd``, which are fp32 only); see :func:`serving_config`.  It
+prints the dtype it serves in.  Like JAX's entry point it serves token LMs
+only: the encoder-decoder (seamless-m4t-medium, :class:`repro_torch.models.encdec.EncDec`)
 and the ``embeds`` frontend (pixtral-12b) are refused.  On the card every
 op runs on the port's hand-written
 kernels (:data:`repro_torch.models.lm.CUDA_BACKENDS`); ``--device cpu``
@@ -48,17 +52,63 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attention import attention_fits
+from repro_torch.kernels.flash_decode import decode_fits
+from repro_torch.kernels.ops import BF16_OPS
 from repro_torch.models.lm import CUDA_BACKENDS, LM
 from repro_torch.runtime.batching import ContinuousBatcher, Request
 
 
+def kernel_ops(cfg: ArchConfig) -> set:
+    """The kernel ops ``cfg``'s layers run on the card, as (op, widths):
+    the attention ops with the (Hq, Hk, D, Dv) they are called at (MLA's
+    prefill over its up-projected heads, its absorbed decode over the
+    latent cache), every other op with None.  An encoder layer is an
+    ``attn`` block."""
+    ops = {("rmsnorm", None), ("dense", None)}
+    blocks = list(cfg.plan.all_blocks()) + [Block("attn", "mlp")] * bool(cfg.n_encoder_layers)
+    gqa = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim)
+    for blk in blocks:
+        if blk.mixer in ("attn", "attn_local", "shared_attn") or blk.cross:
+            ops |= {("attention", gqa), ("decode_attention", gqa)}
+        if blk.mixer == "mla":
+            m, h = cfg.mla, cfg.n_heads
+            ops |= {("attention", (h, h, m.qk_dim, m.v_dim)),
+                    ("decode_attention", (h, 1, m.kv_lora_rank + m.rope_dim, m.kv_lora_rank)),
+                    ("moe_gemm", None)}
+        if blk.mixer == "mamba":
+            ops.add(("ssd", None))
+        if blk.ffn == "moe":
+            ops.add(("moe_gemm", None))
+    return ops
+
+
+def has_bf16_bodies(cfg: ArchConfig) -> bool:
+    """Whether every kernel op ``cfg`` runs on the card (:func:`kernel_ops`)
+    has a bf16 body that takes its widths (ops.BF16_OPS; the bf16 decode
+    is the narrow layout, D and Dv <= 256)."""
+    for op, widths in kernel_ops(cfg):
+        if op not in BF16_OPS:
+            return False
+        if op == "attention" and not attention_fits(*widths):
+            return False
+        if op == "decode_attention" and not decode_fits(*widths, bf16=True):
+            return False
+    return True
+
+
 def serving_config(arch: str, *, full: bool = False, device: DeviceLike = None) -> ArchConfig:
-    """The config the entry point serves: ``get_reduced(arch)``, or with ``full``
-    the published config in fp32; on the card with the kernels' backends."""
+    """The config the entry point serves: ``get_reduced(arch)`` (fp32), or
+    with ``full`` the published config at its published dtypes where every
+    kernel op it runs on the card has a bf16 body (:func:`has_bf16_bodies`:
+    the dense-attention configs), else in fp32 (the configs that run
+    ``moe_gemm`` or ``ssd``, whose kernels are fp32 only).  The dtype does
+    not depend on the device: the CPU serves what the card would.  On the
+    card the ops run on the kernels' backends."""
     cfg = get_config(arch) if full else get_reduced(arch)
-    if full:
+    if full and not has_bf16_bodies(cfg):
         cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
     if resolve_device(device).type == "cuda":
         cfg = cfg.with_overrides(backends={**cfg.backends, **CUDA_BACKENDS})
@@ -155,7 +205,8 @@ def run_batcher(args) -> None:
     batcher.run(max_steps=5000)
     dt = time.time() - t0
     n_out = sum(len(r.out_tokens) for r in reqs)
-    print(f"arch={cfg.name} device={device} requests={len(reqs)} slots={args.slots}")
+    print(f"arch={cfg.name} device={device} dtype={cfg.dtype} requests={len(reqs)} "
+          f"slots={args.slots}")
     print(f"generated {n_out} tokens in {dt:.2f}s ({n_out / dt:,.1f} tok/s), "
           f"decode steps={batcher.steps}, slot utilisation={batcher.utilisation:.0%}")
     print(f"completed {sum(r.done for r in reqs)}/{len(reqs)}")
@@ -168,7 +219,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--full", action="store_true",
-                    help="the published config (fp32) instead of the reduced one")
+                    help="the published config instead of the reduced one (bf16 where every "
+                         "kernel op it runs has a bf16 body, else fp32)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a card)")
     ap.add_argument("--engine", action="store_true",

@@ -186,9 +186,13 @@ def test_serve_entry_point_serves_moe_and_mamba(monkeypatch, capsys, arch):
 
 
 def test_serving_config():
+    """gemma3-1b's published config at its published bfloat16: every kernel
+    op it runs on the card (attention, decode_attention, rmsnorm, dense)
+    has a bf16 body; the reduced config is fp32."""
     cfg = serve.serving_config(ARCH, full=True, device="cpu")
     assert (cfg.d_model, cfg.n_layers, cfg.dtype, cfg.param_dtype) == \
-        (1152, 26, "float32", "float32")
+        (1152, 26, "bfloat16", "bfloat16")
+    assert serve.serving_config(ARCH, device="cpu").dtype == "float32"
     assert cfg.backend("attention") == "ref"
     if torch.cuda.is_available():
         assert serve.serving_config(ARCH).backend("attention") == "cuda"

@@ -1885,3 +1885,167 @@ def test_pipeline_grads_on_the_card_match_the_sequential_run(mesh_card_run):
         device, w_err, w_max, x_err, x_max = r["pipe_grads"]
         assert device == "cuda:0"
         assert w_err <= 1e-5 * w_max and x_err <= 1e-5 * x_max, r["pipe_grads"]
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 entries of gemm, rmsnorm, flash_attention and flash_decode
+# --------------------------------------------------------------------------- #
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126))) - 7)
+
+
+def _check_bf16(got, fp32_kernel_out, plain):
+    """A bf16 entry's output: bf16, bitwise the fp32 entry's output on the
+    upcast inputs rounded once (the same fp32 arithmetic), and within one
+    bf16 ulp (+ the fp32 tolerance) of the plain version."""
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, fp32_kernel_out.to(torch.bfloat16))
+    diff = (got.float() - plain.float()).abs()
+    assert bool((diff <= _bf16_ulp(torch.maximum(got.float().abs(), plain.float().abs()))
+                 + TOL["atol"]).all()), float(diff.max())
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_match_their_plain_versions_on_the_card():
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_decode import combine_partials, flash_decode, flash_decode_plain
+    from repro_torch.kernels.gemm import gemm, gemm_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def rb(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    counts = [f.bf16.launches for f in (gemm, rmsnorm, flash_attention, flash_decode,
+                                        combine_partials)]
+    # gemm: both kernels, both tiles, ragged and unaligned widths (2-byte
+    # loads), K off the 128-deep and 16-deep steps
+    for m, k, n in ((1, 64, 96), (4, 1152, 1000), (5, 37, 19), (16, 300, 264), (17, 64, 130),
+                    (64, 1152, 6912), (256, 301, 250)):
+        x, w = rb(m, k), rb(k, n, scale=k ** -0.5)
+        _check_bf16(gemm(x, w), gemm(x.float(), w.float()), gemm_plain(x, w))
+    # rmsnorm: the registers layouts and the two-pass one, with and without
+    # the residual, a width off 4
+    for rows, d in ((4, 1152), (7, 96), (3, 30), (2, 9000)):
+        x, r, w = rb(rows, d), rb(rows, d), 1.0 + rb(d, scale=0.1)
+        for res in (None, r):
+            got = rmsnorm(x, w, eps=1e-6, residual=res)
+            want = rmsnorm(x.float(), w.float(), eps=1e-6,
+                           residual=None if res is None else res.float())
+            _check_bf16(got, want, rmsnorm_plain(x, w, eps=1e-6, residual=res))
+    # flash_attention: gemma3's MQA at D 256 with and without the window,
+    # several shards, a query offset, D off 4 (element loads), non-causal
+    for b, sq, skv, hq, hk, d, causal, window in (
+            (1, 1024, 1024, 4, 1, 256, True, 512), (1, 1024, 1024, 4, 1, 256, True, None),
+            (2, 64, 700, 4, 2, 96, True, None), (1, 50, 50, 2, 2, 30, False, None),
+            (2, 80, 80, 8, 1, 128, True, 17)):
+        q, k, v = rb(b, sq, hq, d), rb(b, skv, hk, d), rb(b, skv, hk, d)
+        sc = 1.0 / math.sqrt(d)
+        _check_bf16(flash_attention(q, k, v, causal=causal, window=window),
+                    flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                                    window=window),
+                    flash_attention_plain(q, k, v, causal=causal, window=window, scale=sc))
+    # flash_decode: gemma3's global and rolling caches, empty and full rows,
+    # D off 4, Dv != D
+    for b, s, hq, hk, d, dv, lens in ((4, 2048, 4, 1, 256, 256, (1400, 1000, 600, 250)),
+                                      (4, 512, 4, 1, 256, 256, (512, 512, 512, 250)),
+                                      (3, 70, 8, 2, 30, 30, (0, 70, 37)),
+                                      (2, 200, 4, 4, 128, 64, (199, 1))):
+        q, k, v = rb(b, hq, d), rb(b, s, hk, d), rb(b, s, hk, dv)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = flash_decode(q, k, v, lengths)
+        _check_bf16(got, flash_decode(q.float(), k.float(), v.float(), lengths),
+                    flash_decode_plain(q, k, v, lengths, 1.0 / math.sqrt(d)))
+        assert all(float(got[i].float().abs().max()) == 0.0 for i, n in enumerate(lens) if n == 0)
+    acc, m, l = (torch.randn(5, 3, 4, 16, device=dev), torch.randn(5, 3, 4, device=dev),
+                 torch.rand(5, 3, 4, device=dev))
+    _check_bf16(combine_partials(acc, m, l, dtype=torch.bfloat16), combine_partials(acc, m, l),
+                combine_partials(acc.cpu(), m.cpu(), l.cpu()).to(dev))
+    after = [f.bf16.launches for f in (gemm, rmsnorm, flash_attention, flash_decode,
+                                       combine_partials)]
+    assert all(a > b for a, b in zip(after, counts))
+
+
+@pytest.mark.gpu
+def test_bf16_gemm_rows_do_not_depend_on_the_batch():
+    """gemm_bf16: a row's bits are the same at M = 1, M = 4 (skinny) and
+    M = 64 (tiled), at gemma3-1b's projection and head widths."""
+    dev = _card()
+    from repro_torch.kernels.gemm import gemm, gemm_variant
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for k, n in ((1152, 1024), (1152, 6912), (6912, 1152), (1152, 262144), (301, 250)):
+        w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        x = torch.randn(64, k, generator=gen, device=dev).to(torch.bfloat16)
+        assert (gemm_variant(1), gemm_variant(4), gemm_variant(64)) == ("skinny", "skinny",
+                                                                         "tiled")
+        full = gemm(x, w)
+        four = gemm(x[:4].contiguous(), w)
+        assert torch.equal(four, full[:4]), (k, n)
+        for i in (0, 3):
+            assert torch.equal(gemm(x[i:i + 1].contiguous(), w)[0], full[i]), (k, n, i)
+
+
+@pytest.mark.gpu
+def test_bf16_flash_decode_rows_do_not_depend_on_the_batch():
+    """flash_decode_bf16: row b of a B = 4 call is bitwise the B = 1 call on
+    sequence b (the shard size comes from the cache's rows alone)."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import flash_decode
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for s, lens in ((2048, (1400, 1000, 600, 250)), (512, (512, 300, 1, 0))):
+        q = torch.randn(4, 4, 256, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(4, s, 1, 256, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(4, s, 1, 256, generator=gen, device=dev).to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        full = flash_decode(q, k, v, lengths)
+        for i in range(4):
+            one = flash_decode(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                               v[i:i + 1].contiguous(), lengths[i:i + 1].contiguous())
+            assert torch.equal(one[0], full[i]), (s, i)
+
+
+@pytest.mark.gpu
+def test_bf16_batcher_on_the_card_matches_batch_one():
+    """Reduced gemma3-1b at bfloat16 on the card's bf16 kernels: the
+    batcher's tokens equal the unbatched greedy run's, and every kernel
+    launch is on a bf16 entry."""
+    dev = _card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models.lm import CUDA_BACKENDS, LM
+    from repro_torch.runtime.batching import ContinuousBatcher, Request
+    cfg = get_reduced("gemma3-1b").with_overrides(dtype="bfloat16", param_dtype="bfloat16",
+                                                  backends=CUDA_BACKENDS)
+    model = LM(cfg)
+    params = model.init_params(0, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=m)
+            for i, (n, m) in enumerate(zip((6, 21, 30, 6, 21), (5, 3, 7, 4, 6)))]
+    kernels = (gemm, rmsnorm, flash_attention, flash_decode)
+    before = [(f.launches, f.bf16.launches) for f in kernels]
+    batcher = ContinuousBatcher(model, params, n_slots=3, cache_cap=40, eos_id=-1)
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    for f, (n32, n16) in zip(kernels, before):
+        assert f.launches == n32 and f.bf16.launches > n16, f.__name__
+    for r in reqs:
+        lg, caches, lengths = model.prefill(
+            params, {"tokens": torch.from_numpy(r.prompt)[None].to(dev)}, cache_cap=40)
+        out = [int(lg[0].argmax())]
+        while len(out) < r.max_new_tokens:
+            lg, caches = model.decode_step(
+                params, torch.tensor([out[-1]], dtype=torch.int32, device=dev), caches, lengths)
+            lengths = lengths + 1
+            out.append(int(lg[0].argmax()))
+        assert r.done and r.out_tokens == out, r.uid

@@ -174,14 +174,21 @@ def test_split_supports_guard_and_its_differences_from_jax(s, n_splits, attrs, p
 
 
 def test_split_supports_what_only_the_port_rejects():
-    """The port's kernel is fp32 with D <= 640 and Dv <= 512 (the dense
-    kernel's wide layout) in shared memory, as the cuda backend; JAX's
-    split guard reads only S and n_splits."""
-    for specs in (_dec_specs(32, d=640), _dec_specs(32, dtype="bfloat16")):
+    """The port's partial kernel is fp32 with D <= 640 and Dv <= 512 (the
+    dense kernel's wide layout) in shared memory; the cuda backend has a
+    bf16 body too, for the narrow widths only (D <= 256).  JAX's split
+    guard reads only S and n_splits."""
+    for specs in (_dec_specs(32, d=640), _dec_specs(32, dtype="bfloat16"),
+                  _dec_specs(32, d=576, dtype="bfloat16")):
         assert "cuda_split" not in backends_for("decode_attention", specs, {})
-        assert "cuda" not in backends_for("decode_attention", specs, {})
+    assert "cuda" not in backends_for("decode_attention", _dec_specs(32, d=640), {})
+    assert "cuda" not in backends_for("decode_attention", _dec_specs(32, d=576, dtype="bfloat16"),
+                                      {})
+    assert "cuda" in backends_for("decode_attention", _dec_specs(32, dtype="bfloat16"), {})
     assert "pallas_split" in jbackends_for("decode_attention",
                                            _dec_specs(32, d=640, ts=JSpec), {})
+    assert "pallas_split" in jbackends_for("decode_attention",
+                                           _dec_specs(32, dtype="bfloat16", ts=JSpec), {})
 
 
 def test_default_policy_never_picks_the_split():
