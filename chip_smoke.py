@@ -62,20 +62,28 @@ Phases, each printing its own lines; any failure exits non-zero:
              shapes as ref (float64), torch (dequantize + matmul) and the
              fp32 gemm.cu on fp32 weights (numbers only: no int8 kernel).
              The bf16 entries (gemm, rmsnorm, flash_attention, flash_decode
-             and the combine) run at every call shape of the two bfloat16
-             configs (gemma3-1b's decode step and prefill, seamless-m4t's):
+             with its wide layout, the combine, batched_gemm and ssd_scan)
+             run at every call shape of the bfloat16 configs (every
+             layer-stack config's decode step and prefill, seamless-m4t's;
+             the MoE router stays an fp32 gemm; the scan's dt and A fp32,
+             and ssd_scan with D at phases 10 and 19's prompt lengths):
              each must equal the fp32 entry's output on the upcast inputs
-             rounded once, bit for bit, and lie within one bf16 ulp (+1e-4)
-             of its plain version; timed beside the fp32 entry, the plain
-             version and the library call on bf16 inputs, the bound at 2
-             bytes a value and 989 TFLOP/s.
+             rounded once, bit for bit (the scan's state equal), and lie
+             within one bf16 ulp (+1e-4) of its plain version; timed beside
+             the fp32 entry, the plain version and the library call on
+             bf16 inputs, the bound at 2 bytes a value and 989 TFLOP/s.
+             The fp32 entries of batched_gemm, ssd_scan and flash_attention
+             (FP32_ROWS: no full-width phase runs them) get their own rows
+             at the same calls on the upcast inputs.
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
              reduced gemma3-1b, qwen2-moe-a2.7b, mamba2-370m, zamba2-7b and
              deepseek-v2-lite-16b layer-stack LMs' and the reduced
              seamless-m4t-medium EncDec's prefill, caches and decode on the
-             card agree with the CPU's (1e-4).
+             card agree with the CPU's (1e-4).  The reduced layer-stack LMs
+             serve fp32: their launches are the "model" path of the kernels
+             line, which must hold every FP32_ROWS entry.
 5. serving — phi3-mini widths, all 32 layers, random weights from a seed:
              the engine serves 8 requests (4 slots, chunk 64, cache 1024);
              every request's tokens must equal the unbatched reference's,
@@ -105,16 +113,20 @@ Phases, each printing its own lines; any failure exits non-zero:
              flash_decode, rmsnorm and gemm must launch as the path needs,
              every launch on their bf16 entries, with every weight and
              cache bf16 and every kernel op on cuda.
-9. moe     — qwen2-moe-a2.7b at its published widths, all 24 layers, fp32
-             (60.6 GB of weights drawn on the card from seed 0; 64 experts
-             of which 60 routed, top-4, local dispatch): the same batcher
-             set-up serves 8 requests of 200-1400 tokens, 16 new tokens
-             each, token-exact against batch-1 greedy; batched_gemm (72
-             launches per call), gemm, rmsnorm, flash_attention and
-             flash_decode launch exactly as the path needs.
-10. ssm    — mamba2-370m at its published widths, all 48 layers, fp32: 8
-             requests of 200-1400 tokens, 32 new each, token-exact; ssd_scan
-             launches 48 times per prefill.
+9. moe     — qwen2-moe-a2.7b at its published widths, all 24 layers, at
+             its published bfloat16 (weights drawn on the card from seed 0,
+             the router fp32 as JAX's init makes it; 64 experts of which 60
+             routed, top-4, local dispatch): the same batcher set-up serves
+             8 requests of 200-1400 tokens, 16 new tokens each, token-exact
+             against batch-1 greedy; batched_gemm (72 launches per call),
+             gemm, rmsnorm, flash_attention and flash_decode launch exactly
+             as the path needs, on their bf16 entries, the router on the
+             fp32 gemm.
+10. ssm    — mamba2-370m at its published widths, all 48 layers, bfloat16
+             (dt_bias, A_log and D fp32): 8 requests of 200-1400 tokens, 32
+             new each, token-exact; ssd_scan_bf16 launches 48 times per
+             prefill.  Each layer-stack phase prints its weights' GB and
+             every leaf's elements by element size.
              Phase 3 times every kernel call of phases 8-10 at a batch-4
              decode step and a 1024-token prefill, and each phase's time is
              printed by kernel beside the sum of the kernels' bounds.
@@ -268,18 +280,18 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 19. hybrid — zamba2-7b at its published widths, all 81 blocks (70 Mamba2,
              11 applications of two alternating shared attention blocks on
-             concat(h, emb0)), fp32 (23.7 GB of weights from seed 0 on the
-             card): phase 8's batcher set-up, 8 requests of 200-1400 tokens,
+             concat(h, emb0)), bfloat16 (weights from seed 0 on the card):
+             phase 8's batcher set-up, 8 requests of 200-1400 tokens,
              32 new each, token-exact against batch-1 greedy; 11
              flash_attention and 70 ssd_scan launches a prefill, 11
              flash_decode launches a step, every kernel exactly as
              stack_calls counts.
 20. mla    — deepseek-v2-lite-16b at its published widths, all 27 MLA + MoE
              layers (64 routed experts top-6, 2 shared, local dispatch),
-             fp32 (64.8 GB of weights): the same set-up and gates; the
-             absorbed decode launches flash_decode's wide layout (D 576, Dv
-             512, 16 query heads on 1 KV head) 27 times a step and
-             batched_gemm 2 x 27 times for its per-head products.
+             bfloat16: the same set-up and gates; the absorbed decode
+             launches flash_decode_bf16's wide layout (D 576, Dv 512, 16
+             query heads on 1 KV head) 27 times a step and batched_gemm_bf16
+             2 x 27 times for its per-head products.
 21. encdec — seamless-m4t-medium at its published widths (12 encoder + 12
              decoder layers, bfloat16 as serving_config picks it, 1.6 GB;
              the launches on the bf16 entries): EncDec.prefill of 4 sources of
@@ -403,7 +415,12 @@ PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 # a bf16 entry against its plain version: one bf16 ulp (at most 2^-7 of the
 # value; both round one fp32 result once) plus the fp32 full-width atol
 BF16_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
-BF16_KERNELS = ("gemm", "rmsnorm", "flash_decode", "flash_attention", "combine_partials")
+BF16_KERNELS = ("gemm", "rmsnorm", "flash_decode", "flash_attention", "combine_partials",
+                "batched_gemm", "ssd_scan")
+# the kernels whose fp32 entries no full-width serving phase runs (every
+# layer-stack config serves bf16): phase 3 times them at the same calls on
+# the upcast inputs, beside their bf16 entries
+FP32_ROWS = ("batched_gemm", "ssd_scan", "flash_attention")
 
 # Max |int8 - fp32| of each CNN's output as the JAX package reports it:
 # benchmarks/fig2_inference_time.py::run_quant([model]) for each model alone
@@ -1214,7 +1231,8 @@ def dense_q_times(torch, K, rn, timer, cfg, n_slots, chunk, limit_line):
 def device_times(torch, K, limit_line):
     """Device time (torch.profiler) of the empty launch, of rmsnorm beside
     F.rms_norm at the row counts and widths the paths run, of ssd_scan's
-    three kernels at mamba2-370m's 1024-token prefill (with D), and of the
+    three kernels at mamba2-370m's 1024-token prefill (with D; fp32 and
+    bf16), and of the
     fp32 and bf16 entries of rmsnorm, the gemm head and flash_decode at
     gemma3-1b's batch-4 decode step (their event times hold the launch
     path).  Run after the serving phases: the profiler's hooks stay in the
@@ -1240,6 +1258,9 @@ def device_times(torch, K, limit_line):
             -torch.linspace(1.0, 16.0, h, device="cuda"), 0.3 * rn(1, sl, 1, n),
             0.3 * rn(1, sl, 1, n), rn(h))
     out[f"ssd_scan mamba2 S={sl} with D"] = device_ms(torch, timer, lambda: K.ssd_scan(*args))
+    args = [a.to(torch.bfloat16) if i in (0, 3, 4) else a for i, a in enumerate(args)]
+    out[f"ssd_scan bf16 mamba2 S={sl} with D"] = device_ms(torch, timer,
+                                                          lambda: K.ssd_scan(*args))
     del args
     lengths = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -1431,7 +1452,10 @@ ENCDEC_SRC, ENCDEC_PROMPT, ENCDEC_NEW = 1024, 64, 32
 
 def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
     """The kernel calls of one batch-4 decode step (``phase="decode"``) or
-    one prefill of a layer-stack config: {(kernel, shape): calls}.  A
+    one prefill of a layer-stack config: {(entry, shape): calls}, the entry
+    the kernel's name, ``<kernel>_bf16`` for a call on bf16 inputs (every
+    call of a bfloat16 config but the MoE router's, which is an fp32
+    ``dense`` in both packages).  A
     decoder-only config's prefill is one LAYERSTACK_PREFILL-token sequence;
     the encoder-decoder's is phase 21's: ``n_slots`` sources of ENCDEC_SRC
     frames through the encoder, then their ENCDEC_PROMPT-token prompts, and
@@ -1455,10 +1479,12 @@ def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
     else:
         lens_all = DECODE_LENS[:n_slots]
     hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sfx = "_bf16" if cfg.dtype == "bfloat16" else ""
     calls = {}
 
-    def add(kernel, shape, n=1):
-        calls[(kernel, shape)] = calls.get((kernel, shape), 0) + n
+    def add(kernel, shape, n=1, fp32=False):
+        key = (kernel + ("" if fp32 else sfx), shape)
+        calls[key] = calls.get(key, 0) + n
 
     def attention(rows, window, causal=True, seq=sq):
         """q/k/v/o projections of ``rows`` rows and the attention kernel
@@ -1523,7 +1549,7 @@ def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
         if blk.ffn == "moe":
             mo = cfg.moe
             add("rmsnorm", (m, d))
-            add("gemm", (m, d, mo.n_experts))
+            add("gemm", (m, d, mo.n_experts), fp32=True)          # the router
             if mo.n_shared:
                 add("gemm", (m, d, mo.d_shared), 2)
                 add("gemm", (m, mo.d_shared, d))
@@ -1545,16 +1571,17 @@ def stack_calls(cfg, phase, n_slots=4, cache_cap=2048):
 
 
 def stack_launches(cfg, prefills, steps, names):
-    """Each kernel's launches over ``prefills`` prefills and ``steps``
-    decode steps of a layer-stack config (every name in ``names`` a key):
-    a bfloat16 config's on the bf16 entries (``<kernel>_bf16``), none on
-    the fp32 ones."""
+    """Each kernel entry's launches over ``prefills`` prefills and ``steps``
+    decode steps of a layer-stack config (every name in ``names`` a key),
+    each call counted on the entry of its inputs' dtype (stack_calls): a
+    bfloat16 config's on the bf16 entries but for the MoE router's fp32
+    ``gemm``."""
     want = dict.fromkeys(names, 0)
-    sfx = "_bf16" if cfg.dtype == "bfloat16" else ""
     for phase, n in (("prefill", prefills), ("decode", steps)):
-        for (kernel, _), calls in stack_calls(cfg, phase).items():
-            want[kernel + sfx] += calls * n
-    want["combine_partials" + sfx] = want["flash_decode" + sfx]   # a merge per flash_decode
+        for (entry, _), calls in stack_calls(cfg, phase).items():
+            want[entry] += calls * n
+    for sfx in ("", "_bf16"):                      # a merge per flash_decode
+        want["combine_partials" + sfx] = want["flash_decode" + sfx]
     return want
 
 
@@ -1563,31 +1590,36 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
     prefill (stack_calls): each distinct shape checked against its plain
     version and timed with it and with one PyTorch library call (matmul,
     rms_norm, SDPA with the same boolean mask and GQA, bmm; the SSD scan
-    has none).  A bfloat16 config's calls run the bf16 entries on bf16
-    inputs (recorded as ``<kernel>_bf16``): each held within BF16_TOL of
-    its plain version and bitwise to the fp32 entry's output on the upcast
-    inputs rounded once, timed beside that fp32 entry and the library call
-    on bf16 inputs; the bound counts 2 bytes a value and the bf16
-    tensor-core rate.  Returns {phase: ({kernel: ms per phase}, sum of the
-    calls' bounds in ms)}."""
+    has none).  A call on a bf16 entry (a bfloat16 config's, recorded as
+    ``<kernel>_bf16``) runs on bf16 inputs (the scan's dt and A stay fp32,
+    as the mamba layer passes them): held within BF16_TOL of its plain
+    version and bitwise to the fp32 entry's output on the upcast inputs
+    rounded once (the scan's state bitwise the fp32 entry's), timed beside
+    that fp32 entry and the library call on bf16 inputs; the bound counts
+    2 bytes a bf16 value and the bf16 tensor-core rate.  The fp32 entries
+    of FP32_ROWS, which no full-width config runs any more, get their own
+    row from the same call on the upcast inputs.  Returns {phase: ({kernel:
+    ms per phase}, sum of the calls' bounds in ms)}."""
     F = torch.nn.functional
     times = {}
-    bf16 = cfg.dtype == "bfloat16"
-    es = 2.0 if bf16 else 4.0                 # bytes a value of the bf16-bodied kernels
 
-    def measure(kernel, shape, phase):
+    def measure(entry, shape, phase):
+        bf16 = entry.endswith("_bf16")
+        kernel = entry[:-len("_bf16")] if bf16 else entry
         label = f"{cfg.name} {phase} {kernel} {shape}"
-        lib = None
+        lib, cast = None, None                # cast: the arguments a bf16 call takes in bf16
         if kernel == "gemm":
             m, kk, nn = shape
             args = (rn(m, kk), rn(kk, nn, scale=1.0 / math.sqrt(kk)))
             fn, plain, lib = K.gemm, K.gemm_plain, torch.matmul
-            flops, nbytes = 2.0 * m * kk * nn, es * (m * kk + kk * nn + m * nn)
+            flops = 2.0 * m * kk * nn
+            nb = lambda es: es * (m * kk + kk * nn + m * nn)                # noqa: E731
         elif kernel == "batched_gemm":
             e, m, kk, nn = shape
             args = (rn(e, m, kk), rn(e, kk, nn, scale=1.0 / math.sqrt(kk)))
             fn, plain, lib = K.batched_gemm, K.batched_gemm_plain, torch.bmm
-            flops, nbytes = 2.0 * e * m * kk * nn, 4.0 * e * (m * kk + kk * nn + m * nn)
+            flops = 2.0 * e * m * kk * nn
+            nb = lambda es: es * e * (m * kk + kk * nn + m * nn)            # noqa: E731
         elif kernel == "rmsnorm":
             rows, d = shape
             eps = cfg.norm_eps
@@ -1595,7 +1627,8 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
             fn = lambda x, w: K.rmsnorm(x, w, eps=eps)                      # noqa: E731
             plain = lambda x, w: K.rmsnorm_plain(x, w, eps=eps)             # noqa: E731
             lib = lambda x, w: F.rms_norm(x, (d,), w, eps)                  # noqa: E731
-            flops, nbytes = 3.0 * rows * d, es * (2 * rows * d + d)
+            flops = 3.0 * rows * d
+            nb = lambda es: es * (2 * rows * d + d)                         # noqa: E731
         elif kernel == "flash_decode":
             b, hq, hk, dh, dv, s_len, lens = shape
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -1610,7 +1643,7 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
                 enable_gqa=True)
             live = sum(lens)
             flops = 2.0 * live * hq * (dh + dv)
-            nbytes = es * (live * hk * (dh + dv) + b * hq * (dh + dv)) + 4.0 * b
+            nb = lambda es: es * (live * hk * (dh + dv) + b * hq * (dh + dv)) + 4.0 * b  # noqa
         elif kernel == "flash_attention":
             b, sq, skv, hq, hk, dh, dv, causal, window = shape
             args = (rn(b, sq, hq, dh), rn(b, skv, hk, dh), rn(b, skv, hk, dv))
@@ -1626,50 +1659,72 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
                 enable_gqa=True)
             flops = 2.0 * b * attention_pairs(sq, skv, causal, window) * hq * (dh + dv)
-            nbytes = es * b * (sq * hq * (dh + dv) + skv * hk * (dh + dv))
+            nb = lambda es: es * b * (sq * hq * (dh + dv) + skv * hk * (dh + dv))  # noqa: E731
         else:                                                               # ssd_scan
             b, sl, h, p, grp, nn, q = shape
             args = (rn(b, sl, h, p), F.softplus(rn(b, sl, h) - 3.0),   # dt ~ mamba2's 1e-3..0.1
                     -torch.linspace(1.0, 16.0, h, device="cuda"),
                     0.3 * rn(b, sl, grp, nn), 0.3 * rn(b, sl, grp, nn))
+            cast = (0, 3, 4)                                            # x, B, C
             fn = lambda *a: K.ssd_scan(*a, chunk=q)                         # noqa: E731
             plain = lambda *a: K.ssd_scan_plain(*a, chunk=q)                # noqa: E731
             flops = ssd_flops(b, sl, h, p, grp, nn, q)
             say(f"  ssd_scan bound at {shape}: {flops / 1e9:.4g} GFLOP with the scores once "
                 f"per group, {ssd_flops(b, sl, h, p, grp, nn, q, True) / 1e9:.4g} GFLOP "
                 "counted once per head (PRs 14-17)")
-            nbytes = 4.0 * (sum(a.numel() for a in args) + b * sl * h * p + b * h * p * nn)
-        name, peak, fp32_ms = kernel, PEAK_FP32_FLOPS, None
+            # x, B, C and y in the entry's type; dt, A and the state fp32
+            nb = lambda es: (es * (2 * b * sl * h * p + 2 * b * sl * grp * nn)  # noqa: E731
+                             + 4.0 * (b * sl * h + h + b * h * p * nn))
+        def tup(x):
+            return x if isinstance(x, tuple) else (x,)
+
+        name, peak, fp32_ms, nbytes = kernel, PEAK_FP32_FLOPS, None, nb(4.0)
         if bf16:
             if kernel not in BF16_KERNELS:
                 fail(f"{cfg.name} is bfloat16 but runs {kernel}, which has no bf16 entry")
-            args32, args = args, tuple(a.to(torch.bfloat16) for a in args)
-            name, peak, label = f"{kernel}_bf16", PEAK_BF16_FLOPS, label + " bf16"
-        got, want = fn(*args), plain(*args)
+            cast = range(len(args)) if cast is None else cast
+            args = tuple(a.to(torch.bfloat16) if i in cast else a for i, a in enumerate(args))
+            up = tuple(a.float() for a in args)            # the upcast inputs
+            name, peak, nbytes, label = entry, PEAK_BF16_FLOPS, nb(2.0), label + " bf16"
+        outs, wants = tup(fn(*args)), tup(plain(*args))
         if bf16:
-            if got.dtype != torch.bfloat16 or not torch.equal(
-                    got, fn(*(a.float() for a in args)).to(torch.bfloat16)):
+            outs32 = tup(fn(*up))
+            # the first output is bf16, the fp32 entry's rounded once; the
+            # scan's state stays fp32, bitwise the fp32 entry's
+            if outs[0].dtype != torch.bfloat16 or not torch.equal(
+                    outs[0], outs32[0].to(torch.bfloat16)) or not all(
+                    torch.equal(a, b_) for a, b_ in zip(outs[1:], outs32[1:])):
                 fail(f"{label}: not the fp32 entry's output on the upcast inputs rounded once")
-            err = check_close(torch, label, got.float(), want.float(), **BF16_TOL)
-            fp32_ms = timer.ms(lambda: fn(*args32))
+            err = max([check_close(torch, label, outs[0].float(), wants[0].float(), **BF16_TOL)]
+                      + [check_close(torch, label, a, b_, **full_tol)
+                         for a, b_ in zip(outs[1:], wants[1:])])
+            fp32_ms = timer.ms(lambda: fn(*up))
+            if kernel in FP32_ROWS:
+                label32 = f"{cfg.name} {phase} {kernel} {shape} (fp32 entry, upcast inputs)"
+                err32 = max(check_close(torch, label32, a, b_, **full_tol)
+                            for a, b_ in zip(outs32, tup(plain(*up))))
+                record(kernel, f"{cfg.name} {phase}", label32, err32, fp32_ms,
+                       timer.ms(lambda: plain(*up)),
+                       None if lib is None else timer.ms(lambda: lib(*up)), flops, nb(4.0))
+            del up, outs32
         else:
-            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-            err = max(check_close(torch, label, a, b_, **full_tol) for a, b_ in pairs)
+            err = max(check_close(torch, label, a, b_, **full_tol) for a, b_ in zip(outs, wants))
         ms = timer.ms(lambda: fn(*args))
         plain_ms = timer.ms(lambda: plain(*args))
         lib_ms = None if lib is None else timer.ms(lambda: lib(*args))
         record(name, f"{cfg.name} {phase}", label, err, ms, plain_ms, lib_ms, flops, nbytes,
                peak=peak, fp32_ms=fp32_ms)
-        del args, got, want
+        del args, outs, wants
         return ms, bound(flops, nbytes, peak)[0]
 
     out = {}
     for phase in ("decode", "prefill"):
         parts, bound_ms = {}, 0.0
-        for (kernel, shape), calls in stack_calls(cfg, phase).items():
-            if (kernel, shape) not in times:
-                times[(kernel, shape)] = measure(kernel, shape, phase)
-            ms, b_ms = times[(kernel, shape)]
+        for (entry, shape), calls in stack_calls(cfg, phase).items():
+            if (entry, shape) not in times:
+                times[(entry, shape)] = measure(entry, shape, phase)
+            ms, b_ms = times[(entry, shape)]
+            kernel = entry[:-len("_bf16")] if entry.endswith("_bf16") else entry
             parts[kernel] = parts.get(kernel, 0.0) + calls * ms
             bound_ms += calls * b_ms
         out[phase] = (parts, bound_ms)
@@ -1682,16 +1737,18 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
 
 def mla_k_cat(torch, cfg, rn, timer, limit_line, n_slots=4, cache_cap=2048):
     """The copy MLA's absorbed decode makes every layer and step (not a
-    kernel): torch.cat of the latent and rope caches into the decode
-    kernel's K, at the batch-4 decode step's cache, beside its bound (read
-    both caches, write the copy once)."""
+    kernel): torch.cat of the latent and rope caches (in the config's
+    dtype) into the decode kernel's K, at the batch-4 decode step's cache,
+    beside its bound (read both caches, write the copy once)."""
     ml = cfg.mla
-    ckv, kpe = rn(n_slots, cache_cap, ml.kv_lora_rank), rn(n_slots, cache_cap, ml.rope_dim)
+    dt = getattr(torch, cfg.dtype)
+    ckv = rn(n_slots, cache_cap, ml.kv_lora_rank).to(dt)
+    kpe = rn(n_slots, cache_cap, ml.rope_dim).to(dt)
     ms = timer.ms(lambda: torch.cat([ckv, kpe], dim=-1))
-    nbytes = 2 * 4.0 * (ckv.numel() + kpe.numel())
+    nbytes = 2.0 * ckv.element_size() * (ckv.numel() + kpe.numel())
     layers = sum(b.mixer == "mla" for b in cfg.plan.all_blocks())
-    rec = {"shape": f"B={n_slots} S={cache_cap} {ml.kv_lora_rank}+{ml.rope_dim}", "ms": ms,
-           "bound_ms": bound(0.0, nbytes)[0], "calls_per_step": layers,
+    rec = {"shape": f"B={n_slots} S={cache_cap} {ml.kv_lora_rank}+{ml.rope_dim} {cfg.dtype}",
+           "ms": ms, "bound_ms": bound(0.0, nbytes)[0], "calls_per_step": layers,
            "ms_per_step": ms * layers}
     say(f"  {'MLA k_cat copy (torch.cat)':27s} {rec['shape']:44s} {ms:.4g} ms a call, "
         f"{layers} calls a step ({rec['ms_per_step']:.4g} ms)  bound {rec['bound_ms']:.4g} ms "
@@ -1703,26 +1760,49 @@ def mla_k_cat(torch, cfg, rn, timer, limit_line, n_slots=4, cache_cap=2048):
 def ssd_path_shapes(torch, K, cfg, rn, timer, record, full_tol):
     """ssd_scan as the mamba layer calls it (with D) at the
     LAYERSTACK_PREFILL-token prefill and at every chunk-padded prompt length
-    phases 10 and 19 prefill (layerstack_phase's requests), each against its plain
-    version and timed with it (no PyTorch call computes the scan)."""
+    phases 10 and 19 prefill (layerstack_phase's requests), each against its
+    plain version and timed with it (no PyTorch call computes the scan).  A
+    bfloat16 config's calls run the bf16 entry on bf16 x, B and C (dt, A
+    and D fp32): y bitwise the fp32 entry's rounded once and within
+    BF16_TOL of the plain version, the state bitwise the fp32 entry's,
+    timed beside the fp32 entry."""
     import numpy as np
     F = torch.nn.functional
     s = cfg.ssm
     h, p, grp, nn, q = s.n_heads, s.head_dim, s.n_groups, s.state, s.chunk
+    bf16 = cfg.dtype == "bfloat16"
+    es = 2.0 if bf16 else 4.0
+    name = "ssd_scan_bf16" if bf16 else "ssd_scan"
     lens = np.random.default_rng(0).integers(200, 1401, 8)     # layerstack_phase's prompts
     padded = sorted({-(-int(n) // q) * q for n in lens} | {LAYERSTACK_PREFILL})
     for sl in padded:
-        args = (rn(1, sl, h, p), F.softplus(rn(1, sl, h) - 3.0),
+        args = [rn(1, sl, h, p), F.softplus(rn(1, sl, h) - 3.0),
                 -torch.linspace(1.0, 16.0, h, device="cuda"), 0.3 * rn(1, sl, grp, nn),
-                0.3 * rn(1, sl, grp, nn), rn(h))
-        got, want = K.ssd_scan(*args, chunk=q), K.ssd_scan_plain(*args, chunk=q)
+                0.3 * rn(1, sl, grp, nn), rn(h)]
         label = f"{cfg.name} prefill ssd_scan with D, S={sl} (the batcher's prompts)"
-        err = max(check_close(torch, label, a, b, **full_tol) for a, b in zip(got, want))
+        fp32_ms = None
+        if bf16:
+            for i in (0, 3, 4):
+                args[i] = args[i].to(torch.bfloat16)
+            up = [a.float() for a in args]
+            label += " bf16"
+        got, want = K.ssd_scan(*args, chunk=q), K.ssd_scan_plain(*args, chunk=q)
+        if bf16:
+            y32, st32 = K.ssd_scan(*up, chunk=q)
+            if not (torch.equal(got[0], y32.to(torch.bfloat16)) and torch.equal(got[1], st32)):
+                fail(f"{label}: not the fp32 entry's output on the upcast inputs rounded once")
+            err = max(check_close(torch, label, got[0].float(), want[0].float(), **BF16_TOL),
+                      check_close(torch, label, got[1], want[1], **full_tol))
+            fp32_ms = timer.ms(lambda: K.ssd_scan(*up, chunk=q))
+            del up, y32, st32
+        else:
+            err = max(check_close(torch, label, a, b, **full_tol) for a, b in zip(got, want))
         ms = timer.ms(lambda: K.ssd_scan(*args, chunk=q))
         plain_ms = timer.ms(lambda: K.ssd_scan_plain(*args, chunk=q))
-        nbytes = 4.0 * (sum(a.numel() for a in args) + sl * h * p + h * p * nn)
-        record("ssd_scan", f"{cfg.name} prefill S={sl} with D", label, err, ms, plain_ms, None,
-               ssd_flops(1, sl, h, p, grp, nn, q), nbytes)
+        nbytes = es * 2 * (sl * h * p + sl * grp * nn) + 4.0 * (sl * h + 2 * h + h * p * nn)
+        record(name, f"{cfg.name} prefill S={sl} with D", label, err, ms, plain_ms, None,
+               ssd_flops(1, sl, h, p, grp, nn, q), nbytes,
+               peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS, fp32_ms=fp32_ms)
         del args, got, want
 
 
@@ -3356,14 +3436,16 @@ def cnn_phase(torch, K, card):
 
 def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_requests=8,
                      max_new=32, tag="layerstack"):
-    """``cfg`` (a config at its published widths from ``serving_config``:
-    gemma3-1b at bfloat16 in phase 8, qwen2-moe-a2.7b in 9 and mamba2-370m
-    in 10 at fp32) served by the continuous batcher through the entry
-    points a user calls (``LM``, ``ContinuousBatcher``).  Returns the
-    launches and the serving numbers; fails unless every request equals
-    the unbatched greedy prefill + decode on the card, each kernel
-    launched exactly as the path needs (a bfloat16 config's on the bf16
-    entries) and the weights and caches are in the config's dtypes."""
+    """``cfg`` (a config at its published widths and bfloat16 from
+    ``serving_config``: gemma3-1b in phase 8, qwen2-moe-a2.7b in 9,
+    mamba2-370m in 10, zamba2-7b in 19, deepseek-v2-lite-16b in 20) served
+    by the continuous batcher through the entry points a user calls
+    (``LM``, ``ContinuousBatcher``).  Returns the launches and the serving
+    numbers; fails unless every request equals the unbatched greedy prefill
+    + decode on the card, each kernel launched exactly as the path needs
+    (a bfloat16 config's on the bf16 entries, the MoE router on the fp32
+    gemm) and the weights and caches are in their dtypes
+    (check_served_dtype)."""
     import numpy as np
     from repro_torch.models.lm import LM
     from repro_torch.runtime.batching import ContinuousBatcher, Request
@@ -3395,14 +3477,7 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
     params = model.init_params(0, device="cuda")
     torch.cuda.synchronize()
     check_served_dtype(torch, cfg, params, tag)
-    derived = _derived_numel(params)
-    n_params = sum(x.numel() for x in _leaves(params)) - derived
-    esize = _leaves(params)[0].element_size()
-    say(f"  weights {n_params / 1e9:.4f} B params ({esize * n_params / 1e9:.2f} GB "
-        f"{cfg.param_dtype}, plus {esize * derived / 1e9:.2f} GB of derived leaves: the "
-        f"transposed tied embedding, MLA's per-head up-projections), drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        f"allocated")
+    _, weight_b = weights_line(torch, cfg, params, t0)
     rng = np.random.default_rng(0)
     lens = rng.integers(200, 1401, n_requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
@@ -3422,11 +3497,16 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
     t_run = time.perf_counter() - t_run
     launches = {kern.__name__: kern.launches for kern in K.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    cache_dtypes = sorted({str(x.dtype) for x in _leaves(batcher.caches)})
-    if cache_dtypes != [f"torch.{cfg.dtype}"]:
-        fail(f"{tag}: caches {cache_dtypes}, the config's dtype is {cfg.dtype}")
+    # every cache in the config's dtype but Mamba2's state, fp32 in both packages
+    cache_dtypes = sorted({f"{name} {x.dtype}" for name, x in _named_leaves(batcher.caches)
+                           if x.dtype != (torch.float32 if name == "ssm" else
+                                          getattr(torch, cfg.dtype))})
+    if cache_dtypes:
+        fail(f"{tag}: caches {cache_dtypes}, the config's dtype is {cfg.dtype} (the SSM "
+             "state fp32)")
     say(f"  batcher: {len(reqs)} requests, prompts {lens.tolist()}, {batcher.steps} decode "
-        f"steps in {t_run:.2f} s; caches {cfg.dtype}")
+        f"steps in {t_run:.2f} s; caches {cfg.dtype}" + (", the SSM state float32"
+                                                          if cfg.ssm is not None else ""))
     say(f"  launches during the batcher run: {launches}")
     if len(finished) != len(reqs) or any(len(r.out_tokens) != max_new for r in reqs):
         fail(f"{tag}: not every request finished with its tokens")
@@ -3446,7 +3526,7 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
         "prompt_tokens": int(lens.sum()),
         "tokens_out": n_out,
         "dtype": cfg.dtype,
-        "weights_gb": esize * n_params / 1e9,
+        "weights_gb": weight_b / 1e9,
     }
     say(f"  serving ({tag} batcher): {json.dumps(stats)} [{card}]")
     del batcher                    # its caches; the reference makes its own
@@ -3473,16 +3553,34 @@ def layerstack_phase(torch, K, cfg, card, *, n_slots=4, cache_cap=2048, n_reques
     return launches, stats
 
 
+# the leaves JAX's init makes fp32 whatever the param dtype: the MoE router
+# (src/repro/layers/moe.py:42) and Mamba2's dt_bias, A_log and D
+# (src/repro/layers/ssm.py:68-70)
+FP32_LEAVES = ("router", "dt_bias", "A_log", "D")
+
+
+def _named_leaves(tree, name=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named_leaves(v, k)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _named_leaves(v, name)]
+    return [(name, tree)]
+
+
 def check_served_dtype(torch, cfg, params, tag):
     """The config's kernel ops all on ``cuda`` (no ``ref`` on the path) and
-    every weight in the config's param dtype."""
-    bad = {op: cfg.backend(op) for op in ("attention", "decode_attention", "rmsnorm", "dense")
-           if cfg.backend(op) != "cuda"}
+    every weight in the dtype JAX's init gives it: FP32_LEAVES fp32, every
+    other leaf the config's param dtype."""
+    bad = {op: cfg.backend(op) for op in ("attention", "decode_attention", "rmsnorm", "dense",
+                                          "moe_gemm", "ssd") if cfg.backend(op) != "cuda"}
     if bad:
         fail(f"{tag}: ops off the kernels: {bad}")
     want = getattr(torch, cfg.param_dtype)
-    if any(x.dtype != want for x in _leaves(params)):
-        fail(f"{tag}: weights not all {cfg.param_dtype}")
+    wrong = sorted({f"{name} {x.dtype}" for name, x in _named_leaves(params)
+                    if x.dtype != (torch.float32 if name in FP32_LEAVES else want)})
+    if wrong:
+        fail(f"{tag}: weights not in JAX's init dtypes ({cfg.param_dtype}, fp32 for "
+             f"{FP32_LEAVES}): {wrong}")
 
 
 def _leaves(tree):
@@ -3496,12 +3594,35 @@ def _leaves(tree):
 DERIVED_LEAVES = ("embed_t", "wuk_h", "wuv_h")    # copies the port makes once from JAX's leaves
 
 
-def _derived_numel(tree):
+def weights_line(torch, cfg, params, t0):
+    """Print the weights' parameters and bytes (the derived leaves apart:
+    the transposed tied embedding, MLA's per-head up-projections) and every
+    leaf's elements by element size; returns (params, bytes) without the
+    derived leaves."""
+    leaves = _leaves(params)
+    derived, derived_b = _derived_numel(params), _derived_numel(params, nbytes=True)
+    n_params = sum(x.numel() for x in leaves) - derived
+    weight_b = sum(x.numel() * x.element_size() for x in leaves) - derived_b
+    by_size = {}
+    for x in leaves:
+        by_size[x.element_size()] = by_size.get(x.element_size(), 0) + x.numel()
+    sizes = ", ".join(f"{n:,} elements at {sz} bytes ({sz * n / 1e9:.3f} GB)"
+                      for sz, n in sorted(by_size.items()))
+    kept = sorted({name for name, x in _named_leaves(params) if name in FP32_LEAVES})
+    say(f"  weights {n_params / 1e9:.4f} B params, {weight_b / 1e9:.3f} GB ({cfg.param_dtype}"
+        f"{', ' + '/'.join(kept) + ' fp32' if kept else ''}), plus {derived_b / 1e9:.3f} GB of derived leaves; every leaf by "
+        f"element size: {sizes}; drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return n_params, weight_b
+
+
+def _derived_numel(tree, nbytes=False):
+    """Elements (or with ``nbytes`` bytes) of the DERIVED_LEAVES in ``tree``."""
     if isinstance(tree, dict):
-        return sum(v.numel() if k in DERIVED_LEAVES else _derived_numel(v)
-                   for k, v in tree.items())
+        return sum(v.numel() * (v.element_size() if nbytes else 1) if k in DERIVED_LEAVES
+                   else _derived_numel(v, nbytes) for k, v in tree.items())
     if isinstance(tree, list):
-        return sum(_derived_numel(v) for v in tree)
+        return sum(_derived_numel(v, nbytes) for v in tree)
     return 0
 
 
@@ -3525,10 +3646,7 @@ def encdec_phase(torch, K, cfg, card, *, n_src=4, tag="encdec"):
     params = model.init_params(0, device="cuda")
     torch.cuda.synchronize()
     check_served_dtype(torch, cfg, params, tag)
-    n_params = sum(x.numel() for x in _leaves(params))
-    esize = _leaves(params)[0].element_size()
-    say(f"  weights {n_params / 1e9:.4f} B params ({esize * n_params / 1e9:.2f} GB "
-        f"{cfg.param_dtype}), drawn on the card in {time.perf_counter() - t0:.1f} s")
+    _, weight_b = weights_line(torch, cfg, params, t0)
     rng = np.random.default_rng(0)
     src = torch.from_numpy(rng.standard_normal((n_src, ENCDEC_SRC, cfg.d_model))
                            .astype(np.float32)).cuda()
@@ -3574,7 +3692,7 @@ def encdec_phase(torch, K, cfg, card, *, n_src=4, tag="encdec"):
         "max_memory_allocated_gb": peak / 1e9,
         "sources": n_src, "source_frames": ENCDEC_SRC, "prompt_tokens": ENCDEC_PROMPT,
         "tokens_out": n_src * ENCDEC_NEW, "decode_steps": steps, "dtype": cfg.dtype,
-        "weights_gb": esize * n_params / 1e9,
+        "weights_gb": weight_b / 1e9,
     }
     say(f"  serving ({tag}, batch {n_src}): {json.dumps(stats)} [{card}]")
     t_ref = time.perf_counter()
@@ -4834,7 +4952,7 @@ class Kernels:
                         fa.flash_attention, batched_gemm, ssd.ssd_scan,
                         fd.flash_decode_partial, fd.combine_partials,
                         gemm.bf16, rmsnorm.bf16, fd.flash_decode.bf16, fa.flash_attention.bf16,
-                        fd.combine_partials.bf16)
+                        fd.combine_partials.bf16, batched_gemm.bf16, ssd.ssd_scan.bf16)
 
 
 SOURCES = {
@@ -4867,6 +4985,8 @@ SOURCES = {
                              "src/repro/kernels/flash_attention.py:94"),
     "combine_partials_bf16": ("src/repro_torch/csrc/flash_decode.cu",
                               "src/repro/kernels/ops.py:201"),
+    "batched_gemm_bf16": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:92"),
+    "ssd_scan_bf16": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:73"),
 }
 
 
@@ -4927,7 +5047,8 @@ def main() -> int:
     n_int8 = n_fp32 * kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head, page) \
         // kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.d_head, page, "int8")
     pools = {"fp32": n_fp32, "int8": n_int8}
-    # the layer-stack phases at published widths, fp32, with their new tokens:
+    # the layer-stack phases at published widths and bfloat16, with their new
+    # tokens:
     # 8. gemma3-1b (src/repro/configs/gemma3_1b.py): d_model 1152, 4 heads on 1
     #    kv head of 256, d_ff 6912, vocab 262144 (tied), 26 layers (5 local : 1
     #    global, window 512), RoPE theta 1e6;
@@ -4975,11 +5096,19 @@ def main() -> int:
     say(f"[model] small model prefill + decode Programs, dense and paged fp32: card vs CPU "
         f"max |err| {worst:.2e} (atol = rtol = 1e-4); paged int8: max |logit err| "
         f"{worst_kv8:.2e} (bound 5e-2)")
+    # the reduced configs serve fp32: the path of the fp32 entries that no
+    # full-width phase runs any more (FP32_ROWS), counted as the "model" path
+    for kern in K.KERNELS:
+        kern.launches = 0
     for arch in ("gemma3-1b", "qwen2-moe-a2.7b", "mamba2-370m", "zamba2-7b",
                  "deepseek-v2-lite-16b"):
         worst_ls = layerstack_model_phase(torch, arch)
         say(f"[model] reduced {arch} layer-stack LM, prefill + caches + 4 decode steps: card "
             f"vs CPU max |err| {worst_ls:.2e} (atol = rtol = 1e-4)")
+    model_launches = {kern.__name__: kern.launches for kern in K.KERNELS}
+    say(f"[model] launches of the reduced layer-stack LMs on the card: {model_launches}")
+    if not all(model_launches[name] for name in FP32_ROWS):
+        fail(f"model: an fp32 entry of {FP32_ROWS} launched no time: {model_launches}")
     worst_ed = encdec_model_phase(torch)
     say(f"[model] reduced seamless-m4t-medium EncDec, encode + prefill + self and cross "
         f"caches + 4 decode steps: card vs CPU max |err| {worst_ed:.2e} (atol = rtol = 1e-4)")
@@ -4998,7 +5127,7 @@ def main() -> int:
                                                      cache_cap, n_requests=8, max_new=max_new)
     torch.cuda.empty_cache()
     phase_s["serving"] = time.perf_counter() - t
-    runs = {"dense": (launches, stats)}
+    runs = {"model": (model_launches, {}), "dense": (launches, stats)}
 
     # 17. deploy (a, c, d): OXF bundles of phase 5's Programs at 2 layers, the
     # golden bundle, phase 5's engine through AsyncEngine; then the engine

@@ -17,8 +17,8 @@
 //                           B, Hq);
 //   combine_partials_f32    (acc, m, l) over NS shards -> out, in shard
 //                           index order (ref.combine_partials_ref);
-//   flash_decode_bf16       flash_decode_f32 on bf16 q, k, v and o (the
-//                           narrow layout, D, Dv <= 256): q and each staged
+//   flash_decode_bf16       flash_decode_f32 on bf16 q, k, v and o (both
+//                           layouts, narrow and wide): q and each staged
 //                           K/V row upcast as they are loaded, the partials
 //                           fp32, the combine writing o rounded once to bf16
 //                           (combine_partials_bf16 alone: the same merge
@@ -60,12 +60,13 @@
 //   with zeros in shared memory.
 // - Widths: D, Dv <= 256 run with NCK = NCV = NCH = 2 and up to GMAX query
 //   heads a block.  The dense entries (flash_decode_f32,
-//   flash_decode_partial_f32) also take the wide layout, D <= 640 and Dv <=
-//   512 (NCK = 5, NCV = 4; MLA's absorbed decode is D 576 = latent 512 +
-//   rope 64, Dv 512): there a block takes at most WIDE_GMAX = 4 query heads,
-//   so the accumulators (WIDE_GMAX x NCV float4) stay in registers, and the
-//   block's shared memory (227,328 B at 576 / 512) leaves one block an SM.
-//   The layout is chosen from D and Dv alone, never from B.
+//   flash_decode_partial_f32, flash_decode_bf16) also take the wide layout,
+//   D <= 640 and Dv <= 512 (NCK = 5, NCV = 4; MLA's absorbed decode is D
+//   576 = latent 512 + rope 64, Dv 512): there a block takes at most
+//   WIDE_GMAX = 4 query heads, so the accumulators (WIDE_GMAX x NCV float4)
+//   stay in registers, and the block's shared memory (227,328 B at 576 /
+//   512 in fp32, 122,880 B with bf16 rings) leaves one block an SM.  The
+//   layout is chosen from D and Dv alone, never from B.
 // - At the end of the shard the four warps' (acc, m, l) are merged in warp
 //   order, then the shards' in shard order (combine_kernel) — the merge of
 //   ref.combine_partials_ref: max of m, then l and acc summed with weights
@@ -96,7 +97,11 @@
 // staged.  The ring takes half the fp32 one's bytes (56 KB a block at D =
 // Dv = 256, against 104); the tiles, groups and every sum are the fp32
 // kernel's, so the output is the fp32 kernel's on the upcast inputs,
-// rounded once.  Its bound is the live rows at 2 bytes a value.
+// rounded once.  Its bound is the live rows at 2 bytes a value.  The wide
+// layout at bf16 stages its 576- and 512-value rows the same way (72 and 64
+// 16-byte pieces a row); each lane upcasts NCK + NCV groups a row, which
+// adds live values to a body that already holds WIDE_GMAX x NCV float4
+// accumulators (the registers and spills are in the build's ptxas lines).
 #include <cstdint>
 #include <type_traits>
 
@@ -450,18 +455,21 @@ int launch_shards_gm(const TQ* q, const T* k, const T* v, const float* k_scale,
 
 // The shard kernel over shards of `shard` rows; partials (ceil(S / shard), B,
 // Hq[, Dv]) into acc, m, l.  D, Dv <= 256 take the narrow layout; wider
-// heads (dense fp32 rows only) the wide one.
+// heads (dense fp32 or bf16 rows only) the wide one.
 template <class Rows, typename TQ, typename T>
 int launch_shards(const TQ* q, const T* k, const T* v, const float* k_scale,
                   const float* v_scale, const Rows& rows, const int* lengths, float* acc,
                   float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
                   float scale, cudaStream_t stream) {
-  constexpr bool kWideOk = std::is_same<Rows, DenseRows>::value && std::is_same<T, float>::value;
+  constexpr bool kBf16 = std::is_same<T, repro_torch::bf16>::value;
+  constexpr bool kWideOk =
+      std::is_same<Rows, DenseRows>::value && (std::is_same<T, float>::value || kBf16);
   const bool wide = D > 32 * 4 * NCH || Dv > 32 * 4 * NCH;
+  const size_t smem =
+      kBf16 ? decode_smem_bytes_bf16(D, Dv) : decode_smem_floats(D, Dv) * sizeof(float);
   if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || (wide && !kWideOk) ||
       D > 32 * 4 * WIDE_NCK || Dv > 32 * 4 * WIDE_NCV || S < 1 || shard < 1 ||
-      decode_smem_floats(D, Dv) * sizeof(float) > (size_t)repro_torch::kMaxSmemBytes ||
-      (S + shard - 1) / shard > 65535)
+      smem > (size_t)repro_torch::kMaxSmemBytes || (S + shard - 1) / shard > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte copies of 4 fp32 or 8 bf16 values, or 4-byte int8 loads, where
   // every row starts aligned
@@ -550,7 +558,7 @@ extern "C" int combine_partials_bf16(const float* acc, const float* m, const flo
   return combine(acc, m, l, out, NS, R, Dv, static_cast<cudaStream_t>(stream));
 }
 
-// flash_decode_f32's arguments with q, k, v and o bf16 (D, Dv <= 256).
+// flash_decode_f32's arguments with q, k, v and o bf16 (either layout).
 extern "C" int flash_decode_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  const __nv_bfloat16* v, const int* lengths, float* acc,
                                  float* m, float* l, __nv_bfloat16* o, int B, int Hq, int Hk,

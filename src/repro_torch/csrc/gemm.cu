@@ -61,6 +61,12 @@
 // pointers always cost the single GEMM 20%).  Every element is the same one
 // FMA chain, so a row of expert e is bitwise the same whatever M, kernel or
 // tile, and equal to gemm_f32's row of the product A[e] @ B[e].
+//
+// batched_gemm_bf16: the same per-expert launch of the bf16 instances
+// (kBatched = true, T = bf16): a row of expert e is gemm_bf16's row of
+// A[e] @ B[e], the fp32 chain on the upcast values rounded once, whatever M
+// is.  A decode launch reads half the fp32 weight bytes (qwen2's 738 MB
+// becomes 369 MB); the products still run on the FFMA units.
 #include <cstdint>
 #include <type_traits>
 
@@ -406,6 +412,16 @@ int tiled(const T* a, const T* b, T* c, int E, int M, int N, int K, int bm, int 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// a (E, M, K), b (E, K, N), c (E, M, N), each contiguous; E <= 65535.  M <=
+// 16 runs the skinny kernel, M > 16 the tiled one with the tile (bm, bn).
+template <typename T>
+int batched(const T* a, const T* b, T* c, int E, int M, int N, int K, int bm, int bn,
+            cudaStream_t st) {
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return M <= 16 ? skinny<true>(a, b, c, E, M, N, K, st)
+                 : tiled<true>(a, b, c, E, M, N, K, bm, bn, st);
+}
+
 }  // namespace
 
 extern "C" int gemm_f32_skinny(const float* a, const float* b, float* c, int M, int N, int K,
@@ -430,14 +446,17 @@ extern "C" int gemm_bf16_tiled(const __nv_bfloat16* a, const __nv_bfloat16* b,
   return tiled<false>(a, b, c, 1, M, N, K, bm, bn, static_cast<cudaStream_t>(stream));
 }
 
-// a (E, M, K), b (E, K, N), c (E, M, N), each contiguous; E <= 65535.  M <=
-// 16 runs the skinny kernel, M > 16 the tiled one with the tile (bm, bn).
+// The batched product (batched above) on fp32 or bf16 operands.
 extern "C" int batched_gemm_f32(const float* a, const float* b, float* c, int E, int M, int N,
                                 int K, int bm, int bn, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return M <= 16 ? skinny<true>(a, b, c, E, M, N, K, st)
-                 : tiled<true>(a, b, c, E, M, N, K, bm, bn, st);
+  return batched(a, b, c, E, M, N, K, bm, bn, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 a, b and c; batched_gemm_f32's kernels, variant and tiles.
+extern "C" int batched_gemm_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                 __nv_bfloat16* c, int E, int M, int N, int K, int bm, int bn,
+                                 void* stream) {
+  return batched(a, b, c, E, M, N, K, bm, bn, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

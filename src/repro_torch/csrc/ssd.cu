@@ -1,4 +1,5 @@
-// ssd_scan: the Mamba2 SSD (state-space duality) chunked scan, fp32, FFMA.
+// ssd_scan: the Mamba2 SSD (state-space duality) chunked scan, fp32, FFMA;
+// x, B, C and y fp32 (ssd_scan_f32) or bf16 (ssd_scan_bf16).
 //
 // Replaces: src/repro/kernels/ssd.py::ssd_scan (body _ssd_kernel, and the
 // elementwise x * dt, dt * A and D x around it), the Pallas kernel behind
@@ -60,12 +61,27 @@
 // state are the same bits at any B.  exp(cs_i - cs_j) is formed only for j
 // <= i (elsewhere the difference is positive and could overflow), and
 // masked scores are selected away, never multiplied by 0.
+//
+// bf16 (ssd_scan_bf16): x, B, C and y bf16, dt, A and D fp32 (as the mamba
+// layer passes them), the final state and every scratch fp32; the same three
+// kernels, chunk_kernel and output_kernel instantiated on the element type.
+// A bf16 piece of 4 values is loaded into registers (one 8-byte load where
+// P and N are multiples of 4 and the pointers 8-byte aligned, else 2-byte
+// loads), upcast and stored to the fp32 tile as its step is staged, so
+// every product, scaling and sum is the fp32 kernel's on the upcast values;
+// y's element is formed in fp32 with its D term (fmaf(x, D, acc)) and
+// rounded once to bf16 on store.  So y is the fp32 entry's y on the upcast
+// inputs rounded once, and the state is the fp32 entry's state.  (JAX's
+// Pallas kernel rounds y to bf16 before its wrapper adds D x and rounds
+// again.)  The load of a bf16 piece is not asynchronous: the thread waits
+// for it as it stages, and the other warps of the SM cover the wait.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
+using repro_torch::bf16;
 using repro_torch::cp_async16;
 using repro_torch::cp_async4;
 using repro_torch::cp_async_commit;
@@ -108,6 +124,23 @@ __device__ __forceinline__ void piece(float* dst, const float* src, int n, const
 #pragma unroll
     for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < n ? src + e : any, e < n);
   }
+}
+
+// The same piece from bf16 values, upcast through registers into dst (16-byte
+// aligned); VEC: one 8-byte load.  The thread sees it at once, the others
+// after the barrier that publishes the step.
+template <bool VEC>
+__device__ __forceinline__ void piece(float* dst, const bf16* src, int n, const bf16*) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (VEC) {
+    if (n > 0) v = repro_torch::load4f(src);
+  } else {
+    if (n > 0) v.x = repro_torch::to_f32(src[0]);
+    if (n > 1) v.y = repro_torch::to_f32(src[1]);
+    if (n > 2) v.z = repro_torch::to_f32(src[2]);
+    if (n > 3) v.w = repro_torch::to_f32(src[3]);
+  }
+  *reinterpret_cast<float4*>(dst) = v;
 }
 
 __device__ __forceinline__ float at(const float4& v, int k) {
@@ -228,12 +261,13 @@ __device__ __forceinline__ void chunk_cumsum(const float* dts, float a, float* c
 // Phase 1.  Blocks y < H * ntp * ntn: dS_c's tile (head h, columns p0.., rows
 // n0..) into st (B, nc, H, N, PP) as [n][p]; the tiles with p0 = n0 = 0 also
 // write the chunk's cumsum into cs (B, H, S).  Blocks above: the scores of
-// (group, row tile r, column tile t <= r) into sc (B, nc, G, QR, QR).
-template <bool VEC>
+// (group, row tile r, column tile t <= r) into sc (B, nc, G, QR, QR).  T: the
+// type of x, Bm and Cm (fp32 or bf16).
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(THREADS)
-chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-             const float* __restrict__ A, const float* __restrict__ Bm,
-             const float* __restrict__ Cm, float* __restrict__ st, float* __restrict__ sc,
+chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+             const float* __restrict__ A, const T* __restrict__ Bm,
+             const T* __restrict__ Cm, float* __restrict__ st, float* __restrict__ sc,
              float* __restrict__ cs_out, Geo g) {
   __shared__ __align__(16) float smem[SMEM_CHUNK];
   const int c = blockIdx.x, b = blockIdx.z, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -385,13 +419,14 @@ pass_kernel(float* __restrict__ st, const float* __restrict__ cs, float* __restr
 // Phase 3.  Block (chunk, row tile, head, column tile of P, sequence): y's
 // 64 x 64 tile.  Steps kt < n_in contract over the key rows j of the
 // decayed, masked scores against xbar; the steps after, over N, C exp(cs_i)
-// against the chunk's start state; all into one accumulator.
-template <bool VEC>
+// against the chunk's start state; all into one accumulator.  T: the type of
+// x, Cm and y; y + D x is formed in fp32 and rounded once to T.
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(THREADS)
-output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-              const float* __restrict__ D, const float* __restrict__ Cm,
+output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ D, const T* __restrict__ Cm,
               const float* __restrict__ st, const float* __restrict__ sc,
-              const float* __restrict__ cs, float* __restrict__ y, Geo g) {
+              const float* __restrict__ cs, T* __restrict__ y, Geo g) {
   __shared__ __align__(16) float smem[SMEM_OUT];
   float* A_s = smem;                    // [STAGES][TILE][KP]: decayed scores, or C exp(cs_i)
   float* B_s = A_s + STAGES * TILE * KP;  // [STAGES][KT][TILE]: xbar, or the start state
@@ -486,31 +521,33 @@ output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       o[e] = acc[m][e];
-      if (D != nullptr && p + e < g.P) o[e] = o[e] + x[row + p + e] * dh;
+      if (D != nullptr && p + e < g.P)
+        o[e] = fmaf(repro_torch::to_f32(x[row + p + e]), dh, o[e]);
     }
     if (VEC) {
-      *reinterpret_cast<float4*>(y + row + p) = make_float4(o[0], o[1], o[2], o[3]);
+      repro_torch::store4f(y + row + p, make_float4(o[0], o[1], o[2], o[3]));
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (p + e < g.P) y[row + p + e] = o[e];
+        if (p + e < g.P) y[row + p + e] = repro_torch::from_f32<T>(o[e]);
     }
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-}  // namespace
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
 
 // x (B,S,H,P), dt (B,S,H), A (H,), D (H,) or null, Bm/Cm (B,S,G,N) -> y
-// (B,S,H,P), state (B,H,P,N); all fp32 and contiguous; S % Q == 0, 0 < Q
-// <= 128, H % G == 0.  Scratch (kernels/ssd.py::scan_scratch, times B):
-// st (B, S/Q, H, N, PP), sc (B, S/Q, G, QR, QR), cs (B, H, S), 16-byte
-// aligned, with PP and QR P and Q rounded up to 64.
-extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* A, const float* D,
-                            const float* Bm, const float* Cm, float* y, float* state,
-                            float* st, float* sc, float* cs, int B, int S, int H, int P,
-                            int G, int N, int Q, void* stream) {
+// (B,S,H,P), state (B,H,P,N); x, Bm, Cm and y of type T, the rest fp32, all
+// contiguous; S % Q == 0, 0 < Q <= 128, H % G == 0.  Scratch
+// (kernels/ssd.py::scan_scratch, times B): st (B, S/Q, H, N, PP), sc (B,
+// S/Q, G, QR, QR), cs (B, H, S), 16-byte aligned, with PP and QR P and Q
+// rounded up to 64.
+template <typename T>
+int scan(const T* x, const float* dt, const float* A, const float* D, const T* Bm,
+         const T* Cm, T* y, float* state, float* st, float* sc, float* cs, int B, int S, int H,
+         int P, int G, int N, int Q, void* stream) {
   Geo g;
   g.S = S; g.H = H; g.P = P; g.G = G; g.N = N; g.Q = Q;
   g.nc = S / Q;
@@ -519,14 +556,16 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* A, con
   g.ntn = (N + TILE - 1) / TILE;
   g.QR = g.nrt * TILE;
   g.PP = g.ntp * TILE;
-  const bool vec = P % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(Bm) &&
-                   aligned16(Cm) && aligned16(y);
+  // pieces of 4 values: 16 bytes of fp32, 8 of bf16
+  const size_t al = 4 * sizeof(T);
+  const bool vec = P % 4 == 0 && N % 4 == 0 && aligned(x, al) && aligned(Bm, al) &&
+                   aligned(Cm, al) && aligned(y, al);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g1(g.nc, H * g.ntp * g.ntn + G * g.nrt * (g.nrt + 1) / 2, B);
   if (vec)
-    chunk_kernel<true><<<g1, THREADS, 0, s>>>(x, dt, A, Bm, Cm, st, sc, cs, g);
+    chunk_kernel<true, T><<<g1, THREADS, 0, s>>>(x, dt, A, Bm, Cm, st, sc, cs, g);
   else
-    chunk_kernel<false><<<g1, THREADS, 0, s>>>(x, dt, A, Bm, Cm, st, sc, cs, g);
+    chunk_kernel<false, T><<<g1, THREADS, 0, s>>>(x, dt, A, Bm, Cm, st, sc, cs, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 g2((N + PASS_N - 1) / PASS_N * g.ntp, H, B);
@@ -535,8 +574,26 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* A, con
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 g3(g.nc * g.nrt, H * g.ntp, B);
   if (vec)
-    output_kernel<true><<<g3, THREADS, 0, s>>>(x, dt, D, Cm, st, sc, cs, y, g);
+    output_kernel<true, T><<<g3, THREADS, 0, s>>>(x, dt, D, Cm, st, sc, cs, y, g);
   else
-    output_kernel<false><<<g3, THREADS, 0, s>>>(x, dt, D, Cm, st, sc, cs, y, g);
+    output_kernel<false, T><<<g3, THREADS, 0, s>>>(x, dt, D, Cm, st, sc, cs, y, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The scan (scan above) with x, Bm, Cm and y fp32.
+extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* A, const float* D,
+                            const float* Bm, const float* Cm, float* y, float* state,
+                            float* st, float* sc, float* cs, int B, int S, int H, int P,
+                            int G, int N, int Q, void* stream) {
+  return scan(x, dt, A, D, Bm, Cm, y, state, st, sc, cs, B, S, H, P, G, N, Q, stream);
+}
+
+// The same with x, Bm, Cm and y bf16 (dt, A, D, the state and the scratch fp32).
+extern "C" int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt, const float* A,
+                             const float* D, const __nv_bfloat16* Bm, const __nv_bfloat16* Cm,
+                             __nv_bfloat16* y, float* state, float* st, float* sc, float* cs,
+                             int B, int S, int H, int P, int G, int N, int Q, void* stream) {
+  return scan(x, dt, A, D, Bm, Cm, y, state, st, sc, cs, B, S, H, P, G, N, Q, stream);
 }

@@ -57,6 +57,7 @@ _SIGNATURES: Dict[str, tuple] = {
     "gemm_bf16_tiled": (_P, _P, _P, *[_I] * 5, _P),
     # a, b, c; E, M, N, K, bm, bn
     "batched_gemm_f32": (_P, _P, _P, *[_I] * 6, _P),
+    "batched_gemm_bf16": (_P, _P, _P, *[_I] * 6, _P),
     "rmsnorm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
     "rmsnorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
     # q, k, v, lengths, acc, m, l (the shards' partials), o; B, Hq, Hk, S,
@@ -91,6 +92,8 @@ _SIGNATURES: Dict[str, tuple] = {
     # x, dt, A, D, B, C, y, state, st, sc, cs (the scratch); B, S, H, P, G,
     # N, Q
     "ssd_scan_f32": (*[_P] * 11, *[_I] * 7, _P),
+    # the same with bf16 x, B, C and y (dt, A, D, the state and scratch fp32)
+    "ssd_scan_bf16": (*[_P] * 11, *[_I] * 7, _P),
     # stream: one empty kernel (the launch path's floor)
     "empty_launch": (_P,),
 }

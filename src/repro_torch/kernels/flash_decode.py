@@ -25,9 +25,10 @@ wrapper's ``launches`` attribute counts its kernel launches; the combine
 kernel's count rises with every :func:`flash_decode`,
 :func:`flash_paged_decode` and :func:`combine_partials` call on the card.
 
-:func:`flash_decode` also takes bf16 q, k and v (narrow widths only, D and
-Dv <= 256), as the Pallas kernel does: ``flash_decode_bf16`` stages bf16
-rows (half the ring's bytes) and upcasts each value as it reads it, keeps
+:func:`flash_decode` also takes bf16 q, k and v (both layouts: MLA's
+absorbed D 576 / Dv 512 too), as the Pallas kernel does:
+``flash_decode_bf16`` stages bf16 rows (half the ring's bytes) and upcasts
+each value as it reads it, keeps
 the scores, softmax state and partials in fp32 and its merge rounds the
 output once to bf16 (so the result is the fp32 kernel's on the upcast
 inputs, rounded).  Those calls count in
@@ -98,12 +99,11 @@ def decode_fits(hq: int, hk: int, d: int, dv: int, *, bf16: bool = False) -> boo
     wide layout), D <= MAX_WIDE_D and Dv <= MAX_WIDE_DV (the wide layout
     past 256, chosen by the widths alone: MLA's absorbed decode is D 576,
     Dv 512), and the block's shared memory within the H100's 227 KB (which
-    caps D at 596 when Dv is 512).  ``bf16``: the bf16 entry, the narrow
-    layout only (D and Dv <= 256); its bf16 rings take at most the fp32
-    kernel's shared memory."""
+    caps D at 596 when Dv is 512 in fp32).  ``bf16``: the bf16 entry, in
+    either layout; its bf16 rings take at most the fp32 kernel's shared
+    memory (122,880 B at 576 / 512), so every width up to MAX_WIDE_D and
+    MAX_WIDE_DV fits."""
     if hk < 1 or hq % hk or not (0 < d <= MAX_WIDE_D and 0 < dv <= MAX_WIDE_DV):
-        return False
-    if bf16 and (d > _cuda.MAX_HEAD_DIM or dv > _cuda.MAX_HEAD_DIM):
         return False
     return decode_smem_bytes(d, dv, bf16=bf16) <= _cuda.MAX_SMEM_BYTES
 

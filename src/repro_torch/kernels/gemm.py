@@ -1,4 +1,4 @@
-"""GEMM, plain (fp32 or bf16) and batched (fp32) — counterpart of
+"""GEMM, plain and batched, fp32 or bf16 — counterpart of
 :func:`repro.kernels.gemm.gemm` and :func:`repro.kernels.gemm.batched_gemm`.
 
 :func:`gemm` launches one of two hand-written CUDA kernels of
@@ -22,7 +22,9 @@ does: the same two kernels on bf16 (``gemm_bf16_skinny`` /
 ``gemm_bf16_tiled``) upcast each value as it reads it, accumulate in fp32
 and round each output once to bf16, so the result is the fp32 product of
 the upcast operands rounded once, with the same batch invariance.  Those
-launches count in ``gemm.bf16.launches``.
+launches count in ``gemm.bf16.launches``.  :func:`batched_gemm` takes bf16
+the same way (``batched_gemm_bf16``: the bf16 kernels per expert), its
+launches counted in ``batched_gemm.bf16.launches``.
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ def gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def batched_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The batched kernel's function in plain PyTorch: (E, M, K) @ (E, K, N)
-    in fp32."""
-    return torch.bmm(x, w)
+    in fp32 on the upcast operands, rounded to x's dtype."""
+    return torch.bmm(x.float(), w.float()).to(x.dtype)
 
 
 def _check_dtypes(x: torch.Tensor, w: torch.Tensor, name: str,
@@ -133,12 +135,13 @@ MAX_EXPERTS = 65535      # gridDim.z
 
 
 def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(E, M, K) @ (E, K, N) -> (E, M, N), fp32; row m of expert e is the
-    same FMA chain whatever M is, the one :func:`gemm` gives it."""
+    """(E, M, K) @ (E, K, N) -> (E, M, N) in x's dtype, fp32 or bf16 (w the
+    same); row m of expert e is the same FMA chain whatever M is, the one
+    :func:`gemm` gives it."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"batched_gemm needs (E, M, K) @ (E, K, N), got {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
-    _check_dtypes(x, w, "batched_gemm")
+    _check_dtypes(x, w, "batched_gemm", (torch.float32, torch.bfloat16))
     if x.device.type == "cpu" and w.device.type == "cpu":
         return batched_gemm_plain(x, w)
     _check_card(x, w, "batched_gemm")
@@ -146,17 +149,23 @@ def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = w.shape[2]
     if e > MAX_EXPERTS:
         raise ValueError(f"batched_gemm: {e} experts, the kernel takes at most {MAX_EXPERTS}")
-    out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     if e == 0 or m == 0 or n == 0:
         return out
     if k == 0:
         return out.zero_()
+    bf16 = x.dtype == torch.bfloat16
     tile = gemm_tile(m, n, e) if gemm_variant(m) == "tiled" else (0, 0)
-    err = _cuda.library().batched_gemm_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                           e, m, n, k, *tile, _cuda.stream_of(x))
+    lib = _cuda.library()
+    err = (lib.batched_gemm_bf16 if bf16 else lib.batched_gemm_f32)(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, *tile, _cuda.stream_of(x))
     _cuda.check(err, "batched_gemm")
-    batched_gemm.launches += 1
+    if bf16:
+        batched_gemm.bf16.launches += 1
+    else:
+        batched_gemm.launches += 1
     return out
 
 
 batched_gemm.launches = 0
+batched_gemm.bf16 = _cuda.LaunchCount("batched_gemm_bf16")

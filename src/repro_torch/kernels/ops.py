@@ -19,16 +19,17 @@ plain version on CPU tensors.  The dispatchers ``attention``,
 calls.
 
 The ``cuda`` guards are only what the kernels need (whole GQA groups,
-head widths <= 256, or for the dense fp32 decode D <= 640 and Dv <= 512
-within the shared memory, a chunk of at most 128, ungrouped convolutions,
-and the kernels' types); the TPU's block-divisibility guards are not
-carried over, because each kernel masks its own ragged edges.  The ops of
-:data:`BF16_OPS` (``attention``, ``decode_attention``, ``rmsnorm`` and
-``dense``) take inputs all float32 or all bfloat16 on ``cuda``, as JAX's
-Pallas backends take either; every other ``cuda`` backend (``ssd``,
-``moe_gemm``, the convolutions, ``cuda_split``) takes float32 only, and a
-call with bf16 inputs raises ``TypeError`` from the kernel's wrapper: no
-op moves to another backend by itself.
+head widths <= 256, or for the dense decode D <= 640 and Dv <= 512 within
+the shared memory, a chunk of at most 128, ungrouped convolutions, and the
+kernels' types); the TPU's block-divisibility guards are not carried over,
+because each kernel masks its own ragged edges.  The ops of
+:data:`BF16_OPS` (``attention``, ``decode_attention``, ``rmsnorm``,
+``dense``, ``moe_gemm`` and ``ssd``) take inputs all float32 or all
+bfloat16 on ``cuda`` (``ssd``: x, B and C so, dt, A and D float32), as
+JAX's Pallas backends take either; every other ``cuda`` backend (the
+convolutions, ``cuda_split``) takes float32 only.  A call outside a
+kernel's types raises ``TypeError`` from its wrapper: no op moves to
+another backend by itself.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ __all__ = ["attention", "decode_attention", "decode_attention_partial", "rmsnorm
            "ssd_step", "moe_gemm", "swiglu", "BF16_OPS"]
 
 # The ops whose ``cuda`` backend has a bf16 body (the kernels' bf16 entries).
-BF16_OPS = frozenset({"attention", "decode_attention", "rmsnorm", "dense"})
+BF16_OPS = frozenset({"attention", "decode_attention", "rmsnorm", "dense", "moe_gemm", "ssd"})
 
 
 def _bytes(specs: Sequence[TensorSpec]) -> float:
@@ -330,9 +331,13 @@ def _ssd_chunked_impl(inputs, attrs):
 
 
 def _ssd_cuda_supports(specs, attrs):
-    x, B = specs[0], specs[3]
+    """x, B and C all float32 or all bfloat16, dt, A and D float32, and a
+    chunk and state the kernel takes."""
+    x, dt, A, B, C = specs[:5]
+    D = specs[5] if len(specs) > 5 else None
     q = min(int(attrs.get("chunk", 128)), x.shape[1])
-    return _all_f32(specs[:5]) and scan_fits(q, B.shape[3])
+    return (_f32_or_bf16((x, B, C)) and _all_f32([t for t in (dt, A, D) if t is not None])
+            and scan_fits(q, B.shape[3]))
 
 
 @impl("ssd", "cuda", supports=_ssd_cuda_supports,
@@ -403,9 +408,9 @@ def _moe_gemm_ref_impl(inputs, attrs):
     return [R.batched_gemm_ref(*inputs)]
 
 
-@impl("moe_gemm", "cuda", supports=lambda specs, attrs: _all_f32(specs),
-      note="batched fp32 FFMA GEMM: the dense kernels per expert "
-           "(blockIdx.z), row results independent of M")
+@impl("moe_gemm", "cuda", supports=lambda specs, attrs: _f32_or_bf16(specs),
+      note="batched FFMA GEMM (fp32, or bf16 with an fp32 accumulator): the dense "
+           "kernels per expert (blockIdx.z), row results independent of M")
 def _moe_gemm_cuda_impl(inputs, attrs):
     x, w = inputs
     return [_batched_gemm_kernel(x.contiguous(), w.contiguous())]

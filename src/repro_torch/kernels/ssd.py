@@ -11,8 +11,17 @@ tensors it runs :func:`ssd_scan_plain`, the chunked algorithm in plain
 PyTorch (:func:`repro_torch.kernels.ref.ssd_chunked_ref`).
 ``ssd_scan.launches`` counts calls that launched the kernels.
 
+x, B and C may be bfloat16 (all three alike; dt, A and D stay float32, as
+the mamba layer passes them): ``ssd_scan_bf16`` upcasts each value as it
+stages it, runs the fp32 kernels' arithmetic, and rounds y (with its D
+term, formed in fp32) once to bf16; the final state is fp32.  So the bf16
+y is the fp32 entry's y on the upcast inputs rounded once.  Those calls
+count in ``ssd_scan.bf16.launches``.  (JAX's Pallas kernel writes a bf16 y
+and its wrapper adds D x and rounds a second time.)
+
 Shapes as in ``ref.ssd_ref``: x (B,S,H,P), dt (B,S,H), A (H,), B/C
-(B,S,G,N) with H % G == 0 -> y (B,S,H,P), final state (B,H,P,N) fp32.
+(B,S,G,N) with H % G == 0 -> y (B,S,H,P) in x's dtype, final state
+(B,H,P,N) fp32.
 The sequence must be a multiple of the chunk ``min(chunk, S)``; the ``ssd``
 op pads it with dt = 0 steps.
 """
@@ -62,6 +71,18 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.
     return ssd_chunked_ref(x, dt, A, B, C, D, chunk=q)
 
 
+def _check_dtypes(x, dt, A, B, C, D) -> None:
+    """x, B and C all float32 or all bfloat16; dt, A and D float32."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_scan: x must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("B", B), ("C", C)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"ssd_scan: {name} must be {x.dtype} as x is, got {t.dtype}")
+    for name, t in (("dt", dt), ("A", A), ("D", D)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: {name} must be float32, got {t.dtype}")
+
+
 def _check(x, dt, A, B, C, D) -> None:
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4 or C.shape != B.shape:
         raise ValueError(f"ssd_scan needs x (B,S,H,P), dt (B,S,H), A (H,), B/C (B,S,G,N); got "
@@ -78,13 +99,12 @@ def _check(x, dt, A, B, C, D) -> None:
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, D: Optional[torch.Tensor] = None, *,
              chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan -> (y (B,S,H,P) with the D term, final state
-    (B,H,P,N) fp32)."""
+    """Chunked SSD scan -> (y (B,S,H,P) in x's dtype with the D term,
+    final state (B,H,P,N) fp32); x, B and C float32 or bfloat16, dt, A and
+    D float32."""
     _check(x, dt, A, B, C, D)
+    _check_dtypes(x, dt, A, B, C, D)
     tensors = (x, dt, A, B, C) + (() if D is None else (D,))
-    for name, t in zip("x dt A B C D".split(), tensors):     # the kernel has no bf16 body
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_scan: {name} must be float32, got {t.dtype}")
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
     dev = x.device
@@ -103,20 +123,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
                          f"{MAX_CHUNK})")
     x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()
     D = None if D is None else D.contiguous()
-    y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     if y.numel() == 0 or state.numel() == 0:
         return y, state.zero_()
     n_st, n_sc, n_cs = (b * f for f in scan_scratch(s, h, p, g, n, q))
     work = torch.empty(n_st + n_sc + n_cs, dtype=torch.float32, device=dev)
     w0 = work.data_ptr()
-    err = _cuda.library().ssd_scan_f32(
+    bf16 = x.dtype == torch.bfloat16
+    lib = _cuda.library()
+    err = (lib.ssd_scan_bf16 if bf16 else lib.ssd_scan_f32)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), None if D is None else D.data_ptr(),
         B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
         w0, w0 + 4 * n_st, w0 + 4 * (n_st + n_sc), b, s, h, p, g, n, q, _cuda.stream_of(x))
     _cuda.check(err, "ssd_scan")
-    ssd_scan.launches += 1
+    if bf16:
+        ssd_scan.bf16.launches += 1
+    else:
+        ssd_scan.launches += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.bf16 = _cuda.LaunchCount("ssd_scan_bf16")

@@ -13,16 +13,11 @@ Program-backed engine over the graph LM — counterpart of
 Default mode submits a stream of random-prompt requests and runs the
 slot-based continuous batcher (prefill on admit, batched decode) over a
 :class:`repro_torch.models.lm.LM` with random weights from seed 0 (the
-attention configs, the MoE, MLA, SSD and hybrid ones; ``--arch
-qwen2-moe-a2.7b --full`` holds 60.6 GB of fp32 weights, ``--arch
-deepseek-v2-lite-16b --full`` 64.8 GB); it serves the reduced config
-(fp32), or with ``--full`` the published one at its published bfloat16
-where every kernel op the config runs on the card has a bf16 body (the
-dense-attention configs: gemma3-1b, phi3-mini-3.8b, stablelm-12b,
-minitron-4b, pixtral-12b, seamless-m4t-medium), else in fp32
-(qwen2-moe-a2.7b and deepseek-v2-lite-16b run ``moe_gemm``, mamba2-370m and
-zamba2-7b ``ssd``, which are fp32 only); see :func:`serving_config`.  It
-prints the dtype it serves in.  Like JAX's entry point it serves token LMs
+attention configs, the MoE, MLA, SSD and hybrid ones); it serves the
+reduced config (fp32), or with ``--full`` the published one at its
+published bfloat16 (every config: each kernel op they run on the card has
+a bf16 body, the MoE experts, MLA's absorbed decode and the Mamba2 scan
+included; see :func:`serving_config`).  It prints the dtype it serves in.  Like JAX's entry point it serves token LMs
 only: the encoder-decoder (seamless-m4t-medium, :class:`repro_torch.models.encdec.EncDec`)
 and the ``embeds`` frontend (pixtral-12b) are refused.  On the card every
 op runs on the port's hand-written
@@ -87,8 +82,9 @@ def kernel_ops(cfg: ArchConfig) -> set:
 
 def has_bf16_bodies(cfg: ArchConfig) -> bool:
     """Whether every kernel op ``cfg`` runs on the card (:func:`kernel_ops`)
-    has a bf16 body that takes its widths (ops.BF16_OPS; the bf16 decode
-    is the narrow layout, D and Dv <= 256)."""
+    has a bf16 body that takes its widths (ops.BF16_OPS; the attention
+    kernels' fits at bf16, MLA's wide absorbed decode included).  It holds
+    for every published config."""
     for op, widths in kernel_ops(cfg):
         if op not in BF16_OPS:
             return False
@@ -102,9 +98,8 @@ def has_bf16_bodies(cfg: ArchConfig) -> bool:
 def serving_config(arch: str, *, full: bool = False, device: DeviceLike = None) -> ArchConfig:
     """The config the entry point serves: ``get_reduced(arch)`` (fp32), or
     with ``full`` the published config at its published dtypes where every
-    kernel op it runs on the card has a bf16 body (:func:`has_bf16_bodies`:
-    the dense-attention configs), else in fp32 (the configs that run
-    ``moe_gemm`` or ``ssd``, whose kernels are fp32 only).  The dtype does
+    kernel op it runs on the card has a bf16 body (:func:`has_bf16_bodies`,
+    which holds for every published config), else in fp32.  The dtype does
     not depend on the device: the CPU serves what the card would.  On the
     card the ops run on the kernels' backends."""
     cfg = get_config(arch) if full else get_reduced(arch)

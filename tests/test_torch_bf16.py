@@ -20,8 +20,10 @@ sides get the same bits (checked before anything is compared).
   that.
 - The port's ``ContinuousBatcher`` at bf16 on the ``cuda`` backends' plain
   versions, token-exact against its own unbatched greedy run.
-- The ops without a bf16 body (``moe_gemm``, ``ssd``) raise on ``cuda``;
-  ``serving_config`` picks each config's dtype from its ops.
+- ``moe_gemm`` and ``ssd`` take bf16 on ``cuda`` too (their kernels and
+  the wide decode: tests/test_torch_bf16_families.py) and raise on mixed
+  types; ``serving_config`` picks each config's dtype from its ops, bf16
+  for every published config.
 """
 
 from pathlib import Path
@@ -70,16 +72,16 @@ def _ulp(x: np.ndarray) -> np.ndarray:
     return np.exp2(np.floor(np.log2(mag)) - 7)
 
 
-def _within_one_ulp(got: torch.Tensor, want) -> float:
-    """Both bf16: |got - want| <= one bf16 ulp of the larger + F32_TOL;
-    returns the largest difference in ulps."""
+def _within_one_ulp(got: torch.Tensor, want, extra=0.0) -> float:
+    """Both bf16: |got - want| <= one bf16 ulp of the larger + ``extra`` +
+    F32_TOL; returns the largest difference in ulps."""
     assert got.dtype == torch.bfloat16
     g = got.float().numpy()
     w = np.asarray(jnp.asarray(want, jnp.float32))
     assert g.shape == w.shape
     ulp = _ulp(np.maximum(np.abs(g), np.abs(w)))
     diff = np.abs(g - w)
-    assert np.all(diff <= ulp + F32_TOL), float(np.max(diff - ulp))
+    assert np.all(diff <= ulp + extra + F32_TOL), float(np.max(diff - ulp - extra))
     return float(np.max(diff / ulp))
 
 
@@ -181,44 +183,75 @@ def test_bf16_bodies_refuse_mixed_types_and_the_wide_decode():
         fa.flash_attention(q, q.float(), q)
     with pytest.raises(TypeError, match="float32"):           # the chunk kernel: fp32 only
         fa.flash_chunk_attention(q, q, q, torch.zeros(1, dtype=torch.int32))
-    # MLA's absorbed decode (D 576, Dv 512) has no bf16 layout yet
+    # MLA's absorbed decode (D 576, Dv 512) takes the wide layout at bf16 too;
+    # past the wide layout's widths bf16 refuses as fp32 does
     qd = torch.zeros(1, 4, 576, dtype=torch.bfloat16)
     kd, vd = torch.zeros(1, 8, 1, 576, dtype=torch.bfloat16), torch.zeros(1, 8, 1, 512,
                                                                          dtype=torch.bfloat16)
+    out = fd.flash_decode(qd, kd, vd, torch.ones(1, dtype=torch.int32))
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 4, 512)
+    assert fd.decode_fits(4, 1, 576, 512) and fd.decode_fits(4, 1, 576, 512, bf16=True)
+    # bf16 rings: 640 fits where fp32 stops at 596
+    assert fd.decode_fits(4, 1, 640, 512, bf16=True) and not fd.decode_fits(4, 1, 640, 512)
     with pytest.raises(ValueError, match="bfloat16"):
-        fd.flash_decode(qd, kd, vd, torch.ones(1, dtype=torch.int32))
-    assert fd.decode_fits(4, 1, 576, 512) and not fd.decode_fits(4, 1, 576, 512, bf16=True)
+        fd.flash_decode(torch.zeros(1, 4, 644, dtype=torch.bfloat16),
+                        torch.zeros(1, 8, 1, 644, dtype=torch.bfloat16), vd,
+                        torch.ones(1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="alike"):
+        fd.flash_decode(qd, kd.float(), vd, torch.ones(1, dtype=torch.int32))
     with pytest.raises(TypeError, match="float32"):           # the partial kernel: fp32 only
         fd.flash_decode_partial(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
 
 
 # --------------------------------------------------------------------------- #
-# ops without a bf16 body, and the dtype serving_config picks
+# moe_gemm and ssd at bf16, and the dtype serving_config picks
 # --------------------------------------------------------------------------- #
 
 def test_moe_gemm_and_ssd_cuda_raise_on_bf16():
+    """Both now take bf16 on ``cuda`` (moe_gemm: x and w alike; ssd: x, B
+    and C alike, dt and A fp32) and raise ``TypeError`` naming the kernel
+    on anything else, as their supports guards say."""
     x, w = torch.zeros(2, 3, 8, dtype=torch.bfloat16), torch.zeros(2, 8, 4, dtype=torch.bfloat16)
+    assert kops.moe_gemm(x, w, backend="cuda").dtype == torch.bfloat16
     with pytest.raises(TypeError, match="batched_gemm"):
-        kops.moe_gemm(x, w, backend="cuda")
+        kops.moe_gemm(x, w.float(), backend="cuda")
     bs, s, h, p, g, n = 1, 16, 2, 4, 1, 8
     args = [torch.zeros(bs, s, h, p), torch.full((bs, s, h), 0.1), -torch.ones(h),
             torch.zeros(bs, s, g, n), torch.zeros(bs, s, g, n)]
     kops.ssd(*args, chunk=16, backend="cuda")                  # fp32 runs
+    half = [a.to(torch.bfloat16) if i in (0, 3, 4) else a for i, a in enumerate(args)]
+    y, st = kops.ssd(*half, chunk=16, backend="cuda")
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
     with pytest.raises(TypeError, match="ssd"):
         kops.ssd(*[a.to(torch.bfloat16) for a in args], chunk=16, backend="cuda")
+    def specs(tensors):
+        return [kops.TensorSpec(tuple(a.shape), str(a.dtype)[6:]) for a in tensors]
+
+    ssd_ok = kops.get_impl("ssd", "cuda").supports
+    assert ssd_ok(specs(half) + [None], {"chunk": 16})
+    assert not ssd_ok(specs(half[:4] + [args[4]]) + [None], {"chunk": 16})
+    moe_ok = kops.get_impl("moe_gemm", "cuda").supports
+    assert moe_ok(specs((x, w)), {}) and not moe_ok(specs((x, w.float())), {})
 
 
 @pytest.mark.parametrize("arch", list_configs())
 def test_serving_config_dtype_follows_the_ops(arch):
     """With ``full``, the published bfloat16 where every kernel op the
-    config runs on the card has a bf16 body, else fp32; reduced: fp32."""
+    config runs on the card has a bf16 body (every published config now:
+    the MoE experts, MLA's wide absorbed decode and the Mamba2 scan have
+    theirs), else fp32; reduced: fp32."""
     cfg = serve.serving_config(arch, full=True, device="cpu")
     ops = {op for op, _ in serve.kernel_ops(cfg)}
-    bf16 = ops <= kops.BF16_OPS and "mla" not in {b.mixer for b in cfg.plan.all_blocks()}
-    assert (cfg.dtype, cfg.param_dtype) == (("bfloat16",) * 2 if bf16 else ("float32",) * 2)
-    want_bf16 = {"gemma3-1b", "phi3-mini-3.8b", "stablelm-12b", "minitron-4b", "pixtral-12b",
-                 "seamless-m4t-medium"}
-    assert (arch in want_bf16) == bf16
+    assert ops <= kops.BF16_OPS and serve.has_bf16_bodies(cfg)
+    assert (cfg.dtype, cfg.param_dtype) == ("bfloat16", "bfloat16")
+    # the decision still comes from the ops: drop one of its ops' bf16 body
+    # and the config serves fp32
+    saved = serve.BF16_OPS
+    try:
+        serve.BF16_OPS = saved - {sorted(ops - {"dense", "rmsnorm"})[0]}
+        assert serve.serving_config(arch, full=True, device="cpu").dtype == "float32"
+    finally:
+        serve.BF16_OPS = saved
     assert serve.serving_config(arch, device="cpu").dtype == "float32"
 
 

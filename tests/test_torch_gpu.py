@@ -2049,3 +2049,142 @@ def test_bf16_batcher_on_the_card_matches_batch_one():
             lengths = lengths + 1
             out.append(int(lg[0].argmax()))
         assert r.done and r.out_tokens == out, r.uid
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 entries of batched_gemm, the wide flash_decode and ssd_scan
+# --------------------------------------------------------------------------- #
+
+def _rb(gen, dev):
+    def rb(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    return rb
+
+
+@pytest.mark.gpu
+def test_bf16_family_kernels_match_their_plain_versions_on_the_card():
+    """batched_gemm_bf16 (both kernels, both tiles, ragged widths), the wide
+    flash_decode_bf16 (MLA's D 576 / Dv 512, D 592, Dv off 8) and
+    ssd_scan_bf16 (with and without D, widths off 4): each bitwise the fp32
+    entry on the upcast inputs rounded once, within one bf16 ulp of its
+    plain version; the scan's state bitwise the fp32 entry's."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.gemm import batched_gemm, batched_gemm_plain
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    rb = _rb(gen, dev)
+    counts = [f.bf16.launches for f in (batched_gemm, flash_decode, ssd_scan)]
+    for e, m, k, n in ((64, 32, 2048, 1408), (64, 80, 1408, 2048), (16, 4, 128, 512),
+                       (16, 4, 512, 128), (3, 17, 37, 19), (2, 130, 300, 264)):
+        x, w = rb(e, m, k), rb(e, k, n, scale=k ** -0.5)
+        _check_bf16(batched_gemm(x, w), batched_gemm(x.float(), w.float()),
+                    batched_gemm_plain(x, w))
+    for b, s, hq, hk, d, dv, lens in ((4, 2048, 16, 1, 576, 512, (1400, 1000, 600, 250)),
+                                      (3, 300, 8, 2, 592, 512, (0, 300, 77)),
+                                      (2, 100, 4, 1, 576, 260, (99, 3))):
+        q, k, v = rb(b, hq, d), rb(b, s, hk, d), rb(b, s, hk, dv)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = flash_decode(q, k, v, lengths)
+        _check_bf16(got, flash_decode(q.float(), k.float(), v.float(), lengths),
+                    flash_decode_plain(q, k, v, lengths, 1.0 / math.sqrt(d)))
+        assert all(float(got[i].float().abs().max()) == 0.0 for i, n in enumerate(lens) if n == 0)
+    fn = torch.nn.functional
+    for b, sl, h, p, g, n, q in ((1, 1024, 32, 64, 1, 128, 128), (1, 256, 112, 64, 1, 64, 128),
+                                 (2, 111, 4, 6, 2, 10, 37)):
+        x, bm, cm = rb(b, sl, h, p), rb(b, sl, g, n, scale=0.3), rb(b, sl, g, n, scale=0.3)
+        dt = fn.softplus(torch.randn(b, sl, h, generator=gen, device=dev) - 3.0)
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
+        for d_skip in (None, torch.randn(h, generator=gen, device=dev)):
+            y, st = ssd_scan(x, dt, a, bm, cm, d_skip, chunk=q)
+            y32, st32 = ssd_scan(x.float(), dt, a, bm.float(), cm.float(), d_skip, chunk=q)
+            yp, stp = ssd_scan_plain(x, dt, a, bm, cm, d_skip, chunk=q)
+            _check_bf16(y, y32, yp)
+            assert st.dtype == torch.float32 and torch.equal(st, st32)
+            torch.testing.assert_close(st, stp, rtol=1e-4, atol=1e-4)
+    after = [f.bf16.launches for f in (batched_gemm, flash_decode, ssd_scan)]
+    assert all(a > b for a, b in zip(after, counts))
+
+
+@pytest.mark.gpu
+def test_bf16_expert_rows_do_not_depend_on_m():
+    """batched_gemm_bf16: expert e's row has the same bits at M = 1 (skinny)
+    and M = 32 (tiled), at qwen2's expert widths, and equals gemm_bf16's
+    row of x[e] @ w[e]."""
+    dev = _card()
+    from repro_torch.kernels.gemm import batched_gemm, gemm, gemm_variant
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rb = _rb(gen, dev)
+    assert (gemm_variant(1), gemm_variant(32)) == ("skinny", "tiled")
+    for k, n in ((2048, 1408), (1408, 2048), (128, 512)):
+        x, w = rb(8, 32, k), rb(8, k, n, scale=k ** -0.5)
+        full = batched_gemm(x, w)
+        one = batched_gemm(x[:, :1].contiguous(), w)
+        assert torch.equal(one, full[:, :1]), (k, n)
+        for e in (0, 7):
+            assert torch.equal(gemm(x[e], w[e]), full[e]), (k, n, e)
+
+
+@pytest.mark.gpu
+def test_bf16_ssd_scan_does_not_depend_on_the_batch():
+    """ssd_scan_bf16: sequence i of a batch of 4 has the bits of the scan of
+    it alone, y and state, at mamba2-370m's widths."""
+    dev = _card()
+    from repro_torch.kernels.ssd import ssd_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rb = _rb(gen, dev)
+    b, sl, h, p, g, n = 4, 256, 32, 64, 1, 128
+    x, bm, cm = rb(b, sl, h, p), rb(b, sl, g, n, scale=0.3), rb(b, sl, g, n, scale=0.3)
+    dt = torch.nn.functional.softplus(torch.randn(b, sl, h, generator=gen, device=dev) - 3.0)
+    a, d_skip = -torch.linspace(1.0, 16.0, h, device=dev), torch.ones(h, device=dev)
+    y, st = ssd_scan(x, dt, a, bm, cm, d_skip)
+    for i in (0, 3):
+        one = [t[i:i + 1].contiguous() for t in (x, dt, bm, cm)]
+        y1, st1 = ssd_scan(one[0], one[1], a, one[2], one[3], d_skip)
+        assert torch.equal(y1[0], y[i]) and torch.equal(st1[0], st[i]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-370m", "zamba2-7b",
+                                  "deepseek-v2-lite-16b"])
+def test_bf16_family_batcher_on_the_card_matches_batch_one(arch):
+    """The reduced MoE, Mamba2, hybrid and MLA configs at bfloat16 on the
+    card's bf16 kernels: the batcher's tokens equal the unbatched greedy
+    run's, and batched_gemm and ssd_scan launch only on their bf16
+    entries."""
+    dev = _card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.gemm import batched_gemm
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models.lm import CUDA_BACKENDS, LM
+    from repro_torch.runtime.batching import ContinuousBatcher, Request
+    cfg = get_reduced(arch).with_overrides(dtype="bfloat16", param_dtype="bfloat16",
+                                           backends=CUDA_BACKENDS)
+    model = LM(cfg)
+    params = model.init_params(0, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=m)
+            for i, (n, m) in enumerate(zip((6, 21, 30, 6, 21), (5, 3, 7, 4, 6)))]
+    before = [(f.launches, f.bf16.launches) for f in (batched_gemm, ssd_scan)]
+    batcher = ContinuousBatcher(model, params, n_slots=3, cache_cap=40, eos_id=-1)
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    uses = {"batched_gemm": cfg.moe is not None or cfg.mla is not None,
+            "ssd_scan": cfg.ssm is not None}
+    for f, (n32, n16) in zip((batched_gemm, ssd_scan), before):
+        assert f.launches == n32 and (f.bf16.launches > n16) == uses[f.__name__], f.__name__
+    for r in reqs:
+        lg, caches, lengths = model.prefill(
+            params, {"tokens": torch.from_numpy(r.prompt)[None].to(dev)}, cache_cap=40)
+        out = [int(lg[0].argmax())]
+        while len(out) < r.max_new_tokens:
+            lg, caches = model.decode_step(
+                params, torch.tensor([out[-1]], dtype=torch.int32, device=dev), caches, lengths)
+            lengths = lengths + 1
+            out.append(int(lg[0].argmax()))
+        assert r.done and r.out_tokens == out, r.uid

@@ -150,8 +150,8 @@ def test_decode_attention_partial_empty_row(backend):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-def _dec_specs(s, hq=2, hk=1, d=8, dtype="float32", ts=TensorSpec):
-    return [ts((1, hq, d), dtype), ts((1, s, hk, d), dtype), ts((1, s, hk, d), dtype),
+def _dec_specs(s, hq=2, hk=1, d=8, dtype="float32", ts=TensorSpec, dv=None):
+    return [ts((1, hq, d), dtype), ts((1, s, hk, d), dtype), ts((1, s, hk, dv or d), dtype),
             ts((1,), "int32")]
 
 
@@ -176,15 +176,18 @@ def test_split_supports_guard_and_its_differences_from_jax(s, n_splits, attrs, p
 def test_split_supports_what_only_the_port_rejects():
     """The port's partial kernel is fp32 with D <= 640 and Dv <= 512 (the
     dense kernel's wide layout) in shared memory; the cuda backend has a
-    bf16 body too, for the narrow widths only (D <= 256).  JAX's split
-    guard reads only S and n_splits."""
+    bf16 body too, in both layouts (MLA's D 576 / Dv 512 since the wide one
+    takes bf16 rows; Dv past 512 in neither).  JAX's split guard reads only
+    S and n_splits."""
     for specs in (_dec_specs(32, d=640), _dec_specs(32, dtype="bfloat16"),
-                  _dec_specs(32, d=576, dtype="bfloat16")):
+                  _dec_specs(32, d=576, dtype="bfloat16", dv=512)):
         assert "cuda_split" not in backends_for("decode_attention", specs, {})
     assert "cuda" not in backends_for("decode_attention", _dec_specs(32, d=640), {})
     assert "cuda" not in backends_for("decode_attention", _dec_specs(32, d=576, dtype="bfloat16"),
                                       {})
     assert "cuda" in backends_for("decode_attention", _dec_specs(32, dtype="bfloat16"), {})
+    assert "cuda" in backends_for("decode_attention",
+                                  _dec_specs(32, hq=16, d=576, dtype="bfloat16", dv=512), {})
     assert "pallas_split" in jbackends_for("decode_attention",
                                            _dec_specs(32, d=640, ts=JSpec), {})
     assert "pallas_split" in jbackends_for("decode_attention",
