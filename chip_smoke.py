@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a) into
              one shared library; print the time and ptxas' register lines.
-3. kernels — hold each of the eleven kernels against its plain PyTorch
-             version on the card: small edge cases, then the shapes the
+3. kernels — hold each of the eleven kernels and their bf16 entries
+             against its plain PyTorch version on the card: small edge
+             cases, then the shapes the
              full-width serving paths give it (phi3-mini widths for the
              engine, gemma3-1b, qwen2-moe-a2.7b, mamba2-370m, zamba2-7b and
              deepseek-v2-lite-16b widths for the layer-stack batcher,
@@ -74,7 +75,15 @@ Phases, each printing its own lines; any failure exits non-zero:
              bf16 inputs, the bound at 2 bytes a value and 989 TFLOP/s.
              The fp32 entries of batched_gemm, ssd_scan and flash_attention
              (FP32_ROWS: no full-width phase runs them) get their own rows
-             at the same calls on the upcast inputs.
+             at the same calls on the upcast inputs.  The partial kernel's
+             bf16 entry (flash_decode_partial_bf16, phase 24's length-sharded
+             decode) runs at SPLIT_BF16_SHAPES: phi3-mini's engine decode at
+             n_splits 2, gemma3-1b's global decode at n_splits 2-16 and MLA's
+             absorbed decode (D 576, Dv 512) at n_splits 2; its acc must be
+             the fp32 entry's acc on the upcast inputs rounded once and its
+             m and l the fp32 entry's, bit for bit, within one bf16 ulp
+             (+1e-4; m and l 1e-4) of its plain version, and cuda_split at
+             bf16 within the roundings of the merge of the plain partials.
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
@@ -321,6 +330,22 @@ Phases, each printing its own lines; any failure exits non-zero:
              step's bound ((6 N T + 3x the forward attention) FLOP at 67
              TFLOP/s), checkpoint bytes, save (device-to-host copy, then
              write) and restore seconds.
+22b. train_bf16 — (after 22) gemma3-1b at its published widths, depth
+             and dtypes: bf16 params (init_params(0), no override), f32
+             masters, mu and nu; phase 22's AdamW, schedule, batches and
+             make_train_step(donate=True) with remat, TRAIN_BF16_STEPS (4)
+             steps, step 1 also run from a copy of the initial state.  Fails
+             unless the losses and grad norms are finite, every master leaf
+             moved, every param leaf is its master rounded once to bf16 (the
+             norm scales at 1.0 keep their value under the warmup's lr: less
+             than half a bf16 ulp), the dtypes hold, step 1 repeated is
+             bitwise step 1, step 1's loss lies within 1e-2 relative of
+             phase 22's fp32 step-1 loss and no kernel launched.  No
+             checkpoint: a bf16 leaf does not restore in either package.
+             Prints ms a step (median of steps 2-4) and step 1, tokens/s,
+             peak GB and the bounds (train_flops at 989 TFLOP/s bf16;
+             AdamW's pass over 2 + 4 + 4 + 4 bytes a parameter, read and
+             written once, at 3.35 TB/s).
 23. mesh_train — (after 22) gemma3-1b at its published widths cut to
              MESH_TRAIN_PERIODS (1) period, 6 layers (5 sliding-window + 1
              global; 0.46 B params, the 1.21 GB tied vocab included), fp32:
@@ -357,23 +382,31 @@ Phases, each printing its own lines; any failure exits non-zero:
              gathered and all-reduced in a step, checkpoint save and restore
              seconds, the pipeline's ticks and bubble (3/11).
 24. mesh_serve — (in phase 23's four ranks, after 23c dropped the training
-             state) gemma3-1b at its published widths and depth (26 layers,
-             4 heads on 1 KV head of 256), fp32, init_params(0) whole on
-             every rank, decode attention on the ``cuda`` backend, on the
-             (data 2, model 2) mesh: runtime/serve.py's make_prefill_step
-             (SERVE_BATCH (4) seeded prompts of SERVE_PROMPT (1000) tokens
-             into a cache of SERVE_CAP (2048)) then SERVE_STEPS (16) greedy
-             make_decode_step steps on three paths: seq_shard_fallback on
-             (1 KV head: every k / v length over "model", the tree decode
-             on the partial kernel), off (the caches replicated over
-             "model", flash_decode), and batch 1 for SERVE_STEPS_B1 (8)
-             steps (the length over "data").  Rank 0 runs the one-process
-             reference (LM.prefill, LM.decode_step on the whole cache,
-             greedy) and broadcasts it.  Fails unless on every rank each
-             path's greedy tokens equal the reference's, its logits lie
-             within 1e-4 of the reference's largest |logit|, and the path's
-             kernel launched (flash_decode_partial on the sequence-sharded
-             paths, flash_decode on the replicated one).  Prints ms a
+             state) gemma3-1b at its published widths, depth and bfloat16
+             (26 layers, 4 heads on 1 KV head of 256), init_params(0) whole
+             on every rank, every kernel op on ``cuda`` (CUDA_BACKENDS), on
+             the (data 2, model 2) mesh: runtime/serve.py's
+             make_prefill_step (SERVE_BATCH (4) seeded prompts of
+             SERVE_PROMPT (1000) tokens into a cache of SERVE_CAP (2048))
+             then SERVE_STEPS (16) make_decode_step steps on three paths:
+             seq_shard_fallback on (1 KV head: every k / v length over
+             "model", the tree decode on flash_decode_partial_bf16), off
+             (the caches replicated over "model", flash_decode_bf16), and
+             batch 1 for SERVE_STEPS_B1 (8) steps (the length over "data").
+             Rank 0 runs the one-process reference (LM.prefill,
+             LM.decode_step on the whole cache, greedy) and the same config
+             at fp32 on the upcast weights fed its tokens, and broadcasts
+             them.  The replicated path decodes greedily and must give the
+             reference's tokens and logits bit for bit (every op is
+             batch-invariant); the length-sharded paths round each rank's
+             partial acc to bf16 (as JAX's step does) and are fed the
+             reference's tokens: their logits must lie within the bound,
+             twice the reference's bf16-vs-fp32 gap (relative to its
+             largest |logit|), and an argmax may differ from the
+             reference's only where its top-2 logits lie within that row's
+             window, twice the row's |bf16 - fp32| at that step (the count,
+             the gaps and the windows are printed).  Every path's logits are bf16, its
+             kernel launched and no fp32 decode entry ran.  Prints ms a
              decode step by rank (functional: gloo through the host on one
              card) and rank 0's bytes gathered and all-reduced a step.  The
              kernels line's "mesh_serve" launches are the three paths' on
@@ -392,7 +425,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 The last three lines of standard output are JSON: the serving numbers
 (phases 15, 16, 17 and 18 under "heal", "load", "deploy" and "tp"; 19-21 under
 "hybrid", "mla" (with the k_cat copy's time) and "encdec"; 22 under "train",
-23 under "mesh_train", 24 under "mesh_serve", 25 under "dryrun"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
+22b under "train_bf16", 23 under "mesh_train", 24 under "mesh_serve", 25 under "dryrun"), one entry per kernel (``{"kernels": [...]}``), and the result line.  Without a CUDA device, or away from the
 repository's ``src/``, it exits with code 2 and prints no result.
 """
 
@@ -989,6 +1022,8 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
     extra = {"empty_launch_ms": empty_ms, "shapes": shapes,
              "combine": combine_kernels(torch, K, rn, timer, record, full_tol),
              "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
+             "split_bf16": split_bf16_kernels(torch, K, rn, timer, record, full_tol,
+                                              limit_line),
              "conv2d": conv_kernels(torch, rn, timer, full_tol, limit_line)}
     stack_est = {c.name: stack_kernels(torch, K, c, rn, timer, record, full_tol, limit_line)
                  for c in scfgs}
@@ -1339,6 +1374,81 @@ def split_kernels(torch, K, rn, timer, record, full_tol, limit_line):
                              split_ms=split_ms, split_bound_ms=b_split, plain_ms=plain,
                              flash_decode_ms=dense_ms, sdpa_ms=sdpa_ms, max_abs_err=err))
         del q, k, v
+    return rows
+
+
+# the bf16 partial's shapes: phi3-mini's engine decode, gemma3-1b's global
+# decode (phase 24's length-sharded decode) over the n_splits curve and
+# deepseek-v2-lite's absorbed MLA decode (the wide layout): (tag, B, Hq, Hk,
+# D, Dv, S, lengths, n_splits)
+SPLIT_BF16_SHAPES = (
+    ("phi3-mini engine decode", 4, 32, 32, 96, 96, 1024, [731, 400, 129, 0], (2,)),
+    ("gemma3-1b global decode", 4, 4, 1, 256, 256, 2048, [1400, 1000, 600, 250], (2, 4, 8, 16)),
+    ("deepseek-v2-lite MLA absorbed decode", 4, 16, 1, 576, 512, 2048, [1400, 1000, 600, 250],
+     (2,)),
+)
+
+
+def split_bf16_kernels(torch, K, rn, timer, record, full_tol, limit_line):
+    """flash_decode_partial's bf16 entry at SPLIT_BF16_SHAPES: its acc
+    bitwise the fp32 entry's acc on the upcast inputs rounded once, m and l
+    bitwise the fp32 entry's, acc within one bf16 ulp (+1e-4) and m, l
+    within the fp32 tolerance of the plain version; timed beside the fp32
+    entry on the upcast inputs, the plain version and the cuda_split
+    backend at bf16 (kernel + combine, the merge rounded once; against the
+    merge of the plain partials within the roundings both make: each rounds
+    every shard's acc and the output, 2^-7 of the merge of the shards' |acc|
+    plus 2^-7 of |out|, since the shards' acc may cancel).  The bound counts q, the live K/V rows at 2 bytes
+    a value and the lengths read once, the partials written once (acc 2
+    bytes a value, m and l 4 each).  Returns the rows."""
+    bf16, rows = torch.bfloat16, []
+    for tag, b, hq, hk, d, dv, s_len, lens, splits in SPLIT_BF16_SHAPES:
+        q, k, v = (rn(*shape).to(bf16) for shape in ((b, hq, d), (b, s_len, hk, d),
+                                                       (b, s_len, hk, dv)))
+        up = (q.float(), k.float(), v.float())
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        sc = 1.0 / math.sqrt(d)
+        live = sum(min(max(x, 0), s_len) for x in lens)
+        flops = 2.0 * live * hq * (d + dv)
+        for ns in splits:
+            label = (f"{tag} B={b} Hq={hq} Hk={hk} D={d} Dv={dv} S={s_len} len={lens} "
+                     f"n_splits={ns} bf16")
+            got = K.flash_decode_partial(q, k, v, lengths, n_splits=ns)
+            f32 = K.flash_decode_partial(*up, lengths, n_splits=ns)
+            if got[0].dtype != bf16 or not torch.equal(got[0], f32[0].to(bf16)) or not (
+                    torch.equal(got[1], f32[1]) and torch.equal(got[2], f32[2])):
+                fail(f"flash_decode_partial_bf16 {label}: not the fp32 entry's partials on the "
+                     f"upcast inputs (acc rounded once, m and l bitwise)")
+            want = K.flash_decode_partial_plain(q, k, v, lengths, sc, ns)
+            err = max(check_close(torch, f"flash_decode_partial_bf16 {label} acc",
+                                  got[0].float(), want[0].float(), **BF16_TOL),
+                      check_close(torch, f"flash_decode_partial_bf16 {label} m", got[1], want[1],
+                                  **full_tol),
+                      check_close(torch, f"flash_decode_partial_bf16 {label} l", got[2], want[2],
+                                  **full_tol))
+            split = K.decode_attention(q, k, v, lengths, backend="cuda_split", n_splits=ns)
+            merged = K.combine_partials_ref(want[0].float(), want[1], want[2]).to(bf16).float()
+            mag = K.combine_partials_ref(want[0].float().abs(), want[1], want[2])
+            if bool(((split.float() - merged).abs()
+                     > 2.0 ** -7 * (mag + merged.abs()) + BF16_TOL["atol"]).any()):
+                fail(f"cuda_split bf16 {label}: past the roundings of the plain route "
+                     f"(max |err| {float((split.float() - merged).abs().max()):.3e})")
+            ms = timer.ms(lambda: K.flash_decode_partial(q, k, v, lengths, n_splits=ns))
+            fp32_ms = timer.ms(lambda: K.flash_decode_partial(*up, lengths, n_splits=ns))
+            plain = timer.ms(lambda: K.flash_decode_partial_plain(q, k, v, lengths, sc, ns))
+            split_ms = timer.ms(lambda: K.decode_attention(q, k, v, lengths,
+                                                           backend="cuda_split", n_splits=ns))
+            nbytes = 2.0 * (live * hk * (d + dv) + b * hq * d) + 4.0 * b \
+                + ns * b * hq * (2.0 * dv + 8.0)
+            record("flash_decode_partial_bf16", f"{tag} n_splits={ns}", label, err, ms, plain,
+                   None, flops, nbytes, peak=PEAK_BF16_FLOPS, fp32_ms=fp32_ms)
+            say(f"    cuda_split backend at bf16 (kernel + combine) {split_ms:.4g} ms  "
+                f"[{limit_line}]")
+            rows.append(dict(shape=tag, n_splits=ns, kernel_ms=ms, fp32_kernel_ms=fp32_ms,
+                             plain_ms=plain, split_ms=split_ms, max_abs_err=err,
+                             bound_ms=bound(flops, nbytes, PEAK_BF16_FLOPS)[0]))
+            del got, f32, want, split, merged
+        del q, k, v, up
     return rows
 
 
@@ -3855,6 +3965,131 @@ def train_phase(torch, K, card):
     return stats
 
 
+TRAIN_BF16_STEPS = 4                 # phase 22b's steps (step 1 then repeated from a copy)
+ADAMW_BYTES = 2 + 4 + 4 + 4          # a parameter's bf16 grad / param, f32 master, mu, nu
+
+
+def train_bf16_phase(torch, K, card, fp32_record):
+    """Phase 22b: gemma3-1b at its published widths, depth and dtypes (bf16
+    params from ``init_params(0)`` with no override, f32 masters and
+    moments), phase 22's AdamW, schedule, batches and
+    ``make_train_step(donate=True)`` with remat, TRAIN_BF16_STEPS steps;
+    step 1 also from a copy of the initial state.  Fails unless the losses
+    and grad norms are finite, every master leaf moved and every param leaf
+    is its master rounded once to bf16 (a param leaf whose master moved by
+    less than half a bf16 ulp keeps its value: the norm scales at 1.0, under
+    the warmup's lr), the dtypes hold, step 1 repeated is bitwise step 1,
+    step 1's loss lies within 1e-2 relative of phase 22's fp32 step-1 loss
+    on the same batch and no kernel of the port launched.  Returns the
+    numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.lm import LM, strip_derived
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.runtime.train import make_train_step
+
+    cfg = get_config("gemma3-1b")
+    model = LM(cfg)
+    # phase 22's schedule, over phase 22's steps: the same lr at each step
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, schedule=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
+    before = kernel_counts(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = strip_derived(model.init_params(0, device="cuda"))
+    opt = adamw.init(params, opt_cfg)
+    copy = tree_map(torch.clone, {"params": params, "opt": opt})
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    dtypes = ({str(x.dtype) for x in tree_leaves(params)},
+              {str(x.dtype) for k in ("master", "mu", "nu") for x in tree_leaves(opt[k])})
+    if dtypes != ({"torch.bfloat16"}, {"torch.float32"}):
+        fail(f"train_bf16: params {dtypes[0]}, masters and moments {dtypes[1]}")
+    say(f"  weights {n_params / 1e9:.4f} B params, bf16 ({2 * n_params / 1e9:.2f} GB; with bf16 "
+        f"grads and f32 masters, mu and nu {16 * n_params / 1e9:.2f} GB, and a copy of the "
+        f"initial state for the repeat), drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"remat {cfg.remat}, dtype {cfg.dtype}, param_dtype {cfg.param_dtype}")
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch_at(i).items()}
+               for i in range(TRAIN_BF16_STEPS)]
+    step_fn = make_train_step(model, cfg, opt_cfg, donate=True)
+    masters0 = [float(x.double().sum()) for x in tree_leaves(opt["master"])]
+    params0 = [float(x.double().sum()) for x in tree_leaves(params)]
+
+    def timed(p, o, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, o, m = step_fn(p, o, batch)
+        torch.cuda.synchronize()
+        return p, o, m, 1e3 * (time.perf_counter() - t)
+
+    ms, losses, gnorms = [], [], []
+    for i in range(TRAIN_BF16_STEPS):
+        params, opt, m, t_ms = timed(params, opt, batches[i])
+        ms.append(t_ms)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i == 0:
+            # step 1 again, from the copy of the initial state
+            p_r, o_r, m_r, repeat_ms = timed(copy["params"], copy["opt"], batches[0])
+            same = [torch.equal(a, b) for a, b in zip(tree_leaves({"p": params, "o": opt}),
+                                                      tree_leaves({"p": p_r, "o": o_r}))]
+            if not all(same) or float(m_r["loss"]) != losses[0]:
+                fail(f"train_bf16: step 1 repeated from a copy of the initial state differs in "
+                     f"{same.count(False)} of {len(same)} state leaves (loss "
+                     f"{float(m_r['loss'])} against {losses[0]})")
+            del copy, p_r, o_r, m_r
+            release(torch)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  losses {losses}; grad norms {gnorms}; ms a step {[round(x, 1) for x in ms]}, step 1 "
+        f"repeated {repeat_ms:.1f}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"train_bf16: a loss or grad norm is not finite: {losses}, {gnorms}")
+    still = sum(a == float(b.double().sum()) for a, b in zip(masters0, tree_leaves(opt["master"])))
+    if still:
+        fail(f"train_bf16: {still} master leaves did not move in {TRAIN_BF16_STEPS} steps")
+    cast = [torch.equal(p, w.to(torch.bfloat16))
+            for p, w in zip(tree_leaves(params), tree_leaves(opt["master"]))]
+    if not all(cast):
+        fail(f"train_bf16: {cast.count(False)} param leaves are not their masters rounded once")
+    moved = sum(a != float(b.double().sum()) for a, b in zip(params0, tree_leaves(params)))
+    fp32_loss = fp32_record["losses"][0]
+    if not abs(losses[0] - fp32_loss) <= 1e-2 * abs(fp32_loss):
+        fail(f"train_bf16: step 1's loss {losses[0]} is not within 1e-2 of phase 22's fp32 "
+             f"{fp32_loss}")
+    after = kernel_counts(K)
+    if after != before:
+        fail(f"train_bf16: kernels launched during training: "
+             f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }")
+    step_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    adamw_bytes = 2.0 * ADAMW_BYTES * n_params
+    stats = {
+        "arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_BF16_STEPS, "ms_per_step_median_2_to_4": step_ms, "ms_per_step": ms,
+        "step1_ms": ms[0], "step1_repeated_ms": repeat_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "max_memory_allocated_gb": peak / 1e9, "step_flops": flops,
+        "bound_ms": flops / PEAK_BF16_FLOPS * 1e3, "bound_by": "operations",
+        "adamw_bytes": adamw_bytes, "adamw_bytes_ms": adamw_bytes / PEAK_HBM_BYTES * 1e3,
+        "losses": losses, "grad_norms": gnorms, "fp32_step1_loss": fp32_loss,
+        "param_leaves_moved": moved, "param_leaves": len(cast), "step1_repeat_bitwise": True,
+        "launches": 0,
+    }
+    say(f"  step 1 repeated from a copy of the initial state: bitwise; {moved} of {len(cast)} "
+        f"param leaves moved (each param its master rounded once; every master moved); step 1 "
+        f"loss {losses[0]:.6f} against phase 22's fp32 {fp32_loss:.6f}; no kernel launched")
+    say(f"  training bf16 ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens a step; bound: "
+        f"{flops / 1e12:.2f} TFLOP at 989 TFLOP/s bf16, AdamW's pass {adamw_bytes / 1e9:.1f} GB "
+        f"at 3.35 TB/s): {json.dumps(stats)} [{card}]")
+    del params, opt, batches
+    return stats
+
+
 # --------------------------------------------------------------------------- #
 # phase 23: sharded training on a (data 2, model 2) process mesh, and the
 # pipeline over "pod", four ranks on one card over gloo
@@ -4066,23 +4301,29 @@ SERVE_PATHS = (("seqshard", True, SERVE_BATCH, SERVE_STEPS),
                ("batch1", True, 1, SERVE_STEPS_B1))
 
 
-def serve_config():
-    """Phase 24's config: gemma3-1b at its published widths and depth, fp32,
-    decode attention on the ``cuda`` backend."""
+def serve_config(dtype=None):
+    """Phase 24's config: gemma3-1b at its published widths, depth and
+    bfloat16, on the kernels the port serves with (CUDA_BACKENDS: every
+    kernel of the path gives a row the same bits at any batch, so a rank's
+    rows of the replicated mode are the one-process run's); ``dtype``
+    "float32": the same on the upcast weights (the yardstick of the bound)."""
     from repro_torch.configs import get_config
-    cfg = get_config("gemma3-1b")
-    return cfg.with_overrides(dtype="float32", param_dtype="float32",
-                              backends={**cfg.backends, "decode_attention": "cuda"})
+    from repro_torch.models.lm import CUDA_BACKENDS
+    cfg = get_config("gemma3-1b").with_overrides(backends={**CUDA_BACKENDS})
+    return cfg if dtype is None else cfg.with_overrides(dtype=dtype, param_dtype=dtype)
 
 
-def greedy_run(torch, prefill, decode, params, prompts, steps, mesh=None):
-    """Greedy decode after the prefill: (logits a step (steps, B, V), tokens
-    (steps, B), ms a decode step (synchronised; after a barrier on a mesh),
-    the mesh's bytes gathered and all-reduced a decode step)."""
+def greedy_run(torch, prefill, decode, params, prompts, steps, mesh=None, forced=None):
+    """Greedy decode after the prefill: (logits a step (steps, B, V), the
+    argmax tokens (steps, B), ms a decode step (synchronised; after a
+    barrier on a mesh), the mesh's bytes gathered and all-reduced a decode
+    step).  With ``forced`` ((steps, B) tokens) step t feeds forced[t]
+    instead of its own argmax (teacher forcing: every step's logits answer
+    the inputs of the run that chose ``forced``)."""
     import torch.distributed as dist
     logits, caches, lengths = prefill(params, {"tokens": prompts})
     all_logits, tokens, ms, traffic = [], [], [], []
-    for _ in range(steps):
+    for t in range(steps):
         tok = torch.argmax(logits, dim=-1).to(torch.int32)   # ties: the lowest id
         all_logits.append(logits)
         tokens.append(tok)
@@ -4090,23 +4331,51 @@ def greedy_run(torch, prefill, decode, params, prompts, steps, mesh=None):
         if mesh is not None:
             dist.barrier()
             mesh.traffic.update(gathered=0, reduced=0)
-        t = time.perf_counter()
-        logits, caches = decode(params, tok, caches, lengths)
+        t0 = time.perf_counter()
+        logits, caches = decode(params, tok if forced is None else forced[t], caches, lengths)
         torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t))
+        ms.append(1e3 * (time.perf_counter() - t0))
         if mesh is not None:
             traffic.append(dict(mesh.traffic))
         lengths = lengths + 1
     return torch.stack(all_logits), torch.stack(tokens), ms, traffic
 
 
+def serve_reference(torch, model, params, prompts, steps):
+    """Rank 0's one-process references at one batch: the bf16 greedy run
+    (LM.prefill, LM.decode_step on the whole cache) and the same config at
+    fp32 on the upcast weights fed the bf16 run's tokens.  Returns the bf16
+    logits (as float32, exact: what rank 0 broadcasts) and tokens, JAX's bf16 convention's bound on the length-sharded
+    modes (twice the largest |bf16 - fp32| over the steps, relative to the
+    largest |logit|: the sharded steps round each rank's partial acc to bf16,
+    as JAX's do), the top-2 gap of the bf16 logits a step and row, and the
+    near-tie window a step and row: twice that row's largest |bf16 - fp32|
+    at that step (the same convention, row by row)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.lm import LM
+    logits, tokens, _, _ = greedy_run(
+        torch, lambda p, i: model.prefill(p, i, cache_cap=SERVE_CAP), model.decode_step,
+        params, prompts, steps)
+    m32 = LM(serve_config("float32"))
+    p32 = tree_map(lambda x: x.float(), params)
+    l32, _, _, _ = greedy_run(torch, lambda p, i: m32.prefill(p, i, cache_cap=SERVE_CAP),
+                              m32.decode_step, p32, prompts, steps, forced=tokens)
+    del p32
+    l16 = logits.float()
+    gap = float((l16 - l32).abs().max() / l32.abs().max())
+    top2 = l16.topk(2, dim=-1).values
+    return l16, tokens, torch.tensor([2.0 * gap, gap], device=l16.device), \
+        top2[..., 0] - top2[..., 1], 2.0 * (l16 - l32).abs().amax(dim=-1)
+
+
 def mesh_serve_rank(torch, K, mesh):
     """Phase 24 on one rank of phase 23's (data 2, model 2) mesh: the whole
-    params on every rank (init_params(0)); rank 0's one-process reference
-    (``LM.prefill`` and ``LM.decode_step`` on the whole cache, greedy)
-    broadcast to every rank; then each of SERVE_PATHS through
-    make_prefill_step / make_decode_step, greedy, held against it here.
-    Returns what the parent gates and prints."""
+    bf16 params on every rank (init_params(0)); rank 0's one-process
+    references (serve_reference) broadcast to every rank; then each of
+    SERVE_PATHS through make_prefill_step / make_decode_step, held against
+    them here: the replicated mode greedy on its own tokens, the
+    length-sharded modes fed the reference's tokens.  Returns what the
+    parent gates and prints."""
     import numpy as np
     import torch.distributed as dist
     from repro_torch.models.lm import LM
@@ -4125,34 +4394,43 @@ def mesh_serve_rank(torch, K, mesh):
             t = time.perf_counter()
             before = kernel_counts(K)
             if rank0:
-                logits, tokens, _, _ = greedy_run(
-                    torch, lambda p, i: model.prefill(p, i, cache_cap=SERVE_CAP),
-                    model.decode_step, params, prompts[:b], steps)
+                ref = serve_reference(torch, model, params, prompts[:b], steps)
             else:
-                logits = torch.empty((steps, b, cfg.vocab_padded), dtype=torch.float32,
-                                     device=dev)
-                tokens = torch.empty((steps, b), dtype=torch.int32, device=dev)
+                ref = (torch.empty((steps, b, cfg.vocab_padded), device=dev),
+                       torch.empty((steps, b), dtype=torch.int32, device=dev),
+                       torch.empty(2, device=dev), torch.empty((steps, b), device=dev),
+                       torch.empty((steps, b), device=dev))
             after = kernel_counts(K)
-            dist.broadcast(logits, src=0)
-            dist.broadcast(tokens, src=0)
-            refs[b] = (logits, tokens)
-            out["ref"][b] = {"s": time.perf_counter() - t, "launches": {
-                k: after[k] - before[k] for k in after if after[k] != before[k]}}
+            for x in ref:
+                dist.broadcast(x, src=0)
+            refs[b] = ref
+            out["ref"][b] = {"s": time.perf_counter() - t, "bound": float(ref[2][0]),
+                             "bf16_vs_fp32": float(ref[2][1]), "launches": {
+                                 k: after[k] - before[k] for k in after if after[k] != before[k]}}
         for path, fallback, b, steps in SERVE_PATHS:
             kw = dict(batch=b, cache_cap=SERVE_CAP, seq_shard_fallback=fallback)
             prefill = make_prefill_step(model, cfg, mesh, seq=SERVE_PROMPT, **kw)
             decode = make_decode_step(model, cfg, mesh, **kw)
+            ref_logits, ref_tokens, bound_gap, top2, tie_window = refs[b]
             before = kernel_counts(K)
             t = time.perf_counter()
-            logits, tokens, ms, traffic = greedy_run(torch, prefill, decode, params,
-                                                     prompts[:b], steps, mesh)
+            logits, tokens, ms, traffic = greedy_run(
+                torch, prefill, decode, params, prompts[:b], steps, mesh,
+                forced=None if path == "replicated" else ref_tokens)
             seconds = time.perf_counter() - t
             after = kernel_counts(K)
-            ref_logits, ref_tokens = refs[b]
+            scale = float(ref_logits.abs().max())
+            flips = tokens != ref_tokens
             out["paths"][path] = {
                 "ms": ms, "s": seconds, "traffic": traffic[-1],
-                "err": float((logits - ref_logits).abs().max() / ref_logits.abs().max()),
+                "err": float((logits.float() - ref_logits).abs().max()) / scale,
+                "bound": float(bound_gap[0]), "dtype": str(logits.dtype),
                 "tokens_equal": bool(torch.equal(tokens, ref_tokens)),
+                "logits_equal": bool(torch.equal(logits.float(), ref_logits)),
+                "flips": int(flips.sum()),
+                "flips_off_ties": int((flips & (top2 > tie_window)).sum()),
+                "top2_at_flips": [float(x) for x in top2[flips]],
+                "window_at_flips": [float(x) for x in tie_window[flips]],
                 "tokens": tokens.cpu().tolist(),
                 "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
             del logits, tokens
@@ -4162,45 +4440,73 @@ def mesh_serve_rank(torch, K, mesh):
     return out
 
 
+# the decode entries a path may launch: bf16 only (no fp32 decode entry)
+FP32_DECODE = ("flash_decode", "flash_decode_partial", "flash_paged_decode")
+
+
 def mesh_serve_gates(ranks, card):
     """Phase 24's gates on the ranks' results, and its record."""
     paths = {}
     for path, fallback, b, steps in SERVE_PATHS:
         per = [r["serve"]["paths"][path] for r in ranks]
+        kernel = "flash_decode_bf16" if path == "replicated" else "flash_decode_partial_bf16"
         for r, p in zip(ranks, per):
-            if not p["tokens_equal"]:
-                fail(f"mesh_serve: {path} on the rank at {r['coords']}: greedy tokens "
-                     f"{p['tokens']} differ from rank 0's one-process reference")
-            if not p["err"] <= 1e-4:
-                fail(f"mesh_serve: {path} on the rank at {r['coords']}: logits within "
-                     f"{p['err']:.3e} of the reference's largest |logit|, not 1e-4")
-            kernel = "flash_decode" if path == "replicated" else "flash_decode_partial"
+            where = f"mesh_serve: {path} on the rank at {r['coords']}"
+            if p["dtype"] != "torch.bfloat16":
+                fail(f"{where}: logits are {p['dtype']}, not bf16")
+            if path == "replicated":
+                # every op batch-invariant: a rank's rows are the reference's bit for bit
+                if not (p["tokens_equal"] and p["logits_equal"]):
+                    fail(f"{where}: greedy tokens {p['tokens']} or logits (within "
+                         f"{p['err']:.3e} of the largest |logit|) differ from rank 0's "
+                         f"one-process reference")
+            elif not p["err"] <= p["bound"]:
+                fail(f"{where}: logits within {p['err']:.3e} of the reference's largest "
+                     f"|logit|, past the bound {p['bound']:.3e} (twice its bf16-vs-fp32 gap)")
+            elif p["flips_off_ties"]:
+                fail(f"{where}: {p['flips_off_ties']} of {p['flips']} argmax flips lie where the "
+                     f"reference's top-2 gap {p['top2_at_flips']} exceeds its row's window "
+                     f"{p['window_at_flips']}")
             if not p["launches"].get(kernel, 0) > 0:
-                fail(f"mesh_serve: {path} on the rank at {r['coords']} launched no "
-                     f"{kernel}: {p['launches']}")
+                fail(f"{where} launched no {kernel}: {p['launches']}")
+            if any(p["launches"].get(k, 0) for k in FP32_DECODE):
+                fail(f"{where} launched an fp32 decode entry: {p['launches']}")
         paths[path] = {
             "seq_shard_fallback": fallback, "batch": b, "steps": steps,
+            "teacher_forced": path != "replicated",
             "ms_per_step_by_rank": [p["ms"] for p in per],
             "median_ms_by_rank": [sorted(p["ms"])[len(p["ms"]) // 2] for p in per],
-            "err_by_rank": [p["err"] for p in per], "s_by_rank": [p["s"] for p in per],
+            "err_by_rank": [p["err"] for p in per], "bound": per[0]["bound"],
+            "flips_by_rank": [p["flips"] for p in per],
+            "top2_at_flips_by_rank": [p["top2_at_flips"] for p in per],
+            "window_at_flips_by_rank": [p["window_at_flips"] for p in per],
+            "s_by_rank": [p["s"] for p in per],
             "launches_by_rank": [p["launches"] for p in per],
             "bytes_a_step_rank0": per[0]["traffic"]}
     r0 = ranks[0]["serve"]
-    stats = {"arch": "gemma3-1b", "layers": 26, "dtype": "float32", "mesh": {"data": 2, "model": 2},
-             "prompt": SERVE_PROMPT, "cache": SERVE_CAP, "paths": paths,
-             "reference": {str(b): v for b, v in r0["ref"].items()},
+    stats = {"arch": "gemma3-1b", "layers": 26, "dtype": "bfloat16",
+             "mesh": {"data": 2, "model": 2}, "prompt": SERVE_PROMPT, "cache": SERVE_CAP,
+             "paths": paths, "reference": {str(b): v for b, v in r0["ref"].items()},
              "rank_s": [r["serve"]["s"] for r in ranks], "setup_s": r0["setup_s"]}
     for path, rec in paths.items():
+        how = ("greedy tokens and logits equal rank 0's one-process reference bit for bit on "
+               "every rank" if path == "replicated" else
+               f"fed the reference's tokens: argmax flips by rank {rec['flips_by_rank']}, each "
+               f"where the reference's top-2 gap (by rank {rec['top2_at_flips_by_rank']}) is "
+               f"within its row's window (twice that row's |bf16 - fp32| at that step: "
+               f"{rec['window_at_flips_by_rank']})")
         say(f"  24 {path} (seq_shard_fallback={rec['seq_shard_fallback']}, batch {rec['batch']}, "
-            f"{rec['steps']} greedy steps): tokens equal rank 0's one-process reference on every "
-            f"rank, logits within {max(rec['err_by_rank']):.2e} of its largest |logit|; median ms "
-            f"a decode step by rank {[round(v, 2) for v in rec['median_ms_by_rank']]} "
-            f"(functional: four gloo ranks on one card); rank 0 a step: gathered "
+            f"{rec['steps']} steps, bf16): {how}; logits within {max(rec['err_by_rank']):.3e} of "
+            f"the reference's largest |logit| (bound {rec['bound']:.3e}: twice rank 0's "
+            f"bf16-vs-fp32 gap); median ms a decode step by rank "
+            f"{[round(v, 2) for v in rec['median_ms_by_rank']]} (functional: four gloo ranks on "
+            f"one card); rank 0 a step: gathered "
             f"{rec['bytes_a_step_rank0']['gathered'] / 1e6:.3f} MB, all-reduced "
             f"{rec['bytes_a_step_rank0']['reduced'] / 1e6:.3f} MB; launches by rank "
             f"{rec['launches_by_rank']} [{card}]")
-    say(f"  24 reference (rank 0, one process): {json.dumps(stats['reference'])}; phase seconds "
-        f"by rank {[round(v, 1) for v in stats['rank_s']]} [{card}]")
+    say(f"  24 reference (rank 0, one process, bf16 and the fp32 yardstick): "
+        f"{json.dumps(stats['reference'])}; phase seconds by rank "
+        f"{[round(v, 1) for v in stats['rank_s']]} [{card}]")
     return stats
 
 
@@ -4952,7 +5258,8 @@ class Kernels:
                         fa.flash_attention, batched_gemm, ssd.ssd_scan,
                         fd.flash_decode_partial, fd.combine_partials,
                         gemm.bf16, rmsnorm.bf16, fd.flash_decode.bf16, fa.flash_attention.bf16,
-                        fd.combine_partials.bf16, batched_gemm.bf16, ssd.ssd_scan.bf16)
+                        fd.combine_partials.bf16, batched_gemm.bf16, ssd.ssd_scan.bf16,
+                        fd.flash_decode_partial.bf16)
 
 
 SOURCES = {
@@ -4987,6 +5294,8 @@ SOURCES = {
                               "src/repro/kernels/ops.py:201"),
     "batched_gemm_bf16": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:92"),
     "ssd_scan_bf16": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:73"),
+    "flash_decode_partial_bf16": ("src/repro_torch/csrc/flash_decode.cu",
+                                  "src/repro/kernels/flash_decode.py:158"),
 }
 
 
@@ -5283,6 +5592,16 @@ def main() -> int:
     release(torch)
     phase_s["train"] = time.perf_counter() - t
 
+    # 22b. training gemma3-1b at its published bfloat16 (f32 masters)
+    t = time.perf_counter()
+    say(f"[train_bf16] gemma3-1b widths, 26 layers, bf16 params and f32 masters, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} SyntheticLM tokens a step, make_train_step(donate=True), "
+        f"phase 22's AdamW + warmup_cosine, remat, {TRAIN_BF16_STEPS} steps, step 1 repeated "
+        f"[{limit_line}]")
+    train_bf16_record = train_bf16_phase(torch, K, limit_line, train_record)
+    release(torch)
+    phase_s["train_bf16"] = time.perf_counter() - t
+
     # 23. sharded training on a (data 2, model 2) mesh and the pipeline over "pod"
     t = time.perf_counter()
     say(f"[mesh_train] gemma3-1b widths, {6 * MESH_TRAIN_PERIODS} layers (depth cut), fp32, "
@@ -5330,6 +5649,7 @@ def main() -> int:
     serving["deploy"] = deploy_record
     serving["tp"] = tp_record
     serving["train"] = train_record
+    serving["train_bf16"] = train_bf16_record
     serving["mesh_train"] = mesh_train_record
     serving["mesh_serve"] = mesh_serve_record
     serving["dryrun"] = dryrun_record
@@ -5379,6 +5699,8 @@ def main() -> int:
                  **{k: r[k] for k in keys}}
         if name == "flash_decode_partial":
             entry["n_splits_curve"] = extra["split"]
+        if name == "flash_decode_partial_bf16":
+            entry["n_splits_curve"] = extra["split_bf16"]
         if name == "combine_partials":
             entry["shapes"] = extra["combine"]
         if name == "gemm":

@@ -22,7 +22,12 @@
 //                           K/V row upcast as they are loaded, the partials
 //                           fp32, the combine writing o rounded once to bf16
 //                           (combine_partials_bf16 alone: the same merge
-//                           with a bf16 out).
+//                           with a bf16 out);
+//   flash_decode_partial_bf16  flash_decode_partial_f32 on bf16 q, k, v
+//                           (both layouts), the bf16 staging above, each
+//                           shard's acc rounded once to bf16 as it is
+//                           written, m and l fp32 (JAX's partial: acc in
+//                           q's dtype, m and l float32).
 //
 // Replaces: src/repro/kernels/flash_decode.py::flash_decode (_flash_decode,
 // body _decode_kernel with emit_stats=False), behind `decode_attention`
@@ -88,7 +93,13 @@
 //
 // Partial (split-KV, flash_decode_partial_f32): shard = S / n_splits, the
 // caller's n_splits equal shards, partials out; the bound adds the
-// partials, n_splits * B * Hq * (Dv + 2) floats written once.
+// partials, n_splits * B * Hq * (Dv + 2) floats written once.  The bf16
+// partial (flash_decode_partial_bf16) is the same body with bf16 rings and
+// a bf16 acc: every sum is the fp32 entry's, so its acc is the fp32
+// entry's acc on the upcast inputs rounded once and its m and l are the
+// fp32 entry's bit for bit; the shard still comes from S and n_splits
+// alone.  Its bound: the live rows at 2 bytes a value, the partials at 2
+// bytes an acc value and 8 bytes an (m, l) pair.
 //
 // bf16 (flash_decode_bf16): the ring's slots hold bf16 rows, copied by
 // cp.async (16-byte pieces of 8 values where D and Dv are multiples of 8
@@ -191,13 +202,14 @@ __device__ __forceinline__ void fma4(float p, const float4& v, float4& a) {
 // (1, 2, 4 or 8), so the accumulators stay in registers; NCK and NCV are the
 // float4 groups a lane holds of a K row and of a V row.  TQ: q's type
 // (fp32, or bf16 with bf16 K/V); T: K/V's (fp32, bf16 or int8); the ring
-// holds T's rows as fp32 (fp32, int8 dequantized) or bf16.
-template <class Rows, typename TQ, typename T, int GM, int NCK, int NCV>
+// holds T's rows as fp32 (fp32, int8 dequantized) or bf16.  TA: the
+// partial acc's type (fp32; bf16 rounded once for flash_decode_partial_bf16).
+template <class Rows, typename TQ, typename T, typename TA, int GM, int NCK, int NCV>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_shard_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const Rows rows,
-                    const int* __restrict__ lengths, float* __restrict__ acc_out,
+                    const int* __restrict__ lengths, TA* __restrict__ acc_out,
                     float* __restrict__ m_out, float* __restrict__ l_out, int B, int Hq,
                     int Hk, int S, int D, int Dv, int shard, float scale, bool vec) {
   extern __shared__ __align__(16) float smem[];
@@ -211,7 +223,8 @@ decode_shard_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
 
   const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), shard);
   if (len == 0) {  // block-uniform
-    for (int i = tid; i < gn * Dv; i += THREADS) acc_out[out_row * Dv + i] = 0.f;
+    for (int i = tid; i < gn * Dv; i += THREADS)
+      acc_out[out_row * Dv + i] = repro_torch::from_f32<TA>(0.f);
     for (int g = tid; g < gn; g += THREADS) {
       m_out[out_row + g] = repro_torch::kNegInf;
       l_out[out_row + g] = 0.f;
@@ -386,7 +399,7 @@ decode_shard_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       ls = ls + wl[w * GM + g] * a;
       o = o + wacc[((size_t)w * GM + g) * Dv4 + d] * a;
     }
-    acc_out[(out_row + g) * Dv + d] = o;
+    acc_out[(out_row + g) * Dv + d] = repro_torch::from_f32<TA>(o);
     if (d == 0) {
       m_out[out_row + g] = mm;
       l_out[out_row + g] = ls;
@@ -434,15 +447,15 @@ int combine(const float* acc, const float* m, const float* l, TO* out, int NS, i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Rows, typename TQ, typename T, int GM, int NCK, int NCV>
+template <class Rows, typename TQ, typename T, typename TA, int GM, int NCK, int NCV>
 int launch_shards_gm(const TQ* q, const T* k, const T* v, const float* k_scale,
-                     const float* v_scale, const Rows& rows, const int* lengths, float* acc,
+                     const float* v_scale, const Rows& rows, const int* lengths, TA* acc,
                      float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
                      float scale, bool vec, cudaStream_t stream) {
   const size_t smem = std::is_same<T, repro_torch::bf16>::value
                           ? decode_smem_bytes_bf16(D, Dv)
                           : decode_smem_floats(D, Dv) * sizeof(float);
-  auto kernel = decode_shard_kernel<Rows, TQ, T, GM, NCK, NCV>;
+  auto kernel = decode_shard_kernel<Rows, TQ, T, TA, GM, NCK, NCV>;
   static int smem_set[repro_torch::kMaxDevices];
   const cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -456,9 +469,9 @@ int launch_shards_gm(const TQ* q, const T* k, const T* v, const float* k_scale,
 // The shard kernel over shards of `shard` rows; partials (ceil(S / shard), B,
 // Hq[, Dv]) into acc, m, l.  D, Dv <= 256 take the narrow layout; wider
 // heads (dense fp32 or bf16 rows only) the wide one.
-template <class Rows, typename TQ, typename T>
+template <class Rows, typename TQ, typename T, typename TA>
 int launch_shards(const TQ* q, const T* k, const T* v, const float* k_scale,
-                  const float* v_scale, const Rows& rows, const int* lengths, float* acc,
+                  const float* v_scale, const Rows& rows, const int* lengths, TA* acc,
                   float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int shard,
                   float scale, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, repro_torch::bf16>::value;
@@ -479,8 +492,8 @@ int launch_shards(const TQ* q, const T* k, const T* v, const float* k_scale,
                    reinterpret_cast<uintptr_t>(v) % al == 0;
   const int G = Hq / Hk;
 #define REPRO_SHARDS(GM, NCK, NCV)                                                        \
-  launch_shards_gm<Rows, TQ, T, GM, NCK, NCV>(q, k, v, k_scale, v_scale, rows, lengths, acc, m, l, \
-                                          B, Hq, Hk, S, D, Dv, shard, scale, vec, stream)
+  launch_shards_gm<Rows, TQ, T, TA, GM, NCK, NCV>(q, k, v, k_scale, v_scale, rows, lengths, acc, \
+                                              m, l, B, Hq, Hk, S, D, Dv, shard, scale, vec, stream)
   if constexpr (kWideOk) {
     if (wide) {
       if (G == 1) return REPRO_SHARDS(1, WIDE_NCK, WIDE_NCV);
@@ -565,4 +578,16 @@ extern "C" int flash_decode_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  int S, int D, int Dv, int shard, float scale, void* stream) {
   return decode(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, o, B, Hq, Hk,
                 S, D, Dv, shard, scale, stream);
+}
+
+// flash_decode_partial_f32's arguments with q, k and v bf16 (either layout)
+// and acc bf16, each shard's fp32 acc rounded once; m and l fp32.
+extern "C" int flash_decode_partial_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v, const int* lengths,
+                                         __nv_bfloat16* acc, float* m, float* l, int B, int Hq,
+                                         int Hk, int S, int D, int Dv, int n_splits, float scale,
+                                         void* stream) {
+  if (n_splits < 1 || S % n_splits) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_shards(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, B, Hq,
+                       Hk, S, D, Dv, S / n_splits, scale, static_cast<cudaStream_t>(stream));
 }

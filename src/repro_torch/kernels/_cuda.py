@@ -67,6 +67,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_decode_bf16": (*[_P] * 8, *[_I] * 7, _F, _P),
     # q, k, v, lengths, acc, m, l; B, Hq, Hk, S, D, Dv, n_splits
     "flash_decode_partial_f32": (*[_P] * 7, *[_I] * 7, _F, _P),
+    # the same with bf16 q, k, v and acc (m and l fp32)
+    "flash_decode_partial_bf16": (*[_P] * 7, *[_I] * 7, _F, _P),
     # acc, m, l, out; NS, R, Dv
     "combine_partials_f32": (*[_P] * 4, *[_I] * 3, _P),
     "combine_partials_bf16": (*[_P] * 4, *[_I] * 3, _P),

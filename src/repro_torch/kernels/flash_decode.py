@@ -34,6 +34,12 @@ output once to bf16 (so the result is the fp32 kernel's on the upcast
 inputs, rounded).  Those calls count in
 ``flash_decode.bf16.launches`` and ``combine_partials.bf16.launches``;
 :func:`combine_partials` writes bf16 with ``dtype=torch.bfloat16``.
+:func:`flash_decode_partial` takes bf16 q, k and v too (both layouts):
+``flash_decode_partial_bf16`` runs the same bf16 body and writes each
+shard's acc rounded once to bf16 and its m and l in fp32, as JAX's partial
+returns them (acc in q's dtype, m and l float32); its plain version
+computes in fp32 on the upcast inputs and rounds acc once.  Those calls
+count in ``flash_decode_partial.bf16.launches``.
 """
 
 from __future__ import annotations
@@ -268,11 +274,14 @@ combine_partials.bf16 = _cuda.LaunchCount("combine_partials_bf16")
 
 def flash_decode_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                lengths: torch.Tensor, scale: float, n_splits: int = 1):
-    """The partial kernel's function in plain PyTorch (fp32): for each shard
-    i of S / n_splits rows, with length clip(len - i * part, 0, part), the
-    running max m of the masked scores (-1e30 for an empty shard), the sum
-    l of exp(s - m) over the valid rows, and acc = sum of exp(s - m) * v.
-    Returns acc (n_splits, B, Hq, Dv), m and l (n_splits, B, Hq)."""
+    """The partial kernel's function in plain PyTorch, fp32 on the upcast
+    inputs: for each shard i of S / n_splits rows, with length clip(len -
+    i * part, 0, part), the running max m of the masked scores (-1e30 for
+    an empty shard), the sum l of exp(s - m) over the valid rows, and acc =
+    sum of exp(s - m) * v.  Returns acc (n_splits, B, Hq, Dv) in q's dtype
+    (rounded once), m and l (n_splits, B, Hq) fp32: JAX's partial."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     b, hq, d = q.shape
     s_len, hk = k.shape[1], k.shape[2]
     g, part = hq // hk, s_len // n_splits
@@ -290,7 +299,7 @@ def flash_decode_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         accs.append(torch.einsum("bhgs,bshd->bhgd", p, vs).reshape(b, hq, v.shape[3]))
         ms.append(m.reshape(b, hq))
         ls.append(p.sum(dim=-1).reshape(b, hq))
-    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+    return torch.stack(accs).to(dtype), torch.stack(ms), torch.stack(ls)
 
 
 def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -299,32 +308,44 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Unnormalised flash partials of each of ``n_splits`` KV shards (rows
     [i * S / n_splits, (i + 1) * S / n_splits)) in one launch: q (B, Hq, D),
     k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32 -> acc (n_splits,
-    B, Hq, Dv), m (n_splits, B, Hq), l (n_splits, B, Hq).  With
-    ``n_splits=1`` it is JAX's ``flash_decode_partial`` over the whole cache
-    (with a leading axis of 1).  Combine with :func:`combine_partials`."""
+    B, Hq, Dv) in q's dtype, m (n_splits, B, Hq) and l (n_splits, B, Hq)
+    fp32; q, k and v all float32 or all bfloat16.  With ``n_splits=1`` it is
+    JAX's ``flash_decode_partial`` over the whole cache (with a leading axis
+    of 1).  Combine with :func:`combine_partials` (``acc.float()`` at
+    bf16)."""
     fn = "flash_decode_partial"
-    scale = _check_dense(fn, q, k, v, lengths, scale)
+    scale = _check_dense(fn, q, k, v, lengths, scale, bf16_ok=True)
     b, hq, d = q.shape
     s_len, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     if n_splits < 1 or s_len % n_splits:
         raise ValueError(f"{fn}: n_splits={n_splits} must be >= 1 and divide S={s_len}")
     if not _on_card(fn, (q, k, v, lengths)):
         return flash_decode_partial_plain(q, k, v, lengths, scale, n_splits)
-    acc, m, l = _workspace(n_splits, b, hq, dv, q.device)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:    # acc rounded once to bf16; m and l fp32, as JAX's partial
+        acc = torch.empty((n_splits, b, hq, dv), dtype=q.dtype, device=q.device)
+        m, l = torch.empty((2, n_splits, b, hq), dtype=torch.float32, device=q.device)
+    else:
+        acc, m, l = _workspace(n_splits, b, hq, dv, q.device)
     if b == 0:
         return acc, m, l
     if s_len == 0:
         return acc.zero_(), m.fill_(_NEG_INF), l.zero_()
-    err = _cuda.library().flash_decode_partial_f32(
+    lib = _cuda.library()
+    err = (lib.flash_decode_partial_bf16 if bf16 else lib.flash_decode_partial_f32)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
         m.data_ptr(), l.data_ptr(), b, hq, hk, s_len, d, dv, n_splits, scale,
         _cuda.stream_of(q))
     _cuda.check(err, fn)
-    flash_decode_partial.launches += 1
+    if bf16:
+        flash_decode_partial.bf16.launches += 1
+    else:
+        flash_decode_partial.launches += 1
     return acc, m, l
 
 
 flash_decode_partial.launches = 0
+flash_decode_partial.bf16 = _cuda.LaunchCount("flash_decode_partial_bf16")
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor,

@@ -26,10 +26,12 @@ because each kernel masks its own ragged edges.  The ops of
 :data:`BF16_OPS` (``attention``, ``decode_attention``, ``rmsnorm``,
 ``dense``, ``moe_gemm`` and ``ssd``) take inputs all float32 or all
 bfloat16 on ``cuda`` (``ssd``: x, B and C so, dt, A and D float32), as
-JAX's Pallas backends take either; every other ``cuda`` backend (the
-convolutions, ``cuda_split``) takes float32 only.  A call outside a
-kernel's types raises ``TypeError`` from its wrapper: no op moves to
-another backend by itself.
+JAX's Pallas backends take either; ``decode_attention``'s ``cuda_split``
+takes either too (the partial kernel's bf16 entry, merged as JAX's
+``pallas_split`` merges: the bf16 partials upcast, rounded once at the
+end); the convolutions take float32 only.  A call outside a kernel's types
+raises ``TypeError`` from its wrapper: no op moves to another backend by
+itself.
 """
 
 from __future__ import annotations
@@ -177,17 +179,16 @@ def _full_lengths(lengths, q, k):
 
 
 def _dec_split_supports(specs, attrs):
-    """What the partial kernel needs (re-derived, not JAX's guard): fp32
-    (the partial kernel has no bf16 body), the cuda backend's
-    shared-memory guard, n_splits >= 2, and S a multiple of n_splits (equal
+    """What the partial kernel needs (re-derived, not JAX's guard): the
+    cuda backend's guard (q, k and v all fp32 or all bf16, the shared
+    memory), n_splits >= 2, and S a multiple of n_splits (equal
     shards, one launch).  JAX's "shards of >= 8 rows" and "each shard a
     multiple of its block_kv" are TPU sublane and BlockSpec rules: the
     kernel walks 4-row tiles from each shard's first row and masks the
     ragged end, so a shard of any length >= 1 works."""
     k = specs[1]
     n_splits = int(attrs.get("n_splits", 2))
-    return (_all_f32(specs[:3]) and _dec_cuda_supports(specs, attrs) and n_splits >= 2
-            and k.shape[1] % n_splits == 0)
+    return _dec_cuda_supports(specs, attrs) and n_splits >= 2 and k.shape[1] % n_splits == 0
 
 
 def _dec_split_cost(specs, attrs):
@@ -204,11 +205,14 @@ def _dec_split_cost(specs, attrs):
       note="split-KV flash-decode: the partials of n_splits shards in one launch of the "
            "partial kernel, merged in index order by the combine kernel")
 def _decode_split_impl(inputs, attrs):
+    """At bf16 the partials' acc comes rounded to bf16 (JAX's partial) and
+    is upcast for the merge, whose output is rounded once: JAX's
+    ``pallas_split``."""
     q, k, v, lengths = inputs
     acc, m, l = flash_decode_partial(q, k, v, _full_lengths(lengths, q, k),
                                      scale=attrs.get("scale"),
                                      n_splits=int(attrs.get("n_splits", 2)))
-    return [combine_partials(acc, m, l).to(q.dtype)]
+    return [combine_partials(acc.float(), m, l, dtype=q.dtype)]
 
 
 def decode_attention(q, k, v, lengths=None, *, scale=None, backend="ref", **kw):
@@ -218,9 +222,10 @@ def decode_attention(q, k, v, lengths=None, *, scale=None, backend="ref", **kw):
 
 def decode_attention_partial(q, k, v, lengths=None, *, scale=None, backend="cuda", **kw):
     """(acc, m, l) partials over this KV shard, for cross-shard combination
-    (``combine_partials``): acc (B, Hq, Dv), m and l (B, Hq).
-    ``cuda``: the partial kernel over one shard; otherwise its plain
-    version.  An empty row gives acc 0, m -1e30 and l 0 on both, where JAX's
+    (``combine_partials``): acc (B, Hq, Dv) in q's dtype, m and l (B, Hq)
+    float32, as JAX's partials.  ``cuda``: the partial kernel over one
+    shard (its bf16 entry on bf16 inputs); otherwise its plain version.
+    An empty row gives acc 0, m -1e30 and l 0 on both, where JAX's
     dense ``ref`` partial gives l = S and acc = the sum of v: the combined
     result is the same wherever another shard holds a valid row."""
     lengths = _full_lengths(lengths, q, k)

@@ -20,9 +20,10 @@ tells the layers which dims of their cache a rank holds):
   "model") or over "data" (batch 1): the new row is written only on the
   rank that owns its slot, and attention is
   :func:`~repro_torch.sharding.collectives.tree_decode_attention` over that
-  axis (each rank's partial over its rows — on the card the partial kernel
-  ``flash_decode_partial_f32`` — merged by an all-reduce(MAX) and two
-  all-reduce(SUM));
+  axis (each rank's partial over its rows — on the card the partial kernel,
+  ``flash_decode_partial_f32`` or at bf16 ``flash_decode_partial_bf16``,
+  whose acc is rounded to bf16 as JAX's partial rounds it — merged in fp32
+  by an all-reduce(MAX) and two all-reduce(SUM));
 * ``ssm`` and ``conv_x`` with the heads over "model": each rank steps its
   own heads and all-gathers the gated output before the norm (which spans
   the whole inner width);

@@ -23,9 +23,10 @@ of such an axis needs no group:
 * :func:`tree_decode_attention` — sequence-parallel decode: each rank holds
   its slice of the KV cache along the length dim, runs the partial kernel
   (``decode_attention_partial``; on the card ``flash_decode_partial_f32``
-  of ``csrc/flash_decode.cu``) over it and the ranks combine with an
-  ``all_reduce(MAX)`` and two ``all_reduce(SUM)`` — exact up to the order
-  of float additions.
+  or ``flash_decode_partial_bf16`` of ``csrc/flash_decode.cu``) over it
+  and the ranks combine with an ``all_reduce(MAX)`` and two
+  ``all_reduce(SUM)`` in fp32 — exact up to the order of float additions
+  (at bf16, also up to the rounding of each rank's acc, as in JAX).
 * :func:`ring_allgather_matmul` — ``allgather(x) @ w`` with the gather
   pipelined against the products: at step t each rank multiplies the chunk
   it holds (the port's ``gemm`` kernel) while sending it on to the next
@@ -187,7 +188,11 @@ def tree_decode_attention(mesh: Any, q: torch.Tensor, k: torch.Tensor, v: torch.
     l 0, which weighs 0 in the merge; a row that is empty on every rank
     gives 0, as ``flash_decode`` does.  (The JAX package's ``ref`` partial
     gives l = S there; the merged result agrees wherever a rank holds a
-    valid row.)"""
+    valid row.)
+
+    JAX's dtypes and formula (``repro.sharding.collectives``): acc comes in
+    q's dtype and m, l in float32; m_glob, alpha, the l sum and the acc sum
+    are float32, and the result is rounded once to q's dtype."""
     from repro_torch.kernels.ops import decode_attention_partial
     _, n, index = _on_axis(mesh, axis)
     s_loc = k.shape[1]

@@ -199,8 +199,11 @@ def test_bf16_bodies_refuse_mixed_types_and_the_wide_decode():
                         torch.ones(1, dtype=torch.int32))
     with pytest.raises(TypeError, match="alike"):
         fd.flash_decode(qd, kd.float(), vd, torch.ones(1, dtype=torch.int32))
-    with pytest.raises(TypeError, match="float32"):           # the partial kernel: fp32 only
-        fd.flash_decode_partial(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
+    # the partial kernel takes bf16 too (acc bf16, m and l fp32) and refuses mixed types
+    acc, m, l = fd.flash_decode_partial(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
+    assert (acc.dtype, m.dtype, l.dtype) == (torch.bfloat16, torch.float32, torch.float32)
+    with pytest.raises(TypeError, match="alike"):
+        fd.flash_decode_partial(q[:, 0], q.float(), q, torch.ones(1, dtype=torch.int32))
 
 
 # --------------------------------------------------------------------------- #

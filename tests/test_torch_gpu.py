@@ -2188,3 +2188,132 @@ def test_bf16_family_batcher_on_the_card_matches_batch_one(arch):
             lengths = lengths + 1
             out.append(int(lg[0].argmax()))
         assert r.done and r.out_tokens == out, r.uid
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 partial decode (flash_decode_partial_bf16) and bf16 training
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_splits", [1, 2, 4, 8, 16])
+def test_bf16_partial_kernel_matches_its_plain_version_on_the_card(n_splits):
+    """flash_decode_partial_bf16: acc bitwise the fp32 entry's on the
+    upcast inputs rounded once, m and l bitwise the fp32 entry's, within
+    one bf16 ulp (acc) and the fp32 tolerance (m, l) of the plain version;
+    lengths 0 and across the shard edges, GQA groups 1-8, both layouts."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (flash_decode_partial,
+                                                  flash_decode_partial_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20 + n_splits)
+
+    def rb(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    before = (flash_decode_partial.launches, flash_decode_partial.bf16.launches)
+    part = 40                                   # a ragged last tile in every shard
+    s = part * n_splits
+    lens = sorted({0, 1, part - 1, part, part + 1, s // 2 + 3, s - 1, s})
+    cases = [(hq, hk, d, dv) for hq, hk in ((1, 1), (2, 1), (4, 1), (8, 2), (8, 1))
+             for d, dv in ((64, 64), (256, 256), (96, 128), (30, 30))]
+    cases += [(4, 1, 576, 512), (16, 1, 576, 512)]          # MLA's wide layout
+    for hq, hk, d, dv in cases:
+        b = len(lens)
+        q, k, v = rb(b, hq, d), rb(b, s, hk, d), rb(b, s, hk, dv)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        acc, m, l = flash_decode_partial(q, k, v, lengths, n_splits=n_splits)
+        assert (acc.dtype, m.dtype, l.dtype) == (torch.bfloat16, torch.float32, torch.float32)
+        fa, fm, fl = flash_decode_partial(q.float(), k.float(), v.float(), lengths,
+                                          n_splits=n_splits)
+        pa, pm, pl = flash_decode_partial_plain(q, k, v, lengths, 1 / math.sqrt(d), n_splits)
+        _check_bf16(acc, fa, pa)
+        assert torch.equal(m, fm) and torch.equal(l, fl), (hq, hk, d, dv)
+        torch.testing.assert_close(m, pm, **TOL)
+        torch.testing.assert_close(l, pl, **TOL)
+        empty = (lengths[None, :] - part * torch.arange(n_splits, device=dev)[:, None]) <= 0
+        assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+        assert float(acc[empty].float().abs().max()) == 0.0
+    assert flash_decode_partial.bf16.launches == before[1] + len(cases)
+    assert flash_decode_partial.launches == before[0] + len(cases)     # the fp32 comparisons
+
+
+@pytest.mark.gpu
+def test_bf16_split_decode_rows_do_not_depend_on_the_batch():
+    """cuda_split at bf16 (the bf16 partials, upcast, merged by the combine
+    kernel with a bf16 out): a sequence's bits are the same at B = 1 and
+    B = 4, and the plain route's within the roundings both make: each
+    rounds every shard's acc (half an ulp, at most 2^-8 of |acc|) and the
+    merged output, so they differ by at most 2^-7 of the merge of the
+    shards' |acc| plus 2^-7 of |out| (the shards' acc may cancel, so a
+    bound in ulps of the output does not hold)."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (combine_partials, flash_decode_partial,
+                                                  flash_decode_partial_plain)
+    from repro_torch.kernels.ops import decode_attention
+    from repro_torch.kernels.ref import combine_partials_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def rb(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    before = (flash_decode_partial.bf16.launches, combine_partials.bf16.launches)
+    calls = 0
+    for hq, d, dv in ((4, 256, 256), (16, 576, 512)):
+        q, k, v = rb(4, hq, d), rb(4, 2048, 1, d), rb(4, 2048, 1, dv)
+        lengths = torch.tensor([1400, 0, 1024, 1025], dtype=torch.int32, device=dev)
+        for n_splits in (2, 4, 8, 16):
+            full = decode_attention(q, k, v, lengths, backend="cuda_split", n_splits=n_splits)
+            assert full.dtype == torch.bfloat16
+            for i in range(4):
+                one = decode_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                       v[i:i + 1].contiguous(), lengths[i:i + 1].contiguous(),
+                                       backend="cuda_split", n_splits=n_splits)
+                assert torch.equal(one, full[i:i + 1]), (hq, n_splits, i)
+            cpu = [x.cpu() for x in (q, k, v, lengths)]
+            plain = decode_attention(*cpu, backend="cuda_split", n_splits=n_splits).float()
+            pa, pm, pl = flash_decode_partial_plain(*cpu, 1 / math.sqrt(d), n_splits)
+            mag = combine_partials_ref(pa.float().abs(), pm, pl)
+            diff = (full.float().cpu() - plain).abs()
+            assert bool((diff <= 2.0 ** -7 * (mag + plain.abs()) + TOL["atol"]).all()), \
+                float(diff.max())
+            calls += 5
+    assert flash_decode_partial.bf16.launches == before[0] + calls
+    assert combine_partials.bf16.launches == before[1] + calls
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_on_the_card_repeats_bitwise():
+    """Reduced gemma3-1b at the published bfloat16 (bf16 params, f32
+    masters and moments): one make_train_step step on the card, run twice
+    from copies of the same state, gives the same bits; the params stay
+    bf16, each its master rounded once; no kernel launches."""
+    dev = _card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.models.lm import LM, strip_derived
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train import make_train_step
+    cfg = get_reduced("gemma3-1b").with_overrides(dtype="bfloat16", param_dtype="bfloat16")
+    model, opt_cfg = LM(cfg), AdamWConfig(lr=1e-3)
+    params = strip_derived(model.init_params(0, device=dev))
+    state = adamw.init(params, opt_cfg)
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=4, seed=0).batch_at(0)
+    step = make_train_step(model, cfg, opt_cfg, donate=True)
+    before = (gemm.launches, gemm.bf16.launches, flash_attention.bf16.launches)
+    runs = []
+    for _ in range(2):
+        p, s = tree_map(torch.clone, params), tree_map(torch.clone, state)
+        runs.append(step(p, s, batch))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    for a, b in zip(tree_leaves({"p": p1, "s": s1}), tree_leaves({"p": p2, "s": s2})):
+        assert torch.equal(a, b)
+    assert float(m1["loss"]) == float(m2["loss"]) and math.isfinite(float(m1["loss"]))
+    for p, master in zip(tree_leaves(p1), tree_leaves(s1["master"])):
+        assert p.dtype == torch.bfloat16 and master.dtype == torch.float32
+        assert torch.equal(p, master.to(torch.bfloat16))
+    assert (gemm.launches, gemm.bf16.launches, flash_attention.bf16.launches) == before

@@ -174,14 +174,15 @@ def test_split_supports_guard_and_its_differences_from_jax(s, n_splits, attrs, p
 
 
 def test_split_supports_what_only_the_port_rejects():
-    """The port's partial kernel is fp32 with D <= 640 and Dv <= 512 (the
-    dense kernel's wide layout) in shared memory; the cuda backend has a
-    bf16 body too, in both layouts (MLA's D 576 / Dv 512 since the wide one
-    takes bf16 rows; Dv past 512 in neither).  JAX's split guard reads only
-    S and n_splits."""
-    for specs in (_dec_specs(32, d=640), _dec_specs(32, dtype="bfloat16"),
+    """The port's partial kernel takes fp32 with D <= 640 and Dv <= 512
+    (the dense kernel's wide layout) within the shared memory, and bf16 in
+    both layouts (its bf16 entry, as the cuda backend's: MLA's D 576 / Dv
+    512 since the wide one takes bf16 rows; Dv past 512 in neither).  JAX's
+    split guard reads only S and n_splits."""
+    assert "cuda_split" not in backends_for("decode_attention", _dec_specs(32, d=640), {})
+    for specs in (_dec_specs(32, dtype="bfloat16"),
                   _dec_specs(32, d=576, dtype="bfloat16", dv=512)):
-        assert "cuda_split" not in backends_for("decode_attention", specs, {})
+        assert "cuda_split" in backends_for("decode_attention", specs, {})
     assert "cuda" not in backends_for("decode_attention", _dec_specs(32, d=640), {})
     assert "cuda" not in backends_for("decode_attention", _dec_specs(32, d=576, dtype="bfloat16"),
                                       {})
