@@ -69,8 +69,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              the MoE router stays an fp32 gemm; the scan's dt and A fp32,
              and ssd_scan with D at phases 10 and 19's prompt lengths):
              each must equal the fp32 entry's output on the upcast inputs
-             rounded once, bit for bit (the scan's state equal), and lie
-             within one bf16 ulp (+1e-4) of its plain version; timed beside
+             rounded once, bit for bit (the scan's state equal), but gemm's
+             and batched_gemm's, which multiply on the tensor cores (wgmma),
+             and lie within one bf16 ulp (+1e-4) of its plain version; the
+             two tensor-core entries are also held at ragged edge shapes
+             (both plans, TMA and element staging) and to one K order for
+             every row: rows at M = 1-256 bitwise one M = 1024 call's
+             whichever plan runs either, at gemma3-1b's, qwen2's and a
+             ragged width, each expert's rows bitwise gemm_bf16's; timed beside
              the fp32 entry, the plain version and the library call on
              bf16 inputs, the bound at 2 bytes a value and 989 TFLOP/s.
              The fp32 entries of batched_gemm, ssd_scan and flash_attention
@@ -435,6 +441,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -450,6 +457,14 @@ PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 BF16_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
 BF16_KERNELS = ("gemm", "rmsnorm", "flash_decode", "flash_attention", "combine_partials",
                 "batched_gemm", "ssd_scan")
+# the bf16 entries that multiply on the tensor cores (wgmma, csrc/gemm.cu):
+# not the fp32 entry's arithmetic, so held to their plain version within
+# BF16_TOL and to one K order for every row (bf16_gemm_cases), not bitwise
+# to the fp32 entry's output rounded once
+TENSOR_CORE_BF16 = ("gemm", "batched_gemm")
+# the M of the bf16 GEMM's row gate: both sides of every plan's 64-row
+# warpgroup and 128-row tile
+BF16_GEMM_MS = (1, 4, 16, 17, 32, 63, 64, 65, 127, 128, 256)
 # the kernels whose fp32 entries no full-width serving phase runs (every
 # layer-stack config serves bf16): phase 3 times them at the same calls on
 # the upcast inputs, beside their bf16 entries
@@ -567,6 +582,30 @@ def check_close(torch, name, got, want, atol, rtol) -> float:
     return err
 
 
+def sass_counts(cuda_mod, lib_path, kernel, opcode):
+    """{instance (its template arguments): lines of ``opcode`` in its SASS}
+    for every function of the built library whose name holds ``kernel``
+    (cuobjdump -sass, beside nvcc)."""
+    tool = Path(cuda_mod._nvcc()).parent / "cuobjdump"
+    dump = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300)
+    if dump.returncode != 0:
+        fail(f"cuobjdump -sass failed: {dump.stderr.strip()[-500:]}")
+    counts, name = {}, None
+    for line in dump.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            name = None
+            if kernel in fn:
+                args = re.search(rf"{kernel}I(.*?)EEv", fn)
+                ints = re.findall(r"Li(\d+)E", args.group(1) + "E") if args else []
+                name = f"{kernel}<{', '.join(ints)}>" if ints else fn
+                counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: kernels
 # --------------------------------------------------------------------------- #
@@ -671,6 +710,99 @@ def kernel_cases(torch, K):
     torch.cuda.synchronize()
     return (n + paged_kernel_cases(torch, K, rn, g, tol) + split_kernel_cases(torch, K, rn, tol)
             + shard_kernel_cases(torch, K, rn, tol))
+
+
+def bf16_gemm_cases(torch, K, limit_line):
+    """The tensor-core bf16 GEMM (gemm_bf16, batched_gemm_bf16): edge shapes
+    within BF16_TOL of the plain version (both plans; TMA staging and, with
+    K or N off 8, element loads; M, N and K ragged against the 64-row
+    warpgroup, the tiles and the 64-deep stages); then one K order for
+    every row: at gemma3-1b's, qwen2's and a ragged width, the rows of a
+    call at every M of BF16_GEMM_MS (the first rows and the last, so at
+    other places in the tile) bitwise those of one M = 1024 call, whichever
+    plan runs either; each expert's rows bitwise the batched call's at every
+    M and gemm_bf16's product x[e] @ w[e] at M = 1 and 32.  Then the host
+    cost of a call (the tensor maps are encoded at every launch) beside the
+    fp32 entry's and the empty launch's at gemma3-1b's decode.  Returns
+    the record."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    bf16 = torch.bfloat16
+
+    def rb(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(bf16)
+
+    n, worst = 0, 0.0
+    for m, kk, nn in ((1, 64, 96), (4, 1152, 1000), (5, 37, 19), (16, 300, 264), (17, 64, 130),
+                      (63, 15, 37), (64, 16, 40), (65, 17, 33), (127, 301, 19), (129, 301, 72),
+                      (300, 1152, 6912), (1024, 6912, 1152), (1030, 301, 2050)):
+        x, w = rb(m, kk), rb(kk, nn, scale=kk ** -0.5)
+        worst = max(worst, check_close(torch, f"gemm_bf16 {m}x{nn}x{kk}", K.gemm(x, w).float(),
+                                       K.gemm_plain(x, w).float(), **BF16_TOL))
+        n += 1
+    for e, m, kk, nn in ((3, 5, 37, 19), (64, 3, 16, 33), (8, 70, 65, 200), (5, 17, 77, 300),
+                         (2, 130, 300, 264), (64, 130, 300, 264), (64, 32, 2048, 1408),
+                         (64, 80, 1408, 2048), (16, 4, 128, 512)):
+        x, w = rb(e, m, kk), rb(e, kk, nn, scale=kk ** -0.5)
+        worst = max(worst, check_close(torch, f"batched_gemm_bf16 {e}x{m}x{nn}x{kk}",
+                                       K.batched_gemm(x, w).float(),
+                                       K.batched_gemm_plain(x, w).float(), **BF16_TOL))
+        n += 1
+    plans = set()
+    for tag, kk, nn in (("gemma3-1b gate/up", 1152, 6912), ("gemma3-1b down", 6912, 1152),
+                        ("gemma3-1b head", 1152, 262144), ("qwen2 expert", 2048, 1408),
+                        ("ragged", 301, 2050)):
+        x, w = rb(1024, kk), rb(kk, nn, scale=kk ** -0.5)
+        full = K.gemm(x, w)
+        plans.add(K.gemm_bf16_plan(1024, nn))
+        for m in BF16_GEMM_MS:
+            plans.add(K.gemm_bf16_plan(m, nn))
+            if not (torch.equal(K.gemm(x[:m].contiguous(), w), full[:m])
+                    and torch.equal(K.gemm(x[-m:].contiguous(), w), full[-m:])):
+                fail(f"gemm_bf16 {tag}: rows at M={m} are not bitwise those at M=1024")
+            n += 2
+        del x, w, full
+    if plans != set(K.BF16_TILES):
+        fail(f"gemm_bf16: the row gate ran plans {sorted(plans)}, not every one of "
+             f"{K.BF16_TILES}")
+    for tag, kk, nn in (("qwen2 expert", 2048, 1408), ("qwen2 expert down", 1408, 2048),
+                        ("MLA absorbed", 128, 512), ("ragged", 301, 250)):
+        x, w = rb(8, 256, kk), rb(8, kk, nn, scale=kk ** -0.5)
+        full = K.batched_gemm(x, w)
+        for m in BF16_GEMM_MS:
+            part = K.batched_gemm(x[:, :m].contiguous(), w)
+            if not (torch.equal(part, full[:, :m])
+                    and torch.equal(K.batched_gemm(x[:, -m:].contiguous(), w), full[:, -m:])):
+                fail(f"batched_gemm_bf16 {tag}: rows at M={m} are not bitwise those at M=256")
+            if m in (1, 32) and not all(torch.equal(part[e], K.gemm(x[e, :m].contiguous(), w[e]))
+                                        for e in range(8)):
+                fail(f"batched_gemm_bf16 {tag}: an expert's rows at M={m} are not bitwise "
+                     "gemm_bf16's product")
+            n += 2
+        del x, w, full
+    torch.cuda.synchronize()
+    say(f"  bf16 GEMM (tensor cores): {n} checks, edge shapes within BF16_TOL (max |err| "
+        f"{worst:.3e}); rows bitwise across M = {list(BF16_GEMM_MS)} and the plans "
+        f"{sorted(plans)}, experts bitwise gemm_bf16's")
+    # the host's cost of a call at gemma3-1b's decode q/k/v/o shape (no sync)
+    x, w = rb(4, 1152), rb(1152, 1152)
+    xf, wf = x.float(), w.float()
+    host = {}
+    for tag, fn in (("gemm bf16", lambda: K.gemm(x, w)),
+                    ("gemm fp32", lambda: K.gemm(xf, wf)),
+                    ("empty launch", lambda: K.empty_launch(x))) * 2:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        us = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+        host[tag] = min(host.get(tag, us), us)
+    say("  host us a call at 4x1152 -> 1152 (best of 2 x 500, no sync): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host.items()) + f"  [{limit_line}]")
+    return {"checks": n, "max_abs_err_edges": worst, "plans": sorted(plans), "host_us": host}
 
 
 def shard_kernel_cases(torch, K, rn, tol):
@@ -1020,6 +1152,7 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
         del q, k, v
 
     extra = {"empty_launch_ms": empty_ms, "shapes": shapes,
+             "bf16_gemm": bf16_gemm_cases(torch, K, limit_line),
              "combine": combine_kernels(torch, K, rn, timer, record, full_tol),
              "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
              "split_bf16": split_bf16_kernels(torch, K, rn, timer, record, full_tol,
@@ -1269,8 +1402,9 @@ def device_times(torch, K, limit_line):
     three kernels at mamba2-370m's 1024-token prefill (with D; fp32 and
     bf16), and of the
     fp32 and bf16 entries of rmsnorm, the gemm head and flash_decode at
-    gemma3-1b's batch-4 decode step (their event times hold the launch
-    path).  Run after the serving phases: the profiler's hooks stay in the
+    gemma3-1b's batch-4 decode step, and of the bf16 GEMM's short rows
+    (gemma3-1b's decode q projection, MLA's absorbed products) beside
+    matmul / bmm (their event times hold the launch path).  Run after the serving phases: the profiler's hooks stay in the
     process and slow every later launch on the host."""
     F = torch.nn.functional
     timer = Timer(torch)
@@ -1309,6 +1443,20 @@ def device_times(torch, K, limit_line):
         out[f"flash_decode {tag} gemma3 global S=2048"] = device_ms(
             torch, timer, lambda: K.flash_decode(q, k, v, lengths))
         del x, w, q, k, v
+    # the short bf16 GEMM rows, whose event times hold the launch path:
+    # gemma3-1b's decode q projection and MLA's absorbed products, beside
+    # matmul / bmm on the same inputs
+    x, w = rn(4, 1152).bfloat16(), (rn(1152, 1024) * 1152 ** -0.5).bfloat16()
+    out["gemm bf16 gemma3 decode q 4x1152->1024"] = device_ms(torch, timer, lambda: K.gemm(x, w))
+    out["matmul bf16 gemma3 decode q 4x1152->1024"] = device_ms(
+        torch, timer, lambda: torch.matmul(x, w))
+    for kk, nn in ((128, 512), (512, 128)):
+        x, w = rn(16, 4, kk).bfloat16(), (rn(16, kk, nn) * kk ** -0.5).bfloat16()
+        out[f"batched_gemm bf16 MLA E=16 M=4 {kk}->{nn}"] = device_ms(
+            torch, timer, lambda: K.batched_gemm(x, w))
+        out[f"bmm bf16 MLA E=16 M=4 {kk}->{nn}"] = device_ms(torch, timer,
+                                                             lambda: torch.bmm(x, w))
+    del x, w
     for what, kernels in out.items():
         parts = ", ".join(f"{k} {v:.4g} ms" for k, v in kernels.items()) or "not measured"
         say(f"  device time (torch.profiler) {what:34s} {parts}  [{limit_line}]")
@@ -1796,14 +1944,18 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
             args = tuple(a.to(torch.bfloat16) if i in cast else a for i, a in enumerate(args))
             up = tuple(a.float() for a in args)            # the upcast inputs
             name, peak, nbytes, label = entry, PEAK_BF16_FLOPS, nb(2.0), label + " bf16"
+            if kernel in TENSOR_CORE_BF16:
+                m, count = (shape[0], 1) if kernel == "gemm" else (shape[1], shape[0])
+                label += f" plan {K.gemm_bf16_plan(m, shape[-1], count)}"
         outs, wants = tup(fn(*args)), tup(plain(*args))
         if bf16:
             outs32 = tup(fn(*up))
-            # the first output is bf16, the fp32 entry's rounded once; the
-            # scan's state stays fp32, bitwise the fp32 entry's
-            if outs[0].dtype != torch.bfloat16 or not torch.equal(
-                    outs[0], outs32[0].to(torch.bfloat16)) or not all(
-                    torch.equal(a, b_) for a, b_ in zip(outs[1:], outs32[1:])):
+            # the first output is bf16, the fp32 entry's rounded once (but
+            # on the tensor cores: bf16_gemm_cases holds those); the scan's
+            # state stays fp32, bitwise the fp32 entry's
+            if outs[0].dtype != torch.bfloat16 or (kernel not in TENSOR_CORE_BF16 and (
+                    not torch.equal(outs[0], outs32[0].to(torch.bfloat16)) or not all(
+                        torch.equal(a, b_) for a, b_ in zip(outs[1:], outs32[1:])))):
                 fail(f"{label}: not the fp32 entry's output on the upcast inputs rounded once")
             err = max([check_close(torch, label, outs[0].float(), wants[0].float(), **BF16_TOL)]
                       + [check_close(torch, label, a, b_, **full_tol)
@@ -5222,11 +5374,13 @@ class Kernels:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import flash_decode as fd
         from repro_torch.kernels import ssd
-        from repro_torch.kernels.gemm import (SKINNY_MAX_M, batched_gemm, batched_gemm_plain,
-                                              gemm, gemm_plain, gemm_tile, gemm_variant)
+        from repro_torch.kernels.gemm import (BF16_TILES, SKINNY_MAX_M, batched_gemm,
+                                              batched_gemm_plain, gemm, gemm_bf16_plan,
+                                              gemm_plain, gemm_tile, gemm_variant)
         from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
         self.gemm, self.gemm_plain = gemm, gemm_plain
         self.gemm_variant, self.gemm_tile = gemm_variant, gemm_tile
+        self.gemm_bf16_plan, self.BF16_TILES = gemm_bf16_plan, BF16_TILES
         self.SKINNY_MAX_M = SKINNY_MAX_M
         self.batched_gemm, self.batched_gemm_plain = batched_gemm, batched_gemm_plain
         self.ssd_scan, self.ssd_scan_plain = ssd.ssd_scan, ssd.ssd_scan_plain
@@ -5336,6 +5490,11 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"[build]   {line.strip()}")
+    hgmma = sass_counts(_cuda, path, "gemm_wgmma_kernel", "HGMMA")
+    say(f"[build] HGMMA (tensor-core) instructions in the SASS of each bf16 GEMM instance "
+        f"(cuobjdump -sass): {hgmma}")
+    if not hgmma or not all(hgmma.values()):
+        fail(f"the bf16 GEMM's instances issue no HGMMA: {hgmma}")
     phase_s["build"] = time.perf_counter() - t
 
     from repro_torch.core.device import resolve_device

@@ -1,13 +1,14 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
-// Every kernel here computes in fp32 with FFMA arithmetic (no TF32 tensor
+// Every fp32 kernel here computes with FFMA arithmetic (no TF32 tensor
 // cores): the JAX reference computes in fp32 throughout, and the serving
-// engine must stay token-exact against it.  The bf16 entries of gemm,
-// rmsnorm, flash_attention and flash_decode follow the Pallas kernels'
-// contract for bf16 inputs: upcast on load (exact), every sum and the
-// softmax state in fp32, one rounding to bf16 (to nearest even) on store.
-// Their fp32 arithmetic is the fp32 entries' on the upcast values, so a
-// bf16 result is the fp32 kernel's result on x.float() rounded once.
+// engine must stay token-exact against it.  The bf16 entries follow the
+// Pallas kernels' contract for bf16 inputs: every sum and the softmax
+// state in fp32, one rounding to bf16 (to nearest even) on store.  Those of
+// rmsnorm, flash_attention, flash_decode and ssd_scan upcast on load
+// (exact) and run the fp32 entries' arithmetic, so their bf16 result is the
+// fp32 kernel's result on x.float() rounded once; gemm's and batched_gemm's
+// multiply on the tensor cores (wgmma, fp32 accumulator; gemm.cu).
 // Every reduction has a fixed order that depends on nothing but the row it
 // reduces (no atomics, no split chosen from the batch size), so a
 // sequence's numbers are the same at batch 4 as at batch 1.

@@ -52,9 +52,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "gemm_f32_skinny": (_P, _P, _P, _I, _I, _I, _P),
     # a, b, c; M, N, K, bm, bn
     "gemm_f32_tiled": (_P, _P, _P, *[_I] * 5, _P),
-    # the same with bf16 a, b, c
-    "gemm_bf16_skinny": (_P, _P, _P, _I, _I, _I, _P),
-    "gemm_bf16_tiled": (_P, _P, _P, *[_I] * 5, _P),
+    # bf16 a, b, c; M, N, K and the plan bm, bn (the tensor-core body)
+    "gemm_bf16": (_P, _P, _P, *[_I] * 5, _P),
     # a, b, c; E, M, N, K, bm, bn
     "batched_gemm_f32": (_P, _P, _P, *[_I] * 6, _P),
     "batched_gemm_bf16": (_P, _P, _P, *[_I] * 6, _P),

@@ -1,8 +1,8 @@
 """GEMM, plain and batched, fp32 or bf16 — counterpart of
 :func:`repro.kernels.gemm.gemm` and :func:`repro.kernels.gemm.batched_gemm`.
 
-:func:`gemm` launches one of two hand-written CUDA kernels of
-``csrc/gemm.cu`` on CUDA tensors, chosen by :func:`gemm_variant` from M:
+:func:`gemm` launches, on fp32 CUDA tensors, one of two hand-written FFMA
+kernels of ``csrc/gemm.cu``, chosen by :func:`gemm_variant` from M:
 ``skinny`` for M <= SKINNY_MAX_M (a 32- or 16-column strip per block,
 each column's M row accumulators in registers, the weights streamed
 through a ring of asynchronous copies) and ``tiled`` above it (output
@@ -18,13 +18,19 @@ whatever M is.  On CPU tensors they run
 ``launches`` attribute counts its kernel launches.
 
 :func:`gemm` also takes bf16 operands (both bf16), as the Pallas kernel
-does: the same two kernels on bf16 (``gemm_bf16_skinny`` /
-``gemm_bf16_tiled``) upcast each value as it reads it, accumulate in fp32
-and round each output once to bf16, so the result is the fp32 product of
-the upcast operands rounded once, with the same batch invariance.  Those
-launches count in ``gemm.bf16.launches``.  :func:`batched_gemm` takes bf16
-the same way (``batched_gemm_bf16``: the bf16 kernels per expert), its
-launches counted in ``batched_gemm.bf16.launches``.
+does, on another body: ``gemm_bf16`` multiplies on the tensor cores
+(``wgmma``), the sum fp32 in registers, each output rounded once to bf16.
+Its plan, :func:`gemm_bf16_plan`, reads M, N and the expert count alone
+and never splits K, and every plan runs every element through the same
+chain of ``m64n64k16`` instructions over K from 0 upward, so a row's bits
+depend neither on M nor on the plan (the fp32 entry's FMA chain rounded
+is no longer the bf16 result: the tensor core sums each 16-deep chunk
+its own way).  Those launches count in ``gemm.bf16.launches``.
+:func:`batched_gemm` takes bf16 the same way (``batched_gemm_bf16``: the
+same body, the expert as ``blockIdx.z``, so expert e's row has the bits of
+``gemm(x[e], w[e])``'s), its launches counted in
+``batched_gemm.bf16.launches``.  On CPU tensors both run the plain
+versions (fp32 on the upcast operands, rounded once).
 """
 
 from __future__ import annotations
@@ -33,8 +39,9 @@ import torch
 
 from repro_torch.kernels import _cuda
 
-__all__ = ["gemm", "gemm_plain", "gemm_variant", "gemm_tile", "batched_gemm",
-           "batched_gemm_plain", "SKINNY_MAX_M", "TILES", "MIN_BIG_TILE_BLOCKS"]
+__all__ = ["gemm", "gemm_plain", "gemm_variant", "gemm_tile", "gemm_bf16_plan", "batched_gemm",
+           "batched_gemm_plain", "SKINNY_MAX_M", "TILES", "MIN_BIG_TILE_BLOCKS", "BF16_TILES",
+           "BF16_BK"]
 
 SKINNY_MAX_M = 16        # the largest M of the skinny kernel (gemm_f32_skinny)
 
@@ -63,6 +70,27 @@ def gemm_tile(m: int, n: int, count: int = 1) -> tuple:
     if m >= big[0] and count * -(-m // big[0]) * -(-n // big[1]) >= MIN_BIG_TILE_BLOCKS:
         return big
     return TILES[1]
+
+
+# the bf16 body's plans (BM, BN) (csrc/gemm.cu gemm_bf16): one or two consumer
+# warpgroups of 64 rows, one or two 64-column panels, each a chain of
+# m64n64k16 instructions; and the K depth of its ring stages
+BF16_TILES = ((64, 64), (128, 128))
+BF16_BK = 64
+
+
+def gemm_bf16_plan(m: int, n: int, count: int = 1) -> tuple:
+    """The bf16 body's tile (BM, BN) for ``count`` (M, N) results in one
+    launch (:func:`batched_gemm`'s experts): 128x128 where M fills more than
+    one 64-row warpgroup and the launch still gets MIN_BIG_TILE_BLOCKS
+    blocks, else 64x64 (decode's rows, zero past M, and narrow column strips
+    that spread the weights over the SMs).  K is never split, and only the
+    speed depends on the plan: each output element is the same instruction
+    chain in every plan."""
+    big = BF16_TILES[1]
+    if m > BF16_TILES[0][0] and count * -(-m // big[0]) * -(-n // big[1]) >= MIN_BIG_TILE_BLOCKS:
+        return big
+    return BF16_TILES[0]
 
 
 def gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -110,20 +138,18 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    bf16 = x.dtype == torch.bfloat16
     lib = _cuda.library()
     args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k)
-    if gemm_variant(m) == "skinny":
-        fn = lib.gemm_bf16_skinny if bf16 else lib.gemm_f32_skinny
-        err = fn(*args, _cuda.stream_of(x))
-    else:
-        fn = lib.gemm_bf16_tiled if bf16 else lib.gemm_f32_tiled
-        err = fn(*args, *gemm_tile(m, n), _cuda.stream_of(x))
-    _cuda.check(err, "gemm")
-    if bf16:
+    if x.dtype == torch.bfloat16:
+        _cuda.check(lib.gemm_bf16(*args, *gemm_bf16_plan(m, n), _cuda.stream_of(x)), "gemm")
         gemm.bf16.launches += 1
+        return out
+    if gemm_variant(m) == "skinny":
+        err = lib.gemm_f32_skinny(*args, _cuda.stream_of(x))
     else:
-        gemm.launches += 1
+        err = lib.gemm_f32_tiled(*args, *gemm_tile(m, n), _cuda.stream_of(x))
+    _cuda.check(err, "gemm")
+    gemm.launches += 1
     return out
 
 
@@ -136,8 +162,8 @@ MAX_EXPERTS = 65535      # gridDim.z
 
 def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, M, K) @ (E, K, N) -> (E, M, N) in x's dtype, fp32 or bf16 (w the
-    same); row m of expert e is the same FMA chain whatever M is, the one
-    :func:`gemm` gives it."""
+    same); row m of expert e is the same arithmetic whatever M is, the one
+    :func:`gemm` gives it in the same dtype."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"batched_gemm needs (E, M, K) @ (E, K, N), got {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
@@ -155,10 +181,12 @@ def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if k == 0:
         return out.zero_()
     bf16 = x.dtype == torch.bfloat16
-    tile = gemm_tile(m, n, e) if gemm_variant(m) == "tiled" else (0, 0)
-    lib = _cuda.library()
-    err = (lib.batched_gemm_bf16 if bf16 else lib.batched_gemm_f32)(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, *tile, _cuda.stream_of(x))
+    if bf16:
+        fn, tile = _cuda.library().batched_gemm_bf16, gemm_bf16_plan(m, n, e)
+    else:
+        fn = _cuda.library().batched_gemm_f32
+        tile = gemm_tile(m, n, e) if gemm_variant(m) == "tiled" else (0, 0)
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, *tile, _cuda.stream_of(x))
     _cuda.check(err, "batched_gemm")
     if bf16:
         batched_gemm.bf16.launches += 1

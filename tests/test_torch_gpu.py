@@ -1896,15 +1896,26 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126))) - 7)
 
 
+def _within_bf16_ulp(got, plain):
+    """bf16, and within one bf16 ulp (+ the fp32 tolerance) of the plain
+    version."""
+    assert got.dtype == torch.bfloat16
+    diff = (got.float() - plain.float()).abs()
+    assert bool((diff <= _bf16_ulp(torch.maximum(got.float().abs(), plain.float().abs()))
+                 + TOL["atol"]).all()), float(diff.max())
+
+
 def _check_bf16(got, fp32_kernel_out, plain):
     """A bf16 entry's output: bf16, bitwise the fp32 entry's output on the
     upcast inputs rounded once (the same fp32 arithmetic), and within one
     bf16 ulp (+ the fp32 tolerance) of the plain version."""
-    assert got.dtype == torch.bfloat16
     assert torch.equal(got, fp32_kernel_out.to(torch.bfloat16))
-    diff = (got.float() - plain.float()).abs()
-    assert bool((diff <= _bf16_ulp(torch.maximum(got.float().abs(), plain.float().abs()))
-                 + TOL["atol"]).all()), float(diff.max())
+    _within_bf16_ulp(got, plain)
+
+
+# the M of the bf16 GEMM's row gates: both sides of every plan's 64-row
+# warpgroup and 128-row tile (csrc/gemm.cu gemm_bf16)
+BF16_GEMM_MS = (1, 4, 16, 17, 32, 63, 64, 65, 127, 128, 256)
 
 
 @pytest.mark.gpu
@@ -1922,12 +1933,13 @@ def test_bf16_kernels_match_their_plain_versions_on_the_card():
 
     counts = [f.bf16.launches for f in (gemm, rmsnorm, flash_attention, flash_decode,
                                         combine_partials)]
-    # gemm: both kernels, both tiles, ragged and unaligned widths (2-byte
-    # loads), K off the 128-deep and 16-deep steps
+    # gemm (the tensor-core body, not the fp32 entry's arithmetic): both
+    # plans, TMA staging and element loads (widths off 8), K off the 64-deep
+    # stages and the 16-deep instructions
     for m, k, n in ((1, 64, 96), (4, 1152, 1000), (5, 37, 19), (16, 300, 264), (17, 64, 130),
-                    (64, 1152, 6912), (256, 301, 250)):
+                    (64, 1152, 6912), (256, 301, 250), (1024, 1152, 6912), (1030, 301, 2050)):
         x, w = rb(m, k), rb(k, n, scale=k ** -0.5)
-        _check_bf16(gemm(x, w), gemm(x.float(), w.float()), gemm_plain(x, w))
+        _within_bf16_ulp(gemm(x, w), gemm_plain(x, w))
     # rmsnorm: the registers layouts and the two-pass one, with and without
     # the residual, a width off 4
     for rows, d in ((4, 1152), (7, 96), (3, 30), (2, 9000)):
@@ -1972,22 +1984,27 @@ def test_bf16_kernels_match_their_plain_versions_on_the_card():
 
 @pytest.mark.gpu
 def test_bf16_gemm_rows_do_not_depend_on_the_batch():
-    """gemm_bf16: a row's bits are the same at M = 1, M = 4 (skinny) and
-    M = 64 (tiled), at gemma3-1b's projection and head widths."""
+    """gemm_bf16: a row's bits are those of one M = 1024 call at every M of
+    BF16_GEMM_MS, whichever rows of the 1024 it is given (so at other
+    places in the 64-row tile) and whichever plan runs either call, at
+    gemma3-1b's projection and head widths, qwen2's expert width and a
+    ragged one (element loads, both plans)."""
     dev = _card()
-    from repro_torch.kernels.gemm import gemm, gemm_variant
+    from repro_torch.kernels.gemm import BF16_TILES, gemm, gemm_bf16_plan
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    for k, n in ((1152, 1024), (1152, 6912), (6912, 1152), (1152, 262144), (301, 250)):
+    plans = set()
+    for k, n in ((1152, 1024), (1152, 6912), (6912, 1152), (1152, 262144), (2048, 1408),
+                 (301, 2050)):
         w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
-        x = torch.randn(64, k, generator=gen, device=dev).to(torch.bfloat16)
-        assert (gemm_variant(1), gemm_variant(4), gemm_variant(64)) == ("skinny", "skinny",
-                                                                         "tiled")
+        x = torch.randn(1024, k, generator=gen, device=dev).to(torch.bfloat16)
         full = gemm(x, w)
-        four = gemm(x[:4].contiguous(), w)
-        assert torch.equal(four, full[:4]), (k, n)
-        for i in (0, 3):
-            assert torch.equal(gemm(x[i:i + 1].contiguous(), w)[0], full[i]), (k, n, i)
+        plans.add(gemm_bf16_plan(1024, n))
+        for m in BF16_GEMM_MS:
+            plans.add(gemm_bf16_plan(m, n))
+            assert torch.equal(gemm(x[:m].contiguous(), w), full[:m]), (k, n, m)
+            assert torch.equal(gemm(x[-m:].contiguous(), w), full[-m:]), (k, n, m)
+    assert plans == set(BF16_TILES)
 
 
 @pytest.mark.gpu
@@ -2063,11 +2080,12 @@ def _rb(gen, dev):
 
 @pytest.mark.gpu
 def test_bf16_family_kernels_match_their_plain_versions_on_the_card():
-    """batched_gemm_bf16 (both kernels, both tiles, ragged widths), the wide
-    flash_decode_bf16 (MLA's D 576 / Dv 512, D 592, Dv off 8) and
-    ssd_scan_bf16 (with and without D, widths off 4): each bitwise the fp32
-    entry on the upcast inputs rounded once, within one bf16 ulp of its
-    plain version; the scan's state bitwise the fp32 entry's."""
+    """batched_gemm_bf16 (both plans, ragged widths) within one bf16 ulp of
+    its plain version; the wide flash_decode_bf16 (MLA's D 576 / Dv 512, D
+    592, Dv off 8) and ssd_scan_bf16 (with and without D, widths off 4):
+    each bitwise the fp32 entry on the upcast inputs rounded once, within
+    one bf16 ulp of its plain version; the scan's state bitwise the fp32
+    entry's."""
     dev = _card()
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     from repro_torch.kernels.gemm import batched_gemm, batched_gemm_plain
@@ -2077,10 +2095,10 @@ def test_bf16_family_kernels_match_their_plain_versions_on_the_card():
     rb = _rb(gen, dev)
     counts = [f.bf16.launches for f in (batched_gemm, flash_decode, ssd_scan)]
     for e, m, k, n in ((64, 32, 2048, 1408), (64, 80, 1408, 2048), (16, 4, 128, 512),
-                       (16, 4, 512, 128), (3, 17, 37, 19), (2, 130, 300, 264)):
+                       (16, 4, 512, 128), (3, 17, 37, 19), (2, 130, 300, 264),
+                       (64, 130, 300, 264)):
         x, w = rb(e, m, k), rb(e, k, n, scale=k ** -0.5)
-        _check_bf16(batched_gemm(x, w), batched_gemm(x.float(), w.float()),
-                    batched_gemm_plain(x, w))
+        _within_bf16_ulp(batched_gemm(x, w), batched_gemm_plain(x, w))
     for b, s, hq, hk, d, dv, lens in ((4, 2048, 16, 1, 576, 512, (1400, 1000, 600, 250)),
                                       (3, 300, 8, 2, 592, 512, (0, 300, 77)),
                                       (2, 100, 4, 1, 576, 260, (99, 3))):
@@ -2109,22 +2127,25 @@ def test_bf16_family_kernels_match_their_plain_versions_on_the_card():
 
 @pytest.mark.gpu
 def test_bf16_expert_rows_do_not_depend_on_m():
-    """batched_gemm_bf16: expert e's row has the same bits at M = 1 (skinny)
-    and M = 32 (tiled), at qwen2's expert widths, and equals gemm_bf16's
-    row of x[e] @ w[e]."""
+    """batched_gemm_bf16: expert e's rows have the bits of one M = 256
+    call's at every M of BF16_GEMM_MS, from the first rows and the last,
+    at qwen2's expert widths and MLA's absorbed ones, and equal gemm_bf16's
+    product x[e] @ w[e] at M = 1, 32 and 256."""
     dev = _card()
-    from repro_torch.kernels.gemm import batched_gemm, gemm, gemm_variant
+    from repro_torch.kernels.gemm import batched_gemm, gemm
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     rb = _rb(gen, dev)
-    assert (gemm_variant(1), gemm_variant(32)) == ("skinny", "tiled")
     for k, n in ((2048, 1408), (1408, 2048), (128, 512)):
-        x, w = rb(8, 32, k), rb(8, k, n, scale=k ** -0.5)
+        x, w = rb(8, 256, k), rb(8, k, n, scale=k ** -0.5)
         full = batched_gemm(x, w)
-        one = batched_gemm(x[:, :1].contiguous(), w)
-        assert torch.equal(one, full[:, :1]), (k, n)
-        for e in (0, 7):
-            assert torch.equal(gemm(x[e], w[e]), full[e]), (k, n, e)
+        for m in BF16_GEMM_MS:
+            assert torch.equal(batched_gemm(x[:, :m].contiguous(), w), full[:, :m]), (k, n, m)
+            assert torch.equal(batched_gemm(x[:, -m:].contiguous(), w), full[:, -m:]), (k, n, m)
+        for m in (1, 32, 256):
+            part = batched_gemm(x[:, :m].contiguous(), w)
+            for e in (0, 7):
+                assert torch.equal(gemm(x[e, :m].contiguous(), w[e]), part[e]), (k, n, m, e)
 
 
 @pytest.mark.gpu
