@@ -69,14 +69,19 @@ Phases, each printing its own lines; any failure exits non-zero:
              the MoE router stays an fp32 gemm; the scan's dt and A fp32,
              and ssd_scan with D at phases 10 and 19's prompt lengths):
              each must equal the fp32 entry's output on the upcast inputs
-             rounded once, bit for bit (the scan's state equal), but gemm's
-             and batched_gemm's, which multiply on the tensor cores (wgmma),
-             and lie within one bf16 ulp (+1e-4) of its plain version; the
-             two tensor-core entries are also held at ragged edge shapes
-             (both plans, TMA and element staging) and to one K order for
-             every row: rows at M = 1-256 bitwise one M = 1024 call's
-             whichever plan runs either, at gemma3-1b's, qwen2's and a
-             ragged width, each expert's rows bitwise gemm_bf16's; timed beside
+             rounded once, bit for bit (the scan's state equal), but gemm's,
+             batched_gemm's and flash_attention's, which multiply on the
+             tensor cores (wgmma), and lie within one bf16 ulp (+1e-4) of its
+             plain version; the two GEMM entries are also held at ragged
+             edge shapes (both plans, TMA and element staging) and to one K
+             order for every row: rows at M = 1-256 bitwise one M = 1024
+             call's whichever plan runs either, at gemma3-1b's, qwen2's and
+             a ragged width, each expert's rows bitwise gemm_bf16's; the
+             attention body at edge shapes (element loads, GQA 1-64, rows
+             that see nothing, a ragged last tile, five shards) and to one
+             order for every row: rows from 1-511 on of a B = 1 call bitwise
+             a B = 2 call's at D 64-256, Dv 64-256 and a ragged 30, causal,
+             windowed and not, G = 1 (one shard) and G = 4 (shards); timed beside
              the fp32 entry, the plain version and the library call on
              bf16 inputs, the bound at 2 bytes a value and 989 TFLOP/s.
              The fp32 entries of batched_gemm, ssd_scan and flash_attention
@@ -99,7 +104,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              card agree with the CPU's (1e-4).  The reduced layer-stack LMs
              serve fp32: their launches are the "model" path of the kernels
              line, which must hold every FP32_ROWS entry.
-5. serving — phi3-mini widths, all 32 layers, random weights from a seed:
+5. serving — phi3-mini widths, depth cut to SERVE_LAYERS = 4 of 32 (for
+             the script's time limit; phases 5-7, 11 and 13-17 serve this
+             model), random weights from a seed:
              the engine serves 8 requests (4 slots, chunk 64, cache 1024);
              every request's tokens must equal the unbatched reference's,
              every kernel's launch count must rise, and the step assignment
@@ -122,9 +129,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              has a bf16 body; 2.6 GB of weights with the transposed tied
              embedding), random weights from seed 0 drawn on the card: the continuous
              batcher (4 slots, cache 2048) serves 8 requests of 200-1400
-             prompt tokens (both sides of the 512 window) and 32 new tokens
-             each; every request must equal the unbatched greedy prefill +
-             decode on the card token for token, and flash_attention,
+             prompt tokens (both sides of the 512 window) and STACK_NEW (16)
+             new tokens each; every request must equal the unbatched
+             greedy prefill + decode on the card token for token, and flash_attention,
              flash_decode, rmsnorm and gemm must launch as the path needs,
              every launch on their bf16 entries, with every weight and
              cache bf16 and every kernel op on cuda.
@@ -138,7 +145,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              as the path needs, on their bf16 entries, the router on the
              fp32 gemm.
 10. ssm    — mamba2-370m at its published widths, all 48 layers, bfloat16
-             (dt_bias, A_log and D fp32): 8 requests of 200-1400 tokens, 32
+             (dt_bias, A_log and D fp32): 8 requests of 200-1400 tokens, 16
              new each, token-exact; ssd_scan_bf16 launches 48 times per
              prefill.  Each layer-stack phase prints its weights' GB and
              every leaf's elements by element size.
@@ -185,7 +192,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              smaller (the whole Program's ratio printed: the embedding stays
              fp32); decode and prefill ms a tick, peak GB.
 14. spec   — the same model and requests with spec_k 3 and the default
-             draft (16 of 32 layers): the dense, paged fp32 and int8-weight
+             draft (half the layers): the dense, paged fp32 and int8-weight
              engines token-exact against their references (phases 5 and
              13); then the int8-page engine over phase 7's two waves, its
              tokens bitwise phase 7's.  Each prints spec ticks, proposed,
@@ -193,8 +200,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              conservation and pool integrity are checked, and every Program
              call (prefill, draft prefill, draft, verify, commit) launches
              exactly its graph's kernels: the verify rows once per layer a
-             verify call, the kv8 verify's paged decode (spec_k + 1) x 32
-             times.  The dense stepper's verify logits are compared with
+             verify call, the kv8 verify's paged decode (spec_k + 1) x the layer
+             count times.  The dense stepper's verify logits are compared with
              its decode logits at the same positions (max |diff| and the
              top-2 gap wherever the argmax differs are printed).
 15. heal   — (after 14, on phase 5's weights) four engines built with
@@ -243,8 +250,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              output on two seeded inputs equals the original's bitwise with
              the same kernel launches per call, and 16 greedy tokens of 4
              prompts through the loaded prefill and decode pair equal the
-             originals'.  17b: phase 13's int8-weight decode Program (32
-             layers, shared calibration) saved, loaded and held the same
+             originals'.  17b: phase 13's int8-weight decode Program (all
+             its layers, shared calibration) saved, loaded and held the same
              way, program.json saying quantized; footprint_table of phase
              5's fp32 and this int8 decode Program.  17c: the golden bundle
              tests/golden/tiny_int8 (pinned xla: torch in the port) gives
@@ -257,7 +264,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              Prints bundle bytes, save, load and first-call seconds and the
              async tokens/s beside phase 5's.
 18. tp     — tensor-parallel serving (right after phase 16), at phi3-mini's
-             widths with depth cut to TP_LAYERS = 8 of 32 (for the
+             widths with depth cut to TP_LAYERS = 4 of 32 (for the
              script's time limit; phase 5's weights are dropped and the
              seed-0 weights drawn at that depth): the parent serves phase
              5's 8 requests (32 new) on single-rank dense, paged fp32 and
@@ -297,7 +304,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              11 applications of two alternating shared attention blocks on
              concat(h, emb0)), bfloat16 (weights from seed 0 on the card):
              phase 8's batcher set-up, 8 requests of 200-1400 tokens,
-             32 new each, token-exact against batch-1 greedy; 11
+             16 new each, token-exact against batch-1 greedy; 11
              flash_attention and 70 ssd_scan launches a prefill, 11
              flash_decode launches a step, every kernel exactly as
              stack_calls counts.
@@ -457,14 +464,20 @@ PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 BF16_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
 BF16_KERNELS = ("gemm", "rmsnorm", "flash_decode", "flash_attention", "combine_partials",
                 "batched_gemm", "ssd_scan")
-# the bf16 entries that multiply on the tensor cores (wgmma, csrc/gemm.cu):
-# not the fp32 entry's arithmetic, so held to their plain version within
-# BF16_TOL and to one K order for every row (bf16_gemm_cases), not bitwise
-# to the fp32 entry's output rounded once
-TENSOR_CORE_BF16 = ("gemm", "batched_gemm")
+# the bf16 entries that multiply on the tensor cores (wgmma, csrc/gemm.cu
+# and csrc/flash_attention.cu): not the fp32 entry's arithmetic, so held to
+# their plain version within BF16_TOL and to one order for every row
+# (bf16_gemm_cases, bf16_attention_cases), not bitwise to the fp32 entry's
+# output rounded once
+TENSOR_CORE_BF16 = ("gemm", "batched_gemm", "flash_attention")
 # the M of the bf16 GEMM's row gate: both sides of every plan's 64-row
 # warpgroup and 128-row tile
 BF16_GEMM_MS = (1, 4, 16, 17, 32, 63, 64, 65, 127, 128, 256)
+# the bf16 attention body's row gate: every panel count of Dv, D off 16
+# (112) and off 8 (30: element loads); rows from both sides of a 64-row
+# tile's edge and of the 256-column shards
+BF16_ATTN_WIDTHS = ((64, 64), (112, 112), (128, 128), (192, 128), (256, 256), (30, 30))
+BF16_ATTN_FIRSTS = (1, 63, 64, 65, 255, 257, 511)
 # the kernels whose fp32 entries no full-width serving phase runs (every
 # layer-stack config serves bf16): phase 3 times them at the same calls on
 # the upcast inputs, beside their bf16 entries
@@ -486,6 +499,13 @@ JAX_INT8_MAX_ABS_ERR = {
     "resnet-50": 0.0269317626953125,
 }
 INT8_ERR_MARGIN = 1.05
+# phi3-mini's depth in the engine phases (5-7, 11, 13-18), of its 32: the
+# script's time limit (every layer is the same shapes, so the kernels see
+# what the full depth gives them; each tick launches them per layer)
+SERVE_LAYERS = 4
+# new tokens a request in the layer-stack phases (8-10, 19, 20): the
+# script's time limit (each phase's batch-1 reference decodes them too)
+STACK_NEW = 16
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -582,10 +602,36 @@ def check_close(torch, name, got, want, atol, rtol) -> float:
     return err
 
 
-def sass_counts(cuda_mod, lib_path, kernel, opcode):
+def instance_name(fn, kernels):
+    """``kernel<template ints>`` for a mangled function name that holds one
+    of ``kernels``, else None."""
+    for kernel in (k for k in kernels if k in fn):
+        args = re.search(rf"{kernel}I(.*?)EEv", fn)
+        ints = re.findall(r"Li(\d+)E", args.group(1) + "E") if args else []
+        return f"{kernel}<{', '.join(ints)}>" if ints else fn
+    return None
+
+
+def ptxas_usage(log, kernels):
+    """{instance: (registers, spill store bytes)} from nvcc's -Xptxas -v
+    lines for every entry function whose name holds one of ``kernels``."""
+    usage, name, spill = {}, None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name, spill = instance_name(entry.group(1), kernels), 0
+        elif name is not None and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name is not None and re.search(r"Used \d+ registers", line):
+            usage[name] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill)
+            name = None
+    return usage
+
+
+def sass_counts(cuda_mod, lib_path, kernels, opcode):
     """{instance (its template arguments): lines of ``opcode`` in its SASS}
-    for every function of the built library whose name holds ``kernel``
-    (cuobjdump -sass, beside nvcc)."""
+    for every function of the built library whose name holds one of
+    ``kernels`` (cuobjdump -sass, beside nvcc, read once)."""
     tool = Path(cuda_mod._nvcc()).parent / "cuobjdump"
     dump = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300)
@@ -594,12 +640,8 @@ def sass_counts(cuda_mod, lib_path, kernel, opcode):
     counts, name = {}, None
     for line in dump.stdout.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            name = None
-            if kernel in fn:
-                args = re.search(rf"{kernel}I(.*?)EEv", fn)
-                ints = re.findall(r"Li(\d+)E", args.group(1) + "E") if args else []
-                name = f"{kernel}<{', '.join(ints)}>" if ints else fn
+            name = instance_name(line.split("Function :", 1)[1].strip(), kernels)
+            if name is not None:
                 counts[name] = 0
         elif name is not None and opcode in line:
             counts[name] += 1
@@ -803,6 +845,77 @@ def bf16_gemm_cases(torch, K, limit_line):
     say("  host us a call at 4x1152 -> 1152 (best of 2 x 500, no sync): "
         + ", ".join(f"{k} {v:.3f}" for k, v in host.items()) + f"  [{limit_line}]")
     return {"checks": n, "max_abs_err_edges": worst, "plans": sorted(plans), "host_us": host}
+
+
+def bf16_attention_cases(torch, K):
+    """The tensor-core bf16 attention body (flash_attention_bf16): edge
+    shapes within BF16_TOL of the plain version (D or Dv off 8 and an
+    unaligned q: element loads; D off 16; GQA 3, 8 and 64; rows before
+    position 0 that see nothing and give 0; a ragged last tile in one shard;
+    five shards), then one order for every row: at each width of
+    BF16_ATTN_WIDTHS, causal, window 512 and non-causal, G = 1 (16 heads:
+    one shard) and G = 4 (one kv head: 256-column shards), the rows of a
+    B = 1 call from each ``first`` of BF16_ATTN_FIRSTS on bitwise those of
+    a B = 2 call over all 700.  Returns the record."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    bf16 = torch.bfloat16
+
+    def rb(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(bf16)
+
+    def unaligned(x):  # the same values at a data pointer 2 bytes off 16
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    if -(-2100 // K.attention_shard_cols_bf16(2100, 1, 1)) != 5:
+        fail("flash_attention_bf16: the edge shapes no longer hold a five-shard case")
+    n, worst = 0, 0.0
+    for b, sq, skv, hq, hk, d, dv, causal, window in (
+            (1, 50, 50, 2, 2, 30, 30, False, None), (2, 300, 300, 4, 2, 6, 10, True, None),
+            (2, 64, 700, 4, 2, 96, 96, True, None), (2, 80, 80, 8, 1, 128, 128, True, 17),
+            (1, 700, 700, 64, 1, 64, 64, True, None), (1, 130, 130, 12, 4, 72, 40, False, None),
+            (1, 80, 50, 4, 2, 64, 64, True, None), (2, 1030, 1030, 8, 8, 128, 128, True, None),
+            (1, 2100, 2100, 1, 1, 256, 256, True, 1000)):
+        q, k, v = rb(b, sq, hq, d), rb(b, skv, hk, d), rb(b, skv, hk, dv)
+        label = (f"flash_attention_bf16 B={b} Sq={sq} Skv={skv} Hq={hq} Hk={hk} D={d} Dv={dv} "
+                 f"causal={causal} window={window}")
+        got = K.flash_attention(q, k, v, causal=causal, window=window)
+        want = K.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       scale=1.0 / math.sqrt(d))
+        worst = max(worst, check_close(torch, label, got.float(), want.float(), **BF16_TOL))
+        if sq > skv and causal and bool(got[:, :sq - skv].float().abs().max() != 0):
+            fail(f"{label}: rows that see no column are not 0")
+        if d == 64 and not torch.equal(K.flash_attention(unaligned(q), k, v, causal=causal,
+                                                         window=window), got):
+            fail(f"{label}: an unaligned q (element loads) changes the bits")
+        n += 1
+    shards = set()
+    for d, dv in BF16_ATTN_WIDTHS:
+        for hq, hk in ((16, 16), (4, 1)):
+            shards.add(K.attention_shard_cols_bf16(700, hq, hk))
+            q, k, v = rb(2, 700, hq, d), rb(2, 700, hk, d), rb(2, 700, hk, dv)
+            for causal, window in ((True, None), (True, 512), (False, None)):
+                full = K.flash_attention(q, k, v, causal=causal, window=window)
+                for first in BF16_ATTN_FIRSTS:
+                    part = K.flash_attention(q[:1, first:].contiguous(), k[:1].contiguous(),
+                                             v[:1].contiguous(), causal=causal, window=window)
+                    if not torch.equal(part, full[:1, first:]):
+                        fail(f"flash_attention_bf16 D={d} Dv={dv} Hq={hq} Hk={hk} "
+                             f"causal={causal} window={window}: rows from {first} at B=1 are "
+                             "not bitwise those of the B=2 call")
+                    n += 1
+            del q, k, v, full
+    if len(shards) != 2:
+        fail(f"flash_attention_bf16: the row gate ran shard sizes {sorted(shards)}, not both "
+             "the one-shard plan and the 256-column shards")
+    torch.cuda.synchronize()
+    say(f"  bf16 attention (tensor cores): {n} checks, edge shapes within BF16_TOL (max |err| "
+        f"{worst:.3e}); rows bitwise across B = 1 / 2 and the query offsets "
+        f"{list(BF16_ATTN_FIRSTS)} at (D, Dv) {list(BF16_ATTN_WIDTHS)}, three masks, G = 1 "
+        f"and 4, shards of {sorted(shards)} columns")
+    return {"checks": n, "max_abs_err_edges": worst, "shards": sorted(shards)}
 
 
 def shard_kernel_cases(torch, K, rn, tol):
@@ -1153,6 +1266,7 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
 
     extra = {"empty_launch_ms": empty_ms, "shapes": shapes,
              "bf16_gemm": bf16_gemm_cases(torch, K, limit_line),
+             "bf16_attention": bf16_attention_cases(torch, K),
              "combine": combine_kernels(torch, K, rn, timer, record, full_tol),
              "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
              "split_bf16": split_bf16_kernels(torch, K, rn, timer, record, full_tol,
@@ -1851,8 +1965,9 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
     has none).  A call on a bf16 entry (a bfloat16 config's, recorded as
     ``<kernel>_bf16``) runs on bf16 inputs (the scan's dt and A stay fp32,
     as the mamba layer passes them): held within BF16_TOL of its plain
-    version and bitwise to the fp32 entry's output on the upcast inputs
-    rounded once (the scan's state bitwise the fp32 entry's), timed beside
+    version and, but for the tensor-core bodies (TENSOR_CORE_BF16), bitwise
+    to the fp32 entry's output on the upcast inputs rounded once (the
+    scan's state bitwise the fp32 entry's), timed beside
     that fp32 entry and the library call on bf16 inputs; the bound counts
     2 bytes a bf16 value and the bf16 tensor-core rate.  The fp32 entries
     of FP32_ROWS, which no full-width config runs any more, get their own
@@ -1944,14 +2059,17 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
             args = tuple(a.to(torch.bfloat16) if i in cast else a for i, a in enumerate(args))
             up = tuple(a.float() for a in args)            # the upcast inputs
             name, peak, nbytes, label = entry, PEAK_BF16_FLOPS, nb(2.0), label + " bf16"
-            if kernel in TENSOR_CORE_BF16:
+            if kernel == "flash_attention":
+                label += f" shard {K.attention_shard_cols_bf16(*shape[2:5])}"
+            elif kernel in TENSOR_CORE_BF16:
                 m, count = (shape[0], 1) if kernel == "gemm" else (shape[1], shape[0])
                 label += f" plan {K.gemm_bf16_plan(m, shape[-1], count)}"
         outs, wants = tup(fn(*args)), tup(plain(*args))
         if bf16:
             outs32 = tup(fn(*up))
             # the first output is bf16, the fp32 entry's rounded once (but
-            # on the tensor cores: bf16_gemm_cases holds those); the scan's
+            # on the tensor cores: bf16_gemm_cases and bf16_attention_cases
+            # hold those); the scan's
             # state stays fp32, bitwise the fp32 entry's
             if outs[0].dtype != torch.bfloat16 or (kernel not in TENSOR_CORE_BF16 and (
                     not torch.equal(outs[0], outs32[0].to(torch.bfloat16)) or not all(
@@ -2668,7 +2786,7 @@ def int8w_phase(torch, K, cfg, params, served, *, n_slots, chunk, cache_cap, max
 # --------------------------------------------------------------------------- #
 
 GOLDEN = ROOT / "tests" / "golden" / "tiny_int8"
-DEPLOY_LAYERS = 2              # 17a's depth: full depth would write 15.3 GB per fp32 bundle
+DEPLOY_LAYERS = 2              # 17a's depth: each phi3-mini layer adds 0.45 GB to an fp32 bundle
 GREEDY_TOKENS = 16
 
 
@@ -2924,7 +3042,7 @@ def deploy_phase(torch, K, cfg, params, engine, served, serve_stats, *, n_slots,
 
 def deploy_int8_phase(torch, K, cfg, fp32_decode, int8_decode, *, chunk, cache_cap, card):
     """Phase 17b, run right after phase 13: its int8-weight decode Program
-    (full depth) through a bundle, and footprint_table of phase 5's fp32
+    (every layer phase 13 serves) through a bundle, and footprint_table of phase 5's fp32
     decode Program beside it.  Returns the launches and the numbers."""
     from repro_torch.tools.report import footprint_table, weight_bytes
 
@@ -4920,7 +5038,7 @@ def dryrun_phase(train_record, card):
 # --------------------------------------------------------------------------- #
 
 TP_DEGREE = 2
-TP_LAYERS = 8                    # phi3-mini's depth here (of 32): the script's time limit
+TP_LAYERS = SERVE_LAYERS         # phi3-mini's depth here (of 32): the script's time limit
 TP_HEAL_CALLS = (9, 40)          # stepper calls that raise on every rank (a prefill, a decode)
 # tree decode shapes: (tag, B, Hq, Hk, D, S, lengths) — phase 3's engine decode and
 # gemma3-1b's global decode
@@ -5400,6 +5518,7 @@ class Kernels:
         self.combine_partials = fd.combine_partials
         self.decode_shard_rows = fd.decode_shard_rows
         self.attention_shard_cols = fa.attention_shard_cols
+        self.attention_shard_cols_bf16 = fa.attention_shard_cols_bf16
         from repro_torch.kernels.ref import combine_partials_ref
         self.combine_partials_ref = combine_partials_ref
         from repro_torch.kernels._cuda import empty_launch
@@ -5490,11 +5609,17 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"[build]   {line.strip()}")
-    hgmma = sass_counts(_cuda, path, "gemm_wgmma_kernel", "HGMMA")
-    say(f"[build] HGMMA (tensor-core) instructions in the SASS of each bf16 GEMM instance "
-        f"(cuobjdump -sass): {hgmma}")
-    if not hgmma or not all(hgmma.values()):
-        fail(f"the bf16 GEMM's instances issue no HGMMA: {hgmma}")
+    bodies = {"GEMM": "gemm_wgmma_kernel", "attention": "attention_wgmma_kernel"}
+    hgmma = sass_counts(_cuda, path, tuple(bodies.values()), "HGMMA")
+    for body, kernel in bodies.items():
+        counts = {k: c for k, c in hgmma.items() if k.startswith(kernel)}
+        say(f"[build] HGMMA (tensor-core) instructions in the SASS of each bf16 {body} "
+            f"instance (cuobjdump -sass): {counts}")
+        if not counts or not all(counts.values()):
+            fail(f"the bf16 {body}'s instances issue no HGMMA: {counts}")
+    if log:  # empty when an existing library was reused
+        say("[build] registers and spill-store bytes of each wgmma instance (-Xptxas -v): "
+            f"{ptxas_usage(log, tuple(bodies.values()))}")
     phase_s["build"] = time.perf_counter() - t
 
     from repro_torch.core.device import resolve_device
@@ -5506,7 +5631,8 @@ def main() -> int:
 
     # phi3-mini-3.8b widths (src/repro/configs/phi3_mini_3_8b.py): d_model 3072,
     # 32 heads, 32 kv heads (d_head 96), SwiGLU d_ff 8192, vocab 32064, 32 layers
-    cfg = GraphLMConfig(vocab=32064, d_model=3072, n_layers=32, n_heads=32,
+    # cut to SERVE_LAYERS
+    cfg = GraphLMConfig(vocab=32064, d_model=3072, n_layers=SERVE_LAYERS, n_heads=32,
                         n_kv_heads=32, d_ff=8192)
     n_slots, chunk, cache_cap, page, max_new = 4, 64, 1024, 16, 32
     # the paged pools: fp32 with the dense cache's memory (build_lm_serving's
@@ -5536,11 +5662,10 @@ def main() -> int:
     #    d_model 2048, 27 MLA + MoE layers (16 heads, latent 512, rope 64, nope
     #    128, v 128; 64 routed experts of 1408, top-6, 2 shared as one 2816-wide
     #    SwiGLU, local dispatch), untied vocab 102400
-    stack_phases = [("layerstack", serving_config("gemma3-1b", full=True, device="cuda"), 32),
-                    ("moe", serving_config("qwen2-moe-a2.7b", full=True, device="cuda"), 16),
-                    ("ssm", serving_config("mamba2-370m", full=True, device="cuda"), 32),
-                    ("hybrid", serving_config("zamba2-7b", full=True, device="cuda"), 32),
-                    ("mla", serving_config("deepseek-v2-lite-16b", full=True, device="cuda"), 32)]
+    stack_phases = [(phase, serving_config(arch, full=True, device="cuda"), STACK_NEW)
+                    for phase, arch in (("layerstack", "gemma3-1b"), ("moe", "qwen2-moe-a2.7b"),
+                                        ("ssm", "mamba2-370m"), ("hybrid", "zamba2-7b"),
+                                        ("mla", "deepseek-v2-lite-16b"))]
     # 21. seamless-m4t-medium (src/repro/configs/seamless_m4t_medium.py): 12
     #    encoder + 12 decoder layers (self, cross, ReLU MLP 4096), d_model 1024, 16
     #    heads of 64, untied vocab 256206 (padded to 256256)
@@ -5589,8 +5714,8 @@ def main() -> int:
 
     # 5. serving, dense cache
     t = time.perf_counter()
-    say(f"[serving] phi3-mini widths, {cfg.n_layers} layers, {n_slots} slots, chunk {chunk}, "
-        f"cache {cache_cap} [{limit_line}]")
+    say(f"[serving] phi3-mini widths, {cfg.n_layers} layers (depth cut from 32), {n_slots} "
+        f"slots, chunk {chunk}, cache {cache_cap} [{limit_line}]")
     launches, stats, served, engine5 = serving_phase(torch, K, cfg, params, n_slots, chunk,
                                                      cache_cap, n_requests=8, max_new=max_new)
     torch.cuda.empty_cache()
@@ -5709,7 +5834,7 @@ def main() -> int:
     # 18. tensor-parallel serving at TP_LAYERS (phase 5's weights dropped):
     # single-rank engines here, then two ranks on this card over gloo
     t = time.perf_counter()
-    say(f"[tp] phi3-mini widths, {TP_LAYERS} layers (depth cut from {cfg.n_layers}), "
+    say(f"[tp] phi3-mini widths, {TP_LAYERS} layers (depth cut from 32), "
         f"{n_slots} slots, chunk {chunk}, "
         f"cache {cache_cap}; build_lm_serving(tp={TP_DEGREE}) dense, paged fp32 and paged "
         f"int8, two ranks on cuda:0 over gloo, against single-rank engines [{limit_line}]")

@@ -14,7 +14,9 @@
 //                                    causal (columns <= row) or not, and an
 //                                    optional sliding window (columns
 //                                    > row - window);
-//   flash_attention_bf16             the same on bf16 q, k, v and o.
+//   flash_attention_bf16             the same on bf16 q, k, v and o, on the
+//                                    tensor cores (attention_wgmma_kernel,
+//                                    below).
 //   Each cuts the S columns into shards of `shard` columns (the wrapper's
 //   attention_shard_cols(S), never a function of B or T).  A row whose
 //   visible columns lie in one shard is written by the block of that
@@ -78,19 +80,56 @@
 // fp32 paged row is bitwise equal to the dense kernel's row on the gathered
 // cache.
 //
-// bf16 (flash_attention_bf16): the K/V tiles hold bf16, copied by cp.async
-// at the fp32 tiles' points (16-byte pieces of 8 values where D and Dv are
-// multiples of 8 and K, V 16-byte aligned, else 2-byte loads and stores),
-// K rows padded to pad8(D) + 8 values, and upcast as the products read them
-// (8 bytes a group of 4); Q is upcast and scaled as it is staged.  The
-// tiles' bytes halve (145 KB a block at D = 256, against 209); the tiles,
-// shards and every FMA chain are the fp32 kernel's, on the upcast values.
-// The output, written directly or by the combine, is rounded once to bf16;
-// the shards' partials stay fp32.  The bound counts 2 bytes a value.
+// bf16 (flash_attention_bf16): its own body, attention_wgmma_kernel, with
+// both products on the tensor cores.  The fp32 FFMA body above tops out at
+// 67 TFLOP/s; wgmma reaches 989.  It computes what the Pallas kernel's
+// _flash_kernel computes on bf16 q, k and v: scores, softmax state and
+// output in fp32, the output rounded once to bf16.
+// - Block: one warpgroup (128 threads) owns the 64 query rows of the fp32
+//   body's GQA packing (G heads of a kv head at 64 / GP positions), a shard
+//   of the wrapper's attention_shard_cols_bf16(S, Hq, Hk) columns, and the
+//   same grid, longest causal walks first.  Shared memory holds Q, K and V
+//   as [64 rows][64 values] bf16 panels, one 128-byte row a row under
+//   wgmma's 128-byte swizzle: Q and K in pad64(D) / 64 panels along D
+//   (K-major), V in pad64(Dv) / 64 panels along Dv.  One K and one V tile,
+//   as the fp32 body: 99,328 B at D = Dv = 256, 50,176 at 128, 66,560 at
+//   192 / 128, 25,600 at 64.  Registers, not shared memory, set the blocks
+//   an SM: O takes 32 fp32 registers a thread a panel of Dv (241 registers
+//   a thread at Dv = 256: two blocks; 167 at 128: three; 127 at 64: four).
+// - Staging: the warpgroup itself copies with cp.async, 16 bytes a copy,
+//   into the swizzled layout: Q with the first K tile, V of tile j while Q
+//   K^T and the softmax of tile j run, K of tile j + 1 (once every warp's
+//   Q K^T is done) while the softmax and P V of tile j run; three barriers
+//   a tile.  Where D or Dv is off 8 or a
+//   pointer is not 16-byte aligned it loads element by element into the
+//   same layout.  Columns past the walk and values past D or Dv are zero,
+//   so a masked column multiplies 0.  fence.proxy.async, then the barrier,
+//   publish a tile to wgmma.
+// - S = Q K^T (64 x 64, fp32 registers): wgmma.m64n64k16 over D's 16-deep
+//   chunks from 0 upward, A and B both K-major in shared memory.  It is
+//   scaled in fp32 (q is not rounded after scaling), masked to -1e30, and
+//   the softmax runs in registers: a row's max and sum over its four lanes
+//   by a fixed xor order (1, 2) after each lane's 16 columns in order; l
+//   sums the fp32 p, as the reference does.
+// - O += P V: p is split into hi = bf16(p) and lo = bf16(p - hi) (p within
+//   2^-17 of hi + lo; a bf16 P alone puts an error of up to 2^-9 of V's
+//   spread into O, more than one bf16 ulp of a small output), each packed
+//   in the accumulator's own fragment layout as wgmma's register A.  V is
+//   read N-major (imm-trans-b 1): for each 64-column panel of Dv and each
+//   16-column chunk of the tile in order, one m64n64k16 on hi, then one on
+//   lo.  O (64 x pad64(Dv)) stays in fp32 registers and finishes as O /
+//   max(l, 1e-30), or goes out as a shard's partial.
+// One order for every row: the instruction sequence depends on (D, Dv)
+// alone, tiles are 64 columns from column 0, a row's shards come from (S,
+// Hq, Hk) alone, and a tile a row sees nothing of leaves it unchanged (p = 0
+// exactly, alpha = exp(0) = 1, and P V adds products of 0).  So a row's bits
+// depend neither on the batch, nor on Sq, nor on its place in the tile.  A
+// bf16 result is not the fp32 entry's rounded: the tensor core sums each
+// 16-deep chunk in its own order.
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -112,18 +151,6 @@ constexpr int MAX_SHARDS = 8; // the wrapper's attention_shard_cols keeps NS <= 
 __host__ __device__ inline size_t attn_smem_floats(int D, int Dv) {
   return (size_t)BR * pad4(D) + (size_t)BKV * (pad4(D) + 4) + (size_t)BKV * pad4(Dv) +
          (size_t)BR * BKV;
-}
-
-__host__ __device__ inline int pad8(int x) { return (x + 7) & ~7; }
-
-// Bytes of dynamic shared memory for a source: attn_smem_floats for fp32
-// tiles; for bf16 ones Q [BR][D4] and P [BR][BKV] fp32 and the K
-// [BKV][kst(D)] and V [BKV][vst(Dv)] tiles at 2 bytes.
-template <class Src>
-__host__ __device__ inline size_t attn_smem_bytes(int D, int Dv) {
-  if (sizeof(typename Src::Tile) == sizeof(float)) return attn_smem_floats(D, Dv) * sizeof(float);
-  return sizeof(float) * ((size_t)BR * pad4(D) + (size_t)BR * BKV) +
-         sizeof(typename Src::Tile) * BKV * ((size_t)Src::kst(D) + Src::vst(Dv));
 }
 
 // Mask policies: pos0(b, t) is the position of query row t of sequence b;
@@ -155,17 +182,13 @@ struct StaticWindow {
 // (width W, W4 = pad4(W)) into dst (row stride ST), rows j >= n and
 // columns >= W zero; land() completes it before the barrier that publishes
 // the tile (with cp_async_wait).  Regs<NP> carries a thread's loads (NP
-// pieces) from one to the other.  Tile is the tiles' element type; kst(D)
-// and vst(Dv) their row strides.
+// pieces) from one to the other.
 
 // fp32 rows (dense or paged): cp.async straight into the tile, 16-byte
 // pieces when `vec` (W % 4 == 0 and 16-byte aligned bases), else 4-byte ones.
 template <class Rows>
 struct F32Source {
   using Elem = float;
-  using Tile = float;
-  __host__ __device__ static int kst(int D) { return pad4(D) + 4; }  // the pad spreads banks
-  __host__ __device__ static int vst(int Dv) { return pad4(Dv); }
   template <int NP>
   struct Regs {};
   Rows rows;
@@ -203,9 +226,6 @@ struct F32Source {
 // base) issue() loads and stores element by element.
 struct I8Source {
   using Elem = int8_t;
-  using Tile = float;
-  __host__ __device__ static int kst(int D) { return pad4(D) + 4; }
-  __host__ __device__ static int vst(int Dv) { return pad4(Dv); }
   template <int NP>  // pieces per thread: BKV * W4 / 4 / THREADS <= NP
   struct Regs {
     char4 x[NP];
@@ -265,47 +285,6 @@ struct I8Source {
   }
 };
 
-// bf16 rows (dense): cp.async straight into bf16 tiles, 16-byte pieces (8
-// values) when `vec` (W % 8 == 0 and 16-byte aligned bases), else 2-byte
-// loads and stores.  K rows are pad8(D) + 8 values apart, so a row starts
-// on 16 bytes and 16 rows' groups spread over the banks.
-template <class Rows>
-struct Bf16Source {
-  using Elem = repro_torch::bf16;
-  using Tile = repro_torch::bf16;
-  __host__ __device__ static int kst(int D) { return pad8(D) + 8; }
-  __host__ __device__ static int vst(int Dv) { return pad8(Dv); }
-  template <int NP>
-  struct Regs {};
-  Rows rows;
-  template <class R>
-  __device__ __forceinline__ void issue(const Elem* __restrict__ src, const float*, Tile* dst,
-                                        int ST, int W, int b, int h, int j0, int n, bool vec,
-                                        R&) const {
-    if (vec) {
-      const int nc = W / 8;
-      for (int e = threadIdx.x; e < BKV * nc; e += THREADS) {
-        const int j = e / nc, c = e % nc;
-        const bool ok = j < n;
-        int blk;
-        repro_torch::cp_async16(dst + j * ST + 8 * c,
-                                ok ? src + rows.row(b, h, j0 + j, blk) * W + 8 * c : src, ok);
-      }
-    } else {
-      const int W4 = pad4(W);
-      for (int e = threadIdx.x; e < BKV * W4; e += THREADS) {
-        const int j = e / W4, d = e % W4;
-        const bool ok = j < n && d < W;
-        int blk;
-        repro_torch::copy1(dst + j * ST + d, ok ? src + rows.row(b, h, j0 + j, blk) * W + d : src,
-                           ok);
-      }
-    }
-  }
-  template <class R>
-  __device__ __forceinline__ void land(Tile*, int, int, bool, R&) const {}
-};
-
 __device__ __forceinline__ float group_max(float v) {  // over the 16 lanes of a row
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -321,20 +300,18 @@ __device__ __forceinline__ float group_sum(float v) {
 // Block (x, y): query tile n_qt - 1 - x / NS, shard x % NS, sequence y / Hk,
 // kv head y % Hk.  Row r of the tile is query head h * G + r / BQ at
 // position t0 + r % BQ.  acc_ws (NS, R, Dv), m_ws and l_ws (NS, R) with R =
-// B * T * Hq rows (b, t, hq); unused (null) when NS = 1.  TQ: the type of
-// q and o (fp32, or bf16 with bf16 K/V).
-template <class Src, class Mask, int NV, typename TQ>
+// B * T * Hq rows (b, t, hq); unused (null) when NS = 1.
+template <class Src, class Mask, int NV>
 __global__ void __launch_bounds__(THREADS, NV == 2 ? 2 : 1)
-attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict__ k,
+attention_kernel(const float* __restrict__ q, const typename Src::Elem* __restrict__ k,
                  const typename Src::Elem* __restrict__ v, const float* __restrict__ k_scale,
                  const float* __restrict__ v_scale, const Src src, const Mask mask,
-                 TQ* __restrict__ o, float* __restrict__ acc_ws, float* __restrict__ m_ws,
+                 float* __restrict__ o, float* __restrict__ acc_ws, float* __restrict__ m_ws,
                  float* __restrict__ l_ws, int B, int T, int Hq, int Hk, int S, int D, int Dv,
                  int BQ, int shard, int NS, float scale, bool vec) {
   constexpr int NC = BKV / 16;  // score columns per thread; NV float4 groups of Dv: Dv4 <= 64 NV
   extern __shared__ __align__(16) float smem[];
-  using TS = typename Src::Tile;
-  const int D4 = pad4(D), Dv4 = pad4(Dv), KST = Src::kst(D), VST = Src::vst(Dv), G = Hq / Hk;
+  const int D4 = pad4(D), Dv4 = pad4(Dv), KST = D4 + 4, G = Hq / Hk;
   const int n_qt = (T + BQ - 1) / BQ;
   const int qt = n_qt - 1 - blockIdx.x / NS, s = blockIdx.x % NS;
   const int b = blockIdx.y / Hk, h = blockIdx.y % Hk;
@@ -347,9 +324,9 @@ attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict_
   if (s > 0 && c_begin >= c_end) return;  // block-uniform; shard 0 writes the empty rows
 
   float* qs = smem;
-  TS* ks = reinterpret_cast<TS*>(qs + BR * D4);
-  TS* vs = ks + BKV * KST;
-  float* ps = reinterpret_cast<float*>(vs + BKV * VST);
+  float* ks = qs + BR * D4;
+  float* vs = ks + BKV * KST;
+  float* ps = vs + BKV * Dv4;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
   int lo[RPT], hi[RPT];
@@ -361,29 +338,10 @@ attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict_
     hi[i] = valid ? mask.hi(pos0 + tq, S) : 0;
   }
   // Q by cp.async with the first K tile, then each thread scales the
-  // pieces it copied (its own copies are visible to it after the wait); a
-  // bf16 Q is upcast and scaled as it is stored (the same products)
-  constexpr bool kF32Q = std::is_same<TQ, float>::value;
+  // pieces it copied (its own copies are visible to it after the wait)
   const size_t q_row0 = ((size_t)b * T + t0) * Hq + (size_t)h * G;  // row (t0, head 0)
   auto q_src = [&](int r) { return q + (q_row0 + (size_t)(r % BQ) * Hq + r / BQ) * D; };
-  if constexpr (!kF32Q) {
-    for (int e = tid; e < BR * D4 / 4; e += THREADS) {  // groups of 4 (8 bytes)
-      const int r = e / (D4 / 4), c = 4 * (e % (D4 / 4));
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r / BQ < G && r % BQ < nq) {
-        if (vec) {
-          x = repro_torch::load4f(q_src(r) + c);
-        } else {
-          using repro_torch::to_f32;
-          const TQ* p = q_src(r) + c;
-          x = make_float4(to_f32(p[0]), c + 1 < D ? to_f32(p[1]) : 0.f,
-                          c + 2 < D ? to_f32(p[2]) : 0.f, c + 3 < D ? to_f32(p[3]) : 0.f);
-        }
-      }
-      *reinterpret_cast<float4*>(qs + r * D4 + c) =
-          make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
-    }
-  } else if (vec) {
+  if (vec) {
     for (int e = tid; e < BR * D4 / 4; e += THREADS) {
       const int r = e / (D4 / 4), c = 4 * (e % (D4 / 4));
       const bool ok = r / BQ < G && r % BQ < nq;
@@ -414,22 +372,20 @@ attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict_
                             vec, regs);
   repro_torch::cp_async_commit();
   repro_torch::cp_async_wait<0>();
-  if constexpr (kF32Q) {
-    if (vec) {  // the pieces this thread copied
-      for (int e = tid; e < BR * D4 / 4; e += THREADS) {
-        float4* x = reinterpret_cast<float4*>(qs) + e;
-        x->x *= scale, x->y *= scale, x->z *= scale, x->w *= scale;
-      }
-    } else {
-      for (int e = tid; e < BR * D4; e += THREADS) qs[e] *= scale;
+  if (vec) {  // the pieces this thread copied
+    for (int e = tid; e < BR * D4 / 4; e += THREADS) {
+      float4* x = reinterpret_cast<float4*>(qs) + e;
+      x->x *= scale, x->y *= scale, x->z *= scale, x->w *= scale;
     }
+  } else {
+    for (int e = tid; e < BR * D4; e += THREADS) qs[e] *= scale;
   }
   for (int it = 0; it < n_tiles; ++it) {
     const int j0 = c_begin + it * BKV, n = min(BKV, c_end - j0);
     src.land(ks, KST, D, vec, regs);
     repro_torch::cp_async_wait<0>();
     __syncthreads();  // K of this tile (and Q) visible; P.V of the last tile done: V, P free
-    src.issue(v, v_scale, vs, VST, Dv, b, h, j0, n, vec, regs);
+    src.issue(v, v_scale, vs, Dv4, Dv, b, h, j0, n, vec, regs);
     repro_torch::cp_async_commit();
 
     float sc[RPT][NC];
@@ -444,7 +400,7 @@ attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict_
         qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * D4 + d);
 #pragma unroll
       for (int j = 0; j < NC; ++j)
-        kv[j] = repro_torch::load4f(ks + (tx + 16 * j) * KST + d);
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * KST + d);
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -486,7 +442,7 @@ attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict_
         acc[i][w].w *= alpha;
       }
     }
-    src.land(vs, VST, Dv, vec, regs);
+    src.land(vs, Dv4, Dv, vec, regs);
     repro_torch::cp_async_wait<0>();
     __syncthreads();  // P and V visible; Q.K^T done: K free
     if (it + 1 < n_tiles)
@@ -508,7 +464,7 @@ attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict_
         for (int w = 0; w < NV; ++w) {
           const int gi = tx + 16 * w;
           if (4 * gi < Dv4) {
-            const float4 x = repro_torch::load4f(vs + (c4 + cc) * VST + 4 * gi);
+            const float4 x = *reinterpret_cast<const float4*>(vs + (c4 + cc) * Dv4 + 4 * gi);
 #pragma unroll
             for (int i = 0; i < RPT; ++i) {
               acc[i][w].x = fmaf(p[i][cc], x.x, acc[i][w].x);
@@ -535,21 +491,15 @@ attention_kernel(const TQ* __restrict__ q, const typename Src::Elem* __restrict_
     if (s < s_lo || s > s_hi) continue;
     const size_t row = ((size_t)b * T + t0 + tq) * Hq + (size_t)h * G + g;
     const bool direct = s_lo == s_hi;
-    TQ* out = o + row * Dv;
-    float* part = direct ? nullptr : acc_ws + ((size_t)s * R + row) * Dv;
+    float* dst = direct ? o + row * Dv : acc_ws + ((size_t)s * R + row) * Dv;
     const float lsum = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int w = 0; w < NV; ++w) {
       const int d = 4 * (tx + 16 * w);
       const float x[4] = {acc[i][w].x, acc[i][w].y, acc[i][w].z, acc[i][w].w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (d + e >= Dv) continue;
-        if (direct)
-          out[d + e] = repro_torch::from_f32<TQ>(x[e] / lsum);
-        else
-          part[d + e] = x[e];
-      }
+      for (int e = 0; e < 4; ++e)
+        if (d + e < Dv) dst[d + e] = direct ? x[e] / lsum : x[e];
     }
     if (!direct && tx == 0) {
       m_ws[(size_t)s * R + row] = m[i];
@@ -597,13 +547,13 @@ combine_kernel(const float* __restrict__ acc_ws, const float* __restrict__ m_ws,
   }
 }
 
-template <class Src, class Mask, int NV, typename TQ>
-int run(const TQ* q, const typename Src::Elem* k, const typename Src::Elem* v,
-        const float* k_scale, const float* v_scale, const Src& src, const Mask& mask, TQ* o,
+template <class Src, class Mask, int NV>
+int run(const float* q, const typename Src::Elem* k, const typename Src::Elem* v,
+        const float* k_scale, const float* v_scale, const Src& src, const Mask& mask, float* o,
         float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D, int Dv,
         int BQ, int shard, int NS, float scale, bool vec, cudaStream_t stream) {
-  const size_t smem = attn_smem_bytes<Src>(D, Dv);
-  auto kernel = attention_kernel<Src, Mask, NV, TQ>;
+  const size_t smem = attn_smem_floats(D, Dv) * sizeof(float);
+  auto kernel = attention_kernel<Src, Mask, NV>;
   static int smem_set[repro_torch::kMaxDevices];
   cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -613,43 +563,360 @@ int run(const TQ* q, const typename Src::Elem* k, const typename Src::Elem* v,
   err = cudaGetLastError();
   if (err != cudaSuccess || NS == 1) return static_cast<int>(err);
   const int R = B * T * Hq, rows_per_block = THREADS / 32;
-  combine_kernel<Mask, TQ><<<(R + rows_per_block - 1) / rows_per_block, THREADS, 0, stream>>>(
-      acc, m, l, mask, o, R, T, Hq, S, Dv, shard);
+  combine_kernel<Mask, float>
+      <<<(R + rows_per_block - 1) / rows_per_block, THREADS, 0, stream>>>(
+          acc, m, l, mask, o, R, T, Hq, S, Dv, shard);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shapes both bodies take (whole GQA groups of at most BR heads, D and
+// Dv <= 256, shards of whole tiles, at most MAX_SHARDS of them, and the
+// partials' workspace `ws` where there are several): the positions a tile
+// holds, BQ = BR / G rounded up to a power of 2; 0 for a shape refused.
+int tile_positions(int B, int T, int Hq, int Hk, int S, int D, int Dv, int shard, bool ws) {
+  if (B < 1 || T < 1 || Hk < 1 || Hq % Hk || Hq / Hk > BR || D < 1 || Dv < 1 || D > 256 ||
+      Dv > 256 || S < 1 || shard < 64 || shard % 64 || B * Hk > 65535)
+    return 0;
+  const int NS = (S + shard - 1) / shard;
+  if (NS > MAX_SHARDS || (NS > 1 && !ws)) return 0;
+  int gp = 1;
+  while (gp < Hq / Hk) gp *= 2;
+  return BR / gp;
 }
 
 // Checks the shapes, then runs the instance for the widths.  acc, m and l:
 // the workspace of the shards' partials (see attention_kernel), null when
 // S <= shard.
-template <class Src, class Mask, typename TQ>
-int launch(const TQ* q, const typename Src::Elem* k, const typename Src::Elem* v,
+template <class Src, class Mask>
+int launch(const float* q, const typename Src::Elem* k, const typename Src::Elem* v,
            const float* k_scale, const float* v_scale, const Src& src, const Mask& mask,
-           TQ* o, float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D,
+           float* o, float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D,
            int Dv, int shard, float scale, void* stream) {
-  if (B < 1 || T < 1 || Hk < 1 || Hq % Hk || Hq / Hk > BR || D < 1 || Dv < 1 || D > 256 ||
-      Dv > 256 || S < 1 || shard < 64 || shard % 64 || B * Hk > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int BQ = tile_positions(B, T, Hq, Hk, S, D, Dv, shard, acc && m && l);
+  if (BQ == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int NS = (S + shard - 1) / shard;
-  if (NS > MAX_SHARDS || (NS > 1 && (!acc || !m || !l)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int gp = 1;
-  while (gp < Hq / Hk) gp *= 2;
-  const int BQ = BR / gp;
-  // 16-byte copies of 4 fp32 or 8 bf16 values, or 4-byte int8 loads, where
-  // the widths allow them and every row starts aligned
-  constexpr size_t es = sizeof(typename Src::Elem);
-  constexpr int vw = es == 2 ? 8 : 4;
-  constexpr size_t al = es == 1 ? 4 : 16;
-  const bool vec = D % vw == 0 && Dv % vw == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % (4 * sizeof(TQ)) == 0 &&
+  const size_t al = sizeof(typename Src::Elem) == 1 ? 4 : 16;
+  const bool vec = D % 4 == 0 && Dv % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % al == 0 &&
                    reinterpret_cast<uintptr_t>(v) % al == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pad4(D) <= WIDE && pad4(Dv) <= WIDE)
-    return run<Src, Mask, 2, TQ>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq,
-                                 Hk, S, D, Dv, BQ, shard, NS, scale, vec, st);
-  return run<Src, Mask, 4, TQ>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq, Hk,
-                               S, D, Dv, BQ, shard, NS, scale, vec, st);
+    return run<Src, Mask, 2>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq, Hk, S,
+                             D, Dv, BQ, shard, NS, scale, vec, st);
+  return run<Src, Mask, 4>(q, k, v, k_scale, v_scale, src, mask, o, acc, m, l, B, T, Hq, Hk, S,
+                           D, Dv, BQ, shard, NS, scale, vec, st);
+}
+
+// ------------------------------------------------- bf16, on the tensor cores --
+using repro_torch::bf16;
+using namespace repro_torch::hopper;
+
+constexpr int TC_THREADS = 128;          // one warpgroup
+constexpr int TC_PANEL = 64 * 64 * 2;    // bytes of a [64 rows][64 values] bf16 panel
+
+__host__ __device__ inline int panels64(int w) { return (w + 63) / 64; }
+
+// Bytes of dynamic shared memory of the bf16 body: Q and K (pad64(D) / 64
+// panels each), V (pad64(Dv) / 64), and the slack to align them to 1024
+// (the swizzle's period).
+__host__ __device__ inline size_t tc_smem_bytes(int D, int Dv) {
+  return 1024 + (size_t)TC_PANEL * (2 * panels64(D) + panels64(Dv));
+}
+
+// Rows 0 .. n - 1 of a tile of rows of W values into NP panels at offset
+// `at` of the 1024-aligned base: row(j) is tile row j's first value, or
+// null for a row left zero; rows >= n and values >= W are zero.  Thread t
+// copies 16-byte chunk t % 8 of rows t / 8 + 16 i: by cp.async with `vec`
+// (W % 8 == 0, rows 16-byte aligned), else value by value.  x: any mapped
+// address, the source of the copies that only zero.
+template <class RowPtr>
+__device__ __forceinline__ void stage_rows(unsigned char* gbase, uint32_t at, int NP, int W,
+                                           int n, bool vec, const bf16* x, RowPtr row) {
+  const int cc = threadIdx.x % 8, r0 = threadIdx.x / 8;
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = r0 + 16 * i, d = 64 * p + 8 * cc;
+      const bf16* src = j < n ? row(j) : nullptr;
+      const uint32_t dst = swz128(at + TC_PANEL * p + 128 * j + 16 * cc);
+      if (vec) {
+        const bool ok = src != nullptr && d < W;
+        repro_torch::cp_async16(gbase + dst, ok ? src + d : x, ok);
+      } else {
+        const unsigned short* u16 = reinterpret_cast<const unsigned short*>(src);
+        uint32_t e[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) e[u] = src != nullptr && d + u < W ? u16[d + u] : 0u;
+        *reinterpret_cast<uint4*>(gbase + dst) =
+            make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16, e[6] | e[7] << 16);
+      }
+    }
+  }
+}
+
+// Block (x, y) as attention_kernel's (query tile n_qt - 1 - x / NS, shard x
+// % NS, sequence y / Hk, kv head y % Hk; row r of the tile is query head h
+// * G + r / BQ at position t0 + r % BQ); NV = pad64(Dv) / 64.  Thread
+// (warp w, lane l) holds rows 16 w + l / 4 + 8 hr (hr = 0, 1) of S and O:
+// element 4 c + 2 hr + e of a 64-column accumulator is column 8 c + 2 (l %
+// 4) + e.
+template <int NV>
+__global__ void __launch_bounds__(TC_THREADS)
+attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const StaticWindow mask, bf16* __restrict__ o,
+                       float* __restrict__ acc_ws, float* __restrict__ m_ws,
+                       float* __restrict__ l_ws, int B, int T, int Hq, int Hk, int S, int D,
+                       int Dv, int BQ, int shard, int NS, float scale, bool vec) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const int NPD = panels64(D), G = Hq / Hk;
+  const uint32_t k_at = TC_PANEL * NPD, v_at = 2 * TC_PANEL * NPD;  // Q at 0
+
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - blockIdx.x / NS, s = blockIdx.x % NS;
+  const int b = blockIdx.y / Hk, h = blockIdx.y % Hk;
+  const int t0 = qt * BQ, nq = min(BQ, T - t0);
+  const int pos0 = mask.pos0(b, t0);
+  const int c_begin = max(s * shard, mask.lo(pos0) / BKV * BKV);
+  const int c_end = min(min(S, (s + 1) * shard), mask.hi(pos0 + nq - 1, S) + 1);
+  if (s > 0 && c_begin >= c_end) return;  // block-uniform; shard 0 writes the empty rows
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = 16 * warp + lane / 4 + 8 * hr, tq = r % BQ;
+    const bool valid = r / BQ < G && tq < nq;
+    lo[hr] = valid ? mask.lo(pos0 + tq) : 1;
+    hi[hr] = valid ? mask.hi(pos0 + tq, S) : 0;
+  }
+
+  // Q (rows past the group or the sequence zero) and the first tile
+  const size_t q_row0 = ((size_t)b * T + t0) * Hq + (size_t)h * G;  // row (t0, head 0)
+  stage_rows(gbase, 0, NPD, D, BR, vec, q, [&](int r) {
+    const bool ok = r / BQ < G && r % BQ < nq;
+    return ok ? q + (q_row0 + (size_t)(r % BQ) * Hq + r / BQ) * D : nullptr;
+  });
+  auto k_row = [&](int j0) {
+    return [=](int j) { return k + (((size_t)b * S + j0 + j) * Hk + h) * D; };
+  };
+  auto v_row = [&](int j0) {
+    return [=](int j) { return v + (((size_t)b * S + j0 + j) * Hk + h) * Dv; };
+  };
+  const int n_tiles = c_begin < c_end ? (c_end - c_begin + BKV - 1) / BKV : 0;
+  if (n_tiles > 0)
+    stage_rows(gbase, k_at, NPD, D, min(BKV, c_end - c_begin), vec, k, k_row(c_begin));
+  repro_torch::cp_async_commit();
+
+  float acc[NV][32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  }
+  const int n_k16 = (D + 15) / 16;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = c_begin + it * BKV, n = min(BKV, c_end - j0);
+    repro_torch::cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // K of this tile (and Q) visible to wgmma; P V of the last done: V free
+    stage_rows(gbase, v_at, NV, Dv, n, vec, v, v_row(j0));
+    repro_torch::cp_async_commit();
+
+    // S = Q K^T over D's 16-deep chunks from 0 (32 bytes on in a panel's row)
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+    for (int kd = 0; kd < n_k16; ++kd) {
+      const uint32_t off = TC_PANEL * (kd / 4) + 32 * (kd % 4);
+      wgmma_m64n64k16<0>(sc, smem_desc(base + off, 16, 1024),
+                         smem_desc(base + k_at + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    __syncthreads();  // Q K^T done in every warp: K free
+    if (it + 1 < n_tiles)
+      stage_rows(gbase, k_at, NPD, D, min(BKV, c_end - j0 - BKV), vec, k, k_row(j0 + BKV));
+    repro_torch::cp_async_commit();
+
+    // softmax: sc becomes p (0 where masked), O rescaled; the columns of
+    // the tile a row sees are clo .. chi (none when clo > chi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int clo = max(lo[hr] - j0, 0), chi = min(hi[hr] - j0, n - 1);
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * c + 2 * hr + e, col = 8 * c + 2 * (lane % 4) + e;
+          sc[i] = col >= clo && col <= chi ? sc[i] * scale : kNegInf;
+          mx = fmaxf(mx, sc[i]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * c + 2 * hr + e, col = 8 * c + 2 * (lane % 4) + e;
+          sc[i] = col >= clo && col <= chi ? __expf(sc[i] - m_new) : 0.f;
+          sum += sc[i];
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float alpha = expf(m[hr] - m_new);
+      l[hr] = l[hr] * alpha + sum;
+      m[hr] = m_new;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc[j][4 * c + 2 * hr] *= alpha;
+          acc[j][4 * c + 2 * hr + 1] *= alpha;
+        }
+      }
+    }
+    // P = hi + lo, both bf16, as wgmma's register A: columns 16 kk .. 16 kk
+    // + 15 are sc[8 kk .. 8 kk + 7]
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float p0 = sc[8 * kk + 2 * x], p1 = sc[8 * kk + 2 * x + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+        const __nv_bfloat162 l2 =
+            __floats2bfloat162_rn(p0 - __low2float(h2), p1 - __high2float(h2));
+        ph[kk][x] = *reinterpret_cast<const uint32_t*>(&h2);
+        pl[kk][x] = *reinterpret_cast<const uint32_t*>(&l2);
+      }
+    }
+    repro_torch::cp_async_wait<1>();  // V of this tile (K of the next may be in flight)
+    fence_proxy_async();
+    __syncthreads();  // V of this tile visible to wgmma
+    // O += P_hi V, then P_lo V, for each 16-column chunk in order: V's
+    // [64 columns][64 values] panels N-major, 16 rows (2048 bytes) a chunk
+#pragma unroll
+    for (int j = 0; j < NV; ++j) fence_regs(acc[j]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(ph[kk]);
+      fence_regs(pl[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = smem_desc(base + v_at + TC_PANEL * j + 2048 * kk, TC_PANEL, 1024);
+        wgmma_m64n64k16_rs<1>(acc[j], ph[kk], dv);
+        wgmma_m64n64k16_rs<1>(acc[j], pl[kk], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NV; ++j) fence_regs(acc[j]);
+  }
+  repro_torch::cp_async_wait<0>();
+
+  const size_t R = (size_t)B * T * Hq;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = 16 * warp + lane / 4 + 8 * hr, g = r / BQ, tq = r % BQ;
+    if (g >= G || tq >= nq) continue;
+    // the shards this row's columns span; a row that sees nothing is
+    // written (as 0) by shard 0
+    const int s_lo = lo[hr] <= hi[hr] ? lo[hr] / shard : 0;
+    const int s_hi = lo[hr] <= hi[hr] ? hi[hr] / shard : 0;
+    if (s < s_lo || s > s_hi) continue;
+    const size_t row = ((size_t)b * T + t0 + tq) * Hq + (size_t)h * G + g;
+    const bool direct = s_lo == s_hi;
+    bf16* out = o + row * Dv;
+    float* part = direct ? nullptr : acc_ws + ((size_t)s * R + row) * Dv;
+    const float lsum = fmaxf(l[hr], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int d = 64 * j + 8 * c + 2 * (lane % 4);
+        const float x0 = acc[j][4 * c + 2 * hr], x1 = acc[j][4 * c + 2 * hr + 1];
+        if (d >= Dv) continue;
+        if (!direct) {
+          part[d] = x0;
+          if (d + 1 < Dv) part[d + 1] = x1;
+        } else if (d + 1 < Dv && Dv % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(out + d) = __floats2bfloat162_rn(x0 / lsum, x1 / lsum);
+        } else {
+          out[d] = __float2bfloat16_rn(x0 / lsum);
+          if (d + 1 < Dv) out[d + 1] = __float2bfloat16_rn(x1 / lsum);
+        }
+      }
+    }
+    if (!direct && lane % 4 == 0) {
+      m_ws[(size_t)s * R + row] = m[hr];
+      l_ws[(size_t)s * R + row] = l[hr];
+    }
+  }
+}
+
+template <int NV>
+int run_bf16(const bf16* q, const bf16* k, const bf16* v, const StaticWindow& mask, bf16* o,
+             float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D, int Dv,
+             int BQ, int shard, int NS, float scale, bool vec, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(D, Dv);
+  auto kernel = attention_wgmma_kernel<NV>;
+  static int smem_set[repro_torch::kMaxDevices];
+  cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(((T + BQ - 1) / BQ) * NS, B * Hk);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(q, k, v, mask, o, acc, m, l, B, T, Hq, Hk, S, D, Dv,
+                                             BQ, shard, NS, scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || NS == 1) return static_cast<int>(err);
+  const int R = B * T * Hq, rows_per_block = THREADS / 32;
+  combine_kernel<StaticWindow, bf16>
+      <<<(R + rows_per_block - 1) / rows_per_block, THREADS, 0, stream>>>(
+          acc, m, l, mask, o, R, T, Hq, S, Dv, shard);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the shapes, then runs the instance for Dv's panels.
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const StaticWindow& mask, bf16* o,
+                float* acc, float* m, float* l, int B, int T, int Hq, int Hk, int S, int D, int Dv,
+                int shard, float scale, void* stream) {
+  const int BQ = tile_positions(B, T, Hq, Hk, S, D, Dv, shard, acc && m && l);
+  if (BQ == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int NS = (S + shard - 1) / shard;
+  // 16-byte copies of 8 values where the widths allow them and every row
+  // starts aligned
+  const bool vec = D % 8 == 0 && Dv % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (panels64(Dv)) {
+    case 1:
+      return run_bf16<1>(q, k, v, mask, o, acc, m, l, B, T, Hq, Hk, S, D, Dv, BQ, shard, NS,
+                         scale, vec, st);
+    case 2:
+      return run_bf16<2>(q, k, v, mask, o, acc, m, l, B, T, Hq, Hk, S, D, Dv, BQ, shard, NS,
+                         scale, vec, st);
+    case 3:
+      return run_bf16<3>(q, k, v, mask, o, acc, m, l, B, T, Hq, Hk, S, D, Dv, BQ, shard, NS,
+                         scale, vec, st);
+    default:
+      return run_bf16<4>(q, k, v, mask, o, acc, m, l, B, T, Hq, Hk, S, D, Dv, BQ, shard, NS,
+                         scale, vec, st);
+  }
 }
 
 }  // namespace
@@ -696,12 +963,13 @@ extern "C" int flash_attention_f32(const float* q, const float* k, const float* 
                 shard, scale, stream);
 }
 
+// bf16 q, k, v and o on the tensor cores (attention_wgmma_kernel); the
+// shards' partials fp32.  shard: the wrapper's attention_shard_cols_bf16.
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, float* acc, float* m, float* l,
                                     __nv_bfloat16* o, int B, int T, int Hq, int Hk, int Skv,
                                     int D, int Dv, int causal, int window, int shard,
                                     float scale, void* stream) {
-  return launch(q, k, v, nullptr, nullptr, Bf16Source<DenseRows>{DenseRows{Skv, Hk}},
-                StaticWindow{Skv - T, causal, window}, o, acc, m, l, B, T, Hq, Hk, Skv, D, Dv,
-                shard, scale, stream);
+  return launch_bf16(q, k, v, StaticWindow{Skv - T, causal, window}, o, acc, m, l, B, T, Hq, Hk,
+                     Skv, D, Dv, shard, scale, stream);
 }

@@ -90,6 +90,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -374,14 +375,12 @@ int tiled(const float* a, const float* b, float* c, int E, int M, int N, int K, 
 
 // ----------------------------------------------------------- bf16, wgmma --
 using repro_torch::bf16;
+using namespace repro_torch::hopper;
 
 constexpr int WG_BK = 64;        // K depth of a ring stage: four k16 instructions
 constexpr int WG_NST = 4;        // ring stages
 constexpr int WG_THREADS = 128;  // a warpgroup
 constexpr int WG_PANEL = WG_BK * 64 * 2;  // bytes of a [64][64] bf16 panel
-// a barrier wait that spins this often traps (a launch failure) instead of
-// hanging the card
-constexpr unsigned kSpinLimit = 1u << 26;
 
 // NWG consumer warpgroups of 64 rows, BN columns (BN / 64 panels of B).
 template <int NWG, int BN>
@@ -392,84 +391,6 @@ struct Wg {
   // the ring, its 2 * WG_NST mbarriers, and the slack to align it to 1024
   static constexpr size_t SMEM = 1024 + (size_t)WG_NST * STAGE + 16 * WG_NST;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset o of a tile of 128-byte rows -> its place under the 128-byte
-// swizzle (bits 4-6 XOR bits 7-9), as TMA writes it and wgmma reads it
-__device__ __forceinline__ uint32_t swz128(uint32_t o) { return o ^ (((o >> 7) & 7) << 4); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// wait for the phase of parity `parity` of the barrier to complete
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (unsigned spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (spins == kSpinLimit) __trap();
-  }
-}
-
-// box (c0, c1, c2) of a 3-D tensor map into shared memory at dst, counted on bar
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor under the 128-byte swizzle: the
-// start address, the leading and stride byte offsets (16-byte units) and
-// layout type 1 (bits 62-63).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// keep the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma instructions that write them
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x 64, fp32) += A (64 x 16, K-major) @ B (16 x 64, N-major: imm-trans-b 1)
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // Warpgroup 0 stages, warpgroups 1..NWG multiply (header).  A (E, M, K), B
 // (E, K, N), C (E, M, N); with `tma` the tensor maps describe A and B,
@@ -533,7 +454,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                            swz128(128 * r + 2 * (c % 64))) =
             gk < K && gn < N ? b[(size_t)gk * N + gn] : static_cast<unsigned short>(0);
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+      fence_proxy_async();  // visible to wgmma
       mbar_arrive(full(s));
     }
     return;
@@ -551,7 +472,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   for (int t = 0; t < n_steps; ++t) {
     const int s = t % WG_NST;
     mbar_wait(full(s), (t / WG_NST) & 1);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk) {
       // A: rows of 128 bytes, 8-row groups 1024 apart, k16 = 32 bytes on;
@@ -560,17 +481,17 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       const uint64_t da = smem_desc(base + a_at(s) + 64 * 128 * cw + 32 * kk, 16, 1024);
 #pragma unroll
       for (int j = 0; j < W::NJ; ++j)
-        wgmma_m64n64k16(acc[j], da,
+        wgmma_m64n64k16<1>(acc[j], da,
                         smem_desc(base + b_at(s) + j * WG_PANEL + 2048 * kk, WG_PANEL, 1024));
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_commit();
 #pragma unroll
     for (int j = 0; j < W::NJ; ++j) fence_regs(acc[j]);
     // the group of step t - 1 has retired: its stage may be refilled
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_wait<1>();
     if (t > 0) mbar_arrive(empty((t - 1) % WG_NST));
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
 #pragma unroll
   for (int j = 0; j < W::NJ; ++j) fence_regs(acc[j]);
 

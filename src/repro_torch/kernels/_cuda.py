@@ -36,7 +36,7 @@ __all__ = ["library", "build", "check", "stream_of", "empty_launch", "BUILD_DIR"
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES: Tuple[str, ...] = ("gemm.cu", "rmsnorm.cu", "flash_decode.cu",
                             "flash_attention.cu", "ssd.cu")
-HEADERS: Tuple[str, ...] = ("common.cuh",)
+HEADERS: Tuple[str, ...] = ("common.cuh", "wgmma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -88,7 +88,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_paged_chunk_attention_i8": (*[_P] * 11, *[_I] * 10, _F, _P),
     # q, k, v, acc, m, l, o; B, T, Hq, Hk, Skv, D, Dv, causal, window, shard
     "flash_attention_f32": (*[_P] * 7, *[_I] * 10, _F, _P),
-    # the same with bf16 q, k, v, o (fp32 partials)
+    # the same with bf16 q, k, v, o (fp32 partials) on the tensor-core body;
+    # shard from attention_shard_cols_bf16
     "flash_attention_bf16": (*[_P] * 7, *[_I] * 10, _F, _P),
     # x, dt, A, D, B, C, y, state, st, sc, cs (the scratch); B, S, H, P, G,
     # N, Q

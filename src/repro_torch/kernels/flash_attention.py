@@ -19,12 +19,15 @@ attends cache columns ``<= start[b] + t``.  Each wrapper's ``launches``
 attribute counts its calls that launched the kernel.
 
 :func:`flash_attention` also takes bf16 q, k and v, as the Pallas kernel
-does: ``flash_attention_bf16`` stages bf16 K/V tiles (at most the fp32
-kernel's shared memory, so :func:`attention_fits` holds for it too) and
-upcasts each value as it reads it, keeps the scores, softmax state and
-shard partials in fp32 and rounds the output once to bf16: the fp32
-kernel's result on the upcast inputs, rounded.  Those calls
-count in ``flash_attention.bf16.launches``.
+does.  ``flash_attention_bf16`` is a body of its own on the tensor cores:
+one warpgroup a block, the same 64-row GQA tiles and 64-column K/V tiles,
+Q K^T and P V as ``wgmma.m64n64k16`` with fp32 accumulators, the softmax in
+fp32 registers with P split into two bf16 halves (hi + lo, two products)
+for the second product, and the output rounded once to bf16.  Its shards come from
+:func:`attention_shard_cols_bf16` (the key count and the head counts, never
+the batch or the query count), so a row's bits do not depend on the batch,
+on Sq or on its place in the tile; they are not the fp32 entry's output
+rounded.  Those calls count in ``flash_attention.bf16.launches``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from repro_torch.kernels.ref import attention_mask
 __all__ = ["flash_attention", "flash_attention_plain", "attention_fits",
            "flash_chunk_attention", "flash_chunk_attention_plain", "chunk_fits",
            "flash_paged_chunk_attention", "flash_paged_chunk_attention_plain",
-           "paged_chunk_fits", "attention_shard_cols", "attention_smem_bytes"]
+           "paged_chunk_fits", "attention_shard_cols", "attention_shard_cols_bf16",
+           "attention_smem_bytes"]
 
 _NEG_INF = -1e30
 # The layout of csrc/flash_attention.cu:
@@ -49,6 +53,11 @@ BLOCK_ROWS = 64        # query rows per block (BR): 64 / G positions of G heads
 BLOCK_KV = 64          # columns per K/V tile (BKV)
 SHARD_COLS = 256       # columns per shard of a cache of up to 256 * MAX_SHARDS
 MAX_SHARDS = 8
+# The bf16 body's layout (attention_wgmma_kernel): one warpgroup a block,
+# [64][64] bf16 panels in shared memory, and the SMs its shard plan fills
+BF16_THREADS = 128
+BF16_PANEL_BYTES = 64 * 64 * 2
+SMS = 132              # streaming multiprocessors of an H100 SXM
 
 
 def attention_shard_cols(s_len: int) -> int:
@@ -63,21 +72,37 @@ def attention_shard_cols(s_len: int) -> int:
     return shard
 
 
+def attention_shard_cols_bf16(s_len: int, hq: int, hk: int) -> int:
+    """Columns per shard of the bf16 body over ``s_len`` key columns: one
+    shard (``s_len`` rounded up to whole K/V tiles) where the query tiles
+    of one sequence of ``s_len`` rows times the kv heads already give a
+    block per SM, else :func:`attention_shard_cols`.  A function of the key
+    count and the head counts alone, never of the batch or the query count,
+    so a row's shards are the same in every call."""
+    gp = 1
+    while gp < hq // hk:
+        gp *= 2
+    if -(-s_len // (BLOCK_ROWS // gp)) * hk >= SMS:
+        return -(-s_len // BLOCK_KV) * BLOCK_KV
+    return attention_shard_cols(s_len)
+
+
 def _pad4(x: int) -> int:
     return -(-x // 4) * 4
 
 
 def attention_smem_bytes(d: int, dv: int, *, bf16: bool = False) -> int:
-    """Dynamic shared memory of one block (csrc/flash_attention.cu
-    attn_smem_bytes): pre-scaled Q [BLOCK_ROWS][D4] and P
+    """Dynamic shared memory of one block (csrc/flash_attention.cu): the
+    fp32 body's (attn_smem_floats) pre-scaled Q [BLOCK_ROWS][D4] and P
     [BLOCK_ROWS][BLOCK_KV] fp32, K [BLOCK_KV][D4 + 4] and V [BLOCK_KV][Dv4]
-    fp32, widths padded to 4; ``bf16``: the bf16 entry's K
-    [BLOCK_KV][pad8(D) + 8] and V [BLOCK_KV][pad8(Dv)] at 2 bytes, never
-    more than the fp32 tiles."""
-    d4, dv4 = _pad4(d), _pad4(dv)
+    fp32, widths padded to 4; ``bf16``: the tensor-core body's
+    (tc_smem_bytes) Q, K and V as [64][64] bf16 panels, pad64(D) / 64 each
+    for Q and K and pad64(Dv) / 64 for V, and 1024 bytes of slack to align
+    them."""
     if bf16:
-        d8, dv8 = -(-d // 8) * 8, -(-dv // 8) * 8
-        return 4 * (BLOCK_ROWS * d4 + BLOCK_ROWS * BLOCK_KV) + 2 * BLOCK_KV * (d8 + 8 + dv8)
+        pd, pv = -(-d // 64), -(-dv // 64)
+        return 1024 + BF16_PANEL_BYTES * (2 * pd + pv)
+    d4, dv4 = _pad4(d), _pad4(dv)
     return 4 * (BLOCK_ROWS * d4 + BLOCK_KV * (d4 + 4) + BLOCK_KV * dv4
                 + BLOCK_ROWS * BLOCK_KV)
 
@@ -93,12 +118,13 @@ def chunk_fits(hq: int, hk: int, d: int, dv: int) -> bool:
     return attention_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES
 
 
-def _partials(s_len: int, b: int, t: int, hq: int, dv: int, device):
-    """The shard size and the workspace of the shards' partials: acc (NS,
-    B*T, Hq, Dv), m and l (NS, B*T, Hq), views of one allocation, or None
-    when the cache is one shard (the C entry points then take null
-    pointers)."""
-    shard = attention_shard_cols(s_len)
+def _partials(s_len: int, b: int, t: int, hq: int, dv: int, device,
+              shard: Optional[int] = None):
+    """The shard size (``attention_shard_cols(s_len)`` unless given) and the
+    workspace of the shards' partials: acc (NS, B*T, Hq, Dv), m and l (NS,
+    B*T, Hq), views of one allocation, or None when the cache is one shard
+    (the C entry points then take null pointers)."""
+    shard = attention_shard_cols(s_len) if shard is None else shard
     n_shards = -(-s_len // shard)
     return shard, (_workspace(n_shards, b * t, hq, dv, device) if n_shards > 1 else None)
 
@@ -188,10 +214,17 @@ def flash_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_chunk_attention.launches = 0
 
 
-# flash_attention and the paged kernel run the chunk kernel's body: their
-# shared memory is the same (and does not depend on the page size).
-attention_fits = chunk_fits
+# the paged kernel runs the chunk kernel's body: its shared memory is the
+# same (and does not depend on the page size).
 paged_chunk_fits = chunk_fits
+
+
+def attention_fits(hq: int, hk: int, d: int, dv: int) -> bool:
+    """Whether both bodies of :func:`flash_attention` take these head counts
+    and widths: :func:`chunk_fits` (the fp32 body is the chunk kernel's)
+    and the bf16 body's shared memory within the H100's limit."""
+    return (chunk_fits(hq, hk, d, dv)
+            and attention_smem_bytes(d, dv, bf16=True) <= _cuda.MAX_SMEM_BYTES)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -248,7 +281,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if skv == 0:
         return out.zero_()
     bf16 = q.dtype == torch.bfloat16
-    shard, ws = _partials(skv, b, sq, hq, dv, q.device)
+    shard, ws = _partials(skv, b, sq, hq, dv, q.device,
+                          attention_shard_cols_bf16(skv, hq, hk) if bf16 else None)
     lib = _cuda.library()
     err = (lib.flash_attention_bf16 if bf16 else lib.flash_attention_f32)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *_pointers(ws), out.data_ptr(), b, sq, hq,

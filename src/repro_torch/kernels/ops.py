@@ -117,8 +117,10 @@ def _attn_cuda_supports(specs, attrs):
 
 @impl("attention", "cuda", supports=_attn_cuda_supports,
       note="flash attention CUDA kernel; 64 query rows of a GQA group per "
-           "block over fixed 256-column shards of 64-column K/V tiles, tiles "
-           "outside the causal/window mask skipped, shards merged in order")
+           "block over fixed shards of 64-column K/V tiles (256 columns at "
+           "fp32; bf16 one shard where the tiles fill the SMs), tiles "
+           "outside the causal/window mask skipped, shards merged in order; "
+           "bf16 on the tensor cores (wgmma for QK^T and PV)")
 def _attention_cuda_impl(inputs, attrs):
     q, k, v = inputs
     return [flash_attention(q, k, v, causal=attrs.get("causal", True),

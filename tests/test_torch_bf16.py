@@ -43,6 +43,7 @@ from repro.kernels.gemm import gemm as jgemm
 from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
 from repro.models.lm import LM as JLM
 from repro_torch.configs import get_reduced, list_configs
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as kops
@@ -371,18 +372,28 @@ def test_batcher_at_bf16_is_token_exact_against_its_unbatched_run():
 
 
 def test_bf16_entries_take_at_most_the_fp32_shared_memory():
-    """The bf16 rings and tiles hold 2-byte values (csrc/flash_decode.cu
-    decode_smem_bytes_bf16, csrc/flash_attention.cu attn_smem_bytes with
-    Bf16Source's strides), so every width the fp32 kernels fit, the bf16
-    ones fit; at gemma3-1b's D = Dv = 256 a decode block takes 56 KB (104
-    fp32) and an attention block 145 KB (209 fp32)."""
+    """The bf16 decode ring holds 2-byte values (csrc/flash_decode.cu
+    decode_smem_bytes_bf16), so every width the fp32 decode fits, the bf16
+    one fits; at gemma3-1b's D = Dv = 256 a decode block takes 56 KB (104
+    fp32).  The bf16 attention body (csrc/flash_attention.cu tc_smem_bytes:
+    Q, K and V as [64][64] bf16 panels and 1 KB of alignment) takes 97 KB
+    there (209 fp32), at most the fp32 body's at every served width, and
+    fits the H100's limit at every width the fp32 body fits (at D, Dv <= 8
+    its whole panels take up to 1 KB more than the fp32 tiles)."""
     assert fd.decode_smem_bytes(256, 256, bf16=True) == 57344
     assert fd.decode_smem_bytes(256, 256) == 106496
-    assert fa.attention_smem_bytes(256, 256, bf16=True) == 148480
+    assert fa.attention_smem_bytes(256, 256, bf16=True) == 99328
     assert fa.attention_smem_bytes(256, 256) == 214016
     for d, dv in ((256, 256), (96, 96), (64, 64), (4, 256), (30, 30), (6, 10), (128, 64)):
         assert fd.decode_smem_bytes(d, dv, bf16=True) <= fd.decode_smem_bytes(d, dv)
+    for d, dv in ((256, 256), (96, 96), (64, 64), (128, 128), (112, 112), (192, 128),
+                  (4, 256), (30, 30), (128, 64)):
         assert fa.attention_smem_bytes(d, dv, bf16=True) <= fa.attention_smem_bytes(d, dv)
+    for d in range(1, 257, 5):
+        for dv in range(1, 257, 7):
+            if fa.attention_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES:
+                assert fa.attention_smem_bytes(d, dv, bf16=True) <= _cuda.MAX_SMEM_BYTES
     src = (Path(repro_torch.__file__).parent / "csrc")
     assert "decode_smem_bytes_bf16(D, Dv)" in (src / "flash_decode.cu").read_text()
-    assert "return pad8(D) + 8;" in (src / "flash_attention.cu").read_text()
+    assert ("1024 + (size_t)TC_PANEL * (2 * panels64(D) + panels64(Dv))"
+            in (src / "flash_attention.cu").read_text())

@@ -123,11 +123,15 @@ def test_tiles_and_depth_are_the_cuda_sources():
 
 
 def test_one_instruction_shape_and_no_split_k():
-    """Every plan issues the same wgmma instruction shape, and every block
-    walks the whole of K from 0 (no K offset from the grid)."""
+    """Every plan issues the same wgmma instruction shape (the shared
+    header's m64n64k16 with B N-major, the weights as stored), and every
+    block walks the whole of K from 0 (no K offset from the grid)."""
     src = _src()
-    shapes = set(re.findall(r"wgmma\.mma_async\.sync\.aligned\.(m\d+n\d+k\d+)\.(\S+)", src))
+    header = (CSRC / "wgmma.cuh").read_text()
+    assert '#include "wgmma.cuh"' in src and "wgmma.mma_async" not in src
+    shapes = set(re.findall(r"wgmma\.mma_async\.sync\.aligned\.(m\d+n\d+k\d+)\.(\S+)", header))
     assert shapes == {("m64n64k16", "f32.bf16.bf16")}
+    assert set(re.findall(r"\bwgmma_m\w+<\d+>", src)) == {"wgmma_m64n64k16<1>"}
     flat = " ".join(src.split())
     assert "const int n_steps = (K + WG_BK - 1) / WG_BK;" in flat
     assert "for (int t = 0; t < n_steps; ++t)" in flat

@@ -1949,18 +1949,17 @@ def test_bf16_kernels_match_their_plain_versions_on_the_card():
             want = rmsnorm(x.float(), w.float(), eps=1e-6,
                            residual=None if res is None else res.float())
             _check_bf16(got, want, rmsnorm_plain(x, w, eps=1e-6, residual=res))
-    # flash_attention: gemma3's MQA at D 256 with and without the window,
-    # several shards, a query offset, D off 4 (element loads), non-causal
+    # flash_attention (the tensor-core body, not the fp32 entry's
+    # arithmetic): gemma3's MQA at D 256 with and without the window,
+    # several shards, a query offset, D off 8 (element loads), non-causal
     for b, sq, skv, hq, hk, d, causal, window in (
             (1, 1024, 1024, 4, 1, 256, True, 512), (1, 1024, 1024, 4, 1, 256, True, None),
             (2, 64, 700, 4, 2, 96, True, None), (1, 50, 50, 2, 2, 30, False, None),
             (2, 80, 80, 8, 1, 128, True, 17)):
         q, k, v = rb(b, sq, hq, d), rb(b, skv, hk, d), rb(b, skv, hk, d)
         sc = 1.0 / math.sqrt(d)
-        _check_bf16(flash_attention(q, k, v, causal=causal, window=window),
-                    flash_attention(q.float(), k.float(), v.float(), causal=causal,
-                                    window=window),
-                    flash_attention_plain(q, k, v, causal=causal, window=window, scale=sc))
+        _within_bf16_ulp(flash_attention(q, k, v, causal=causal, window=window),
+                         flash_attention_plain(q, k, v, causal=causal, window=window, scale=sc))
     # flash_decode: gemma3's global and rolling caches, empty and full rows,
     # D off 4, Dv != D
     for b, s, hq, hk, d, dv, lens in ((4, 2048, 4, 1, 256, 256, (1400, 1000, 600, 250)),
@@ -2005,6 +2004,40 @@ def test_bf16_gemm_rows_do_not_depend_on_the_batch():
             assert torch.equal(gemm(x[:m].contiguous(), w), full[:m]), (k, n, m)
             assert torch.equal(gemm(x[-m:].contiguous(), w), full[-m:]), (k, n, m)
     assert plans == set(BF16_TILES)
+
+
+# the bf16 attention body's row gate (chip_smoke.py BF16_ATTN_WIDTHS /
+# BF16_ATTN_FIRSTS): every panel count of Dv, D off 16 and off 8; rows from
+# both sides of a 64-row tile's edge and of the 256-column shards
+BF16_ATTN_WIDTHS = ((64, 64), (112, 112), (128, 128), (192, 128), (256, 256), (30, 30))
+BF16_ATTN_FIRSTS = (1, 63, 64, 65, 255, 257, 511)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", BF16_ATTN_WIDTHS)
+def test_bf16_flash_attention_rows_do_not_depend_on_the_batch_or_the_offset(d, dv):
+    """flash_attention_bf16: the rows of a B = 1 call from each first of
+    BF16_ATTN_FIRSTS on are bitwise those of a B = 2 call over all 700
+    rows, causal, windowed (512) and not, at G = 1 (16 heads: one shard)
+    and G = 4 (one kv head: 256-column shards), and within one bf16 ulp of
+    the plain version."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (attention_shard_cols_bf16, flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rb = _rb(gen, dev)
+    assert attention_shard_cols_bf16(700, 16, 16) != attention_shard_cols_bf16(700, 4, 1)
+    for hq, hk in ((16, 16), (4, 1)):
+        q, k, v = rb(2, 700, hq, d), rb(2, 700, hk, d), rb(2, 700, hk, dv)
+        for causal, window in ((True, None), (True, 512), (False, None)):
+            full = flash_attention(q, k, v, causal=causal, window=window)
+            _within_bf16_ulp(full, flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                         scale=1 / math.sqrt(d)))
+            for first in BF16_ATTN_FIRSTS:
+                part = flash_attention(q[:1, first:].contiguous(), k[:1].contiguous(),
+                                       v[:1].contiguous(), causal=causal, window=window)
+                assert torch.equal(part, full[:1, first:]), (hq, hk, causal, window, first)
 
 
 @pytest.mark.gpu
