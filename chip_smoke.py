@@ -44,8 +44,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              phase 10, and one empty kernel launched through the same
              ctypes path gives the floor under every short row; after
              phase 12, torch.profiler gives the device time alone of the
-             empty launch, of rmsnorm beside F.rms_norm and of the SSD
-             scan's three kernels.  The
+             empty launch, of rmsnorm beside F.rms_norm (bf16 too, at the
+             prefill rows), of the narrow bf16 decode beside SDPA and of the
+             SSD scan's three kernels.  The
              attention kernel (flash_attention.cu:
              chunk, paged chunk and whole-sequence, one body over shards of
              attention_shard_cols(S) columns and a combine) is held over
@@ -71,7 +72,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              each must equal the fp32 entry's output on the upcast inputs
              rounded once, bit for bit (the scan's state equal), but gemm's,
              batched_gemm's and flash_attention's, which multiply on the
-             tensor cores (wgmma), and lie within one bf16 ulp (+1e-4) of its
+             tensor cores (wgmma), rmsnorm's (16-byte bf16 pieces, its own
+             order) and the narrow flash_decode's (D, Dv <= 256: mma.sync,
+             the shards merged in a cluster; the wide layout stays bitwise),
+             and lie within one bf16 ulp (+1e-4) of its
              plain version; the two GEMM entries are also held at ragged
              edge shapes (both plans, TMA and element staging) and to one K
              order for every row: rows at M = 1-256 bitwise one M = 1024
@@ -81,7 +85,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              that see nothing, a ragged last tile, five shards) and to one
              order for every row: rows from 1-511 on of a B = 1 call bitwise
              a B = 2 call's at D 64-256, Dv 64-256 and a ragged 30, causal,
-             windowed and not, G = 1 (one shard) and G = 4 (shards); timed beside
+             windowed and not, G = 1 (one shard) and G = 4 (shards);
+             rmsnorm and the narrow decode at edge shapes (widths off 8,
+             unaligned x or q, D 9000's two-pass path, the residual, length
+             0 giving 0, one to eight shards, two head groups) and to one
+             order for every row: rmsnorm rows bitwise across calls of
+             1-1024 rows at every served D, with and without the residual;
+             decode rows of a B = 4 call bitwise the B = 1 call at D 64,
+             112, 128 and 256, G 1 and 4, lengths 0, 1, 63-65 and S; timed beside
              the fp32 entry, the plain version and the library call on
              bf16 inputs, the bound at 2 bytes a value and 989 TFLOP/s.
              The fp32 entries of batched_gemm, ssd_scan and flash_attention
@@ -470,6 +481,16 @@ BF16_KERNELS = ("gemm", "rmsnorm", "flash_decode", "flash_attention", "combine_p
 # (bf16_gemm_cases, bf16_attention_cases), not bitwise to the fp32 entry's
 # output rounded once
 TENSOR_CORE_BF16 = ("gemm", "batched_gemm", "flash_attention")
+# the served widths of the bf16 bodies with an order of their own since the
+# tensor-core GEMM and attention: rmsnorm_bf16 (its 16-byte bf16 layout) at
+# every served D, and the narrow flash_decode_bf16 (mma.sync, the shards
+# merged in a cluster) at every served narrow head width; both held to
+# their plain version within BF16_TOL and to one order for every row
+# (bf16_norm_decode_cases), not to the fp32 entry's output rounded once
+BF16_NORM_DS = (1024, 1152, 2048, 3584, 7168)
+BF16_NORM_ROWS = (1, 4, 17, 256, 1024)
+BF16_DECODE_DS = (64, 112, 128, 256)
+BF16_DECODE_LENS = (0, 1, 63, 64, 65)
 # the M of the bf16 GEMM's row gate: both sides of every plan's 64-row
 # warpgroup and 128-row tile
 BF16_GEMM_MS = (1, 4, 16, 17, 32, 63, 64, 65, 127, 128, 256)
@@ -603,11 +624,11 @@ def check_close(torch, name, got, want, atol, rtol) -> float:
 
 
 def instance_name(fn, kernels):
-    """``kernel<template ints>`` for a mangled function name that holds one
-    of ``kernels``, else None."""
+    """``kernel<template ints and bools>`` for a mangled function name that
+    holds one of ``kernels``, else None."""
     for kernel in (k for k in kernels if k in fn):
         args = re.search(rf"{kernel}I(.*?)EEv", fn)
-        ints = re.findall(r"Li(\d+)E", args.group(1) + "E") if args else []
+        ints = re.findall(r"L[ib](\d+)E", args.group(1) + "E") if args else []
         return f"{kernel}<{', '.join(ints)}>" if ints else fn
     return None
 
@@ -628,21 +649,23 @@ def ptxas_usage(log, kernels):
     return usage
 
 
-def sass_counts(cuda_mod, lib_path, kernels, opcode):
-    """{instance (its template arguments): lines of ``opcode`` in its SASS}
-    for every function of the built library whose name holds one of
-    ``kernels`` (cuobjdump -sass, beside nvcc, read once)."""
+def sass_counts(cuda_mod, lib_path, opcodes):
+    """{instance (its template arguments): lines of its kernel's opcode in its
+    SASS} for every function of the built library whose name holds a kernel
+    of ``opcodes`` ({kernel: opcode}; cuobjdump -sass, beside nvcc, read
+    once)."""
     tool = Path(cuda_mod._nvcc()).parent / "cuobjdump"
     dump = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300)
     if dump.returncode != 0:
         fail(f"cuobjdump -sass failed: {dump.stderr.strip()[-500:]}")
-    counts, name = {}, None
+    counts, name, opcode = {}, None, None
     for line in dump.stdout.splitlines():
         if "Function :" in line:
-            name = instance_name(line.split("Function :", 1)[1].strip(), kernels)
+            name = instance_name(line.split("Function :", 1)[1].strip(), tuple(opcodes))
             if name is not None:
                 counts[name] = 0
+                opcode = opcodes[name.split("<")[0]]
         elif name is not None and opcode in line:
             counts[name] += 1
     return counts
@@ -916,6 +939,117 @@ def bf16_attention_cases(torch, K):
         f"{list(BF16_ATTN_FIRSTS)} at (D, Dv) {list(BF16_ATTN_WIDTHS)}, three masks, G = 1 "
         f"and 4, shards of {sorted(shards)} columns")
     return {"checks": n, "max_abs_err_edges": worst, "shards": sorted(shards)}
+
+
+def bf16_own_order(kernel, shape):
+    """Whether a bf16 call runs a body with an order of its own (held to its
+    plain version within BF16_TOL and to one order for every row by
+    bf16_gemm_cases, bf16_attention_cases and bf16_norm_decode_cases), not
+    the fp32 entry's arithmetic rounded once: the tensor-core bodies,
+    rmsnorm_bf16, and flash_decode_bf16 at D, Dv <= 256 (the wide layout
+    stays the fp32 body on bf16 rings)."""
+    if kernel == "flash_decode":
+        return max(shape[3], shape[4]) <= 256
+    return kernel in TENSOR_CORE_BF16 or kernel == "rmsnorm"
+
+
+def bf16_norm_decode_cases(torch, K):
+    """The bf16 bodies of rmsnorm (16-byte bf16 pieces, w once a block) and
+    of the narrow flash_decode (mma.sync, shards merged in a cluster): edge
+    shapes within BF16_TOL of the plain version (widths off 8 and an
+    unaligned x or q: element loads; D 9000: rmsnorm's two-pass path; the
+    residual; a length-0 sequence giving 0; one to eight shards; G 8 and 12,
+    two head groups), then one order for every row: an rmsnorm row bitwise
+    the same in calls of BF16_NORM_ROWS rows, with and without the residual,
+    at every served D (BF16_NORM_DS); a flash_decode row of a B = 4 call
+    bitwise the B = 1 call at every served narrow width (BF16_DECODE_DS), G 1
+    and 4, lengths BF16_DECODE_LENS and S.  Returns the record."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    bf16 = torch.bfloat16
+
+    def rb(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(bf16)
+
+    def unaligned(x):  # the same values at a data pointer 2 bytes off 16
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    n, worst, shards = 0, 0.0, set()
+    for rows, d in ((5, 30), (64, 1027), (300, 1152), (17, 9000), (3, 8)):
+        x, r, w = rb(rows, d), rb(rows, d), 1.0 + rb(d, scale=0.1)
+        for res in (None, r):
+            label = f"rmsnorm_bf16 {rows}x{d} residual={res is not None}"
+            got = K.rmsnorm(x, w, residual=res)
+            worst = max(worst, check_close(torch, label, got.float(),
+                                           K.rmsnorm_plain(x, w, residual=res).float(),
+                                           **BF16_TOL))
+            if d % 8 == 0 and not torch.equal(K.rmsnorm(unaligned(x), w, residual=res), got):
+                fail(f"{label}: an unaligned x (element loads) changes the bits")
+            n += 1
+    for b, s_len, hq, hk, d, dv, lens in (
+            (3, 70, 8, 2, 30, 30, (0, 70, 37)), (2, 200, 4, 4, 128, 64, (199, 1)),
+            (2, 90, 8, 1, 64, 40, (90, 33)), (2, 300, 12, 1, 112, 112, (300, 17)),
+            (4, 2048, 4, 1, 256, 256, DECODE_LENS), (2, 130, 4, 4, 40, 24, (130, 0)),
+            (2, 16, 4, 4, 64, 64, (16, 5))):
+        q, k, v = rb(b, hq, d), rb(b, s_len, hk, d), rb(b, s_len, hk, dv)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        shards.add(K.decode_plan_bf16(s_len, hq, hk)[1])
+        label = f"flash_decode_bf16 B={b} S={s_len} Hq={hq} Hk={hk} D={d} Dv={dv} len={lens}"
+        got = K.flash_decode(q, k, v, lengths)
+        worst = max(worst, check_close(torch, label, got.float(), K.flash_decode_plain(
+            q, k, v, lengths, 1.0 / math.sqrt(d)).float(), **BF16_TOL))
+        if any(bool(got[i].float().abs().max() != 0) for i, m in enumerate(lens) if m == 0):
+            fail(f"{label}: a length-0 sequence is not 0")
+        if d % 8 == 0 and not torch.equal(K.flash_decode(unaligned(q), k, v, lengths), got):
+            fail(f"{label}: an unaligned q (element loads) changes the bits")
+        n += 1
+    if not {1, 8} <= shards or len(shards) < 4:
+        fail(f"flash_decode_bf16: the edge shapes ran shard counts {sorted(shards)}")
+    for d in BF16_NORM_DS:
+        x, r, w = rb(max(BF16_NORM_ROWS), d), rb(max(BF16_NORM_ROWS), d), 1.0 + rb(d, scale=0.1)
+        for res in (None, r):
+            full = K.rmsnorm(x, w, residual=res)
+            for m in BF16_NORM_ROWS:
+                part = K.rmsnorm(x[-m:].contiguous(), w,
+                                 residual=None if res is None else res[-m:].contiguous())
+                if not torch.equal(part, full[-m:]):
+                    fail(f"rmsnorm_bf16 D={d} residual={res is not None}: rows at {m} rows are "
+                         f"not bitwise those at {max(BF16_NORM_ROWS)}")
+                n += 1
+        del x, r, w, full
+    for d in BF16_DECODE_DS:
+        for hq, hk in ((4, 4), (4, 1)):
+            for s_len in (2048, 512, 96):
+                lens = (BF16_DECODE_LENS + (s_len,))
+                b = len(lens)
+                q, k, v = rb(b, hq, d), rb(b, s_len, hk, d), rb(b, s_len, hk, d)
+                lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                full = K.flash_decode(q, k, v, lengths)
+                for i0 in range(0, b, 4):   # B = 4 calls over the lengths, then B = 1
+                    four = K.flash_decode(q[i0:i0 + 4].contiguous(), k[i0:i0 + 4].contiguous(),
+                                          v[i0:i0 + 4].contiguous(),
+                                          lengths[i0:i0 + 4].contiguous())
+                    if not torch.equal(four, full[i0:i0 + 4]):
+                        fail(f"flash_decode_bf16 D={d} Hq={hq} Hk={hk} S={s_len}: rows of a "
+                             f"B=4 call are not bitwise those of the B={b} call")
+                    n += 1
+                for i in range(b):
+                    one = K.flash_decode(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                         v[i:i + 1].contiguous(), lengths[i:i + 1].contiguous())
+                    if not torch.equal(one[0], full[i]):
+                        fail(f"flash_decode_bf16 D={d} Hq={hq} Hk={hk} S={s_len} "
+                             f"len={lens[i]}: the B=1 row is not bitwise the batched one")
+                    n += 1
+                del q, k, v, full
+    torch.cuda.synchronize()
+    say(f"  bf16 rmsnorm and narrow decode: {n} checks, edge shapes within BF16_TOL (max |err| "
+        f"{worst:.3e}; decode shard counts {sorted(shards)}); rmsnorm rows bitwise across "
+        f"{list(BF16_NORM_ROWS)} rows at D {list(BF16_NORM_DS)} with and without the residual; "
+        f"decode rows bitwise across B at D {list(BF16_DECODE_DS)}, G 1 and 4, lengths "
+        f"{list(BF16_DECODE_LENS)} and S = 2048 / 512 / 96")
+    return {"checks": n, "max_abs_err_edges": worst, "decode_shards": sorted(shards)}
 
 
 def shard_kernel_cases(torch, K, rn, tol):
@@ -1267,6 +1401,7 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
     extra = {"empty_launch_ms": empty_ms, "shapes": shapes,
              "bf16_gemm": bf16_gemm_cases(torch, K, limit_line),
              "bf16_attention": bf16_attention_cases(torch, K),
+             "bf16_norm_decode": bf16_norm_decode_cases(torch, K),
              "combine": combine_kernels(torch, K, rn, timer, record, full_tol),
              "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
              "split_bf16": split_bf16_kernels(torch, K, rn, timer, record, full_tol,
@@ -1516,10 +1651,14 @@ def device_times(torch, K, limit_line):
     three kernels at mamba2-370m's 1024-token prefill (with D; fp32 and
     bf16), and of the
     fp32 and bf16 entries of rmsnorm, the gemm head and flash_decode at
-    gemma3-1b's batch-4 decode step, and of the bf16 GEMM's short rows
-    (gemma3-1b's decode q projection, MLA's absorbed products) beside
-    matmul / bmm (their event times hold the launch path).  Run after the serving phases: the profiler's hooks stay in the
-    process and slow every later launch on the host."""
+    gemma3-1b's batch-4 decode step, of the bf16 rmsnorm at the prefill
+    rows beside bf16 F.rms_norm, of the narrow bf16 flash_decode at the
+    served families' decode shapes beside bf16 SDPA (and, at gemma3-1b's
+    rolling and zamba2's shapes, with every length 0: its fixed cost), and
+    of the bf16 GEMM's short rows (gemma3-1b's decode q projection, MLA's
+    absorbed products) beside matmul / bmm (their event times hold the
+    launch path).  Run after the serving phases: the profiler's hooks stay
+    in the process and slow every later launch on the host."""
     F = torch.nn.functional
     timer = Timer(torch)
     g = torch.Generator(device="cuda")
@@ -1557,6 +1696,37 @@ def device_times(torch, K, limit_line):
         out[f"flash_decode {tag} gemma3 global S=2048"] = device_ms(
             torch, timer, lambda: K.flash_decode(q, k, v, lengths))
         del x, w, q, k, v
+    # the bf16 rmsnorm's prefill rows and the narrow bf16 decode's rows of
+    # the served families, beside bf16 F.rms_norm and SDPA on the same inputs
+    bf16 = torch.bfloat16
+    for rows, d in ((4096, 1024), (1024, 1024), (1024, 2048), (1024, 7168)):
+        x, nw = rn(rows, d).to(bf16), (1.0 + 0.1 * rn(d)).to(bf16)
+        out[f"rmsnorm bf16 prefill {rows}x{d}"] = {
+            **device_ms(torch, timer, lambda: K.rmsnorm(x, nw)),
+            **{f"F.rms_norm {k}": v for k, v in device_ms(
+                torch, timer, lambda: F.rms_norm(x, (d,), nw, 1e-6)).items()}}
+        del x, nw
+    for tag, hq, hk, dh, s_len, lens in (
+            ("seamless cross", 16, 16, 64, ENCDEC_SRC, (ENCDEC_SRC,) * 4),
+            ("gemma3 rolling", 4, 1, 256, 512, tuple(min(n, 512) for n in DECODE_LENS)),
+            ("qwen2", 16, 16, 128, 2048, DECODE_LENS), ("zamba2", 32, 32, 112, 2048, DECODE_LENS),
+            ("gemma3 global", 4, 1, 256, 2048, DECODE_LENS)):
+        q, k, v = rn(4, hq, dh).to(bf16), rn(4, s_len, hk, dh).to(bf16), rn(4, s_len, hk, dh).to(bf16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(s_len, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        out[f"flash_decode bf16 narrow {tag} S={s_len}"] = {
+            **device_ms(torch, timer, lambda: K.flash_decode(q, k, v, lengths)),
+            **{f"SDPA {k_}": v_ for k_, v_ in device_ms(torch, timer, lambda: (
+                F.scaled_dot_product_attention(q[:, :, None, :], k.transpose(1, 2),
+                                               v.transpose(1, 2), attn_mask=mask,
+                                               enable_gqa=True))).items()}}
+        if tag in ("gemma3 rolling", "zamba2"):
+            # the same grid with every length 0: the body's fixed cost (q,
+            # the merges, the cluster's barriers) without a row of the cache
+            none = torch.zeros_like(lengths)
+            out[f"flash_decode bf16 narrow {tag} S={s_len} all lengths 0"] = device_ms(
+                torch, timer, lambda: K.flash_decode(q, k, v, none))
+        del q, k, v
     # the short bf16 GEMM rows, whose event times hold the launch path:
     # gemma3-1b's decode q projection and MLA's absorbed products, beside
     # matmul / bmm on the same inputs
@@ -1737,7 +1907,8 @@ def combine_kernels(torch, K, rn, timer, record, full_tol):
                    3.0 * ns * b * hq * dh, 4.0 * (ns * b * hq * (dh + 2) + b * hq * dh))
             rows.append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain))
             if what == "flash_decode" and tag.startswith("gemma3"):
-                # the bf16 merge flash_decode_bf16 ends with (gemma3-1b at bf16)
+                # the bf16 merge (the wide flash_decode_bf16 ends with it, and
+                # cuda_split at bf16), timed on gemma3-1b's partials
                 bf16 = torch.bfloat16
                 got = K.combine_partials(*parts, dtype=bf16)
                 if not torch.equal(got, K.combine_partials(*parts).to(bf16)):
@@ -1952,8 +2123,13 @@ def stack_launches(cfg, prefills, steps, names):
     for phase, n in (("prefill", prefills), ("decode", steps)):
         for (entry, _), calls in stack_calls(cfg, phase).items():
             want[entry] += calls * n
-    for sfx in ("", "_bf16"):                      # a merge per flash_decode
-        want["combine_partials" + sfx] = want["flash_decode" + sfx]
+    # a merge per fp32 flash_decode and per wide bf16 one (D or Dv past 256);
+    # the narrow bf16 decode merges inside its one launch
+    want["combine_partials"] = want["flash_decode"]
+    want["combine_partials_bf16"] = sum(
+        calls * n for phase, n in (("prefill", prefills), ("decode", steps))
+        for (entry, shape), calls in stack_calls(cfg, phase).items()
+        if entry == "flash_decode_bf16" and not bf16_own_order("flash_decode", shape))
     return want
 
 
@@ -1965,9 +2141,10 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
     has none).  A call on a bf16 entry (a bfloat16 config's, recorded as
     ``<kernel>_bf16``) runs on bf16 inputs (the scan's dt and A stay fp32,
     as the mamba layer passes them): held within BF16_TOL of its plain
-    version and, but for the tensor-core bodies (TENSOR_CORE_BF16), bitwise
-    to the fp32 entry's output on the upcast inputs rounded once (the
-    scan's state bitwise the fp32 entry's), timed beside
+    version and, but for the bodies with an order of their own
+    (bf16_own_order: the tensor-core bodies, rmsnorm, the narrow
+    flash_decode), bitwise to the fp32 entry's output on the upcast inputs
+    rounded once (the scan's state bitwise the fp32 entry's), timed beside
     that fp32 entry and the library call on bf16 inputs; the bound counts
     2 bytes a bf16 value and the bf16 tensor-core rate.  The fp32 entries
     of FP32_ROWS, which no full-width config runs any more, get their own
@@ -2061,6 +2238,8 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
             name, peak, nbytes, label = entry, PEAK_BF16_FLOPS, nb(2.0), label + " bf16"
             if kernel == "flash_attention":
                 label += f" shard {K.attention_shard_cols_bf16(*shape[2:5])}"
+            elif kernel == "flash_decode" and bf16_own_order(kernel, shape):
+                label += f" plan {K.decode_plan_bf16(shape[5], shape[1], shape[2])}"
             elif kernel in TENSOR_CORE_BF16:
                 m, count = (shape[0], 1) if kernel == "gemm" else (shape[1], shape[0])
                 label += f" plan {K.gemm_bf16_plan(m, shape[-1], count)}"
@@ -2068,10 +2247,11 @@ def stack_kernels(torch, K, cfg, rn, timer, record, full_tol, limit_line):
         if bf16:
             outs32 = tup(fn(*up))
             # the first output is bf16, the fp32 entry's rounded once (but
-            # on the tensor cores: bf16_gemm_cases and bf16_attention_cases
-            # hold those); the scan's
-            # state stays fp32, bitwise the fp32 entry's
-            if outs[0].dtype != torch.bfloat16 or (kernel not in TENSOR_CORE_BF16 and (
+            # for the bodies with an order of their own: bf16_gemm_cases,
+            # bf16_attention_cases and bf16_norm_decode_cases hold those);
+            # the scan's state stays fp32, bitwise the fp32 entry's
+            own = bf16_own_order(kernel, shape)
+            if outs[0].dtype != torch.bfloat16 or (not own and (
                     not torch.equal(outs[0], outs32[0].to(torch.bfloat16)) or not all(
                         torch.equal(a, b_) for a, b_ in zip(outs[1:], outs32[1:])))):
                 fail(f"{label}: not the fp32 entry's output on the upcast inputs rounded once")
@@ -5504,6 +5684,7 @@ class Kernels:
         self.ssd_scan, self.ssd_scan_plain = ssd.ssd_scan, ssd.ssd_scan_plain
         self.rmsnorm, self.rmsnorm_plain = rmsnorm, rmsnorm_plain
         self.flash_decode, self.flash_decode_plain = fd.flash_decode, fd.flash_decode_plain
+        self.decode_plan_bf16 = fd.decode_plan_bf16
         self.flash_chunk_attention = fa.flash_chunk_attention
         self.flash_chunk_attention_plain = fa.flash_chunk_attention_plain
         self.flash_paged_decode = fd.flash_paged_decode
@@ -5609,17 +5790,22 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"[build]   {line.strip()}")
-    bodies = {"GEMM": "gemm_wgmma_kernel", "attention": "attention_wgmma_kernel"}
-    hgmma = sass_counts(_cuda, path, tuple(bodies.values()), "HGMMA")
-    for body, kernel in bodies.items():
-        counts = {k: c for k, c in hgmma.items() if k.startswith(kernel)}
-        say(f"[build] HGMMA (tensor-core) instructions in the SASS of each bf16 {body} "
+    # the tensor-core bf16 bodies: wgmma (HGMMA) in the GEMM and attention,
+    # mma.sync (HMMA) in the narrow decode
+    bodies = {"GEMM": ("gemm_wgmma_kernel", "HGMMA"),
+              "attention": ("attention_wgmma_kernel", "HGMMA"),
+              "narrow decode": ("decode_tc_kernel", "HMMA")}
+    tc = sass_counts(_cuda, path, dict(bodies.values()))
+    for body, (kernel, opcode) in bodies.items():
+        counts = {k: c for k, c in tc.items() if k.startswith(kernel)}
+        say(f"[build] {opcode} (tensor-core) instructions in the SASS of each bf16 {body} "
             f"instance (cuobjdump -sass): {counts}")
         if not counts or not all(counts.values()):
-            fail(f"the bf16 {body}'s instances issue no HGMMA: {counts}")
+            fail(f"the bf16 {body}'s instances issue no {opcode}: {counts}")
     if log:  # empty when an existing library was reused
-        say("[build] registers and spill-store bytes of each wgmma instance (-Xptxas -v): "
-            f"{ptxas_usage(log, tuple(bodies.values()))}")
+        say("[build] registers and spill-store bytes of each tensor-core and bf16 rmsnorm "
+            "instance (-Xptxas -v): "
+            f"{ptxas_usage(log, tuple(k for k, _ in bodies.values()) + ('rmsnorm_bf16_kernel',))}")
     phase_s["build"] = time.perf_counter() - t
 
     from repro_torch.core.device import resolve_device

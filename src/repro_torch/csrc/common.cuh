@@ -5,11 +5,13 @@
 // engine must stay token-exact against it.  The bf16 entries follow the
 // Pallas kernels' contract for bf16 inputs: every sum and the softmax
 // state in fp32, one rounding to bf16 (to nearest even) on store.  Those of
-// rmsnorm, flash_decode and ssd_scan upcast on load (exact) and run the
-// fp32 entries' arithmetic, so their bf16 result is the fp32 kernel's
-// result on x.float() rounded once; gemm's, batched_gemm's and
-// flash_attention's multiply on the tensor cores (wgmma, fp32 accumulator;
-// gemm.cu, flash_attention.cu, wgmma.cuh).
+// ssd_scan, the wide flash_decode and the bf16 partial decode upcast on
+// load (exact) and run the fp32 entries' arithmetic, so their bf16 result
+// is the fp32 kernel's result on x.float() rounded once; gemm's,
+// batched_gemm's and flash_attention's multiply on the tensor cores (wgmma,
+// fp32 accumulator; gemm.cu, flash_attention.cu, wgmma.cuh), the narrow
+// flash_decode's too (mma.sync, flash_decode.cu), and rmsnorm's has a bf16
+// layout of its own (rmsnorm.cu).
 // Every reduction has a fixed order that depends on nothing but the row it
 // reduces (no atomics, no split chosen from the batch size), so a
 // sequence's numbers are the same at batch 4 as at batch 1.

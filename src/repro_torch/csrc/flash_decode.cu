@@ -1,7 +1,8 @@
-// flash_decode: one-token GQA attention over a KV cache, fp32 arithmetic.
+// flash_decode: one-token GQA attention over a KV cache.
 //   q (B, Hq, D), lengths (B,) int32 -> o (B, Hq, Dv); cache positions
-//   >= lengths[b] are masked.  Every entry point runs one kernel body,
-//   decode_shard_kernel, a template over the KV row source:
+//   >= lengths[b] are masked.  Every entry point but the narrow bf16 decode
+//   runs one fp32 kernel body, decode_shard_kernel, a template over the KV
+//   row source:
 //   flash_decode_f32        dense k (B, S, Hk, D), v (B, S, Hk, Dv);
 //   flash_paged_decode_f32  pages (N, P, Hk, D/Dv) fp32 through block
 //                           tables (B, MP);
@@ -17,14 +18,18 @@
 //                           B, Hq);
 //   combine_partials_f32    (acc, m, l) over NS shards -> out, in shard
 //                           index order (ref.combine_partials_ref);
-//   flash_decode_bf16       flash_decode_f32 on bf16 q, k, v and o (both
-//                           layouts, narrow and wide): q and each staged
-//                           K/V row upcast as they are loaded, the partials
-//                           fp32, the combine writing o rounded once to bf16
+//   flash_decode_bf16       bf16 q, k, v and o.  D, Dv <= 256 (every
+//                           served head but MLA's): decode_tc_kernel, a body
+//                           of its own on the tensor cores, one launch (the
+//                           last section of this note).  Wider (MLA's D 576,
+//                           Dv 512): flash_decode_f32's wide layout on bf16
+//                           rings, q and each staged K/V row upcast as they
+//                           are loaded, the partials fp32, the combine
+//                           writing o rounded once to bf16
 //                           (combine_partials_bf16 alone: the same merge
 //                           with a bf16 out);
 //   flash_decode_partial_bf16  flash_decode_partial_f32 on bf16 q, k, v
-//                           (both layouts), the bf16 staging above, each
+//                           (both layouts), the bf16 rings above, each
 //                           shard's acc rounded once to bf16 as it is
 //                           written, m and l fp32 (JAX's partial: acc in
 //                           q's dtype, m and l float32).
@@ -35,7 +40,9 @@
 // and _paged_decode_q_kernel), behind `paged_decode_attention[_q]` pallas
 // (serving_ops.py:619, :941), and flash_decode_partial (the same body with
 // emit_stats=True), behind `decode_attention` pallas_split (ops.py:178-208),
-// which calls it once per shard in a Python loop.
+// which calls it once per shard in a Python loop.  decode_tc_kernel
+// replaces _decode_kernel (src/repro/kernels/flash_decode.py:148, emit_stats
+// False) for bf16 heads up to 256 wide.
 //
 // What bounds it on the H100: bytes.  Each cache byte is read once per step
 // for O(1) flops (about 0.5 flop/byte at Hq = Hk), so its least time is the
@@ -101,18 +108,67 @@
 // alone.  Its bound: the live rows at 2 bytes a value, the partials at 2
 // bytes an acc value and 8 bytes an (m, l) pair.
 //
-// bf16 (flash_decode_bf16): the ring's slots hold bf16 rows, copied by
-// cp.async (16-byte pieces of 8 values where D and Dv are multiples of 8
-// and K, V 16-byte aligned, else 2-byte loads and stores) and upcast as a
-// lane reads its groups (8 bytes a group of 4); q is upcast as it is
-// staged.  The ring takes half the fp32 one's bytes (56 KB a block at D =
-// Dv = 256, against 104); the tiles, groups and every sum are the fp32
-// kernel's, so the output is the fp32 kernel's on the upcast inputs,
-// rounded once.  Its bound is the live rows at 2 bytes a value.  The wide
-// layout at bf16 stages its 576- and 512-value rows the same way (72 and 64
-// 16-byte pieces a row); each lane upcasts NCK + NCV groups a row, which
-// adds live values to a body that already holds WIDE_GMAX x NCV float4
-// accumulators (the registers and spills are in the build's ptxas lines).
+// bf16 on the fp32 body (the wide flash_decode_bf16 and the bf16 partial):
+// the ring's slots hold bf16 rows, copied by cp.async (16-byte pieces of 8
+// values where D and Dv are multiples of 8 and K, V 16-byte aligned, else
+// 2-byte loads and stores) and upcast as a lane reads its groups (8 bytes
+// a group of 4); q is upcast as it is staged.  The tiles, groups and every
+// sum are the fp32 kernel's, so the output is the fp32 kernel's on the
+// upcast inputs, rounded once.  Its bound is the live rows at 2 bytes a
+// value.  The wide layout stages its 576- and 512-value rows the same way
+// (72 and 64 16-byte pieces a row); each lane upcasts NCK + NCV groups a
+// row, which adds live values to a body that already holds WIDE_GMAX x NCV
+// float4 accumulators (the registers and spills are in the build's ptxas
+// lines).
+//
+// The narrow bf16 body (flash_decode_bf16 at D, Dv <= 256: decode_tc_kernel
+// below).  Bytes bound it as they bound the fp32 body: about 0.5 flop a
+// byte at G = 1, far under the H100's 295 flop a byte in bf16.  The fp32
+// body on bf16 rings spent its time elsewhere: a 32-lane butterfly a score,
+// half the lanes idle at D 64, 64-row shards whose 4-row tiles never filled
+// the ring, and a second launch to merge.  This body's answers:
+// - The products on the tensor cores, straight from the bf16 ring:
+//   mma.sync.m16n8k16 (bf16 in, fp32 accumulate), with the group's query
+//   heads (up to TC_HEADS = 8; G is 1 or 4 at the served configs) as rows
+//   0-7 of the 16-row A tile of Q K^T and rows 8-15 zero, K rows as the
+//   8-wide N side (ldmatrix from the row-major ring).  P V runs transposed,
+//   O^T = V^T P^T: V^T by ldmatrix.trans is the A tile, 16 Dv columns with
+//   every row live, and the scores' registers are the B operand as they
+//   stand (a head's 16 keys), so a 16-key tile takes 2 products a 16 Dv
+//   columns (hi, lo) and 4 accumulator registers, not 4 and 8.  No upcast
+//   staging, no butterfly (a score is one accumulator element; the row max
+//   and sum take two xor shuffles within a quad).  mma.sync, not wgmma: a
+//   decode has at most 8 query rows, so wgmma's 64-row tile would be 8x
+//   padding, and its warpgroup-wide issue and fences buy nothing for a
+//   body that bytes bound.  G = 1 wastes 15 of 16 rows too, but the tensor
+//   cores have room to spare at this intensity.
+// - P = hi + lo, two bf16 products in a fixed order (a bf16 P alone misses
+//   BF16_TOL; flash_attention.cu found it), l summed from the fp32 p; the
+//   softmax in fp32, in log2 units (scale * log2 e folded into the score).
+// - Staging: each warp walks its own 16-row tiles of the shard (tile t to
+//   warp t % TC_WARPS), TC_NST = 3 slots a warp by 16-byte cp.async (2-byte
+//   loads where D or Dv is off 8 or K, V unaligned; q likewise, in a group of
+//   its own ahead of the first tiles), so two tiles are in flight while one
+//   is multiplied.  A row is padded to 16 values and 8 more, so ldmatrix's
+//   8 rows fall in 8 bank groups.  Rows past the length are zero-filled
+//   (their p is 0, and 0 x a stale NaN would not be).
+// - Shards and the merge in one launch: decode_plan_bf16 (Python) cuts the
+//   cache into up to TC_CLUSTER shards of whole tiles, fewer where a
+//   sequence has many kv heads (a block's fixed cost: q, the merges and the
+//   barriers); the blocks of a (sequence, kv head, group) form one thread-
+//   block cluster.  Each block merges its warps in warp order into a
+//   partial in shared memory; the cluster's blocks then read each other's
+//   partials through distributed shared memory and merge them in rank
+//   (shard) order, each block writing a slice of the output, rounded once.
+//   No workspace, no second launch, no atomics.
+// - One order for every row: a sequence's tiles start at its shard's first
+//   row in absolute positions, the shard plan reads S and the head counts,
+//   never B, and every sum's order is fixed by D, Dv and the plan, so a row
+//   of a batch-4 call is bitwise the batch-1 call; its bits are not the
+//   fp32 body's rounded (the tensor cores sum each 16-deep chunk their own
+//   way), so it is held to its plain version within one bf16 ulp instead.
+#include <cooperative_groups.h>
+
 #include <cstdint>
 #include <type_traits>
 
@@ -520,6 +576,440 @@ int decode(const TQ* q, const T* k, const T* v, const float* k_scale, const floa
   return combine(acc, m, l, o, (S + shard - 1) / shard, B * Hq, Dv, st);
 }
 
+// ---------------------------------------------------------------------------
+// The narrow bf16 body on the tensor cores (flash_decode_bf16, D, Dv <= 256):
+// decode_tc_kernel.  See the note at the top.
+
+using repro_torch::bf16;
+
+constexpr int TC_THREADS = 128, TC_WARPS = TC_THREADS / 32;
+constexpr int TC_ROWS = 16;     // key rows a warp tile: one k16 step of P V
+constexpr int TC_NST = 3;       // ring slots a warp
+constexpr int TC_HEADS = 8;     // query heads a block: rows 0-7 of the m16 tile
+constexpr int TC_CLUSTER = 8;   // most shards (blocks) a cluster: one (sequence, kv head, group)
+
+// bf16 values a staged row of width W takes: W padded to 16 (the k16 and
+// n16 steps), then 8 more, so that a row is an odd number of 16-byte
+// pieces and ldmatrix's 8 rows fall in 8 different bank groups.
+__host__ __device__ inline int tc_stride(int W) { return (W + 15) / 16 * 16 + 8; }
+
+// Dynamic shared memory of one block (kernels/flash_decode.py
+// decode_tc_smem_bytes): q [TC_HEADS][KS], then each warp's TC_NST slots of
+// TC_ROWS K rows [KS] and TC_ROWS V rows [VS] in bf16; after the loop the
+// rings hold the fp32 merge: each warp's (m, l) and acc [TC_HEADS][Dv16],
+// the block's, where the cluster reads them, and the weights of the warps
+// and of the cluster's blocks with their sums of l.
+__host__ __device__ inline size_t decode_tc_smem_bytes(int D, int Dv) {
+  const int KS = tc_stride(D), VS = tc_stride(Dv), Dv16 = (Dv + 15) / 16 * 16;
+  const size_t ring = 2 * (size_t)TC_WARPS * TC_NST * TC_ROWS * (KS + VS);
+  const size_t merge = 4 * ((size_t)(TC_WARPS + 1) * TC_HEADS * (2 + Dv16) +
+                            (size_t)(TC_WARPS + TC_CLUSTER + 1) * TC_HEADS);
+  return 2 * (size_t)TC_HEADS * KS + (ring > merge ? ring : merge);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: 8x8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
+// rows of matrix i; lane t gets row t / 4, columns 2 (t % 4) and + 1 of
+// each (.trans: column t / 4, rows 2 (t % 4) and + 1).
+__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += A B on the tensor cores: A 16x16 bf16 (a0, a2 rows t / 4; a1, a3
+// rows t / 4 + 8), B 16x8 bf16, c 16x8 fp32 (c[0], c[1] row t / 4 columns
+// 2 (t % 4), + 1; c[2], c[3] row t / 4 + 8).
+__device__ __forceinline__ void mma16816(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// A lane's walk over the 16-byte pieces of TC_ROWS rows of W8 pieces (W8 <=
+// 32): piece c = lane + 32 i is row c / W8, piece c % W8; the divisions
+// once, then steps of 32.
+struct PieceWalk {
+  int r0, p0, dr, dp, W8;
+  __device__ PieceWalk(int W8_, int lane)
+      : r0(lane / W8_), p0(lane % W8_), dr(32 / W8_), dp(32 % W8_), W8(W8_) {}
+};
+
+// TC_ROWS rows of width W from src (row r at src + r * stride) into dst
+// (row stride DS) by the warp's lanes: rows r >= n as zeros.  vec: 16-byte
+// cp.async pieces (W % 8 == 0, src 16-byte aligned) along `walk`; else
+// 2-byte loads and stores up to W padded to 16, zeros past W (unrolled, so
+// that the loads of several elements are in flight together).
+__device__ __forceinline__ void tc_stage(bf16* dst, const bf16* src, size_t stride, int W, int DS,
+                                         int n, bool vec, int lane, const PieceWalk& walk) {
+  if (vec) {
+    for (int r = walk.r0, p8 = walk.p0; r < TC_ROWS;) {
+      const bool ok = r < n;
+      repro_torch::cp_async16(dst + r * DS + 8 * p8, src + (ok ? r : 0) * stride + 8 * p8, ok);
+      r += walk.dr;
+      p8 += walk.dp;
+      if (p8 >= walk.W8) {
+        p8 -= walk.W8;
+        ++r;
+      }
+    }
+  } else {
+    const int W16 = (W + 15) / 16 * 16;
+#pragma unroll 8
+    for (int c = lane; c < TC_ROWS * W16; c += 32) {
+      const int r = c / W16, d = c % W16;
+      repro_torch::copy1(dst + r * DS + d, src + r * stride + d, r < n && d < W);
+    }
+  }
+}
+
+// Block (rank, y) of a cluster of gridDim.x blocks: y = (sequence b, kv head
+// h, group of TC_HEADS query heads); rank: rows [rank * shard, (rank + 1) *
+// shard) of the cache.  Writes o rows b, h * G + g0 .. + gn - 1, rounded
+// once to bf16.  NV: the most 16-column chunks of Dv (Dv16 / 16 <= NV).
+template <int NV>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ lengths,
+                 bf16* __restrict__ o, int Hq, int Hk, int S, int D, int Dv, int shard,
+                 float scale_log2, bool vec, bool vec_q) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_rank = static_cast<int>(gridDim.x);   // the cluster spans grid.x
+  const int G = Hq / Hk, n_grp = (G + TC_HEADS - 1) / TC_HEADS;
+  const int bh = blockIdx.y / n_grp, g0 = (blockIdx.y % n_grp) * TC_HEADS;
+  const int b = bh / Hk, h = bh % Hk, gn = min(TC_HEADS, G - g0);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int KS = tc_stride(D), VS = tc_stride(Dv);
+  const int nk = (D + 15) / 16, nv = (Dv + 15) / 16, Dv16 = 16 * nv;
+  const int row0 = rank * shard;
+  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), shard);
+
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);               // [TC_HEADS][KS]
+  bf16* ring = qs + TC_HEADS * KS;
+  const int slot = TC_ROWS * (KS + VS);                       // K rows, then V rows
+  bf16* my_ring = ring + (size_t)warp * TC_NST * slot;
+
+  // q's rows of this group, zeros past D and gn: 16-byte cp.async pieces
+  // (vec_q) in a group of their own ahead of the first tiles, else 2-byte
+  // loads (any alignment); columns D .. D16 zeroed by plain stores
+  const size_t q_base = ((size_t)b * Hq + (size_t)h * G + g0) * D;
+  const int D16 = 16 * nk;
+  if (vec_q) {
+    for (int i = tid; i < TC_HEADS * (D / 8); i += TC_THREADS) {
+      const int g = i / (D / 8), p8 = i % (D / 8);
+      repro_torch::cp_async16(qs + g * KS + 8 * p8, q + q_base + (size_t)(g < gn ? g : 0) * D + 8 * p8,
+                              g < gn);
+    }
+    for (int i = tid; i < TC_HEADS * (D16 - D); i += TC_THREADS)
+      *reinterpret_cast<unsigned short*>(qs + i / (D16 - D) * KS + D + i % (D16 - D)) = 0;
+  } else {
+#pragma unroll 8
+    for (int i = tid; i < TC_HEADS * D16; i += TC_THREADS) {
+      const int g = i / D16, d = i % D16;
+      repro_torch::copy1(qs + g * KS + d, q + q_base + (size_t)g * D + d, g < gn && d < D);
+    }
+  }
+  repro_torch::cp_async_commit();
+  // with 16-byte staging, the columns D .. D16 and Dv .. Dv16 of every slot's
+  // rows: zeros, never staged over (the 2-byte staging writes them itself)
+  if (vec && (D % 16 || Dv % 16)) {
+    for (int i = tid; i < TC_WARPS * TC_NST * TC_ROWS * 8; i += TC_THREADS) {
+      const int r = i / 8, c = i % 8;
+      bf16* base = ring + (size_t)(r / TC_ROWS) * slot;
+      if (D % 16) *reinterpret_cast<unsigned short*>(base + (r % TC_ROWS) * KS + D + c) = 0;
+      if (Dv % 16)
+        *reinterpret_cast<unsigned short*>(base + TC_ROWS * KS + (r % TC_ROWS) * VS + Dv + c) = 0;
+    }
+  }
+
+  const int n_tiles = (len + TC_ROWS - 1) / TC_ROWS;
+  const int my_tiles = n_tiles > warp ? (n_tiles - warp + TC_WARPS - 1) / TC_WARPS : 0;
+  const size_t kv0 = ((size_t)b * S + row0) * Hk + h;         // (b, row0, h) as a cache row
+  const PieceWalk walk_k(vec ? D / 8 : 1, lane), walk_v(vec ? Dv / 8 : 1, lane);
+
+  // stage this warp's i-th tile (shard tile warp + TC_WARPS * i) into slot i % TC_NST
+  auto stage = [&](int i) {
+    const int j0 = (warp + TC_WARPS * i) * TC_ROWS, n = min(TC_ROWS, len - j0);
+    bf16* ks = my_ring + (i % TC_NST) * slot;
+    const size_t r0 = kv0 + (size_t)j0 * Hk;
+    tc_stage(ks, k + r0 * D, (size_t)Hk * D, D, KS, n, vec, lane, walk_k);
+    tc_stage(ks + TC_ROWS * KS, v + r0 * Dv, (size_t)Hk * Dv, Dv, VS, n, vec, lane, walk_v);
+  };
+
+  // query head t / 4's running max (log2 units) and this thread's part of
+  // its l; acc[c]: the m16n8 accumulator of O^T over Dv columns 16 c ..
+  // 16 c + 15 (rows) and the 8 query heads (columns): acc[c][0], [1] heads
+  // 2 (t % 4) and + 1 at column 16 c + t / 4, acc[c][2], [3] at + 8
+  float m_run = repro_torch::kNegInf, l_part = 0.f;
+  float acc[NV][4];
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  // the lanes' ldmatrix rows: q (x2), K (x4), V (x4.trans)
+  const bf16* q_lane = qs + (lane % 8) * KS + (lane / 8) % 2 * 8;
+  const int k_lane = (lane / 16 * 8 + lane % 8) * KS + (lane / 8) % 2 * 8;
+  const int v_lane = (lane / 16 * 8 + lane % 8) * VS + (lane / 8) % 2 * 8;
+
+#pragma unroll
+  for (int s = 0; s < TC_NST - 1; ++s) {
+    if (s < my_tiles) stage(s);
+    repro_torch::cp_async_commit();
+  }
+  repro_torch::cp_async_wait<TC_NST - 1>();  // q's group, while the first tiles fly
+  __syncthreads();                           // q and the zeroed columns, for every warp
+  for (int i = 0; i < my_tiles; ++i) {
+    if (i + TC_NST - 1 < my_tiles) stage(i + TC_NST - 1);
+    repro_torch::cp_async_commit();
+    repro_torch::cp_async_wait<TC_NST - 1>();
+    __syncwarp();
+    const int j0 = (warp + TC_WARPS * i) * TC_ROWS;
+    const bf16* ks = my_ring + (i % TC_NST) * slot;
+    const bf16* vs = ks + TC_ROWS * KS;
+
+    // S = q K^T over D's 16-deep chunks: sc[t2] (keys 8 t2 .. + 7) sums the
+    // even chunks in order, sc[2 + t2] the odd ones, then the two are added:
+    // four independent chains of products, in an order fixed by D
+    float sc[4][4] = {};
+    for (int kd = 0; kd < nk; kd += 2) {
+      unsigned a0, a2, kb[4];
+      ldsm_x2(a0, a2, q_lane + 16 * kd);
+      ldsm_x4(kb, ks + k_lane + 16 * kd);
+      mma16816(sc[0], a0, 0u, a2, 0u, kb[0], kb[1]);
+      mma16816(sc[1], a0, 0u, a2, 0u, kb[2], kb[3]);
+      if (kd + 1 < nk) {
+        ldsm_x2(a0, a2, q_lane + 16 * (kd + 1));
+        ldsm_x4(kb, ks + k_lane + 16 * (kd + 1));
+        mma16816(sc[2], a0, 0u, a2, 0u, kb[0], kb[1]);
+        mma16816(sc[3], a0, 0u, a2, 0u, kb[2], kb[3]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[0][e] += sc[2][e];
+      sc[1][e] += sc[3][e];
+    }
+    // the online softmax of row t / 4 over keys 2 (t % 4) + {0, 1, 8, 9}
+    const int jl = j0 + 2 * (lane % 4);
+    float x[4] = {sc[0][0], sc[0][1], sc[1][0], sc[1][1]};
+    const int off[4] = {0, 1, 8, 9};
+    float mx = repro_torch::kNegInf;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = jl + off[e] < len ? x[e] * scale_log2 : repro_torch::kNegInf;
+      mx = fmaxf(mx, x[e]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = exp2f(m_run - m_new);
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = jl + off[e] < len ? exp2f(x[e] - m_new) : 0.f;
+    l_part = l_part * alpha + (((p[0] + p[1]) + p[2]) + p[3]);
+    m_run = m_new;
+    // O^T += V^T P^T: this thread's p (head t / 4, keys 2 (t % 4), + 1 and
+    // + 8) are the B operand as they stand, P = hi + lo two bf16 products
+    // (a bf16 P alone misses BF16_TOL); V^T by ldmatrix.trans, one chunk
+    // ahead; the rescale takes the alpha of the heads 2 (t % 4) and + 1
+    const unsigned hi0 = pack_bf16(p[0], p[1]), hi1 = pack_bf16(p[2], p[3]);
+    const __nv_bfloat162 h0 = *reinterpret_cast<const __nv_bfloat162*>(&hi0);
+    const __nv_bfloat162 h1 = *reinterpret_cast<const __nv_bfloat162*>(&hi1);
+    const unsigned lo0 = pack_bf16(p[0] - __low2float(h0), p[1] - __high2float(h0));
+    const unsigned lo1 = pack_bf16(p[2] - __low2float(h1), p[3] - __high2float(h1));
+    const float al0 = __shfl_sync(0xffffffffu, alpha, 8 * (lane % 4));
+    const float al1 = __shfl_sync(0xffffffffu, alpha, 8 * (lane % 4) + 4);
+    unsigned va[4];
+    ldsm_x4_trans(va, vs + v_lane);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      if (c < nv) {
+        unsigned vn[4] = {va[0], va[1], va[2], va[3]};
+        if (c + 1 < nv) ldsm_x4_trans(vn, vs + v_lane + 16 * (c + 1));
+        acc[c][0] *= al0;
+        acc[c][1] *= al1;
+        acc[c][2] *= al0;
+        acc[c][3] *= al1;
+        mma16816(acc[c], va[0], va[1], va[2], va[3], hi0, hi1);
+        mma16816(acc[c], va[0], va[1], va[2], va[3], lo0, lo1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) va[e] = vn[e];
+      }
+    }
+    __syncwarp();  // slot i % TC_NST is staged again in the next iteration
+  }
+  repro_torch::cp_async_wait<0>();
+  float l_row = l_part + __shfl_xor_sync(0xffffffffu, l_part, 1);
+  l_row = l_row + __shfl_xor_sync(0xffffffffu, l_row, 2);
+  __syncthreads();  // every warp is done with the rings: reuse them
+
+  // the warps' partials: m and l [TC_WARPS][TC_HEADS], acc
+  // [TC_WARPS][TC_HEADS][Dv16]; then the block's, which the cluster reads
+  // (m and l [TC_HEADS], acc [TC_HEADS][Dv16]); then the weights of the
+  // warps [TC_WARPS][TC_HEADS] and of the cluster's blocks
+  // [TC_CLUSTER][TC_HEADS] with their sums of l [TC_HEADS]
+  float* wm = reinterpret_cast<float*>(ring);
+  float* wl = wm + TC_WARPS * TC_HEADS;
+  float* wacc = wl + TC_WARPS * TC_HEADS;
+  float* bm = wacc + TC_WARPS * TC_HEADS * Dv16;
+  float* bl = bm + TC_HEADS;
+  float* bacc = bl + TC_HEADS;
+  float* ww = bacc + TC_HEADS * Dv16;
+  float* wt = ww + TC_WARPS * TC_HEADS;
+  float* wsum = wt + TC_CLUSTER * TC_HEADS;
+  const int g_lane = lane / 4;
+  if (lane % 4 == 0) {
+    wm[warp * TC_HEADS + g_lane] = m_run;
+    wl[warp * TC_HEADS + g_lane] = l_row;
+  }
+  float* wacc_lane = wacc + ((size_t)warp * TC_HEADS + 2 * (lane % 4)) * Dv16 + g_lane;
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+    if (c < nv) {
+      wacc_lane[16 * c] = acc[c][0];
+      wacc_lane[Dv16 + 16 * c] = acc[c][1];
+      wacc_lane[16 * c + 8] = acc[c][2];
+      wacc_lane[Dv16 + 16 * c + 8] = acc[c][3];
+    }
+  __syncthreads();
+  // the block's partial: its warps in warp order, the weights exp2(m_w -
+  // max) once a query head
+  if (tid < gn) {
+    float mm = wm[tid];
+#pragma unroll
+    for (int w = 1; w < TC_WARPS; ++w) mm = fmaxf(mm, wm[w * TC_HEADS + tid]);
+    float ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < TC_WARPS; ++w) {
+      const float f = exp2f(wm[w * TC_HEADS + tid] - mm);
+      ww[w * TC_HEADS + tid] = f;
+      ls = ls + wl[w * TC_HEADS + tid] * f;
+    }
+    bm[tid] = mm;
+    bl[tid] = ls;
+  }
+  __syncthreads();
+  for (int i = tid; i < gn * Dv16; i += TC_THREADS) {
+    const int g = i / Dv16, d = i % Dv16;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < TC_WARPS; ++w)
+      a = a + wacc[((size_t)w * TC_HEADS + g) * Dv16 + d] * ww[w * TC_HEADS + g];
+    bacc[i] = a;
+  }
+  cluster.sync();  // every block's partial is written
+  // the cluster's blocks in rank order: each block computes the weights
+  // exp2(m_r - max) of the ranks' partials and their sum of l (one thread a
+  // query head, its remote loads issued together), then merges its slice
+  // of the outputs
+  if (tid < gn) {
+    float mr[TC_CLUSTER], lr[TC_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < TC_CLUSTER; ++r) {
+      mr[r] = r < n_rank ? cluster.map_shared_rank(bm, r)[tid] : repro_torch::kNegInf;
+      lr[r] = r < n_rank ? cluster.map_shared_rank(bl, r)[tid] : 0.f;
+    }
+    float mm = mr[0];
+#pragma unroll
+    for (int r = 1; r < TC_CLUSTER; ++r) mm = fmaxf(mm, mr[r]);
+    float ls = 0.f;
+#pragma unroll
+    for (int r = 0; r < TC_CLUSTER; ++r) {
+      const float f = r < n_rank ? exp2f(mr[r] - mm) : 0.f;
+      wt[r * TC_HEADS + tid] = f;
+      ls = ls + lr[r] * f;
+    }
+    wsum[tid] = fmaxf(ls, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = rank * TC_THREADS + tid; i < gn * Dv; i += n_rank * TC_THREADS) {
+    const int g = i / Dv, d = i % Dv;
+    float a = 0.f;
+#pragma unroll
+    for (int r = 0; r < TC_CLUSTER; ++r)
+      if (r < n_rank)
+        a = a + cluster.map_shared_rank(bacc, r)[g * Dv16 + d] * wt[r * TC_HEADS + g];
+    o[((size_t)b * Hq + (size_t)h * G + g0 + g) * Dv + d] = __float2bfloat16_rn(a / wsum[g]);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int NV>
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* o, int B,
+              int Hq, int Hk, int S, int D, int Dv, int shard, float scale, bool vec, bool vec_q,
+              cudaStream_t stream) {
+  auto kernel = decode_tc_kernel<NV>;
+  const size_t smem = decode_tc_smem_bytes(D, Dv);
+  static int smem_set[repro_torch::kMaxDevices];
+  cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_grp = (Hq / Hk + TC_HEADS - 1) / TC_HEADS, cluster = (S + shard - 1) / shard;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B * Hk * n_grp);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, q, k, v, lengths, o, Hq, Hk, S, D, Dv, shard,
+                           scale * 1.4426950408889634f, vec, vec_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The narrow bf16 decode in one launch: shards of `shard` rows (the
+// wrapper's decode_plan_bf16: a multiple of TC_ROWS, at most TC_CLUSTER of
+// them), merged inside the cluster.
+int decode_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* o, int B,
+              int Hq, int Hk, int S, int D, int Dv, int shard, float scale, void* stream) {
+  if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || D > 32 * 4 * NCH || Dv > 32 * 4 * NCH ||
+      S < 1 || shard < 1 || shard % TC_ROWS || (S + shard - 1) / shard > TC_CLUSTER ||
+      (size_t)B * Hk * ((Hq / Hk + TC_HEADS - 1) / TC_HEADS) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = D % 8 == 0 && Dv % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const bool vec_q = D % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nv = (Dv + 15) / 16;
+#define REPRO_TC(NV) \
+  launch_tc<NV>(q, k, v, lengths, o, B, Hq, Hk, S, D, Dv, shard, scale, vec, vec_q, st)
+  if (nv <= 4) return REPRO_TC(4);
+  if (nv <= 8) return REPRO_TC(8);
+  return REPRO_TC(16);
+#undef REPRO_TC
+}
+
 }  // namespace
 
 // acc (ceil(S / shard), B, Hq, Dv), m and l (ceil(S / shard), B, Hq): the
@@ -571,11 +1061,16 @@ extern "C" int combine_partials_bf16(const float* acc, const float* m, const flo
   return combine(acc, m, l, out, NS, R, Dv, static_cast<cudaStream_t>(stream));
 }
 
-// flash_decode_f32's arguments with q, k, v and o bf16 (either layout).
+// flash_decode_f32's arguments with q, k, v and o bf16.  D, Dv <= 256: the
+// tensor-core body, one launch, `shard` from decode_plan_bf16, acc, m and l
+// unused (may be null); wider: the wide layout over the fp32 workspace and
+// the combine, `shard` from decode_shard_rows.
 extern "C" int flash_decode_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  const __nv_bfloat16* v, const int* lengths, float* acc,
                                  float* m, float* l, __nv_bfloat16* o, int B, int Hq, int Hk,
                                  int S, int D, int Dv, int shard, float scale, void* stream) {
+  if (D <= 32 * 4 * NCH && Dv <= 32 * 4 * NCH)
+    return decode_tc(q, k, v, lengths, o, B, Hq, Hk, S, D, Dv, shard, scale, stream);
   return decode(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, o, B, Hq, Hk,
                 S, D, Dv, shard, scale, stream);
 }

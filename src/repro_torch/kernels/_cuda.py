@@ -209,9 +209,11 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(tensor) -> int:
-    """Handle of PyTorch's current stream on ``tensor``'s device."""
+    """Handle of PyTorch's current stream on ``tensor``'s device (the raw
+    handle, without building a ``torch.cuda.Stream`` object on every
+    launch)."""
     import torch
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())
 
 
 def empty_launch(tensor) -> None:

@@ -5,8 +5,8 @@ partials of KV shards, for split-KV decode) and
 :func:`repro.kernels.flash_decode.flash_paged_decode` (page pool reached
 through block tables, fp32 or int8 pages).
 
-All of them run one hand-written CUDA kernel body, ``csrc/flash_decode.cu``:
-a block per (sequence, kv head, up to 8 query heads of its group, shard of
+All of them but the narrow bf16 decode run one hand-written CUDA kernel
+body, ``csrc/flash_decode.cu``'s fp32 body: a block per (sequence, kv head, up to 8 query heads of its group, shard of
 the cache), each warp streaming its own 4-row tiles through a ring of
 asynchronous copies with its own online softmax.  :func:`flash_decode` and
 :func:`flash_paged_decode` cut the cache into shards of
@@ -22,28 +22,39 @@ CPU tensors each wrapper runs its plain version
 the ``ref`` oracle: a sequence of length 0 gives 0 (``acc / max(l, 1e-30)``
 with a finite -1e30 mask), where ``ref`` gives the mean of V.  Each
 wrapper's ``launches`` attribute counts its kernel launches; the combine
-kernel's count rises with every :func:`flash_decode`,
+kernel's count rises with every :func:`flash_decode` call on the fp32 body,
 :func:`flash_paged_decode` and :func:`combine_partials` call on the card.
 
-:func:`flash_decode` also takes bf16 q, k and v (both layouts: MLA's
-absorbed D 576 / Dv 512 too), as the Pallas kernel does:
-``flash_decode_bf16`` stages bf16 rows (half the ring's bytes) and upcasts
-each value as it reads it, keeps
-the scores, softmax state and partials in fp32 and its merge rounds the
-output once to bf16 (so the result is the fp32 kernel's on the upcast
-inputs, rounded).  Those calls count in
-``flash_decode.bf16.launches`` and ``combine_partials.bf16.launches``;
-:func:`combine_partials` writes bf16 with ``dtype=torch.bfloat16``.
-:func:`flash_decode_partial` takes bf16 q, k and v too (both layouts):
-``flash_decode_partial_bf16`` runs the same bf16 body and writes each
-shard's acc rounded once to bf16 and its m and l in fp32, as JAX's partial
-returns them (acc in q's dtype, m and l float32); its plain version
+:func:`flash_decode` also takes bf16 q, k and v, as the Pallas kernel
+does.  At D, Dv <= 256 (every served head but MLA's) ``flash_decode_bf16``
+is a body of its own, on the tensor cores: a thread-block cluster per
+(sequence, kv head, group of up to 8 query heads), one block per shard of
+:func:`decode_plan_bf16` rows; each warp stages 16-row tiles of K and V in
+bf16 through a ring of ``cp.async`` copies and multiplies q K^T and P V
+with ``mma.sync.m16n8k16`` (the query heads as the padded 16 rows, P split
+into bf16 hi + lo, every sum and the softmax in fp32), and the cluster
+merges its blocks' partials in shard order through distributed shared
+memory, so one launch writes the output, rounded once to bf16.  Its order
+is not the fp32 body's, so its rows are held within one bf16 ulp of
+:func:`flash_decode_plain` and bitwise across batch sizes, not to the fp32
+entry's result rounded.  Wider heads (MLA's absorbed D 576 / Dv 512) take
+the fp32 body's wide layout on bf16 rings (upcast as read), fp32 partials
+and the combine kernel writing the output rounded once: the fp32 entry's
+result on the upcast inputs, rounded.  Those calls count in
+``flash_decode.bf16.launches`` (and the wide ones' merge in
+``combine_partials.bf16.launches``); :func:`combine_partials` writes bf16
+with ``dtype=torch.bfloat16``.
+:func:`flash_decode_partial` takes bf16 q, k and v too (both widths):
+``flash_decode_partial_bf16`` runs the fp32 body on bf16 rings and writes
+each shard's acc rounded once to bf16 and its m and l in fp32, as JAX's
+partial returns them (acc in q's dtype, m and l float32); its plain version
 computes in fp32 on the upcast inputs and rounds acc once.  Those calls
 count in ``flash_decode_partial.bf16.launches``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -54,7 +65,7 @@ from repro_torch.kernels.ref import combine_partials_ref
 
 __all__ = ["flash_decode", "flash_decode_plain", "flash_decode_partial",
            "flash_decode_partial_plain", "decode_fits", "decode_shard_rows",
-           "decode_smem_bytes", "combine_partials", "flash_paged_decode",
+           "decode_smem_bytes", "decode_plan_bf16", "decode_tc_smem_bytes", "combine_partials", "flash_paged_decode",
            "flash_paged_decode_plain", "paged_decode_fits", "gather_pages"]
 
 _NEG_INF = -1e30
@@ -70,6 +81,16 @@ MAX_COMBINE_SHARDS = 12288   # the combine kernel keeps one weight per shard in 
 # D and Dv up to these, beside the narrow layout's _cuda.MAX_HEAD_DIM (256)
 MAX_WIDE_D = 32 * 4 * 5
 MAX_WIDE_DV = 32 * 4 * 4
+# the narrow bf16 body on the tensor cores (csrc/flash_decode.cu
+# decode_tc_kernel): TC_WARPS warps a block, TC_ROWS key rows a warp tile,
+# TC_NST ring slots a warp, TC_HEADS query heads a block, at most
+# TC_CLUSTER blocks (shards) a cluster
+TC_WARPS = 4
+TC_ROWS = 16
+TC_NST = 3
+TC_HEADS = 8
+TC_CLUSTER = 8
+TC_FILL = 64           # most blocks a sequence, where the heads allow
 
 
 def decode_shard_rows(s_len: int) -> int:
@@ -84,13 +105,52 @@ def decode_shard_rows(s_len: int) -> int:
     return shard
 
 
+@functools.lru_cache(maxsize=None)
+def decode_plan_bf16(s_len: int, hq: int, hk: int):
+    """(shard rows, shards, head groups) of the narrow bf16 body over a cache
+    of ``s_len`` rows: head groups of up to TC_HEADS query heads of one kv
+    head; shards, one block each in a cluster a (sequence, kv head, group),
+    the most of 1, 2, 4 and TC_CLUSTER that keeps a sequence's blocks (kv
+    heads x groups x shards) within TC_FILL and gives each at least one
+    TC_ROWS tile; each shard a multiple of TC_ROWS rows, the fewest that
+    cover the cache in that many.  A block pays a fixed cost (q, the
+    merges, the cluster's barriers) besides its rows, so many kv heads take
+    fewer, longer shards.  It reads the cache's rows and the head counts
+    alone, never the batch, so a sequence's tiles, shards and merge order
+    (and its bits) are the same at batch 4 as at batch 1."""
+    groups = -(-(hq // hk) // TC_HEADS)
+    shards = TC_CLUSTER
+    while shards > 1 and (hk * groups * shards > TC_FILL or shards * TC_ROWS >= s_len + TC_ROWS):
+        shards //= 2
+    shard = -(-max(s_len, 1) // shards)
+    shard = -(-shard // TC_ROWS) * TC_ROWS
+    return shard, -(-max(s_len, 1) // shard), groups
+
+
+def decode_tc_smem_bytes(d: int, dv: int) -> int:
+    """Dynamic shared memory of one block of the narrow bf16 body
+    (csrc/flash_decode.cu decode_tc_smem_bytes): q's TC_HEADS rows, then each
+    warp's TC_NST slots of TC_ROWS K and V rows, in bf16, a row padded to
+    16 values and 8 more (ldmatrix without bank conflicts); or, where it
+    takes more, the fp32 merge that reuses the rings (each warp's and the
+    block's m, l and acc of TC_HEADS rows of Dv padded to 16, and the
+    weights of the warps and of the cluster's blocks)."""
+    ks, vs = -(-d // 16) * 16 + 8, -(-dv // 16) * 16 + 8
+    ring = 2 * TC_WARPS * TC_NST * TC_ROWS * (ks + vs)
+    merge = 4 * ((TC_WARPS + 1) * TC_HEADS * (2 + -(-dv // 16) * 16)
+                 + (TC_WARPS + TC_CLUSTER + 1) * TC_HEADS)
+    return 2 * TC_HEADS * ks + max(ring, merge)
+
+
 def decode_smem_bytes(d: int, dv: int, *, bf16: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/flash_decode.cu
     decode_smem_floats): the pre-scaled queries of GROUP_HEADS heads, then
     each warp's ring of RING tiles of BLOCK_KV K and V rows, widths padded
     to a multiple of 4.  It does not depend on the group size or the batch.
     ``bf16`` (decode_smem_bytes_bf16): the rings at 2 bytes a value, or the
-    warps' fp32 partials of the merge where those take more."""
+    warps' fp32 partials of the merge where those take more: the fp32 body
+    on bf16 rings, which the wide bf16 layout and the bf16 partial run (the
+    narrow bf16 decode: :func:`decode_tc_smem_bytes`)."""
     d4, dv4 = -(-d // 4) * 4, -(-dv // 4) * 4
     if bf16:
         ring = 2 * WARPS * RING * BLOCK_KV * (d4 + dv4)
@@ -98,6 +158,7 @@ def decode_smem_bytes(d: int, dv: int, *, bf16: bool = False) -> int:
     return 4 * (GROUP_HEADS * d4 + WARPS * RING * BLOCK_KV * (d4 + dv4))
 
 
+@functools.lru_cache(maxsize=None)
 def decode_fits(hq: int, hk: int, d: int, dv: int, *, bf16: bool = False) -> bool:
     """Whether the dense kernel (:func:`flash_decode`,
     :func:`flash_decode_partial`) takes these head counts and widths: whole
@@ -184,10 +245,11 @@ def _check_dense(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _on_card(fn: str, tensors) -> bool:
     """False for CPU tensors (the plain version runs); True for tensors on
     one CUDA device, contiguous (the kernel runs); raises otherwise."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return False
     q = tensors[0]
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+    if not q.is_cuda and all(t.device.type == "cpu" for t in tensors):
+        return False
+    dev = q.get_device()   # -1 off the card; no device objects on the launch path
+    if not q.is_cuda or any(t.get_device() != dev for t in tensors):
         raise ValueError(f"{fn}: all inputs must be on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn}: inputs must be contiguous")
@@ -209,9 +271,18 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or s_len == 0:
         return out.zero_()
     bf16 = q.dtype == torch.bfloat16
+    lib = _cuda.library()
+    if bf16 and d <= _cuda.MAX_HEAD_DIM and dv <= _cuda.MAX_HEAD_DIM:
+        # the tensor-core body: one launch, merged in the cluster, no workspace
+        err = lib.flash_decode_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), None, None, None,
+            out.data_ptr(), b, hq, hk, s_len, d, dv, decode_plan_bf16(s_len, hq, hk)[0], scale,
+            _cuda.stream_of(q))
+        _cuda.check(err, "flash_decode")
+        flash_decode.bf16.launches += 1
+        return out
     shard = decode_shard_rows(s_len)
     acc, m, l = _workspace(-(-s_len // shard), b, hq, dv, q.device)
-    lib = _cuda.library()
     err = (lib.flash_decode_bf16 if bf16 else lib.flash_decode_f32)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
         m.data_ptr(), l.data_ptr(), out.data_ptr(), b, hq, hk, s_len, d, dv, shard, scale,

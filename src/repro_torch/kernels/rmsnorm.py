@@ -2,14 +2,19 @@
 :func:`repro.kernels.rmsnorm.rmsnorm`.
 
 :func:`rmsnorm` launches the hand-written CUDA kernel ``csrc/rmsnorm.cu`` on
-CUDA tensors and runs :func:`rmsnorm_plain` on CPU tensors.  The kernel
-holds each row in registers (read from device memory once), spread over
-:func:`row_layout`'s threads, a function of the row width alone, and reduces
-in a fixed order, so a row's result does not depend on the row count.
-Its inputs are all fp32 or all bf16 (``rmsnorm_bf16``: upcast on load, the
-residual added and every sum taken in fp32, y rounded once, as the Pallas
-kernel does).  ``rmsnorm.launches`` counts the fp32 kernel's launches,
-``rmsnorm.bf16.launches`` the bf16 one's.
+CUDA tensors and runs :func:`rmsnorm_plain` on CPU tensors.  Each of its
+two bodies holds a row in registers (read from device memory once), spread
+over threads by a layout that is a function of the row width alone, and
+reduces in a fixed order, so a row's result does not depend on the row
+count.  The fp32 body (``rmsnorm_f32``) takes :func:`row_layout`: float4
+groups of 4 values.  The bf16 body (``rmsnorm_bf16``) has a layout of its
+own, :func:`row_layout_bf16`: 16-byte pieces of 8 bf16 values, kept packed
+in registers, and w read once a block into shared memory; the residual is
+added and every sum taken in fp32 and y rounded once, as the Pallas kernel
+does.  Its summation order is not the fp32 body's, so its rows are held
+within one bf16 ulp of :func:`rmsnorm_plain` and bitwise across row counts,
+not to the fp32 body's result rounded.  ``rmsnorm.launches`` counts the
+fp32 kernel's launches, ``rmsnorm.bf16.launches`` the bf16 one's.
 """
 
 from __future__ import annotations
@@ -20,11 +25,15 @@ import torch
 
 from repro_torch.kernels import _cuda
 
-__all__ = ["rmsnorm", "rmsnorm_plain", "row_layout"]
+__all__ = ["rmsnorm", "rmsnorm_plain", "row_layout", "row_layout_bf16"]
 
-# The layout of csrc/rmsnorm.cu:
+# The layout of csrc/rmsnorm.cu's fp32 body:
 THREADS = 256      # threads per block
 MAX_VPT = 8        # float4 groups a thread holds in registers
+# ... and of its bf16 body (BF16_THREADS, PIECE, MAX_PPT):
+BF16_THREADS = 256   # threads per block
+PIECE = 8            # bf16 values a piece (one 16-byte load)
+MAX_PPT = 4          # pieces a thread holds in registers
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -39,6 +48,20 @@ def row_layout(d: int) -> Tuple[int, int]:
     while t < THREADS and t * MAX_VPT < g4:
         t *= 2
     return t, -(-g4 // t)
+
+
+def row_layout_bf16(d: int) -> Tuple[int, int]:
+    """(threads per row, 16-byte pieces per thread) of the bf16 body for rows
+    of ``d`` values: the fewest threads, a power of 2 from 32 to
+    BF16_THREADS, that hold the row's ceil(d / 8) pieces at most MAX_PPT a
+    thread (piece k * threads + t to thread t).  A block takes
+    BF16_THREADS / threads rows.  Past d = 8192 a thread takes more pieces
+    and the kernel reads the row twice."""
+    n_pieces = -(-d // PIECE)
+    t = 32
+    while t < BF16_THREADS and t * MAX_PPT < n_pieces:
+        t *= 2
+    return t, -(-n_pieces // t)
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -64,10 +87,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     if w.shape != (d,) or (res is not None and res.shape != x.shape):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)}, w {tuple(w.shape)}, residual "
                          f"{None if res is None else tuple(res.shape)}")
-    dev = x.device
-    if dev.type == "cpu" and w.device.type == "cpu" and (res is None or res.device.type == "cpu"):
+    if not x.is_cuda and all(t.device.type == "cpu" for t in (x, w, res) if t is not None):
         return rmsnorm_plain(x, w, eps=eps, residual=res)
-    if dev.type != "cuda" or w.device != dev or (res is not None and res.device != dev):
+    dev = x.get_device()   # -1 off the card; no device objects on the launch path
+    if not x.is_cuda or w.get_device() != dev or (res is not None and res.get_device() != dev):
         raise ValueError("rmsnorm: all inputs must be on one CUDA device")
     if not (x.is_contiguous() and w.is_contiguous() and (res is None or res.is_contiguous())):
         raise ValueError("rmsnorm: inputs must be contiguous")

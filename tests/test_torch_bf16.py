@@ -147,6 +147,10 @@ def test_flash_attention_bf16_against_pallas(b, sq, skv, hq, hk, d, causal, wind
 @pytest.mark.parametrize("b,s,hq,hk,d,lens", [
     (3, 64, 4, 1, 64, (64, 17, 1)),           # gemma3's MQA group
     (2, 96, 4, 2, 32, (50, 96)),
+    # the served narrow widths of the tensor-core decode body, G 1 and 4
+    (2, 32, 2, 2, 112, (32, 5)), (2, 32, 4, 1, 112, (19, 32)),
+    (2, 32, 2, 2, 128, (1, 32)), (2, 32, 4, 1, 128, (32, 30)),
+    (1, 32, 1, 1, 256, (32,)), (2, 32, 4, 1, 256, (9, 32)),
 ])
 def test_flash_decode_bf16_against_pallas(b, s, hq, hk, d, lens):
     rng = np.random.default_rng(s + d)

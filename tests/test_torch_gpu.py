@@ -1940,15 +1940,18 @@ def test_bf16_kernels_match_their_plain_versions_on_the_card():
                     (64, 1152, 6912), (256, 301, 250), (1024, 1152, 6912), (1030, 301, 2050)):
         x, w = rb(m, k), rb(k, n, scale=k ** -0.5)
         _within_bf16_ulp(gemm(x, w), gemm_plain(x, w))
-    # rmsnorm: the registers layouts and the two-pass one, with and without
-    # the residual, a width off 4
-    for rows, d in ((4, 1152), (7, 96), (3, 30), (2, 9000)):
+    # rmsnorm (its own bf16 body, not the fp32 entry's arithmetic): the
+    # registers layouts and the two-pass one, with and without the residual,
+    # widths off 8; each row bitwise in a call of 1, 4, 17 and 256 rows
+    for rows, d in ((256, 1152), (256, 96), (256, 30), (256, 1027), (17, 9000)):
         x, r, w = rb(rows, d), rb(rows, d), 1.0 + rb(d, scale=0.1)
         for res in (None, r):
             got = rmsnorm(x, w, eps=1e-6, residual=res)
-            want = rmsnorm(x.float(), w.float(), eps=1e-6,
-                           residual=None if res is None else res.float())
-            _check_bf16(got, want, rmsnorm_plain(x, w, eps=1e-6, residual=res))
+            _within_bf16_ulp(got, rmsnorm_plain(x, w, eps=1e-6, residual=res))
+            for n in (1, 4, 17, 256):
+                part = rmsnorm(x[-n:].contiguous(), w, eps=1e-6,
+                               residual=None if res is None else res[-n:].contiguous())
+                assert torch.equal(part, got[-n:]), (d, n, res is None)
     # flash_attention (the tensor-core body, not the fp32 entry's
     # arithmetic): gemma3's MQA at D 256 with and without the window,
     # several shards, a query offset, D off 8 (element loads), non-causal
@@ -1960,17 +1963,19 @@ def test_bf16_kernels_match_their_plain_versions_on_the_card():
         sc = 1.0 / math.sqrt(d)
         _within_bf16_ulp(flash_attention(q, k, v, causal=causal, window=window),
                          flash_attention_plain(q, k, v, causal=causal, window=window, scale=sc))
-    # flash_decode: gemma3's global and rolling caches, empty and full rows,
-    # D off 4, Dv != D
+    # flash_decode (the narrow tensor-core body, not the fp32 entry's
+    # arithmetic): gemma3's global and rolling caches, empty and full rows,
+    # D off 8 (element loads), Dv != D, G 8 and 12 (two head groups)
     for b, s, hq, hk, d, dv, lens in ((4, 2048, 4, 1, 256, 256, (1400, 1000, 600, 250)),
                                       (4, 512, 4, 1, 256, 256, (512, 512, 512, 250)),
                                       (3, 70, 8, 2, 30, 30, (0, 70, 37)),
-                                      (2, 200, 4, 4, 128, 64, (199, 1))):
+                                      (2, 200, 4, 4, 128, 64, (199, 1)),
+                                      (2, 90, 8, 1, 64, 40, (90, 33)),
+                                      (2, 300, 12, 1, 112, 112, (300, 17))):
         q, k, v = rb(b, hq, d), rb(b, s, hk, d), rb(b, s, hk, dv)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         got = flash_decode(q, k, v, lengths)
-        _check_bf16(got, flash_decode(q.float(), k.float(), v.float(), lengths),
-                    flash_decode_plain(q, k, v, lengths, 1.0 / math.sqrt(d)))
+        _within_bf16_ulp(got, flash_decode_plain(q, k, v, lengths, 1.0 / math.sqrt(d)))
         assert all(float(got[i].float().abs().max()) == 0.0 for i, n in enumerate(lens) if n == 0)
     acc, m, l = (torch.randn(5, 3, 4, 16, device=dev), torch.randn(5, 3, 4, device=dev),
                  torch.rand(5, 3, 4, device=dev))
@@ -2041,19 +2046,26 @@ def test_bf16_flash_attention_rows_do_not_depend_on_the_batch_or_the_offset(d, d
 
 
 @pytest.mark.gpu
-def test_bf16_flash_decode_rows_do_not_depend_on_the_batch():
-    """flash_decode_bf16: row b of a B = 4 call is bitwise the B = 1 call on
-    sequence b (the shard size comes from the cache's rows alone)."""
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
+@pytest.mark.parametrize("hq,hk", [(4, 4), (4, 1)])
+def test_bf16_flash_decode_rows_do_not_depend_on_the_batch(d, hq, hk):
+    """flash_decode_bf16 (the narrow tensor-core body) at every served narrow
+    width, G 1 and 4: row b of a B = 4 call is bitwise the B = 1 call on
+    sequence b (the shard plan reads the cache's rows and the head counts
+    alone), at lengths 0, 1, 63, 64, 65 and S, and within one bf16 ulp of
+    the plain version."""
     dev = _card()
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    for s, lens in ((2048, (1400, 1000, 600, 250)), (512, (512, 300, 1, 0))):
-        q = torch.randn(4, 4, 256, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(4, s, 1, 256, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(4, s, 1, 256, generator=gen, device=dev).to(torch.bfloat16)
+    gen.manual_seed(5 + d)
+    rb = _rb(gen, dev)
+    for s, lens in ((2048, (1400, 1000, 600, 250)), (512, (512, 300, 1, 0)),
+                    (96, (63, 64, 65, 96))):
+        q, k, v = rb(4, hq, d), rb(4, s, hk, d), rb(4, s, hk, d)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         full = flash_decode(q, k, v, lengths)
+        _within_bf16_ulp(full, flash_decode_plain(q, k, v, lengths, 1.0 / math.sqrt(d)))
+        assert all(float(full[i].float().abs().max()) == 0.0 for i, n in enumerate(lens) if n == 0)
         for i in range(4):
             one = flash_decode(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
                                v[i:i + 1].contiguous(), lengths[i:i + 1].contiguous())
