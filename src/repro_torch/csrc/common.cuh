@@ -4,14 +4,14 @@
 // cores): the JAX reference computes in fp32 throughout, and the serving
 // engine must stay token-exact against it.  The bf16 entries follow the
 // Pallas kernels' contract for bf16 inputs: every sum and the softmax
-// state in fp32, one rounding to bf16 (to nearest even) on store.  Those of
-// ssd_scan, the wide flash_decode and the bf16 partial decode upcast on
-// load (exact) and run the fp32 entries' arithmetic, so their bf16 result
-// is the fp32 kernel's result on x.float() rounded once; gemm's,
-// batched_gemm's and flash_attention's multiply on the tensor cores (wgmma,
-// fp32 accumulator; gemm.cu, flash_attention.cu, wgmma.cuh), the narrow
-// flash_decode's too (mma.sync, flash_decode.cu), and rmsnorm's has a bf16
-// layout of its own (rmsnorm.cu).
+// state in fp32, one rounding to bf16 (to nearest even) on store.  The bf16
+// partial decode's upcasts on load (exact) and runs the fp32 entry's
+// arithmetic, so its bf16 result is the fp32 kernel's result on x.float()
+// rounded once; gemm's, batched_gemm's and flash_attention's multiply on
+// the tensor cores (wgmma, fp32 accumulator; gemm.cu, flash_attention.cu,
+// wgmma.cuh), both flash_decode bodies' and ssd_scan's too (mma.sync, the
+// helpers below; flash_decode.cu, ssd.cu), and rmsnorm's has a bf16 layout
+// of its own (rmsnorm.cu).
 // Every reduction has a fixed order that depends on nothing but the row it
 // reduces (no atomics, no split chosen from the batch size), so a
 // sequence's numbers are the same at batch 4 as at batch 1.
@@ -110,6 +110,59 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The tensor-core helpers of the mma.sync bodies (the narrow and wide bf16
+// decodes in flash_decode.cu, ssd_scan_bf16 in ssd.cu).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: 8x8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
+// rows of matrix i; lane t gets row t / 4, columns 2 (t % 4) and + 1 of
+// each (.trans: column t / 4, rows 2 (t % 4) and + 1).
+__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += A B on the tensor cores: A 16x16 bf16 (a0, a2 rows t / 4; a1, a3
+// rows t / 4 + 8), B 16x8 bf16, c 16x8 fp32 (c[0], c[1] row t / 4 columns
+// 2 (t % 4), + 1; c[2], c[3] row t / 4 + 8).
+__device__ __forceinline__ void mma16816(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// (a, b) as two bf16 pairs whose sum holds their first 16 significant bits:
+// hi = (a, b) rounded to bf16, lo = what hi leaves, rounded.  A product with
+// hi, then one with lo, is a product with an fp32 factor at a relative
+// error of about 2^-17.
+__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsigned& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xffff0000u));
 }
 
 // One element global -> shared, 0 when !valid: an fp32 element by cp.async

@@ -18,16 +18,18 @@
 //                           B, Hq);
 //   combine_partials_f32    (acc, m, l) over NS shards -> out, in shard
 //                           index order (ref.combine_partials_ref);
-//   flash_decode_bf16       bf16 q, k, v and o.  D, Dv <= 256 (every
-//                           served head but MLA's): decode_tc_kernel, a body
-//                           of its own on the tensor cores, one launch (the
-//                           last section of this note).  Wider (MLA's D 576,
-//                           Dv 512): flash_decode_f32's wide layout on bf16
-//                           rings, q and each staged K/V row upcast as they
-//                           are loaded, the partials fp32, the combine
-//                           writing o rounded once to bf16
-//                           (combine_partials_bf16 alone: the same merge
-//                           with a bf16 out);
+//   flash_decode_bf16       bf16 q, k, v and o, on the tensor cores.  D, Dv
+//                           <= 256 (every served head but MLA's):
+//                           decode_tc_kernel, one launch (the narrow
+//                           section of this note).  Wider (MLA's D 576, Dv
+//                           512): decode_wide_kernel, fp32 partials over the
+//                           shards of decode_plan_wide_bf16, then the
+//                           combine writing o rounded once to bf16 (the wide
+//                           section; combine_partials_bf16 alone: the same
+//                           merge with a bf16 out); flash_decode_bf16_ffma
+//                           keeps the former wide body (the fp32 body on
+//                           bf16 rings) as the yardstick chip_smoke.py
+//                           times it against;
 //   flash_decode_partial_bf16  flash_decode_partial_f32 on bf16 q, k, v
 //                           (both layouts), the bf16 rings above, each
 //                           shard's acc rounded once to bf16 as it is
@@ -108,18 +110,16 @@
 // alone.  Its bound: the live rows at 2 bytes a value, the partials at 2
 // bytes an acc value and 8 bytes an (m, l) pair.
 //
-// bf16 on the fp32 body (the wide flash_decode_bf16 and the bf16 partial):
-// the ring's slots hold bf16 rows, copied by cp.async (16-byte pieces of 8
-// values where D and Dv are multiples of 8 and K, V 16-byte aligned, else
-// 2-byte loads and stores) and upcast as a lane reads its groups (8 bytes
-// a group of 4); q is upcast as it is staged.  The tiles, groups and every
-// sum are the fp32 kernel's, so the output is the fp32 kernel's on the
-// upcast inputs, rounded once.  Its bound is the live rows at 2 bytes a
-// value.  The wide layout stages its 576- and 512-value rows the same way
-// (72 and 64 16-byte pieces a row); each lane upcasts NCK + NCV groups a
-// row, which adds live values to a body that already holds WIDE_GMAX x NCV
-// float4 accumulators (the registers and spills are in the build's ptxas
-// lines).
+// bf16 on the fp32 body (the bf16 partial, and the former wide
+// flash_decode_bf16 kept as flash_decode_bf16_ffma): the ring's slots hold
+// bf16 rows, copied by cp.async (16-byte pieces of 8 values where D and Dv
+// are multiples of 8 and K, V 16-byte aligned, else 2-byte loads and
+// stores) and upcast as a lane reads its groups (8 bytes a group of 4); q
+// is upcast as it is staged.  The tiles, groups and every sum are the fp32
+// kernel's, so the output is the fp32 kernel's on the upcast inputs,
+// rounded once.  Its bound is the live rows at 2 bytes a value.  The wide
+// layout stages its 576- and 512-value rows the same way (72 and 64
+// 16-byte pieces a row).
 //
 // The narrow bf16 body (flash_decode_bf16 at D, Dv <= 256: decode_tc_kernel
 // below).  Bytes bound it as they bound the fp32 body: about 0.5 flop a
@@ -167,6 +167,53 @@
 //   of a batch-4 call is bitwise the batch-1 call; its bits are not the
 //   fp32 body's rounded (the tensor cores sum each 16-deep chunk their own
 //   way), so it is held to its plain version within one bf16 ulp instead.
+//
+// The wide bf16 body (flash_decode_bf16 at D or Dv > 256: decode_wide_kernel
+// below).  Bytes bound it (MLA's absorbed decode: 16 query heads on one
+// latent kv head, 16 flop a byte, under the H100's 295 in bf16).  The fp32
+// body on bf16 rings staged K and V once per 4 query heads (WIDE_GMAX),
+// scored by FFMA with a 32-lane butterfly a score, and held one 4-warp
+// block an SM.  This body's answers:
+// - All G <= 16 query heads of a kv head are the 16 rows of both products
+//   on mma.sync.m16n8k16 (WD_HEADS; more heads run in groups of 16), so K
+//   and V are staged once per (sequence, kv head) for up to 16 heads, and
+//   at MLA's G = 16 every accumulator row is live.
+// - The work of a 16-key tile is split across 8 warps (WD_THREADS): warp w
+//   holds q's A registers for its run of D's 16-deep chunks (wd_chunks: up
+//   to WD_NQ) and forms its part of S = q K^T for the 16 keys, two
+//   accumulator chains (even and odd chunks) an 8-key half; the parts meet
+//   in shared memory and are summed in warp order; the online softmax runs
+//   on the block's threads (WD_LANES a head, WD_KPL keys a thread), in fp32
+//   and natural units, and P goes to shared memory as hi + lo bf16 (a bf16
+//   P alone misses BF16_TOL; flash_attention.cu found it).  Then warp w
+//   accumulates O += P_hi V, then P_lo V over its run of Dv's 16-column
+//   chunks (up to WD_NV, 16 heads x 16 columns a chunk): a 16 x 512 fp32
+//   accumulator would be 256 registers a lane in one warp.  Two barriers a
+//   tile publish the scores and P; both sit in double buffers, so the next
+//   tile needs no third.
+// - Each warp stages only the columns it reads (its chunks of D of the K
+//   rows, of Dv of the V rows) through its own ring of WD_NST slots by
+//   16-byte cp.async (2-byte loads where D or Dv is off 8 or K, V
+//   unaligned; q likewise, in a group of its own), so a 64-row shard's
+//   tiles are all in flight at once; rows past the length are zero-filled.
+// - Shards and the merge: decode_plan_wide_bf16 (Python) cuts the cache
+//   into shards of whole tiles, about WD_FILL blocks a sequence (at MLA's B
+//   4, Hk 1: 32 shards of 64 rows, 128 blocks), from S and the head counts,
+//   never B; each block writes its fp32 partial (acc, m, l) into the
+//   workspace, and combine_kernel merges the shards in shard order (a
+//   cluster merge would take at most 16 shards, 128 rows each at MLA's S
+//   2048).  Shards of 64 rows measured faster on the card than of 128-2048
+//   (fewer tiles a block in flight at once, more blocks to spread).  The
+//   combine loads its shards' m together and spreads a row's columns over
+//   several blocks.  The fixed cost a call (every length 0, device time)
+//   is the empty shard blocks' q read and partial writes plus the combine,
+//   about 0.0026 + 0.0047 ms at MLA's shape on an H100 SXM (chip_smoke.py
+//   phase 3's device times).  ptxas (sm_90a): 150 registers, no spill (one
+//   256-thread block an SM by shared memory: 202,112 B at D 576, Dv 512).
+// - One order for every row: a sequence's tiles start at its shard's first
+//   row, the plan never reads B, every sum's order is fixed by D, Dv and
+//   the plan; no atomics.  Its bits are not the fp32 body's rounded, so it
+//   is held to its plain version within one bf16 ulp.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -463,32 +510,40 @@ decode_shard_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Block `row` of the R = B * Hq rows: the NS shards' weights exp(m_i - m)
+// Block (row, y) of the R = B * Hq rows: the NS shards' weights exp(m_i - m)
 // once into shared memory, then out[row, d] = sum_i acc_i[d] * w_i /
-// max(sum_i l_i * w_i, 1e-30), every sum in shard order; TO: out's type
-// (fp32, or bf16 rounded once).
+// max(sum_i l_i * w_i, 1e-30) for the y-th THREADS columns d, every sum in
+// shard order; TO: out's type (fp32, or bf16 rounded once).
 template <typename TO>
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
                const float* __restrict__ l, TO* __restrict__ out, int NS, int R, int Dv) {
-  extern __shared__ float w[];  // [NS] weights
-  __shared__ float l_sum;
+  extern __shared__ float w[];  // [NS] m, then the weights
+  __shared__ float l_sum, m_max;
   const int row = blockIdx.x, tid = threadIdx.x;
+  // the shards' m loaded together; their max (exact in any order); the
+  // weights; then l's sum in shard order
+  for (int i = tid; i < NS; i += THREADS) w[i] = m[(size_t)i * R + row];
+  __syncthreads();
+  if (tid < 32) {
+    float mm = repro_torch::kNegInf;
+    for (int i = tid; i < NS; i += 32) mm = fmaxf(mm, w[i]);
+    mm = repro_torch::warp_max(mm);
+    if (tid == 0) m_max = mm;
+  }
+  __syncthreads();
+  for (int i = tid; i < NS; i += THREADS) w[i] = expf(w[i] - m_max);
+  __syncthreads();
   if (tid == 0) {
-    float mm = m[row];
-    for (int i = 1; i < NS; ++i) mm = fmaxf(mm, m[(size_t)i * R + row]);
     float ls = 0.f;
-    for (int i = 0; i < NS; ++i) {
-      const float a = expf(m[(size_t)i * R + row] - mm);
-      w[i] = a;
-      ls = ls + l[(size_t)i * R + row] * a;
-    }
+#pragma unroll 8
+    for (int i = 0; i < NS; ++i) ls = ls + l[(size_t)i * R + row] * w[i];
     l_sum = fmaxf(ls, 1e-30f);
   }
   __syncthreads();
-  for (int d = tid; d < Dv; d += THREADS) {
+  for (int d = blockIdx.y * THREADS + tid; d < Dv; d += gridDim.y * THREADS) {
     float o = 0.f;
-#pragma unroll 8
+#pragma unroll 16
     for (int i = 0; i < NS; ++i) o = o + acc[((size_t)i * R + row) * Dv + d] * w[i];
     out[(size_t)row * Dv + d] = repro_torch::from_f32<TO>(o / l_sum);
   }
@@ -499,7 +554,8 @@ int combine(const float* acc, const float* m, const float* l, TO* out, int NS, i
             cudaStream_t stream) {
   const size_t smem = (size_t)NS * sizeof(float);
   if (NS < 1 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  combine_kernel<TO><<<R, THREADS, smem, stream>>>(acc, m, l, out, NS, R, Dv);
+  const dim3 grid(R, (Dv + THREADS - 1) / THREADS);
+  combine_kernel<TO><<<grid, THREADS, smem, stream>>>(acc, m, l, out, NS, R, Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -581,6 +637,11 @@ int decode(const TQ* q, const T* k, const T* v, const float* k_scale, const floa
 // decode_tc_kernel.  See the note at the top.
 
 using repro_torch::bf16;
+using repro_torch::ldsm_x2;
+using repro_torch::ldsm_x4;
+using repro_torch::ldsm_x4_trans;
+using repro_torch::mma16816;
+using repro_torch::pack_bf16;
 
 constexpr int TC_THREADS = 128, TC_WARPS = TC_THREADS / 32;
 constexpr int TC_ROWS = 16;     // key rows a warp tile: one k16 step of P V
@@ -605,48 +666,6 @@ __host__ __device__ inline size_t decode_tc_smem_bytes(int D, int Dv) {
   const size_t merge = 4 * ((size_t)(TC_WARPS + 1) * TC_HEADS * (2 + Dv16) +
                             (size_t)(TC_WARPS + TC_CLUSTER + 1) * TC_HEADS);
   return 2 * (size_t)TC_HEADS * KS + (ring > merge ? ring : merge);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// ldmatrix: 8x8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
-// rows of matrix i; lane t gets row t / 4, columns 2 (t % 4) and + 1 of
-// each (.trans: column t / 4, rows 2 (t % 4) and + 1).
-__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c += A B on the tensor cores: A 16x16 bf16 (a0, a2 rows t / 4; a1, a3
-// rows t / 4 + 8), B 16x8 bf16, c 16x8 fp32 (c[0], c[1] row t / 4 columns
-// 2 (t % 4), + 1; c[2], c[3] row t / 4 + 8).
-__device__ __forceinline__ void mma16816(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
-                                         unsigned a3, unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // A lane's walk over the 16-byte pieces of TC_ROWS rows of W8 pieces (W8 <=
@@ -723,8 +742,8 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (vec_q) {
     for (int i = tid; i < TC_HEADS * (D / 8); i += TC_THREADS) {
       const int g = i / (D / 8), p8 = i % (D / 8);
-      repro_torch::cp_async16(qs + g * KS + 8 * p8, q + q_base + (size_t)(g < gn ? g : 0) * D + 8 * p8,
-                              g < gn);
+      repro_torch::cp_async16(qs + g * KS + 8 * p8,
+                              q + q_base + (size_t)(g < gn ? g : 0) * D + 8 * p8, g < gn);
     }
     for (int i = tid; i < TC_HEADS * (D16 - D); i += TC_THREADS)
       *reinterpret_cast<unsigned short*>(qs + i / (D16 - D) * KS + D + i % (D16 - D)) = 0;
@@ -1010,6 +1029,307 @@ int decode_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, b
 #undef REPRO_TC
 }
 
+// ---------------------------------------------------------------------------
+// The wide bf16 body on the tensor cores (flash_decode_bf16, D or Dv > 256):
+// decode_wide_kernel, then combine_kernel.  See the note at the top.
+
+
+constexpr int WD_THREADS = 256, WD_WARPS = WD_THREADS / 32;
+constexpr int WD_ROWS = 16;    // key rows a tile: one k16 step of P V
+constexpr int WD_NST = 4;      // ring slots a warp: a 64-row shard's tiles in flight at once
+constexpr int WD_HEADS = 16;   // query heads a block: the 16 rows of both products
+constexpr int WD_NQ = 5;       // most 16-deep chunks of D a warp holds of q (D <= 640)
+constexpr int WD_NV = 4;       // most 16-column chunks of Dv a warp accumulates (Dv <= 512)
+constexpr int WD_LANES = WD_THREADS / WD_HEADS;   // threads a head in the softmax
+constexpr int WD_KPL = WD_ROWS / WD_LANES;        // keys a thread in the softmax
+
+// A warp's share of a width's 16-value chunks (of D for the scores, of Dv
+// for P V): the chunks cut in WD_WARPS runs in order.
+__host__ __device__ inline int wd_chunks(int W) {
+  return ((W + 15) / 16 + WD_WARPS - 1) / WD_WARPS;
+}
+
+// Dynamic shared memory of one block (kernels/flash_decode.py
+// decode_wide_smem_bytes): q [WD_HEADS][KS]; the warps' partial scores
+// [2][WD_WARPS][WD_HEADS][WD_ROWS] (fp32) and P hi and lo
+// [2][2][WD_HEADS][WD_ROWS + 8] (bf16), and each head's rescale [2][WD_HEADS]
+// (fp32), two buffers for two tiles in turn; then each warp's WD_NST slots of
+// WD_ROWS rows of its chunks of D and of Dv, in bf16, a row padded by 8.
+__host__ __device__ inline size_t decode_wide_smem_bytes(int D, int Dv) {
+  const int kq = 16 * wd_chunks(D) + 8, vq = 16 * wd_chunks(Dv) + 8;
+  return 2 * (size_t)WD_HEADS * tc_stride(D) + 4 * 2 * (size_t)WD_WARPS * WD_HEADS * WD_ROWS +
+         2 * 2 * 2 * (size_t)WD_HEADS * (WD_ROWS + 8) + 4 * 2 * (size_t)WD_HEADS +
+         2 * (size_t)WD_WARPS * WD_NST * WD_ROWS * (kq + vq);
+}
+
+// WD_ROWS rows of W values (a multiple of 16) from src (row r at src + r *
+// stride) into dst (row stride DS) by the warp's lanes: zeros in rows at or
+// past n and in columns at or past `left`.  vec: 16-byte cp.async pieces
+// (widths a multiple of 8, src 16-byte aligned); else 2-byte loads and stores.
+__device__ __forceinline__ void wd_stage(bf16* dst, const bf16* src, size_t stride, int left, int W,
+                                         int DS, int n, bool vec, int lane) {
+  if (vec) {
+    const int W8 = W / 8;
+    for (int c = lane; c < WD_ROWS * W8; c += 32) {
+      const int r = c / W8, p8 = c % W8;
+      const bool ok = r < n && 8 * p8 < left;
+      repro_torch::cp_async16(dst + r * DS + 8 * p8, src + (ok ? r * stride + 8 * p8 : 0), ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < WD_ROWS * W; c += 32) {
+      const int r = c / W, d = c % W;
+      repro_torch::copy1(dst + r * DS + d, src + r * stride + d, r < n && d < left);
+    }
+  }
+}
+
+// Block (x, y): x = (sequence b, kv head h, group of WD_HEADS query heads);
+// y: rows [y * shard, (y + 1) * shard) of the cache.  Writes rows (y, b, h *
+// G + g0 + g) of the (shards, B, Hq) partials, acc in fp32, m in natural
+// units, as decode_shard_kernel does; combine_kernel merges them.  Every
+// warp walks every tile of the shard:
+// - S = q K^T: warp w over its run of D's chunks, q's A registers held from
+//   the start, two accumulator chains (even and odd chunks) for each 8-key
+//   half; the warps' parts summed in warp order through shared memory;
+// - the online softmax by the block's threads (a head's 16 keys over 8
+//   lanes); P split hi + lo into shared memory;
+// - O += P V: warp w over its run of Dv's chunks (16 heads x 16 columns a
+//   chunk, every row live), V by ldmatrix.trans, P_hi then P_lo.
+// Each warp stages only the columns it reads (its chunks of D in the K rows,
+// of Dv in the V rows) through its own ring; two barriers a tile publish
+// the scores and P.
+__global__ void __launch_bounds__(WD_THREADS, 1)
+decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const int* __restrict__ lengths,
+                   float* __restrict__ acc_out, float* __restrict__ m_out,
+                   float* __restrict__ l_out, int B, int Hq, int Hk, int S, int D, int Dv,
+                   int shard, float scale, bool vec, bool vec_q) {
+  extern __shared__ __align__(16) unsigned char smem_wd[];
+  const int G = Hq / Hk, n_grp = (G + WD_HEADS - 1) / WD_HEADS;
+  const int bh = blockIdx.x / n_grp, g0 = (blockIdx.x % n_grp) * WD_HEADS;
+  const int b = bh / Hk, h = bh % Hk, gn = min(WD_HEADS, G - g0);
+  const int row0 = blockIdx.y * shard;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, gq = lane / 4, tq = lane % 4;
+  const size_t out_row = ((size_t)blockIdx.y * B + b) * Hq + (size_t)h * G + g0;
+  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), shard);
+  if (len == 0) {  // block-uniform: the empty partial
+    for (int i = tid; i < gn * Dv; i += WD_THREADS) acc_out[out_row * Dv + i] = 0.f;
+    for (int g = tid; g < gn; g += WD_THREADS) {
+      m_out[out_row + g] = repro_torch::kNegInf;
+      l_out[out_row + g] = 0.f;
+    }
+    return;
+  }
+
+  const int KS = tc_stride(D), nk = (D + 15) / 16, nvc = (Dv + 15) / 16;
+  const int cq = wd_chunks(D), cv = wd_chunks(Dv);
+  const int kq = 16 * cq + 8, vq = 16 * cv + 8, slot = WD_ROWS * (kq + vq);
+  const int kc0 = warp * cq, kcn = max(0, min(nk, kc0 + cq) - kc0);   // this warp's chunks of D
+  const int vc0 = warp * cv, vcn = max(0, min(nvc, vc0 + cv) - vc0);  // and of Dv
+  bf16* qs = reinterpret_cast<bf16*>(smem_wd);                       // [WD_HEADS][KS]
+  float* red = reinterpret_cast<float*>(qs + WD_HEADS * KS);         // [2][WARPS][HEADS][ROWS]
+  bf16* ps = reinterpret_cast<bf16*>(red + 2 * WD_WARPS * WD_HEADS * WD_ROWS);
+  float* alpha_s = reinterpret_cast<float*>(ps + 2 * 2 * WD_HEADS * (WD_ROWS + 8));
+  bf16* my_ring = reinterpret_cast<bf16*>(alpha_s + 2 * WD_HEADS) + (size_t)warp * WD_NST * slot;
+
+  // q's rows of this group, zeros past D and gn, in a group of their own
+  // ahead of the first tiles (as decode_tc_kernel stages them)
+  const size_t q_base = ((size_t)b * Hq + (size_t)h * G + g0) * D;
+  const int D16 = 16 * nk;
+  if (vec_q) {
+    for (int i = tid; i < WD_HEADS * (D / 8); i += WD_THREADS) {
+      const int g = i / (D / 8), p8 = i % (D / 8);
+      repro_torch::cp_async16(qs + g * KS + 8 * p8,
+                              q + q_base + (size_t)(g < gn ? g : 0) * D + 8 * p8, g < gn);
+    }
+    for (int i = tid; i < WD_HEADS * (D16 - D); i += WD_THREADS)
+      *reinterpret_cast<unsigned short*>(qs + i / (D16 - D) * KS + D + i % (D16 - D)) = 0;
+  } else {
+    for (int i = tid; i < WD_HEADS * D16; i += WD_THREADS) {
+      const int g = i / D16, d = i % D16;
+      repro_torch::copy1(qs + g * KS + d, q + q_base + (size_t)g * D + d, g < gn && d < D);
+    }
+  }
+  repro_torch::cp_async_commit();
+
+  const int n_tiles = (len + WD_ROWS - 1) / WD_ROWS;
+  const size_t kv0 = ((size_t)b * S + row0) * Hk + h;     // (b, row0, h) as a cache row
+  auto stage = [&](int i) {
+    const int j0 = WD_ROWS * i, n = min(WD_ROWS, len - j0);
+    bf16* ks = my_ring + (i % WD_NST) * slot;
+    const size_t r0 = kv0 + (size_t)j0 * Hk;
+    wd_stage(ks, k + r0 * D + 16 * kc0, (size_t)Hk * D, D - 16 * kc0, 16 * kcn, kq, n, vec, lane);
+    wd_stage(ks + WD_ROWS * kq, v + r0 * Dv + 16 * vc0, (size_t)Hk * Dv, Dv - 16 * vc0, 16 * vcn,
+             vq, n, vec, lane);
+  };
+#pragma unroll
+  for (int s = 0; s < WD_NST - 1; ++s) {
+    if (s < n_tiles) stage(s);
+    repro_torch::cp_async_commit();
+  }
+  repro_torch::cp_async_wait<WD_NST - 1>();   // q's group, while the first tiles fly
+  __syncthreads();
+  unsigned qf[WD_NQ][4];                      // q's A registers over this warp's chunks of D
+  const bf16* q_lane = qs + (lane % 16) * KS + 8 * (lane / 16) + 16 * kc0;
+#pragma unroll
+  for (int c = 0; c < WD_NQ; ++c)
+    if (c < kcn) ldsm_x4(qf[c], q_lane + 16 * c);
+
+  // this thread's head and keys in the softmax, its running max and sum
+  const int hh = tid / WD_LANES, kk = WD_KPL * (tid % WD_LANES);
+  float m_run = repro_torch::kNegInf, l_run = 0.f;
+  // acc[2 c + e]: rows (heads) gq, gq + 8; columns 16 (vc0 + c) + 8 e + 2 tq, + 1
+  float acc[2 * WD_NV][4];
+#pragma unroll
+  for (int c = 0; c < 2 * WD_NV; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  // the lanes' ldmatrix rows: K (two 8-key halves), P (A), V (.trans)
+  const int k_lane = (lane % 8 + 8 * (lane / 16)) * kq + 8 * (lane / 8 % 2);
+  const int p_lane = (lane % 16) * (WD_ROWS + 8) + 8 * (lane / 16);
+  const int v_lane = (lane % 8 + 8 * (lane / 8 % 2)) * vq + 8 * (lane / 16);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + WD_NST - 1 < n_tiles) stage(i + WD_NST - 1);
+    repro_torch::cp_async_commit();
+    repro_torch::cp_async_wait<WD_NST - 1>();
+    __syncwarp();
+    const int buf = i % 2;
+    const bf16* ks = my_ring + (i % WD_NST) * slot;
+    const bf16* vs = ks + WD_ROWS * kq;
+    float* red_b = red + (size_t)buf * WD_WARPS * WD_HEADS * WD_ROWS;
+    bf16* p_b = ps + (size_t)buf * 2 * WD_HEADS * (WD_ROWS + 8);
+
+    // this warp's part of S: sp[2 t + e] sums the chunks of parity t for
+    // keys 8 e .. 8 e + 7
+    float sp[4][4] = {};
+#pragma unroll
+    for (int c = 0; c < WD_NQ; ++c) {
+      if (c < kcn) {
+        unsigned kb[4];
+        ldsm_x4(kb, ks + k_lane + 16 * c);
+        mma16816(sp[2 * (c % 2)], qf[c][0], qf[c][1], qf[c][2], qf[c][3], kb[0], kb[1]);
+        mma16816(sp[2 * (c % 2) + 1], qf[c][0], qf[c][1], qf[c][2], qf[c][3], kb[2], kb[3]);
+      }
+    }
+    float* rw = red_b + warp * WD_HEADS * WD_ROWS;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      *reinterpret_cast<float2*>(rw + gq * WD_ROWS + 8 * e + 2 * tq) =
+          make_float2(sp[e][0] + sp[2 + e][0], sp[e][1] + sp[2 + e][1]);
+      *reinterpret_cast<float2*>(rw + (gq + 8) * WD_ROWS + 8 * e + 2 * tq) =
+          make_float2(sp[e][2] + sp[2 + e][2], sp[e][3] + sp[2 + e][3]);
+    }
+    __syncthreads();
+
+    // the online softmax of head hh over its keys kk .. kk + WD_KPL - 1 (the
+    // head's 16 keys on WD_LANES lanes): the warps' parts in warp order
+    const float* rh = red_b + hh * WD_ROWS + kk;
+    float s[WD_KPL], p[WD_KPL], mx = repro_torch::kNegInf, sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < WD_KPL; ++e) {
+      float t = rh[e];
+#pragma unroll
+      for (int w = 1; w < WD_WARPS; ++w) t = t + rh[w * WD_HEADS * WD_ROWS + e];
+      s[e] = WD_ROWS * i + kk + e < len ? t * scale : repro_torch::kNegInf;
+      mx = fmaxf(mx, s[e]);
+    }
+#pragma unroll
+    for (int off = 1; off < WD_LANES; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);
+#pragma unroll
+    for (int e = 0; e < WD_KPL; ++e) {
+      p[e] = WD_ROWS * i + kk + e < len ? expf(s[e] - m_new) : 0.f;
+      sum += p[e];
+      // P = hi + lo, as split_bf16 splits it
+      const bf16 hi = __float2bfloat16_rn(p[e]);
+      p_b[hh * (WD_ROWS + 8) + kk + e] = hi;
+      p_b[(WD_HEADS + hh) * (WD_ROWS + 8) + kk + e] =
+          __float2bfloat16_rn(p[e] - __bfloat162float(hi));
+    }
+#pragma unroll
+    for (int off = 1; off < WD_LANES; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    l_run = l_run * alpha + sum;
+    m_run = m_new;
+    if (tid % WD_LANES == 0) alpha_s[buf * WD_HEADS + hh] = alpha;
+    __syncthreads();
+
+    // O += P V over this warp's chunks of Dv, after the rescale
+    const float a0 = alpha_s[buf * WD_HEADS + gq], a1 = alpha_s[buf * WD_HEADS + gq + 8];
+    unsigned ph[4], pl[4];
+    ldsm_x4(ph, p_b + p_lane);
+    ldsm_x4(pl, p_b + WD_HEADS * (WD_ROWS + 8) + p_lane);
+#pragma unroll
+    for (int c = 0; c < WD_NV; ++c) {
+      if (c < vcn) {
+        unsigned vb[4];
+        ldsm_x4_trans(vb, vs + v_lane + 16 * c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* a = acc[2 * c + e];
+          a[0] *= a0;
+          a[1] *= a0;
+          a[2] *= a1;
+          a[3] *= a1;
+          mma16816(acc[2 * c + e], ph[0], ph[1], ph[2], ph[3], vb[2 * e], vb[2 * e + 1]);
+          mma16816(acc[2 * c + e], pl[0], pl[1], pl[2], pl[3], vb[2 * e], vb[2 * e + 1]);
+        }
+      }
+    }
+    __syncwarp();  // slot i % WD_NST is staged again in the next iteration
+  }
+  repro_torch::cp_async_wait<0>();
+
+  // the partial: acc by the warps' lanes, m and l by each head's first lane
+#pragma unroll
+  for (int c = 0; c < WD_NV; ++c) {
+    if (c >= vcn) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = 16 * (vc0 + c) + 8 * e + 2 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int g = gq + 8 * half;
+        if (g >= gn) continue;
+        float* out = acc_out + (out_row + g) * Dv + d;
+        if (d < Dv) out[0] = acc[2 * c + e][2 * half];
+        if (d + 1 < Dv) out[1] = acc[2 * c + e][2 * half + 1];
+      }
+    }
+  }
+  if (tid % WD_LANES == 0 && hh < gn) {
+    m_out[out_row + hh] = m_run;
+    l_out[out_row + hh] = l_run;
+  }
+}
+
+// The wide bf16 decode: the shard kernel over shards of `shard` rows (the
+// wrapper's decode_plan_wide_bf16: a multiple of WD_ROWS), then the combine
+// into o rounded once to bf16.
+int decode_wide(const bf16* q, const bf16* k, const bf16* v, const int* lengths, float* acc,
+                float* m, float* l, bf16* o, int B, int Hq, int Hk, int S, int D, int Dv,
+                int shard, float scale, void* stream) {
+  if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || D > 16 * WD_WARPS * WD_NQ ||
+      Dv > 16 * WD_WARPS * WD_NV || S < 1 || shard < 1 || shard % WD_ROWS ||
+      (S + shard - 1) / shard > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = D % 8 == 0 && Dv % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const bool vec_q = D % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const size_t smem = decode_wide_smem_bytes(D, Dv);
+  static int smem_set[repro_torch::kMaxDevices];
+  cudaError_t err = repro_torch::allow_smem(decode_wide_kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_grp = (Hq / Hk + WD_HEADS - 1) / WD_HEADS, shards = (S + shard - 1) / shard;
+  decode_wide_kernel<<<dim3(B * Hk * n_grp, shards), WD_THREADS, smem, st>>>(
+      q, k, v, lengths, acc, m, l, B, Hq, Hk, S, D, Dv, shard, scale, vec, vec_q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return combine(acc, m, l, o, shards, B * Hq, Dv, st);
+}
+
 }  // namespace
 
 // acc (ceil(S / shard), B, Hq, Dv), m and l (ceil(S / shard), B, Hq): the
@@ -1061,16 +1381,29 @@ extern "C" int combine_partials_bf16(const float* acc, const float* m, const flo
   return combine(acc, m, l, out, NS, R, Dv, static_cast<cudaStream_t>(stream));
 }
 
-// flash_decode_f32's arguments with q, k, v and o bf16.  D, Dv <= 256: the
-// tensor-core body, one launch, `shard` from decode_plan_bf16, acc, m and l
-// unused (may be null); wider: the wide layout over the fp32 workspace and
-// the combine, `shard` from decode_shard_rows.
+// flash_decode_f32's arguments with q, k, v and o bf16, on the tensor cores.
+// D, Dv <= 256: the narrow body, one launch, `shard` from decode_plan_bf16,
+// acc, m and l unused (may be null); wider: the wide body over the fp32
+// workspace, then the combine, `shard` from decode_plan_wide_bf16.
 extern "C" int flash_decode_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  const __nv_bfloat16* v, const int* lengths, float* acc,
                                  float* m, float* l, __nv_bfloat16* o, int B, int Hq, int Hk,
                                  int S, int D, int Dv, int shard, float scale, void* stream) {
   if (D <= 32 * 4 * NCH && Dv <= 32 * 4 * NCH)
     return decode_tc(q, k, v, lengths, o, B, Hq, Hk, S, D, Dv, shard, scale, stream);
+  return decode_wide(q, k, v, lengths, acc, m, l, o, B, Hq, Hk, S, D, Dv, shard, scale, stream);
+}
+
+// The same arguments at D or Dv > 256 on the former wide body (the fp32 body's
+// wide layout on bf16 rings, upcast as read, FFMA), `shard` from
+// decode_shard_rows: no path runs it; chip_smoke.py times the tensor-core
+// body beside it.
+extern "C" int flash_decode_bf16_ffma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                      const __nv_bfloat16* v, const int* lengths, float* acc,
+                                      float* m, float* l, __nv_bfloat16* o, int B, int Hq,
+                                      int Hk, int S, int D, int Dv, int shard, float scale,
+                                      void* stream) {
+  if (D <= 32 * 4 * NCH && Dv <= 32 * 4 * NCH) return static_cast<int>(cudaErrorInvalidValue);
   return decode(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, o, B, Hq, Hk,
                 S, D, Dv, shard, scale, stream);
 }

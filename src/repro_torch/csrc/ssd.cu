@@ -1,5 +1,5 @@
-// ssd_scan: the Mamba2 SSD (state-space duality) chunked scan, fp32, FFMA;
-// x, B, C and y fp32 (ssd_scan_f32) or bf16 (ssd_scan_bf16).
+// ssd_scan: the Mamba2 SSD (state-space duality) chunked scan; x, B, C and
+// y fp32 (ssd_scan_f32: FFMA) or bf16 (ssd_scan_bf16: the tensor cores).
 //
 // Replaces: src/repro/kernels/ssd.py::ssd_scan (body _ssd_kernel, and the
 // elementwise x * dt, dt * A and D x around it), the Pallas kernel behind
@@ -63,18 +63,63 @@
 // masked scores are selected away, never multiplied by 0.
 //
 // bf16 (ssd_scan_bf16): x, B, C and y bf16, dt, A and D fp32 (as the mamba
-// layer passes them), the final state and every scratch fp32; the same three
-// kernels, chunk_kernel and output_kernel instantiated on the element type.
-// A bf16 piece of 4 values is loaded into registers (one 8-byte load where
-// P and N are multiples of 4 and the pointers 8-byte aligned, else 2-byte
-// loads), upcast and stored to the fp32 tile as its step is staged, so
-// every product, scaling and sum is the fp32 kernel's on the upcast values;
-// y's element is formed in fp32 with its D term (fmaf(x, D, acc)) and
-// rounded once to bf16 on store.  So y is the fp32 entry's y on the upcast
-// inputs rounded once, and the state is the fp32 entry's state.  (JAX's
-// Pallas kernel rounds y to bf16 before its wrapper adds D x and rounds
-// again.)  The load of a bf16 piece is not asynchronous: the thread waits
-// for it as it stages, and the other warps of the SM cover the wait.
+// layer passes them), the final state and every scratch fp32, on a body of
+// its own on the tensor cores.  (The FFMA kernels above on upcast tiles, the
+// former bf16 body, stay callable as ssd_scan_bf16_ffma: the yardstick
+// chip_smoke.py times this body against; no path runs it.)  Bytes bound
+// the bf16 scan: mamba2's 1024-token prefill moves ~10 MB at 2 bytes a bf16
+// value (0.003 ms at 3.35 TB/s) for 1.36 GFLOP (0.0014 ms at 989 TFLOP/s).
+// What held the FFMA body back: its products at up to half the fp32 FFMA
+// peak, and bf16 pieces loaded through registers and upcast into fp32
+// tiles.  This body's answers:
+// - The products on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), tiles
+//   staged by 16-byte cp.async as they are stored (2-byte loads where P or
+//   N is off 8 or a pointer unaligned) and read by ldmatrix, every row
+//   padded by 8 values so that ldmatrix's 8 rows fall in 8 bank groups.
+//   mma.sync, not wgmma: a warp's tile here is 16 rows (a causal chunk's
+//   rows see different key counts, so the diagonal tile skips the 16-key
+//   groups past a warp's rows), and a kernel's products are a few hundred
+//   instructions a warp; wgmma's 64-row tiles would lose both.
+// - state_tc_kernel (grid as chunk_kernel's): a state block forms dS_c =
+//   (x s)^T B, s_j = dt_j exp(cs_last - cs_j) (x^T by ldmatrix.trans,
+//   scaled in registers; B by ldmatrix.trans) and writes it [n][p] fp32,
+//   and the chunk's cumsum, as chunk_kernel does; a score block (score_tile)
+//   forms C_i . B_j for a 64 x 64 tile of a chunk, once per group for all
+//   its heads, straight from the bf16 inputs (exact) into the sc scratch.
+//   The scores stay in scratch on purpose: the output kernel forming them
+//   itself, once per head (no sc, no score blocks), measured slower on the
+//   card at mamba2's and zamba2's widths (32 and 112 heads on one group).
+// - pass_kernel<true>: the fp32 state pass, which stores each start state
+//   S_c as the operand the output kernel stages: each 8-column group of a
+//   row as [8 hi][8 lo] bf16 in the 32 bytes its floats took (split_bf16).
+// - output_tc_kernel (grid as output_kernel's, long row tiles first; warp w
+//   rows i0 + 16 w ..): for c > 0, acc = C S_c^T over 64-value pieces of N
+//   (S_c's hi, then its lo), then acc *= exp(cs_i); for each 64-row key
+//   tile j0 <= i0 its x rows and fp32 scores (on the diagonal tile only the
+//   16-key groups at or below the warp's rows): L = (scores exp(cs_i -
+//   cs_j)) dt_j where j <= i, split hi + lo in registers as the A operand,
+//   and acc += L x (x by ldmatrix.trans); y = acc + D x in fp32, rounded
+//   once.  The steps go through a ring of STAGES buffers (TC_OUT_BYTES of
+//   dynamic shared memory).
+// The precision split: C, B and x go in as they are stored (bf16, exact);
+// every fp32 factor goes in as hi + lo bf16 halves (split_bf16, about 16
+// significant bits), hi's product first: x s in dS_c, the decayed scores
+// L, and S_c; exp(cs_i) is applied to the fp32 accumulator after C S_c^T,
+// not to C (the same product, one rounding fewer).  A bf16 factor alone
+// misses BF16_TOL, as flash_attention.cu found for its P.  The cumsum, the
+// decay, exp, the state pass and every accumulator stay fp32.
+// The plan is the fp32 body's grid (TILE-wide tiles of P, N and Q), read
+// from (S, H, P, G, N, Q) alone.  Every sum's order is fixed by those and
+// a row's position (the products over their contractions in 16-deep chunks
+// in order, hi before lo; the pass over the chunks in order); no block
+// reads another sequence; no atomics: a sequence's y and state are the same
+// bits at any B.  They are not the fp32 entry's bits (the tensor cores sum
+// each 16-deep chunk their own way): chip_smoke.py holds y within BF16_TOL
+// of the plain version and the state within 1e-4.  ptxas (sm_90a):
+// state_tc_kernel 92 / 96 registers (element / 16-byte staging),
+// output_tc_kernel 128 / 145, pass_kernel<true> 116, no spill;
+// chip_smoke.py phase 2 prints them.  (JAX's Pallas kernel rounds y to bf16
+// before its wrapper adds D x and rounds again.)
 #include <cstdint>
 
 #include "common.cuh"
@@ -358,6 +403,12 @@ chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 // Phase 2.  Block (32 state rows n0.. x 64 columns p0.., head, sequence):
 // S over the chunks in order; chunk c's slot of st gets S_c (its start
 // state) in place of dS_c; the final state goes to state_out (B, H, P, N).
+// SPLIT (the bf16 body): S_c goes into the slot as the bf16 pairs of
+// split_bf16, each row's 8-column groups as [8 hi][8 lo] in the 32 bytes
+// their floats took: the operand output_tc_kernel stages.  The two lanes
+// of a group read their dS before either writes (__syncwarp).  Every S is
+// the same fp32 sum either way.
+template <bool SPLIT>
 __global__ void __launch_bounds__(PASS_THREADS)
 pass_kernel(float* __restrict__ st, const float* __restrict__ cs, float* __restrict__ state_out,
             Geo g) {
@@ -383,6 +434,7 @@ pass_kernel(float* __restrict__ st, const float* __restrict__ cs, float* __restr
           d[u][k] = *reinterpret_cast<const float4*>(base + c * chunk_stride + (size_t)n * g.PP);
       }
     }
+    if (SPLIT) __syncwarp();
 #pragma unroll
     for (int u = 0; u < PASS_GROUP; ++u) {
       const int c = c0 + u;
@@ -391,7 +443,18 @@ pass_kernel(float* __restrict__ st, const float* __restrict__ cs, float* __restr
       for (int k = 0; k < 2; ++k) {
         const int n = n0 + tid / 16 + 16 * k;
         if (n >= g.N) continue;
-        *reinterpret_cast<float4*>(base + c * chunk_stride + (size_t)n * g.PP) = S[k];
+        float* slot = base + c * chunk_stride + (size_t)n * g.PP;
+        if (SPLIT) {
+          // this lane's 4 columns: hi at bf16 (pl / 8) 16 + pl % 8, lo 8 on
+          uint2 hi, lo;
+          repro_torch::split_bf16(S[k].x, S[k].y, hi.x, lo.x);
+          repro_torch::split_bf16(S[k].z, S[k].w, hi.y, lo.y);
+          uint2* out = reinterpret_cast<uint2*>(slot - pl % 8 / 2);
+          out[0] = hi;
+          out[2] = lo;
+        } else {
+          *reinterpret_cast<float4*>(slot) = S[k];
+        }
         S[k] = make_float4(S[k].x * decay[u] + d[u][k].x, S[k].y * decay[u] + d[u][k].y,
                            S[k].z * decay[u] + d[u][k].z, S[k].w * decay[u] + d[u][k].w);
       }
@@ -534,20 +597,382 @@ output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 body on the tensor cores (ssd_scan_bf16): state_tc_kernel,
+// pass_kernel<true>, output_tc_kernel.  See the note at the top.
+
+using repro_torch::ldsm_x4;
+using repro_torch::ldsm_x4_trans;
+using repro_torch::mma16816;
+using repro_torch::split_bf16;
+
+constexpr int TC_THREADS = 128;           // 4 warps, 16 output rows each
+constexpr int TC_ROW = TILE + 8;          // a staged row of 64 bf16 values, padded by 8: ldmatrix's
+                                          // 8 rows fall in 8 bank groups
+constexpr int TC_SROW = 2 * TILE + 8;     // a staged row of S_c's 64 columns as hi and lo pairs
+constexpr int TC_NK = 64;                 // the output kernel's pieces of N
+constexpr int TC_KROW = TC_NK + 8;        // a staged row of a piece of N
+constexpr int TC_FROW = TILE + 8;         // a staged row of 64 fp32 scores, padded by 8
+// a step of the output kernel's ring, in bf16 values: a piece of C and one
+// of the start state's hi and lo rows, or a key tile's x rows and scores
+constexpr int TC_STAGE = TILE * TC_KROW + TC_NK * TC_SROW > TILE * TC_ROW + 2 * TILE * TC_FROW
+                             ? TILE * TC_KROW + TC_NK * TC_SROW
+                             : TILE * TC_ROW + 2 * TILE * TC_FROW;
+constexpr int TC_OUT_BYTES = STAGES * TC_STAGE * 2;   // the output kernel's dynamic shared memory
+
+// A bf16 pair as two floats (exact).
+__device__ __forceinline__ float lo_f32(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f32(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// `rows` rows of COLS bf16 values into dst (rows of DS): row r from src + r *
+// stride, zeros in rows at or past n and in columns at or past w.  VEC:
+// 16-byte cp.async pieces (w a multiple of 8, src 16-byte aligned); else
+// 2-byte loads and stores.  All the block's threads take part.
+template <bool VEC, int COLS, int DS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride, int rows,
+                                           int n, int w) {
+  if (VEC) {
+    for (int q = threadIdx.x; q < rows * (COLS / 8); q += TC_THREADS) {
+      const int r = q / (COLS / 8), c = q % (COLS / 8) * 8;
+      const bool ok = r < n && c < w;
+      repro_torch::cp_async16(dst + r * DS + c, ok ? src + r * stride + c : src, ok);
+    }
+  } else {
+    for (int q = threadIdx.x; q < rows * COLS; q += TC_THREADS) {
+      const int r = q / COLS, c = q % COLS;
+      repro_torch::copy1(dst + r * DS + c, src + r * stride + c, r < n && c < w);
+    }
+  }
+}
+
+// The scores of (group grp, 64 query rows i0.., 64 key rows j0 <= i0 of a
+// chunk) into sc (B, nc, G, QR, QR) as chunk_kernel's score blocks write
+// them: C_i . B_j over N's 64-value pieces, straight from the bf16 inputs
+// (exact), warp w the rows i0 + 16 w .., one accumulator chain a score.
+// Once a group for all its heads.  `t` numbers (group, (r, t <= r)).
+template <bool VEC>
+__device__ __forceinline__ void score_tile(const bf16* Bm, const bf16* Cm, float* sc, bf16* c_s,
+                                           bf16* b_s, const Geo& g, int b, int c, int t) {
+  const int nst = g.nrt * (g.nrt + 1) / 2, grp = t / nst;
+  t %= nst;
+  int r = 0;
+  while (t > r) t -= ++r;                // t -> (r, t <= r): (0,0) (1,0) (1,1) ...
+  const int i0 = r * TILE, j0 = t * TILE, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t row0 = (size_t)b * g.S + (size_t)c * g.Q;
+  const int a_off = (16 * warp + lane % 16) * TC_ROW + 8 * (lane / 16);
+  const int k_off = ((lane % 8) + 8 * (lane / 16)) * TC_ROW + 8 * (lane / 8 % 2);
+  float acc[8][4] = {};
+  for (int n0 = 0; n0 < g.N; n0 += TILE) {
+    stage_rows<VEC, TILE, TC_ROW>(c_s, Cm + ((row0 + i0) * g.G + grp) * g.N + n0,
+                                  (size_t)g.G * g.N, TILE, g.Q - i0, g.N - n0);
+    stage_rows<VEC, TILE, TC_ROW>(b_s, Bm + ((row0 + j0) * g.G + grp) * g.N + n0,
+                                  (size_t)g.G * g.N, TILE, g.Q - j0, g.N - n0);
+    repro_torch::cp_async_commit();
+    repro_torch::cp_async_wait<0>();
+    __syncthreads();
+    const int kn = (min(TILE, g.N - n0) + 15) / 16;
+    for (int kk = 0; kk < kn; ++kk) {
+      unsigned a[4];
+      ldsm_x4(a, c_s + a_off + 16 * kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        unsigned bb[4];
+        ldsm_x4(bb, b_s + k_off + 16 * q * TC_ROW + 16 * kk);
+        mma16816(acc[2 * q], a[0], a[1], a[2], a[3], bb[0], bb[1]);
+        mma16816(acc[2 * q + 1], a[0], a[1], a[2], a[3], bb[2], bb[3]);
+      }
+    }
+    __syncthreads();
+  }
+  // acc[e]: rows i0 + 16 warp + lane / 4 (+ 8), columns j0 + 8 e + 2 (lane % 4) (+ 1)
+  float* out = sc + (((size_t)b * g.nc + c) * g.G + grp) * g.QR * g.QR +
+               (size_t)(i0 + 16 * warp + lane / 4) * g.QR + j0 + 2 * (lane % 4);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    *reinterpret_cast<float2*>(out + 8 * e) = make_float2(acc[e][0], acc[e][1]);
+    *reinterpret_cast<float2*>(out + 8 * g.QR + 8 * e) = make_float2(acc[e][2], acc[e][3]);
+  }
+}
+
+// Phase 1 at bf16.  Block (chunk c, (head h, 64 columns p0 of P, 64 rows n0
+// of N), sequence b): dS_c's tile into st as chunk_kernel writes it ([n][p]
+// fp32); the blocks with p0 = n0 = 0 also the chunk's cumsum into cs.  Warp w
+// owns p0 + 16 w .. + 15: dS = (x s)^T B over the chunk's steps j in 16-deep
+// chunks, s_j = dt_j exp(cs_last - cs_j), x^T by ldmatrix.trans, scaled in
+// registers and split hi + lo, B by ldmatrix.trans.
+template <bool VEC>
+__global__ void __launch_bounds__(TC_THREADS)
+state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const bf16* __restrict__ Bm,
+                const bf16* __restrict__ Cm, float* __restrict__ st, float* __restrict__ sc,
+                float* __restrict__ cs_out, Geo g) {
+  __shared__ __align__(16) bf16 xs[MAX_Q * TC_ROW];   // x [j][p0 ..], or C's piece
+  __shared__ __align__(16) bf16 bs[MAX_Q * TC_ROW];   // B [j][n0 ..], or B's piece
+  __shared__ float dts[MAX_Q], cs[MAX_Q], sj[MAX_Q];
+  const int c = blockIdx.x, b = blockIdx.z, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (static_cast<int>(blockIdx.y) >= g.H * g.ntp * g.ntn) {
+    score_tile<VEC>(Bm, Cm, sc, xs, bs, g, b, c, blockIdx.y - g.H * g.ntp * g.ntn);
+    return;
+  }
+  const int h = blockIdx.y / (g.ntp * g.ntn), rest = blockIdx.y % (g.ntp * g.ntn);
+  const int p0 = rest / g.ntn * TILE, n0 = rest % g.ntn * TILE, grp = h / (g.H / g.G);
+  const int nk = (g.Q + 15) / 16;
+  const size_t row0 = (size_t)b * g.S + (size_t)c * g.Q;
+  stage_rows<VEC, TILE, TC_ROW>(xs, x + (row0 * g.H + h) * g.P + p0, (size_t)g.H * g.P,
+                                16 * nk, g.Q, g.P - p0);
+  stage_rows<VEC, TILE, TC_ROW>(bs, Bm + (row0 * g.G + grp) * g.N + n0, (size_t)g.G * g.N,
+                                16 * nk, g.Q, g.N - n0);
+  repro_torch::cp_async_commit();
+  if (tid < MAX_Q) dts[tid] = tid < g.Q ? dt[(row0 + tid) * g.H + h] : 0.f;
+  __syncthreads();
+  chunk_cumsum(dts, A[h], cs, g.Q);
+  __syncthreads();
+  if (tid < MAX_Q) sj[tid] = tid < g.Q ? dts[tid] * expf(cs[g.Q - 1] - cs[tid]) : 0.f;
+  if (rest == 0 && tid < g.Q) cs_out[((size_t)b * g.H + h) * g.S + (size_t)c * g.Q + tid] = cs[tid];
+  repro_torch::cp_async_wait<0>();
+  __syncthreads();
+
+  const int gq = lane / 4, tq = lane % 4;
+  // the lanes' ldmatrix rows: x^T (.trans: rows j, columns p), B (.trans:
+  // rows j, columns n, two 8-column tiles an instruction)
+  const bf16* x_lane =
+      xs + ((lane % 8) + 8 * (lane / 16)) * TC_ROW + 16 * warp + 8 * (lane / 8 % 2);
+  const bf16* b_lane = bs + ((lane % 8) + 8 * (lane / 8 % 2)) * TC_ROW + 8 * (lane / 16);
+  float acc[8][4] = {};
+  for (int kk = 0; kk < nk; ++kk) {
+    unsigned a[4], ahi[4], alo[4];
+    ldsm_x4_trans(a, x_lane + 16 * kk * TC_ROW);
+    const int j = 16 * kk + 2 * tq;
+    const float s0 = sj[j], s1 = sj[j + 1], s8 = sj[j + 8], s9 = sj[j + 9];
+    split_bf16(lo_f32(a[0]) * s0, hi_f32(a[0]) * s1, ahi[0], alo[0]);
+    split_bf16(lo_f32(a[1]) * s0, hi_f32(a[1]) * s1, ahi[1], alo[1]);
+    split_bf16(lo_f32(a[2]) * s8, hi_f32(a[2]) * s9, ahi[2], alo[2]);
+    split_bf16(lo_f32(a[3]) * s8, hi_f32(a[3]) * s9, ahi[3], alo[3]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      unsigned bb[4];
+      ldsm_x4_trans(bb, b_lane + 16 * kk * TC_ROW + 16 * q);
+      mma16816(acc[2 * q], ahi[0], ahi[1], ahi[2], ahi[3], bb[0], bb[1]);
+      mma16816(acc[2 * q], alo[0], alo[1], alo[2], alo[3], bb[0], bb[1]);
+      mma16816(acc[2 * q + 1], ahi[0], ahi[1], ahi[2], ahi[3], bb[2], bb[3]);
+      mma16816(acc[2 * q + 1], alo[0], alo[1], alo[2], alo[3], bb[2], bb[3]);
+    }
+  }
+  // acc[e]: rows p0 + 16 warp + gq (+ 8), columns n0 + 8 e + 2 tq (+ 1)
+  float* out = st + (((size_t)b * g.nc + c) * g.H + h) * g.N * g.PP + p0 + 16 * warp + gq;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int n = n0 + 8 * e + 2 * tq + u;
+      if (n < g.N) {
+        out[(size_t)n * g.PP] = acc[e][u];
+        out[(size_t)n * g.PP + 8] = acc[e][2 + u];
+      }
+    }
+}
+
+// Phase 3 at bf16.  Block (chunk c x 64-row tile r, head h x 64 columns p0 of
+// P, sequence b): y's tile, warp w its rows i0 + 16 w .. + 15, one fp32
+// accumulator, over a ring of steps:
+// - for c > 0, one step a 64-value piece of N: acc += C S_c^T (C's piece of
+//   the tile's rows; S_c's rows of the piece, hi then lo, as
+//   pass_kernel<true> wrote them); then acc *= exp(cs_i);
+// - one step a 64-row key tile j0 <= i0: its x rows and the group's fp32
+//   scores (state_tc_kernel's score blocks); L = (scores exp(cs_i - cs_j))
+//   dt_j where j <= i (0 elsewhere, selected), split hi + lo into the A
+//   operand in registers, and acc += L x (x by ldmatrix.trans); on the
+//   diagonal tile only the 16-key groups at or below the warp's rows;
+// then y = acc + D x in fp32, rounded once.
+template <bool VEC>
+__global__ void __launch_bounds__(TC_THREADS)
+output_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ D, const bf16* __restrict__ Cm,
+                 const float* __restrict__ st, const float* __restrict__ sc,
+                 const float* __restrict__ cs, bf16* __restrict__ y, Geo g) {
+  extern __shared__ __align__(16) unsigned char smem_out[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_out);   // [STAGES][TC_STAGE]
+  __shared__ float css[MAX_Q], dts[MAX_Q];
+  const int c = blockIdx.x / g.nrt, r = g.nrt - 1 - blockIdx.x % g.nrt;   // long rows first
+  const int h = blockIdx.y / g.ntp, p0 = blockIdx.y % g.ntp * TILE, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, gq = lane / 4, tq = lane % 4;
+  const int grp = h / (g.H / g.G), i0 = r * TILE;
+  const size_t row0 = (size_t)b * g.S + (size_t)c * g.Q;
+  const int n_inter = c > 0 ? (g.N + TC_NK - 1) / TC_NK : 0;   // pieces of N
+  const int nk = n_inter + r + 1;
+  const bf16* start = reinterpret_cast<const bf16*>(
+      st + (((size_t)b * g.nc + c) * g.H + h) * g.N * g.PP) + 2 * p0;
+  const bf16* c_rows = Cm + ((row0 + i0) * g.G + grp) * g.N;
+  const float* scores = sc + (((size_t)b * g.nc + c) * g.G + grp) * g.QR * g.QR +
+                        (size_t)i0 * g.QR;
+  if (tid < MAX_Q) {
+    css[tid] = tid < g.Q ? cs[((size_t)b * g.H + h) * g.S + (size_t)c * g.Q + tid] : 0.f;
+    dts[tid] = tid < g.Q ? dt[(row0 + tid) * g.H + h] : 0.f;
+  }
+
+  // step t < n_inter: C's piece t and S_c's rows of it; else key tile
+  // t - n_inter: its x rows and the scores of the tile's rows against it
+  auto stage = [&](int t, int buf) {
+    bf16* sp = ring + buf * TC_STAGE;
+    if (t < n_inter) {
+      const int nc0 = t * TC_NK, rows = min(TC_NK, g.N - nc0);
+      stage_rows<VEC, TC_NK, TC_KROW>(sp, c_rows + nc0, (size_t)g.G * g.N, TILE, g.Q - i0,
+                                      g.N - nc0);
+      bf16* s_rows = sp + TILE * TC_KROW;
+      for (int q = tid; q < TC_NK * 16; q += TC_THREADS) {
+        const int rr = q / 16, cc = q % 16 * 8;
+        const bool ok = rr < rows;
+        repro_torch::cp_async16(s_rows + rr * TC_SROW + cc,
+                                start + (size_t)(ok ? nc0 + rr : 0) * 2 * g.PP + cc, ok);
+      }
+    } else {
+      const int j0 = (t - n_inter) * TILE;
+      stage_rows<VEC, TILE, TC_ROW>(sp, x + ((row0 + j0) * g.H + h) * g.P + p0,
+                                    (size_t)g.H * g.P, TILE, g.Q - j0, g.P - p0);
+      float* s_tile = reinterpret_cast<float*>(sp + TILE * TC_ROW);
+      for (int q = tid; q < TILE * 16; q += TC_THREADS) {
+        const int rr = q / 16, cc = q % 16 * 4;
+        repro_torch::cp_async16(s_tile + rr * TC_FROW + cc, scores + (size_t)rr * g.QR + j0 + cc);
+      }
+    }
+  };
+
+  // the lanes' ldmatrix rows: C (rows i, columns n), x and S_c (.trans:
+  // rows j or n, columns p; two 8-column tiles, or one tile's hi and lo)
+  const int a_off = (16 * warp + lane % 16) * TC_KROW + 8 * (lane / 16);
+  const int t_off = ((lane % 8) + 8 * (lane / 8 % 2)) * TC_ROW + 8 * (lane / 16);
+  const int s_off = ((lane % 8) + 8 * (lane / 8 % 2)) * TC_SROW + 8 * (lane / 16);
+  const int ia = i0 + 16 * warp + gq, ib = ia + 8;      // this lane's two rows
+  float acc[8][4] = {};
+
+  auto mul = [&](int t, int buf) {
+    const bf16* sp = ring + buf * TC_STAGE;
+    if (t < n_inter) {                                      // acc += C S_c^T
+      const bf16* s_rows = sp + TILE * TC_KROW;
+      const int kn = (min(TC_NK, g.N - t * TC_NK) + 15) / 16;
+      for (int kk = 0; kk < kn; ++kk) {
+        unsigned a[4];
+        ldsm_x4(a, sp + a_off + 16 * kk);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          unsigned bb[4];
+          ldsm_x4_trans(bb, s_rows + s_off + 16 * kk * TC_SROW + 16 * q);
+          mma16816(acc[q], a[0], a[1], a[2], a[3], bb[0], bb[1]);
+          mma16816(acc[q], a[0], a[1], a[2], a[3], bb[2], bb[3]);
+        }
+      }
+      if (t == n_inter - 1) {
+        const float ea = expf(css[ia]), eb = expf(css[ib]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          acc[q][0] *= ea;
+          acc[q][1] *= ea;
+          acc[q][2] *= eb;
+          acc[q][3] *= eb;
+        }
+      }
+      return;
+    }
+    const int kt = t - n_inter, j0 = kt * TILE;
+    // the 16-key groups this warp needs: all below the diagonal tile, on it
+    // those at or below the warp's rows
+    const int ng = kt < r ? 4 : warp + 1;
+    const float* s_tile = reinterpret_cast<const float*>(sp + TILE * TC_ROW);
+    const float ca = css[ia], cb = css[ib];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= ng) continue;
+      // L over keys j0 + 16 q .. + 15 as this lane's A registers: rows ia,
+      // ib; keys 2 tq, + 1 of each 8-key half
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int jl = 16 * q + 8 * half + 2 * tq, j = j0 + jl;
+        const float2 sa =
+            *reinterpret_cast<const float2*>(s_tile + (16 * warp + gq) * TC_FROW + jl);
+        const float2 sb =
+            *reinterpret_cast<const float2*>(s_tile + (16 * warp + gq + 8) * TC_FROW + jl);
+        const float sv[4] = {sa.x, sa.y, sb.x, sb.y};
+        float l[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib, jj = j + e % 2;
+          l[e] = (i < g.Q && jj <= i) ? sv[e] * expf((e < 2 ? ca : cb) - css[jj]) * dts[jj]
+                                      : 0.f;
+        }
+        split_bf16(l[0], l[1], hi[2 * half], lo[2 * half]);
+        split_bf16(l[2], l[3], hi[2 * half + 1], lo[2 * half + 1]);
+      }
+#pragma unroll
+      for (int pp = 0; pp < 4; ++pp) {
+        unsigned bb[4];
+        ldsm_x4_trans(bb, sp + t_off + 16 * q * TC_ROW + 16 * pp);
+        mma16816(acc[2 * pp], hi[0], hi[1], hi[2], hi[3], bb[0], bb[1]);
+        mma16816(acc[2 * pp], lo[0], lo[1], lo[2], lo[3], bb[0], bb[1]);
+        mma16816(acc[2 * pp + 1], hi[0], hi[1], hi[2], hi[3], bb[2], bb[3]);
+        mma16816(acc[2 * pp + 1], lo[0], lo[1], lo[2], lo[3], bb[2], bb[3]);
+      }
+    }
+  };
+  ring_start(nk, stage);
+  ring_run(nk, stage, [](int, int) {}, mul);
+
+  // acc[e]: rows ia, ib; columns p0 + 8 e + 2 tq, + 1
+  const float dh = D != nullptr ? D[h] : 0.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = half ? ib : ia;
+    if (i >= g.Q) continue;
+    const size_t row = ((row0 + i) * g.H + h) * g.P;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int p = p0 + 8 * e + 2 * tq;
+      float o0 = acc[e][2 * half], o1 = acc[e][2 * half + 1];
+      if (D != nullptr) {
+        if (p < g.P) o0 = fmaf(repro_torch::to_f32(x[row + p]), dh, o0);
+        if (p + 1 < g.P) o1 = fmaf(repro_torch::to_f32(x[row + p + 1]), dh, o1);
+      }
+      if (VEC) {
+        if (p < g.P)
+          *reinterpret_cast<unsigned*>(y + row + p) = repro_torch::pack_bf16(o0, o1);
+      } else {
+        if (p < g.P) y[row + p] = __float2bfloat16_rn(o0);
+        if (p + 1 < g.P) y[row + p + 1] = __float2bfloat16_rn(o1);
+      }
+    }
+  }
+}
+
+// The tensor-core body: phase 1 (its state and score blocks), the state
+// pass in its bf16 layout, phase 3, on the caller's stream.
+int scan_tc(const bf16* x, const float* dt, const float* A, const float* D, const bf16* Bm,
+            const bf16* Cm, bf16* y, float* state, float* st, float* sc, float* cs, const Geo& g,
+            int B, bool vec, cudaStream_t s) {
+  static int smem_set[2][repro_torch::kMaxDevices];
+  const dim3 g1(g.nc, g.H * g.ntp * g.ntn + g.G * g.nrt * (g.nrt + 1) / 2, B);
+  if (vec)
+    state_tc_kernel<true><<<g1, TC_THREADS, 0, s>>>(x, dt, A, Bm, Cm, st, sc, cs, g);
+  else
+    state_tc_kernel<false><<<g1, TC_THREADS, 0, s>>>(x, dt, A, Bm, Cm, st, sc, cs, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g2((g.N + PASS_N - 1) / PASS_N * g.ntp, g.H, B);
+  pass_kernel<true><<<g2, PASS_THREADS, 0, s>>>(st, cs, state, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g3(g.nc * g.nrt, g.H * g.ntp, B);
+  auto kernel = vec ? &output_tc_kernel<true> : &output_tc_kernel<false>;
+  err = repro_torch::allow_smem(kernel, TC_OUT_BYTES, smem_set[vec]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<g3, TC_THREADS, TC_OUT_BYTES, s>>>(x, dt, D, Cm, st, sc, cs, y, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// x (B,S,H,P), dt (B,S,H), A (H,), D (H,) or null, Bm/Cm (B,S,G,N) -> y
-// (B,S,H,P), state (B,H,P,N); x, Bm, Cm and y of type T, the rest fp32, all
-// contiguous; S % Q == 0, 0 < Q <= 128, H % G == 0.  Scratch
-// (kernels/ssd.py::scan_scratch, times B): st (B, S/Q, H, N, PP), sc (B,
-// S/Q, G, QR, QR), cs (B, H, S), 16-byte aligned, with PP and QR P and Q
-// rounded up to 64.
-template <typename T>
-int scan(const T* x, const float* dt, const float* A, const float* D, const T* Bm,
-         const T* Cm, T* y, float* state, float* st, float* sc, float* cs, int B, int S, int H,
-         int P, int G, int N, int Q, void* stream) {
+Geo geometry(int S, int H, int P, int G, int N, int Q) {
   Geo g;
   g.S = S; g.H = H; g.P = P; g.G = G; g.N = N; g.Q = Q;
   g.nc = S / Q;
@@ -556,6 +981,20 @@ int scan(const T* x, const float* dt, const float* A, const float* D, const T* B
   g.ntn = (N + TILE - 1) / TILE;
   g.QR = g.nrt * TILE;
   g.PP = g.ntp * TILE;
+  return g;
+}
+
+// x (B,S,H,P), dt (B,S,H), A (H,), D (H,) or null, Bm/Cm (B,S,G,N) -> y
+// (B,S,H,P), state (B,H,P,N); x, Bm, Cm and y of type T, the rest fp32, all
+// contiguous; S % Q == 0, 0 < Q <= 128, H % G == 0.  Scratch
+// (kernels/ssd.py::scan_scratch, times B): st (B, S/Q, H, N, PP), sc (B,
+// S/Q, G, QR, QR), cs (B, H, S), 16-byte aligned, with PP and QR P and Q
+// rounded up to 64.  The FFMA body: the fp32 entry, and the former bf16 body.
+template <typename T>
+int scan(const T* x, const float* dt, const float* A, const float* D, const T* Bm,
+         const T* Cm, T* y, float* state, float* st, float* sc, float* cs, int B, int S, int H,
+         int P, int G, int N, int Q, void* stream) {
+  const Geo g = geometry(S, H, P, G, N, Q);
   // pieces of 4 values: 16 bytes of fp32, 8 of bf16
   const size_t al = 4 * sizeof(T);
   const bool vec = P % 4 == 0 && N % 4 == 0 && aligned(x, al) && aligned(Bm, al) &&
@@ -569,7 +1008,7 @@ int scan(const T* x, const float* dt, const float* A, const float* D, const T* B
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 g2((N + PASS_N - 1) / PASS_N * g.ntp, H, B);
-  pass_kernel<<<g2, PASS_THREADS, 0, s>>>(st, cs, state, g);
+  pass_kernel<false><<<g2, PASS_THREADS, 0, s>>>(st, cs, state, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 g3(g.nc * g.nrt, H * g.ntp, B);
@@ -590,10 +1029,25 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* A, con
   return scan(x, dt, A, D, Bm, Cm, y, state, st, sc, cs, B, S, H, P, G, N, Q, stream);
 }
 
-// The same with x, Bm, Cm and y bf16 (dt, A, D, the state and the scratch fp32).
+// The scan with x, Bm, Cm and y bf16 (dt, A, D, the state and the scratch
+// fp32) on the tensor-core body.
 extern "C" int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt, const float* A,
                              const float* D, const __nv_bfloat16* Bm, const __nv_bfloat16* Cm,
                              __nv_bfloat16* y, float* state, float* st, float* sc, float* cs,
                              int B, int S, int H, int P, int G, int N, int Q, void* stream) {
+  const bool vec = P % 8 == 0 && N % 8 == 0 && aligned(x, 16) && aligned(Bm, 16) &&
+                   aligned(Cm, 16) && aligned(y, 16);
+  return scan_tc(x, dt, A, D, Bm, Cm, y, state, st, sc, cs, geometry(S, H, P, G, N, Q), B, vec,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The same arguments on the former bf16 body (scan above: bf16 pieces upcast
+// into the fp32 tiles, FFMA): no path runs it; chip_smoke.py times the
+// tensor-core body beside it.
+extern "C" int ssd_scan_bf16_ffma(const __nv_bfloat16* x, const float* dt, const float* A,
+                                  const float* D, const __nv_bfloat16* Bm,
+                                  const __nv_bfloat16* Cm, __nv_bfloat16* y, float* state,
+                                  float* st, float* sc, float* cs, int B, int S, int H, int P,
+                                  int G, int N, int Q, void* stream) {
   return scan(x, dt, A, D, Bm, Cm, y, state, st, sc, cs, B, S, H, P, G, N, Q, stream);
 }

@@ -62,8 +62,10 @@ _SIGNATURES: Dict[str, tuple] = {
     # q, k, v, lengths, acc, m, l (the shards' partials), o; B, Hq, Hk, S,
     # D, Dv, shard
     "flash_decode_f32": (*[_P] * 8, *[_I] * 7, _F, _P),
-    # the same with bf16 q, k, v, o (fp32 partials)
+    # the same with bf16 q, k, v, o (fp32 partials; the narrow body takes none)
     "flash_decode_bf16": (*[_P] * 8, *[_I] * 7, _F, _P),
+    # the same on the former wide bf16 body: the yardstick of the tensor-core one
+    "flash_decode_bf16_ffma": (*[_P] * 8, *[_I] * 7, _F, _P),
     # q, k, v, lengths, acc, m, l; B, Hq, Hk, S, D, Dv, n_splits
     "flash_decode_partial_f32": (*[_P] * 7, *[_I] * 7, _F, _P),
     # the same with bf16 q, k, v and acc (m and l fp32)
@@ -96,6 +98,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "ssd_scan_f32": (*[_P] * 11, *[_I] * 7, _P),
     # the same with bf16 x, B, C and y (dt, A, D, the state and scratch fp32)
     "ssd_scan_bf16": (*[_P] * 11, *[_I] * 7, _P),
+    # the same on the former bf16 body: the yardstick of the tensor-core one
+    "ssd_scan_bf16_ffma": (*[_P] * 11, *[_I] * 7, _P),
     # stream: one empty kernel (the launch path's floor)
     "empty_launch": (_P,),
 }

@@ -5,7 +5,7 @@ partials of KV shards, for split-KV decode) and
 :func:`repro.kernels.flash_decode.flash_paged_decode` (page pool reached
 through block tables, fp32 or int8 pages).
 
-All of them but the narrow bf16 decode run one hand-written CUDA kernel
+All of them but the bf16 decode run one hand-written CUDA kernel
 body, ``csrc/flash_decode.cu``'s fp32 body: a block per (sequence, kv head, up to 8 query heads of its group, shard of
 the cache), each warp streaming its own 4-row tiles through a ring of
 asynchronous copies with its own online softmax.  :func:`flash_decode` and
@@ -38,9 +38,14 @@ memory, so one launch writes the output, rounded once to bf16.  Its order
 is not the fp32 body's, so its rows are held within one bf16 ulp of
 :func:`flash_decode_plain` and bitwise across batch sizes, not to the fp32
 entry's result rounded.  Wider heads (MLA's absorbed D 576 / Dv 512) take
-the fp32 body's wide layout on bf16 rings (upcast as read), fp32 partials
-and the combine kernel writing the output rounded once: the fp32 entry's
-result on the upcast inputs, rounded.  Those calls count in
+a tensor-core body of their own: a block per (sequence, kv head, up to 16
+query heads, shard of :func:`decode_plan_wide_bf16` rows), the heads the
+16 rows of both ``mma.sync`` products, 8 warps splitting D for q K^T and
+Dv for P V (P = hi + lo), the shards' fp32 partials merged by the combine
+kernel into the output, rounded once; its rows too are held within one
+bf16 ulp of :func:`flash_decode_plain` and bitwise across batch sizes.
+:func:`flash_decode_bf16_ffma` keeps the former wide body (the fp32 body's
+wide layout on bf16 rings) as a yardstick.  Those calls count in
 ``flash_decode.bf16.launches`` (and the wide ones' merge in
 ``combine_partials.bf16.launches``); :func:`combine_partials` writes bf16
 with ``dtype=torch.bfloat16``.
@@ -65,7 +70,9 @@ from repro_torch.kernels.ref import combine_partials_ref
 
 __all__ = ["flash_decode", "flash_decode_plain", "flash_decode_partial",
            "flash_decode_partial_plain", "decode_fits", "decode_shard_rows",
-           "decode_smem_bytes", "decode_plan_bf16", "decode_tc_smem_bytes", "combine_partials", "flash_paged_decode",
+           "decode_smem_bytes", "decode_plan_bf16", "decode_tc_smem_bytes",
+           "decode_plan_wide_bf16", "decode_wide_smem_bytes", "flash_decode_bf16_ffma",
+           "combine_partials", "flash_paged_decode",
            "flash_paged_decode_plain", "paged_decode_fits", "gather_pages"]
 
 _NEG_INF = -1e30
@@ -91,6 +98,16 @@ TC_NST = 3
 TC_HEADS = 8
 TC_CLUSTER = 8
 TC_FILL = 64           # most blocks a sequence, where the heads allow
+# the wide bf16 body on the tensor cores (csrc/flash_decode.cu
+# decode_wide_kernel): WD_WARPS warps a block, each holding its run of D's
+# and Dv's 16-value chunks; WD_ROWS key rows a tile; WD_NST ring slots a
+# warp; WD_HEADS query heads a block (the 16 rows of both products)
+WD_WARPS = 8
+WD_ROWS = 16
+WD_NST = 4
+WD_HEADS = 16
+WD_FILL = 32           # blocks a sequence the wide plan aims at
+WD_MIN_SHARD = 64      # fewest rows a wide shard takes
 
 
 def decode_shard_rows(s_len: int) -> int:
@@ -127,6 +144,45 @@ def decode_plan_bf16(s_len: int, hq: int, hk: int):
     return shard, -(-max(s_len, 1) // shard), groups
 
 
+@functools.lru_cache(maxsize=None)
+def decode_plan_wide_bf16(s_len: int, hq: int, hk: int):
+    """(shard rows, shards, head groups) of the wide bf16 body over a cache
+    of ``s_len`` rows: head groups of up to WD_HEADS query heads of one kv
+    head; WD_FILL // (kv heads x groups) shards a (sequence, kv head,
+    group), so that a batch of a few sequences still spreads over the
+    card's 132 SMs, each shard a multiple of WD_ROWS rows and at least
+    WD_MIN_SHARD (a block's fixed cost: q, the partial it writes), the
+    fewest that cover the cache in that many.  The partials go through the
+    workspace to the combine kernel, which merges them in shard order.  It
+    reads the cache's rows and the head counts alone, never the batch, so a
+    sequence's tiles, shards and merge order (and its bits) are the same at
+    batch 4 as at batch 1."""
+    groups = -(-(hq // hk) // WD_HEADS)
+    shards = max(1, WD_FILL // (hk * groups))
+    shard = -(-max(s_len, 1) // shards)
+    shard = max(WD_MIN_SHARD, -(-shard // WD_ROWS) * WD_ROWS)
+    return shard, -(-max(s_len, 1) // shard), groups
+
+
+def _wd_chunks(w: int) -> int:
+    """A warp's run of a width's 16-value chunks (csrc wd_chunks)."""
+    return -(-(-(-w // 16)) // WD_WARPS)
+
+
+def decode_wide_smem_bytes(d: int, dv: int) -> int:
+    """Dynamic shared memory of one block of the wide bf16 body
+    (csrc/flash_decode.cu decode_wide_smem_bytes): q's WD_HEADS rows in
+    bf16 (a row padded to 16 values and 8 more); two buffers each of the
+    warps' fp32 partial scores of a tile, of P's hi and lo rows in bf16 and
+    of the heads' rescales; then each warp's WD_NST slots of WD_ROWS K rows
+    cut to its chunks of D and V rows cut to its chunks of Dv, in bf16,
+    padded by 8."""
+    kq, vq = 16 * _wd_chunks(d) + 8, 16 * _wd_chunks(dv) + 8
+    return (2 * WD_HEADS * (-(-d // 16) * 16 + 8) + 4 * 2 * WD_WARPS * WD_HEADS * WD_ROWS
+            + 2 * 2 * 2 * WD_HEADS * (WD_ROWS + 8) + 4 * 2 * WD_HEADS
+            + 2 * WD_WARPS * WD_NST * WD_ROWS * (kq + vq))
+
+
 def decode_tc_smem_bytes(d: int, dv: int) -> int:
     """Dynamic shared memory of one block of the narrow bf16 body
     (csrc/flash_decode.cu decode_tc_smem_bytes): q's TC_HEADS rows, then each
@@ -149,8 +205,8 @@ def decode_smem_bytes(d: int, dv: int, *, bf16: bool = False) -> int:
     to a multiple of 4.  It does not depend on the group size or the batch.
     ``bf16`` (decode_smem_bytes_bf16): the rings at 2 bytes a value, or the
     warps' fp32 partials of the merge where those take more: the fp32 body
-    on bf16 rings, which the wide bf16 layout and the bf16 partial run (the
-    narrow bf16 decode: :func:`decode_tc_smem_bytes`)."""
+    on bf16 rings, which the bf16 partial runs (the bf16 decode:
+    :func:`decode_tc_smem_bytes`, :func:`decode_wide_smem_bytes`)."""
     d4, dv4 = -(-d // 4) * 4, -(-dv // 4) * 4
     if bf16:
         ring = 2 * WARPS * RING * BLOCK_KV * (d4 + dv4)
@@ -166,13 +222,16 @@ def decode_fits(hq: int, hk: int, d: int, dv: int, *, bf16: bool = False) -> boo
     wide layout), D <= MAX_WIDE_D and Dv <= MAX_WIDE_DV (the wide layout
     past 256, chosen by the widths alone: MLA's absorbed decode is D 576,
     Dv 512), and the block's shared memory within the H100's 227 KB (which
-    caps D at 596 when Dv is 512 in fp32).  ``bf16``: the bf16 entry, in
-    either layout; its bf16 rings take at most the fp32 kernel's shared
-    memory (122,880 B at 576 / 512), so every width up to MAX_WIDE_D and
-    MAX_WIDE_DV fits."""
+    caps D at 596 when Dv is 512 in fp32).  ``bf16``: the bf16 entries, in
+    either layout: the partial's bf16 rings take at most the fp32 kernel's
+    shared memory (122,880 B at 576 / 512), and the wide tensor-core body's
+    block :func:`decode_wide_smem_bytes` (202,112 B at 576 / 512), so every
+    width up to MAX_WIDE_D and MAX_WIDE_DV fits."""
     if hk < 1 or hq % hk or not (0 < d <= MAX_WIDE_D and 0 < dv <= MAX_WIDE_DV):
         return False
-    return decode_smem_bytes(d, dv, bf16=bf16) <= _cuda.MAX_SMEM_BYTES
+    wide_tc = bf16 and max(d, dv) > _cuda.MAX_HEAD_DIM
+    return (decode_smem_bytes(d, dv, bf16=bf16) <= _cuda.MAX_SMEM_BYTES
+            and (not wide_tc or decode_wide_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES))
 
 
 def paged_decode_fits(hq: int, hk: int, d: int, dv: int) -> bool:
@@ -281,7 +340,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _cuda.check(err, "flash_decode")
         flash_decode.bf16.launches += 1
         return out
-    shard = decode_shard_rows(s_len)
+    # the wide tensor-core body (bf16) or the fp32 body: shards into the
+    # workspace, then the combine
+    shard = decode_plan_wide_bf16(s_len, hq, hk)[0] if bf16 else decode_shard_rows(s_len)
     acc, m, l = _workspace(-(-s_len // shard), b, hq, dv, q.device)
     err = (lib.flash_decode_bf16 if bf16 else lib.flash_decode_f32)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
@@ -299,6 +360,31 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_decode.launches = 0
 flash_decode.bf16 = _cuda.LaunchCount("flash_decode_bf16")
+
+
+def flash_decode_bf16_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The former wide bf16 body (the fp32 body's wide layout on bf16 rings,
+    upcast as read, FFMA; shards of :func:`decode_shard_rows`, then the
+    combine) on bf16 CUDA tensors with D or Dv > 256: the yardstick that
+    ``chip_smoke.py`` times the tensor-core body against.  No path calls it,
+    and it counts no launch."""
+    scale = _check_dense("flash_decode_bf16_ffma", q, k, v, lengths, scale, bf16_ok=True)
+    b, hq, d = q.shape
+    s_len, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (q.dtype != torch.bfloat16 or max(d, dv) <= _cuda.MAX_HEAD_DIM
+            or not _on_card("flash_decode_bf16_ffma", (q, k, v, lengths)) or b * s_len == 0):
+        raise ValueError("flash_decode_bf16_ffma takes non-empty bf16 calls on the card "
+                         "with D or Dv > 256")
+    out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
+    shard = decode_shard_rows(s_len)
+    acc, m, l = _workspace(-(-s_len // shard), b, hq, dv, q.device)
+    _cuda.check(_cuda.library().flash_decode_bf16_ffma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), out.data_ptr(), b, hq, hk, s_len, d, dv, shard, scale,
+        _cuda.stream_of(q)), "flash_decode_bf16_ffma")
+    return out
 
 
 def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, *,

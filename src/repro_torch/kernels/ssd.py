@@ -12,12 +12,18 @@ PyTorch (:func:`repro_torch.kernels.ref.ssd_chunked_ref`).
 ``ssd_scan.launches`` counts calls that launched the kernels.
 
 x, B and C may be bfloat16 (all three alike; dt, A and D stay float32, as
-the mamba layer passes them): ``ssd_scan_bf16`` upcasts each value as it
-stages it, runs the fp32 kernels' arithmetic, and rounds y (with its D
-term, formed in fp32) once to bf16; the final state is fp32.  So the bf16
-y is the fp32 entry's y on the upcast inputs rounded once.  Those calls
-count in ``ssd_scan.bf16.launches``.  (JAX's Pallas kernel writes a bf16 y
-and its wrapper adds D x and rounds a second time.)
+the mamba layer passes them): ``ssd_scan_bf16`` is a body of its own on the
+tensor cores (``mma.sync``, bf16 tiles staged as stored; each fp32 factor
+split into bf16 hi + lo; the scores C.B once per group, as the fp32 body
+forms them), every sum and the state pass in fp32, y (with its D
+term) rounded once to bf16; the final state is fp32.  Its order is its own,
+fixed by the shapes (a sequence's bits do not depend on the batch), so y
+is held within one bf16 ulp of :func:`ssd_scan_plain` and the state within
+1e-4, not to the fp32 entry's bits.  Those calls count in
+``ssd_scan.bf16.launches``.  :func:`ssd_scan_bf16_ffma` keeps the former
+bf16 body (bf16 values upcast into the fp32 kernels) as a yardstick.  (JAX's
+Pallas kernel writes a bf16 y and its wrapper adds D x and rounds a second
+time.)
 
 Shapes as in ``ref.ssd_ref``: x (B,S,H,P), dt (B,S,H), A (H,), B/C
 (B,S,G,N) with H % G == 0 -> y (B,S,H,P) in x's dtype, final state
@@ -35,7 +41,7 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.ref import ssd_chunked_ref
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "scan_fits", "scan_scratch"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_bf16_ffma", "scan_fits", "scan_scratch"]
 
 # The layout of csrc/ssd.cu:
 TILE = 64             # every product's output tile is TILE x TILE
@@ -96,17 +102,14 @@ def _check(x, dt, A, B, C, D) -> None:
         raise ValueError(f"ssd_scan: {h} heads are not a multiple of {B.shape[2]} groups")
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-             C: torch.Tensor, D: Optional[torch.Tensor] = None, *,
-             chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan -> (y (B,S,H,P) in x's dtype with the D term,
-    final state (B,H,P,N) fp32); x, B and C float32 or bfloat16, dt, A and
-    D float32."""
+def _launch(entry: str, x, dt, A, B, C, D, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the call and launch the C entry ``entry`` on CUDA tensors; None
+    for CPU tensors (the caller runs the plain version)."""
     _check(x, dt, A, B, C, D)
     _check_dtypes(x, dt, A, B, C, D)
     tensors = (x, dt, A, B, C) + (() if D is None else (D,))
     if all(t.device.type == "cpu" for t in tensors):
-        return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+        return None
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"ssd_scan: inputs on {sorted({str(t.device) for t in tensors})}; "
@@ -130,19 +133,42 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     n_st, n_sc, n_cs = (b * f for f in scan_scratch(s, h, p, g, n, q))
     work = torch.empty(n_st + n_sc + n_cs, dtype=torch.float32, device=dev)
     w0 = work.data_ptr()
-    bf16 = x.dtype == torch.bfloat16
-    lib = _cuda.library()
-    err = (lib.ssd_scan_bf16 if bf16 else lib.ssd_scan_f32)(
+    err = getattr(_cuda.library(), entry)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), None if D is None else D.data_ptr(),
         B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
         w0, w0 + 4 * n_st, w0 + 4 * (n_st + n_sc), b, s, h, p, g, n, q, _cuda.stream_of(x))
     _cuda.check(err, "ssd_scan")
+    return y, state
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, D: Optional[torch.Tensor] = None, *,
+             chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan -> (y (B,S,H,P) in x's dtype with the D term,
+    final state (B,H,P,N) fp32); x, B and C float32 or bfloat16, dt, A and
+    D float32."""
+    bf16 = x.dtype == torch.bfloat16
+    out = _launch("ssd_scan_bf16" if bf16 else "ssd_scan_f32", x, dt, A, B, C, D, chunk)
+    if out is None:
+        return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
     if bf16:
         ssd_scan.bf16.launches += 1
     else:
         ssd_scan.launches += 1
-    return y, state
+    return out
 
 
 ssd_scan.launches = 0
 ssd_scan.bf16 = _cuda.LaunchCount("ssd_scan_bf16")
+
+
+def ssd_scan_bf16_ffma(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, D: Optional[torch.Tensor] = None, *,
+                       chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The former bf16 body (bf16 values upcast into the fp32 kernels' tiles,
+    every product on FFMA) on bf16 CUDA tensors: the yardstick that
+    ``chip_smoke.py`` times the tensor-core body against.  No path calls it,
+    and it counts no launch."""
+    if x.dtype != torch.bfloat16 or not x.is_cuda:
+        raise ValueError("ssd_scan_bf16_ffma takes bf16 x, B and C on the card")
+    return _launch("ssd_scan_bf16_ffma", x, dt, A, B, C, D, chunk)

@@ -147,8 +147,10 @@ def test_one_tensor_core_shape_for_both_products():
     """q K^T and (transposed) P V on mma.sync.m16n8k16 (bf16 in, fp32
     accumulate), P as hi then lo; no fp32 FMA product in the tile loop."""
     body = _tc_body()
-    shapes = set(re.findall(r"mma\.sync\.aligned\.(m\d+n\d+k\d+)\.(\S+)", body))
+    # the products go through common.cuh's one mma.sync helper
+    shapes = set(re.findall(r"mma\.sync\.aligned\.(m\d+n\d+k\d+)\.(\S+)", _src("common.cuh")))
     assert shapes == {("m16n8k16", "row.col.f32.bf16.bf16.f32")}
+    assert "mma.sync" not in body and "mma16816(" in body
     loop = body[body.index("for (int i = 0; i < my_tiles; ++i)"):body.index("cp_async_wait<0>")]
     # q K^T: even and odd chunks for two 8-key halves; then V^T P_hi^T, V^T P_lo^T
     assert loop.count("mma16816(") == 6
