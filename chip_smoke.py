@@ -104,13 +104,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              (FP32_ROWS: no full-width phase runs them) get their own rows
              at the same calls on the upcast inputs.  The partial kernel's
              bf16 entry (flash_decode_partial_bf16, phase 24's length-sharded
-             decode) runs at SPLIT_BF16_SHAPES: phi3-mini's engine decode at
-             n_splits 2, gemma3-1b's global decode at n_splits 2-16 and MLA's
-             absorbed decode (D 576, Dv 512) at n_splits 2; its acc must be
-             the fp32 entry's acc on the upcast inputs rounded once and its
-             m and l the fp32 entry's, bit for bit, within one bf16 ulp
-             (+1e-4; m and l 1e-4) of its plain version, and cuda_split at
+             decode: the narrow and wide tensor-core bodies, each caller
+             shard cut into the sub-shards of decode_plan_partial_bf16 and
+             merged back) runs at SPLIT_BF16_SHAPES: gemma3-1b's tree decode
+             (one rank's 1024 rows, n_splits 1), phi3-mini's engine decode
+             at n_splits 2, gemma3-1b's global decode at n_splits 2-16 and
+             MLA's absorbed decode (D 576, Dv 512) at n_splits 2, timed
+             beside its former body (flash_decode_partial_bf16_ffma, the
+             yardstick, which must stay the fp32 entry's partials on the
+             upcast inputs, acc rounded once, m and l bit for bit); its acc
+             must lie within BF16_TOL and m and l within 1e-4 of its plain
+             version, empty shards exactly (0, -1e30, 0), and cuda_split at
              bf16 within the roundings of the merge of the plain partials.
+             bf16_partial_cases adds its gate set: phase 24's local lengths
+             (1024 and 256 rows, n_splits 1), lengths 0, 1, 15-17, part - 1,
+             part, part + 1 and S, S 1000 at n_splits 2 (a caller shard off
+             16 rows), D / Dv off 8 and unaligned q, k, v, G 1, 4 and 16, Hk
+             2, both layouts, and a sequence's partials in a B = 4 call
+             bitwise its B = 1 call at n_splits 1, 2 and 16.
 4. model   — a small model's prefill and decode Programs on the card agree
              with the same Programs on the CPU (plain PyTorch path): dense,
              paged fp32 (1e-4) and paged int8 (logits within 5e-2); and the
@@ -1506,6 +1517,7 @@ def kernels_phase(torch, K, cfg, scfgs, n_slots, chunk, cache_cap, page, pools, 
              "bf16_attention": bf16_attention_cases(torch, K),
              "bf16_norm_decode": bf16_norm_decode_cases(torch, K),
              "bf16_scan_wide_decode": bf16_scan_wide_decode_cases(torch, K),
+             "bf16_partial": bf16_partial_cases(torch, K),
              "combine": combine_kernels(torch, K, rn, timer, record, full_tol),
              "split": split_kernels(torch, K, rn, timer, record, full_tol, limit_line),
              "split_bf16": split_bf16_kernels(torch, K, rn, timer, record, full_tol,
@@ -1762,8 +1774,9 @@ def device_times(torch, K, limit_line):
     of the bf16 GEMM's short rows (gemma3-1b's decode q projection, MLA's
     absorbed products) beside matmul / bmm (their event times hold the
     launch path), and of the tensor-core scan (mamba2's and zamba2's
-    prefills at every length phases 10 and 19 run) and wide decode (MLA's absorbed decode, and with
-    every length 0: its fixed cost) beside their FFMA bodies. Run after
+    prefills at every length phases 10 and 19 run), the wide decode (MLA's
+    absorbed decode, and with every length 0: its fixed cost) and the bf16
+    partial (SPLIT_BF16_SHAPES) beside their FFMA bodies.  Run after
     the serving phases: the profiler's hooks stay in the process and slow
     every later launch on the host."""
     F = torch.nn.functional
@@ -1815,6 +1828,21 @@ def device_times(torch, K, limit_line):
     out["flash_decode bf16 wide MLA S=2048 all lengths 0"] = device_ms(
         torch, timer, lambda: K.flash_decode(q, k, v, none))
     del q, k, v
+    # the bf16 partial at SPLIT_BF16_SHAPES, beside its former body (the fp32
+    # body on bf16 rings): most rows are short enough that event times hold
+    # the launch path
+    for tag, b, hq, hk, dq, dv, s_len, lens, splits in SPLIT_BF16_SHAPES:
+        q, k, v = (rn(b, hq, dq).bfloat16(), rn(b, s_len, hk, dq).bfloat16(),
+                   rn(b, s_len, hk, dv).bfloat16())
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for ns in splits:
+            out[f"flash_decode_partial bf16 {tag} n_splits={ns}"] = {
+                **device_ms(torch, timer, lambda: K.flash_decode_partial(q, k, v, lengths,
+                                                                         n_splits=ns)),
+                **{f"FFMA body {k_}": v_ for k_, v_ in device_ms(
+                    torch, timer, lambda: K.flash_decode_partial_bf16_ffma(
+                        q, k, v, lengths, n_splits=ns)).items()}}
+        del q, k, v
     lengths = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         x, w = rn(4, 1152).to(dt), (rn(1152, 262144) * 1152 ** -0.5).to(dt)
@@ -1940,11 +1968,14 @@ def split_kernels(torch, K, rn, timer, record, full_tol, limit_line):
     return rows
 
 
-# the bf16 partial's shapes: phi3-mini's engine decode, gemma3-1b's global
-# decode (phase 24's length-sharded decode) over the n_splits curve and
-# deepseek-v2-lite's absorbed MLA decode (the wide layout): (tag, B, Hq, Hk,
-# D, Dv, S, lengths, n_splits)
+# the bf16 partial's shapes: gemma3-1b's tree decode (phase 24's length over
+# "model": one rank's 1024 rows of the global cache, n_splits 1, the rank's
+# local lengths; the headline), phi3-mini's engine decode, gemma3-1b's global
+# decode over the n_splits curve and deepseek-v2-lite's absorbed MLA decode
+# (the wide layout): (tag, B, Hq, Hk, D, Dv, S, lengths, n_splits)
 SPLIT_BF16_SHAPES = (
+    ("gemma3-1b tree decode, a rank's rows", 4, 4, 1, 256, 256, 1024, [1000, 1005, 1010, 1015],
+     (1,)),
     ("phi3-mini engine decode", 4, 32, 32, 96, 96, 1024, [731, 400, 129, 0], (2,)),
     ("gemma3-1b global decode", 4, 4, 1, 256, 256, 2048, [1400, 1000, 600, 250], (2, 4, 8, 16)),
     ("deepseek-v2-lite MLA absorbed decode", 4, 16, 1, 576, 512, 2048, [1400, 1000, 600, 250],
@@ -1953,17 +1984,21 @@ SPLIT_BF16_SHAPES = (
 
 
 def split_bf16_kernels(torch, K, rn, timer, record, full_tol, limit_line):
-    """flash_decode_partial's bf16 entry at SPLIT_BF16_SHAPES: its acc
-    bitwise the fp32 entry's acc on the upcast inputs rounded once, m and l
-    bitwise the fp32 entry's, acc within one bf16 ulp (+1e-4) and m, l
-    within the fp32 tolerance of the plain version; timed beside the fp32
-    entry on the upcast inputs, the plain version and the cuda_split
-    backend at bf16 (kernel + combine, the merge rounded once; against the
-    merge of the plain partials within the roundings both make: each rounds
-    every shard's acc and the output, 2^-7 of the merge of the shards' |acc|
-    plus 2^-7 of |out|, since the shards' acc may cancel).  The bound counts q, the live K/V rows at 2 bytes
-    a value and the lengths read once, the partials written once (acc 2
-    bytes a value, m and l 4 each).  Returns the rows."""
+    """flash_decode_partial's bf16 entry (the tensor-core bodies, each caller
+    shard cut into the sub-shards of decode_plan_partial_bf16) at
+    SPLIT_BF16_SHAPES: acc within BF16_TOL and m and l within the fp32
+    tolerance of the plain version, empty shards exactly (0, -1e30, 0); the
+    former body (flash_decode_partial_bf16_ffma, the yardstick) still the
+    fp32 entry's partials on the upcast inputs (acc rounded once, m and l
+    bitwise).  Timed beside the yardstick, the fp32 entry on the upcast
+    inputs, the plain version and (n_splits >= 2) the cuda_split backend at
+    bf16 (kernel + combine, the merge rounded once; against the merge of the
+    plain partials within the roundings both make: each rounds every
+    shard's acc and the output, 2^-7 of the merge of the shards' |acc| plus
+    2^-7 of |out|, since the shards' acc may cancel).  The bound counts q,
+    the live K/V rows at 2 bytes a value and the lengths read once, the
+    partials written once (acc 2 bytes a value, m and l 4 each).  Returns
+    the rows."""
     bf16, rows = torch.bfloat16, []
     for tag, b, hq, hk, d, dv, s_len, lens, splits in SPLIT_BF16_SHAPES:
         q, k, v = (rn(*shape).to(bf16) for shape in ((b, hq, d), (b, s_len, hk, d),
@@ -1974,14 +2009,16 @@ def split_bf16_kernels(torch, K, rn, timer, record, full_tol, limit_line):
         live = sum(min(max(x, 0), s_len) for x in lens)
         flops = 2.0 * live * hq * (d + dv)
         for ns in splits:
+            plan = K.decode_plan_partial_bf16(s_len // ns, hq, hk, ns, max(d, dv) > WIDE_DECODE_DIM)
             label = (f"{tag} B={b} Hq={hq} Hk={hk} D={d} Dv={dv} S={s_len} len={lens} "
-                     f"n_splits={ns} bf16")
+                     f"n_splits={ns} bf16 [sub-shards {plan[1]} x {plan[0]} rows]")
             got = K.flash_decode_partial(q, k, v, lengths, n_splits=ns)
             f32 = K.flash_decode_partial(*up, lengths, n_splits=ns)
-            if got[0].dtype != bf16 or not torch.equal(got[0], f32[0].to(bf16)) or not (
-                    torch.equal(got[1], f32[1]) and torch.equal(got[2], f32[2])):
-                fail(f"flash_decode_partial_bf16 {label}: not the fp32 entry's partials on the "
-                     f"upcast inputs (acc rounded once, m and l bitwise)")
+            old = K.flash_decode_partial_bf16_ffma(q, k, v, lengths, n_splits=ns)
+            if not (torch.equal(old[0], f32[0].to(bf16)) and torch.equal(old[1], f32[1])
+                    and torch.equal(old[2], f32[2])):
+                fail(f"flash_decode_partial_bf16_ffma {label}: not the fp32 entry's partials on "
+                     f"the upcast inputs (acc rounded once, m and l bitwise)")
             want = K.flash_decode_partial_plain(q, k, v, lengths, sc, ns)
             err = max(check_close(torch, f"flash_decode_partial_bf16 {label} acc",
                                   got[0].float(), want[0].float(), **BF16_TOL),
@@ -1989,30 +2026,138 @@ def split_bf16_kernels(torch, K, rn, timer, record, full_tol, limit_line):
                                   **full_tol),
                       check_close(torch, f"flash_decode_partial_bf16 {label} l", got[2], want[2],
                                   **full_tol))
-            split = K.decode_attention(q, k, v, lengths, backend="cuda_split", n_splits=ns)
-            merged = K.combine_partials_ref(want[0].float(), want[1], want[2]).to(bf16).float()
-            mag = K.combine_partials_ref(want[0].float().abs(), want[1], want[2])
-            if bool(((split.float() - merged).abs()
-                     > 2.0 ** -7 * (mag + merged.abs()) + BF16_TOL["atol"]).any()):
-                fail(f"cuda_split bf16 {label}: past the roundings of the plain route "
-                     f"(max |err| {float((split.float() - merged).abs().max()):.3e})")
+            empty = want[2] == 0
+            if not (bool((got[1][empty] == -1e30).all()) and bool((got[2][empty] == 0).all())
+                    and bool((got[0][empty] == 0).all())):
+                fail(f"flash_decode_partial_bf16 {label}: an empty shard is not (0, -1e30, 0)")
+            split_ms = None
+            if ns >= 2:
+                split = K.decode_attention(q, k, v, lengths, backend="cuda_split", n_splits=ns)
+                merged = K.combine_partials_ref(want[0].float(), want[1], want[2]).to(bf16).float()
+                mag = K.combine_partials_ref(want[0].float().abs(), want[1], want[2])
+                if bool(((split.float() - merged).abs()
+                         > 2.0 ** -7 * (mag + merged.abs()) + BF16_TOL["atol"]).any()):
+                    fail(f"cuda_split bf16 {label}: past the roundings of the plain route "
+                         f"(max |err| {float((split.float() - merged).abs().max()):.3e})")
+                del split, merged, mag
+                split_ms = timer.ms(lambda: K.decode_attention(q, k, v, lengths,
+                                                               backend="cuda_split", n_splits=ns))
             ms = timer.ms(lambda: K.flash_decode_partial(q, k, v, lengths, n_splits=ns))
+            old_ms = timer.ms(lambda: K.flash_decode_partial_bf16_ffma(q, k, v, lengths,
+                                                                       n_splits=ns))
             fp32_ms = timer.ms(lambda: K.flash_decode_partial(*up, lengths, n_splits=ns))
             plain = timer.ms(lambda: K.flash_decode_partial_plain(q, k, v, lengths, sc, ns))
-            split_ms = timer.ms(lambda: K.decode_attention(q, k, v, lengths,
-                                                           backend="cuda_split", n_splits=ns))
             nbytes = 2.0 * (live * hk * (d + dv) + b * hq * d) + 4.0 * b \
                 + ns * b * hq * (2.0 * dv + 8.0)
             record("flash_decode_partial_bf16", f"{tag} n_splits={ns}", label, err, ms, plain,
-                   None, flops, nbytes, peak=PEAK_BF16_FLOPS, fp32_ms=fp32_ms)
-            say(f"    cuda_split backend at bf16 (kernel + combine) {split_ms:.4g} ms  "
-                f"[{limit_line}]")
-            rows.append(dict(shape=tag, n_splits=ns, kernel_ms=ms, fp32_kernel_ms=fp32_ms,
-                             plain_ms=plain, split_ms=split_ms, max_abs_err=err,
+                   None, flops, nbytes, peak=PEAK_BF16_FLOPS, fp32_ms=fp32_ms, old_ms=old_ms)
+            if split_ms is not None:
+                say(f"    cuda_split backend at bf16 (kernel + combine) {split_ms:.4g} ms  "
+                    f"[{limit_line}]")
+            rows.append(dict(shape=tag, n_splits=ns, sub_shard_rows=plan[0],
+                             sub_shards=plan[1], kernel_ms=ms, ffma_body_ms=old_ms,
+                             fp32_kernel_ms=fp32_ms, plain_ms=plain, split_ms=split_ms,
+                             max_abs_err=err,
                              bound_ms=bound(flops, nbytes, PEAK_BF16_FLOPS)[0]))
-            del got, f32, want, split, merged
+            del got, f32, old, want
         del q, k, v, up
     return rows
+
+
+# the bf16 partial's gate set (bf16_partial_cases): (B, S, Hq, Hk, D, Dv,
+# lengths, n_splits); "edges" puts the lengths 0, 1, 15-17, part - 1, part,
+# part + 1 and S of the call's caller shards
+BF16_PARTIAL_EDGES = (
+    (4, 1024, 4, 1, 256, 256, (1000, 1008, 1016, 0), 1),     # phase 24: a rank's global rows
+    (4, 256, 4, 1, 256, 256, (256, 250, 128, 0), 1),          # and its rolling window's
+    (0, 2048, 4, 1, 256, 256, "edges", 2),
+    (0, 2048, 4, 1, 256, 256, "edges", 16),
+    (0, 1000, 4, 1, 256, 256, "edges", 2),                    # part 500: off 16
+    (0, 1000, 16, 1, 576, 512, "edges", 2),                   # and in the wide layout
+    (0, 300, 4, 4, 64, 64, "edges", 3),                       # G 1
+    (0, 256, 16, 1, 128, 128, "edges", 4),                    # G 16: two head groups
+    (0, 640, 8, 2, 96, 96, "edges", 2),                       # Hk 2
+    (0, 200, 4, 1, 30, 30, "edges", 2),                       # D / Dv off 8: element loads
+    (0, 192, 8, 2, 40, 20, "edges", 3),
+    (0, 256, 32, 2, 584, 500, "edges", 2),                    # wide, off 8, Hk 2
+    (0, 2048, 16, 1, 576, 512, "edges", 16),
+)
+BF16_PARTIAL_SPLITS = (1, 2, 16)
+
+
+def bf16_partial_cases(torch, K):
+    """The tensor-core bf16 partial (flash_decode_partial_bf16): at
+    BF16_PARTIAL_EDGES, acc within BF16_TOL and m and l within the fp32
+    tolerance (1e-4) of the plain version, empty caller shards exactly (0,
+    -1e30, 0), an unaligned q, k or v (element loads) bitwise the aligned
+    call where D and Dv are multiples of 8; then one order for every row: a
+    sequence's partials in a B = 4 call bitwise its B = 1 call at n_splits
+    BF16_PARTIAL_SPLITS, at gemma3-1b's global shape, G 1, phi3-mini's
+    heads and MLA's absorbed decode.  Returns the record."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    bf16, tol = torch.bfloat16, dict(atol=1e-4, rtol=1e-4)
+
+    def rb(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(bf16)
+
+    def unaligned(x):  # the same values at a data pointer 2 bytes off 16
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    n, worst, subs = 0, 0.0, set()
+    for b, s_len, hq, hk, d, dv, lens, ns in BF16_PARTIAL_EDGES:
+        part = s_len // ns
+        if lens == "edges":
+            lens = tuple(sorted({0, 1, 15, 16, 17, part - 1, part, part + 1, s_len}))
+            b = len(lens)
+        q, k, v = rb(b, hq, d), rb(b, s_len, hk, d), rb(b, s_len, hk, dv)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        plan = K.decode_plan_partial_bf16(part, hq, hk, ns, max(d, dv) > WIDE_DECODE_DIM)
+        subs.add(plan[1])
+        label = (f"flash_decode_partial_bf16 B={b} S={s_len} Hq={hq} Hk={hk} D={d} Dv={dv} "
+                 f"n_splits={ns} len={lens} plan {plan}")
+        got = K.flash_decode_partial(q, k, v, lengths, n_splits=ns)
+        want = K.flash_decode_partial_plain(q, k, v, lengths, 1.0 / math.sqrt(d), ns)
+        worst = max(worst, check_close(torch, label + " acc", got[0].float(), want[0].float(),
+                                       **BF16_TOL))
+        check_close(torch, label + " m", got[1], want[1], **tol)
+        check_close(torch, label + " l", got[2], want[2], **tol)
+        empty = (lengths[None, :] - part * torch.arange(ns, device="cuda")[:, None]) <= 0
+        if not (bool((got[1][empty] == -1e30).all()) and bool((got[2][empty] == 0).all())
+                and bool((got[0][empty] == 0).all())):
+            fail(f"{label}: an empty caller shard is not exactly (0, -1e30, 0)")
+        if d % 8 == 0 and dv % 8 == 0:
+            for args in ((unaligned(q), k, v), (q, unaligned(k), v), (q, k, unaligned(v))):
+                again = K.flash_decode_partial(*args, lengths, n_splits=ns)
+                if not all(torch.equal(x, y) for x, y in zip(again, got)):
+                    fail(f"{label}: an unaligned q, k or v (element loads) changes the bits")
+        n += 1
+        del q, k, v, got, want
+    for hq, hk, d, dv in ((4, 1, 256, 256), (4, 4, 64, 64), (32, 32, 96, 96),
+                          BF16_WIDE_SHAPE):
+        for ns in BF16_PARTIAL_SPLITS:
+            q, k, v = rb(4, hq, d), rb(4, 2048, hk, d), rb(4, 2048, hk, dv)
+            lengths = torch.tensor((1400, 1000, 17, 0), dtype=torch.int32, device="cuda")
+            full = K.flash_decode_partial(q, k, v, lengths, n_splits=ns)
+            for i in range(4):
+                one = K.flash_decode_partial(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                             v[i:i + 1].contiguous(),
+                                             lengths[i:i + 1].contiguous(), n_splits=ns)
+                if not all(torch.equal(x[:, 0], y[:, i]) for x, y in zip(one, full)):
+                    fail(f"flash_decode_partial_bf16 Hq={hq} Hk={hk} D={d} Dv={dv} "
+                         f"n_splits={ns}: sequence {i}'s B=1 partials are not bitwise the B=4 "
+                         "call's")
+                n += 1
+            del q, k, v, full
+    torch.cuda.synchronize()
+    say(f"  bf16 partial: {n} checks, edge shapes within BF16_TOL (max |err| {worst:.3e}; m, l "
+        f"within 1e-4; sub-shards a caller shard {sorted(subs)}), empty caller shards (0, -1e30, "
+        f"0), unaligned inputs bitwise; partials bitwise across B at n_splits "
+        f"{list(BF16_PARTIAL_SPLITS)}, (Hq, Hk, D, Dv) (4, 1, 256, 256), (4, 4, 64, 64), "
+        f"(32, 32, 96, 96), {BF16_WIDE_SHAPE}")
+    return {"checks": n, "max_abs_err_edges": worst, "sub_shards": sorted(subs)}
 
 
 def combine_kernels(torch, K, rn, timer, record, full_tol):
@@ -5826,9 +5971,12 @@ class Kernels:
         self.flash_decode, self.flash_decode_plain = fd.flash_decode, fd.flash_decode_plain
         self.decode_plan_bf16 = fd.decode_plan_bf16
         self.decode_plan_wide_bf16 = fd.decode_plan_wide_bf16
+        self.decode_plan_partial_bf16 = fd.decode_plan_partial_bf16
         # the former FFMA bf16 bodies of the scan and the wide decode: the
         # yardsticks the tensor-core bodies are timed against (no path runs them)
+        # and of the bf16 partial (the fp32 body on bf16 rings)
         self.flash_decode_bf16_ffma = fd.flash_decode_bf16_ffma
+        self.flash_decode_partial_bf16_ffma = fd.flash_decode_partial_bf16_ffma
         self.ssd_scan_bf16_ffma = ssd.ssd_scan_bf16_ffma
         self.flash_chunk_attention = fa.flash_chunk_attention
         self.flash_chunk_attention_plain = fa.flash_chunk_attention_plain
@@ -5936,12 +6084,13 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"[build]   {line.strip()}")
     # the tensor-core bf16 bodies: wgmma (HGMMA) in the GEMM and attention,
-    # mma.sync (HMMA) in the narrow and wide decodes and the scan's chunk
-    # states and output
+    # mma.sync (HMMA) in the narrow and wide decodes (the bf16 partial runs
+    # both: decode_tc_kernel<NV, 1> is the narrow body's partial mode) and
+    # the scan's chunk states and output
     bodies = {"GEMM": ("gemm_wgmma_kernel", "HGMMA"),
               "attention": ("attention_wgmma_kernel", "HGMMA"),
-              "narrow decode": ("decode_tc_kernel", "HMMA"),
-              "wide decode": ("decode_wide_kernel", "HMMA"),
+              "narrow decode and partial": ("decode_tc_kernel", "HMMA"),
+              "wide decode and partial": ("decode_wide_kernel", "HMMA"),
               "scan chunk-state": ("state_tc_kernel", "HMMA"),
               "scan output": ("output_tc_kernel", "HMMA")}
     tc = sass_counts(_cuda, path, dict(bodies.values()))
@@ -5951,6 +6100,8 @@ def main() -> int:
             f"instance (cuobjdump -sass): {counts}")
         if not counts or not all(counts.values()):
             fail(f"the bf16 {body}'s instances issue no {opcode}: {counts}")
+    if not any(k.startswith("decode_tc_kernel<") and k.endswith(", 1>") for k in tc):
+        fail(f"no partial-mode instance of decode_tc_kernel in the SASS: {sorted(tc)}")
     if log:  # empty when an existing library was reused
         say("[build] registers and spill-store bytes of each tensor-core and bf16 rmsnorm "
             "instance (-Xptxas -v): "
@@ -6320,6 +6471,7 @@ def main() -> int:
             entry["n_splits_curve"] = extra["split"]
         if name == "flash_decode_partial_bf16":
             entry["n_splits_curve"] = extra["split_bf16"]
+            entry["gates"] = extra["bf16_partial"]
         if name == "combine_partials":
             entry["shapes"] = extra["combine"]
         if name == "gemm":

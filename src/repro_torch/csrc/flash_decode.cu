@@ -1,8 +1,8 @@
 // flash_decode: one-token GQA attention over a KV cache.
 //   q (B, Hq, D), lengths (B,) int32 -> o (B, Hq, Dv); cache positions
-//   >= lengths[b] are masked.  Every entry point but the narrow bf16 decode
-//   runs one fp32 kernel body, decode_shard_kernel, a template over the KV
-//   row source:
+//   >= lengths[b] are masked.  Every fp32 and int8 entry point runs one
+//   kernel body, decode_shard_kernel, a template over the KV row source
+//   (the bf16 entries run the tensor-core bodies below):
 //   flash_decode_f32        dense k (B, S, Hk, D), v (B, S, Hk, Dv);
 //   flash_paged_decode_f32  pages (N, P, Hk, D/Dv) fp32 through block
 //                           tables (B, MP);
@@ -30,11 +30,15 @@
 //                           keeps the former wide body (the fp32 body on
 //                           bf16 rings) as the yardstick chip_smoke.py
 //                           times it against;
-//   flash_decode_partial_bf16  flash_decode_partial_f32 on bf16 q, k, v
-//                           (both layouts), the bf16 rings above, each
-//                           shard's acc rounded once to bf16 as it is
-//                           written, m and l fp32 (JAX's partial: acc in
-//                           q's dtype, m and l float32).
+//   flash_decode_partial_bf16  the partials of n_splits caller shards on
+//                           bf16 q, k, v, on the tensor-core bodies: each
+//                           caller shard cut into sub-shards and merged
+//                           back (the partial section of this note); acc
+//                           rounded once to bf16, m and l fp32 (JAX's
+//                           partial: acc in q's dtype, m and l float32);
+//                           flash_decode_partial_bf16_ffma keeps the former
+//                           body (the fp32 body on bf16 rings) as the
+//                           yardstick chip_smoke.py times it against.
 //
 // Replaces: src/repro/kernels/flash_decode.py::flash_decode (_flash_decode,
 // body _decode_kernel with emit_stats=False), behind `decode_attention`
@@ -44,7 +48,9 @@
 // emit_stats=True), behind `decode_attention` pallas_split (ops.py:178-208),
 // which calls it once per shard in a Python loop.  decode_tc_kernel
 // replaces _decode_kernel (src/repro/kernels/flash_decode.py:148, emit_stats
-// False) for bf16 heads up to 256 wide.
+// False) for bf16 heads up to 256 wide, and, in its partial mode, the same
+// body with emit_stats=True (flash_decode.py:158); decode_wide_kernel does
+// both for wider bf16 heads.
 //
 // What bounds it on the H100: bytes.  Each cache byte is read once per step
 // for O(1) flops (about 0.5 flop/byte at Hq = Hk), so its least time is the
@@ -102,16 +108,11 @@
 //
 // Partial (split-KV, flash_decode_partial_f32): shard = S / n_splits, the
 // caller's n_splits equal shards, partials out; the bound adds the
-// partials, n_splits * B * Hq * (Dv + 2) floats written once.  The bf16
-// partial (flash_decode_partial_bf16) is the same body with bf16 rings and
-// a bf16 acc: every sum is the fp32 entry's, so its acc is the fp32
-// entry's acc on the upcast inputs rounded once and its m and l are the
-// fp32 entry's bit for bit; the shard still comes from S and n_splits
-// alone.  Its bound: the live rows at 2 bytes a value, the partials at 2
-// bytes an acc value and 8 bytes an (m, l) pair.
+// partials, n_splits * B * Hq * (Dv + 2) floats written once.
 //
-// bf16 on the fp32 body (the bf16 partial, and the former wide
-// flash_decode_bf16 kept as flash_decode_bf16_ffma): the ring's slots hold
+// bf16 on the fp32 body (the former bf16 partial and the former wide
+// flash_decode_bf16, kept as the yardsticks flash_decode_partial_bf16_ffma
+// and flash_decode_bf16_ffma; no path runs them): the ring's slots hold
 // bf16 rows, copied by cp.async (16-byte pieces of 8 values where D and Dv
 // are multiples of 8 and K, V 16-byte aligned, else 2-byte loads and
 // stores) and upcast as a lane reads its groups (8 bytes a group of 4); q
@@ -214,6 +215,39 @@
 //   row, the plan never reads B, every sum's order is fixed by D, Dv and
 //   the plan; no atomics.  Its bits are not the fp32 body's rounded, so it
 //   is held to its plain version within one bf16 ulp.
+//
+// The bf16 partial (flash_decode_partial_bf16: n_splits caller shards of
+// part = S / n_splits rows, acc (n_splits, B, Hq, Dv) bf16, m and l fp32,
+// unnormalised; the tree decode calls it with n_splits 1 over a rank's rows,
+// cuda_split with 2-16).  Bytes bound it as they bound the decode; its bound
+// adds the partials written once (2 bytes an acc value, 8 an (m, l) pair).
+// The fp32 body on bf16 rings ran one block a (sequence, kv head, group,
+// caller shard): the tree decode's n_splits 1 put B x Hk blocks on the
+// card's 132 SMs (4 at gemma3-1b's batch 4), each walking ~1000 rows in
+// 4-row FFMA tiles.  The tensor-core bodies run it instead:
+// - Sub-shards: decode_plan_partial_bf16 (Python) cuts each caller shard
+//   into sub-shards of whole 16-row tiles by the decode plans' rule, with
+//   the n_splits caller shards counted in a sequence's fill (a narrow
+//   sub-shard at least TC_MIN_SUB = 64 rows, a tile a warp); a block's rows
+//   stop at its caller shard's end (`rows` in both kernels), so a part off
+//   16 (S 1000, n_splits 2) never reads into the next caller shard.
+// - D, Dv <= 256: decode_tc_kernel<NV, true>, the narrow decode's body in a
+//   partial mode: grid (cluster x n_splits, B x Hk x groups), one cluster
+//   of sub-shards a caller shard, merged in rank order through distributed
+//   shared memory as the decode merges, then written unnormalised: acc
+//   rounded once (no division by l), l raw, m from log2 units to natural
+//   ones; a caller shard past the length gives exactly (0, -1e30, 0).  One
+//   launch, no workspace.
+// - Wider (MLA's absorbed 576 / 512): decode_wide_kernel over the
+//   sub-shards into the fp32 workspace, then combine_kernel<bf16, true>
+//   merging each caller shard's sub-shards in shard order into its
+//   unnormalised partial (m the max, l and acc summed with the weights
+//   exp(m_s - m); all-empty gives (0, -1e30, 0)).
+// - One order for every row: the plan reads the rows, the head counts and
+//   n_splits, never B; every sum's order is the decode bodies'.  Its bits
+//   are not the fp32 entry's rounded, so it is held to its plain version
+//   within BF16_TOL (acc) and the fp32 tolerance (m, l), and its partials
+//   bitwise across B.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -306,7 +340,8 @@ __device__ __forceinline__ void fma4(float p, const float4& v, float4& a) {
 // float4 groups a lane holds of a K row and of a V row.  TQ: q's type
 // (fp32, or bf16 with bf16 K/V); T: K/V's (fp32, bf16 or int8); the ring
 // holds T's rows as fp32 (fp32, int8 dequantized) or bf16.  TA: the
-// partial acc's type (fp32; bf16 rounded once for flash_decode_partial_bf16).
+// partial acc's type (fp32; bf16 rounded once for the yardstick
+// flash_decode_partial_bf16_ffma).
 template <class Rows, typename TQ, typename T, typename TA, int GM, int NCK, int NCV>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_shard_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
@@ -510,17 +545,29 @@ decode_shard_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Block (row, y) of the R = B * Hq rows: the NS shards' weights exp(m_i - m)
-// once into shared memory, then out[row, d] = sum_i acc_i[d] * w_i /
-// max(sum_i l_i * w_i, 1e-30) for the y-th THREADS columns d, every sum in
-// shard order; TO: out's type (fp32, or bf16 rounded once).
-template <typename TO>
+// Block (row, y, i) of the R = B * Hq rows: the NS shards' weights exp(m_s
+// - m) once into shared memory, then out[row, d] = sum_s acc_s[d] * w_s /
+// max(sum_s l_s * w_s, 1e-30) for the y-th THREADS columns d, every sum in
+// shard order; TO: out's type (fp32, or bf16 rounded once).  GROUPS: the
+// partial mode of the wide bf16 partial: block (row, y, i) merges shards i *
+// NS .. i * NS + NS - 1 of the (gridDim.z * NS, R) workspace into caller
+// shard i's partial, acc unnormalised (no division) into out (gridDim.z, R,
+// Dv), m and l into m_out and l_out (gridDim.z, R); a group whose shards
+// are all empty gives exactly (0, -1e30, 0).
+template <typename TO, bool GROUPS>
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
-               const float* __restrict__ l, TO* __restrict__ out, int NS, int R, int Dv) {
+               const float* __restrict__ l, TO* __restrict__ out, float* __restrict__ m_out,
+               float* __restrict__ l_out, int NS, int R, int Dv) {
   extern __shared__ float w[];  // [NS] m, then the weights
   __shared__ float l_sum, m_max;
   const int row = blockIdx.x, tid = threadIdx.x;
+  const size_t grp = blockIdx.z;  // 0 unless GROUPS
+  if constexpr (GROUPS) {
+    acc += grp * NS * R * Dv;
+    m += grp * NS * R;
+    l += grp * NS * R;
+  }
   // the shards' m loaded together; their max (exact in any order); the
   // weights; then l's sum in shard order
   for (int i = tid; i < NS; i += THREADS) w[i] = m[(size_t)i * R + row];
@@ -538,14 +585,24 @@ combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
     float ls = 0.f;
 #pragma unroll 8
     for (int i = 0; i < NS; ++i) ls = ls + l[(size_t)i * R + row] * w[i];
-    l_sum = fmaxf(ls, 1e-30f);
+    if constexpr (GROUPS) {
+      if (blockIdx.y == 0) {
+        m_out[grp * R + row] = m_max;
+        l_out[grp * R + row] = ls;
+      }
+    } else {
+      l_sum = fmaxf(ls, 1e-30f);
+    }
   }
   __syncthreads();
   for (int d = blockIdx.y * THREADS + tid; d < Dv; d += gridDim.y * THREADS) {
     float o = 0.f;
 #pragma unroll 16
     for (int i = 0; i < NS; ++i) o = o + acc[((size_t)i * R + row) * Dv + d] * w[i];
-    out[(size_t)row * Dv + d] = repro_torch::from_f32<TO>(o / l_sum);
+    if constexpr (GROUPS)
+      out[(grp * R + row) * Dv + d] = repro_torch::from_f32<TO>(o);
+    else
+      out[(size_t)row * Dv + d] = repro_torch::from_f32<TO>(o / l_sum);
   }
 }
 
@@ -555,7 +612,22 @@ int combine(const float* acc, const float* m, const float* l, TO* out, int NS, i
   const size_t smem = (size_t)NS * sizeof(float);
   if (NS < 1 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(R, (Dv + THREADS - 1) / THREADS);
-  combine_kernel<TO><<<grid, THREADS, smem, stream>>>(acc, m, l, out, NS, R, Dv);
+  combine_kernel<TO, false><<<grid, THREADS, smem, stream>>>(acc, m, l, out, nullptr, nullptr,
+                                                             NS, R, Dv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The partial mode: n_groups groups of NS shards of (n_groups * NS, R[, Dv])
+// partials -> (n_groups, R[, Dv]) partials, acc rounded once to bf16.
+int combine_groups(const float* acc, const float* m, const float* l, repro_torch::bf16* acc_out,
+                   float* m_out, float* l_out, int NS, int n_groups, int R, int Dv,
+                   cudaStream_t stream) {
+  const size_t smem = (size_t)NS * sizeof(float);
+  if (NS < 1 || n_groups < 1 || n_groups > 65535 || smem > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(R, (Dv + THREADS - 1) / THREADS, n_groups);
+  combine_kernel<repro_torch::bf16, true><<<grid, THREADS, smem, stream>>>(
+      acc, m, l, acc_out, m_out, l_out, NS, R, Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -705,29 +777,37 @@ __device__ __forceinline__ void tc_stage(bf16* dst, const bf16* src, size_t stri
   }
 }
 
-// Block (rank, y) of a cluster of gridDim.x blocks: y = (sequence b, kv head
-// h, group of TC_HEADS query heads); rank: rows [rank * shard, (rank + 1) *
-// shard) of the cache.  Writes o rows b, h * G + g0 .. + gn - 1, rounded
-// once to bf16.  NV: the most 16-column chunks of Dv (Dv16 / 16 <= NV).
-template <int NV>
+// Block (x, y) of a cluster of n_rank blocks along x: y = (sequence b, kv
+// head h, group of TC_HEADS query heads); the cluster x / n_rank is caller
+// shard i, rows [i * part, (i + 1) * part) of the cache (part = S, one
+// cluster, for the decode), and the block's rank r takes rows [i * part + r
+// * shard, min(i * part + (r + 1) * shard, (i + 1) * part)).  Writes o rows
+// b, h * G + g0 .. + gn - 1, rounded once to bf16; PARTIAL (the bf16
+// partial): o is acc (S / part, B, Hq, Dv) and the cluster writes caller
+// shard i's unnormalised acc (rounded once), m (natural units) and l, an
+// empty shard exactly (0, -1e30, 0).  NV: the most 16-column chunks of Dv
+// (Dv16 / 16 <= NV).
+template <int NV, bool PARTIAL>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ lengths,
-                 bf16* __restrict__ o, int Hq, int Hk, int S, int D, int Dv, int shard,
+                 bf16* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int Hq, int Hk, int S, int D, int Dv, int part, int shard, int n_rank,
                  float scale_log2, bool vec, bool vec_q) {
   extern __shared__ __align__(16) unsigned char smem_tc[];
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int n_rank = static_cast<int>(gridDim.x);   // the cluster spans grid.x
+  const int split = blockIdx.x / n_rank;              // the caller's shard
   const int G = Hq / Hk, n_grp = (G + TC_HEADS - 1) / TC_HEADS;
   const int bh = blockIdx.y / n_grp, g0 = (blockIdx.y % n_grp) * TC_HEADS;
   const int b = bh / Hk, h = bh % Hk, gn = min(TC_HEADS, G - g0);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int KS = tc_stride(D), VS = tc_stride(Dv);
   const int nk = (D + 15) / 16, nv = (Dv + 15) / 16, Dv16 = 16 * nv;
-  const int row0 = rank * shard;
-  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), shard);
+  const int row0 = split * part + rank * shard;
+  const int rows = max(min(shard, (split + 1) * part - row0), 0);   // never past the caller shard
+  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), rows);
 
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);               // [TC_HEADS][KS]
   bf16* ring = qs + TC_HEADS * KS;
@@ -965,8 +1045,20 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       ls = ls + lr[r] * f;
     }
     wsum[tid] = fmaxf(ls, 1e-30f);
+    if constexpr (PARTIAL) {
+      // m from log2 units to natural ones; an empty shard keeps -1e30
+      const size_t row = ((size_t)split * (gridDim.y / (Hk * n_grp)) + b) * Hq + (size_t)h * G +
+                         g0 + tid;
+      if (rank == 0) {
+        m_out[row] = mm == repro_torch::kNegInf ? mm : mm * 0.6931471805599453f;
+        l_out[row] = ls;
+      }
+    }
   }
   __syncthreads();
+  // o's rows of this group: acc (PARTIAL) at caller shard `split`, or the output
+  const size_t o_row = PARTIAL ? ((size_t)split * (gridDim.y / (Hk * n_grp)) + b) * Hq
+                               : (size_t)b * Hq;
   for (int i = rank * TC_THREADS + tid; i < gn * Dv; i += n_rank * TC_THREADS) {
     const int g = i / Dv, d = i % Dv;
     float a = 0.f;
@@ -974,23 +1066,27 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < TC_CLUSTER; ++r)
       if (r < n_rank)
         a = a + cluster.map_shared_rank(bacc, r)[g * Dv16 + d] * wt[r * TC_HEADS + g];
-    o[((size_t)b * Hq + (size_t)h * G + g0 + g) * Dv + d] = __float2bfloat16_rn(a / wsum[g]);
+    o[(o_row + (size_t)h * G + g0 + g) * Dv + d] =
+        __float2bfloat16_rn(PARTIAL ? a : a / wsum[g]);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <int NV>
-int launch_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* o, int B,
-              int Hq, int Hk, int S, int D, int Dv, int shard, float scale, bool vec, bool vec_q,
-              cudaStream_t stream) {
-  auto kernel = decode_tc_kernel<NV>;
+// n_splits caller shards of S / n_splits rows, each one cluster of shards of
+// `shard` rows (the decode: n_splits 1, PARTIAL false).
+template <int NV, bool PARTIAL>
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* o,
+              float* m, float* l, int B, int Hq, int Hk, int S, int D, int Dv, int n_splits,
+              int shard, float scale, bool vec, bool vec_q, cudaStream_t stream) {
+  auto kernel = decode_tc_kernel<NV, PARTIAL>;
   const size_t smem = decode_tc_smem_bytes(D, Dv);
   static int smem_set[repro_torch::kMaxDevices];
   cudaError_t err = repro_torch::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_grp = (Hq / Hk + TC_HEADS - 1) / TC_HEADS, cluster = (S + shard - 1) / shard;
+  const int part = S / n_splits;
+  const int n_grp = (Hq / Hk + TC_HEADS - 1) / TC_HEADS, cluster = (part + shard - 1) / shard;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, B * Hk * n_grp);
+  cfg.gridDim = dim3(cluster * n_splits, B * Hk * n_grp);
   cfg.blockDim = dim3(TC_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1001,19 +1097,26 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, b
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, q, k, v, lengths, o, Hq, Hk, S, D, Dv, shard,
-                           scale * 1.4426950408889634f, vec, vec_q);
+  err = cudaLaunchKernelEx(&cfg, kernel, q, k, v, lengths, o, m, l, Hq, Hk, S, D, Dv, part, shard,
+                           cluster, scale * 1.4426950408889634f, vec, vec_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The narrow bf16 decode in one launch: shards of `shard` rows (the
-// wrapper's decode_plan_bf16: a multiple of TC_ROWS, at most TC_CLUSTER of
-// them), merged inside the cluster.
-int decode_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* o, int B,
-              int Hq, int Hk, int S, int D, int Dv, int shard, float scale, void* stream) {
+// The narrow bf16 body in one launch: n_splits caller shards of part = S /
+// n_splits rows (the decode: 1), each cut into shards of `shard` rows (the
+// wrapper's decode_plan_bf16 or decode_plan_partial_bf16: a multiple of
+// TC_ROWS, at most TC_CLUSTER of them) and merged inside its cluster: into o
+// (the decode), or with `partial` into the caller shard's unnormalised acc
+// (o, bf16), m and l.
+int decode_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* o, float* m,
+              float* l, int B, int Hq, int Hk, int S, int D, int Dv, int n_splits, int shard,
+              float scale, bool partial, void* stream) {
+  const int part = n_splits > 0 ? S / n_splits : 0;
   if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || D > 32 * 4 * NCH || Dv > 32 * 4 * NCH ||
-      S < 1 || shard < 1 || shard % TC_ROWS || (S + shard - 1) / shard > TC_CLUSTER ||
+      part < 1 || S % n_splits || shard < 1 ||
+      shard % TC_ROWS || (part + shard - 1) / shard > TC_CLUSTER ||
+      (long long)n_splits * TC_CLUSTER > 0x7fffffff ||
       (size_t)B * Hk * ((Hq / Hk + TC_HEADS - 1) / TC_HEADS) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = D % 8 == 0 && Dv % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -1021,8 +1124,11 @@ int decode_tc(const bf16* q, const bf16* k, const bf16* v, const int* lengths, b
   const bool vec_q = D % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nv = (Dv + 15) / 16;
-#define REPRO_TC(NV) \
-  launch_tc<NV>(q, k, v, lengths, o, B, Hq, Hk, S, D, Dv, shard, scale, vec, vec_q, st)
+#define REPRO_TC(NV)                                                                             \
+  (partial ? launch_tc<NV, true>(q, k, v, lengths, o, m, l, B, Hq, Hk, S, D, Dv, n_splits, shard, \
+                                 scale, vec, vec_q, st)                                           \
+           : launch_tc<NV, false>(q, k, v, lengths, o, m, l, B, Hq, Hk, S, D, Dv, n_splits,       \
+                                  shard, scale, vec, vec_q, st))
   if (nv <= 4) return REPRO_TC(4);
   if (nv <= 8) return REPRO_TC(8);
   return REPRO_TC(16);
@@ -1085,10 +1191,12 @@ __device__ __forceinline__ void wd_stage(bf16* dst, const bf16* src, size_t stri
 }
 
 // Block (x, y): x = (sequence b, kv head h, group of WD_HEADS query heads);
-// y: rows [y * shard, (y + 1) * shard) of the cache.  Writes rows (y, b, h *
-// G + g0 + g) of the (shards, B, Hq) partials, acc in fp32, m in natural
-// units, as decode_shard_kernel does; combine_kernel merges them.  Every
-// warp walks every tile of the shard:
+// y = i * nsub + j: rows [i * part + j * shard, min(i * part + (j + 1) *
+// shard, (i + 1) * part)) of the cache (the decode: part = S, i = 0; the
+// bf16 partial: nsub sub-shards of each caller shard i, none reading past
+// its end).  Writes rows (y, b, h * G + g0 + g) of the (shards, B, Hq)
+// partials, acc in fp32, m in natural units, as decode_shard_kernel does;
+// combine_kernel merges them.  Every warp walks every tile of the shard:
 // - S = q K^T: warp w over its run of D's chunks, q's A registers held from
 //   the start, two accumulator chains (even and odd chunks) for each 8-key
 //   half; the warps' parts summed in warp order through shared memory;
@@ -1104,15 +1212,17 @@ decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const int* __restrict__ lengths,
                    float* __restrict__ acc_out, float* __restrict__ m_out,
                    float* __restrict__ l_out, int B, int Hq, int Hk, int S, int D, int Dv,
-                   int shard, float scale, bool vec, bool vec_q) {
+                   int part, int shard, int nsub, float scale, bool vec, bool vec_q) {
   extern __shared__ __align__(16) unsigned char smem_wd[];
   const int G = Hq / Hk, n_grp = (G + WD_HEADS - 1) / WD_HEADS;
   const int bh = blockIdx.x / n_grp, g0 = (blockIdx.x % n_grp) * WD_HEADS;
   const int b = bh / Hk, h = bh % Hk, gn = min(WD_HEADS, G - g0);
-  const int row0 = blockIdx.y * shard;
+  const int split = blockIdx.y / nsub;
+  const int row0 = split * part + (blockIdx.y % nsub) * shard;
+  const int rows = max(min(shard, (split + 1) * part - row0), 0);   // never past the caller shard
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, gq = lane / 4, tq = lane % 4;
   const size_t out_row = ((size_t)blockIdx.y * B + b) * Hq + (size_t)h * G + g0;
-  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), shard);
+  const int len = min(max(min(max(lengths[b], 0), S) - row0, 0), rows);
   if (len == 0) {  // block-uniform: the empty partial
     for (int i = tid; i < gn * Dv; i += WD_THREADS) acc_out[out_row * Dv + i] = 0.f;
     for (int g = tid; g < gn; g += WD_THREADS) {
@@ -1304,15 +1414,21 @@ decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// The wide bf16 decode: the shard kernel over shards of `shard` rows (the
-// wrapper's decode_plan_wide_bf16: a multiple of WD_ROWS), then the combine
-// into o rounded once to bf16.
+// The wide bf16 body: the shard kernel over n_splits caller shards of part =
+// S / n_splits rows (the decode: 1), each cut into shards of `shard` rows
+// (the wrapper's decode_plan_wide_bf16 or decode_plan_partial_bf16: a
+// multiple of WD_ROWS), into the fp32 workspace acc, m, l (n_splits * nsub,
+// B, Hq[, Dv]); then the combine: into o rounded once to bf16 (the decode),
+// or with m_out, l_out (the bf16 partial) each caller shard's nsub shards
+// merged in order into its unnormalised partial, acc into o (bf16).
 int decode_wide(const bf16* q, const bf16* k, const bf16* v, const int* lengths, float* acc,
-                float* m, float* l, bf16* o, int B, int Hq, int Hk, int S, int D, int Dv,
-                int shard, float scale, void* stream) {
+                float* m, float* l, bf16* o, float* m_out, float* l_out, int B, int Hq, int Hk,
+                int S, int D, int Dv, int n_splits, int shard, float scale, void* stream) {
+  const int part = n_splits > 0 ? S / n_splits : 0;
+  const int nsub = shard > 0 ? (part + shard - 1) / shard : 0;
   if (B < 1 || Hk < 1 || Hq % Hk || D < 1 || Dv < 1 || D > 16 * WD_WARPS * WD_NQ ||
-      Dv > 16 * WD_WARPS * WD_NV || S < 1 || shard < 1 || shard % WD_ROWS ||
-      (S + shard - 1) / shard > 65535)
+      Dv > 16 * WD_WARPS * WD_NV || part < 1 || S % n_splits || shard < 1 || shard % WD_ROWS ||
+      (long long)n_splits * nsub > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = D % 8 == 0 && Dv % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
@@ -1322,12 +1438,14 @@ int decode_wide(const bf16* q, const bf16* k, const bf16* v, const int* lengths,
   cudaError_t err = repro_torch::allow_smem(decode_wide_kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_grp = (Hq / Hk + WD_HEADS - 1) / WD_HEADS, shards = (S + shard - 1) / shard;
-  decode_wide_kernel<<<dim3(B * Hk * n_grp, shards), WD_THREADS, smem, st>>>(
-      q, k, v, lengths, acc, m, l, B, Hq, Hk, S, D, Dv, shard, scale, vec, vec_q);
+  const int n_grp = (Hq / Hk + WD_HEADS - 1) / WD_HEADS;
+  decode_wide_kernel<<<dim3(B * Hk * n_grp, n_splits * nsub), WD_THREADS, smem, st>>>(
+      q, k, v, lengths, acc, m, l, B, Hq, Hk, S, D, Dv, part, shard, nsub, scale, vec, vec_q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return combine(acc, m, l, o, shards, B * Hq, Dv, st);
+  if (m_out != nullptr)
+    return combine_groups(acc, m, l, o, m_out, l_out, nsub, n_splits, B * Hq, Dv, st);
+  return combine(acc, m, l, o, nsub, B * Hq, Dv, st);
 }
 
 }  // namespace
@@ -1390,8 +1508,10 @@ extern "C" int flash_decode_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  float* m, float* l, __nv_bfloat16* o, int B, int Hq, int Hk,
                                  int S, int D, int Dv, int shard, float scale, void* stream) {
   if (D <= 32 * 4 * NCH && Dv <= 32 * 4 * NCH)
-    return decode_tc(q, k, v, lengths, o, B, Hq, Hk, S, D, Dv, shard, scale, stream);
-  return decode_wide(q, k, v, lengths, acc, m, l, o, B, Hq, Hk, S, D, Dv, shard, scale, stream);
+    return decode_tc(q, k, v, lengths, o, nullptr, nullptr, B, Hq, Hk, S, D, Dv, 1, shard, scale,
+                     false, stream);
+  return decode_wide(q, k, v, lengths, acc, m, l, o, nullptr, nullptr, B, Hq, Hk, S, D, Dv, 1,
+                     shard, scale, stream);
 }
 
 // The same arguments at D or Dv > 256 on the former wide body (the fp32 body's
@@ -1408,13 +1528,37 @@ extern "C" int flash_decode_bf16_ffma(const __nv_bfloat16* q, const __nv_bfloat1
                 S, D, Dv, shard, scale, stream);
 }
 
-// flash_decode_partial_f32's arguments with q, k and v bf16 (either layout)
-// and acc bf16, each shard's fp32 acc rounded once; m and l fp32.
+// flash_decode_partial_f32's arguments with q, k and v bf16 and acc bf16 (m
+// and l fp32), on the tensor cores: each of the n_splits caller shards cut
+// into sub-shards of `sub` rows (decode_plan_partial_bf16), merged into the
+// caller shard's partial, acc rounded once.  D, Dv <= 256: the narrow body in
+// its partial mode, one launch (ws_* unused, may be null); wider: the wide
+// body into the fp32 workspace ws_acc (n_splits * nsub, B, Hq, Dv), ws_m and
+// ws_l (n_splits * nsub, B, Hq), then the combine's partial mode.
 extern "C" int flash_decode_partial_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                          const __nv_bfloat16* v, const int* lengths,
-                                         __nv_bfloat16* acc, float* m, float* l, int B, int Hq,
-                                         int Hk, int S, int D, int Dv, int n_splits, float scale,
+                                         __nv_bfloat16* acc, float* m, float* l, float* ws_acc,
+                                         float* ws_m, float* ws_l, int B, int Hq, int Hk, int S,
+                                         int D, int Dv, int n_splits, int sub, float scale,
                                          void* stream) {
+  if (n_splits < 1 || S % n_splits) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 32 * 4 * NCH && Dv <= 32 * 4 * NCH)
+    return decode_tc(q, k, v, lengths, acc, m, l, B, Hq, Hk, S, D, Dv, n_splits, sub, scale, true,
+                     stream);
+  return decode_wide(q, k, v, lengths, ws_acc, ws_m, ws_l, acc, m, l, B, Hq, Hk, S, D, Dv,
+                     n_splits, sub, scale, stream);
+}
+
+// The former bf16 partial (the fp32 body on bf16 rings, upcast as read,
+// FFMA; shards of S / n_splits rows, each shard's fp32 acc rounded once; m
+// and l fp32, the fp32 entry's bit for bit), with flash_decode_partial_f32's
+// arguments: no path runs it; chip_smoke.py times the tensor-core bodies
+// beside it.
+extern "C" int flash_decode_partial_bf16_ffma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                              const __nv_bfloat16* v, const int* lengths,
+                                              __nv_bfloat16* acc, float* m, float* l, int B,
+                                              int Hq, int Hk, int S, int D, int Dv, int n_splits,
+                                              float scale, void* stream) {
   if (n_splits < 1 || S % n_splits) return static_cast<int>(cudaErrorInvalidValue);
   return launch_shards(q, k, v, nullptr, nullptr, DenseRows{S, Hk}, lengths, acc, m, l, B, Hq,
                        Hk, S, D, Dv, S / n_splits, scale, static_cast<cudaStream_t>(stream));

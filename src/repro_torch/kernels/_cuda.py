@@ -68,8 +68,13 @@ _SIGNATURES: Dict[str, tuple] = {
     "flash_decode_bf16_ffma": (*[_P] * 8, *[_I] * 7, _F, _P),
     # q, k, v, lengths, acc, m, l; B, Hq, Hk, S, D, Dv, n_splits
     "flash_decode_partial_f32": (*[_P] * 7, *[_I] * 7, _F, _P),
-    # the same with bf16 q, k, v and acc (m and l fp32)
-    "flash_decode_partial_bf16": (*[_P] * 7, *[_I] * 7, _F, _P),
+    # the same with bf16 q, k, v and acc (m and l fp32) on the tensor-core
+    # bodies, then ws_acc, ws_m, ws_l (the wide body's sub-shard partials;
+    # null for the narrow one); B, Hq, Hk, S, D, Dv, n_splits, sub
+    "flash_decode_partial_bf16": (*[_P] * 10, *[_I] * 8, _F, _P),
+    # flash_decode_partial_f32's arguments on the former bf16 partial (the
+    # fp32 body on bf16 rings): the yardstick of the tensor-core one
+    "flash_decode_partial_bf16_ffma": (*[_P] * 7, *[_I] * 7, _F, _P),
     # acc, m, l, out; NS, R, Dv
     "combine_partials_f32": (*[_P] * 4, *[_I] * 3, _P),
     "combine_partials_bf16": (*[_P] * 4, *[_I] * 3, _P),

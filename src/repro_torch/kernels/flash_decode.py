@@ -50,11 +50,21 @@ wide layout on bf16 rings) as a yardstick.  Those calls count in
 ``combine_partials.bf16.launches``); :func:`combine_partials` writes bf16
 with ``dtype=torch.bfloat16``.
 :func:`flash_decode_partial` takes bf16 q, k and v too (both widths):
-``flash_decode_partial_bf16`` runs the fp32 body on bf16 rings and writes
-each shard's acc rounded once to bf16 and its m and l in fp32, as JAX's
-partial returns them (acc in q's dtype, m and l float32); its plain version
-computes in fp32 on the upcast inputs and rounds acc once.  Those calls
-count in ``flash_decode_partial.bf16.launches``.
+``flash_decode_partial_bf16`` runs the same tensor-core bodies, each of the
+caller's n_splits shards cut into the sub-shards of
+:func:`decode_plan_partial_bf16` and merged back into that shard's
+unnormalised partial (the narrow body in its partial mode, merged in the
+cluster, one launch; the wide body into a workspace, then the combine
+kernel merging each caller shard's sub-shards), acc rounded once to bf16 and
+m and l fp32, as JAX's partial returns them (acc in q's dtype, m and l
+float32).  Its plain version computes in fp32 on the upcast inputs and
+rounds acc once; the kernel's rows are held within BF16_TOL (acc) and the
+fp32 tolerance (m, l) of it and bitwise across batch sizes.  Those calls
+count in ``flash_decode_partial.bf16.launches`` (the wide ones' merge in
+``combine_partials.bf16.launches``).  :func:`flash_decode_partial_bf16_ffma`
+keeps the former body (the fp32 body on bf16 rings) as a yardstick;
+:func:`merge_partial_groups_plain` is the combine's grouped merge in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -72,6 +82,8 @@ __all__ = ["flash_decode", "flash_decode_plain", "flash_decode_partial",
            "flash_decode_partial_plain", "decode_fits", "decode_shard_rows",
            "decode_smem_bytes", "decode_plan_bf16", "decode_tc_smem_bytes",
            "decode_plan_wide_bf16", "decode_wide_smem_bytes", "flash_decode_bf16_ffma",
+           "decode_plan_partial_bf16", "flash_decode_partial_bf16_ffma",
+           "merge_partial_groups_plain",
            "combine_partials", "flash_paged_decode",
            "flash_paged_decode_plain", "paged_decode_fits", "gather_pages"]
 
@@ -98,6 +110,7 @@ TC_NST = 3
 TC_HEADS = 8
 TC_CLUSTER = 8
 TC_FILL = 64           # most blocks a sequence, where the heads allow
+TC_MIN_SUB = TC_WARPS * TC_ROWS   # fewest rows a bf16 partial's sub-shard takes: a tile a warp
 # the wide bf16 body on the tensor cores (csrc/flash_decode.cu
 # decode_wide_kernel): WD_WARPS warps a block, each holding its run of D's
 # and Dv's 16-value chunks; WD_ROWS key rows a tile; WD_NST ring slots a
@@ -122,6 +135,32 @@ def decode_shard_rows(s_len: int) -> int:
     return shard
 
 
+def _tc_shards(s_len: int, units: int, least: int = TC_ROWS):
+    """(shard rows, shards) of the narrow body over ``s_len`` rows for
+    ``units`` clusters a sequence: the most of 1, 2, 4 and TC_CLUSTER shards
+    that keeps the sequence's blocks (units x shards) within TC_FILL and
+    gives each about ``least`` rows or more (a TC_ROWS tile for the decode),
+    each shard a multiple of TC_ROWS rows, the fewest that cover the rows in
+    that many."""
+    shards = TC_CLUSTER
+    while shards > 1 and (units * shards > TC_FILL or shards * least >= s_len + least):
+        shards //= 2
+    shard = -(-max(s_len, 1) // shards)
+    shard = -(-shard // TC_ROWS) * TC_ROWS
+    return shard, -(-max(s_len, 1) // shard)
+
+
+def _wd_shards(s_len: int, units: int):
+    """(shard rows, shards) of the wide body over ``s_len`` rows for
+    ``units`` blocks a shard index a sequence: WD_FILL // units shards, each
+    a multiple of WD_ROWS rows and at least WD_MIN_SHARD, the fewest that
+    cover the rows in that many."""
+    shards = max(1, WD_FILL // units)
+    shard = -(-max(s_len, 1) // shards)
+    shard = max(WD_MIN_SHARD, -(-shard // WD_ROWS) * WD_ROWS)
+    return shard, -(-max(s_len, 1) // shard)
+
+
 @functools.lru_cache(maxsize=None)
 def decode_plan_bf16(s_len: int, hq: int, hk: int):
     """(shard rows, shards, head groups) of the narrow bf16 body over a cache
@@ -136,12 +175,7 @@ def decode_plan_bf16(s_len: int, hq: int, hk: int):
     alone, never the batch, so a sequence's tiles, shards and merge order
     (and its bits) are the same at batch 4 as at batch 1."""
     groups = -(-(hq // hk) // TC_HEADS)
-    shards = TC_CLUSTER
-    while shards > 1 and (hk * groups * shards > TC_FILL or shards * TC_ROWS >= s_len + TC_ROWS):
-        shards //= 2
-    shard = -(-max(s_len, 1) // shards)
-    shard = -(-shard // TC_ROWS) * TC_ROWS
-    return shard, -(-max(s_len, 1) // shard), groups
+    return (*_tc_shards(s_len, hk * groups), groups)
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,10 +192,30 @@ def decode_plan_wide_bf16(s_len: int, hq: int, hk: int):
     sequence's tiles, shards and merge order (and its bits) are the same at
     batch 4 as at batch 1."""
     groups = -(-(hq // hk) // WD_HEADS)
-    shards = max(1, WD_FILL // (hk * groups))
-    shard = -(-max(s_len, 1) // shards)
-    shard = max(WD_MIN_SHARD, -(-shard // WD_ROWS) * WD_ROWS)
-    return shard, -(-max(s_len, 1) // shard), groups
+    return (*_wd_shards(s_len, hk * groups), groups)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan_partial_bf16(part: int, hq: int, hk: int, n_splits: int, wide: bool):
+    """(sub-shard rows, sub-shards a caller shard, head groups) of the bf16
+    partial over caller shards of ``part`` rows (S / n_splits): the decode
+    plans' rule (:func:`decode_plan_bf16` for the narrow body, ``wide``
+    False; :func:`decode_plan_wide_bf16` for D or Dv > 256) on ``part``
+    rows, with a sequence's n_splits caller shards counted in its fill (so a
+    call with many caller shards cuts each into fewer, and one with few
+    caller shards, the tree decode's 1, still spreads over the card); a
+    narrow sub-shard takes about TC_MIN_SUB rows or more, a tile for each
+    warp (shorter ones measured slower on the card: gemma3-1b's global
+    decode at n_splits 8 and 16).  Each sub-shard is whole TC_ROWS /
+    WD_ROWS tiles; together they cover [0, part), and the kernels stop each
+    at its caller shard's end.  It reads the rows, the head counts and
+    n_splits, never the batch, so a sequence's partials have the same bits
+    at batch 4 as at batch 1."""
+    if wide:
+        groups = -(-(hq // hk) // WD_HEADS)
+        return (*_wd_shards(part, n_splits * hk * groups), groups)
+    groups = -(-(hq // hk) // TC_HEADS)
+    return (*_tc_shards(part, n_splits * hk * groups, TC_MIN_SUB), groups)
 
 
 def _wd_chunks(w: int) -> int:
@@ -205,7 +259,8 @@ def decode_smem_bytes(d: int, dv: int, *, bf16: bool = False) -> int:
     to a multiple of 4.  It does not depend on the group size or the batch.
     ``bf16`` (decode_smem_bytes_bf16): the rings at 2 bytes a value, or the
     warps' fp32 partials of the merge where those take more: the fp32 body
-    on bf16 rings, which the bf16 partial runs (the bf16 decode:
+    on bf16 rings, which only the yardsticks :func:`flash_decode_bf16_ffma`
+    and :func:`flash_decode_partial_bf16_ffma` run (the bf16 entries:
     :func:`decode_tc_smem_bytes`, :func:`decode_wide_smem_bytes`)."""
     d4, dv4 = -(-d // 4) * 4, -(-dv // 4) * 4
     if bf16:
@@ -222,16 +277,19 @@ def decode_fits(hq: int, hk: int, d: int, dv: int, *, bf16: bool = False) -> boo
     wide layout), D <= MAX_WIDE_D and Dv <= MAX_WIDE_DV (the wide layout
     past 256, chosen by the widths alone: MLA's absorbed decode is D 576,
     Dv 512), and the block's shared memory within the H100's 227 KB (which
-    caps D at 596 when Dv is 512 in fp32).  ``bf16``: the bf16 entries, in
-    either layout: the partial's bf16 rings take at most the fp32 kernel's
-    shared memory (122,880 B at 576 / 512), and the wide tensor-core body's
-    block :func:`decode_wide_smem_bytes` (202,112 B at 576 / 512), so every
-    width up to MAX_WIDE_D and MAX_WIDE_DV fits."""
+    caps D at 596 when Dv is 512 in fp32).  ``bf16``: the bf16 entries
+    (:func:`flash_decode` and :func:`flash_decode_partial` run the same
+    tensor-core bodies): the narrow body's block :func:`decode_tc_smem_bytes`
+    at D, Dv <= 256 (206,976 B at 256 / 256), the wide body's
+    :func:`decode_wide_smem_bytes` past that (202,112 B at 576 / 512), so
+    every width up to MAX_WIDE_D and MAX_WIDE_DV fits."""
     if hk < 1 or hq % hk or not (0 < d <= MAX_WIDE_D and 0 < dv <= MAX_WIDE_DV):
         return False
-    wide_tc = bf16 and max(d, dv) > _cuda.MAX_HEAD_DIM
-    return (decode_smem_bytes(d, dv, bf16=bf16) <= _cuda.MAX_SMEM_BYTES
-            and (not wide_tc or decode_wide_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES))
+    if not bf16:
+        return decode_smem_bytes(d, dv) <= _cuda.MAX_SMEM_BYTES
+    narrow = max(d, dv) <= _cuda.MAX_HEAD_DIM
+    smem = decode_tc_smem_bytes(d, dv) if narrow else decode_wide_smem_bytes(d, dv)
+    return smem <= _cuda.MAX_SMEM_BYTES
 
 
 def paged_decode_fits(hq: int, hk: int, d: int, dv: int) -> bool:
@@ -459,17 +517,35 @@ def flash_decode_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.stack(accs).to(dtype), torch.stack(ms), torch.stack(ls)
 
 
+def merge_partial_groups_plain(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                               group: int):
+    """The combine kernel's partial mode in plain PyTorch: the partials of
+    ``n * group`` shards, acc (n * group, ..., Dv), m and l (n * group, ...)
+    fp32, merged ``group`` at a time into the unnormalised partials of n
+    shards (acc not divided by l, m the groups' max, natural units), all
+    fp32; a group whose shards are all empty gives exactly (0, -1e30, 0)."""
+    n = acc.shape[0] // group
+    acc, m, l = (t.reshape(n, group, *t.shape[1:]) for t in (acc, m, l))
+    m_max = m.amax(dim=1)
+    w = torch.exp(m - m_max[:, None])
+    return (acc * w[..., None]).sum(dim=1), m_max, (l * w).sum(dim=1)
+
+
 def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *, scale: Optional[float] = None,
                          n_splits: int = 1):
     """Unnormalised flash partials of each of ``n_splits`` KV shards (rows
-    [i * S / n_splits, (i + 1) * S / n_splits)) in one launch: q (B, Hq, D),
-    k (B, S, Hk, D), v (B, S, Hk, Dv), lengths (B,) int32 -> acc (n_splits,
-    B, Hq, Dv) in q's dtype, m (n_splits, B, Hq) and l (n_splits, B, Hq)
-    fp32; q, k and v all float32 or all bfloat16.  With ``n_splits=1`` it is
-    JAX's ``flash_decode_partial`` over the whole cache (with a leading axis
-    of 1).  Combine with :func:`combine_partials` (``acc.float()`` at
-    bf16)."""
+    [i * S / n_splits, (i + 1) * S / n_splits)): q (B, Hq, D), k (B, S, Hk,
+    D), v (B, S, Hk, Dv), lengths (B,) int32 -> acc (n_splits, B, Hq, Dv) in
+    q's dtype, m (n_splits, B, Hq) and l (n_splits, B, Hq) fp32; q, k and v
+    all float32 or all bfloat16.  With ``n_splits=1`` it is JAX's
+    ``flash_decode_partial`` over the whole cache (with a leading axis of
+    1).  fp32: the fp32 body, one launch over the caller's shards.  bf16:
+    the tensor-core bodies, each caller shard cut into the sub-shards of
+    :func:`decode_plan_partial_bf16` and merged back into its partial (D,
+    Dv <= 256: one launch, merged in a cluster; wider: the wide body into a
+    workspace, then the combine kernel's partial mode).  Combine with
+    :func:`combine_partials` (``acc.float()`` at bf16)."""
     fn = "flash_decode_partial"
     scale = _check_dense(fn, q, k, v, lengths, scale, bf16_ok=True)
     b, hq, d = q.shape
@@ -481,7 +557,8 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 = q.dtype == torch.bfloat16
     if bf16:    # acc rounded once to bf16; m and l fp32, as JAX's partial
         acc = torch.empty((n_splits, b, hq, dv), dtype=q.dtype, device=q.device)
-        m, l = torch.empty((2, n_splits, b, hq), dtype=torch.float32, device=q.device)
+        m = torch.empty((n_splits, b, hq), dtype=torch.float32, device=q.device)
+        l = torch.empty((n_splits, b, hq), dtype=torch.float32, device=q.device)
     else:
         acc, m, l = _workspace(n_splits, b, hq, dv, q.device)
     if b == 0:
@@ -489,20 +566,54 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s_len == 0:
         return acc.zero_(), m.fill_(_NEG_INF), l.zero_()
     lib = _cuda.library()
-    err = (lib.flash_decode_partial_bf16 if bf16 else lib.flash_decode_partial_f32)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, hq, hk, s_len, d, dv, n_splits, scale,
-        _cuda.stream_of(q))
-    _cuda.check(err, fn)
-    if bf16:
-        flash_decode_partial.bf16.launches += 1
-    else:
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr())
+    if not bf16:
+        _cuda.check(lib.flash_decode_partial_f32(*ptrs, b, hq, hk, s_len, d, dv, n_splits, scale,
+                                                 _cuda.stream_of(q)), fn)
         flash_decode_partial.launches += 1
+        return acc, m, l
+    wide = d > _cuda.MAX_HEAD_DIM or dv > _cuda.MAX_HEAD_DIM
+    sub, nsub, _ = decode_plan_partial_bf16(s_len // n_splits, hq, hk, n_splits, wide)
+    if wide:    # the sub-shards' fp32 partials, for the combine
+        ws = _workspace(n_splits * nsub, b, hq, dv, q.device)
+        ws_ptrs = (ws[0].data_ptr(), ws[1].data_ptr(), ws[2].data_ptr())
+    else:       # the narrow body merges in its cluster and takes none
+        ws_ptrs = (None, None, None)
+    _cuda.check(lib.flash_decode_partial_bf16(*ptrs, *ws_ptrs, b, hq, hk, s_len, d, dv, n_splits,
+                                              sub, scale, _cuda.stream_of(q)), fn)
+    flash_decode_partial.bf16.launches += 1
+    if wide:
+        combine_partials.bf16.launches += 1
     return acc, m, l
 
 
 flash_decode_partial.launches = 0
 flash_decode_partial.bf16 = _cuda.LaunchCount("flash_decode_partial_bf16")
+
+
+def flash_decode_partial_bf16_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   lengths: torch.Tensor, *, scale: Optional[float] = None,
+                                   n_splits: int = 1):
+    """The former bf16 partial (the fp32 body on bf16 rings, upcast as read,
+    FFMA; the caller's n_splits shards, each shard's acc rounded once, m
+    and l the fp32 entry's bit for bit) on bf16 CUDA tensors: the yardstick
+    that ``chip_smoke.py`` times the tensor-core bodies against.  No path
+    calls it, and it counts no launch."""
+    fn = "flash_decode_partial_bf16_ffma"
+    scale = _check_dense(fn, q, k, v, lengths, scale, bf16_ok=True)
+    b, hq, d = q.shape
+    s_len, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (q.dtype != torch.bfloat16 or not _on_card(fn, (q, k, v, lengths)) or b * s_len == 0
+            or n_splits < 1 or s_len % n_splits):
+        raise ValueError(f"{fn} takes non-empty bf16 calls on the card, n_splits dividing S")
+    acc = torch.empty((n_splits, b, hq, dv), dtype=q.dtype, device=q.device)
+    m, l = torch.empty((2, n_splits, b, hq), dtype=torch.float32, device=q.device)
+    _cuda.check(_cuda.library().flash_decode_partial_bf16_ffma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, hq, hk, s_len, d, dv, n_splits, scale,
+        _cuda.stream_of(q)), fn)
+    return acc, m, l
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor,

@@ -21,8 +21,9 @@ tells the layers which dims of their cache a rank holds):
   rank that owns its slot, and attention is
   :func:`~repro_torch.sharding.collectives.tree_decode_attention` over that
   axis (each rank's partial over its rows — on the card the partial kernel,
-  ``flash_decode_partial_f32`` or at bf16 ``flash_decode_partial_bf16``,
-  whose acc is rounded to bf16 as JAX's partial rounds it — merged in fp32
+  ``flash_decode_partial_f32`` or at bf16 ``flash_decode_partial_bf16`` (the
+  tensor-core bodies over sub-shards of the rank's rows), whose acc is
+  rounded to bf16 as JAX's partial rounds it — merged in fp32
   by an all-reduce(MAX) and two all-reduce(SUM));
 * ``ssm`` and ``conv_x`` with the heads over "model": each rank steps its
   own heads and all-gathers the gated output before the norm (which spans

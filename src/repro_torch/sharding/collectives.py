@@ -22,8 +22,9 @@ of such an axis needs no group:
   rank order.  Pure data movement, so bitwise exact.
 * :func:`tree_decode_attention` — sequence-parallel decode: each rank holds
   its slice of the KV cache along the length dim, runs the partial kernel
-  (``decode_attention_partial``; on the card ``flash_decode_partial_f32``
-  or ``flash_decode_partial_bf16`` of ``csrc/flash_decode.cu``) over it
+  (``decode_attention_partial``; on the card ``flash_decode_partial_f32``,
+  or at bf16 ``flash_decode_partial_bf16`` of ``csrc/flash_decode.cu``, the
+  tensor-core bodies with the rank's rows cut into sub-shards) over it
   and the ranks combine with an ``all_reduce(MAX)`` and two
   ``all_reduce(SUM)`` in fp32 — exact up to the order of float additions
   (at bf16, also up to the rounding of each rank's acc, as in JAX).

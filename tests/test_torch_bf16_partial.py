@@ -11,10 +11,12 @@ JAX's ``ref`` partial and JAX's Pallas partial in interpret mode, in the
 narrow layout and MLA's wide one (D 576, Dv 512): acc within one bf16 ulp
 (+ the fp32 parity tolerance, 2e-5, for the other summation order before
 the rounding), m and l within 1e-5 relative.  The same for ``cuda_split``'s
-plain route against JAX's ``pallas_split``.  The bf16 partial is the fp32
-partial on the upcast inputs with acc rounded once, m and l bit for bit (what
-the card's ``flash_decode_partial_bf16`` is held to in
-tests/test_torch_gpu.py).
+plain route against JAX's ``pallas_split``.  The plain bf16 partial is the
+plain fp32 partial on the upcast inputs with acc rounded once, m and l bit
+for bit: the oracle the card's tensor-core ``flash_decode_partial_bf16`` is
+held to within BF16_TOL in tests/test_torch_gpu.py (its former body,
+``flash_decode_partial_bf16_ffma``, is held there to the fp32 entry rounded
+once).
 """
 
 import jax.numpy as jnp
@@ -92,9 +94,11 @@ def test_bf16_partial_matches_jax_ref_and_pallas(b, s, hq, hk, d, dv, lens):
 
 @pytest.mark.parametrize("b,s,hq,hk,d,dv,lens", PARTIAL_CASES, ids=PARTIAL_IDS)
 def test_bf16_partial_is_the_fp32_partial_rounded_once(b, s, hq, hk, d, dv, lens):
-    """What the card's bf16 entry is held to: the fp32 partial on the
-    upcast inputs, acc rounded once, m and l bit for bit; an empty shard is
-    (0, -1e30, 0) at bf16 too; fp32 inputs keep fp32 partials."""
+    """The plain bf16 partial (what the wrapper runs on CPU tensors, and
+    the oracle the card's bf16 entry is held to within BF16_TOL) is the
+    fp32 partial on the upcast inputs, acc rounded once, m and l bit for
+    bit; an empty shard is (0, -1e30, 0) at bf16 too; fp32 inputs keep
+    fp32 partials."""
     _, (q, k, v), lengths = _partial_inputs(b, s, hq, hk, d, dv, lens)
     lengths = torch.from_numpy(lengths)
     for n_splits in (1, 2, 4):

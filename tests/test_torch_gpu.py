@@ -2282,15 +2282,33 @@ def test_bf16_family_batcher_on_the_card_matches_batch_one(arch):
 # the bf16 partial decode (flash_decode_partial_bf16) and bf16 training
 # --------------------------------------------------------------------------- #
 
+# a bf16 partial's acc against its plain version (chip_smoke.py BF16_TOL): one
+# bf16 ulp (at most 2^-7 of the value) plus the full-width fp32 atol; acc is
+# unnormalised, so its fp32 error grows with l where a decode output's does not
+BF16_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
+
+
+def _unaligned(x):
+    """The same values at a data pointer 2 bytes off 16 (element loads)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_splits", [1, 2, 4, 8, 16])
 def test_bf16_partial_kernel_matches_its_plain_version_on_the_card(n_splits):
-    """flash_decode_partial_bf16: acc bitwise the fp32 entry's on the
-    upcast inputs rounded once, m and l bitwise the fp32 entry's, within
-    one bf16 ulp (acc) and the fp32 tolerance (m, l) of the plain version;
-    lengths 0 and across the shard edges, GQA groups 1-8, both layouts."""
+    """flash_decode_partial_bf16 (the tensor-core bodies, each caller shard
+    cut into sub-shards): acc within BF16_TOL and m and l within the fp32
+    tolerance of the plain version, an empty
+    shard exactly (0, -1e30, 0), an unaligned q, k or v (element loads)
+    bitwise the aligned call; lengths 0 and across the shard edges, GQA
+    groups 1-16, Hk 2, D / Dv off 8, both layouts.  The former body,
+    flash_decode_partial_bf16_ffma, stays the fp32 entry's partials on the
+    upcast inputs (acc rounded once, m and l bit for bit)."""
     dev = _card()
     from repro_torch.kernels.flash_decode import (flash_decode_partial,
+                                                  flash_decode_partial_bf16_ffma,
                                                   flash_decode_partial_plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(20 + n_splits)
@@ -2301,35 +2319,79 @@ def test_bf16_partial_kernel_matches_its_plain_version_on_the_card(n_splits):
     before = (flash_decode_partial.launches, flash_decode_partial.bf16.launches)
     part = 40                                   # a ragged last tile in every shard
     s = part * n_splits
-    lens = sorted({0, 1, part - 1, part, part + 1, s // 2 + 3, s - 1, s})
-    cases = [(hq, hk, d, dv) for hq, hk in ((1, 1), (2, 1), (4, 1), (8, 2), (8, 1))
+    lens = sorted({0, 1, 15, 16, 17, part - 1, part, part + 1, s // 2 + 3, s - 1, s})
+    cases = [(hq, hk, d, dv) for hq, hk in ((1, 1), (2, 1), (4, 1), (8, 2), (8, 1), (16, 1))
              for d, dv in ((64, 64), (256, 256), (96, 128), (30, 30))]
-    cases += [(4, 1, 576, 512), (16, 1, 576, 512)]          # MLA's wide layout
+    cases += [(4, 1, 576, 512), (16, 1, 576, 512), (32, 2, 584, 500)]   # the wide layout
+    bf16_calls = 0
     for hq, hk, d, dv in cases:
         b = len(lens)
         q, k, v = rb(b, hq, d), rb(b, s, hk, d), rb(b, s, hk, dv)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         acc, m, l = flash_decode_partial(q, k, v, lengths, n_splits=n_splits)
         assert (acc.dtype, m.dtype, l.dtype) == (torch.bfloat16, torch.float32, torch.float32)
-        fa, fm, fl = flash_decode_partial(q.float(), k.float(), v.float(), lengths,
-                                          n_splits=n_splits)
         pa, pm, pl = flash_decode_partial_plain(q, k, v, lengths, 1 / math.sqrt(d), n_splits)
-        _check_bf16(acc, fa, pa)
-        assert torch.equal(m, fm) and torch.equal(l, fl), (hq, hk, d, dv)
+        torch.testing.assert_close(acc.float(), pa.float(), **BF16_TOL)
         torch.testing.assert_close(m, pm, **TOL)
         torch.testing.assert_close(l, pl, **TOL)
         empty = (lengths[None, :] - part * torch.arange(n_splits, device=dev)[:, None]) <= 0
         assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
         assert float(acc[empty].float().abs().max()) == 0.0
-    assert flash_decode_partial.bf16.launches == before[1] + len(cases)
+        bf16_calls += 1
+        if d % 8 == 0:
+            for args in ((_unaligned(q), k, v), (q, _unaligned(k), v), (q, k, _unaligned(v))):
+                got = flash_decode_partial(*args, lengths, n_splits=n_splits)
+                assert all(torch.equal(x, y) for x, y in zip(got, (acc, m, l))), (hq, hk, d, dv)
+                bf16_calls += 1
+        fa, fm, fl = flash_decode_partial(q.float(), k.float(), v.float(), lengths,
+                                          n_splits=n_splits)
+        oa, om, ol = flash_decode_partial_bf16_ffma(q, k, v, lengths, n_splits=n_splits)
+        assert torch.equal(oa, fa.to(torch.bfloat16)) and torch.equal(om, fm), (hq, hk, d, dv)
+        assert torch.equal(ol, fl), (hq, hk, d, dv)
+    assert flash_decode_partial.bf16.launches == before[1] + bf16_calls
     assert flash_decode_partial.launches == before[0] + len(cases)     # the fp32 comparisons
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_splits", [1, 2, 16])
+@pytest.mark.parametrize("hq,hk,d,dv", [(4, 1, 256, 256), (4, 4, 64, 64), (32, 32, 96, 96),
+                                        (16, 1, 576, 512)])
+def test_bf16_partial_rows_do_not_depend_on_the_batch(n_splits, hq, hk, d, dv):
+    """flash_decode_partial_bf16: a sequence's partials in a B = 4 call are
+    bitwise its B = 1 call's (the plan reads the caller shard's rows, the
+    head counts and n_splits, never B), at gemma3-1b's global shape,
+    G 1, phi3-mini's heads and MLA's absorbed decode, S 2048 and 1000 (a
+    caller shard off 16 rows at n_splits 2), lengths on and off the shard
+    edges and 0."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30 + n_splits + d)
+
+    def rb(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for s, lens in ((2048, (1400, 1000, 600, 250)), (2048, (0, 1, 17, 2048)),
+                    (1000, (499, 500, 501, 1000))):
+        if s % n_splits:
+            continue
+        q, k, v = rb(4, hq, d), rb(4, s, hk, d), rb(4, s, hk, dv)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        full = flash_decode_partial(q, k, v, lengths, n_splits=n_splits)
+        for i in range(4):
+            one = flash_decode_partial(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                       v[i:i + 1].contiguous(), lengths[i:i + 1].contiguous(),
+                                       n_splits=n_splits)
+            for x, y in zip(one, full):
+                assert torch.equal(x[:, 0], y[:, i]), (s, lens[i])
 
 
 @pytest.mark.gpu
 def test_bf16_split_decode_rows_do_not_depend_on_the_batch():
     """cuda_split at bf16 (the bf16 partials, upcast, merged by the combine
-    kernel with a bf16 out): a sequence's bits are the same at B = 1 and
-    B = 4, and the plain route's within the roundings both make: each
+    kernel with a bf16 out; the wide partial's own merge is a combine
+    launch too): a sequence's bits are the same at B = 1 and B = 4, and
+    the plain route's within the roundings both make: each
     rounds every shard's acc (half an ulp, at most 2^-8 of |acc|) and the
     merged output, so they differ by at most 2^-7 of the merge of the
     shards' |acc| plus 2^-7 of |out| (the shards' acc may cancel, so a
@@ -2346,7 +2408,7 @@ def test_bf16_split_decode_rows_do_not_depend_on_the_batch():
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     before = (flash_decode_partial.bf16.launches, combine_partials.bf16.launches)
-    calls = 0
+    calls = combines = 0
     for hq, d, dv in ((4, 256, 256), (16, 576, 512)):
         q, k, v = rb(4, hq, d), rb(4, 2048, 1, d), rb(4, 2048, 1, dv)
         lengths = torch.tensor([1400, 0, 1024, 1025], dtype=torch.int32, device=dev)
@@ -2366,8 +2428,9 @@ def test_bf16_split_decode_rows_do_not_depend_on_the_batch():
             assert bool((diff <= 2.0 ** -7 * (mag + plain.abs()) + TOL["atol"]).all()), \
                 float(diff.max())
             calls += 5
+            combines += 5 * (2 if dv > 256 else 1)
     assert flash_decode_partial.bf16.launches == before[0] + calls
-    assert combine_partials.bf16.launches == before[1] + calls
+    assert combine_partials.bf16.launches == before[1] + combines
 
 
 @pytest.mark.gpu

@@ -135,7 +135,8 @@ def test_decode_constants_are_the_cuda_source():
             _const(src, "TC_CLUSTER")) == (fd.TC_ROWS, fd.TC_NST, fd.TC_HEADS, fd.TC_CLUSTER)
     flat = " ".join(src.split())
     # the C side takes the plan's shard and checks it against the cluster
-    assert "shard % TC_ROWS || (S + shard - 1) / shard > TC_CLUSTER" in flat
+    # (of the caller shard's part = S / n_splits rows: the whole cache here)
+    assert "shard % TC_ROWS || (part + shard - 1) / shard > TC_CLUSTER" in flat
     assert "if (D <= 32 * 4 * NCH && Dv <= 32 * 4 * NCH) return decode_tc(" in flat
     assert "attr[0].val.clusterDim.x = cluster;" in flat
     # the fp32 body's constants, which the wide layout and the partial keep

@@ -9,10 +9,10 @@ only on the card, tests/test_torch_gpu.py):
 - the wide body's shared memory and register arrays, and the scan's, are
   the CUDA sources' formulas and fit the H100;
 - bf16 at D or Dv past 256 dispatches to the new body, while the fp32 wide
-  layout and ``flash_decode_partial_bf16`` keep the fp32 body, and
-  ``ssd_scan_bf16`` runs the tensor-core kernels while ``ssd_scan_f32``
-  keeps the FFMA ones; every product of the new bodies is one mma.sync
-  shape;
+  layout and ``flash_decode_partial_bf16_ffma`` (the former bf16 partial,
+  a yardstick) keep the fp32 body, and ``ssd_scan_bf16`` runs the
+  tensor-core kernels while ``ssd_scan_f32`` keeps the FFMA ones; every
+  product of the new bodies is one mma.sync shape;
 - on CPU tensors the wrappers run their plain versions and count no
   launch; the former FFMA bodies, kept as yardsticks, refuse CPU tensors.
 """
@@ -153,12 +153,16 @@ def test_bf16_wide_dispatches_to_the_new_body():
     entry = _body(flat, 'extern "C" int flash_decode_bf16(', 'extern "C" int flash_decode_bf16_ffma(')
     assert "if (D <= 32 * 4 * NCH && Dv <= 32 * 4 * NCH) return decode_tc(" in entry
     assert "return decode_wide(q, k, v, lengths, acc, m, l, o," in entry
-    # the fp32 wide layout and the bf16 partial keep the fp32 body (its bf16
-    # rings for the partial)
+    # the fp32 wide layout and the former bf16 partial (the yardstick, on its
+    # bf16 rings) keep the fp32 body; the bf16 partial takes the wide body
+    # past 256 too
     f32 = _body(flat, 'extern "C" int flash_decode_f32(', 'extern "C" int flash_paged_decode_f32(')
     assert "return decode(q, k, v, nullptr, nullptr, DenseRows{S, Hk}," in f32
-    part = flat[flat.index('extern "C" int flash_decode_partial_bf16('):]
+    part = flat[flat.index('extern "C" int flash_decode_partial_bf16_ffma('):]
     assert "return launch_shards(q, k, v, nullptr, nullptr, DenseRows{S, Hk}," in part
+    assert "return decode_wide(q, k, v, lengths, ws_acc, ws_m, ws_l, acc, m, l," in _body(
+        flat, 'extern "C" int flash_decode_partial_bf16(',
+        'extern "C" int flash_decode_partial_bf16_ffma(')
     assert "const bool wide = D > 32 * 4 * NCH || Dv > 32 * 4 * NCH;" in flat
     # the wrapper: the wide plan's shard for bf16, decode_shard_rows for fp32
     wrapper = inspect.getsource(fd.flash_decode)
